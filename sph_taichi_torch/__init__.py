@@ -1,0 +1,44 @@
+"""sph_taichi_torch — the SPH framework on PyTorch, with CUDA kernels for Hopper.
+
+The PyTorch/CUDA port of ``sph_taichi_tpu`` (the JAX package, which stays
+as the reference).  It runs the reference's scene JSON through WCSPH on
+one NVIDIA H100: the grid, sort and elementwise stages are plain PyTorch,
+and the two pair traversals of each step are hand-written CUDA kernels
+(``csrc/pairs.cu``, bound in ``ops/cuda_pairs.py``).  On the CPU the same
+steps run through the plain PyTorch engine.
+
+Public entry points (device=None means the CUDA device; without one, pass
+``device="cpu"``):
+    ``SimConfig``        — scene JSON loader (config.py)
+    ``build_scene``      — scene -> (SimParams, Particles, SceneObjects)
+    ``build_solver``     — simulationMethod -> solver
+    ``simulation.Simulation`` — scene file -> frames and exports
+
+The package imports neither JAX nor ``sph_taichi_tpu``.
+"""
+
+from sph_taichi_torch.config import SimConfig
+from sph_taichi_torch.scene import build_scene
+from sph_taichi_torch.state import Particles, SimParams, SimState
+
+__version__ = "0.1.0"
+
+
+def build_solver(params, device=None, engine=None):
+    """Instantiate the solver selected by ``simulationMethod``: 0 -> WCSPH.
+
+    The other solvers of the JAX package are still to be ported (1 PCISPH,
+    2 IISPH, 4 DFSPH: ROADMAP.md queue 1); any other method is not
+    implemented, as in the reference (particle_system.py:214-221).
+    """
+    method = params.simulation_method
+    if method == 0:
+        from sph_taichi_torch.models.wcsph import WCSPHSolver
+        return WCSPHSolver(params, device=device, engine=engine)
+    if method in (1, 2, 4):
+        raise NotImplementedError(
+            f"simulationMethod {method} is not ported to sph_taichi_torch "
+            f"yet (ROADMAP.md, queue 1)")
+    raise NotImplementedError(
+        f"Solver type {method} has not been implemented.")
+

@@ -1,0 +1,271 @@
+// Pair traversals of the WCSPH step on Hopper (sm_90a), one thread per
+// centre in cell-sorted order.
+//
+// Replaces: the Pallas TPU kernel BlockEngine._kernel
+// (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
+// its two specializations on the WCSPH path:
+//   density_sum   <- the density term of models/base.py compute_densities
+//   wcsph_forces  <- the fused WCSPH force term of models/wcsph.py
+//                    compute_forces with its advect + fluid-box-clamp
+//                    epilogue (two-way reaction variant as REACT = true).
+//
+// Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
+// |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
+// neighbour columns; in each, the z-cells iz-1..iz+1 clipped to the grid
+// are ONE contiguous range of the sorted arrays, starts[flat(zlo)] ..
+// starts[flat(zhi) + 1].  That is exactly the candidate order of the plain
+// engine's neighbour lists (ops/neighbors.py: offsets in itertools.product
+// order, dz innermost, then sorted order within a cell), and sums go into
+// registers in that order: no caps, no atomics, deterministic.
+//
+// Rounding follows the plain path that pinned the goldens: inclusion on the
+// raw sum of squares, self excluded by index, rn = sqrtf(sum), d2 = rn*rn,
+// inv = 1/sqrtf(max(d2, 1e-38)), no rsqrtf; the centre's cell is computed
+// unclipped from the host's f32 reciprocal of the cell size.  Built with
+// -fmad=false and without fast math so no product is contracted into an FMA.
+//
+// What bounds it on an H100: irregular loads.  Each centre reads the
+// positions of every candidate in its 27 cells (about 3x more candidates
+// than neighbours within h), and a warp's 32 centres lie in a few adjacent
+// cells, so their candidate ranges overlap and mostly hit L1/L2; the
+// floating-point work per real pair is ~60 operations, far below the
+// card's 67 TFLOP/s f32.  This first version keeps everything in registers
+// and relies on the caches; staging a cell block's candidates in shared
+// memory is the next step once measured (PERF.md).
+
+#include <cuda_runtime.h>
+
+struct PairConsts {
+  int n_real, nx, ny, nz;
+  float inv_cell;   // f32(1) / f32(cell size), computed on the host
+  float h2;         // f32(h * h)
+  float inv_h;      // f32(1 / h)
+  float kw, kw2;    // W normalization k and f32(k * 2)
+  float kg, nkg;    // gradient prefactor 6k and f32(-6k)
+  // WCSPH force term
+  float diam2, wd;  // f32(diameter^2), W(diameter)
+  float st;         // surface tension coefficient
+  float dvisc;      // f32(2 (dim + 2) * viscosity)
+  float eps_h2;     // f32(0.01 h h)
+  float neg_rho0, rho0;
+  // epilogue
+  float g0, g1, g2;
+  float lo, hi0, hi1, hi2;  // padded box: pad and f32(size) - f32(pad)
+  float cf1;                // 1 + collision factor
+};
+
+__device__ __forceinline__ float cubic_w(float rn, const PairConsts& c) {
+  float q = rn * c.inv_h;
+  float q2 = q * q;
+  float q3 = q2 * q;
+  float w_near = c.kw * (6.0f * q3 - 6.0f * q2 + 1.0f);
+  float omq = 1.0f - q;
+  float w_far = c.kw2 * omq * omq * omq;
+  float res = (q <= 0.5f) ? w_near : w_far;
+  return (q <= 1.0f) ? res : 0.0f;
+}
+
+__device__ __forceinline__ float cubic_grad(float rn, float inv_r,
+                                            const PairConsts& c) {
+  float q = rn * c.inv_h;
+  float inv_rh = inv_r * c.inv_h;
+  float near_ = c.kg * q * (3.0f * q - 2.0f) * inv_rh;
+  float fac = 1.0f - q;
+  float far_ = c.nkg * fac * fac * inv_rh;
+  float res = (q <= 0.5f) ? near_ : far_;
+  return (rn > 1e-5f && q <= 1.0f) ? res : 0.0f;
+}
+
+// Calls f(j, d0, d1, d2_raw...) for every j != i within h of centre i, in
+// the plain engine's order.
+template <typename F>
+__device__ __forceinline__ void for_each_neighbor(
+    int i, float xi0, float xi1, float xi2, const float* __restrict__ x,
+    const int* __restrict__ starts, const PairConsts& c, F&& f) {
+  const int ix = (int)(xi0 * c.inv_cell);
+  const int iy = (int)(xi1 * c.inv_cell);
+  const int iz = (int)(xi2 * c.inv_cell);
+  const int zlo = max(iz - 1, 0);
+  const int zhi = min(iz + 1, c.nz - 1);
+  if (zlo > zhi) return;
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int cx = ix + dx;
+    if (cx < 0 || cx >= c.nx) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int cy = iy + dy;
+      if (cy < 0 || cy >= c.ny) continue;
+      const int base = (cx * c.ny + cy) * c.nz;
+      const int b = starts[base + zlo];
+      const int e = starts[base + zhi + 1];
+      for (int j = b; j < e; ++j) {
+        if (j == i) continue;
+        const float d0 = xi0 - x[3 * j];
+        const float d1 = xi1 - x[3 * j + 1];
+        const float d2 = xi2 - x[3 * j + 2];
+        const float s = d0 * d0 + d1 * d1 + d2 * d2;
+        if (!(s < c.h2)) continue;
+        f(j, d0, d1, d2, s);
+      }
+    }
+  }
+}
+
+__global__ void density_sum_kernel(const float* __restrict__ x,
+                                   const int* __restrict__ material,
+                                   const float* __restrict__ m_V,
+                                   const int* __restrict__ starts,
+                                   float* __restrict__ out, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  float sum = 0.0f;
+  for_each_neighbor(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+                    [&](int j, float, float, float, float s) {
+                      if (material[j] >= 0) {
+                        const float rn = sqrtf(s);
+                        sum += m_V[j] * cubic_w(rn, c);
+                      }
+                    });
+  out[i] = sum;
+}
+
+template <bool REACT>
+__global__ void wcsph_forces_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    const int* __restrict__ material, const int* __restrict__ is_dyn,
+    const float* __restrict__ m, const float* __restrict__ m_V,
+    const float* __restrict__ dpi, const float* __restrict__ p_r02,
+    const float* __restrict__ m_nc, const float* __restrict__ rr0,
+    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    float* __restrict__ x_out, float* __restrict__ v_out,
+    float* __restrict__ acc_out, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  const int mat_i = material[i];
+  const bool fluid = mat_i == 1;
+  const bool solid = mat_i == 0;
+  const bool dyn = is_dyn[i] != 0;
+  const float xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
+  float vi[3] = {v[3 * i], v[3 * i + 1], v[3 * i + 2]};
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  // the pair sum is read by fluid centres and, with the reaction, by
+  // dynamic-rigid ones; every other centre's acceleration is fixed
+  if (fluid || (REACT && solid && dyn)) {
+    const float neg_st_mi = -(c.st / m[i]);
+    const float dpi_i = dpi[i];
+    const float p_r02_i = p_r02[i];
+    const float m_V_i = m_V[i];
+    const float rr0_i = REACT ? rr0[i] : 0.0f;
+    for_each_neighbor(
+        i, xi0, xi1, xi2, x, starts, c,
+        [&](int j, float d0, float d1, float d2, float s) {
+          const float rn = sqrtf(s);
+          const float r2 = rn * rn;
+          const float inv = 1.0f / sqrtf(fmaxf(r2, 1e-38f));
+          const float gradw = cubic_grad(rn, inv, c);
+          const int mat_j = material[j];
+          const bool fluid_j = mat_j == 1;
+          const bool solid_j = mat_j == 0;
+          float a;
+          if (REACT && !fluid) {
+            // reaction on a dynamic-rigid centre (gather form of the
+            // reference's scatter, WCSPH.py:67-68)
+            const float dpi_k = dpi[j] + p_r02[j];
+            a = fluid_j ? -(c.rho0 * m_V_i * dpi_k) * rr0_i * gradw : 0.0f;
+          } else {
+            const float w_st = (r2 > c.diam2) ? cubic_w(rn, c) : c.wd;
+            const float st_coef = fluid_j ? neg_st_mi * m[j] * w_st : 0.0f;
+            const float v_xy = (vi[0] - v[3 * j]) * d0 +
+                               (vi[1] - v[3 * j + 1]) * d1 +
+                               (vi[2] - v[3 * j + 2]) * d2;
+            const float visc_coef =
+                fluid_j ? c.dvisc * m_nc[j] * v_xy / (r2 + c.eps_h2) * gradw
+                        : 0.0f;
+            const float dpj = fluid_j ? dpi[j] : p_r02_i;
+            const float press_coef =
+                (fluid_j || solid_j)
+                    ? c.neg_rho0 * m_V[j] * (dpi_i + dpj) * gradw
+                    : 0.0f;
+            a = st_coef + visc_coef + press_coef;
+          }
+          s0 += a * d0;
+          s1 += a * d1;
+          s2 += a * d2;
+        });
+  }
+  // epilogue: acceleration select, symplectic Euler, fluid box clamp —
+  // the unfused chain of models/wcsph.py and models/base.py, in order
+  const float dt = *dt_ptr;
+  const float g[3] = {c.g0, c.g1, c.g2};
+  const float sums[3] = {s0, s1, s2};
+  const float hi[3] = {c.hi0, c.hi1, c.hi2};
+  float xs[3] = {xi0, xi1, xi2};
+  float acc[3];
+  for (int k = 0; k < 3; ++k) {
+    float a = g[k] + (fluid ? sums[k] : 0.0f);
+    if (REACT && solid && dyn) a = g[k] + sums[k];
+    if (solid && !dyn) a = 0.0f;
+    if (mat_i == -1) a = 0.0f;
+    acc[k] = a;
+    if (dyn) {
+      vi[k] = vi[k] + dt * a;
+      xs[k] = xs[k] + dt * vi[k];
+    }
+  }
+  if (fluid && dyn) {
+    float nrm[3], xn[3];
+    for (int k = 0; k < 3; ++k) {
+      const bool over = xs[k] > hi[k];
+      const bool under = xs[k] <= c.lo;
+      nrm[k] = (over ? 1.0f : 0.0f) - (under ? 1.0f : 0.0f);
+      xn[k] = under ? c.lo : (over ? hi[k] : xs[k]);
+    }
+    const float nlen = sqrtf(nrm[0] * nrm[0] + nrm[1] * nrm[1] +
+                             nrm[2] * nrm[2]);
+    const float nd = fmaxf(nlen, 1e-30f);
+    const float nh[3] = {nrm[0] / nd, nrm[1] / nd, nrm[2] / nd};
+    const float vdotn = vi[0] * nh[0] + vi[1] * nh[1] + vi[2] * nh[2];
+    if (nlen > 1e-6f) {
+      for (int k = 0; k < 3; ++k) vi[k] = vi[k] - c.cf1 * vdotn * nh[k];
+    }
+    for (int k = 0; k < 3; ++k) xs[k] = xn[k];
+  }
+  for (int k = 0; k < 3; ++k) {
+    x_out[3 * i + k] = xs[k];
+    v_out[3 * i + k] = vi[k];
+    acc_out[3 * i + k] = acc[k];
+  }
+}
+
+static const int kBlock = 128;
+
+extern "C" int density_sum_launch(const float* x, const int* material,
+                                  const float* m_V, const int* starts,
+                                  float* out, PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    const int grid = (c.n_real + kBlock - 1) / kBlock;
+    density_sum_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        x, material, m_V, starts, out, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wcsph_forces_launch(
+    const float* x, const float* v, const int* material, const int* is_dyn,
+    const float* m, const float* m_V, const float* dpi, const float* p_r02,
+    const float* m_nc, const float* rr0, const int* starts,
+    const float* dt, float* x_out, float* v_out, float* acc_out, int react,
+    PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    const int grid = (c.n_real + kBlock - 1) / kBlock;
+    if (react) {
+      wcsph_forces_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+          x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, starts, dt,
+          x_out, v_out, acc_out, c);
+    } else {
+      wcsph_forces_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+          x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, starts, dt,
+          x_out, v_out, acc_out, c);
+    }
+  }
+  return (int)cudaGetLastError();
+}

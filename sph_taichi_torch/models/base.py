@@ -1,0 +1,314 @@
+"""Shared SPH solver machinery (counterpart of sph_taichi_tpu/models/base.py).
+
+- Re-binning: cell ids, stable sort, cell offsets, the engine's prepare.
+- Akinci boundary volumes (sph_base.py:91-113, with the hardcoded 3.0).
+- Domain-box collision (sph_base.py:118-179).
+- Shape-matching rigid-body solve per dynamic object (sph_base.py:182-260),
+  unrolled over the static object list in the reference's order.
+- Step orchestration (sph_base.py:263-271).
+
+Pair sums go through the engine of ``ops.pairs.make_engine``: the CUDA
+kernels on the card, the plain GatherEngine on the CPU.  The reference's
+atomic scatters onto rigid neighbours are gathers from the rigid side, so
+every step is deterministic.  A step makes no host sync: metrics stay on
+the device.
+"""
+
+import torch
+
+from sph_taichi_torch.state import (
+    MATERIAL_FLUID, MATERIAL_PAD, MATERIAL_SOLID, Particles, SimParams,
+    SimState, resolve_device)
+from sph_taichi_torch.ops import cuda_pairs
+from sph_taichi_torch.ops.kernels import cubic_kernel
+from sph_taichi_torch.ops.grid import (
+    compute_cell_ids, sort_by_cell, cell_offsets, max_cell_occupancy)
+from sph_taichi_torch.ops.linalg import polar_rotation
+from sph_taichi_torch.ops.pairs import div_exact, make_engine, sqrt32
+
+
+# ---------------------------------------------------------------------------
+# neighbour-structure rebuild (reference initialize_particle_system, :372-375)
+# ---------------------------------------------------------------------------
+
+def object_tables(params, device):
+    """Per-object constant tables of SimParams as device tensors, or None
+    when the scene has none (built once per solver, not per step)."""
+    if not params.obj_material:
+        return None
+    return {
+        "material": torch.tensor(params.obj_material, dtype=torch.int32,
+                                 device=device),
+        "density": torch.tensor(params.obj_density0, dtype=torch.float32,
+                                device=device),
+        "is_dynamic": torch.tensor(params.obj_is_dynamic, dtype=torch.int32,
+                                   device=device),
+        # m tabled VERBATIM from creation values (recomputing
+        # m_V0*density0 lands 1 ulp off creation's cast chain)
+        "m": torch.tensor(params.obj_m0, dtype=torch.float32, device=device),
+    }
+
+
+def bin_and_sort(p: Particles, params: SimParams, engine, tables=None):
+    """Re-bin particles into the grid, sort, and prepare the pair engine.
+
+    Fields that are recomputed before any read in every step are not
+    permuted (models/base.py of the JAX package has the per-method
+    analysis): acc, color, pressure (except IISPH), x0 without dynamic
+    rigids, and with per-object ``tables`` material / is_dynamic / m /
+    density, which are restored from the tables after the sort.
+    """
+    transient = ["acc", "color"]
+    if params.simulation_method != 2:
+        transient.append("pressure")
+    if not params.dynamic_rigid_ids:
+        transient.append("x0")
+    if tables is not None:
+        transient += ["material", "is_dynamic", "m", "density"]
+    cell_ids = compute_cell_ids(p.x, p.material, params.grid_size,
+                                params.grid_num)
+    p, sorted_ids = sort_by_cell(p, cell_ids, extra_transient=transient)
+    if tables is not None:
+        oid = p.object_id
+        pad_row = oid < 0
+        safe = torch.clamp(oid, 0, len(params.obj_material) - 1).long()
+        p = p._replace(
+            material=torch.where(pad_row, MATERIAL_PAD,
+                                 tables["material"][safe]),
+            is_dynamic=torch.where(pad_row, 0, tables["is_dynamic"][safe]),
+            density=torch.where(pad_row, 0.0, tables["density"][safe]),
+            m=torch.where(pad_row, 0.0, tables["m"][safe]))
+    starts = cell_offsets(sorted_ids, params.num_cells)
+    ctx = engine.prepare(p.x, starts)
+    diag = {"max_cell_occupancy": max_cell_occupancy(starts),
+            # a silent sort corruption would poison every pair sum
+            "sort_invariant_violated":
+                torch.any(sorted_ids[1:] < sorted_ids[:-1])
+                | (starts[-1] != p.n)}
+    diag.update(engine.diag(ctx))
+    return p, ctx, diag
+
+
+# ---------------------------------------------------------------------------
+# Akinci boundary volumes (sph_base.py:91-113)
+# ---------------------------------------------------------------------------
+
+# Up to this many solids the dense all-pairs W-sum replaces a traversal.
+DENSE_SOLID_CAP = 32768
+
+
+def _boundary_volume_dense(p: Particles, params: SimParams, target_mask):
+    """m_V = 3 / sum over all solids j of W(|x_i - x_j|), for solid i.
+
+    Exact for few solids: pairs beyond h contribute W = 0 and the diagonal
+    contributes W(0), the reference's explicit self term (sph_base.py:101).
+    Direct subtraction in row chunks, not torch.cdist, whose matmul
+    expansion rounds differently.
+    """
+    h = params.support_radius
+    S = params.n_solid
+    # the solids' indices in order, without a host sync (S is static)
+    sidx = torch.sort((p.material != MATERIAL_SOLID).to(torch.int32),
+                      stable=True).indices[:S]
+    xs = p.x[sidx]                                    # (S, 3)
+    delta = torch.cat([
+        torch.sum(cubic_kernel(sqrt32(
+            sum((xr[:, None, c] - xs[None, :, c]) ** 2 for c in range(3))),
+            h, params.dim), dim=1)
+        for xr in torch.split(xs, 512)])
+    mv_full = torch.zeros_like(p.m_V)
+    mv_full[sidx] = div_exact(3.0, delta)
+    return p._replace(m_V=torch.where(target_mask, mv_full, p.m_V))
+
+
+def _boundary_volume_engine(p: Particles, ctx, engine, params: SimParams,
+                            target_mask):
+    """Traversal m_V for scenes with more than DENSE_SOLID_CAP solids."""
+    if engine.fused:
+        raise NotImplementedError(
+            "the boundary-volume traversal has no CUDA kernel yet "
+            "(ROADMAP.md, TPU kernels 2.1 c)")
+    h = params.support_radius
+
+    def term(fi, fj, d2, rn, dots):
+        w = cubic_kernel(rn, h, params.dim)
+        return {"delta": torch.where(fj["material"] == MATERIAL_SOLID, w,
+                                     torch.zeros_like(w))}
+
+    out = engine.traverse(ctx, p.x, {"material": p.material}, term,
+                          {"delta": "scalar"})
+    delta = cubic_kernel(torch.zeros((), dtype=p.x.dtype, device=p.x.device),
+                         h, params.dim) + out["delta"]
+    m_v = div_exact(3.0, delta)
+    return p._replace(m_V=torch.where(target_mask, m_v, p.m_V))
+
+
+def _boundary_volume(p, ctx, engine, params, target_mask):
+    if params.n_solid == 0:
+        return p        # no solid row to update
+    if params.n_solid <= DENSE_SOLID_CAP:
+        return _boundary_volume_dense(p, params, target_mask)
+    return _boundary_volume_engine(p, ctx, engine, params, target_mask)
+
+
+def compute_static_boundary_volume(p, ctx, engine, params):
+    return _boundary_volume(p, ctx, engine, params, p.is_static_rigid())
+
+
+def compute_moving_boundary_volume(p, ctx, engine, params):
+    return _boundary_volume(p, ctx, engine, params, p.is_dynamic_rigid())
+
+
+# ---------------------------------------------------------------------------
+# domain-box collision (sph_base.py:118-179)
+# ---------------------------------------------------------------------------
+
+def enforce_boundary(p: Particles, params: SimParams, particle_type):
+    """Clamp dynamic particles of ``particle_type`` into the padded box
+    and reflect their velocity (c_f = 0.5)."""
+    active = (p.material == particle_type) & (p.is_dynamic != 0)
+    x, v = cuda_pairs.box_clamp(p.x, p.v, active, params)
+    return p._replace(x=x, v=v)
+
+
+# ---------------------------------------------------------------------------
+# shape-matching rigid solve (sph_base.py:182-260)
+# ---------------------------------------------------------------------------
+
+def compute_com(p: Particles, object_id):
+    """Mass-weighted COM over this object's dynamic rigid particles.
+    Mass = m_V0 * density, the stored p.m (not the Akinci m_V),
+    sph_base.py:188."""
+    mask = p.is_dynamic_rigid() & (p.object_id == object_id)
+    w = torch.where(mask, p.m, 0.0)
+    return torch.sum(w[:, None] * p.x, dim=0) / torch.sum(w)
+
+
+def solve_constraints(p: Particles, rest_cm, object_id):
+    """One shape-matching projection for one object (sph_base.py:200-222)."""
+    mask = p.is_dynamic_rigid() & (p.object_id == object_id)
+    w = torch.where(mask, p.m, 0.0)
+    cm = torch.sum(w[:, None] * p.x, dim=0) / torch.sum(w)
+    q = p.x0 - rest_cm[None, :]
+    pv = p.x - cm[None, :]
+    # A = sum m * p (x) q  (outer_product(p, q), sph_base.py:210)
+    a = torch.einsum("n,ni,nj->ij", w, pv, q)
+    r = polar_rotation(a)
+    goal = cm[None, :] + q @ r.T
+    return p._replace(x=torch.where(mask[:, None], goal, p.x)), r, cm
+
+
+def compute_rigid_rest_cm(p: Particles, params: SimParams):
+    """rigid_rest_cm per object id (sph_base.py:87-89); zeros for objects
+    without dynamic rigid particles."""
+    cms = []
+    for obj in range(max(params.num_objects, 1)):
+        if obj in params.dynamic_rigid_ids:
+            cms.append(compute_com(p, obj))
+        else:
+            cms.append(torch.zeros(params.dim, dtype=p.x.dtype,
+                                   device=p.x.device))
+    return torch.stack(cms, dim=0)
+
+
+def solve_rigid_body(p: Particles, rest_cm, params: SimParams):
+    """Shape-match + solid box clamp per dynamic object, in the reference's
+    order (sph_base.py:247-260)."""
+    rots, cms = [], []
+    for obj in params.dynamic_rigid_ids:
+        p, r, cm = solve_constraints(p, rest_cm[obj], obj)
+        p = enforce_boundary(p, params, MATERIAL_SOLID)
+        rots.append(r)
+        cms.append(cm)
+    if rots:
+        rigid_info = {"R": torch.stack(rots), "cm": torch.stack(cms)}
+    else:
+        rigid_info = {"R": torch.zeros((0, 3, 3), dtype=p.x.dtype,
+                                       device=p.x.device),
+                      "cm": torch.zeros((0, params.dim), dtype=p.x.dtype,
+                                        device=p.x.device)}
+    return p, rigid_info
+
+
+# ---------------------------------------------------------------------------
+# solver base class
+# ---------------------------------------------------------------------------
+
+class SPHBase:
+    """Owns the static params, the device, the pair engine and the object
+    tables.  Subclasses implement ``substep(p, ctx, dt) -> (p, metrics)``.
+
+    device: None means the CUDA device (state.resolve_device).  engine:
+    defaults to ``make_engine`` for the device; passing a GatherEngine on
+    a CUDA device runs the plain path there, to compare with the kernels.
+    """
+
+    def __init__(self, params: SimParams, device=None, engine=None):
+        self.params = params
+        self.device = resolve_device(device)
+        self.density_0 = params.density0
+        self.viscosity = params.viscosity
+        self.engine = engine or make_engine(params, self.device)
+        self.tables = object_tables(params, self.device)
+
+    # -- public API ---------------------------------------------------------
+    def initialize(self, particles: Particles) -> SimState:
+        """Reference SPHBase.initialize (sph_base.py:80-85)."""
+        params = self.params
+        p, ctx, _ = bin_and_sort(particles, params, self.engine, self.tables)
+        rest_cm = compute_rigid_rest_cm(p, params)
+        p = compute_static_boundary_volume(p, ctx, self.engine, params)
+        p = compute_moving_boundary_volume(p, ctx, self.engine, params)
+        dev = p.x.device
+        return SimState(
+            p=p, rigid_rest_cm=rest_cm,
+            dt=torch.full((), params.dt0, dtype=torch.float32, device=dev),
+            t=torch.zeros((), dtype=torch.float32, device=dev),
+            step_count=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def step(self, state: SimState):
+        """One full step (reference SPHBase.step, sph_base.py:263-271);
+        returns (new_state, metrics) with metrics on the device."""
+        params = self.params
+        p, ctx, diag = bin_and_sort(state.p, params, self.engine, self.tables)
+        if params.n_solid > 0 and params.dynamic_rigid_ids:
+            p = compute_moving_boundary_volume(p, ctx, self.engine, params)
+        self._boundary_fused = False
+        p, sub_metrics = self.substep(p, ctx, state.dt)
+        p, rigid_info = solve_rigid_body(p, state.rigid_rest_cm, params)
+        # a solver may run the fluid box clamp in its last kernel; the
+        # clamp commutes with the rigid solve (disjoint rows)
+        if not self._boundary_fused:
+            p = enforce_boundary(p, params, MATERIAL_FLUID)
+        new_state = state._replace(
+            p=p, t=state.t + state.dt, step_count=state.step_count + 1)
+        metrics = dict(diag)
+        metrics.update(sub_metrics)
+        metrics["rigid"] = rigid_info
+        speed = torch.linalg.vector_norm(p.v, dim=-1)
+        metrics["max_velocity"] = torch.max(
+            torch.where(p.is_fluid(), speed, 0.0))
+        return new_state, metrics
+
+    def substep(self, p, ctx, dt):
+        raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# pair sums shared by the solvers
+# ---------------------------------------------------------------------------
+
+def compute_densities(p: Particles, ctx, engine, params: SimParams):
+    """rho_i = rho0 * (m_V_i*W(0) + sum_j m_V_j*W(r_ij)) for fluid centres;
+    fluid and solid neighbours both contribute (WCSPH.py:19-43).  Solid and
+    padding densities keep their stored values."""
+    if engine.fused:
+        den_pairs = cuda_pairs.density_sum(ctx, p, params)
+    else:
+        den_pairs = cuda_pairs.density_sum_plain(ctx, p.x, p.material,
+                                                 p.m_V, params)
+    w0 = cubic_kernel(torch.zeros((), dtype=p.x.dtype, device=p.x.device),
+                      params.support_radius, params.dim)
+    density = (p.m_V * w0 + den_pairs) * params.density0
+    return p._replace(density=torch.where(p.is_fluid(), density, p.density))
+

@@ -1,0 +1,328 @@
+"""The WCSPH step's two pair traversals: CUDA kernels and their plain versions.
+
+Ports the two specializations of the Pallas TPU kernel
+``BlockEngine._kernel`` (sph_taichi_tpu/ops/pallas_blocks.py) that the
+WCSPH path runs, as hand-written CUDA C++ in ``csrc/pairs.cu``:
+
+- ``density_sum``: den[i] = sum_j m_V[j] W(r_ij) over neighbours with
+  material >= 0 (the term of models/base.py compute_densities);
+- ``wcsph_forces``: the fused WCSPH force term (surface tension,
+  viscosity, pressure, and with ``rr0`` the two-way reaction on dynamic
+  rigid centres), then acceleration select, symplectic Euler and the fluid
+  box clamp.  Returns new (x, v, acc); the kernel writes into new buffers
+  because neighbours read the old x and v in the same launch.
+
+Beside each kernel is its plain version (``*_plain``): the GatherEngine
+traversal with the same term, then the unfused advect and box clamp.  A
+wrapper runs the plain version only when its tensors lie on the CPU; on a
+CUDA tensor it launches the kernel or raises.  Each launch adds one to
+``LAUNCHES[name]``.
+
+Padding rows (the tail past n_fluid + n_solid, sorted to the overflow
+cell) are not launched: the wrappers restore them from the inputs, as the
+plain path leaves them.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from sph_taichi_torch.ops.grid import inv_grid_size
+from sph_taichi_torch.ops.kernels import (
+    norm_const, cubic_kernel, cubic_kernel_derivative_scalar)
+from sph_taichi_torch.ops.pairs import GatherEngine, div_exact, sqrt32
+from sph_taichi_torch.state import (
+    MATERIAL_FLUID, MATERIAL_PAD, MATERIAL_SOLID)
+
+LAUNCHES = {"density_sum": 0, "wcsph_forces": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def density_sum_plain(nl, x, material, m_V, params):
+    """sum_j m_V[j] W(r_ij) over neighbours j with material >= 0."""
+    h = params.support_radius
+
+    def term(fi, fj, d2, rn, dots):
+        w = cubic_kernel(rn, h, params.dim)
+        return {"den": torch.where(fj["material"] >= 0, fj["m_V"] * w,
+                                   torch.zeros_like(w))}
+
+    return GatherEngine(params).traverse(
+        nl, x, {"material": material, "m_V": m_V}, term,
+        {"den": "scalar"})["den"]
+
+
+def wcsph_accel_plain(nl, p, dpi, p_r02, m_nc, rr0, params):
+    """Accelerations of the fused WCSPH force term (WCSPH.py:46-141, the
+    reaction WCSPH.py:67-68 in gather form when ``rr0`` is given)."""
+    h = params.support_radius
+    dim = params.dim
+    rho0 = params.density0
+    st = params.surface_tension
+    visc = params.viscosity
+    diameter = params.particle_diameter
+    want_react = rr0 is not None
+
+    def term(fi, fj, d2, rn, dots):
+        zero = torch.zeros_like(d2)
+        gradw_s = cubic_kernel_derivative_scalar(rn, h, dim,
+                                                 inv_r=dots["_inv"])
+        fluid_j = fj["material"] == MATERIAL_FLUID
+        solid_j = fj["material"] == MATERIAL_SOLID
+        r2 = d2
+        # surface tension (WCSPH.py:92-102)
+        w = cubic_kernel(rn, h, dim)
+        wd = cubic_kernel(torch.full((), diameter, dtype=rn.dtype,
+                                     device=rn.device), h, dim)
+        w_st = torch.where(r2 > diameter * diameter, w, wd)
+        st_coef = torch.where(
+            fluid_j, -div_exact(st, fi["m"]) * fj["m"] * w_st, zero)
+        # viscosity (WCSPH.py:105-116), unclamped neighbour density
+        d = 2.0 * (dim + 2.0)
+        visc_coef = torch.where(
+            fluid_j,
+            d * visc * fj["m_nc"] * dots["v"] / (r2 + 0.01 * h * h)
+            * gradw_s, zero)
+        # pressure (WCSPH.py:47-66), with the boundary mirror p_j := p_i
+        dpj = torch.where(fluid_j, fj["dpi"], fi["p_r02"])
+        press_coef = torch.where(
+            fluid_j | solid_j,
+            -rho0 * fj["m_V"] * (fi["dpi"] + dpj) * gradw_s, zero)
+        a_coef = st_coef + visc_coef + press_coef
+        if want_react:
+            dpi_k = fj["dpi"] + fj["p_r02"]
+            react = torch.where(
+                fluid_j, -(rho0 * fi["m_V"] * dpi_k) * fi["rr0"] * gradw_s,
+                zero)
+            a_coef = torch.where(fi["material"] == MATERIAL_FLUID,
+                                 a_coef, react)
+        return {"a": a_coef}
+
+    fields = {"material": p.material, "m": p.m, "m_V": p.m_V,
+              "dpi": dpi, "p_r02": p_r02, "m_nc": m_nc,
+              "v0": p.v[:, 0], "v1": p.v[:, 1], "v2": p.v[:, 2]}
+    if want_react:
+        fields["rr0"] = rr0
+    out = GatherEngine(params).traverse(
+        nl, p.x, fields, term, {"a": "radial"}, pair_dots=("v",))
+    a_pair = torch.stack(out["a"], dim=1)
+
+    zero = torch.zeros_like(a_pair)
+    acc = torch.where(p.is_fluid()[:, None], a_pair, zero)
+    acc = torch.stack([g + acc[:, k] for k, g in enumerate(params.gravity)],
+                      dim=1)
+    if want_react:
+        # on a dynamic-rigid centre the radial sum IS the reaction
+        react = torch.stack([g + a_pair[:, k]
+                             for k, g in enumerate(params.gravity)], dim=1)
+        acc = torch.where(p.is_dynamic_rigid()[:, None], react, acc)
+    acc = torch.where(p.is_static_rigid()[:, None], zero, acc)
+    return torch.where((p.material == MATERIAL_PAD)[:, None], zero, acc)
+
+
+def symplectic_euler(x, v, acc, dyn, dt):
+    """WCSPH.py:143-149 for the rows where ``dyn``."""
+    dyn = dyn[:, None]
+    v = torch.where(dyn, v + dt * acc, v)
+    return torch.where(dyn, x + dt * v, x), v
+
+
+def box_limits(params):
+    """(lo, hi per axis) of the padded box, rounded as f32: hi is
+    f32(size) - f32(pad) in f32 arithmetic."""
+    pad = np.float32(params.padding)
+    return float(pad), [float(np.float32(s) - pad)
+                        for s in params.domain_size]
+
+
+def box_clamp(x, v, active, params):
+    """Clamp ``active`` rows into the padded box and reflect their velocity
+    with restitution c_f (sph_base.py:118-179): strict ``>`` at the high
+    side, ``<=`` at the low side, the low side winning."""
+    lo, hi = box_limits(params)
+    over = torch.stack([x[:, k] > hi[k] for k in range(3)], dim=1)
+    under = x <= lo
+    n = over.to(x.dtype) - under.to(x.dtype)
+    x_new = torch.stack([torch.where(over[:, k], hi[k], x[:, k])
+                         for k in range(3)], dim=1)
+    x_new = torch.where(under, lo, x_new)
+    nlen = sqrt32(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]
+                  + n[:, 2] * n[:, 2])[:, None]
+    nhat = n / torch.clamp_min(nlen, 1e-30)
+    vdotn = (v[:, 0] * nhat[:, 0] + v[:, 1] * nhat[:, 1]
+             + v[:, 2] * nhat[:, 2])[:, None]
+    v_reflected = v - (1.0 + params.collision_factor) * vdotn * nhat
+    v_new = torch.where(nlen > 1e-6, v_reflected, v)
+    active = active[:, None]
+    return torch.where(active, x_new, x), torch.where(active, v_new, v)
+
+
+def wcsph_forces_plain(nl, p, dpi, p_r02, m_nc, rr0, dt, params):
+    """Plain version of ``wcsph_forces``: accelerations, symplectic Euler,
+    fluid box clamp.  Returns (x, v, acc)."""
+    acc = wcsph_accel_plain(nl, p, dpi, p_r02, m_nc, rr0, params)
+    x, v = symplectic_euler(p.x, p.v, acc, p.is_dynamic != 0, dt)
+    x, v = box_clamp(x, v, p.is_fluid() & (p.is_dynamic != 0), params)
+    return x, v, acc
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+class PairConsts(ctypes.Structure):
+    """Mirror of ``struct PairConsts`` in csrc/pairs.cu (field for field)."""
+    _fields_ = [(n, ctypes.c_int) for n in ("n_real", "nx", "ny", "nz")] + [
+        (n, ctypes.c_float) for n in (
+            "inv_cell", "h2", "inv_h", "kw", "kw2", "kg", "nkg",
+            "diam2", "wd", "st", "dvisc", "eps_h2", "neg_rho0", "rho0",
+            "g0", "g1", "g2", "lo", "hi0", "hi1", "hi2", "cf1")]
+
+
+def pair_consts(params):
+    """The kernels' constants, rounded to f32 on the host exactly as the
+    plain version rounds its Python-float operands."""
+    h = float(params.support_radius)
+    k = norm_const(params.dim, h)
+    diameter = params.particle_diameter
+    wd = float(cubic_kernel(torch.tensor(diameter, dtype=torch.float32),
+                            h, params.dim))
+    lo, hi = box_limits(params)
+    gn = params.grid_num
+    return PairConsts(
+        n_real=params.n_fluid + params.n_solid, nx=gn[0], ny=gn[1], nz=gn[2],
+        inv_cell=float(inv_grid_size(params.grid_size)), h2=h * h,
+        inv_h=1.0 / h, kw=k, kw2=k * 2.0, kg=6.0 * k, nkg=-(6.0 * k),
+        diam2=diameter * diameter, wd=wd, st=params.surface_tension,
+        dvisc=2.0 * (params.dim + 2.0) * params.viscosity,
+        eps_h2=0.01 * h * h, neg_rho0=-params.density0,
+        rho0=params.density0,
+        g0=params.gravity[0], g1=params.gravity[1], g2=params.gravity[2],
+        lo=lo, hi0=hi[0], hi1=hi[1], hi2=hi[2],
+        cf1=1.0 + params.collision_factor)
+
+
+_PTR = ctypes.c_void_p
+
+
+def _lib():
+    from sph_taichi_torch.ops import _build
+    lib = _build.load("pairs")
+    if not getattr(lib, "_typed", False):
+        lib.density_sum_launch.argtypes = [_PTR] * 5 + [PairConsts, _PTR]
+        lib.density_sum_launch.restype = ctypes.c_int
+        lib.wcsph_forces_launch.argtypes = (
+            [_PTR] * 15 + [ctypes.c_int, PairConsts, _PTR])
+        lib.wcsph_forces_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _check(name, t, dtype, shape, device):
+    if not torch.is_tensor(t):
+        raise TypeError(f"{name}: expected a tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return t.data_ptr()
+
+
+def _check_common(starts, p, params):
+    if p.x.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given tensors on {p.x.device}")
+    dev = p.x.device
+    n = params.n_pad
+    f32, i32 = torch.float32, torch.int32
+    return dev, n, {
+        "x": _check("x", p.x, f32, (n, 3), dev),
+        "material": _check("material", p.material, i32, (n,), dev),
+        "m_V": _check("m_V", p.m_V, f32, (n,), dev),
+        "starts": _check("starts", starts, i32, (params.num_cells + 2,),
+                         dev)}
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def density_sum(starts, p, params):
+    """Kernel wrapper for ``density_sum_plain``.  ``starts``: cell offsets
+    of the sorted particles ``p`` (ops.grid.cell_offsets)."""
+    if p.x.device.type == "cpu":
+        nl = GatherEngine(params).prepare(p.x, starts)
+        return density_sum_plain(nl, p.x, p.material, p.m_V, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    out = torch.zeros(n, dtype=torch.float32, device=dev)
+    rc = _lib().density_sum_launch(
+        ptr["x"], ptr["material"], ptr["m_V"], ptr["starts"], out.data_ptr(),
+        pair_consts(params), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "density_sum")
+    LAUNCHES["density_sum"] += 1
+    return out
+
+
+def wcsph_forces(starts, p, dpi, p_r02, m_nc, rr0, dt, params):
+    """Kernel wrapper for ``wcsph_forces_plain``: returns new (x, v, acc).
+    ``rr0`` (rho0 / density) selects the two-way reaction variant; ``dt``
+    is a 0-d f32 tensor on the particles' device (read by the kernel, so
+    the step makes no host sync)."""
+    if p.x.device.type == "cpu":
+        nl = GatherEngine(params).prepare(p.x, starts)
+        return wcsph_forces_plain(nl, p, dpi, p_r02, m_nc, rr0, dt, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    f32, i32 = torch.float32, torch.int32
+    react = rr0 is not None
+    args = [ptr["x"], _check("v", p.v, f32, (n, 3), dev),
+            ptr["material"],
+            _check("is_dynamic", p.is_dynamic, i32, (n,), dev),
+            _check("m", p.m, f32, (n,), dev), ptr["m_V"],
+            _check("dpi", dpi, f32, (n,), dev),
+            _check("p_r02", p_r02, f32, (n,), dev),
+            _check("m_nc", m_nc, f32, (n,), dev),
+            _check("rr0", rr0, f32, (n,), dev) if react else None,
+            ptr["starts"], _check("dt", dt, f32, (), dev)]
+    x_out = torch.empty_like(p.x)
+    v_out = torch.empty_like(p.v)
+    acc = torch.empty_like(p.x)
+    rc = _lib().wcsph_forces_launch(
+        *args, x_out.data_ptr(), v_out.data_ptr(), acc.data_ptr(),
+        int(react), pair_consts(params),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "wcsph_forces")
+    LAUNCHES["wcsph_forces"] += 1
+    n_real = params.n_fluid + params.n_solid
+    x_out[n_real:] = p.x[n_real:]
+    v_out[n_real:] = p.v[n_real:]
+    acc[n_real:] = 0.0
+    return x_out, v_out, acc
+
+
+class CudaEngine:
+    """Cell-range engine: its per-step context is the cell offsets, and
+    its traversals are the kernels above (no caps, so no diagnostics)."""
+
+    fused = True   # forces run advect and the fluid box clamp in-kernel
+
+    def __init__(self, params):
+        self.params = params
+
+    def prepare(self, x, cell_starts):
+        return cell_starts
+
+    def diag(self, starts):
+        return {}

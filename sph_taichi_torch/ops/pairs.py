@@ -1,0 +1,104 @@
+"""Pair-interaction traversal: the plain PyTorch engine and ``make_engine``.
+
+Counterpart of ``sph_taichi_tpu/ops/pairs.py``.  A solver writes each pair
+sum as a term function over (centre fields, neighbour fields, pair
+geometry); the engine evaluates
+
+    out[name][i] = sum_j term(f_i, f_j, d2, rn, dots)[name]
+                   over j != i with |x_i - x_j|^2 < support_radius^2
+
+with the ``mode="mxu"`` contract of the JAX package: outputs are "scalar"
+or "radial" (coef * r_ij), ``dots[u]`` = (u_i - u_j) . r_ij for each name
+in ``pair_dots``, and ``dots["_inv"]`` = 1/|r_ij|.  Values of padding rows
+are undefined; callers mask them.
+
+``GatherEngine`` gathers fields through (N, K) neighbour lists; it is the
+CPU path and the plain version the CUDA kernels (ops/cuda_pairs.py) are
+held against.  ``make_engine`` gives the CUDA engine on a CUDA device.
+"""
+
+from typing import Callable, Dict
+
+import torch
+
+from sph_taichi_torch.ops.neighbors import build_neighbor_list
+
+
+def sqrt32(a):
+    """Correctly rounded f32 sqrt on every device (torch's CPU sqrt may be
+    an ulp off; the CUDA kernels use IEEE sqrtf)."""
+    return torch.sqrt(a.double()).float()
+
+
+def div_exact(num, den):
+    """num / den rounded once.  torch computes python-scalar / tensor as
+    reciprocal-then-multiply, and on CUDA tensor / python-scalar too; the
+    JAX package (and the reference) divide."""
+    if not torch.is_tensor(num):
+        return torch.full_like(den, num) / den
+    return num / torch.full((), den, dtype=num.dtype, device=num.device)
+
+
+def pair_geometry(d2_raw):
+    """(d2, rn, inv) from the raw squared distance, rounded as the gather
+    oracle pinned the goldens: rn = sqrt(sum), d2 = rn*rn,
+    inv = 1/sqrt(max(d2, 1e-38))."""
+    rn = sqrt32(d2_raw)
+    d2 = rn * rn
+    inv = torch.ones_like(d2) / sqrt32(torch.clamp_min(d2, 1e-38))
+    return d2, rn, inv
+
+
+class GatherEngine:
+    """(N, K) neighbour-list engine in plain PyTorch."""
+
+    fused = False   # forces return accelerations; advect and clamp follow
+
+    def __init__(self, params):
+        self.params = params
+
+    def prepare(self, x, cell_starts):
+        params = self.params
+        return build_neighbor_list(
+            x, cell_starts, params.grid_num, params.grid_size,
+            params.support_radius, params.neighbor_cap, params.cell_cap,
+            dim=params.dim)
+
+    def diag(self, nl):
+        return nl.diag
+
+    def traverse(self, nl, x, fields: Dict[str, torch.Tensor],
+                 term_fn: Callable, out_specs: Dict[str, str],
+                 pair_dots=()):
+        idx = nl.idx
+        fi = {k: v[:, None] for k, v in fields.items()}
+        fj = {k: v[idx] for k, v in fields.items()}
+        rvec = tuple(x[:, None, d] - x[:, d][idx] for d in range(3))
+        d2, rn, inv = pair_geometry(
+            rvec[0] * rvec[0] + rvec[1] * rvec[1] + rvec[2] * rvec[2])
+        valid = nl.mask()
+        dots = {"_inv": inv}
+        for u in pair_dots:
+            du = [fi[f"{u}{d}"] - fj[f"{u}{d}"] for d in range(3)]
+            dots[u] = du[0] * rvec[0] + du[1] * rvec[1] + du[2] * rvec[2]
+        contribs = term_fn(fi, fj, d2, rn, dots)
+        outs = {}
+        for name, spec in out_specs.items():
+            c = torch.broadcast_to(contribs[name], valid.shape)
+            c = torch.where(valid, c, torch.zeros_like(c))
+            if spec == "radial":
+                outs[name] = tuple(torch.sum(c * rv, dim=1) for rv in rvec)
+            else:
+                outs[name] = torch.sum(c, dim=1)
+        return outs
+
+
+def make_engine(params, device):
+    """The CUDA engine on a CUDA device, the plain engine on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        from sph_taichi_torch.ops.cuda_pairs import CudaEngine
+        return CudaEngine(params)
+    if device.type == "cpu":
+        return GatherEngine(params)
+    raise ValueError(f"no pair engine for device {device}")

@@ -1,0 +1,59 @@
+"""Headless command-line runner of the PyTorch/CUDA port.
+
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/dragon_bath.json --max_frames 200
+
+Runs on the CUDA device unless ``--device cpu`` is given.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="SPH on PyTorch/CUDA")
+    parser.add_argument("--scene_file", required=True, help="scene file")
+    parser.add_argument("--max_frames", type=int, default=0,
+                        help="stop after N frames (0 = run forever)")
+    parser.add_argument("--output_dir", default=None)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda)")
+    parser.add_argument("--quiet", action="store_true")
+    args = parser.parse_args(argv)
+
+    import torch
+    from sph_taichi_torch.simulation import Simulation
+
+    scene_dir = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(args.scene_file))))
+    sim = Simulation(args.scene_file, scene_dir=scene_dir,
+                     output_dir=args.output_dir, device=args.device)
+    dev = sim.state.p.x.device
+    print(f"scene: {sim.scene_name}  particles: {sim.params.n_particles} "
+          f"(fluid {sim.params.n_fluid} / solid {sim.params.n_solid})  "
+          f"dt: {sim.params.dt0}  substeps/frame: {sim.substeps}  "
+          f"device: {dev}")
+
+    n = args.max_frames or (1 << 62)
+    t0 = time.time()
+    done = 0
+    try:
+        while done < n:
+            chunk = min(50, n - done)
+            sim.run(chunk)
+            done += chunk
+            if not args.quiet:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                el = time.time() - t0
+                steps = done * sim.substeps
+                print(f"frame {done}  t={float(sim.state.t):.4f}s  "
+                      f"{steps / el:.1f} steps/s", flush=True)
+    except KeyboardInterrupt:
+        print("interrupted", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,33 @@
+"""Run-time check of the step's fatal flags (counterpart of
+sph_taichi_tpu/utils/profiling.py ``check_overflow``).
+
+The CUDA engine walks whole cell ranges and has no capacity to overflow,
+so two flags remain: the sort invariant (a corrupted sort poisons every
+pair sum) and the plain engine's neighbour-list overflow.
+"""
+
+import warnings
+
+import torch
+
+FATAL_KEYS = ("sort_invariant_violated", "neighbor_overflow")
+
+
+def check_overflow(metrics, where="step", strict=False):
+    """Warn (or raise when ``strict``) if a fatal flag in ``metrics`` is
+    set.  Reads the flags from the device in one transfer; returns the
+    list of keys that fired."""
+    present = [k for k in FATAL_KEYS if k in metrics]
+    if not present:
+        return []
+    flags = torch.stack([metrics[k].to(torch.int32).reshape(())
+                         for k in present]).cpu()
+    fired = [k for k, f in zip(present, flags.tolist()) if f]
+    if fired:
+        msg = (f"fatal flag during {where}: {fired} — pair sums are wrong "
+               f"(a corrupted sort, or params.neighbor_cap too small for "
+               f"the plain engine).")
+        if strict:
+            raise RuntimeError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=2)
+    return fired
