@@ -4,26 +4,40 @@
 
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit; build the CUDA kernels from
-   sph_taichi_torch/csrc (nvcc) and print the build time and ptxas report;
+   sph_taichi_torch/csrc (nvcc, one process per source, started together)
+   and print the build time and ptxas report;
 2. each kernel against its plain PyTorch version on the card, on small
    scenes with clumped positions (cells above 8 particles, particles in edge
-   cells), for the fluid-only force term and for the two-way reaction term;
-3. the main path: data/scenes/dragon_bath.json (WCSPH, 442,006 particles)
+   cells): the WCSPH kernels with and without the two-way reaction, the
+   DFSPH kernels (both divergence modes, the solver update with and without
+   the reaction), and the DFSPH kernels and two whole steps on a block
+   that falls onto the floor, where the Jacobi loops iterate;
+3. the WCSPH path: data/scenes/dragon_bath.json (442,006 particles)
    through ``Simulation`` on the card, timed with CUDA events; the kernels'
    launch counts over that run; per-kernel and plain-version times at the
    dragon state's shapes; one kernel step held index-wise against one
-   plain-engine step from the same state.
-The last lines are a ``kernels`` JSON line, the card line, and
+   plain-engine step from the same state;
+4. the DFSPH path: data/scenes/dragon_bath_dfsph.json (the same particles,
+   dt 4e-3) through ``Simulation``, timed with CUDA events; iteration
+   counts, host reads per step and launch counts over that run; the host
+   syncs of one step; stage times; the step time by the Jacobi loops'
+   read interval, there and 100 steps later; one kernel step against one
+   plain-engine step; per-kernel and plain-version times;
+5. the DFSPH reaction variant at scale: data/scenes/
+   dragon_bath_dynamic_dfsph.json (a dynamic dragon), run until the fluid
+   reaches the dragon, then 5 timed steps and the reaction kernel's time.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
 
 Tolerances: atol 2e-5, rtol 2e-4 (the engine-equivalence tolerance of the
 JAX package's tests, tests/conftest.py _assert_states_close).  Kernel and
-plain version compute the same f32 terms with the same rounding; they sum
-them in different orders (the kernel sequentially per centre, torch.sum
-in its own reduction order), which moves a pair sum by a few ulps of its
-largest term.
+plain version compute the same f32 terms with the same rounding and add
+them in the same order (ops/pairs.py sum_in_order), so they are expected
+to agree to the bit; the tolerance is the bound that is held.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,6 +56,19 @@ DENSITY_FLOPS_PER_PAIR = 24
 # (distance 8, sqrt+square 2, inverse 2, dW/r 12, W 13, surface tension 3,
 #  v_ij.r_ij 8, viscosity 5, pressure 4, sum of terms 2, radial sum 6)
 FORCES_FLOPS_PER_PAIR = 65
+# counted from csrc/dfsph.cu on the same scale (distance 8, sqrt+square 2,
+# inverse 2, dW/r 12, W 13; v_ij.r_ij 8; radial sum 6):
+# density+factor: W 13, dW/r 12, den 2, gradient coefficient 1, radial 6,
+#   squared gradient 3
+DENSITY_FACTOR_FLOPS_PER_PAIR = 49
+# divergence: dW/r 12, v_ij.r_ij 8, div 3, count 1
+DIVERGENCE_FLOPS_PER_PAIR = 36
+# solver update: dW/r 12, k_i + k_j 1, fluid and solid coefficients 4,
+#   their sum 1, radial 6
+SOLVER_DV_FLOPS_PER_PAIR = 36
+# non-pressure (fluid pairs only): dW/r 12, W 13, surface tension 2,
+#   v_ij.r_ij 8, viscosity 6, sum 1, radial 6
+NONPRESSURE_FLOPS_PER_PAIR = 60
 
 
 def small_scene(two_way=False):
@@ -66,6 +93,31 @@ def small_scene(two_way=False):
             "end": [0.8, 0.7, 0.5], "translation": [0.0, 0.0, 0.0],
             "scale": [1.0, 1.0, 1.0], "velocity": [0.0, 0.0, 0.0],
             "density": 500.0, "color": [100, 100, 100], "isDynamic": True}]
+    return d
+
+
+def dfsph_scene(kind):
+    """Small DFSPH scenes (dt 4e-3): "small" is the WCSPH block;
+    "two_way" puts a dynamic rigid block right below it (the two-way DFSPH
+    golden scene); "floor_impact" is a block resting on the floor and
+    falling into it at 2 m/s, where both Jacobi loops iterate (the
+    divergence solve 4 times in its second and third steps)."""
+    d = small_scene()
+    cfg = d["Configuration"]
+    cfg["simulationMethod"], cfg["timeStepSize"] = 4, 4e-3
+    if kind == "two_way":
+        d["RigidBlocks"] = [{
+            "objectId": 1, "start": [0.15, 0.08, 0.15],
+            "end": [0.45, 0.26, 0.45], "translation": [0.0, 0.0, 0.0],
+            "scale": [1.0, 1.0, 1.0], "velocity": [0.0, 0.0, 0.0],
+            "density": 500.0, "color": [100, 100, 100], "isDynamic": True}]
+    elif kind == "floor_impact":
+        block = d["FluidBlocks"][0]
+        block["start"], block["end"] = [0.1, 0.03, 0.1], [0.5, 0.6, 0.5]
+        block["velocity"] = [0.0, -2.0, 0.0]
+        # the impact packs up to 36 particles into a cell: the plain
+        # engine's caps must hold them (the kernels have none)
+        d["TPU"] = {"cellCap": 64, "neighborCap": 96}
     return d
 
 
@@ -122,10 +174,11 @@ def max_errors(got, ref, name):
     return float(err.max())
 
 
-def prepared(scene_dict, device, seed):
-    """Sorted particles with clumped positions and random velocities, their
-    Akinci volumes and densities (plain engine), the cell offsets and the
-    plain engine's neighbour lists."""
+def prepared(scene_dict, device, seed, clump=True):
+    """Sorted particles with clumped positions (or the scene's own with
+    ``clump=False``) and random velocities, their Akinci volumes and
+    densities (plain engine), the cell offsets and the plain engine's
+    neighbour lists."""
     from sph_taichi_torch import SimConfig, build_scene, build_solver
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops.pairs import GatherEngine
@@ -133,7 +186,9 @@ def prepared(scene_dict, device, seed):
     params, part, _ = build_scene(SimConfig(config_dict=scene_dict),
                                   device=device)
     rng = np.random.default_rng(seed)
-    x = clumped_positions(rng, params, part.x.cpu().numpy())
+    x = part.x.cpu().numpy()
+    if clump:
+        x = clumped_positions(rng, params, x)
     v = np.zeros_like(x)
     n = params.n_fluid + params.n_solid
     v[:n] = rng.uniform(-1.0, 1.0, size=(n, 3))
@@ -190,6 +245,111 @@ def check_kernels_on_small_scenes(device):
     return worst
 
 
+def random_kappa(p, seed=1):
+    """A stiffness field with random signs and magnitudes 1e-7 .. 10 (0 off
+    fluid): both sides of the m_eps gate, and large enough that a solver
+    update moves the velocities."""
+    rng = np.random.default_rng(seed)
+    k = rng.choice([-1.0, 1.0], p.n) * 10.0 ** rng.uniform(-7, 1, p.n)
+    k = torch.tensor(k.astype(np.float32), device=p.x.device)
+    return torch.where(p.material == 1, k, 0.0)
+
+
+def compare_dfsph_kernels(params, solver, p, nl, starts, label, worst):
+    """K1-K4 against their plain versions at one state.  The stiffness is
+    random with magnitudes 1e-7 .. 10, on both sides of the m_eps gate and
+    large enough that the solver update moves the velocities."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    device = p.x.device
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
+
+    def check(name, got, ref, what):
+        for field, a, b in zip(what, got, ref):
+            if b is None:
+                continue
+            worst[name] = max(worst.get(name, 0.0), max_errors(
+                a, b, f"{name}[{label}].{field}"))
+
+    ref = cd.density_factor_plain(nl, p, params)
+    check("dfsph_density_factor", cd.density_factor(starts, p, params), ref,
+          ("density", "factor"))
+    p = p._replace(density=ref[0], dfsph_factor=ref[1])
+    for mode in cd.MODES:
+        check("dfsph_divergence",
+              cd.divergence(starts, p, p.v, p.density, dt, mode, params),
+              cd.divergence_plain(nl, p, p.v, p.density, dt, mode, params),
+              (f"{mode}.adv", f"{mode}.errt"))
+    kappa = random_kappa(p)
+    rng = np.random.default_rng(2)
+    acc = torch.tensor(rng.uniform(-5, 5, (p.n, 3)).astype(np.float32),
+                       device=device)
+    for react in sorted({False, bool(params.dynamic_rigid_ids)}):
+        got = cd.solver_dv(starts, p, kappa, p.v, acc, dt, react, params)
+        ref = cd.solver_dv_plain(nl, p, kappa, p.v, acc, dt, react, params)
+        check("dfsph_solver_dv", got, ref,
+              (f"react={react}.v", f"react={react}.acc"))
+        fluid = p.material == 1
+        moved = float((got[0] != p.v)[fluid].float().mean())
+        if moved < 0.5:
+            raise AssertionError(f"solver update moved {moved:.2f} of the "
+                                 f"fluid velocities")
+        if react:
+            dynr = p.is_dynamic_rigid()
+            moved = float((got[1] - acc)[dynr].abs().max())
+            print(f"  reaction on the dynamic rigid: max |acc change| "
+                  f"{moved:.3e}")
+            if moved < 1e-6:
+                raise AssertionError("DFSPH reaction not exercised")
+    check("nonpressure_kick", cd.nonpressure_kick(starts, p, dt, params),
+          cd.nonpressure_kick_plain(nl, p, dt, params), ("acc", "v"))
+
+
+def check_dfsph_on_small_scenes(device):
+    """The DFSPH kernels against their plain versions on clumped small
+    scenes and on the floor-impact state; then the floor-impact scene's
+    first two DFSPH steps, kernel engine against plain engine from the
+    same state each step, with equal iteration counts."""
+    from sph_taichi_torch import SimConfig, build_scene, build_solver
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    worst = {}
+    for kind, clump in (("small", True), ("two_way", True),
+                        ("floor_impact", False)):
+        params, solver, p, nl, starts, diag = prepared(
+            dfsph_scene(kind), device, seed=0, clump=clump)
+        if int(diag["neighbor_overflow"]):
+            raise AssertionError(f"{kind}: neighbour cap overflowed")
+        print(f"DFSPH small scene {kind}: {params.n_particles} particles, "
+              f"max cell occupancy {int(diag['max_cell_occupancy'])}")
+        compare_dfsph_kernels(params, solver, p, nl, starts, kind, worst)
+
+    params, part, _ = build_scene(SimConfig(config_dict=dfsph_scene(
+        "floor_impact")), device=device)
+    ksolver = build_solver(params, device=device)
+    psolver = build_solver(params, device=device,
+                           engine=GatherEngine(params))
+    state = ksolver.initialize(part)
+    for step in range(2):
+        cd.reset_launch_counts()
+        ks, km = ksolver.step(state)
+        ps, pm = psolver.step(state)
+        its = [(int(km[k]), int(pm[k])) for k in ("divergence_iters",
+                                                  "pressure_iters")]
+        print(f"  floor impact step {step + 1}: iterations (kernel, plain) "
+              f"divergence {its[0]} pressure {its[1]}; launches "
+              f"{dict(cd.LAUNCHES)}")
+        if any(a != b for a, b in its):
+            raise AssertionError("iteration counts differ")
+        real = ps.p.material != -1
+        for name in ("x", "v", "density", "density_adv", "acc"):
+            max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                       f"floor impact step {step + 1}: {name}")
+        state = ks
+    return worst
+
+
 def profile_steps(sim, steps):
     """Device busy share and the kernels by device time over ``steps``
     steps of ``Simulation.run`` under torch.profiler (the profiler adds
@@ -218,10 +378,38 @@ def profile_steps(sim, steps):
     print(f"profiler over {steps} steps: wall {wall_us / steps:.1f} us/step "
           f"under the profiler, device busy {busy / steps:.1f} us/step, "
           f"{sum(r[1] for r in rows) / steps:.1f} kernels/step")
-    return busy / steps / 1e3
-    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {dev_us / steps:9.2f} us/step  {count / steps:5.1f}/step  "
               f"{key[:90]}")
+    return busy / steps / 1e3
+
+
+def check_state(sim):
+    """Finite positions and velocities, the fluid inside the padded box,
+    the last step's sort invariant intact."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+
+    p = sim.state.p
+    xf = p.x[p.material == 1]
+    lo, hi = cp.box_limits(sim.params)
+    hi = torch.tensor(hi, device=p.x.device)
+    if not bool(torch.isfinite(p.x).all() & torch.isfinite(p.v).all()):
+        raise AssertionError("non-finite positions or velocities")
+    if not bool((xf >= lo).all() & (xf <= hi).all()):
+        raise AssertionError("fluid left the padded box")
+    if bool(sim.metrics["sort_invariant_violated"]):
+        raise AssertionError("sort invariant violated")
+
+
+def reset_all_launch_counts():
+    from sph_taichi_torch.ops import cuda_dfsph, cuda_pairs
+    cuda_pairs.reset_launch_counts()
+    cuda_dfsph.reset_launch_counts()
+
+
+def all_launch_counts():
+    from sph_taichi_torch.ops import cuda_dfsph, cuda_pairs
+    return {**cuda_pairs.LAUNCHES, **cuda_dfsph.LAUNCHES}
 
 
 def main_path(device, scene_path, warmup, steps):
@@ -247,39 +435,32 @@ def main_path(device, scene_path, warmup, steps):
     torch.cuda.set_sync_debug_mode("default")
     print("one step under torch.cuda sync-debug mode 'error': no host sync")
 
-    # the main path: counts to 0 just before, read just after
-    cp.reset_launch_counts()
+    # the WCSPH path: counts to 0 just before, read just after
+    reset_all_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     sim.run(steps // sim.substeps, export=False)
     end.record()
     torch.cuda.synchronize()
-    launches = dict(cp.LAUNCHES)
+    launches = all_launch_counts()
     step_ms = start.elapsed_time(end) / steps
-    print(f"main path: {steps} steps, {step_ms:.4f} ms/step, "
+    print(f"WCSPH path: {steps} steps, {step_ms:.4f} ms/step, "
           f"{1e3 / step_ms:.3f} steps/s; launches {launches}")
+    expect = {"density_sum": steps, "wcsph_forces": steps}
     for name, count in launches.items():
-        if count != steps:
-            raise AssertionError(f"{name}: {count} launches in {steps} steps")
+        if count != expect.get(name, 0):
+            raise AssertionError(f"{name}: {count} launches in {steps} "
+                                 f"WCSPH steps, expected "
+                                 f"{expect.get(name, 0)}")
 
     busy_ms = profile_steps(sim, 10)
     if busy_ms is not None:
         print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
               f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
 
-    p = sim.state.p
-    fluid = p.material == 1
-    xf = p.x[fluid]
-    lo, hi = cp.box_limits(params)
-    hi = torch.tensor(hi, device=device)
+    check_state(sim)
     metrics = sim.metrics
-    if not bool(torch.isfinite(p.x).all() & torch.isfinite(p.v).all()):
-        raise AssertionError("non-finite positions or velocities")
-    if not bool((xf >= lo).all() & (xf <= hi).all()):
-        raise AssertionError("fluid left the padded box")
-    if bool(metrics["sort_invariant_violated"]):
-        raise AssertionError("sort invariant violated")
     print(f"state after {int(sim.state.step_count)} steps: t "
           f"{float(sim.state.t):.4f} s, max fluid speed "
           f"{float(metrics['max_velocity']):.4f} m/s, max cell occupancy "
@@ -327,7 +508,7 @@ def main_path(device, scene_path, warmup, steps):
     q = base.compute_densities(q, starts, solver.engine, params)
     q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(q)
     n_real = params.n_fluid + params.n_solid
-    cp.reset_launch_counts()      # comparison launches are not the path's
+    reset_all_launch_counts()     # comparison launches are not the path's
     k_den = time_ms(lambda: cp.density_sum(starts, q, params), 20)
     k_frc = time_ms(lambda: cp.wcsph_forces(starts, q, dpi, p_r02, m_nc, rr0,
                                             state.dt, params), 20)
@@ -354,16 +535,11 @@ def main_path(device, scene_path, warmup, steps):
     den_bytes = n * (12 + 4 + 4) + 4 * cells + 4 * n
     frc_bytes = n * (12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4) + 4 * cells + 4 \
         + n * 36
-    bounds = {}
-    for name, nbytes, flops in (
-            ("density_sum", den_bytes, pairs * DENSITY_FLOPS_PER_PAIR),
-            ("wcsph_forces", frc_bytes, pairs * FORCES_FLOPS_PER_PAIR)):
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_F32_FLOPS * 1e3
-        bounds[name] = (max(t_bytes, t_ops),
-                        "bytes" if t_bytes >= t_ops else "operations")
-        print(f"{name} bound: {nbytes} bytes -> {t_bytes:.5f} ms, "
-              f"{flops} flop -> {t_ops:.5f} ms")
+    bounds = {
+        "density_sum": bound("density_sum", den_bytes,
+                             pairs * DENSITY_FLOPS_PER_PAIR),
+        "wcsph_forces": bound("wcsph_forces", frc_bytes,
+                              pairs * FORCES_FLOPS_PER_PAIR)}
 
     # one kernel step against one plain-engine step from the same state
     plain_solver = build_solver(params, device=device, engine=plain_engine)
@@ -393,6 +569,409 @@ def main_path(device, scene_path, warmup, steps):
     return kernels, step_ms
 
 
+def dragon_state_kernels(params, solver, state):
+    """The DFSPH kernels at a dragon state: sorted particles with density
+    and factor, the plain engine's neighbour lists, a stiffness field from
+    the divergence term, and the pair counts each kernel walks."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    q, starts, _ = base.bin_and_sort(state.p, params, solver.engine,
+                                     solver.tables)
+    # the oracle's capacities, raised to what this state needs (a splash
+    # or the fluid at a rigid can exceed the scene's caps; the kernels
+    # have none)
+    occ = int(base.max_cell_occupancy(starts))
+    caps = dataclasses.replace(params, cell_cap=max(params.cell_cap, occ))
+    nl = GatherEngine(caps).prepare(q.x, starts)
+    if int(nl.diag["neighbor_overflow"]):
+        caps = dataclasses.replace(caps, neighbor_cap=int(nl.max_cnt))
+        nl = GatherEngine(caps).prepare(q.x, starts)
+    q = solver.density_and_factor(q, starts)
+    adv, _ = cd.divergence(starts, q, q.v, None, None, "change", params)
+    kappa = adv * (q.dfsph_factor / state.dt)
+    fluid = q.material == 1
+    valid = nl.mask()
+    pairs_fc = int(nl.cnt[fluid].long().sum())
+    pairs_ff = int((valid & (q.material[nl.idx] == 1))[fluid].sum())
+    print(f"within-radius pairs with a fluid centre: {pairs_fc}, of them "
+          f"fluid-fluid {pairs_ff}; max neighbours {int(nl.max_cnt)}, max "
+          f"cell occupancy {occ} (the oracle's caps {caps.neighbor_cap}, "
+          f"{caps.cell_cap})")
+    return q, starts, nl, kappa, pairs_fc, pairs_ff
+
+
+def bound(name, nbytes, flops):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    print(f"{name} bound: {nbytes} bytes -> {t_bytes:.5f} ms, {flops} flop "
+          f"-> {t_ops:.5f} ms")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def dfsph_path(device, scene_path, warmup, steps):
+    """Phase 4: DFSPH dragon through ``Simulation``; returns the kernels'
+    JSON entries and the step time."""
+    import warnings
+
+    from sph_taichi_torch import build_solver
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.models.dfsph import JACOBI_CHECK_EVERY as K
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops.pairs import GatherEngine
+    from sph_taichi_torch.simulation import Simulation
+
+    t0 = time.perf_counter()
+    sim = Simulation(scene_path)
+    torch.cuda.synchronize()
+    params = sim.params
+    print(f"dragon_bath_dfsph: {params.n_particles} particles (fluid "
+          f"{params.n_fluid}, solid {params.n_solid}), dt {params.dt0}; "
+          f"scene + initialize {time.perf_counter() - t0:.2f} s")
+    sim.run(warmup, export=False)
+    torch.cuda.synchronize()
+
+    # every host sync of a step is a read of a Jacobi loop's test
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, m = sim.solver.step(sim.state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    reads = m["divergence_host_reads"] + m["pressure_host_reads"]
+    print(f"one DFSPH step under torch.cuda sync-debug mode 'warn': "
+          f"{len(where)} host syncs {where}; the solver reports {reads} "
+          f"reads of its loop tests (iterations divergence "
+          f"{int(m['divergence_iters'])}, pressure "
+          f"{int(m['pressure_iters'])}, a read every {K})")
+    if len(where) != reads:
+        raise AssertionError("a DFSPH step syncs outside its loop tests")
+
+    # the DFSPH path: counts to 0 just before, read just after
+    reset_all_launch_counts()
+    sim.reset_solver_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    st = sim.read_solver_stats()
+    step_ms = start.elapsed_time(end) / steps
+    n_div, n_prs = st["divergence_iters_sum"], st["pressure_iters_sum"]
+    r_div, r_prs = st["divergence_host_reads"], st["pressure_host_reads"]
+    print(f"DFSPH path: {steps} steps, {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s; iterations per step divergence "
+          f"mean {n_div / steps:.2f} max {st['divergence_iters_max']}, "
+          f"pressure mean {n_prs / steps:.2f} max "
+          f"{st['pressure_iters_max']}; host reads per step "
+          f"{(r_div + r_prs) / steps:.2f}; launches {launches}")
+    # iterations queued after a loop's exit launch and return at once:
+    # each solve launches K per host read
+    expect = {"dfsph_density_factor": steps, "nonpressure_kick": steps,
+              "dfsph_divergence_change": steps + K * r_div,
+              "dfsph_divergence_adv": steps + K * r_prs,
+              "dfsph_solver_dv": K * (r_div + r_prs)}
+    for name, count in launches.items():
+        if count != expect.get(name, 0):
+            raise AssertionError(f"{name}: {count} launches in {steps} "
+                                 f"DFSPH steps, expected "
+                                 f"{expect.get(name, 0)}")
+    for solve, n, r in (("divergence", n_div, r_div),
+                        ("pressure", n_prs, r_prs)):
+        if not n <= K * r <= n + (K - 1) * steps:
+            raise AssertionError(f"{solve}: {n} iterations, {r} reads")
+        print(f"  {solve}: {n} iterations ran (the launches with work are "
+              f"{steps} + {n}), {K * r - n} queued after the exit")
+
+    busy_ms = profile_steps(sim, 5)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
+              f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+
+    check_state(sim)
+    metrics = sim.metrics
+    print(f"state after {int(sim.state.step_count)} steps: t "
+          f"{float(sim.state.t):.4f} s, max fluid speed "
+          f"{float(metrics['max_velocity']):.4f} m/s, divergence error "
+          f"{float(metrics['divergence_error']):.4f}, pressure error "
+          f"{float(metrics['pressure_error']):.4f}")
+
+    # stage times of one step at this state (events around each stage)
+    solver, state = sim.solver, sim.state
+
+    def staged_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        q, ctx, _ = base.bin_and_sort(state.p, params, solver.engine,
+                                      solver.tables)
+        ev[1].record()
+        q = solver.density_and_factor(q, ctx)
+        ev[2].record()
+        q, _ = solver.divergence_solve(q, ctx, state.dt)
+        ev[3].record()
+        q = base.compute_non_pressure_forces(q, ctx, solver.engine, params,
+                                             predict_dt=state.dt)
+        ev[4].record()
+        q, _ = solver.pressure_solve(q, ctx, state.dt)
+        ev[5].record()
+        q = solver.advect(q, state.dt)
+        q, _ = base.solve_rigid_body(q, state.rigid_rest_cm, params)
+        base.enforce_boundary(q, params, 1)
+        ev[6].record()
+        return ev
+
+    for _ in range(2):
+        staged_step()
+    evs = [staged_step() for _ in range(5)]
+    torch.cuda.synchronize()
+    stages = {}
+    for k, name in enumerate(("bin_and_sort", "density+factor",
+                              "divergence solve", "non-pressure + kick",
+                              "pressure solve", "advect + rigid + clamp")):
+        stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
+    print("DFSPH stage ms at this state: " + json.dumps(
+        {k: round(v, 4) for k, v in stages.items()}))
+
+    k_sweep(solver, state, "this state")
+
+    # one kernel step against one plain-engine step from the same state
+    plain_solver = build_solver(params, device=device,
+                                engine=GatherEngine(params))
+    ks, km = solver.step(state)
+    ps, pm = plain_solver.step(state)
+    if int(pm["neighbor_overflow"]):
+        raise AssertionError("plain step overflowed its neighbour cap")
+    its = [(int(km[k]), int(pm[k])) for k in ("divergence_iters",
+                                              "pressure_iters")]
+    print(f"step kernel vs plain engine: iterations (kernel, plain) "
+          f"divergence {its[0]}, pressure {its[1]}")
+    if any(a != b for a, b in its):
+        raise AssertionError("iteration counts differ")
+    real = ps.p.material != -1
+    for name in ("x", "v", "density", "density_adv", "acc"):
+        max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                   f"DFSPH step kernel vs plain engine: {name}")
+    del plain_solver, ps
+
+    # per-kernel times at the dragon state's shapes, and the plain versions
+    q, starts, nl, kappa, pairs_fc, pairs_ff = dragon_state_kernels(
+        params, solver, state)
+    dt = state.dt
+    reset_all_launch_counts()     # comparison launches are not the path's
+    calls = {
+        "dfsph_density_factor": (
+            lambda: cd.density_factor(starts, q, params),
+            lambda: cd.density_factor_plain(nl, q, params)),
+        "change": (
+            lambda: cd.divergence(starts, q, q.v, None, None, "change",
+                                  params),
+            lambda: cd.divergence_plain(nl, q, q.v, None, None, "change",
+                                        params)),
+        "adv": (
+            lambda: cd.divergence(starts, q, q.v, q.density, dt, "adv",
+                                  params),
+            lambda: cd.divergence_plain(nl, q, q.v, q.density, dt, "adv",
+                                        params)),
+        "dfsph_solver_dv": (
+            lambda: cd.solver_dv(starts, q, kappa, q.v, None, dt, False,
+                                 params),
+            lambda: cd.solver_dv_plain(nl, q, kappa, q.v, None, dt, False,
+                                       params)),
+        "nonpressure_kick": (
+            lambda: cd.nonpressure_kick(starts, q, dt, params),
+            lambda: cd.nonpressure_kick_plain(nl, q, dt, params)),
+    }
+    ms, plain_ms, err = {}, {}, {}
+    for name, (kern, plain) in calls.items():
+        ms[name] = time_ms(kern, 20)
+        plain_ms[name] = time_ms(plain, 3)
+        err[name] = 0.0
+        for k, (a, b) in enumerate(zip(kern(), plain())):
+            if b is not None:
+                err[name] = max(err[name], max_errors(
+                    a[:params.n_fluid + params.n_solid],
+                    b[:params.n_fluid + params.n_solid],
+                    f"dragon {name} output {k}"))
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
+              f" ms")
+
+    n = params.n_fluid + params.n_solid
+    cells = 4 * (params.num_cells + 2)
+    bounds = {
+        "dfsph_density_factor": bound(
+            "dfsph_density_factor", n * 32 + cells,
+            pairs_fc * DENSITY_FACTOR_FLOPS_PER_PAIR),
+        "change": bound("dfsph_divergence change", n * 40 + cells,
+                        pairs_fc * DIVERGENCE_FLOPS_PER_PAIR),
+        "adv": bound("dfsph_divergence adv", n * 44 + cells + 4,
+                     pairs_fc * DIVERGENCE_FLOPS_PER_PAIR),
+        # the variant without reaction reads neither is_dynamic nor density
+        "dfsph_solver_dv": bound("dfsph_solver_dv", n * 48 + cells + 4,
+                                 pairs_fc * SOLVER_DV_FLOPS_PER_PAIR),
+        "nonpressure_kick": bound("nonpressure_kick", n * 64 + cells + 4,
+                                  pairs_ff * NONPRESSURE_FLOPS_PER_PAIR),
+    }
+    # a later state, where the fluid has hit the bath: iterations and the
+    # read interval again
+    sim.reset_solver_stats()
+    sim.run(100 // sim.substeps, export=False)
+    st = sim.read_solver_stats()
+    sim.reset_solver_stats()
+    print(f"after {int(sim.state.step_count)} steps (t "
+          f"{float(sim.state.t):.4f} s): iterations per step divergence "
+          f"mean {st['divergence_iters_sum'] / st['steps']:.2f} max "
+          f"{st['divergence_iters_max']}, pressure mean "
+          f"{st['pressure_iters_sum'] / st['steps']:.2f} max "
+          f"{st['pressure_iters_max']} over the last {st['steps']} steps")
+    k_sweep(solver, sim.state, f"step {int(sim.state.step_count)}")
+
+    # the divergence entry: both modes, weighted by their launches
+    w_chg = launches["dfsph_divergence_change"]
+    w_adv = launches["dfsph_divergence_adv"]
+
+    def mixed(d):
+        return (w_chg * d["change"] + w_adv * d["adv"]) / (w_chg + w_adv)
+
+    ms["dfsph_divergence"] = mixed(ms)
+    plain_ms["dfsph_divergence"] = mixed(plain_ms)
+    err["dfsph_divergence"] = max(err["change"], err["adv"])
+    b_div = mixed({k: bounds[k][0] for k in ("change", "adv")})
+    bounds["dfsph_divergence"] = (b_div, bounds["adv"][1])
+    launches["dfsph_divergence"] = w_chg + w_adv
+    src = "sph_taichi_torch/csrc/dfsph.cu"
+    kernels = []
+    for name in ("dfsph_density_factor", "dfsph_divergence",
+                 "dfsph_solver_dv", "nonpressure_kick"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None})
+    return kernels, step_ms
+
+
+def k_sweep(solver, state, label, steps=5, turns=3):
+    """Step ms by the Jacobi loops' read interval k: ``steps`` steps from
+    ``state`` per setting, the settings interleaved over ``turns`` turns,
+    host clock around work that ends in a synchronize."""
+    from sph_taichi_torch.models.dfsph import JACOBI_CHECK_EVERY as K
+
+    per_k, iters = {}, None
+    for turn in range(turns):
+        for every in (1, 2, 4, 8)[::1 if turn % 2 == 0 else -1]:
+            solver.check_every = every
+            s, its = state, []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                s, m = solver.step(s)
+                its.append(m["divergence_iters"] + m["pressure_iters"])
+            torch.cuda.synchronize()
+            per_k.setdefault(every, []).append(
+                (time.perf_counter() - t0) * 1e3 / steps)
+            iters = int(sum(its))
+    solver.check_every = K
+    print(f"step ms by Jacobi read interval k at {label} ({steps} steps "
+          f"per setting, {iters} Jacobi iterations in them, {turns} turns "
+          f"interleaved): " + json.dumps(
+              {k: [round(t, 4) for t in v] for k, v in per_k.items()}) +
+          "; medians " + json.dumps(
+              {k: round(float(np.median(v)), 4) for k, v in per_k.items()}))
+    return per_k
+
+
+def dragon_contact(sim):
+    """Largest reaction on the dynamic rigid from one reaction-kernel launch
+    with a random stiffness: 0 until the fluid reaches the rigid."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    solver, state = sim.solver, sim.state
+    q, starts, _ = base.bin_and_sort(state.p, sim.params, solver.engine,
+                                     solver.tables)
+    q = solver.density_and_factor(q, starts)
+    _, acc = cd.solver_dv(starts, q, random_kappa(q), q.v,
+                          torch.zeros_like(q.x), state.dt, True, sim.params)
+    return float(acc[q.is_dynamic_rigid()].abs().max())
+
+
+def reaction_at_scale(device, scene_path, steps, max_lead=200):
+    """Phase 5: the dynamic dragon (DFSPH with the reaction variant): run
+    until the fluid reaches the dragon (at most ``max_lead`` steps), then
+    ``steps`` timed steps, and the reaction kernel's time at that state."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.simulation import Simulation
+
+    sim = Simulation(scene_path)
+    params = sim.params
+    print(f"dragon_bath_dynamic_dfsph: {params.n_particles} particles, "
+          f"dynamic rigids {params.dynamic_rigid_ids}")
+    t0 = time.perf_counter()
+    while dragon_contact(sim) == 0.0:
+        if int(sim.state.step_count) >= max_lead:
+            raise AssertionError(f"no fluid at the dragon after {max_lead} "
+                                 f"steps")
+        sim.run(20 // sim.substeps, export=False)
+    print(f"the fluid reaches the dragon by step "
+          f"{int(sim.state.step_count)} (t {float(sim.state.t):.4f} s; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    reset_all_launch_counts()
+    sim.reset_solver_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    st = sim.read_solver_stats()
+    print(f"dynamic dragon: {steps} steps, {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s; iterations divergence "
+          f"{st['divergence_iters_sum']} pressure {st['pressure_iters_sum']};"
+          f" launches {all_launch_counts()}")
+    check_state(sim)
+    busy_ms = profile_steps(sim, 3)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
+              f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+    q, starts, nl, kappa, _, _ = dragon_state_kernels(params, sim.solver,
+                                                      sim.state)
+    dt = sim.state.dt
+    acc = torch.zeros_like(q.x)
+    react_ms = time_ms(lambda: cd.solver_dv(starts, q, kappa, q.v, acc, dt,
+                                            True, params), 20)
+    plain_ms = time_ms(lambda: cd.solver_dv_plain(nl, q, kappa, q.v, acc,
+                                                  dt, True, params), 3)
+    fluid_ms = time_ms(lambda: cd.solver_dv(starts, q, kappa, q.v, None, dt,
+                                            False, params), 20)
+    dynr = q.is_dynamic_rigid()
+    moved = float(cd.solver_dv(starts, q, kappa, q.v, acc, dt, True,
+                               params)[1][dynr].abs().max())
+    # the state's own stiffness gives the times; a random one, on which the
+    # reaction is large, the comparison
+    kappa = random_kappa(q)
+    got = cd.solver_dv(starts, q, kappa, q.v, acc, dt, True, params)
+    ref = cd.solver_dv_plain(nl, q, kappa, q.v, acc, dt, True, params)
+    for name, a, b in zip(("v", "acc"), got, ref):
+        max_errors(a, b, f"dynamic dragon dfsph_solver_dv<REACT>.{name}")
+    moved_random = float(got[1][dynr].abs().max())
+    if moved_random == 0.0:
+        raise AssertionError("DFSPH reaction not exercised at the dragon")
+    print(f"dfsph_solver_dv<REACT> at the dynamic dragon: {react_ms:.4f} ms "
+          f"(without the reaction {fluid_ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms); max |reaction| on the dragon {moved:.3e} with the state's "
+          f"stiffness, {moved_random:.3e} with a random one")
+    return step_ms, react_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -413,16 +992,26 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build(["pairs"])
+    sources = ["pairs", "dfsph"]
+    _build.build(sources)
     print(f"kernels built from sph_taichi_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s")
-    print(_build.build_log("pairs").strip())
+    for name in sources:
+        print(_build.build_log(name).strip())
 
     worst = check_kernels_on_small_scenes(device)
+    worst.update(check_dfsph_on_small_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
-    kernels, step_ms = main_path(device, "data/scenes/dragon_bath.json",
-                                 warmup=5, steps=50)
+    kernels, _ = main_path(device, "data/scenes/dragon_bath.json",
+                           warmup=5, steps=50)
+    torch.cuda.empty_cache()
+    dfsph_kernels, _ = dfsph_path(device, "data/scenes/dragon_bath_dfsph.json",
+                                  warmup=3, steps=20)
+    kernels += dfsph_kernels
+    torch.cuda.empty_cache()
+    reaction_at_scale(device, "data/scenes/dragon_bath_dynamic_dfsph.json",
+                      steps=5)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

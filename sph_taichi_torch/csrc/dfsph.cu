@@ -1,0 +1,297 @@
+// Pair traversals of the DFSPH step on Hopper (sm_90a), one thread per
+// centre in cell-sorted order, over the cell-range walk of pair_common.cuh.
+//
+// Replaces: the Pallas TPU kernel BlockEngine._kernel
+// (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
+// its specializations on the DFSPH path:
+//   dfsph_density_factor   <- models/dfsph.py density_and_factor (density
+//                             and the alpha factor in one walk)
+//   dfsph_divergence<ADV>  <- models/dfsph.py _density_change (ADV = false)
+//                             and _density_adv (ADV = true), each with the
+//                             per-centre error column of the Jacobi test
+//   dfsph_solver_dv<REACT> <- models/dfsph.py _solver_dv, with the unfused
+//                             update v + (dt * dv) on fluid centres and,
+//                             with REACT, acc + reaction on dynamic rigids
+//   nonpressure_kick       <- models/base.py compute_non_pressure_forces
+//                             with the acceleration select and the DFSPH
+//                             velocity kick v += dt * acc of its epilogue
+//
+// Each epilogue is the unfused chain of the plain versions in
+// ops/cuda_dfsph.py, in the same operation order.  Padding rows are not
+// launched; the wrappers restore them.
+//
+// The Jacobi kernels (divergence, solver_dv) take an optional device flag
+// `active`: when it is 0 the launch returns at once and writes nothing, and
+// the solver's loop discards that iteration's outputs (models/dfsph.py
+// jacobi_while).  Iterations queued past convergence then cost a launch,
+// not a traversal.
+//
+// What bounds them on an H100: as pairs.cu, irregular candidate loads that
+// mostly hit L1/L2; the f32 work per real pair (20-45 operations) is far
+// below the card's rate.  Everything stays in registers.
+
+#include "pair_common.cuh"
+
+__global__ void dfsph_density_factor_kernel(
+    const float* __restrict__ x, const int* __restrict__ material,
+    const float* __restrict__ m_V, const float* __restrict__ density_in,
+    const int* __restrict__ starts, float* __restrict__ density_out,
+    float* __restrict__ factor_out, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  const bool fluid = material[i] == 1;
+  float den = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, sq = 0.0f;
+  if (fluid) {
+    for_each_neighbor(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+        [&](int j, float d0, float d1, float d2, float s) {
+          const int mat_j = material[j];
+          if (mat_j < 0) return;
+          const PairGeom p = pair_geom(s);
+          const float mvj = m_V[j];
+          den += mvj * cubic_w(p.rn, c);
+          const float gcoef = -mvj * cubic_grad(p.rn, p.inv, c);
+          const float ng = -gcoef;
+          g0 += ng * d0;
+          g1 += ng * d1;
+          g2 += ng * d2;
+          if (mat_j == 1) sq += gcoef * gcoef * p.r2;
+        });
+  }
+  if (fluid) {
+    density_out[i] = (m_V[i] * c.w0 + den) * c.rho0;
+    const float s = sq + g0 * g0 + g1 * g1 + g2 * g2;
+    factor_out[i] = (s > 1e-6f) ? -1.0f / s : 0.0f;
+  } else {
+    density_out[i] = density_in[i];
+    factor_out[i] = 0.0f;
+  }
+}
+
+template <bool ADV>
+__global__ void dfsph_divergence_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    const int* __restrict__ material, const float* __restrict__ m_V,
+    const float* __restrict__ density, const int* __restrict__ starts,
+    const float* __restrict__ dt_ptr, const unsigned char* __restrict__ active,
+    float* __restrict__ adv_out, float* __restrict__ errt_out, PairConsts c) {
+  if (active != nullptr && !*active) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  const bool fluid = material[i] == 1;
+  float div = 0.0f, cnt = 0.0f;
+  if (fluid) {
+    const float vi0 = v[3 * i], vi1 = v[3 * i + 1], vi2 = v[3 * i + 2];
+    for_each_neighbor(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+        [&](int j, float d0, float d1, float d2, float s) {
+          if (material[j] < 0) return;
+          const PairGeom p = pair_geom(s);
+          const float gradw = cubic_grad(p.rn, p.inv, c);
+          const float v_xy = (vi0 - v[3 * j]) * d0 +
+                             (vi1 - v[3 * j + 1]) * d1 +
+                             (vi2 - v[3 * j + 2]) * d2;
+          div += m_V[j] * gradw * v_xy;
+          cnt += 1.0f;
+        });
+  }
+  float adv, errt;
+  if (ADV) {
+    adv = density[i] / c.rho0 + *dt_ptr * div;
+    adv = fmaxf(adv, 1.0f);
+    adv = fluid ? adv : 0.0f;
+    errt = fluid ? c.rho0 * adv - c.rho0 : 0.0f;
+  } else {
+    adv = fmaxf(div, 0.0f);
+    if (cnt < c.min_nbr) adv = 0.0f;
+    adv = fluid ? adv : 0.0f;
+    errt = fluid ? c.rho0 * adv : 0.0f;
+  }
+  adv_out[i] = adv;
+  errt_out[i] = errt;
+}
+
+template <bool REACT>
+__global__ void dfsph_solver_dv_kernel(
+    const float* __restrict__ x, const int* __restrict__ material,
+    const int* __restrict__ is_dyn, const float* __restrict__ m_V,
+    const float* __restrict__ kappa, const float* __restrict__ density,
+    const float* __restrict__ v, const float* __restrict__ acc,
+    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    const unsigned char* __restrict__ active, float* __restrict__ v_out,
+    float* __restrict__ acc_out, PairConsts c) {
+  if (active != nullptr && !*active) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  const int mat_i = material[i];
+  const bool fluid = mat_i == 1;
+  // is_dynamic and density are read by the reaction variant only
+  const bool dynr = REACT && mat_i == 0 && is_dyn[i] != 0;
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  // the sum is read by fluid centres (dv) and, with the reaction, by
+  // dynamic-rigid ones; one radial output carries either, selected by the
+  // centre's material
+  if (fluid || (REACT && dynr)) {
+    const float k_i = kappa[i];
+    const float q_i =
+        REACT ? m_V[i] / fmaxf(density[i], 1e-30f) : 0.0f;
+    for_each_neighbor(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+        [&](int j, float d0, float d1, float d2, float s) {
+          const int mat_j = material[j];
+          const bool fluid_j = mat_j == 1;
+          const bool solid_j = mat_j == 0;
+          if (!fluid_j && !solid_j) return;
+          const PairGeom p = pair_geom(s);
+          const float gradw = cubic_grad(p.rn, p.inv, c);
+          const float k_j = kappa[j];
+          float a;
+          if (REACT && !fluid) {
+            // gather form of the reference's reaction scatter
+            // (DFSPH.py:388-389)
+            a = (fluid_j && fabsf(k_j) > c.m_eps)
+                    ? (k_j * density[j]) * gradw * q_i
+                    : 0.0f;
+          } else {
+            const float k_sum = k_i + k_j;
+            const float cf = (fluid_j && fabsf(k_sum) > c.m_eps)
+                                 ? k_sum * m_V[j] * gradw
+                                 : 0.0f;
+            const float cs = (solid_j && fabsf(k_i) > c.m_eps)
+                                 ? k_i * m_V[j] * gradw
+                                 : 0.0f;
+            a = cf + cs;
+          }
+          s0 += a * d0;
+          s1 += a * d1;
+          s2 += a * d2;
+        });
+  }
+  const float dt = *dt_ptr;
+  const float sums[3] = {s0, s1, s2};
+  for (int k = 0; k < 3; ++k) {
+    const float vk = v[3 * i + k];
+    v_out[3 * i + k] = fluid ? vk + dt * sums[k] : vk;
+    if (REACT) {
+      const float ak = acc[3 * i + k];
+      acc_out[3 * i + k] = dynr ? ak + sums[k] : ak;
+    }
+  }
+}
+
+__global__ void nonpressure_kick_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    const int* __restrict__ material, const int* __restrict__ is_dyn,
+    const float* __restrict__ m, const float* __restrict__ density,
+    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    float* __restrict__ acc_out, float* __restrict__ v_out, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  const int mat_i = material[i];
+  const bool fluid = mat_i == 1;
+  const bool solid = mat_i == 0;
+  const bool dyn = is_dyn[i] != 0;
+  float vi[3] = {v[3 * i], v[3 * i + 1], v[3 * i + 2]};
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  if (fluid) {
+    const float neg_st_mi = -(c.st / m[i]);
+    for_each_neighbor(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+        [&](int j, float d0, float d1, float d2, float s) {
+          // surface tension and viscosity act between fluid particles
+          // only; the boundary viscosity is 0.0 (DFSPH.py:80)
+          if (material[j] != 1) return;
+          const PairGeom p = pair_geom(s);
+          const float gradw = cubic_grad(p.rn, p.inv, c);
+          const float w_st = (p.r2 > c.diam2) ? cubic_w(p.rn, c) : c.wd;
+          const float st_coef = neg_st_mi * m[j] * w_st;
+          const float v_xy = (vi[0] - v[3 * j]) * d0 +
+                             (vi[1] - v[3 * j + 1]) * d1 +
+                             (vi[2] - v[3 * j + 2]) * d2;
+          const float visc_coef = c.dvisc * (m[j] / density[j]) * v_xy /
+                                  (p.r2 + c.eps_h2) * gradw;
+          const float a = st_coef + visc_coef;
+          s0 += a * d0;
+          s1 += a * d1;
+          s2 += a * d2;
+        });
+  }
+  // epilogue: acceleration select, then the fluid kick v += dt * acc
+  const float dt = *dt_ptr;
+  const float g[3] = {c.g0, c.g1, c.g2};
+  const float sums[3] = {s0, s1, s2};
+  for (int k = 0; k < 3; ++k) {
+    float a = g[k] + (fluid ? sums[k] : 0.0f);
+    if (solid && !dyn) a = 0.0f;
+    acc_out[3 * i + k] = a;
+    v_out[3 * i + k] = (fluid && dyn) ? vi[k] + dt * a : vi[k];
+  }
+}
+
+extern "C" int dfsph_density_factor_launch(
+    const float* x, const int* material, const float* m_V,
+    const float* density_in, const int* starts, float* density_out,
+    float* factor_out, PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    dfsph_density_factor_kernel<<<grid_for(c), kBlock, 0,
+                                  (cudaStream_t)stream>>>(
+        x, material, m_V, density_in, starts, density_out, factor_out, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dfsph_divergence_launch(
+    const float* x, const float* v, const int* material, const float* m_V,
+    const float* density, const int* starts, const float* dt,
+    const unsigned char* active, float* adv_out, float* errt_out, int adv,
+    PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    if (adv) {
+      dfsph_divergence_kernel<true><<<grid_for(c), kBlock, 0,
+                                      (cudaStream_t)stream>>>(
+          x, v, material, m_V, density, starts, dt, active, adv_out, errt_out,
+          c);
+    } else {
+      dfsph_divergence_kernel<false><<<grid_for(c), kBlock, 0,
+                                       (cudaStream_t)stream>>>(
+          x, v, material, m_V, density, starts, dt, active, adv_out, errt_out,
+          c);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dfsph_solver_dv_launch(
+    const float* x, const int* material, const int* is_dyn, const float* m_V,
+    const float* kappa, const float* density, const float* v,
+    const float* acc, const int* starts, const float* dt,
+    const unsigned char* active, float* v_out, float* acc_out, int react,
+    PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    if (react) {
+      dfsph_solver_dv_kernel<true><<<grid_for(c), kBlock, 0,
+                                     (cudaStream_t)stream>>>(
+          x, material, is_dyn, m_V, kappa, density, v, acc, starts, dt,
+          active, v_out, acc_out, c);
+    } else {
+      dfsph_solver_dv_kernel<false><<<grid_for(c), kBlock, 0,
+                                      (cudaStream_t)stream>>>(
+          x, material, is_dyn, m_V, kappa, density, v, acc, starts, dt,
+          active, v_out, acc_out, c);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nonpressure_kick_launch(
+    const float* x, const float* v, const int* material, const int* is_dyn,
+    const float* m, const float* density, const int* starts,
+    const float* dt, float* acc_out, float* v_out, PairConsts c,
+    void* stream) {
+  if (c.n_real > 0) {
+    nonpressure_kick_kernel<<<grid_for(c), kBlock, 0,
+                              (cudaStream_t)stream>>>(
+        x, v, material, is_dyn, m, density, starts, dt, acc_out, v_out, c);
+  }
+  return (int)cudaGetLastError();
+}

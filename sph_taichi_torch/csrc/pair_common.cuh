@@ -1,0 +1,122 @@
+// Device code shared by the pair-traversal kernels (pairs.cu, dfsph.cu):
+// the constants struct, the cubic-spline kernel and its gradient, and the
+// cell-range neighbour walk.
+//
+// Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
+// |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
+// neighbour columns; in each, the z-cells iz-1..iz+1 clipped to the grid
+// are ONE contiguous range of the sorted arrays, starts[flat(zlo)] ..
+// starts[flat(zhi) + 1].  That is exactly the candidate order of the plain
+// engine's neighbour lists (ops/neighbors.py: offsets in itertools.product
+// order, dz innermost, then sorted order within a cell), and sums go into
+// registers in that order: no caps, no atomics, deterministic.
+//
+// Rounding follows the plain path that pinned the goldens: inclusion on the
+// raw sum of squares, self excluded by index, rn = sqrtf(sum), d2 = rn*rn,
+// inv = 1/sqrtf(max(d2, 1e-38)), no rsqrtf; the centre's cell is computed
+// unclipped from the host's f32 reciprocal of the cell size.  Built with
+// -fmad=false and without fast math so no product is contracted into an FMA.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Mirror: PairConsts in sph_taichi_torch/ops/cuda_pairs.py, field for field.
+struct PairConsts {
+  int n_real, nx, ny, nz;
+  float inv_cell;   // f32(1) / f32(cell size), computed on the host
+  float h2;         // f32(h * h)
+  float inv_h;      // f32(1 / h)
+  float kw, kw2;    // W normalization k and f32(k * 2)
+  float kg, nkg;    // gradient prefactor 6k and f32(-6k)
+  // WCSPH force term and the non-pressure term
+  float diam2, wd;  // f32(diameter^2), W(diameter)
+  float st;         // surface tension coefficient
+  float dvisc;      // f32(2 (dim + 2) * viscosity)
+  float eps_h2;     // f32(0.01 h h)
+  float neg_rho0, rho0;
+  // epilogue
+  float g0, g1, g2;
+  float lo, hi0, hi1, hi2;  // padded box: pad and f32(size) - f32(pad)
+  float cf1;                // 1 + collision factor
+  // DFSPH
+  float w0;         // W(0)
+  float min_nbr;    // particle-deficiency cutoff: 20 (3D) / 7 (2D)
+  float m_eps;      // stiffness gate 1e-5
+};
+
+__device__ __forceinline__ float cubic_w(float rn, const PairConsts& c) {
+  float q = rn * c.inv_h;
+  float q2 = q * q;
+  float q3 = q2 * q;
+  float w_near = c.kw * (6.0f * q3 - 6.0f * q2 + 1.0f);
+  float omq = 1.0f - q;
+  float w_far = c.kw2 * omq * omq * omq;
+  float res = (q <= 0.5f) ? w_near : w_far;
+  return (q <= 1.0f) ? res : 0.0f;
+}
+
+__device__ __forceinline__ float cubic_grad(float rn, float inv_r,
+                                            const PairConsts& c) {
+  float q = rn * c.inv_h;
+  float inv_rh = inv_r * c.inv_h;
+  float near_ = c.kg * q * (3.0f * q - 2.0f) * inv_rh;
+  float fac = 1.0f - q;
+  float far_ = c.nkg * fac * fac * inv_rh;
+  float res = (q <= 0.5f) ? near_ : far_;
+  return (rn > 1e-5f && q <= 1.0f) ? res : 0.0f;
+}
+
+// (rn, d2, inv) of a pair from its raw sum of squares, as the plain
+// engine's pair_geometry rounds them.
+struct PairGeom {
+  float rn, r2, inv;
+};
+
+__device__ __forceinline__ PairGeom pair_geom(float s) {
+  PairGeom g;
+  g.rn = sqrtf(s);
+  g.r2 = g.rn * g.rn;
+  g.inv = 1.0f / sqrtf(fmaxf(g.r2, 1e-38f));
+  return g;
+}
+
+// Calls f(j, d0, d1, d2_raw...) for every j != i within h of centre i, in
+// the plain engine's order.
+template <typename F>
+__device__ __forceinline__ void for_each_neighbor(
+    int i, float xi0, float xi1, float xi2, const float* __restrict__ x,
+    const int* __restrict__ starts, const PairConsts& c, F&& f) {
+  const int ix = (int)(xi0 * c.inv_cell);
+  const int iy = (int)(xi1 * c.inv_cell);
+  const int iz = (int)(xi2 * c.inv_cell);
+  const int zlo = max(iz - 1, 0);
+  const int zhi = min(iz + 1, c.nz - 1);
+  if (zlo > zhi) return;
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int cx = ix + dx;
+    if (cx < 0 || cx >= c.nx) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int cy = iy + dy;
+      if (cy < 0 || cy >= c.ny) continue;
+      const int base = (cx * c.ny + cy) * c.nz;
+      const int b = starts[base + zlo];
+      const int e = starts[base + zhi + 1];
+      for (int j = b; j < e; ++j) {
+        if (j == i) continue;
+        const float d0 = xi0 - x[3 * j];
+        const float d1 = xi1 - x[3 * j + 1];
+        const float d2 = xi2 - x[3 * j + 2];
+        const float s = d0 * d0 + d1 * d1 + d2 * d2;
+        if (!(s < c.h2)) continue;
+        f(j, d0, d1, d2, s);
+      }
+    }
+  }
+}
+
+static const int kBlock = 128;
+
+__host__ inline int grid_for(const PairConsts& c) {
+  return (c.n_real + kBlock - 1) / kBlock;
+}

@@ -19,7 +19,7 @@ import torch
 from sph_taichi_torch.state import (
     MATERIAL_FLUID, MATERIAL_PAD, MATERIAL_SOLID, Particles, SimParams,
     SimState, resolve_device)
-from sph_taichi_torch.ops import cuda_pairs
+from sph_taichi_torch.ops import cuda_dfsph, cuda_pairs
 from sph_taichi_torch.ops.kernels import cubic_kernel
 from sph_taichi_torch.ops.grid import (
     compute_cell_ids, sort_by_cell, cell_offsets, max_cell_occupancy)
@@ -312,3 +312,25 @@ def compute_densities(p: Particles, ctx, engine, params: SimParams):
     density = (p.m_V * w0 + den_pairs) * params.density0
     return p._replace(density=torch.where(p.is_fluid(), density, p.density))
 
+
+def compute_non_pressure_forces(p: Particles, ctx, engine, params: SimParams,
+                                predict_dt=None):
+    """Gravity for every dynamic particle; surface tension and viscosity
+    pair sums for fluid centres (WCSPH.py:88-141 == DFSPH.py:50-102);
+    static rigid and padding accelerations 0.  The reference's boundary
+    viscosity is 0.0, so its reaction scatter is exactly zero and omitted.
+
+    Two forms, as in the JAX package: without ``predict_dt`` it sets
+    p.acc; with it (DFSPH) it also applies the fluid velocity kick
+    v += dt * acc (DFSPH.py:392-397), in the kernel's epilogue on the CUDA
+    engine.  Padding rows keep their velocity and get acceleration 0."""
+    if predict_dt is None:
+        if engine.fused:
+            raise ValueError("the CUDA engine's non-pressure kernel applies "
+                             "the DFSPH kick: pass predict_dt")
+        return p._replace(acc=cuda_dfsph.nonpressure_accel_plain(ctx, p,
+                                                                 params))
+    kick = (cuda_dfsph.nonpressure_kick if engine.fused
+            else cuda_dfsph.nonpressure_kick_plain)
+    acc, v = kick(ctx, p, predict_dt, params)
+    return p._replace(acc=acc, v=v)

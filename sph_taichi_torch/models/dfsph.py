@@ -1,0 +1,234 @@
+"""Divergence-free SPH solver (counterpart of sph_taichi_tpu/models/dfsph.py).
+
+Substep (DFSPH.py:400-408): densities and the alpha factor -> divergence
+solver -> non-pressure forces with the velocity kick -> constant-density
+pressure solver -> advection.  On the CUDA engine each pair sum is a
+kernel of ``ops/cuda_dfsph.py``; on the plain engine its plain version.
+
+The reference reads the average density error to the host every Jacobi
+iteration (DFSPH.py:248-257, 330-337).  Here each solve is
+``jacobi_while``: the loop test is evaluated on the device every
+iteration and read to the host once every JACOBI_CHECK_EVERY iterations,
+and an iteration whose test is false commits nothing, so iteration counts
+and results equal the JAX package's ``lax.while_loop``.
+
+Parity notes (as the JAX package):
+- divergence eta = (1/dt) * 0.1% * rho0, density eta = 0.05% * rho0; at
+  most 100 iterations; both loops run at least once;
+- density_adv is zeroed below 20 (3D) / 7 (2D) neighbours;
+- the m_eps = 1e-5 stiffness gate;
+- alpha is divided by dt (divergence) and dt^2 (pressure) per solve;
+- only the pressure solve's reaction on dynamic rigids is kept, in gather
+  form: the divergence solve's reaction is overwritten by the non-pressure
+  forces that follow it in the reference (DFSPH.py:98-99);
+- advection: v += dt * acc for dynamic rigids, x += dt * v for every
+  dynamic particle (DFSPH.py:105-112).
+The JAX package's ghost syncs (identity on one device), its lane buffers
+and its fused solver update are TPU-only and not ported.
+"""
+
+import torch
+
+from sph_taichi_torch.ops import cuda_dfsph
+from sph_taichi_torch.ops.pairs import div_exact
+from sph_taichi_torch.models.base import SPHBase, compute_non_pressure_forces
+from sph_taichi_torch.state import Particles
+
+# The Jacobi loops read their exit test to the host once every this many
+# iterations.  A read makes the host wait for the card, but the host is
+# only about one iteration ahead of it, so a read costs little; an
+# iteration queued past convergence costs its host time (two launches that
+# return at once and ~20 small torch ops) while the card has almost
+# nothing to do.  On an H100 at dragon_bath_dfsph, where a solve takes 1-7
+# iterations, k = 1 and 2 ran fastest and 4 and 8 slower (chip_smoke's
+# sweep, PERF.md); 2 halves the reads of long solves and wastes at most one
+# iteration per solve.
+JACOBI_CHECK_EVERY = 2
+
+
+def jacobi_while(cond, body, carry, every=JACOBI_CHECK_EVERY):
+    """``lax.while_loop(cond, body, carry)`` with one host read of the
+    test per ``every`` iterations.
+
+    ``cond(carry)`` is a 0-d bool tensor; ``body(carry, active)`` returns
+    the next carry (a tuple of tensors) and may use ``active`` to skip
+    work.  Each iteration commits ``torch.where(active, new, old)``, so
+    an iteration after the exit changes nothing.  Returns (carry, number
+    of host reads)."""
+    reads = 0
+    active = cond(carry)
+    while True:
+        for _ in range(every):
+            new = body(carry, active)
+            carry = tuple(torch.where(active, a, b)
+                          for a, b in zip(new, carry))
+            active = cond(carry)
+        reads += 1
+        if not bool(active):
+            return carry, reads
+
+
+class DFSPHSolver(SPHBase):
+    def __init__(self, params, device=None, engine=None):
+        self.m_max_iterations_v = 100   # DFSPH.py:14
+        self.m_max_iterations = 100     # DFSPH.py:15
+        self.m_eps = cuda_dfsph.M_EPS   # DFSPH.py:17
+        self.max_error_V = 0.1          # %, DFSPH.py:19
+        self.max_error = 0.05           # %, DFSPH.py:20
+        self.check_every = JACOBI_CHECK_EVERY
+        super().__init__(params, device=device, engine=engine)
+
+    def _op(self, name):
+        """The kernel wrapper on the CUDA engine, else its plain version;
+        both take the engine's context (cell offsets or neighbour lists)
+        first."""
+        return getattr(cuda_dfsph,
+                       name if self.engine.fused else f"{name}_plain")
+
+    # ------------------------------------------------------------------
+    def density_and_factor(self, p: Particles, ctx):
+        """compute_densities (DFSPH.py:37-47) and compute_DFSPH_factor
+        (DFSPH.py:115-155) in one traversal."""
+        density, factor = self._op("density_factor")(ctx, p, self.params)
+        return p._replace(density=density, dfsph_factor=factor)
+
+    def compute_factor(self, p: Particles, ctx):
+        """alpha_i alone (DFSPH.py:115-155); no step calls it.  It is the
+        factor output of the density-and-factor traversal."""
+        return self.density_and_factor(p, ctx).dfsph_factor
+
+    def _density_change(self, p: Particles, ctx, v, active=None):
+        """(adv, errt) of compute_density_change (DFSPH.py:158-194)."""
+        return self._op("divergence")(ctx, p, v, None, None, "change",
+                                      self.params, active=active)
+
+    def _density_adv(self, p: Particles, ctx, v, density, dt, active=None):
+        """(adv, errt) of compute_density_adv (DFSPH.py:197-218)."""
+        return self._op("divergence")(ctx, p, v, density, dt, "adv",
+                                      self.params, active=active)
+
+    def _avg_density_error(self, errt):
+        """sum over fluid of (rho0 adv - offset) / n_fluid
+        (DFSPH.py:221-227), from the traversal's per-centre column."""
+        n_real = self.params.n_fluid + self.params.n_solid
+        return div_exact(torch.sum(errt[:n_real]), float(self.params.n_fluid))
+
+    def _solver_dv(self, p, ctx, kappa, with_reaction, dt, v, acc=None,
+                   active=None):
+        """One Jacobi velocity update (v, acc or None); see
+        cuda_dfsph.solver_dv_plain."""
+        return self._op("solver_dv")(ctx, p, kappa, v, acc, dt,
+                                     with_reaction, self.params,
+                                     active=active)
+
+    # ------------------------------------------------------------------
+    def divergence_solve(self, p: Particles, ctx, dt):
+        """DFSPH.py:236-311 as a device-tested loop.  With
+        params.dfsph_warm_start, one velocity kick from half of the last
+        substep's accumulated stiffness precedes the loop, and the
+        substep's kappa sum is kept in p.kappa_v."""
+        factor = p.dfsph_factor / dt
+        eta = div_exact(1.0, dt) * self.max_error_V * 0.01 * self.density_0
+        fluid = p.is_fluid()
+        warm = self.params.dfsph_warm_start and p.kappa_v is not None
+
+        v_start = p.v
+        kacc0 = torch.zeros_like(p.density)
+        if warm:
+            kappa0 = torch.where(fluid, 0.5 * p.kappa_v, 0.0)
+            v_start, _ = self._solver_dv(p, ctx, kappa0, False, dt, p.v)
+            kacc0 = kappa0
+        adv0, _ = self._density_change(p, ctx, v_start)
+
+        def body(carry, active):
+            v, adv, kacc, _, it = carry
+            kappa = adv * factor
+            v, _ = self._solver_dv(p, ctx, kappa, False, dt, v,
+                                   active=active)
+            adv, errt = self._density_change(p, ctx, v, active=active)
+            return (v, adv, kacc + kappa, self._avg_density_error(errt),
+                    it + 1)
+
+        def cond(carry):
+            err, it = carry[-2:]
+            return (it == 0) | ((err > eta)
+                                & (it < self.m_max_iterations_v))
+
+        init = (v_start, adv0, kacc0, self._zero(torch.float32),
+                self._zero(torch.int32))
+        (v, adv, kacc, err, iters), reads = jacobi_while(
+            cond, body, init, self.check_every)
+        p = p._replace(v=v, density_adv=adv)
+        if warm:
+            p = p._replace(kappa_v=kacc)
+        return p, {"divergence_iters": iters, "divergence_error": err,
+                   "divergence_host_reads": reads}
+
+    # ------------------------------------------------------------------
+    def pressure_solve(self, p: Particles, ctx, dt):
+        """DFSPH.py:314-389 as a device-tested loop, accumulating the
+        two-way reaction on dynamic-rigid accelerations."""
+        factor = p.dfsph_factor / (dt * dt)
+        eta = self.max_error * 0.01 * self.density_0
+        fluid = p.is_fluid()
+        react = bool(self.params.dynamic_rigid_ids)
+        warm = self.params.dfsph_warm_start and p.kappa_p is not None
+
+        v_start, acc_start = p.v, p.acc
+        kacc0 = torch.zeros_like(p.density)
+        if warm:
+            kappa0 = torch.where(fluid, 0.5 * p.kappa_p, 0.0)
+            v_start, acc_new = self._solver_dv(p, ctx, kappa0, react, dt,
+                                               p.v, p.acc)
+            if react:
+                acc_start = acc_new
+            kacc0 = kappa0
+        adv0, _ = self._density_adv(p, ctx, v_start, p.density, dt)
+
+        def body(carry, active):
+            v, acc, adv, kacc, _, it = carry
+            kappa = (adv - 1.0) * factor
+            v, acc_new = self._solver_dv(p, ctx, kappa, react, dt, v, acc,
+                                         active=active)
+            if react:
+                acc = acc_new
+            adv, errt = self._density_adv(p, ctx, v, p.density, dt,
+                                          active=active)
+            return (v, acc, adv, kacc + kappa,
+                    self._avg_density_error(errt), it + 1)
+
+        def cond(carry):
+            err, it = carry[-2:]
+            return (it == 0) | ((err > eta) & (it < self.m_max_iterations))
+
+        init = (v_start, acc_start, adv0, kacc0, self._zero(torch.float32),
+                self._zero(torch.int32))
+        (v, acc, adv, kacc, err, iters), reads = jacobi_while(
+            cond, body, init, self.check_every)
+        p = p._replace(v=v, acc=acc, density_adv=adv)
+        if warm:
+            p = p._replace(kappa_p=kacc)
+        return p, {"pressure_iters": iters, "pressure_error": err,
+                   "pressure_host_reads": reads}
+
+    def _zero(self, dtype):
+        return torch.zeros((), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def advect(self, p: Particles, dt):
+        """v += dt * acc for dynamic rigids; x += dt * v for every dynamic
+        particle (DFSPH.py:105-112)."""
+        v = torch.where(p.is_dynamic_rigid()[:, None], p.v + dt * p.acc, p.v)
+        dyn = (p.is_dynamic != 0)[:, None]
+        return p._replace(v=v, x=torch.where(dyn, p.x + dt * v, p.x))
+
+    def substep(self, p: Particles, ctx, dt):
+        p = self.density_and_factor(p, ctx)
+        p, metrics = self.divergence_solve(p, ctx, dt)
+        # non-pressure forces and the fluid kick v += dt * acc
+        # (DFSPH.py:392-397) in one traversal
+        p = compute_non_pressure_forces(p, ctx, self.engine, self.params,
+                                        predict_dt=dt)
+        p, m = self.pressure_solve(p, ctx, dt)
+        metrics.update(m)
+        return self.advect(p, dt), metrics

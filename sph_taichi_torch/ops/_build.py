@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them by ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>/lib<name>.so``
-at the repository root, where the hash covers the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.  The
+at the repository root, where the hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is.  The
 sources have a plain C interface and include no PyTorch header, so a build
 takes seconds.  Nothing here runs at import time; a failed build raises.
 """
@@ -33,7 +34,10 @@ def _nvcc():
 
 def _target(name):
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / f"{name}-{key.hexdigest()[:16]}"
     return src, out_dir, out_dir / f"lib{name}.so"
 

@@ -1,0 +1,367 @@
+"""The DFSPH step's four pair traversals: CUDA kernels and their plain versions.
+
+Ports the specializations of the Pallas TPU kernel ``BlockEngine._kernel``
+(sph_taichi_tpu/ops/pallas_blocks.py) that the DFSPH path runs, as
+hand-written CUDA C++ in ``csrc/dfsph.cu``:
+
+- ``density_factor``: density and the alpha factor in one walk
+  (models/dfsph.py density_and_factor);
+- ``divergence``: the velocity divergence sum, with the epilogue of
+  ``_density_change`` (mode "change") or ``_density_adv`` (mode "adv"),
+  and the per-centre column of the average density error;
+- ``solver_dv``: one Jacobi velocity update (``_solver_dv``), v + dt * dv
+  on fluid centres and, with the reaction, acc + reaction on dynamic
+  rigids;
+- ``nonpressure_kick``: surface tension and viscosity, the acceleration
+  select and the fluid velocity kick (models/base.py
+  compute_non_pressure_forces with ``predict_dt``).
+
+Beside each kernel is its plain version (``*_plain``): the GatherEngine
+traversal with the same term, then the unfused epilogue in torch.  A
+wrapper runs the plain version only when its tensors lie on the CPU; on a
+CUDA tensor it launches the kernel or raises.  Each launch adds one to
+``LAUNCHES[name]``.
+
+``divergence`` and ``solver_dv`` take an optional ``active`` flag, a 0-d
+bool tensor on the device: when it is false the kernel returns at once and
+its outputs are undefined (the Jacobi loop discards them).  The plain
+versions ignore it.
+
+Padding rows are not launched: the wrappers restore them as the JAX
+package's ``restore_tail`` does (outputs that carry a field through keep
+its value, the others are 0).
+"""
+
+import ctypes
+
+import torch
+
+from sph_taichi_torch.ops.cuda_pairs import (
+    _PTR, _check, _check_common, _raise_on, min_neighbors, pair_consts,
+    M_EPS, PairConsts)
+from sph_taichi_torch.ops.kernels import (
+    cubic_kernel, cubic_kernel_derivative_scalar)
+from sph_taichi_torch.ops.pairs import GatherEngine, div_exact
+from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
+
+LAUNCHES = {"dfsph_density_factor": 0, "dfsph_divergence_change": 0,
+            "dfsph_divergence_adv": 0, "dfsph_solver_dv": 0,
+            "nonpressure_kick": 0}
+MODES = ("change", "adv")
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def density_factor_plain(nl, p, params):
+    """(density, factor): rho0 (m_V_i W(0) + sum_j m_V_j W) and
+    alpha = -1 / (|sum grad|^2 + sum_fluid |grad|^2) on fluid centres
+    (DFSPH.py:37-47, 115-155); other rows keep their density, factor 0."""
+    h = params.support_radius
+
+    def term(fi, fj, d2, rn, dots):
+        zero = torch.zeros_like(d2)
+        real = fj["material"] >= 0
+        w = cubic_kernel(rn, h, params.dim)
+        gradw_s = cubic_kernel_derivative_scalar(rn, h, params.dim,
+                                                 inv_r=dots["_inv"])
+        gcoef = -fj["m_V"] * gradw_s
+        sq = torch.where(fj["material"] == MATERIAL_FLUID,
+                         gcoef * gcoef * d2, zero)
+        return {"den": torch.where(real, fj["m_V"] * w, zero),
+                "grad": torch.where(real, -gcoef, zero), "sq": sq}
+
+    out = GatherEngine(params).traverse(
+        nl, p.x, {"material": p.material, "m_V": p.m_V}, term,
+        {"den": "scalar", "grad": "radial", "sq": "scalar"})
+    fluid = p.is_fluid()
+    w0 = cubic_kernel(torch.zeros((), dtype=p.x.dtype, device=p.x.device),
+                      h, params.dim)
+    den = p.m_V * w0 + out["den"]
+    density = torch.where(fluid, den * params.density0, p.density)
+    gx, gy, gz = out["grad"]
+    s = out["sq"] + gx * gx + gy * gy + gz * gz
+    factor = torch.where(s > 1e-6, div_exact(-1.0, s), 0.0)
+    return density, torch.where(fluid, factor, 0.0)
+
+
+def divergence_plain(nl, p, v, density, dt, mode, params, active=None):
+    """(adv, errt).  The pair sum is sum_j m_V_j gradW . (v_ij . r_ij)
+    over real j.  mode "change" (DFSPH.py:158-194): max(div, 0), 0 below
+    the neighbour cutoff, errt = rho0 adv.  mode "adv" (DFSPH.py:197-218):
+    max(density / rho0 + dt div, 1), errt = rho0 adv - rho0.  Both 0 off
+    fluid centres."""
+    h = params.support_radius
+    change = mode == "change"
+
+    def term(fi, fj, d2, rn, dots):
+        zero = torch.zeros_like(d2)
+        real = fj["material"] >= 0
+        gradw_s = cubic_kernel_derivative_scalar(rn, h, params.dim,
+                                                 inv_r=dots["_inv"])
+        out = {"div": torch.where(real, fj["m_V"] * gradw_s * dots["v"],
+                                  zero)}
+        if change:
+            out["cnt"] = real.to(d2.dtype)
+        return out
+
+    specs = {"div": "scalar"}
+    if change:
+        specs["cnt"] = "scalar"
+    out = GatherEngine(params).traverse(
+        nl, p.x, {"material": p.material, "m_V": p.m_V, "v0": v[:, 0],
+                  "v1": v[:, 1], "v2": v[:, 2]}, term, specs,
+        pair_dots=("v",))
+    fluid = p.is_fluid()
+    rho0 = params.density0
+    if change:
+        adv = torch.clamp_min(out["div"], 0.0)
+        adv = torch.where(out["cnt"] < min_neighbors(params.dim), 0.0, adv)
+        adv = torch.where(fluid, adv, 0.0)
+        return adv, torch.where(fluid, rho0 * adv, 0.0)
+    adv = div_exact(density, rho0) + dt * out["div"]
+    adv = torch.where(fluid, torch.clamp_min(adv, 1.0), 0.0)
+    return adv, torch.where(fluid, rho0 * adv - rho0, 0.0)
+
+
+def solver_dv_plain(nl, p, kappa, v, acc, dt, react, params, active=None):
+    """(v, acc): one Jacobi velocity update (DFSPH.py:289-311, 364-389).
+    dv_i = sum_fluid_j (k_i + k_j) m_V_j gradW + sum_solid_j k_i m_V_j gradW
+    (each gated on |k| > m_eps); v + dt dv on fluid centres.  With
+    ``react`` the same radial output carries, on dynamic-rigid centres,
+    the gathered reaction sum_fluid_k k_k rho_k gradW m_V_c / rho_c, added
+    to acc there; acc is None otherwise."""
+    h = params.support_radius
+
+    def term(fi, fj, d2, rn, dots):
+        zero = torch.zeros_like(d2)
+        gradw_s = cubic_kernel_derivative_scalar(rn, h, params.dim,
+                                                 inv_r=dots["_inv"])
+        fluid_j = fj["material"] == MATERIAL_FLUID
+        solid_j = fj["material"] == MATERIAL_SOLID
+        k_i, k_j = fi["kappa"], fj["kappa"]
+        k_sum = k_i + k_j
+        coef_fluid = torch.where(fluid_j & (torch.abs(k_sum) > M_EPS),
+                                 k_sum * fj["m_V"] * gradw_s, zero)
+        coef_solid = torch.where(solid_j & (torch.abs(k_i) > M_EPS),
+                                 k_i * fj["m_V"] * gradw_s, zero)
+        dv_coef = coef_fluid + coef_solid
+        if react:
+            reaction = torch.where(
+                fluid_j & (torch.abs(k_j) > M_EPS),
+                (k_j * fj["density"]) * gradw_s, zero) \
+                * (fi["m_V"] / torch.clamp_min(fi["density"], 1e-30))
+            dv_coef = torch.where(fi["material"] == MATERIAL_FLUID, dv_coef,
+                                  reaction)
+        return {"dv": dv_coef}
+
+    fields = {"material": p.material, "m_V": p.m_V, "kappa": kappa}
+    if react:
+        fields["density"] = p.density
+    out = GatherEngine(params).traverse(nl, p.x, fields, term,
+                                        {"dv": "radial"})
+    raw = torch.stack(out["dv"], dim=1)
+    v = torch.where(p.is_fluid()[:, None], v + dt * raw, v)
+    if react:
+        acc = torch.where(p.is_dynamic_rigid()[:, None], acc + raw, acc)
+    return v, (acc if react else None)
+
+
+def nonpressure_accel_plain(nl, p, params):
+    """Gravity for every dynamic particle plus surface tension and
+    viscosity for fluid centres (DFSPH.py:50-102); static rigid and
+    padding rows 0.  The boundary viscosity is 0.0, so solids add
+    nothing."""
+    h = params.support_radius
+    dim = params.dim
+    diameter = params.particle_diameter
+
+    def term(fi, fj, d2, rn, dots):
+        zero = torch.zeros_like(d2)
+        fluid_j = fj["material"] == MATERIAL_FLUID
+        w = cubic_kernel(rn, h, dim)
+        wd = cubic_kernel(torch.full((), diameter, dtype=rn.dtype,
+                                     device=rn.device), h, dim)
+        w_st = torch.where(d2 > diameter * diameter, w, wd)
+        st_coef = torch.where(
+            fluid_j, -div_exact(params.surface_tension, fi["m"]) * fj["m"]
+            * w_st, zero)
+        gradw_s = cubic_kernel_derivative_scalar(rn, h, dim,
+                                                 inv_r=dots["_inv"])
+        visc_coef = torch.where(
+            fluid_j,
+            2.0 * (dim + 2.0) * params.viscosity
+            * (fj["m"] / fj["density"]) * dots["v"] / (d2 + 0.01 * h * h)
+            * gradw_s, zero)
+        return {"a": st_coef + visc_coef}
+
+    out = GatherEngine(params).traverse(
+        nl, p.x, {"material": p.material, "m": p.m, "density": p.density,
+                  "v0": p.v[:, 0], "v1": p.v[:, 1], "v2": p.v[:, 2]},
+        term, {"a": "radial"}, pair_dots=("v",))
+    a_pair = torch.stack(out["a"], dim=1)
+    zero = torch.zeros_like(a_pair)
+    acc = torch.where(p.is_fluid()[:, None], a_pair, zero)
+    acc = torch.stack([g + acc[:, k] for k, g in enumerate(params.gravity)],
+                      dim=1)
+    acc = torch.where(p.is_static_rigid()[:, None], zero, acc)
+    return torch.where((p.material < 0)[:, None], zero, acc)
+
+
+def predict_velocity(p, acc, dt):
+    """Fluid-only v += dt * acc (DFSPH.py:392-397)."""
+    kick = (p.is_fluid() & (p.is_dynamic != 0))[:, None]
+    return torch.where(kick, p.v + dt * acc, p.v)
+
+
+def nonpressure_kick_plain(nl, p, dt, params):
+    """Plain version of ``nonpressure_kick``: (acc, v)."""
+    acc = nonpressure_accel_plain(nl, p, params)
+    return acc, predict_velocity(p, acc, dt)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    from sph_taichi_torch.ops import _build
+    lib = _build.load("dfsph")
+    if not getattr(lib, "_typed", False):
+        lib.dfsph_density_factor_launch.argtypes = (
+            [_PTR] * 7 + [PairConsts, _PTR])
+        lib.dfsph_divergence_launch.argtypes = (
+            [_PTR] * 10 + [ctypes.c_int, PairConsts, _PTR])
+        lib.dfsph_solver_dv_launch.argtypes = (
+            [_PTR] * 13 + [ctypes.c_int, PairConsts, _PTR])
+        lib.nonpressure_kick_launch.argtypes = (
+            [_PTR] * 10 + [PairConsts, _PTR])
+        for fn in (lib.dfsph_density_factor_launch,
+                   lib.dfsph_divergence_launch, lib.dfsph_solver_dv_launch,
+                   lib.nonpressure_kick_launch):
+            fn.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _plain_ctx(starts, p, params):
+    return GatherEngine(params).prepare(p.x, starts)
+
+
+def _active_ptr(active, dev):
+    if active is None:
+        return None
+    return _check("active", active, torch.bool, (), dev)
+
+
+def density_factor(starts, p, params):
+    """Kernel wrapper for ``density_factor_plain``: (density, factor).
+    ``starts``: cell offsets of the sorted particles ``p``."""
+    if p.x.device.type == "cpu":
+        return density_factor_plain(_plain_ctx(starts, p, params), p, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    density = torch.empty_like(p.m_V)
+    factor = torch.empty_like(p.m_V)
+    rc = _lib().dfsph_density_factor_launch(
+        ptr["x"], ptr["material"], ptr["m_V"],
+        _check("density", p.density, torch.float32, (n,), dev),
+        ptr["starts"], density.data_ptr(), factor.data_ptr(),
+        pair_consts(params), _stream(dev))
+    _raise_on(rc, "dfsph_density_factor")
+    LAUNCHES["dfsph_density_factor"] += 1
+    n_real = params.n_fluid + params.n_solid
+    density[n_real:] = p.density[n_real:]
+    factor[n_real:] = 0.0
+    return density, factor
+
+
+def divergence(starts, p, v, density, dt, mode, params, active=None):
+    """Kernel wrapper for ``divergence_plain``: (adv, errt).  ``density``
+    and ``dt`` (a 0-d f32 tensor on the device) are read in mode "adv"
+    only."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}, expected one of {MODES}")
+    if p.x.device.type == "cpu":
+        return divergence_plain(_plain_ctx(starts, p, params), p, v,
+                                density, dt, mode, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    f32 = torch.float32
+    is_adv = mode == "adv"
+    adv = torch.empty_like(p.m_V)
+    errt = torch.empty_like(p.m_V)
+    rc = _lib().dfsph_divergence_launch(
+        ptr["x"], _check("v", v, f32, (n, 3), dev), ptr["material"],
+        ptr["m_V"],
+        _check("density", density, f32, (n,), dev) if is_adv else None,
+        ptr["starts"], _check("dt", dt, f32, (), dev) if is_adv else None,
+        _active_ptr(active, dev), adv.data_ptr(), errt.data_ptr(),
+        int(is_adv), pair_consts(params), _stream(dev))
+    _raise_on(rc, "dfsph_divergence")
+    LAUNCHES[f"dfsph_divergence_{mode}"] += 1
+    n_real = params.n_fluid + params.n_solid
+    adv[n_real:] = 0.0
+    errt[n_real:] = 0.0
+    return adv, errt
+
+
+def solver_dv(starts, p, kappa, v, acc, dt, react, params, active=None):
+    """Kernel wrapper for ``solver_dv_plain``: (v, acc or None)."""
+    if p.x.device.type == "cpu":
+        return solver_dv_plain(_plain_ctx(starts, p, params), p, kappa, v,
+                               acc, dt, react, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    f32 = torch.float32
+    v_out = torch.empty_like(v)
+    acc_out = torch.empty_like(acc) if react else None
+    rc = _lib().dfsph_solver_dv_launch(
+        ptr["x"], ptr["material"],
+        _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
+        ptr["m_V"], _check("kappa", kappa, f32, (n,), dev),
+        _check("density", p.density, f32, (n,), dev) if react else None,
+        _check("v", v, f32, (n, 3), dev),
+        _check("acc", acc, f32, (n, 3), dev) if react else None,
+        ptr["starts"], _check("dt", dt, f32, (), dev),
+        _active_ptr(active, dev), v_out.data_ptr(),
+        acc_out.data_ptr() if react else None, int(react),
+        pair_consts(params), _stream(dev))
+    _raise_on(rc, "dfsph_solver_dv")
+    LAUNCHES["dfsph_solver_dv"] += 1
+    n_real = params.n_fluid + params.n_solid
+    v_out[n_real:] = v[n_real:]
+    if react:
+        acc_out[n_real:] = acc[n_real:]
+    return v_out, acc_out
+
+
+def nonpressure_kick(starts, p, dt, params):
+    """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v)."""
+    if p.x.device.type == "cpu":
+        return nonpressure_kick_plain(_plain_ctx(starts, p, params), p, dt,
+                                      params)
+    dev, n, ptr = _check_common(starts, p, params)
+    f32 = torch.float32
+    acc = torch.empty_like(p.x)
+    v_out = torch.empty_like(p.v)
+    rc = _lib().nonpressure_kick_launch(
+        ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
+        _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
+        _check("m", p.m, f32, (n,), dev),
+        _check("density", p.density, f32, (n,), dev), ptr["starts"],
+        _check("dt", dt, f32, (), dev), acc.data_ptr(), v_out.data_ptr(),
+        pair_consts(params), _stream(dev))
+    _raise_on(rc, "nonpressure_kick")
+    LAUNCHES["nonpressure_kick"] += 1
+    n_real = params.n_fluid + params.n_solid
+    acc[n_real:] = 0.0
+    v_out[n_real:] = p.v[n_real:]
+    return acc, v_out

@@ -24,6 +24,7 @@ plain path leaves them.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -36,6 +37,13 @@ from sph_taichi_torch.state import (
     MATERIAL_FLUID, MATERIAL_PAD, MATERIAL_SOLID)
 
 LAUNCHES = {"density_sum": 0, "wcsph_forces": 0}
+
+M_EPS = 1e-5    # DFSPH stiffness gate (DFSPH.py:17)
+
+
+def min_neighbors(dim):
+    """DFSPH particle-deficiency cutoff (DFSPH.py:171-176)."""
+    return 20 if dim == 3 else 7
 
 
 def reset_launch_counts():
@@ -180,17 +188,21 @@ def wcsph_forces_plain(nl, p, dpi, p_r02, m_nc, rr0, dt, params):
 # ---------------------------------------------------------------------------
 
 class PairConsts(ctypes.Structure):
-    """Mirror of ``struct PairConsts`` in csrc/pairs.cu (field for field)."""
+    """Mirror of ``struct PairConsts`` in csrc/pair_common.cuh (field for
+    field), shared by the WCSPH and DFSPH kernels."""
     _fields_ = [(n, ctypes.c_int) for n in ("n_real", "nx", "ny", "nz")] + [
         (n, ctypes.c_float) for n in (
             "inv_cell", "h2", "inv_h", "kw", "kw2", "kg", "nkg",
             "diam2", "wd", "st", "dvisc", "eps_h2", "neg_rho0", "rho0",
-            "g0", "g1", "g2", "lo", "hi0", "hi1", "hi2", "cf1")]
+            "g0", "g1", "g2", "lo", "hi0", "hi1", "hi2", "cf1",
+            "w0", "min_nbr", "m_eps")]
 
 
+@functools.lru_cache(maxsize=16)
 def pair_consts(params):
     """The kernels' constants, rounded to f32 on the host exactly as the
-    plain version rounds its Python-float operands."""
+    plain version rounds its Python-float operands (computed once per
+    params: a Jacobi loop launches two kernels per iteration)."""
     h = float(params.support_radius)
     k = norm_const(params.dim, h)
     diameter = params.particle_diameter
@@ -208,7 +220,10 @@ def pair_consts(params):
         rho0=params.density0,
         g0=params.gravity[0], g1=params.gravity[1], g2=params.gravity[2],
         lo=lo, hi0=hi[0], hi1=hi[1], hi2=hi[2],
-        cf1=1.0 + params.collision_factor)
+        cf1=1.0 + params.collision_factor,
+        w0=float(cubic_kernel(torch.zeros((), dtype=torch.float32), h,
+                              params.dim)),
+        min_nbr=float(min_neighbors(params.dim)), m_eps=M_EPS)
 
 
 _PTR = ctypes.c_void_p

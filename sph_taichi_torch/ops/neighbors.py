@@ -10,7 +10,8 @@ in exactly this order.
 
 - ``cnt`` is the exact number of within-radius neighbours (even beyond K).
 - Cells fuller than cell_cap or particles with more than K neighbours are
-  truncated; ``diag`` reports the neighbour overflow.
+  truncated; ``diag`` reports both overflows (the JAX package's gather
+  engine truncates full cells silently).
 """
 
 import itertools
@@ -18,13 +19,14 @@ from typing import NamedTuple
 
 import torch
 
-from sph_taichi_torch.ops.grid import pos_to_cell
+from sph_taichi_torch.ops.grid import max_cell_occupancy, pos_to_cell
 
 
 class NeighborList(NamedTuple):
     idx: torch.Tensor      # i64[N, K] sorted-order neighbour indices (0-filled tail)
     cnt: torch.Tensor      # i32[N] true within-radius neighbour count (may exceed K)
     max_cnt: torch.Tensor  # i32[] max neighbours seen for any particle
+    cell_overflow: torch.Tensor  # i32[] 1 when a cell holds more than cell_cap
 
     def mask(self):
         """bool[N, K]: which idx entries are valid."""
@@ -38,7 +40,8 @@ class NeighborList(NamedTuple):
         the physics is wrong; raise params.neighbor_cap."""
         k = self.idx.shape[1]
         return {"max_neighbors": self.max_cnt,
-                "neighbor_overflow": (self.max_cnt > k).to(torch.int32)}
+                "neighbor_overflow": (self.max_cnt > k).to(torch.int32),
+                "cell_overflow": self.cell_overflow}
 
 
 def build_neighbor_list(x, cell_starts, grid_num, grid_size, support_radius,
@@ -92,4 +95,6 @@ def build_neighbor_list(x, cell_starts, grid_num, grid_size, support_radius,
         cnt = cnt + ok.sum(dim=1)
 
     cnt = cnt.to(torch.int32)
-    return NeighborList(idx=nbr_idx[:, :k_cap], cnt=cnt, max_cnt=cnt.max())
+    return NeighborList(idx=nbr_idx[:, :k_cap], cnt=cnt, max_cnt=cnt.max(),
+                        cell_overflow=(max_cell_occupancy(starts)
+                                       > cell_cap).to(torch.int32))

@@ -2,6 +2,8 @@
 
     python -m sph_taichi_torch.run_simulation \
         --scene_file data/scenes/dragon_bath.json --max_frames 200
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/dragon_bath_dfsph.json --max_frames 50
 
 Runs on the CUDA device unless ``--device cpu`` is given.
 """
@@ -49,8 +51,22 @@ def main(argv=None):
                     torch.cuda.synchronize(dev)
                 el = time.time() - t0
                 steps = done * sim.substeps
-                print(f"frame {done}  t={float(sim.state.t):.4f}s  "
-                      f"{steps / el:.1f} steps/s", flush=True)
+                line = (f"frame {done}  t={float(sim.state.t):.4f}s  "
+                        f"{steps / el:.1f} steps/s")
+                st = sim.read_solver_stats()
+                sim.reset_solver_stats()
+                if "divergence_iters_sum" in st:
+                    k = st["steps"]
+                    reads = (st["divergence_host_reads"]
+                             + st["pressure_host_reads"])
+                    line += (
+                        f"  iterations/step divergence "
+                        f"{st['divergence_iters_sum'] / k:.2f} (max "
+                        f"{st['divergence_iters_max']}) pressure "
+                        f"{st['pressure_iters_sum'] / k:.2f} (max "
+                        f"{st['pressure_iters_max']})  host reads/step "
+                        f"{reads / k:.2f}")
+                print(line, flush=True)
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
 

@@ -18,6 +18,9 @@ from sph_taichi_torch.config import SimConfig
 from sph_taichi_torch.utils import exporters
 from sph_taichi_torch.utils.profiling import FATAL_KEYS, check_overflow
 
+ITER_KEYS = ("divergence_iters", "pressure_iters")
+HOST_READ_KEYS = ("divergence_host_reads", "pressure_host_reads")
+
 
 class Simulation:
     def __init__(self, scene_path=None, config=None, scene_dir=None,
@@ -44,6 +47,7 @@ class Simulation:
         self.solver = build_solver(self.params, device=particles.x.device)
         self.state = self.solver.initialize(particles)
         self.metrics = None
+        self.solver_stats = {}
         self.frame = 0
         self.export_count = 0
 
@@ -69,8 +73,35 @@ class Simulation:
                 if k in self.metrics:
                     f = self.metrics[k].to(torch.int32)
                     flags[k] = f if k not in flags else flags[k] | f
+            self._fold_solver_stats(self.metrics)
         self.frame += 1
         check_overflow(flags, where=f"frame {self.frame}")
+
+    def _fold_solver_stats(self, metrics):
+        st = self.solver_stats
+        st["steps"] = st.get("steps", 0) + 1
+        for k in ITER_KEYS:
+            if k in metrics:
+                it = metrics[k].to(torch.int64)
+                st[f"{k}_sum"] = st.get(f"{k}_sum", 0) + it
+                st[f"{k}_max"] = torch.maximum(st.get(f"{k}_max", it), it)
+        for k in HOST_READ_KEYS:
+            if k in metrics:
+                st[k] = st.get(k, 0) + metrics[k]
+
+    def reset_solver_stats(self):
+        self.solver_stats = {}
+
+    def read_solver_stats(self):
+        """{name: number} of ``solver_stats`` in one device read: per
+        solve, the iteration sum and maximum, and the Jacobi host reads,
+        over the steps since the last reset."""
+        st = self.solver_stats
+        dev = [k for k, v in st.items() if torch.is_tensor(v)]
+        vals = torch.stack([st[k] for k in dev]).tolist() if dev else []
+        out = {k: v for k, v in st.items() if not torch.is_tensor(v)}
+        out.update(zip(dev, vals))
+        return out
 
     def run(self, n_frames, export=True, progress=False):
         for _ in range(n_frames):

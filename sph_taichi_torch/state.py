@@ -43,7 +43,7 @@ class Particles(NamedTuple):
     material: torch.Tensor    # i32[N]  1=fluid 0=solid -1=padding
     is_dynamic: torch.Tensor  # i32[N]
     color: torch.Tensor       # i32[N,3]
-    # DFSPH extras; None for WCSPH (the DFSPH port is still to come)
+    # DFSPH extras (kappa_* only with the warm start); None for WCSPH
     dfsph_factor: Optional[torch.Tensor] = None
     density_adv: Optional[torch.Tensor] = None
     kappa_v: Optional[torch.Tensor] = None
@@ -120,7 +120,7 @@ class SimParams:
     obj_m0: tuple = ()            # creation m per object, tabled VERBATIM
     #                               (recomputing m_V0*density0 lands 1 ulp
     #                               off creation's f64-multiply-then-cast)
-    dfsph_warm_start: bool = False  # DFSPH kappa warm start (DFSPH port pending)
+    dfsph_warm_start: bool = False  # DFSPH kappa warm start (TPU.dfsphWarmStart)
     # fixed reference constants
     viscosity: float = 0.01       # sph_base.py:15
     surface_tension: float = 0.01 # WCSPH.py:15 / DFSPH.py:9

@@ -2,15 +2,16 @@
 sph_taichi_tpu/utils/profiling.py ``check_overflow``).
 
 The CUDA engine walks whole cell ranges and has no capacity to overflow,
-so two flags remain: the sort invariant (a corrupted sort poisons every
-pair sum) and the plain engine's neighbour-list overflow.
+so three flags remain: the sort invariant (a corrupted sort poisons every
+pair sum) and the plain engine's neighbour-list and cell overflows.
 """
 
 import warnings
 
 import torch
 
-FATAL_KEYS = ("sort_invariant_violated", "neighbor_overflow")
+FATAL_KEYS = ("sort_invariant_violated", "neighbor_overflow",
+              "cell_overflow")
 
 
 def check_overflow(metrics, where="step", strict=False):
@@ -25,8 +26,8 @@ def check_overflow(metrics, where="step", strict=False):
     fired = [k for k, f in zip(present, flags.tolist()) if f]
     if fired:
         msg = (f"fatal flag during {where}: {fired} — pair sums are wrong "
-               f"(a corrupted sort, or params.neighbor_cap too small for "
-               f"the plain engine).")
+               f"(a corrupted sort, or params.neighbor_cap or cell_cap too "
+               f"small for the plain engine).")
         if strict:
             raise RuntimeError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=2)

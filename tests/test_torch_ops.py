@@ -256,9 +256,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 def test_cuda_pairs_needs_no_nvcc_to_import():
     """The module and its ctypes layout load without a toolkit: the build
     happens at the first launch.  The ctypes struct must list the fields
-    of csrc/pairs.cu's PairConsts in the same order."""
+    of PairConsts (csrc/pair_common.cuh, included by every kernel source)
+    in the same order."""
     src = (cuda_pairs.__file__.rsplit("/ops/", 1)[0]
-           + "/csrc/pairs.cu")
+           + "/csrc/pair_common.cuh")
     body = re.search(r"struct PairConsts \{(.*?)\};", open(src).read(),
                      re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
