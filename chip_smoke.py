@@ -11,7 +11,11 @@ Phases (any failure raises and exits non-zero):
    cells): the WCSPH kernels with and without the two-way reaction, the
    DFSPH kernels (both divergence modes, the solver update with and without
    the reaction), and the DFSPH kernels and two whole steps on a block
-   that falls onto the floor, where the Jacobi loops iterate;
+   that falls onto the floor, where the Jacobi loops iterate; the four
+   IISPH kernels on a clumped scene with a static rigid block and on the
+   floor impact (pressures from a seed), and the floor impact's first
+   three IISPH steps at dt 1e-3 (59 and 7 iterations in the second and
+   third), kernel engine against plain engine;
 3. the WCSPH path: data/scenes/dragon_bath.json (442,006 particles)
    through ``Simulation`` on the card, timed with CUDA events; the kernels'
    launch counts over that run; per-kernel and plain-version times at the
@@ -25,7 +29,23 @@ Phases (any failure raises and exits non-zero):
    plain-engine step; per-kernel and plain-version times;
 5. the DFSPH reaction variant at scale: data/scenes/
    dragon_bath_dynamic_dfsph.json (a dynamic dragon), run until the fluid
-   reaches the dragon, then 5 timed steps and the reaction kernel's time.
+   reaches the dragon, then 5 timed steps and the reaction kernel's time;
+6. the IISPH path: data/scenes/dragon_bath.json with simulationMethod 2
+   (442,006 particles, dt 4e-4) through ``Simulation``, 20 steps after 5
+   of warm-up, timed with CUDA events; pressure iterations and host reads
+   per step, launch counts (f1 = f2 = steps, f3 and f4 k per host read in
+   the loop, f3 once more per step with the advect); the host syncs of one
+   step; stage times; the step time by the Jacobi loop's read interval;
+   one kernel step against one plain-engine step; per-kernel and
+   plain-version times and bounds, and the bounds of the kernels still to
+   port;
+7. the IISPH iterating regime: the same scene at dt 2e-3, run until a
+   step's pressure solve iterates more than once, then 5 timed steps and
+   the read-interval sweep; at that state (pressures not 0) the loop's
+   kernels against their plain
+   versions and one kernel step against one plain-engine step;
+8. the armadillo scene's particle counts (build_scene only): its solids
+   take the dense boundary-volume path, not kernel 2.1 c.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -69,6 +89,18 @@ SOLVER_DV_FLOPS_PER_PAIR = 36
 # non-pressure (fluid pairs only): dW/r 12, W 13, surface tension 2,
 #   v_ij.r_ij 8, viscosity 6, sum 1, radial 6
 NONPRESSURE_FLOPS_PER_PAIR = 60
+# counted from csrc/iisph.cu on the same scale (distance 8, sqrt+square 2,
+# inverse 2, dW/r 12):
+# non-pressure (fluid j): v_ij.r_ij 8, viscosity 6, radial 6
+IISPH_NONPRESSURE_FLOPS_PER_PAIR = 44
+# predict advection (real j): m_V dW 1, rho_j^2 and S coefficient 2,
+#   v_ij.r_ij 8, G and S radial 12, Q 3, div 2
+IISPH_PREDICT_FLOPS_PER_PAIR = 52
+# pressure acceleration (fluid and solid j): p_j / rho_j^2 2, pressure
+#   coefficient 4, radial 6
+IISPH_PRESSURE_FLOPS_PER_PAIR = 36
+# A (real j): a_ij.r_ij 8, m_V dW a 2, sum 1
+IISPH_APPLY_A_FLOPS_PER_PAIR = 35
 
 
 def small_scene(two_way=False):
@@ -402,14 +434,16 @@ def check_state(sim):
 
 
 def reset_all_launch_counts():
-    from sph_taichi_torch.ops import cuda_dfsph, cuda_pairs
+    from sph_taichi_torch.ops import cuda_dfsph, cuda_iisph, cuda_pairs
     cuda_pairs.reset_launch_counts()
     cuda_dfsph.reset_launch_counts()
+    cuda_iisph.reset_launch_counts()
 
 
 def all_launch_counts():
-    from sph_taichi_torch.ops import cuda_dfsph, cuda_pairs
-    return {**cuda_pairs.LAUNCHES, **cuda_dfsph.LAUNCHES}
+    from sph_taichi_torch.ops import cuda_dfsph, cuda_iisph, cuda_pairs
+    return {**cuda_pairs.LAUNCHES, **cuda_dfsph.LAUNCHES,
+            **cuda_iisph.LAUNCHES}
 
 
 def main_path(device, scene_path, warmup, steps):
@@ -617,7 +651,7 @@ def dfsph_path(device, scene_path, warmup, steps):
 
     from sph_taichi_torch import build_solver
     from sph_taichi_torch.models import base
-    from sph_taichi_torch.models.dfsph import JACOBI_CHECK_EVERY as K
+    from sph_taichi_torch.models.base import JACOBI_CHECK_EVERY as K
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.simulation import Simulation
@@ -641,7 +675,7 @@ def dfsph_path(device, scene_path, warmup, steps):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)]
+             if "called a synchronizing" in str(w.message)]
     reads = m["divergence_host_reads"] + m["pressure_host_reads"]
     print(f"one DFSPH step under torch.cuda sync-debug mode 'warn': "
           f"{len(where)} host syncs {where}; the solver reports {reads} "
@@ -859,10 +893,11 @@ def dfsph_path(device, scene_path, warmup, steps):
 
 
 def k_sweep(solver, state, label, steps=5, turns=3):
-    """Step ms by the Jacobi loops' read interval k: ``steps`` steps from
-    ``state`` per setting, the settings interleaved over ``turns`` turns,
-    host clock around work that ends in a synchronize."""
-    from sph_taichi_torch.models.dfsph import JACOBI_CHECK_EVERY as K
+    """Step ms by the Jacobi loops' read interval k (DFSPH's two solves or
+    IISPH's one): ``steps`` steps from ``state`` per setting, the settings
+    interleaved over ``turns`` turns, host clock around work that ends in
+    a synchronize."""
+    from sph_taichi_torch.models.base import JACOBI_CHECK_EVERY as K
 
     per_k, iters = {}, None
     for turn in range(turns):
@@ -873,7 +908,8 @@ def k_sweep(solver, state, label, steps=5, turns=3):
             t0 = time.perf_counter()
             for _ in range(steps):
                 s, m = solver.step(s)
-                its.append(m["divergence_iters"] + m["pressure_iters"])
+                its.append(sum(m[k] for k in ("divergence_iters",
+                                              "pressure_iters") if k in m))
             torch.cuda.synchronize()
             per_k.setdefault(every, []).append(
                 (time.perf_counter() - t0) * 1e3 / steps)
@@ -972,6 +1008,557 @@ def reaction_at_scale(device, scene_path, steps, max_lead=200):
     return step_ms, react_ms
 
 
+def iisph_scene(kind):
+    """Small IISPH scenes: "rigid" is the small block beside a static rigid
+    block (tests/test_iisph_oracle.py's scene, dt 4e-3); "floor_impact" is
+    the DFSPH floor impact at dt 1e-3, where the pressure solve runs 59
+    iterations in the second step and 7 in the third (at 4e-3 IISPH does
+    not converge there, in either package)."""
+    d = small_scene()
+    cfg = d["Configuration"]
+    cfg["simulationMethod"], cfg["timeStepSize"] = 2, 4e-3
+    if kind == "rigid":
+        d["RigidBlocks"] = [{
+            "objectId": 1, "start": [0.55, 0.1, 0.1],
+            "end": [0.8, 0.35, 0.35], "translation": [0.0, 0.0, 0.0],
+            "scale": [1.0, 1.0, 1.0], "velocity": [0.0, 0.0, 0.0],
+            "density": 1000.0, "color": [100, 100, 100],
+            "isDynamic": False}]
+    elif kind == "floor_impact":
+        d = dfsph_scene("floor_impact")
+        d["Configuration"]["simulationMethod"] = 2
+        d["Configuration"]["timeStepSize"] = 1e-3
+    return d
+
+
+def random_pressure(p, seed=3):
+    """A pressure field of 0 .. 2000 Pa on real rows, 0 on padding."""
+    rng = np.random.default_rng(seed)
+    pr = torch.tensor(rng.uniform(0.0, 2000.0, p.n).astype(np.float32),
+                      device=p.x.device)
+    return torch.where(p.material >= 0, pr, 0.0)
+
+
+def compare_iisph_kernels(params, p, nl, starts, pressure, label, worst):
+    """f1-f4 against their plain versions at one state, each kernel on the
+    plain chain's inputs.  ``pressure`` is the loop's last_p for the
+    pressure acceleration and A."""
+    from sph_taichi_torch.ops import cuda_iisph as ci
+
+    device = p.x.device
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
+    omega = 0.5
+
+    def check(name, got, ref, what):
+        if torch.is_tensor(ref):
+            got, ref = (got,), (ref,)
+        for field, a, b in zip(what, got, ref):
+            worst[name] = max(worst.get(name, 0.0), max_errors(
+                a, b, f"{name}[{label}].{field}"))
+
+    ref = ci.nonpressure_kick_plain(nl, p, dt, params)
+    check("iisph_nonpressure_kick", ci.nonpressure_kick(starts, p, dt, params),
+          ref, ("acc", "v"))
+    p = p._replace(acc=ref[0], v=ref[1])
+    ref = ci.predict_advection_plain(nl, p, dt, params)
+    check("iisph_predict_advection",
+          ci.predict_advection(starts, p, dt, params), ref,
+          ("a_ii", "source", "last_p"))
+    a_ii, source, _ = ref
+    accel = ci.pressure_accel_plain(nl, p, pressure, params)
+    check("iisph_pressure_accel", ci.pressure_accel(starts, p, pressure,
+                                                    params), accel, ("accel",))
+    solid = p.material == 0
+    if bool(solid.any()) and float(accel[solid].abs().max()) == 0.0:
+        raise AssertionError("solid rows' pressure acceleration is 0")
+    check("iisph_pressure_accel",
+          ci.pressure_accel(starts, p, pressure, params, advect_dt=dt),
+          ci.pressure_accel_plain(nl, p, pressure, params, advect_dt=dt),
+          ("advect.v", "advect.x"))
+    got = ci.apply_A(starts, p, accel, a_ii, source, pressure, dt, omega,
+                     params)
+    ref = ci.apply_A_plain(nl, p, accel, a_ii, source, pressure, dt, omega,
+                           params)
+    check("iisph_apply_A", got, ref, ("new_p", "err"))
+    real = p.material >= 0
+    share = float((ref[0][real] > 0).float().mean())
+    print(f"  {label}: share of rows with a positive Jacobi pressure "
+          f"{share:.3f}")
+    return share
+
+
+def check_iisph_on_small_scenes(device):
+    """The IISPH kernels against their plain versions on a clumped scene
+    with a static rigid and on the floor impact; then the floor impact's
+    first three IISPH steps, kernel engine against plain engine from the
+    same state each step, with equal iteration counts (59 and 7 in the
+    second and third)."""
+    from sph_taichi_torch import SimConfig, build_scene, build_solver
+    from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    worst, shares = {}, []
+    for kind, clump in (("rigid", True), ("floor_impact", False)):
+        params, solver, p, nl, starts, diag = prepared(
+            iisph_scene(kind), device, seed=0, clump=clump)
+        if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+            raise AssertionError(f"{kind}: the plain engine's caps overflowed")
+        print(f"IISPH small scene {kind}: {params.n_particles} particles "
+              f"({params.n_solid} static solids), max cell occupancy "
+              f"{int(diag['max_cell_occupancy'])}")
+        shares.append(compare_iisph_kernels(params, p, nl, starts,
+                                            random_pressure(p), kind, worst))
+    if not any(0.0 < s < 1.0 for s in shares):
+        raise AssertionError("the Jacobi update's clamp not exercised")
+
+    params, part, _ = build_scene(SimConfig(config_dict=iisph_scene(
+        "floor_impact")), device=device)
+    ksolver = build_solver(params, device=device)
+    psolver = build_solver(params, device=device,
+                           engine=GatherEngine(params))
+    state = ksolver.initialize(part)
+    iters = []
+    for step in range(3):
+        ci.reset_launch_counts()
+        ks, km = ksolver.step(state)
+        ps, pm = psolver.step(state)
+        its = (int(km["pressure_iters"]), int(pm["pressure_iters"]))
+        iters.append(its[0])
+        print(f"  IISPH floor impact step {step + 1}: pressure iterations "
+              f"(kernel, plain) {its}; launches {dict(ci.LAUNCHES)}")
+        if its[0] != its[1]:
+            raise AssertionError("iteration counts differ")
+        real = ps.p.material != -1
+        for name in ("x", "v", "density", "pressure", "acc"):
+            max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                       f"IISPH floor impact step {step + 1}: {name}")
+        state = ks
+    if max(iters) < 2:
+        raise AssertionError("the floor impact's pressure solve did not "
+                             "iterate")
+    return worst
+
+
+def iisph_dragon_config(dt=None):
+    """data/scenes/dragon_bath.json with simulationMethod 2 (and ``dt``)."""
+    from sph_taichi_torch import SimConfig
+
+    with open("data/scenes/dragon_bath.json") as f:
+        d = json.load(f)
+    d["Configuration"]["simulationMethod"] = 2
+    if dt is not None:
+        d["Configuration"]["timeStepSize"] = dt
+    return SimConfig(config_dict=d)
+
+
+def iisph_state_kernels(params, solver, state):
+    """Inputs of the four IISPH kernels at a dragon state, built by the
+    kernels themselves as in a step, the plain engine's neighbour lists
+    (caps raised to what the state needs), and the pair counts each
+    kernel walks."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    q, starts, _ = base.bin_and_sort(state.p, params, solver.engine,
+                                     solver.tables)
+    occ = int(base.max_cell_occupancy(starts))
+    caps = dataclasses.replace(params, cell_cap=max(params.cell_cap, occ))
+    nl = GatherEngine(caps).prepare(q.x, starts)
+    if int(nl.diag["neighbor_overflow"]):
+        caps = dataclasses.replace(caps, neighbor_cap=int(nl.max_cnt))
+        nl = GatherEngine(caps).prepare(q.x, starts)
+    q = base.compute_densities(q, starts, solver.engine, params)
+    q = solver.compute_non_pressure(q, starts, state.dt)
+    a_ii, source, last_p = solver.predict_advection(q, starts, state.dt)
+    accel = solver._pressure_accel(q, starts, last_p)
+    n_real = params.n_fluid + params.n_solid
+    valid = nl.mask()
+    mat_j = q.material[nl.idx]
+    fluid_i = (q.material == 1)[:, None]
+    solid_i = (q.material == 0)[:, None]
+    pairs = {"real": int(nl.cnt[:n_real].long().sum()),
+             "fluid_j": int((valid & (mat_j == 1))[:n_real].sum()),
+             # for the kernels still to port (unported_bounds)
+             "fluid_i": int((valid & fluid_i).sum()),
+             "solid_solid": int((valid & solid_i & (mat_j == 0)).sum())}
+    print(f"within-radius pairs with a real centre: {pairs['real']}, of them "
+          f"with a fluid neighbour {pairs['fluid_j']}, with a fluid centre "
+          f"{pairs['fluid_i']}, solid-solid {pairs['solid_solid']}; max "
+          f"neighbours {int(nl.max_cnt)}, max cell occupancy {occ} (the oracle's caps "
+          f"{caps.neighbor_cap}, {caps.cell_cap}); last_p max "
+          f"{float(last_p.max()):.4f} Pa")
+    return q, starts, nl, (a_ii, source, last_p, accel), pairs
+
+
+def unported_bounds(params, pairs):
+    """Bounds of the TPU kernels still to port (PERF.md's table), worked out
+    from the JAX terms at this state's pair counts, as a cell-walk kernel
+    of this port would do the work: computed, not measured.
+    c. boundary volume (models/base.py:198-213): W over solid pairs of
+       solid centres (distance 8, sqrt+square 2, W 13, sum 1); reads x and
+       material, writes m_V.
+    g1. PCISPH _d_rho with its correction epilogue (models/pcisph.py:68-118):
+       (v_i - v_j) . dW over real j of fluid centres (distance 8,
+       sqrt+square 2, inverse 2, dW/r 12, v_ij.r_ij 8, product and sum 3);
+       reads x, v, material, m_V, density, pr, writes pr and rho_err.
+    g2. PCISPH _pressure_accel with its predict epilogue (:120-179): f3's
+       term over the fluid centres' pairs; reads x, material, m_V, density,
+       pr, v, acc, writes v*."""
+    n = params.n_fluid + params.n_solid
+    cells = 4 * (params.num_cells + 2)
+    return {
+        "c": bound("boundary volume (2.1 c, not ported)", n * 20 + cells,
+                   pairs["solid_solid"] * 24),
+        "g1": bound("PCISPH _d_rho (2.1 g, not ported)", n * 48 + cells + 8,
+                    pairs["fluid_i"] * 35),
+        "g2": bound("PCISPH _pressure_accel (2.1 g, not ported)",
+                    n * 64 + cells + 4,
+                    pairs["fluid_i"] * IISPH_PRESSURE_FLOPS_PER_PAIR)}
+
+
+def armadillo_counts(device):
+    """The armadillo scene's particle counts (build_scene alone): its
+    solids stay under DENSE_SOLID_CAP, so its boundary volumes take the
+    dense path, not kernel 2.1 c."""
+    from sph_taichi_torch import SimConfig, build_scene
+    from sph_taichi_torch.models.base import DENSE_SOLID_CAP
+
+    params, _, _ = build_scene(SimConfig(
+        "data/scenes/armadillo_bath_dynamic.json"), device=device)
+    dense = params.n_solid <= DENSE_SOLID_CAP
+    print(f"armadillo_bath_dynamic: {params.n_fluid} fluid + "
+          f"{params.n_solid} solid particles, dynamic rigids "
+          f"{params.dynamic_rigid_ids}; boundary volumes by the "
+          f"{'dense path' if dense else 'traversal (kernel 2.1 c)'} "
+          f"(cap {DENSE_SOLID_CAP})")
+    return params.n_fluid, params.n_solid
+
+
+def iisph_path(device, warmup, steps):
+    """The IISPH path: dragon_bath.json with simulationMethod 2 through
+    ``Simulation``; returns the kernels' JSON entries and the step time."""
+    import warnings
+
+    from sph_taichi_torch import build_solver
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.models.base import JACOBI_CHECK_EVERY as K
+    from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops.pairs import GatherEngine
+    from sph_taichi_torch.simulation import Simulation
+
+    t0 = time.perf_counter()
+    sim = Simulation(config=iisph_dragon_config(), scene_dir=".")
+    torch.cuda.synchronize()
+    params = sim.params
+    if type(sim.solver).__name__ != "IISPHSolver":
+        raise AssertionError(f"method 2 built {type(sim.solver).__name__}")
+    print(f"dragon_bath, IISPH: {params.n_particles} particles (fluid "
+          f"{params.n_fluid}, solid {params.n_solid}), dt {params.dt0}; "
+          f"scene + initialize {time.perf_counter() - t0:.2f} s")
+    sim.run(warmup, export=False)
+    torch.cuda.synchronize()
+
+    # every host sync of a step is a read of the Jacobi loop's test
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, m = sim.solver.step(sim.state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"one IISPH step under torch.cuda sync-debug mode 'warn': "
+          f"{len(where)} host syncs {where}; the solver reports "
+          f"{m['pressure_host_reads']} reads of its loop test (iterations "
+          f"{int(m['pressure_iters'])}, a read every {K})")
+    if len(where) != m["pressure_host_reads"]:
+        raise AssertionError("an IISPH step syncs outside its loop test")
+
+    # the IISPH path: counts to 0 just before, read just after
+    reset_all_launch_counts()
+    sim.reset_solver_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    st = sim.read_solver_stats()
+    step_ms = start.elapsed_time(end) / steps
+    n_it, reads = st["pressure_iters_sum"], st["pressure_host_reads"]
+    print(f"IISPH path: {steps} steps, {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s; pressure iterations per step mean "
+          f"{n_it / steps:.2f} max {st['pressure_iters_max']}; host reads "
+          f"per step {reads / steps:.2f}; launches {launches}")
+    # f1 = f2 = steps; in the loop f3 = f4 = k x reads (the iterations
+    # queued after the exit return at once); f3 once more per step, with
+    # the advect
+    expect = {"density_sum": steps, "iisph_nonpressure_kick": steps,
+              "iisph_predict_advection": steps,
+              "iisph_pressure_accel": K * reads,
+              "iisph_pressure_accel_advect": steps,
+              "iisph_apply_A": K * reads}
+    for name, count in launches.items():
+        if count != expect.get(name, 0):
+            raise AssertionError(f"{name}: {count} launches in {steps} "
+                                 f"IISPH steps, expected "
+                                 f"{expect.get(name, 0)}")
+    if not n_it <= K * reads <= n_it + (K - 1) * steps:
+        raise AssertionError(f"{n_it} iterations, {reads} reads")
+    print(f"  pressure solve: {n_it} iterations ran (the loop launches with "
+          f"work), {K * reads - n_it} queued after the exit")
+
+    busy_ms = profile_steps(sim, 5)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
+              f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+
+    check_state(sim)
+    metrics = sim.metrics
+    print(f"state after {int(sim.state.step_count)} steps: t "
+          f"{float(sim.state.t):.4f} s, max fluid speed "
+          f"{float(metrics['max_velocity']):.4f} m/s, pressure error "
+          f"{float(metrics['pressure_error']):.6f}")
+
+    # stage times of one step at this state (events around each stage)
+    solver, state = sim.solver, sim.state
+
+    def staged_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        q, ctx, _ = base.bin_and_sort(state.p, params, solver.engine,
+                                      solver.tables)
+        ev[1].record()
+        q = base.compute_densities(q, ctx, solver.engine, params)
+        ev[2].record()
+        q = solver.compute_non_pressure(q, ctx, state.dt)
+        ev[3].record()
+        a_ii, source, last_p = solver.predict_advection(q, ctx, state.dt)
+        ev[4].record()
+        pr, _ = solver.pressure_solve(q, ctx, a_ii, source, last_p, state.dt)
+        ev[5].record()
+        q = solver._pressure_accel(q._replace(pressure=pr), ctx, pr,
+                                   advect_dt=state.dt)
+        ev[6].record()
+        q, _ = base.solve_rigid_body(q, state.rigid_rest_cm, params)
+        base.enforce_boundary(q, params, 1)
+        ev[7].record()
+        return ev
+
+    for _ in range(2):
+        staged_step()
+    evs = [staged_step() for _ in range(5)]
+    torch.cuda.synchronize()
+    stages = {}
+    for k, name in enumerate(("bin_and_sort", "densities",
+                              "non-pressure + kick", "predict advection",
+                              "pressure solve", "pressure accel + advect",
+                              "rigid + clamp")):
+        stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
+    print("IISPH stage ms at this state: " + json.dumps(
+        {k: round(v, 4) for k, v in stages.items()}))
+    k_sweep(solver, state, f"IISPH step {int(state.step_count)}")
+
+    # one kernel step against one plain-engine step from the same state
+    plain_solver = build_solver(params, device=device,
+                                engine=GatherEngine(params))
+    ks, km = solver.step(state)
+    ps, pm = plain_solver.step(state)
+    if int(pm["neighbor_overflow"]) or int(pm["cell_overflow"]):
+        raise AssertionError("plain step overflowed its caps")
+    its = (int(km["pressure_iters"]), int(pm["pressure_iters"]))
+    print(f"IISPH step kernel vs plain engine: pressure iterations (kernel, "
+          f"plain) {its}")
+    if its[0] != its[1]:
+        raise AssertionError("iteration counts differ")
+    real = ps.p.material != -1
+    for name in ("x", "v", "density", "pressure", "acc"):
+        max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                   f"IISPH step kernel vs plain engine: {name}")
+    del plain_solver, ps
+
+    # per-kernel times at the dragon state's shapes, and the plain versions
+    q, starts, nl, (a_ii, source, last_p, accel), pairs = \
+        iisph_state_kernels(params, solver, state)
+    dt = state.dt
+    omega = solver.omega
+    reset_all_launch_counts()     # comparison launches are not the path's
+    calls = {
+        "iisph_nonpressure_kick": (
+            lambda: ci.nonpressure_kick(starts, q, dt, params),
+            lambda: ci.nonpressure_kick_plain(nl, q, dt, params)),
+        "iisph_predict_advection": (
+            lambda: ci.predict_advection(starts, q, dt, params),
+            lambda: ci.predict_advection_plain(nl, q, dt, params)),
+        "loop": (
+            lambda: ci.pressure_accel(starts, q, last_p, params),
+            lambda: ci.pressure_accel_plain(nl, q, last_p, params)),
+        "advect": (
+            lambda: ci.pressure_accel(starts, q, last_p, params,
+                                      advect_dt=dt),
+            lambda: ci.pressure_accel_plain(nl, q, last_p, params,
+                                            advect_dt=dt)),
+        "iisph_apply_A": (
+            lambda: ci.apply_A(starts, q, accel, a_ii, source, last_p, dt,
+                               omega, params),
+            lambda: ci.apply_A_plain(nl, q, accel, a_ii, source, last_p, dt,
+                                     omega, params)),
+    }
+    n = params.n_fluid + params.n_solid
+    ms, plain_ms, err = {}, {}, {}
+    for name, (kern, plain) in calls.items():
+        ms[name] = time_ms(kern, 20)
+        plain_ms[name] = time_ms(plain, 3)
+        got, ref = kern(), plain()
+        if torch.is_tensor(ref):
+            got, ref = (got,), (ref,)
+        err[name] = 0.0
+        for k, (a, b) in enumerate(zip(got, ref)):
+            err[name] = max(err[name], max_errors(
+                a[:n], b[:n], f"dragon {name} output {k}"))
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
+              f" ms")
+
+    cells = 4 * (params.num_cells + 2)
+    bounds = {
+        "iisph_nonpressure_kick": bound(
+            "iisph_nonpressure_kick", n * 60 + cells + 4,
+            pairs["fluid_j"] * IISPH_NONPRESSURE_FLOPS_PER_PAIR),
+        "iisph_predict_advection": bound(
+            "iisph_predict_advection", n * 52 + cells + 4,
+            pairs["real"] * IISPH_PREDICT_FLOPS_PER_PAIR),
+        # f3 walks fluid and solid j: every real one
+        "loop": bound("iisph_pressure_accel<false>", n * 40 + cells + 1,
+                      pairs["real"] * IISPH_PRESSURE_FLOPS_PER_PAIR),
+        "advect": bound("iisph_pressure_accel<true>", n * 64 + cells + 4,
+                        pairs["real"] * IISPH_PRESSURE_FLOPS_PER_PAIR),
+        "iisph_apply_A": bound(
+            "iisph_apply_A", n * 52 + cells + 5,
+            pairs["real"] * IISPH_APPLY_A_FLOPS_PER_PAIR),
+    }
+    unported_bounds(params, pairs)
+    # the pressure-acceleration entry: both variants, weighted by their
+    # launches on the path
+    w_loop = launches["iisph_pressure_accel"]
+    w_adv = launches["iisph_pressure_accel_advect"]
+
+    def mixed(d):
+        return (w_loop * d["loop"] + w_adv * d["advect"]) / (w_loop + w_adv)
+
+    ms["iisph_pressure_accel"] = mixed(ms)
+    plain_ms["iisph_pressure_accel"] = mixed(plain_ms)
+    err["iisph_pressure_accel"] = max(err["loop"], err["advect"])
+    bounds["iisph_pressure_accel"] = (
+        mixed({k: bounds[k][0] for k in ("loop", "advect")}),
+        bounds["advect"][1])
+    launches["iisph_pressure_accel"] = w_loop + w_adv
+    src = "sph_taichi_torch/csrc/iisph.cu"
+    kernels = []
+    for name in ("iisph_nonpressure_kick", "iisph_predict_advection",
+                 "iisph_pressure_accel", "iisph_apply_A"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None})
+    return kernels, step_ms
+
+
+def iisph_iterating(device, dt, steps, max_lead=400):
+    """The IISPH dragon at a larger dt: run until a step's pressure solve
+    iterates more than once (reading the counts every 10 steps, at most
+    ``max_lead`` steps), then ``steps`` timed steps."""
+    from sph_taichi_torch.simulation import Simulation
+
+    sim = Simulation(config=iisph_dragon_config(dt), scene_dir=".")
+    t0 = time.perf_counter()
+    first = None
+    while True:
+        sim.reset_solver_stats()
+        sim.run(10 // sim.substeps, export=False)
+        st = sim.read_solver_stats()
+        if first is None:
+            first = st
+            print(f"IISPH dragon at dt {dt}: the first 10 steps from t = 0 "
+                  f"run {st['pressure_iters_sum']} pressure iterations (max "
+                  f"{st['pressure_iters_max']} per step)")
+        if st["pressure_iters_max"] > 1:
+            break
+        if int(sim.state.step_count) >= max_lead:
+            raise AssertionError(f"no IISPH step iterated more than once in "
+                                 f"{max_lead} steps at dt {dt}")
+    check_state(sim)
+    print(f"  by step {int(sim.state.step_count)} (t "
+          f"{float(sim.state.t):.4f} s, {time.perf_counter() - t0:.1f} s) a "
+          f"step iterates: {st['pressure_iters_sum']} iterations in the last "
+          f"10 steps, max {st['pressure_iters_max']}")
+    sim.reset_solver_stats()
+    its = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        sim.run_frame()
+        its.append(sim.metrics["pressure_iters"])
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    its = [int(i) for i in its]
+    check_state(sim)
+    print(f"IISPH iterating regime (dt {dt}): {steps} steps from step "
+          f"{int(sim.state.step_count) - steps}, {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s; pressure iterations per step {its}; "
+          f"max fluid speed {float(sim.metrics['max_velocity']):.4f} m/s, "
+          f"pressure error {float(sim.metrics['pressure_error']):.6f}")
+    if max(its) < 2:
+        raise AssertionError("the timed IISPH steps did not iterate")
+    k_sweep(sim.solver, sim.state,
+            f"IISPH dt {dt} step {int(sim.state.step_count)}")
+
+    # where the pressure is not 0: the loop's two kernels against their
+    # plain versions on the state's own inputs, and one kernel step
+    # against one plain-engine step
+    from sph_taichi_torch import build_solver
+    from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    params, solver, state = sim.params, sim.solver, sim.state
+    q, starts, nl, (a_ii, source, last_p, accel), _ = iisph_state_kernels(
+        params, solver, state)
+    if float(last_p.max()) <= 0.0:
+        raise AssertionError("no pressure at the iterating state")
+    max_errors(ci.pressure_accel(starts, q, last_p, params),
+               ci.pressure_accel_plain(nl, q, last_p, params),
+               "iterating state iisph_pressure_accel")
+    for name, a, b in zip(
+            ("new_p", "err"),
+            ci.apply_A(starts, q, accel, a_ii, source, last_p, state.dt,
+                       solver.omega, params),
+            ci.apply_A_plain(nl, q, accel, a_ii, source, last_p, state.dt,
+                             solver.omega, params)):
+        max_errors(a, b, f"iterating state iisph_apply_A.{name}")
+    plain_solver = build_solver(params, device=device,
+                                engine=GatherEngine(params))
+    ks, km = solver.step(state)
+    ps, pm = plain_solver.step(state)
+    if int(pm["neighbor_overflow"]) or int(pm["cell_overflow"]):
+        raise AssertionError("plain step overflowed its caps")
+    pair = (int(km["pressure_iters"]), int(pm["pressure_iters"]))
+    print(f"IISPH step kernel vs plain engine at the iterating state: "
+          f"pressure iterations (kernel, plain) {pair}")
+    if pair[0] != pair[1]:
+        raise AssertionError("iteration counts differ")
+    real = ps.p.material != -1
+    for name in ("x", "v", "density", "pressure", "acc"):
+        max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                   f"IISPH iterating step kernel vs plain engine: {name}")
+    return step_ms, its
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -991,8 +1578,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    sources = ["pairs", "dfsph"]
+    t_start = t0 = time.perf_counter()
+    sources = ["pairs", "dfsph", "iisph"]
     _build.build(sources)
     print(f"kernels built from sph_taichi_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1001,6 +1588,7 @@ def main():
 
     worst = check_kernels_on_small_scenes(device)
     worst.update(check_dfsph_on_small_scenes(device))
+    worst.update(check_iisph_on_small_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, _ = main_path(device, "data/scenes/dragon_bath.json",
@@ -1012,6 +1600,13 @@ def main():
     torch.cuda.empty_cache()
     reaction_at_scale(device, "data/scenes/dragon_bath_dynamic_dfsph.json",
                       steps=5)
+    torch.cuda.empty_cache()
+    iisph_kernels, _ = iisph_path(device, warmup=5, steps=20)
+    kernels += iisph_kernels
+    torch.cuda.empty_cache()
+    iisph_iterating(device, dt=2e-3, steps=5)
+    armadillo_counts(device)
+    print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

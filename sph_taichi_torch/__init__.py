@@ -1,12 +1,13 @@
 """sph_taichi_torch — the SPH framework on PyTorch, with CUDA kernels for Hopper.
 
 The PyTorch/CUDA port of ``sph_taichi_tpu`` (the JAX package, which stays
-as the reference).  It runs the reference's scene JSON through WCSPH on
-one NVIDIA H100 through WCSPH and DFSPH: the grid, sort and elementwise
-stages are plain PyTorch, and the pair traversals of each step are
-hand-written CUDA kernels (``csrc/pairs.cu`` and ``csrc/dfsph.cu``, bound
-in ``ops/cuda_pairs.py`` and ``ops/cuda_dfsph.py``).  On the CPU the same
-steps run through the plain PyTorch engine.
+as the reference).  It runs the reference's scene JSON on one
+NVIDIA H100 through WCSPH, DFSPH and IISPH: the grid, sort and
+elementwise stages are plain PyTorch, and the pair traversals of each step
+are hand-written CUDA kernels (``csrc/pairs.cu``, ``csrc/dfsph.cu`` and
+``csrc/iisph.cu``, bound in ``ops/cuda_pairs.py``, ``ops/cuda_dfsph.py``
+and ``ops/cuda_iisph.py``).  On the CPU the same steps run through the
+plain PyTorch engine.
 
 Public entry points (device=None means the CUDA device; without one, pass
 ``device="cpu"``):
@@ -27,11 +28,11 @@ __version__ = "0.1.0"
 
 def build_solver(params, device=None, engine=None):
     """Instantiate the solver selected by ``simulationMethod``: 0 -> WCSPH,
-    4 -> DFSPH.
+    2 -> IISPH, 4 -> DFSPH.
 
-    The other solvers of the JAX package are still to be ported (1 PCISPH,
-    2 IISPH: ROADMAP.md queue 1); any other method is not implemented, as
-    in the reference (particle_system.py:214-221).
+    PCISPH (1) is still to be ported (ROADMAP.md, queue 1); any other
+    method is not implemented, as in the reference
+    (particle_system.py:214-221).
     """
     method = params.simulation_method
     if method == 0:
@@ -40,7 +41,10 @@ def build_solver(params, device=None, engine=None):
     if method == 4:
         from sph_taichi_torch.models.dfsph import DFSPHSolver
         return DFSPHSolver(params, device=device, engine=engine)
-    if method in (1, 2):
+    if method == 2:
+        from sph_taichi_torch.models.iisph import IISPHSolver
+        return IISPHSolver(params, device=device, engine=engine)
+    if method == 1:
         raise NotImplementedError(
             f"simulationMethod {method} is not ported to sph_taichi_torch "
             f"yet (ROADMAP.md, queue 1)")

@@ -2,8 +2,10 @@
 
 The leaves of the JAX package's ``Particles`` and ``SimState``, as numpy
 arrays, map one to one onto this package's tuples, so the same state can
-be fed to both (the parity tests do).  Nothing here imports the JAX
-package: the callers pass plain dicts of arrays.
+be fed to both (the parity tests do): every solver's fields, the DFSPH
+extras and the pressure that an IISPH state carries from step to step (its
+warm start) included.  Nothing here imports the JAX package: the callers
+pass plain dicts of arrays.
 """
 
 import numpy as np
@@ -44,3 +46,11 @@ def state_from_numpy(particles, rigid_rest_cm, dt, t, step_count, device):
         rigid_rest_cm=f32(rigid_rest_cm), dt=f32(dt), t=f32(t),
         step_count=torch.tensor(np.asarray(step_count, np.int32),
                                 device=device))
+
+
+def state_to_numpy(state):
+    """(particles dict, rigid_rest_cm, dt, t, step_count) as numpy, the
+    arguments of ``state_from_numpy`` without the device."""
+    return (particles_to_numpy(state.p), state.rigid_rest_cm.cpu().numpy(),
+            state.dt.cpu().numpy(), state.t.cpu().numpy(),
+            state.step_count.cpu().numpy())

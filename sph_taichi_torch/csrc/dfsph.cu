@@ -208,8 +208,8 @@ __global__ void nonpressure_kick_kernel(
           const float v_xy = (vi[0] - v[3 * j]) * d0 +
                              (vi[1] - v[3 * j + 1]) * d1 +
                              (vi[2] - v[3 * j + 2]) * d2;
-          const float visc_coef = c.dvisc * (m[j] / density[j]) * v_xy /
-                                  (p.r2 + c.eps_h2) * gradw;
+          const float visc_coef =
+              viscosity_coef(m[j] / density[j], v_xy, p.r2, gradw, c);
           const float a = st_coef + visc_coef;
           s0 += a * d0;
           s1 += a * d1;

@@ -1,6 +1,7 @@
-// Device code shared by the pair-traversal kernels (pairs.cu, dfsph.cu):
-// the constants struct, the cubic-spline kernel and its gradient, and the
-// cell-range neighbour walk.
+// Device code shared by the pair-traversal kernels (pairs.cu, dfsph.cu,
+// iisph.cu): the constants struct, the cubic-spline kernel and its
+// gradient, the cell-range neighbour walk, the viscosity and pressure pair
+// terms, and the symmetric pressure acceleration of the implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
@@ -43,6 +44,8 @@ struct PairConsts {
   float w0;         // W(0)
   float min_nbr;    // particle-deficiency cutoff: 20 (3D) / 7 (2D)
   float m_eps;      // stiffness gate 1e-5
+  // IISPH
+  float rho0sq;     // f32(rho0 * rho0)
 };
 
 __device__ __forceinline__ float cubic_w(float rn, const PairConsts& c) {
@@ -113,6 +116,53 @@ __device__ __forceinline__ void for_each_neighbor(
       }
     }
   }
+}
+
+// Viscosity coefficient of a fluid pair (sph_base.py:70-78), in the
+// operation order of every solver's term: 2 (dim + 2) mu (m_j / rho_j)
+// (v_ij . r_ij) / (r^2 + 0.01 h^2) * dW/r.  ``m_over_rho`` is m_j / rho_j.
+__device__ __forceinline__ float viscosity_coef(float m_over_rho, float v_xy,
+                                                float r2, float gradw,
+                                                const PairConsts& c) {
+  return c.dvisc * m_over_rho * v_xy / (r2 + c.eps_h2) * gradw;
+}
+
+// Pressure coefficient of a pair: -rho0 m_V_j (dpi + dpj) dW/r, where dpi
+// is p_i / rho_i^2 and dpj is p_j / rho_j^2 for a fluid neighbour or the
+// boundary mirror for a solid one (WCSPH.py:47-66).
+__device__ __forceinline__ float pressure_coef(float m_V_j, float dpi,
+                                               float dpj, float gradw,
+                                               const PairConsts& c) {
+  return c.neg_rho0 * m_V_j * (dpi + dpj) * gradw;
+}
+
+// Symmetric pressure acceleration of centre i from the pressure field pr
+// (IISPH's and PCISPH's _pressure_accel, one term): the sum over fluid and
+// solid j of pressure_coef * r_ij, with the solid mirror
+// p_j / rho_j^2 := p_i / rho0^2.  Adds into s[0..2].
+__device__ __forceinline__ void sym_pressure_sum(
+    int i, const float* __restrict__ x, const int* __restrict__ material,
+    const float* __restrict__ m_V, const float* __restrict__ density,
+    const float* __restrict__ pr, const int* __restrict__ starts,
+    const PairConsts& c, float s[3]) {
+  const float pr_i = pr[i];
+  const float rho_i = density[i];
+  const float dpi = pr_i / (rho_i * rho_i);
+  const float mirror = pr_i / c.rho0sq;
+  for_each_neighbor(
+      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+      [&](int j, float d0, float d1, float d2, float sq) {
+        const int mat_j = material[j];
+        if (mat_j != 0 && mat_j != 1) return;
+        const PairGeom p = pair_geom(sq);
+        const float gradw = cubic_grad(p.rn, p.inv, c);
+        const float rho_j = density[j];
+        const float dpj = (mat_j == 1) ? pr[j] / (rho_j * rho_j) : mirror;
+        const float a = pressure_coef(m_V[j], dpi, dpj, gradw, c);
+        s[0] += a * d0;
+        s[1] += a * d1;
+        s[2] += a * d2;
+      });
 }
 
 static const int kBlock = 128;

@@ -10,7 +10,7 @@
 //                    epilogue (two-way reaction variant as REACT = true).
 //
 // The contract, the rounding rules and the neighbour walk are in
-// pair_common.cuh, shared with dfsph.cu.
+// pair_common.cuh, shared with dfsph.cu and iisph.cu.
 //
 // What bounds it on an H100: irregular loads.  Each centre reads the
 // positions of every candidate in its 27 cells (about 3x more candidates
@@ -91,12 +91,11 @@ __global__ void wcsph_forces_kernel(
                                (vi[1] - v[3 * j + 1]) * d1 +
                                (vi[2] - v[3 * j + 2]) * d2;
             const float visc_coef =
-                fluid_j ? c.dvisc * m_nc[j] * v_xy / (r2 + c.eps_h2) * gradw
-                        : 0.0f;
+                fluid_j ? viscosity_coef(m_nc[j], v_xy, r2, gradw, c) : 0.0f;
             const float dpj = fluid_j ? dpi[j] : p_r02_i;
             const float press_coef =
                 (fluid_j || solid_j)
-                    ? c.neg_rho0 * m_V[j] * (dpi_i + dpj) * gradw
+                    ? pressure_coef(m_V[j], dpi_i, dpj, gradw, c)
                     : 0.0f;
             a = st_coef + visc_coef + press_coef;
           }

@@ -31,42 +31,9 @@ import torch
 
 from sph_taichi_torch.ops import cuda_dfsph
 from sph_taichi_torch.ops.pairs import div_exact
-from sph_taichi_torch.models.base import SPHBase, compute_non_pressure_forces
+from sph_taichi_torch.models.base import (
+    JACOBI_CHECK_EVERY, SPHBase, compute_non_pressure_forces, jacobi_while)
 from sph_taichi_torch.state import Particles
-
-# The Jacobi loops read their exit test to the host once every this many
-# iterations.  A read makes the host wait for the card, but the host is
-# only about one iteration ahead of it, so a read costs little; an
-# iteration queued past convergence costs its host time (two launches that
-# return at once and ~20 small torch ops) while the card has almost
-# nothing to do.  On an H100 at dragon_bath_dfsph, where a solve takes 1-7
-# iterations, k = 1 and 2 ran fastest and 4 and 8 slower (chip_smoke's
-# sweep, PERF.md); 2 halves the reads of long solves and wastes at most one
-# iteration per solve.
-JACOBI_CHECK_EVERY = 2
-
-
-def jacobi_while(cond, body, carry, every=JACOBI_CHECK_EVERY):
-    """``lax.while_loop(cond, body, carry)`` with one host read of the
-    test per ``every`` iterations.
-
-    ``cond(carry)`` is a 0-d bool tensor; ``body(carry, active)`` returns
-    the next carry (a tuple of tensors) and may use ``active`` to skip
-    work.  Each iteration commits ``torch.where(active, new, old)``, so
-    an iteration after the exit changes nothing.  Returns (carry, number
-    of host reads)."""
-    reads = 0
-    active = cond(carry)
-    while True:
-        for _ in range(every):
-            new = body(carry, active)
-            carry = tuple(torch.where(active, a, b)
-                          for a, b in zip(new, carry))
-            active = cond(carry)
-        reads += 1
-        if not bool(active):
-            return carry, reads
-
 
 class DFSPHSolver(SPHBase):
     def __init__(self, params, device=None, engine=None):

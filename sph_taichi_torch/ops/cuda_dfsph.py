@@ -37,8 +37,8 @@ import ctypes
 import torch
 
 from sph_taichi_torch.ops.cuda_pairs import (
-    _PTR, _check, _check_common, _raise_on, min_neighbors, pair_consts,
-    M_EPS, PairConsts)
+    _PTR, _active_ptr, _check, _check_common, _plain_ctx, _raise_on,
+    _stream, min_neighbors, pair_consts, M_EPS, PairConsts)
 from sph_taichi_torch.ops.kernels import (
     cubic_kernel, cubic_kernel_derivative_scalar)
 from sph_taichi_torch.ops.pairs import GatherEngine, div_exact
@@ -248,20 +248,6 @@ def _lib():
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _plain_ctx(starts, p, params):
-    return GatherEngine(params).prepare(p.x, starts)
-
-
-def _active_ptr(active, dev):
-    if active is None:
-        return None
-    return _check("active", active, torch.bool, (), dev)
 
 
 def density_factor(starts, p, params):

@@ -189,13 +189,13 @@ def wcsph_forces_plain(nl, p, dpi, p_r02, m_nc, rr0, dt, params):
 
 class PairConsts(ctypes.Structure):
     """Mirror of ``struct PairConsts`` in csrc/pair_common.cuh (field for
-    field), shared by the WCSPH and DFSPH kernels."""
+    field), shared by the WCSPH, DFSPH and IISPH kernels."""
     _fields_ = [(n, ctypes.c_int) for n in ("n_real", "nx", "ny", "nz")] + [
         (n, ctypes.c_float) for n in (
             "inv_cell", "h2", "inv_h", "kw", "kw2", "kg", "nkg",
             "diam2", "wd", "st", "dvisc", "eps_h2", "neg_rho0", "rho0",
             "g0", "g1", "g2", "lo", "hi0", "hi1", "hi2", "cf1",
-            "w0", "min_nbr", "m_eps")]
+            "w0", "min_nbr", "m_eps", "rho0sq")]
 
 
 @functools.lru_cache(maxsize=16)
@@ -223,7 +223,8 @@ def pair_consts(params):
         cf1=1.0 + params.collision_factor,
         w0=float(cubic_kernel(torch.zeros((), dtype=torch.float32), h,
                               params.dim)),
-        min_nbr=float(min_neighbors(params.dim)), m_eps=M_EPS)
+        min_nbr=float(min_neighbors(params.dim)), m_eps=M_EPS,
+        rho0sq=params.density0 * params.density0)
 
 
 _PTR = ctypes.c_void_p
@@ -275,17 +276,34 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _plain_ctx(starts, p, params):
+    """The plain engine's neighbour lists, for a wrapper given CPU
+    tensors."""
+    return GatherEngine(params).prepare(p.x, starts)
+
+
+def _active_ptr(active, dev):
+    """Pointer to a Jacobi loop's 0-d bool device flag, or None."""
+    if active is None:
+        return None
+    return _check("active", active, torch.bool, (), dev)
+
+
 def density_sum(starts, p, params):
     """Kernel wrapper for ``density_sum_plain``.  ``starts``: cell offsets
     of the sorted particles ``p`` (ops.grid.cell_offsets)."""
     if p.x.device.type == "cpu":
-        nl = GatherEngine(params).prepare(p.x, starts)
-        return density_sum_plain(nl, p.x, p.material, p.m_V, params)
+        return density_sum_plain(_plain_ctx(starts, p, params), p.x,
+                                 p.material, p.m_V, params)
     dev, n, ptr = _check_common(starts, p, params)
     out = torch.zeros(n, dtype=torch.float32, device=dev)
     rc = _lib().density_sum_launch(
         ptr["x"], ptr["material"], ptr["m_V"], ptr["starts"], out.data_ptr(),
-        pair_consts(params), torch.cuda.current_stream(dev).cuda_stream)
+        pair_consts(params), _stream(dev))
     _raise_on(rc, "density_sum")
     LAUNCHES["density_sum"] += 1
     return out
@@ -297,8 +315,8 @@ def wcsph_forces(starts, p, dpi, p_r02, m_nc, rr0, dt, params):
     is a 0-d f32 tensor on the particles' device (read by the kernel, so
     the step makes no host sync)."""
     if p.x.device.type == "cpu":
-        nl = GatherEngine(params).prepare(p.x, starts)
-        return wcsph_forces_plain(nl, p, dpi, p_r02, m_nc, rr0, dt, params)
+        return wcsph_forces_plain(_plain_ctx(starts, p, params), p, dpi,
+                                  p_r02, m_nc, rr0, dt, params)
     dev, n, ptr = _check_common(starts, p, params)
     f32, i32 = torch.float32, torch.int32
     react = rr0 is not None
@@ -316,8 +334,7 @@ def wcsph_forces(starts, p, dpi, p_r02, m_nc, rr0, dt, params):
     acc = torch.empty_like(p.x)
     rc = _lib().wcsph_forces_launch(
         *args, x_out.data_ptr(), v_out.data_ptr(), acc.data_ptr(),
-        int(react), pair_consts(params),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(react), pair_consts(params), _stream(dev))
     _raise_on(rc, "wcsph_forces")
     LAUNCHES["wcsph_forces"] += 1
     n_real = params.n_fluid + params.n_solid

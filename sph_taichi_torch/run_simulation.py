@@ -4,6 +4,8 @@
         --scene_file data/scenes/dragon_bath.json --max_frames 200
     python -m sph_taichi_torch.run_simulation \
         --scene_file data/scenes/dragon_bath_dfsph.json --max_frames 50
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/dragon_bath.json --method 2 --max_frames 50
 
 Runs on the CUDA device unless ``--device cpu`` is given.
 """
@@ -22,18 +24,26 @@ def main(argv=None):
     parser.add_argument("--output_dir", default=None)
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
+    parser.add_argument("--method", type=int, default=None,
+                        help="override the scene's simulationMethod "
+                             "(0 WCSPH, 2 IISPH, 4 DFSPH)")
     parser.add_argument("--quiet", action="store_true")
     args = parser.parse_args(argv)
 
     import torch
+    from sph_taichi_torch.config import SimConfig
     from sph_taichi_torch.simulation import Simulation
 
     scene_dir = os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(args.scene_file))))
-    sim = Simulation(args.scene_file, scene_dir=scene_dir,
+    config = SimConfig(args.scene_file)
+    if args.method is not None:
+        config.config["Configuration"]["simulationMethod"] = args.method
+    sim = Simulation(args.scene_file, config=config, scene_dir=scene_dir,
                      output_dir=args.output_dir, device=args.device)
     dev = sim.state.p.x.device
-    print(f"scene: {sim.scene_name}  particles: {sim.params.n_particles} "
+    print(f"scene: {sim.scene_name}  method: "
+          f"{sim.params.simulation_method}  particles: {sim.params.n_particles} "
           f"(fluid {sim.params.n_fluid} / solid {sim.params.n_solid})  "
           f"dt: {sim.params.dt0}  substeps/frame: {sim.substeps}  "
           f"device: {dev}")
@@ -55,17 +65,15 @@ def main(argv=None):
                         f"{steps / el:.1f} steps/s")
                 st = sim.read_solver_stats()
                 sim.reset_solver_stats()
-                if "divergence_iters_sum" in st:
+                solves = [s for s in ("divergence", "pressure")
+                          if f"{s}_iters_sum" in st]
+                if solves:
                     k = st["steps"]
-                    reads = (st["divergence_host_reads"]
-                             + st["pressure_host_reads"])
-                    line += (
-                        f"  iterations/step divergence "
-                        f"{st['divergence_iters_sum'] / k:.2f} (max "
-                        f"{st['divergence_iters_max']}) pressure "
-                        f"{st['pressure_iters_sum'] / k:.2f} (max "
-                        f"{st['pressure_iters_max']})  host reads/step "
-                        f"{reads / k:.2f}")
+                    line += "  iterations/step" + "".join(
+                        f" {s} {st[f'{s}_iters_sum'] / k:.2f} (max "
+                        f"{st[f'{s}_iters_max']})" for s in solves)
+                    reads = sum(st[f"{s}_host_reads"] for s in solves)
+                    line += f"  host reads/step {reads / k:.2f}"
                 print(line, flush=True)
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
