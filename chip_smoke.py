@@ -44,7 +44,21 @@ Phases (any failure raises and exits non-zero):
    the read-interval sweep; at that state (pressures not 0) the loop's
    kernels against their plain
    versions and one kernel step against one plain-engine step;
-8. the armadillo scene's particle counts (build_scene only): its solids
+8. the PCISPH kernels (the density derivative with its correction, the
+   pressure acceleration with its predict, and the un-kicked non-pressure
+   variant) against their plain versions on the clumped small scene and
+   the two-way scene at a seeded prediction x* = x + dt v* that moves pairs
+   out of the radius; three PCISPH steps of an impact on the floor, kernel
+   engine against plain engine;
+9. the PCISPH path: data/scenes/dragon_bath.json with simulationMethod 1
+   (dt 4e-4) through ``Simulation``, 20 steps after 5 of warm-up, timed
+   with CUDA events; iterations and host reads per step, launch counts
+   (density = non-pressure = steps, g1 = g2 = k per host read); the host
+   syncs of one step; stage times; the read-interval sweep (k = 1, 2, 3,
+   4); one kernel step against one plain-engine step; per-kernel and
+   plain-version times and bounds; a checkpoint saved there and resumed
+   into a fresh ``Simulation``, one step on both, bitwise equal;
+10. the armadillo scene's particle counts (build_scene only): its solids
    take the dense boundary-volume path, not kernel 2.1 c.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
@@ -101,6 +115,14 @@ IISPH_PREDICT_FLOPS_PER_PAIR = 52
 IISPH_PRESSURE_FLOPS_PER_PAIR = 36
 # A (real j): a_ij.r_ij 8, m_V dW a 2, sum 1
 IISPH_APPLY_A_FLOPS_PER_PAIR = 35
+# counted from csrc/pcisph.cu: IISPH's terms plus the pair geometry at the
+# predicted positions (3 sub, 3 mul, 2 add = 8) besides the inclusion
+# test at the step-start ones:
+# g1 density derivative (real j): distance 8 + 8, sqrt+square 2, inverse 2,
+#   dW/r 12, v_ij.r_ij 8, product and sum 3
+PCISPH_D_RHO_FLOPS_PER_PAIR = 43
+# g2 pressure acceleration (fluid and solid j): f3's 36, geometry 8
+PCISPH_PRESSURE_FLOPS_PER_PAIR = 44
 
 
 def small_scene(two_way=False):
@@ -434,16 +456,19 @@ def check_state(sim):
 
 
 def reset_all_launch_counts():
-    from sph_taichi_torch.ops import cuda_dfsph, cuda_iisph, cuda_pairs
+    from sph_taichi_torch.ops import (
+        cuda_dfsph, cuda_iisph, cuda_pairs, cuda_pcisph)
     cuda_pairs.reset_launch_counts()
     cuda_dfsph.reset_launch_counts()
     cuda_iisph.reset_launch_counts()
+    cuda_pcisph.reset_launch_counts()
 
 
 def all_launch_counts():
-    from sph_taichi_torch.ops import cuda_dfsph, cuda_iisph, cuda_pairs
+    from sph_taichi_torch.ops import (
+        cuda_dfsph, cuda_iisph, cuda_pairs, cuda_pcisph)
     return {**cuda_pairs.LAUNCHES, **cuda_dfsph.LAUNCHES,
-            **cuda_iisph.LAUNCHES}
+            **cuda_iisph.LAUNCHES, **cuda_pcisph.LAUNCHES}
 
 
 def main_path(device, scene_path, warmup, steps):
@@ -892,16 +917,15 @@ def dfsph_path(device, scene_path, warmup, steps):
     return kernels, step_ms
 
 
-def k_sweep(solver, state, label, steps=5, turns=3):
-    """Step ms by the Jacobi loops' read interval k (DFSPH's two solves or
-    IISPH's one): ``steps`` steps from ``state`` per setting, the settings
-    interleaved over ``turns`` turns, host clock around work that ends in
-    a synchronize."""
-    from sph_taichi_torch.models.base import JACOBI_CHECK_EVERY as K
-
+def k_sweep(solver, state, label, steps=5, turns=3, settings=(1, 2, 4, 8)):
+    """Step ms by the loops' read interval k (DFSPH's two solves, IISPH's
+    or PCISPH's one): ``steps`` steps from ``state`` per setting, the
+    settings interleaved over ``turns`` turns, host clock around work that
+    ends in a synchronize.  The solver's own k is restored."""
+    K = solver.check_every
     per_k, iters = {}, None
     for turn in range(turns):
-        for every in (1, 2, 4, 8)[::1 if turn % 2 == 0 else -1]:
+        for every in settings[::1 if turn % 2 == 0 else -1]:
             solver.check_every = every
             s, its = state, []
             torch.cuda.synchronize()
@@ -1139,13 +1163,14 @@ def check_iisph_on_small_scenes(device):
     return worst
 
 
-def iisph_dragon_config(dt=None):
-    """data/scenes/dragon_bath.json with simulationMethod 2 (and ``dt``)."""
+def dragon_config(method, dt=None):
+    """data/scenes/dragon_bath.json with simulationMethod ``method`` (and
+    ``dt``)."""
     from sph_taichi_torch import SimConfig
 
     with open("data/scenes/dragon_bath.json") as f:
         d = json.load(f)
-    d["Configuration"]["simulationMethod"] = 2
+    d["Configuration"]["simulationMethod"] = method
     if dt is not None:
         d["Configuration"]["timeStepSize"] = dt
     return SimConfig(config_dict=d)
@@ -1191,29 +1216,17 @@ def iisph_state_kernels(params, solver, state):
 
 
 def unported_bounds(params, pairs):
-    """Bounds of the TPU kernels still to port (PERF.md's table), worked out
-    from the JAX terms at this state's pair counts, as a cell-walk kernel
+    """Bound of the TPU kernel still to port (PERF.md's table), worked out
+    from the JAX term at this state's pair counts, as a cell-walk kernel
     of this port would do the work: computed, not measured.
     c. boundary volume (models/base.py:198-213): W over solid pairs of
        solid centres (distance 8, sqrt+square 2, W 13, sum 1); reads x and
-       material, writes m_V.
-    g1. PCISPH _d_rho with its correction epilogue (models/pcisph.py:68-118):
-       (v_i - v_j) . dW over real j of fluid centres (distance 8,
-       sqrt+square 2, inverse 2, dW/r 12, v_ij.r_ij 8, product and sum 3);
-       reads x, v, material, m_V, density, pr, writes pr and rho_err.
-    g2. PCISPH _pressure_accel with its predict epilogue (:120-179): f3's
-       term over the fluid centres' pairs; reads x, material, m_V, density,
-       pr, v, acc, writes v*."""
+       material, writes m_V."""
     n = params.n_fluid + params.n_solid
     cells = 4 * (params.num_cells + 2)
     return {
         "c": bound("boundary volume (2.1 c, not ported)", n * 20 + cells,
-                   pairs["solid_solid"] * 24),
-        "g1": bound("PCISPH _d_rho (2.1 g, not ported)", n * 48 + cells + 8,
-                    pairs["fluid_i"] * 35),
-        "g2": bound("PCISPH _pressure_accel (2.1 g, not ported)",
-                    n * 64 + cells + 4,
-                    pairs["fluid_i"] * IISPH_PRESSURE_FLOPS_PER_PAIR)}
+                   pairs["solid_solid"] * 24)}
 
 
 def armadillo_counts(device):
@@ -1247,7 +1260,7 @@ def iisph_path(device, warmup, steps):
     from sph_taichi_torch.simulation import Simulation
 
     t0 = time.perf_counter()
-    sim = Simulation(config=iisph_dragon_config(), scene_dir=".")
+    sim = Simulation(config=dragon_config(2), scene_dir=".")
     torch.cuda.synchronize()
     params = sim.params
     if type(sim.solver).__name__ != "IISPHSolver":
@@ -1474,7 +1487,7 @@ def iisph_iterating(device, dt, steps, max_lead=400):
     ``max_lead`` steps), then ``steps`` timed steps."""
     from sph_taichi_torch.simulation import Simulation
 
-    sim = Simulation(config=iisph_dragon_config(dt), scene_dir=".")
+    sim = Simulation(config=dragon_config(2, dt), scene_dir=".")
     t0 = time.perf_counter()
     first = None
     while True:
@@ -1559,6 +1572,434 @@ def iisph_iterating(device, dt, steps, max_lead=400):
     return step_ms, its
 
 
+def pcisph_scene(kind):
+    """Small PCISPH scenes (dt 4e-3): "small" and "two_way" are the WCSPH
+    scenes (the block, and the block beside a dynamic rigid block);
+    "impact" is a block from the floor's padding line up to 0.6 m falling
+    at 2 m/s, where the loop runs 3-5 iterations per step.  (The DFSPH
+    floor impact, whose block starts inside the floor's padding, does not
+    converge under PCISPH in either package.)"""
+    if kind == "impact":
+        d = dfsph_scene("floor_impact")
+        d["FluidBlocks"][0]["start"] = [0.1, 0.1, 0.1]
+    else:
+        d = small_scene(two_way=kind == "two_way")
+    cfg = d["Configuration"]
+    cfg["simulationMethod"], cfg["timeStepSize"] = 1, 4e-3
+    return d
+
+
+def pcisph_inputs(params, solver, p, seed=4):
+    """The loop's inputs at a sorted state with density and acc: a seeded
+    prediction v* (up to 10 m/s on fluid rows), x* = x + dt v*, a seeded
+    pressure field, dt and s_f as device scalars."""
+    device = p.x.device
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
+    rng = np.random.default_rng(seed)
+    vs = torch.tensor(rng.uniform(-10.0, 10.0, (p.n, 3)).astype(np.float32),
+                      device=device)
+    fluid = (p.material == 1)[:, None]
+    vp = torch.where(fluid, vs, p.v)
+    xp = torch.where(fluid, p.x + dt * vp, p.x)
+    return xp, vp, random_pressure(p), dt, solver.scaling_factor(dt)
+
+
+def pairs_moved(nl, xp, h):
+    """(step-start pairs beyond h at x*, all step-start pairs)."""
+    valid = nl.mask()
+    d2 = ((xp[:, None, :] - xp[nl.idx]) ** 2).sum(-1)
+    return int((valid & (d2 >= h * h)).sum()), int(valid.sum())
+
+
+def compare_pcisph_kernels(params, solver, p, nl, starts, label, worst):
+    """The un-kicked non-pressure kernel, g1 and g2 against their plain
+    versions at one state, each kernel on the plain chain's inputs: equal
+    to the bit (every output's largest difference is 0)."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+
+    def check(name, got, ref, what):
+        if torch.is_tensor(ref):
+            got, ref = (got,), (ref,)
+        for field, a, b in zip(what, got, ref):
+            err = max_errors(a, b, f"{name}[{label}].{field}")
+            if err != 0.0:
+                raise AssertionError(f"{name}[{label}].{field}: not equal "
+                                     f"to its plain version ({err:.3e})")
+            worst[name] = max(worst.get(name, 0.0), err)
+
+    acc = cd.nonpressure_accel_plain(nl, p, params)
+    check("nonpressure_accel", cd.nonpressure_accel(starts, p, params), acc,
+          ("acc",))
+    p = p._replace(acc=acc)
+    xp, vp, pressure, dt, s_f = pcisph_inputs(params, solver, p)
+    moved, total = pairs_moved(nl, xp, params.support_radius)
+    print(f"  {label}: {moved} of {total} step-start pairs beyond h at x*")
+    if moved == 0:
+        raise AssertionError("the prediction moved no pair out of the radius")
+    ref = cg.d_rho_correct_plain(nl, p, xp, vp, pressure, dt, s_f, params)
+    check("pcisph_d_rho_correct",
+          cg.d_rho_correct(starts, p, xp, vp, pressure, dt, s_f, params), ref,
+          ("pressure", "rho_err"))
+    fluid = p.material == 1
+    share = float((ref[1][fluid] > 0).float().mean())
+    print(f"  {label}: share of fluid rows with a density error {share:.3f}")
+    check("pcisph_pressure_accel_predict",
+          cg.pressure_accel_predict(starts, p, xp, ref[0], dt, params),
+          cg.pressure_accel_predict_plain(nl, p, xp, ref[0], dt, params),
+          ("v*", "x*"))
+    return share
+
+
+def check_pcisph_on_small_scenes(device):
+    """The PCISPH kernels against their plain versions on the clumped small
+    scene and the two-way scene; then three PCISPH steps of the impact,
+    kernel engine against plain engine from the same state each step, with
+    equal iteration counts."""
+    from sph_taichi_torch import SimConfig, build_scene, build_solver
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    worst, shares = {}, []
+    for kind in ("small", "two_way"):
+        params, solver, p, nl, starts, diag = prepared(
+            pcisph_scene(kind), device, seed=0)
+        if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+            raise AssertionError(f"{kind}: the plain engine's caps overflowed")
+        print(f"PCISPH small scene {kind}: {params.n_particles} particles "
+              f"({params.n_solid} solids, dynamic {params.dynamic_rigid_ids})"
+              f", max cell occupancy {int(diag['max_cell_occupancy'])}")
+        shares.append(compare_pcisph_kernels(params, solver, p, nl, starts,
+                                             kind, worst))
+    if not any(0.0 < s < 1.0 for s in shares):
+        raise AssertionError("the density-error clamp not exercised")
+
+    params, part, _ = build_scene(SimConfig(config_dict=pcisph_scene(
+        "impact")), device=device)
+    ksolver = build_solver(params, device=device)
+    psolver = build_solver(params, device=device,
+                           engine=GatherEngine(params))
+    state = ksolver.initialize(part)
+    iters = []
+    for step in range(3):
+        cg.reset_launch_counts()
+        cd.reset_launch_counts()
+        ks, km = ksolver.step(state)
+        ps, pm = psolver.step(state)
+        its = (int(km["pressure_iters"]), int(pm["pressure_iters"]))
+        iters.append(its[0])
+        print(f"  PCISPH impact step {step + 1}: pressure iterations (kernel, "
+              f"plain) {its}; launches {dict(cg.LAUNCHES)}, non-pressure "
+              f"{cd.LAUNCHES['nonpressure_accel']}")
+        if its[0] != its[1]:
+            raise AssertionError("iteration counts differ")
+        if int(pm["neighbor_overflow"]) or int(pm["cell_overflow"]):
+            raise AssertionError("plain step overflowed its caps")
+        real = ps.p.material != -1
+        for name in ("x", "v", "density", "pressure", "acc"):
+            max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                       f"PCISPH impact step {step + 1}: {name}")
+        state = ks
+    if min(iters) < 3:
+        raise AssertionError(f"PCISPH iterations {iters}: fewer than 3")
+    return worst
+
+
+def pcisph_state_kernels(params, solver, state):
+    """The loop's inputs at a dragon state as a step builds them (density,
+    the non-pressure acceleration, the first prediction and its pressure),
+    the plain engine's neighbour lists (caps raised to what the state
+    needs), and the pair counts each kernel walks."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    q, starts, _ = base.bin_and_sort(state.p, params, solver.engine,
+                                     solver.tables)
+    occ = int(base.max_cell_occupancy(starts))
+    caps = dataclasses.replace(params, cell_cap=max(params.cell_cap, occ))
+    nl = GatherEngine(caps).prepare(q.x, starts)
+    if int(nl.diag["neighbor_overflow"]):
+        caps = dataclasses.replace(caps, neighbor_cap=int(nl.max_cnt))
+        nl = GatherEngine(caps).prepare(q.x, starts)
+    q = base.compute_densities(q, starts, solver.engine, params)
+    q = base.compute_non_pressure_forces(q, starts, solver.engine, params)
+    dt = state.dt
+    fluid = (q.material == 1)[:, None]
+    vp = torch.where(fluid, q.v + dt * q.acc, q.v)
+    xp = torch.where(fluid, q.x + dt * vp, q.x)
+    s_f = solver.scaling_factor(dt)
+    pressure, _ = cg.d_rho_correct(starts, q, xp, vp, torch.zeros_like(
+        q.pressure), dt, s_f, params)
+    valid = nl.mask()
+    fluid_i = q.material == 1
+    pairs = {"fluid_i": int(nl.cnt[fluid_i].long().sum()),
+             "fluid_ff": int((valid & (q.material[nl.idx] == 1))[fluid_i]
+                             .sum())}
+    print(f"within-radius pairs with a fluid centre: {pairs['fluid_i']}, of "
+          f"them fluid-fluid {pairs['fluid_ff']}; max neighbours "
+          f"{int(nl.max_cnt)}, max cell occupancy {occ} (the oracle's caps "
+          f"{caps.neighbor_cap}, {caps.cell_cap}); first-iteration pressure "
+          f"max {float(pressure.max()):.4f} Pa")
+    return q, starts, nl, (xp, vp, pressure, s_f), pairs
+
+
+def pcisph_path(device, warmup, steps):
+    """The PCISPH path: dragon_bath.json with simulationMethod 1 through
+    ``Simulation``; returns the kernels' JSON entries and the step time."""
+    import warnings
+
+    from sph_taichi_torch import build_solver
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops.pairs import GatherEngine
+    from sph_taichi_torch.simulation import Simulation
+
+    t0 = time.perf_counter()
+    sim = Simulation(config=dragon_config(1), scene_dir=".")
+    torch.cuda.synchronize()
+    params = sim.params
+    if type(sim.solver).__name__ != "PCISPHSolver":
+        raise AssertionError(f"method 1 built {type(sim.solver).__name__}")
+    K = sim.solver.check_every
+    print(f"dragon_bath, PCISPH: {params.n_particles} particles (fluid "
+          f"{params.n_fluid}, solid {params.n_solid}), dt {params.dt0}, "
+          f"s_f_base {sim.solver.s_f_base!r}; scene + initialize "
+          f"{time.perf_counter() - t0:.2f} s")
+    sim.run(warmup, export=False)
+    torch.cuda.synchronize()
+
+    # every host sync of a step is a read of the loop's test
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, m = sim.solver.step(sim.state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"one PCISPH step under torch.cuda sync-debug mode 'warn': "
+          f"{len(where)} host syncs {where}; the solver reports "
+          f"{m['pressure_host_reads']} reads of its loop test (iterations "
+          f"{int(m['pressure_iters'])}, a read every {K})")
+    if len(where) != m["pressure_host_reads"]:
+        raise AssertionError("a PCISPH step syncs outside its loop test")
+
+    # the PCISPH path: counts to 0 just before, read just after
+    reset_all_launch_counts()
+    sim.reset_solver_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    st = sim.read_solver_stats()
+    step_ms = start.elapsed_time(end) / steps
+    n_it, reads = st["pressure_iters_sum"], st["pressure_host_reads"]
+    print(f"PCISPH path: {steps} steps, {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s; pressure iterations per step mean "
+          f"{n_it / steps:.2f} max {st['pressure_iters_max']}; host reads "
+          f"per step {reads / steps:.2f}; launches {launches}")
+    # density = non-pressure = steps; in the loop g1 = g2 = k x reads (the
+    # iterations queued after the exit return at once)
+    expect = {"density_sum": steps, "nonpressure_accel": steps,
+              "pcisph_d_rho_correct": K * reads,
+              "pcisph_pressure_accel_predict": K * reads}
+    for name, count in launches.items():
+        if count != expect.get(name, 0):
+            raise AssertionError(f"{name}: {count} launches in {steps} "
+                                 f"PCISPH steps, expected "
+                                 f"{expect.get(name, 0)}")
+    if not 3 * steps <= n_it <= K * reads <= n_it + (K - 1) * steps:
+        raise AssertionError(f"{n_it} iterations, {reads} reads")
+    print(f"  pressure loop: {n_it} iterations ran (the launches with work),"
+          f" {K * reads - n_it} queued after the exit")
+
+    busy_ms = profile_steps(sim, 5)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
+              f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+
+    check_state(sim)
+    metrics = sim.metrics
+    fluid = sim.state.p.material == 1
+    print(f"state after {int(sim.state.step_count)} steps: t "
+          f"{float(sim.state.t):.4f} s, max fluid speed "
+          f"{float(metrics['max_velocity']):.4f} m/s, pressure error "
+          f"{float(metrics['pressure_error']):.6f}, max fluid density "
+          f"{float(sim.state.p.density[fluid].max()):.4f}")
+
+    # stage times of one step at this state (events around each stage)
+    solver, state = sim.solver, sim.state
+
+    def staged_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        q, ctx, _ = base.bin_and_sort(state.p, params, solver.engine,
+                                      solver.tables)
+        ev[1].record()
+        q = base.compute_densities(q, ctx, solver.engine, params)
+        ev[2].record()
+        q = base.compute_non_pressure_forces(q, ctx, solver.engine, params)
+        ev[3].record()
+        pr, (vp, xp), _ = solver.pressure_solve(q, ctx, state.dt)
+        ev[4].record()
+        q = solver.advect(q._replace(pressure=pr), vp, xp, state.dt)
+        q, _ = base.solve_rigid_body(q, state.rigid_rest_cm, params)
+        base.enforce_boundary(q, params, 1)
+        ev[5].record()
+        return ev
+
+    for _ in range(2):
+        staged_step()
+    evs = [staged_step() for _ in range(5)]
+    torch.cuda.synchronize()
+    stages = {}
+    for k, name in enumerate(("bin_and_sort", "densities", "non-pressure",
+                              "pressure loop", "advect + rigid + clamp")):
+        stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
+    print("PCISPH stage ms at this state: " + json.dumps(
+        {k: round(v, 4) for k, v in stages.items()}))
+    # 3 iterations per step here: k = 3 reads once with nothing queued;
+    # more steps and turns than the other sweeps, the differences are small
+    k_sweep(solver, state, f"PCISPH step {int(state.step_count)}", steps=10,
+            turns=5, settings=(1, 2, 3, 4))
+
+    # one kernel step against one plain-engine step from the same state
+    plain_solver = build_solver(params, device=device,
+                                engine=GatherEngine(params))
+    ks, km = solver.step(state)
+    ps, pm = plain_solver.step(state)
+    if int(pm["neighbor_overflow"]) or int(pm["cell_overflow"]):
+        raise AssertionError("plain step overflowed its caps")
+    its = (int(km["pressure_iters"]), int(pm["pressure_iters"]))
+    print(f"PCISPH step kernel vs plain engine: pressure iterations (kernel, "
+          f"plain) {its}")
+    if its[0] != its[1]:
+        raise AssertionError("iteration counts differ")
+    real = ps.p.material != -1
+    for name in ("x", "v", "density", "pressure", "acc"):
+        max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                   f"PCISPH step kernel vs plain engine: {name}")
+    del plain_solver, ps
+
+    # per-kernel times at the dragon state's shapes, and the plain versions
+    q, starts, nl, (xp, vp, pressure, s_f), pairs = pcisph_state_kernels(
+        params, solver, state)
+    dt = state.dt
+    reset_all_launch_counts()     # comparison launches are not the path's
+    calls = {
+        "nonpressure_accel": (
+            lambda: cd.nonpressure_accel(starts, q, params),
+            lambda: cd.nonpressure_accel_plain(nl, q, params)),
+        "pcisph_d_rho_correct": (
+            lambda: cg.d_rho_correct(starts, q, xp, vp, pressure, dt, s_f,
+                                     params),
+            lambda: cg.d_rho_correct_plain(nl, q, xp, vp, pressure, dt, s_f,
+                                           params)),
+        "pcisph_pressure_accel_predict": (
+            lambda: cg.pressure_accel_predict(starts, q, xp, pressure, dt,
+                                              params),
+            lambda: cg.pressure_accel_predict_plain(nl, q, xp, pressure, dt,
+                                                    params)),
+    }
+    n = params.n_fluid + params.n_solid
+    ms, plain_ms, err = {}, {}, {}
+    for name, (kern, plain) in calls.items():
+        ms[name] = time_ms(kern, 20)
+        plain_ms[name] = time_ms(plain, 3)
+        got, ref = kern(), plain()
+        if torch.is_tensor(ref):
+            got, ref = (got,), (ref,)
+        err[name] = 0.0
+        for k, (a, b) in enumerate(zip(got, ref)):
+            err[name] = max(err[name], max_errors(
+                a[:n], b[:n], f"dragon {name} output {k}"))
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
+              f" ms")
+    # the state's own pressure may be 0 this early: g1 and g2 at a seeded
+    # prediction (pairs leave the radius) and pressure too
+    xs, vs, prs, _, _ = pcisph_inputs(params, solver, q)
+    moved, total = pairs_moved(nl, xs, params.support_radius)
+    ref = cg.d_rho_correct_plain(nl, q, xs, vs, prs, dt, s_f, params)
+    got = cg.d_rho_correct(starts, q, xs, vs, prs, dt, s_f, params)
+    for k in range(2):
+        err["pcisph_d_rho_correct"] = max(
+            err["pcisph_d_rho_correct"],
+            max_errors(got[k][:n], ref[k][:n],
+                       f"dragon, seeded x* and p: g1 output {k}"))
+    for k, (a, b) in enumerate(zip(
+            cg.pressure_accel_predict(starts, q, xs, ref[0], dt, params),
+            cg.pressure_accel_predict_plain(nl, q, xs, ref[0], dt,
+                                            params))):
+        err["pcisph_pressure_accel_predict"] = max(
+            err["pcisph_pressure_accel_predict"],
+            max_errors(a[:n], b[:n], f"dragon, seeded x* and p: g2 output "
+                                     f"{k}"))
+    print(f"  seeded prediction at the dragon: {moved} of {total} step-start "
+          f"pairs beyond h at x*, density error on "
+          f"{float((ref[1] > 0).float().mean()):.3f} of the rows")
+
+    cells = 4 * (params.num_cells + 2)
+    bounds = {
+        # reads x, v, material, is_dynamic, m, density; writes acc
+        "nonpressure_accel": bound(
+            "nonpressure_accel", n * 52 + cells,
+            pairs["fluid_ff"] * NONPRESSURE_FLOPS_PER_PAIR),
+        # reads x, x*, v*, material, m_V, density, p; writes p', rho_err;
+        # dt, s_f and the flag
+        "pcisph_d_rho_correct": bound(
+            "pcisph_d_rho_correct", n * 60 + cells + 9,
+            pairs["fluid_i"] * PCISPH_D_RHO_FLOPS_PER_PAIR),
+        # reads x, x*, material, m_V, density, p, v, acc; writes v*', x*'
+        "pcisph_pressure_accel_predict": bound(
+            "pcisph_pressure_accel_predict", n * 88 + cells + 5,
+            pairs["fluid_i"] * PCISPH_PRESSURE_FLOPS_PER_PAIR),
+    }
+
+    # the checkpoint on the card: saved here, resumed into a fresh
+    # Simulation, one step on both, bitwise equal
+    path = os.path.join("build", "chip_smoke", "checkpoint.npz")
+    sim.save(path)
+    t0 = time.perf_counter()
+    fresh = Simulation(config=dragon_config(1), scene_dir=".")
+    fresh.resume(path)
+    print(f"checkpoint: {os.path.getsize(path)} bytes at step "
+          f"{int(sim.state.step_count)}, resumed into a fresh Simulation in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sim.run(1, export=False)
+    fresh.run(1, export=False)
+    for name, a in sim.state.p._asdict().items():
+        if a is not None and not torch.equal(getattr(fresh.state.p, name), a):
+            raise AssertionError(f"resumed step differs in {name}")
+    for name in ("rigid_rest_cm", "dt", "t", "step_count"):
+        if not torch.equal(getattr(fresh.state, name),
+                           getattr(sim.state, name)):
+            raise AssertionError(f"resumed step differs in {name}")
+    print(f"resumed step {int(fresh.state.step_count)} equals the "
+          f"uninterrupted one bitwise (every field)")
+    del fresh
+
+    src = {"nonpressure_accel": "sph_taichi_torch/csrc/dfsph.cu"}
+    kernels = []
+    for name in ("nonpressure_accel", "pcisph_d_rho_correct",
+                 "pcisph_pressure_accel_predict"):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": src.get(name, "sph_taichi_torch/csrc/pcisph.cu"),
+            "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None})
+    return kernels, step_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1579,7 +2020,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = t0 = time.perf_counter()
-    sources = ["pairs", "dfsph", "iisph"]
+    sources = ["pairs", "dfsph", "iisph", "pcisph"]
     _build.build(sources)
     print(f"kernels built from sph_taichi_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1589,6 +2030,7 @@ def main():
     worst = check_kernels_on_small_scenes(device)
     worst.update(check_dfsph_on_small_scenes(device))
     worst.update(check_iisph_on_small_scenes(device))
+    worst.update(check_pcisph_on_small_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, _ = main_path(device, "data/scenes/dragon_bath.json",
@@ -1605,6 +2047,10 @@ def main():
     kernels += iisph_kernels
     torch.cuda.empty_cache()
     iisph_iterating(device, dt=2e-3, steps=5)
+    torch.cuda.empty_cache()
+    pcisph_kernels, _ = pcisph_path(device, warmup=5, steps=20)
+    kernels += pcisph_kernels
+    torch.cuda.empty_cache()
     armadillo_counts(device)
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,11 +2,11 @@
 
 The PyTorch/CUDA port of ``sph_taichi_tpu`` (the JAX package, which stays
 as the reference).  It runs the reference's scene JSON on one
-NVIDIA H100 through WCSPH, DFSPH and IISPH: the grid, sort and
+NVIDIA H100 through WCSPH, PCISPH, IISPH and DFSPH: the grid, sort and
 elementwise stages are plain PyTorch, and the pair traversals of each step
-are hand-written CUDA kernels (``csrc/pairs.cu``, ``csrc/dfsph.cu`` and
-``csrc/iisph.cu``, bound in ``ops/cuda_pairs.py``, ``ops/cuda_dfsph.py``
-and ``ops/cuda_iisph.py``).  On the CPU the same steps run through the
+are hand-written CUDA kernels (``csrc/pairs.cu``, ``csrc/dfsph.cu``,
+``csrc/iisph.cu`` and ``csrc/pcisph.cu``, bound in ``ops/cuda_pairs.py``,
+``ops/cuda_dfsph.py``, ``ops/cuda_iisph.py`` and ``ops/cuda_pcisph.py``).  On the CPU the same steps run through the
 plain PyTorch engine.
 
 Public entry points (device=None means the CUDA device; without one, pass
@@ -14,7 +14,7 @@ Public entry points (device=None means the CUDA device; without one, pass
     ``SimConfig``        — scene JSON loader (config.py)
     ``build_scene``      — scene -> (SimParams, Particles, SceneObjects)
     ``build_solver``     — simulationMethod -> solver
-    ``simulation.Simulation`` — scene file -> frames and exports
+    ``simulation.Simulation`` — scene file -> frames, exports, checkpoints
 
 The package imports neither JAX nor ``sph_taichi_tpu``.
 """
@@ -28,11 +28,11 @@ __version__ = "0.1.0"
 
 def build_solver(params, device=None, engine=None):
     """Instantiate the solver selected by ``simulationMethod``: 0 -> WCSPH,
-    2 -> IISPH, 4 -> DFSPH.
+    1 -> PCISPH, 2 -> IISPH, 4 -> DFSPH.
 
-    PCISPH (1) is still to be ported (ROADMAP.md, queue 1); any other
-    method is not implemented, as in the reference
-    (particle_system.py:214-221).
+    Any other method is not implemented, as in the reference
+    (particle_system.py:214-221).  (The reference's 3D engine has no
+    PCISPH either; method 1 is the JAX package's extension.)
     """
     method = params.simulation_method
     if method == 0:
@@ -45,9 +45,8 @@ def build_solver(params, device=None, engine=None):
         from sph_taichi_torch.models.iisph import IISPHSolver
         return IISPHSolver(params, device=device, engine=engine)
     if method == 1:
-        raise NotImplementedError(
-            f"simulationMethod {method} is not ported to sph_taichi_torch "
-            f"yet (ROADMAP.md, queue 1)")
+        from sph_taichi_torch.models.pcisph import PCISPHSolver
+        return PCISPHSolver(params, device=device, engine=engine)
     raise NotImplementedError(
         f"Solver type {method} has not been implemented.")
 

@@ -12,9 +12,10 @@
 //   dfsph_solver_dv<REACT> <- models/dfsph.py _solver_dv, with the unfused
 //                             update v + (dt * dv) on fluid centres and,
 //                             with REACT, acc + reaction on dynamic rigids
-//   nonpressure_kick       <- models/base.py compute_non_pressure_forces
-//                             with the acceleration select and the DFSPH
-//                             velocity kick v += dt * acc of its epilogue
+//   nonpressure_kick<KICK> <- models/base.py compute_non_pressure_forces
+//                             with the acceleration select and, with KICK
+//                             (DFSPH), the velocity kick v += dt * acc of
+//                             its epilogue; without it (PCISPH) acc only
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_dfsph.py, in the same operation order.  Padding rows are not
@@ -179,6 +180,7 @@ __global__ void dfsph_solver_dv_kernel(
   }
 }
 
+template <bool KICK>
 __global__ void nonpressure_kick_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const int* __restrict__ is_dyn,
@@ -216,15 +218,16 @@ __global__ void nonpressure_kick_kernel(
           s2 += a * d2;
         });
   }
-  // epilogue: acceleration select, then the fluid kick v += dt * acc
-  const float dt = *dt_ptr;
+  // epilogue: acceleration select, then with KICK the fluid kick
+  // v += dt * acc (dt and v_out are not read without it)
+  const float dt = KICK ? *dt_ptr : 0.0f;
   const float g[3] = {c.g0, c.g1, c.g2};
   const float sums[3] = {s0, s1, s2};
   for (int k = 0; k < 3; ++k) {
     float a = g[k] + (fluid ? sums[k] : 0.0f);
     if (solid && !dyn) a = 0.0f;
     acc_out[3 * i + k] = a;
-    v_out[3 * i + k] = (fluid && dyn) ? vi[k] + dt * a : vi[k];
+    if (KICK) v_out[3 * i + k] = (fluid && dyn) ? vi[k] + dt * a : vi[k];
   }
 }
 
@@ -289,9 +292,22 @@ extern "C" int nonpressure_kick_launch(
     const float* dt, float* acc_out, float* v_out, PairConsts c,
     void* stream) {
   if (c.n_real > 0) {
-    nonpressure_kick_kernel<<<grid_for(c), kBlock, 0,
-                              (cudaStream_t)stream>>>(
+    nonpressure_kick_kernel<true><<<grid_for(c), kBlock, 0,
+                                    (cudaStream_t)stream>>>(
         x, v, material, is_dyn, m, density, starts, dt, acc_out, v_out, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nonpressure_accel_launch(
+    const float* x, const float* v, const int* material, const int* is_dyn,
+    const float* m, const float* density, const int* starts, float* acc_out,
+    PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    nonpressure_kick_kernel<false><<<grid_for(c), kBlock, 0,
+                                     (cudaStream_t)stream>>>(
+        x, v, material, is_dyn, m, density, starts, nullptr, acc_out,
+        nullptr, c);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Device code shared by the pair-traversal kernels (pairs.cu, dfsph.cu,
-// iisph.cu): the constants struct, the cubic-spline kernel and its
-// gradient, the cell-range neighbour walk, the viscosity and pressure pair
-// terms, and the symmetric pressure acceleration of the implicit solvers.
+// iisph.cu, pcisph.cu): the constants struct, the cubic-spline kernel and
+// its gradient, the cell-range neighbour walk (and its form with the pair
+// geometry at other positions), the viscosity and pressure pair terms, and
+// the symmetric pressure acceleration of the implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
@@ -118,6 +119,27 @@ __device__ __forceinline__ void for_each_neighbor(
   }
 }
 
+// The pairs of for_each_neighbor at the positions x (cell and inclusion),
+// with the pair geometry taken at the positions xg: f(j, d0, d1, d2, s) gets
+// d = xg_i - xg_j and its raw sum of squares.  PCISPH evaluates its loop's
+// terms at the predicted positions over the step-start pair set (the plain
+// engine's step-start neighbour lists); a pair that moves beyond h gets a
+// zero gradient from cubic_grad.
+template <typename F>
+__device__ __forceinline__ void for_each_neighbor_pinned(
+    int i, const float* __restrict__ x, const float* __restrict__ xg,
+    const int* __restrict__ starts, const PairConsts& c, F&& f) {
+  const float g0 = xg[3 * i], g1 = xg[3 * i + 1], g2 = xg[3 * i + 2];
+  for_each_neighbor(
+      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+      [&](int j, float, float, float, float) {
+        const float d0 = g0 - xg[3 * j];
+        const float d1 = g1 - xg[3 * j + 1];
+        const float d2 = g2 - xg[3 * j + 2];
+        f(j, d0, d1, d2, d0 * d0 + d1 * d1 + d2 * d2);
+      });
+}
+
 // Viscosity coefficient of a fluid pair (sph_base.py:70-78), in the
 // operation order of every solver's term: 2 (dim + 2) mu (m_j / rho_j)
 // (v_ij . r_ij) / (r^2 + 0.01 h^2) * dW/r.  ``m_over_rho`` is m_j / rho_j.
@@ -139,31 +161,39 @@ __device__ __forceinline__ float pressure_coef(float m_V_j, float dpi,
 // Symmetric pressure acceleration of centre i from the pressure field pr
 // (IISPH's and PCISPH's _pressure_accel, one term): the sum over fluid and
 // solid j of pressure_coef * r_ij, with the solid mirror
-// p_j / rho_j^2 := p_i / rho0^2.  Adds into s[0..2].
+// p_j / rho_j^2 := p_i / rho0^2.  Adds into s[0..2].  PINNED takes the
+// pairs of x at the positions xg (for_each_neighbor_pinned, PCISPH);
+// otherwise xg is not read (IISPH).
+template <bool PINNED>
 __device__ __forceinline__ void sym_pressure_sum(
-    int i, const float* __restrict__ x, const int* __restrict__ material,
-    const float* __restrict__ m_V, const float* __restrict__ density,
-    const float* __restrict__ pr, const int* __restrict__ starts,
-    const PairConsts& c, float s[3]) {
+    int i, const float* __restrict__ x, const float* __restrict__ xg,
+    const int* __restrict__ material, const float* __restrict__ m_V,
+    const float* __restrict__ density, const float* __restrict__ pr,
+    const int* __restrict__ starts, const PairConsts& c, float s[3]) {
   const float pr_i = pr[i];
   const float rho_i = density[i];
   const float dpi = pr_i / (rho_i * rho_i);
   const float mirror = pr_i / c.rho0sq;
-  for_each_neighbor(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
-      [&](int j, float d0, float d1, float d2, float sq) {
-        const int mat_j = material[j];
-        if (mat_j != 0 && mat_j != 1) return;
-        const PairGeom p = pair_geom(sq);
-        const float gradw = cubic_grad(p.rn, p.inv, c);
-        const float rho_j = density[j];
-        const float dpj = (mat_j == 1) ? pr[j] / (rho_j * rho_j) : mirror;
-        const float a = pressure_coef(m_V[j], dpi, dpj, gradw, c);
-        s[0] += a * d0;
-        s[1] += a * d1;
-        s[2] += a * d2;
-      });
+  auto term = [&](int j, float d0, float d1, float d2, float sq) {
+    const int mat_j = material[j];
+    if (mat_j != 0 && mat_j != 1) return;
+    const PairGeom p = pair_geom(sq);
+    const float gradw = cubic_grad(p.rn, p.inv, c);
+    const float rho_j = density[j];
+    const float dpj = (mat_j == 1) ? pr[j] / (rho_j * rho_j) : mirror;
+    const float a = pressure_coef(m_V[j], dpi, dpj, gradw, c);
+    s[0] += a * d0;
+    s[1] += a * d1;
+    s[2] += a * d2;
+  };
+  if constexpr (PINNED) {
+    for_each_neighbor_pinned(i, x, xg, starts, c, term);
+  } else {
+    for_each_neighbor(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+                      term);
+  }
 }
+
 
 static const int kBlock = 128;
 

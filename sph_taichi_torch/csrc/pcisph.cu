@@ -1,0 +1,132 @@
+// Pair traversals of the PCISPH prediction-correction loop on Hopper
+// (sm_90a), one thread per centre in cell-sorted order, over the cell-range
+// walk of pair_common.cuh.
+//
+// Replaces: the Pallas TPU kernel BlockEngine._kernel
+// (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
+// its two specializations on the PCISPH path (sph_taichi_tpu/models/pcisph.py):
+//   pcisph_d_rho_correct           <- _d_rho with its correction epilogue:
+//                                     div = sum_j m_V_j dW (v*_i - v*_j) . r_ij
+//                                     over real j, then on fluid rows
+//                                     rho_err = max(rho + dt rho0 div - rho0, 0)
+//                                     and p' = max(p + s_f rho_err, 0)
+//   pcisph_pressure_accel_predict  <- _pressure_accel with its predict
+//                                     epilogue: the symmetric pressure
+//                                     acceleration a_p (sym_pressure_sum,
+//                                     solid mirror), then on fluid rows
+//                                     v*' = v + dt (acc + a_p) and
+//                                     x*' = x + dt v*' (x the step start)
+//
+// Every traversal of the loop runs at the predicted positions x* while the
+// binning stays that of the step start (the fixed-neighbour-list PCISPH):
+// a pair counts if j != i and |x_i - x_j|^2 < h^2 at the step-start
+// positions, and its term is evaluated at x* (for_each_neighbor_pinned).
+// That is the plain engine's contract: its neighbour lists are built once
+// per step, and it evaluates the geometry at the positions it is given.
+//
+// Each epilogue is the unfused chain of the plain versions in
+// ops/cuda_pcisph.py, in the same operation order; dt and s_f are read from
+// device memory.  Both kernels take the loop's device flag `active` and
+// return at once when it is 0 (models/base.py jacobi_while).  Only fluid
+// centres walk their neighbours.  Padding rows are not launched; the
+// wrappers restore them.
+//
+// As the other pair kernels: bound by irregular candidate loads that mostly
+// hit L1/L2; the f32 work per real pair (25-45 operations) is far below the
+// card's rate.  Everything stays in registers.
+
+#include "pair_common.cuh"
+
+__global__ void pcisph_d_rho_correct_kernel(
+    const float* __restrict__ x, const float* __restrict__ xp,
+    const float* __restrict__ vp, const int* __restrict__ material,
+    const float* __restrict__ m_V, const float* __restrict__ density,
+    const float* __restrict__ pr, const int* __restrict__ starts,
+    const float* __restrict__ dt_ptr, const float* __restrict__ sf_ptr,
+    const unsigned char* __restrict__ active, float* __restrict__ pr_out,
+    float* __restrict__ err_out, PairConsts c) {
+  if (active != nullptr && !*active) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  if (material[i] != 1) {
+    pr_out[i] = 0.0f;
+    err_out[i] = 0.0f;
+    return;
+  }
+  const float vi0 = vp[3 * i], vi1 = vp[3 * i + 1], vi2 = vp[3 * i + 2];
+  float div = 0.0f;
+  for_each_neighbor_pinned(
+      i, x, xp, starts, c,
+      [&](int j, float d0, float d1, float d2, float s) {
+        if (material[j] < 0) return;
+        const PairGeom p = pair_geom(s);
+        const float gradw = cubic_grad(p.rn, p.inv, c);
+        const float v_xy = (vi0 - vp[3 * j]) * d0 +
+                           (vi1 - vp[3 * j + 1]) * d1 +
+                           (vi2 - vp[3 * j + 2]) * d2;
+        div += m_V[j] * gradw * v_xy;
+      });
+  // the correction (pcisph.py:93-104): the free-surface clamp of the
+  // density error, then the pressure update, in the plain order
+  const float d_rho = div * c.rho0;
+  const float rho_err = fmaxf(density[i] + *dt_ptr * d_rho - c.rho0, 0.0f);
+  pr_out[i] = fmaxf(pr[i] + *sf_ptr * rho_err, 0.0f);
+  err_out[i] = rho_err;
+}
+
+__global__ void pcisph_pressure_accel_predict_kernel(
+    const float* __restrict__ x, const float* __restrict__ xp,
+    const int* __restrict__ material, const float* __restrict__ m_V,
+    const float* __restrict__ density, const float* __restrict__ pr,
+    const float* __restrict__ v, const float* __restrict__ acc,
+    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    const unsigned char* __restrict__ active, float* __restrict__ v_out,
+    float* __restrict__ x_out, PairConsts c) {
+  if (active != nullptr && !*active) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_real) return;
+  const bool fluid = material[i] == 1;
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  // only the fluid rows' acceleration is read (pcisph.py:158-168, :245)
+  if (fluid) {
+    sym_pressure_sum<true>(i, x, xp, material, m_V, density, pr, starts, c,
+                           s);
+  }
+  const float dt = *dt_ptr;
+  for (int k = 0; k < 3; ++k) {
+    const float vk = v[3 * i + k];
+    const float xk = x[3 * i + k];
+    const float vn = fluid ? vk + dt * (acc[3 * i + k] + s[k]) : vk;
+    v_out[3 * i + k] = vn;
+    x_out[3 * i + k] = fluid ? xk + dt * vn : xk;
+  }
+}
+
+extern "C" int pcisph_d_rho_correct_launch(
+    const float* x, const float* xp, const float* vp, const int* material,
+    const float* m_V, const float* density, const float* pr,
+    const int* starts, const float* dt, const float* s_f,
+    const unsigned char* active, float* pr_out, float* err_out,
+    PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    pcisph_d_rho_correct_kernel<<<grid_for(c), kBlock, 0,
+                                  (cudaStream_t)stream>>>(
+        x, xp, vp, material, m_V, density, pr, starts, dt, s_f, active,
+        pr_out, err_out, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pcisph_pressure_accel_predict_launch(
+    const float* x, const float* xp, const int* material, const float* m_V,
+    const float* density, const float* pr, const float* v, const float* acc,
+    const int* starts, const float* dt, const unsigned char* active,
+    float* v_out, float* x_out, PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    pcisph_pressure_accel_predict_kernel<<<grid_for(c), kBlock, 0,
+                                           (cudaStream_t)stream>>>(
+        x, xp, material, m_V, density, pr, v, acc, starts, dt, active, v_out,
+        x_out, c);
+  }
+  return (int)cudaGetLastError();
+}

@@ -359,16 +359,14 @@ def compute_non_pressure_forces(p: Particles, ctx, engine, params: SimParams,
     static rigid and padding accelerations 0.  The reference's boundary
     viscosity is 0.0, so its reaction scatter is exactly zero and omitted.
 
-    Two forms, as in the JAX package: without ``predict_dt`` it sets
-    p.acc; with it (DFSPH) it also applies the fluid velocity kick
+    Two forms, as in the JAX package: without ``predict_dt`` (PCISPH) it
+    sets p.acc; with it (DFSPH) it also applies the fluid velocity kick
     v += dt * acc (DFSPH.py:392-397), in the kernel's epilogue on the CUDA
     engine.  Padding rows keep their velocity and get acceleration 0."""
     if predict_dt is None:
-        if engine.fused:
-            raise ValueError("the CUDA engine's non-pressure kernel applies "
-                             "the DFSPH kick: pass predict_dt")
-        return p._replace(acc=cuda_dfsph.nonpressure_accel_plain(ctx, p,
-                                                                 params))
+        accel = (cuda_dfsph.nonpressure_accel if engine.fused
+                 else cuda_dfsph.nonpressure_accel_plain)
+        return p._replace(acc=accel(ctx, p, params))
     kick = (cuda_dfsph.nonpressure_kick if engine.fused
             else cuda_dfsph.nonpressure_kick_plain)
     acc, v = kick(ctx, p, predict_dt, params)

@@ -14,7 +14,10 @@ hand-written CUDA C++ in ``csrc/dfsph.cu``:
   rigids;
 - ``nonpressure_kick``: surface tension and viscosity, the acceleration
   select and the fluid velocity kick (models/base.py
-  compute_non_pressure_forces with ``predict_dt``).
+  compute_non_pressure_forces with ``predict_dt``);
+- ``nonpressure_accel``: the same kernel without the kick
+  (``nonpressure_kick<false>``), the acceleration alone, as PCISPH calls
+  compute_non_pressure_forces.
 
 Beside each kernel is its plain version (``*_plain``): the GatherEngine
 traversal with the same term, then the unfused epilogue in torch.  A
@@ -46,7 +49,7 @@ from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
 
 LAUNCHES = {"dfsph_density_factor": 0, "dfsph_divergence_change": 0,
             "dfsph_divergence_adv": 0, "dfsph_solver_dv": 0,
-            "nonpressure_kick": 0}
+            "nonpressure_kick": 0, "nonpressure_accel": 0}
 MODES = ("change", "adv")
 
 
@@ -242,9 +245,12 @@ def _lib():
             [_PTR] * 13 + [ctypes.c_int, PairConsts, _PTR])
         lib.nonpressure_kick_launch.argtypes = (
             [_PTR] * 10 + [PairConsts, _PTR])
+        lib.nonpressure_accel_launch.argtypes = (
+            [_PTR] * 8 + [PairConsts, _PTR])
         for fn in (lib.dfsph_density_factor_launch,
                    lib.dfsph_divergence_launch, lib.dfsph_solver_dv_launch,
-                   lib.nonpressure_kick_launch):
+                   lib.nonpressure_kick_launch,
+                   lib.nonpressure_accel_launch):
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -351,3 +357,24 @@ def nonpressure_kick(starts, p, dt, params):
     acc[n_real:] = 0.0
     v_out[n_real:] = p.v[n_real:]
     return acc, v_out
+
+
+def nonpressure_accel(starts, p, params):
+    """Kernel wrapper for ``nonpressure_accel_plain``: acc, from the kernel
+    of ``nonpressure_kick`` without its kick (v is not written)."""
+    if p.x.device.type == "cpu":
+        return nonpressure_accel_plain(_plain_ctx(starts, p, params), p,
+                                       params)
+    dev, n, ptr = _check_common(starts, p, params)
+    f32 = torch.float32
+    acc = torch.empty_like(p.x)
+    rc = _lib().nonpressure_accel_launch(
+        ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
+        _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
+        _check("m", p.m, f32, (n,), dev),
+        _check("density", p.density, f32, (n,), dev), ptr["starts"],
+        acc.data_ptr(), pair_consts(params), _stream(dev))
+    _raise_on(rc, "nonpressure_accel")
+    LAUNCHES["nonpressure_accel"] += 1
+    acc[params.n_fluid + params.n_solid:] = 0.0
+    return acc

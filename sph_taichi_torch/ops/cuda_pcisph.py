@@ -1,0 +1,173 @@
+"""The PCISPH loop's two pair traversals: CUDA kernels and their plain versions.
+
+Ports the specializations of the Pallas TPU kernel ``BlockEngine._kernel``
+(sph_taichi_tpu/ops/pallas_blocks.py) that the PCISPH path
+(sph_taichi_tpu/models/pcisph.py) runs, as hand-written CUDA C++ in
+``csrc/pcisph.cu``:
+
+- ``d_rho_correct``: the continuity density derivative at the predicted
+  state, sum_j m_V_j dW (v*_i - v*_j) . r_ij over real j (``_d_rho``),
+  with its correction epilogue: rho_err = max(rho + dt rho0 div - rho0, 0)
+  and p' = max(p + s_f rho_err, 0) on fluid rows.  Returns (p', rho_err);
+- ``pressure_accel_predict``: the symmetric pressure acceleration with the
+  solid mirror (``_pressure_accel``, IISPH's term) and the predict
+  epilogue v*' = v + dt (acc + a_p), x*' = x + dt v*' on fluid rows, from
+  the step-start (x, v, acc).  Returns (v*', x*').
+
+Both run at the predicted positions ``xp`` over the pairs of the
+step-start positions ``p.x`` (the fixed-neighbour-list PCISPH): a pair
+counts if |x_i - x_j| < h at the step start, and its term is evaluated at
+x*, where a pair that has moved beyond h contributes 0.  The plain engine's
+neighbour lists, built once per step from ``p.x``, give exactly that pair
+set.
+
+Beside each kernel is its plain version (``*_plain``): the GatherEngine
+traversal with the same term, then the same epilogue in torch, in the JAX
+package's operation order.  A wrapper runs the plain version only when its
+tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
+Each launch adds one to ``LAUNCHES[name]``.  Both run inside the loop and
+take an optional ``active`` flag, a 0-d bool tensor on the device: when it
+is false the kernel returns at once and its outputs are undefined (the loop
+discards them).  The plain versions ignore it.
+
+Padding rows are not launched: the wrappers restore them as the JAX
+package's ``restore_tail`` does (p' and rho_err 0, v*' and x*' from v and
+x).
+"""
+
+import ctypes
+
+import torch
+
+from sph_taichi_torch.ops import cuda_iisph
+from sph_taichi_torch.ops.cuda_pairs import (
+    _PTR, _active_ptr, _check, _check_common, _plain_ctx, _raise_on,
+    _stream, pair_consts, PairConsts)
+from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
+from sph_taichi_torch.ops.pairs import GatherEngine
+
+LAUNCHES = {"pcisph_d_rho_correct": 0, "pcisph_pressure_accel_predict": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def d_rho_correct_plain(nl, p, xp, vp, pressure, dt, s_f, params,
+                        active=None):
+    """Plain version of ``d_rho_correct``: (p', rho_err), both 0 off fluid
+    rows.  The sum over real j of m_V_j dW (v*_i - v*_j) . r_ij at the
+    predicted positions ``xp`` and velocities ``vp`` over the pairs of the
+    neighbour lists ``nl`` (pcisph.py:68-91), then the loop's correction
+    (pcisph.py:234-242).  ``dt`` and ``s_f`` are 0-d f32 tensors."""
+    h = params.support_radius
+    rho0 = params.density0
+
+    def term(fi, fj, d2, rn, dots):
+        gradw_s = cubic_kernel_derivative_scalar(rn, h, params.dim,
+                                                 inv_r=dots["_inv"])
+        return {"div": torch.where(fj["material"] >= 0,
+                                   fj["m_V"] * gradw_s * dots["v"],
+                                   torch.zeros_like(gradw_s))}
+
+    div = GatherEngine(params).traverse(
+        nl, xp, {"material": p.material, "m_V": p.m_V, "v0": vp[:, 0],
+                 "v1": vp[:, 1], "v2": vp[:, 2]}, term, {"div": "scalar"},
+        pair_dots=("v",))["div"]
+    fluid = p.is_fluid()
+    d_rho = torch.where(fluid, div * rho0, 0.0)
+    rho_err = torch.where(
+        fluid, torch.clamp_min(p.density + dt * d_rho - rho0, 0.0), 0.0)
+    pr = torch.where(fluid, torch.clamp_min(pressure + s_f * rho_err, 0.0),
+                     0.0)
+    return pr, rho_err
+
+
+def pressure_accel_predict_plain(nl, p, xp, pressure, dt, params,
+                                 active=None):
+    """Plain version of ``pressure_accel_predict``: (v*', x*').  The
+    acceleration is IISPH's term (``cuda_iisph.pressure_accel_plain``) at
+    the predicted positions; on fluid rows v*' = v + dt (acc + a_p) and
+    x*' = x + dt v*' from the step-start p.v, p.acc and p.x
+    (pcisph.py:158-168, 210); other rows keep v and x."""
+    accel = cuda_iisph.pressure_accel_plain(nl, p._replace(x=xp), pressure,
+                                            params)
+    fluid = p.is_fluid()[:, None]
+    v = torch.where(fluid, p.v + dt * (p.acc + accel), p.v)
+    return v, torch.where(fluid, p.x + dt * v, p.x)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    from sph_taichi_torch.ops import _build
+    lib = _build.load("pcisph")
+    if not getattr(lib, "_typed", False):
+        lib.pcisph_d_rho_correct_launch.argtypes = (
+            [_PTR] * 13 + [PairConsts, _PTR])
+        lib.pcisph_pressure_accel_predict_launch.argtypes = (
+            [_PTR] * 13 + [PairConsts, _PTR])
+        for fn in (lib.pcisph_d_rho_correct_launch,
+                   lib.pcisph_pressure_accel_predict_launch):
+            fn.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def d_rho_correct(starts, p, xp, vp, pressure, dt, s_f, params, active=None):
+    """Kernel wrapper for ``d_rho_correct_plain``: (p', rho_err).
+    ``starts``: cell offsets of the sorted step-start particles ``p``."""
+    if p.x.device.type == "cpu":
+        return d_rho_correct_plain(_plain_ctx(starts, p, params), p, xp, vp,
+                                   pressure, dt, s_f, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    f32 = torch.float32
+    pr_out = torch.empty_like(p.m_V)
+    err = torch.empty_like(p.m_V)
+    rc = _lib().pcisph_d_rho_correct_launch(
+        ptr["x"], _check("xp", xp, f32, (n, 3), dev),
+        _check("vp", vp, f32, (n, 3), dev), ptr["material"], ptr["m_V"],
+        _check("density", p.density, f32, (n,), dev),
+        _check("pressure", pressure, f32, (n,), dev), ptr["starts"],
+        _check("dt", dt, f32, (), dev), _check("s_f", s_f, f32, (), dev),
+        _active_ptr(active, dev), pr_out.data_ptr(), err.data_ptr(),
+        pair_consts(params), _stream(dev))
+    _raise_on(rc, "pcisph_d_rho_correct")
+    LAUNCHES["pcisph_d_rho_correct"] += 1
+    n_real = params.n_fluid + params.n_solid
+    pr_out[n_real:] = 0.0
+    err[n_real:] = 0.0
+    return pr_out, err
+
+
+def pressure_accel_predict(starts, p, xp, pressure, dt, params, active=None):
+    """Kernel wrapper for ``pressure_accel_predict_plain``: (v*', x*')."""
+    if p.x.device.type == "cpu":
+        return pressure_accel_predict_plain(_plain_ctx(starts, p, params), p,
+                                            xp, pressure, dt, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    f32 = torch.float32
+    v_out = torch.empty_like(p.v)
+    x_out = torch.empty_like(p.x)
+    rc = _lib().pcisph_pressure_accel_predict_launch(
+        ptr["x"], _check("xp", xp, f32, (n, 3), dev), ptr["material"],
+        ptr["m_V"], _check("density", p.density, f32, (n,), dev),
+        _check("pressure", pressure, f32, (n,), dev),
+        _check("v", p.v, f32, (n, 3), dev),
+        _check("acc", p.acc, f32, (n, 3), dev), ptr["starts"],
+        _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
+        v_out.data_ptr(), x_out.data_ptr(), pair_consts(params),
+        _stream(dev))
+    _raise_on(rc, "pcisph_pressure_accel_predict")
+    LAUNCHES["pcisph_pressure_accel_predict"] += 1
+    n_real = params.n_fluid + params.n_solid
+    v_out[n_real:] = p.v[n_real:]
+    x_out[n_real:] = p.x[n_real:]
+    return v_out, x_out

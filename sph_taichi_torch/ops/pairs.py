@@ -87,19 +87,21 @@ class GatherEngine:
             c = torch.broadcast_to(contribs[name], valid.shape)
             c = torch.where(valid, c, torch.zeros_like(c))
             if spec == "radial":
-                outs[name] = tuple(sum_in_order(c * rv) for rv in rvec)
+                outs[name] = tuple(sum_in_order(
+                    torch.stack([c * rv for rv in rvec])).unbind(0))
             else:
                 outs[name] = sum_in_order(c)
         return outs
 
 
 def sum_in_order(c):
-    """Row sums of (N, K) ``c``, adding the columns left to right from 0,
-    as each CUDA kernel adds its pairs in neighbour-list order: the kernel
-    and its plain version then round every sum alike.  (``torch.sum``
-    reduces in an order of its own, a few ulps away, which a cancelling
-    sum such as viscosity near a splash magnifies past the tolerance.)"""
-    cols = c.t().contiguous()
+    """Sums of ``c`` (..., K) over its last axis, adding the columns left to
+    right from 0, as each CUDA kernel adds its pairs in neighbour-list
+    order: the kernel and its plain version then round every sum alike.
+    (``torch.sum`` reduces in an order of its own, a few ulps away, which a
+    cancelling sum such as viscosity near a splash magnifies past the
+    tolerance.)"""
+    cols = c.movedim(-1, 0).contiguous()
     out = torch.zeros_like(cols[0])
     for col in cols:
         out = out + col

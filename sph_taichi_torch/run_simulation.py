@@ -6,8 +6,17 @@
         --scene_file data/scenes/dragon_bath_dfsph.json --max_frames 50
     python -m sph_taichi_torch.run_simulation \
         --scene_file data/scenes/dragon_bath.json --method 2 --max_frames 50
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/dragon_bath.json --method 1 --max_frames 50 \
+        --checkpoint_interval 10
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/dragon_bath.json --method 1 --max_frames 50 \
+        --resume dragon_bath_output/checkpoint.npz
 
-Runs on the CUDA device unless ``--device cpu`` is given.
+Runs on the CUDA device unless ``--device cpu`` is given.  With
+``--checkpoint_interval N`` it writes ``<output_dir>/checkpoint.npz`` every
+N frames; ``--resume`` continues from such a file (one written by the JAX
+package's ``run_simulation.py`` loads too).
 """
 
 import argparse
@@ -26,7 +35,12 @@ def main(argv=None):
                         help="torch device (default: cuda)")
     parser.add_argument("--method", type=int, default=None,
                         help="override the scene's simulationMethod "
-                             "(0 WCSPH, 2 IISPH, 4 DFSPH)")
+                             "(0 WCSPH, 1 PCISPH, 2 IISPH, 4 DFSPH)")
+    parser.add_argument("--checkpoint_interval", type=int, default=0,
+                        help="write <output_dir>/checkpoint.npz every N "
+                             "frames (0 = never)")
+    parser.add_argument("--resume", default="",
+                        help="checkpoint to resume from")
     parser.add_argument("--quiet", action="store_true")
     args = parser.parse_args(argv)
 
@@ -41,6 +55,8 @@ def main(argv=None):
         config.config["Configuration"]["simulationMethod"] = args.method
     sim = Simulation(args.scene_file, config=config, scene_dir=scene_dir,
                      output_dir=args.output_dir, device=args.device)
+    if args.resume:
+        sim.resume(args.resume)
     dev = sim.state.p.x.device
     print(f"scene: {sim.scene_name}  method: "
           f"{sim.params.simulation_method}  particles: {sim.params.n_particles} "
@@ -54,7 +70,7 @@ def main(argv=None):
     try:
         while done < n:
             chunk = min(50, n - done)
-            sim.run(chunk)
+            sim.run(chunk, checkpoint_interval=args.checkpoint_interval)
             done += chunk
             if not args.quiet:
                 if dev.type == "cuda":

@@ -5,7 +5,9 @@ run_simulation.py main loop (run_simulation.py:18-118) without the GGUI
 window.  Frames advance ``numberOfStepsPerRenderUpdate`` steps and are
 exported headlessly (PNG splat render / PLY particle series / OBJ
 shape-matched meshes) at the reference cadence ``int(0.016 / dt)``.
-Fatal flags are read from the device once per frame.
+Fatal flags are read from the device once per frame.  ``run`` can write
+``output_dir/checkpoint.npz`` every N frames, and ``resume`` continues
+from such a file (utils/checkpoint.py, the JAX package's layout).
 """
 
 import os
@@ -16,6 +18,7 @@ import torch
 from sph_taichi_torch import build_scene, build_solver
 from sph_taichi_torch.config import SimConfig
 from sph_taichi_torch.utils import exporters
+from sph_taichi_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sph_taichi_torch.utils.profiling import FATAL_KEYS, check_overflow
 
 ITER_KEYS = ("divergence_iters", "pressure_iters")
@@ -103,12 +106,15 @@ class Simulation:
         out.update(zip(dev, vals))
         return out
 
-    def run(self, n_frames, export=True, progress=False):
+    def run(self, n_frames, export=True, checkpoint_interval=0,
+            progress=False):
         for _ in range(n_frames):
             self.run_frame()
             if export and (self.frame - 1) % self.output_interval == 0:
                 self.export_frame()
                 self.export_count += 1
+            if checkpoint_interval and self.frame % checkpoint_interval == 0:
+                self.save(os.path.join(self.output_dir, "checkpoint.npz"))
             if progress:
                 print(f"frame {self.frame}", flush=True)
 
@@ -170,3 +176,10 @@ class Simulation:
             exporters.write_obj(
                 os.path.join(self.output_dir, f"obj_{obj_id}_{k:06}.obj"),
                 out)
+
+    # ------------------------------------------------------------------
+    def save(self, path):
+        save_checkpoint(path, self.state)
+
+    def resume(self, path):
+        self.state = load_checkpoint(path, self.state)

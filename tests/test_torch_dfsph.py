@@ -492,8 +492,18 @@ def test_cuda_dfsph_needs_no_nvcc_to_import():
         cuda_dfsph.divergence(None, part, part.v, None, None, "bad", params)
     with pytest.raises(ValueError, match="CUDA kernel"):
         cuda_pairs._check_common(None, part, params)
-    # the CUDA engine has no unfused non-pressure form
-    with pytest.raises(ValueError, match="predict_dt"):
-        tbase.compute_non_pressure_forces(part, None,
-                                          cuda_pairs.CudaEngine(params),
-                                          params)
+    # the CUDA engine's form without the kick (PCISPH's) is the kernel's
+    # un-kicked variant, whose wrapper takes the plain version on CPU
+    # tensors and counts no launch
+    p, nl, _ = tbase.bin_and_sort(part, params, GatherEngine(params))
+    starts = tgrid.cell_offsets(
+        tgrid.compute_cell_ids(p.x, p.material, params.grid_size,
+                               params.grid_num), params.num_cells)
+    before = dict(cuda_dfsph.LAUNCHES)
+    got = tbase.compute_non_pressure_forces(p, starts,
+                                            cuda_pairs.CudaEngine(params),
+                                            params)
+    assert cuda_dfsph.LAUNCHES == before
+    assert torch.equal(got.acc,
+                       cuda_dfsph.nonpressure_accel_plain(nl, p, params))
+    assert torch.equal(got.v, p.v)

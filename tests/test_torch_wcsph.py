@@ -194,14 +194,13 @@ def test_determinism_bitwise():
     assert np.array_equal(outs[0], outs[1])
 
 
-@pytest.mark.parametrize("method", [1, 3])
+@pytest.mark.parametrize("method", [3])
 def test_unported_methods_raise(method):
     params, _, _ = T.build_scene(
         T.SimConfig(config_dict=small_scene_dict(method=0)), device="cpu")
     import dataclasses
     params = dataclasses.replace(params, simulation_method=method)
-    match = "ROADMAP" if method != 3 else "not been implemented"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="not been implemented"):
         T.build_solver(params, device="cpu")
 
 
