@@ -15,7 +15,11 @@ Phases (any failure raises and exits non-zero):
    IISPH kernels on a clumped scene with a static rigid block and on the
    floor impact (pressures from a seed), and the floor impact's first
    three IISPH steps at dt 1e-3 (59 and 7 iterations in the second and
-   third), kernel engine against plain engine;
+   third), kernel engine against plain engine; kernel 2.1 c (boundary
+   volume) and the three slot-walk kernels on a clumped scene with a
+   static and a dynamic rigid block, at a 20-particle cell (slot and
+   cell-run kernels equal bitwise) and a 40-particle cell (slot_overflow:
+   kernel and plain slot lists drop the same pairs);
 3. the WCSPH path: data/scenes/dragon_bath.json (442,006 particles)
    through ``Simulation`` on the card, timed with CUDA events; the kernels'
    launch counts over that run; per-kernel and plain-version times at the
@@ -30,6 +34,8 @@ Phases (any failure raises and exits non-zero):
 5. the DFSPH reaction variant at scale: data/scenes/
    dragon_bath_dynamic_dfsph.json (a dynamic dragon), run until the fluid
    reaches the dragon, then 5 timed steps and the reaction kernel's time;
+   for the record, kernel 2.1 c's time over its 18,506 solids beside the
+   dense path's, which the dispatch keeps;
 6. the IISPH path: data/scenes/dragon_bath.json with simulationMethod 2
    (442,006 particles, dt 4e-4) through ``Simulation``, 20 steps after 5
    of warm-up, timed with CUDA events; pressure iterations and host reads
@@ -37,8 +43,7 @@ Phases (any failure raises and exits non-zero):
    the loop, f3 once more per step with the advect); the host syncs of one
    step; stage times; the step time by the Jacobi loop's read interval;
    one kernel step against one plain-engine step; per-kernel and
-   plain-version times and bounds, and the bounds of the kernels still to
-   port;
+   plain-version times and bounds;
 7. the IISPH iterating regime: the same scene at dt 2e-3, run until a
    step's pressure solve iterates more than once, then 5 timed steps and
    the read-interval sweep; at that state (pressures not 0) the loop's
@@ -59,7 +64,25 @@ Phases (any failure raises and exits non-zero):
    plain-version times and bounds; a checkpoint saved there and resumed
    into a fresh ``Simulation``, one step on both, bitwise equal;
 10. the armadillo scene's particle counts (build_scene only): its solids
-   take the dense boundary-volume path, not kernel 2.1 c.
+   take the dense boundary-volume path, not kernel 2.1 c;
+11. the solid-heavy path: dragon_bath_dynamic_dfsph.json with the dragon
+   scaled by 1.25, built in memory (457,558 particles, 34,058 dynamic
+   solids, above DENSE_SOLID_CAP), through ``Simulation`` with DFSPH at dt
+   4e-3, 20 timed steps after 5: kernel 2.1 c once in ``initialize`` (no
+   static solid, so no static launch) and once per step, the dense path
+   never; kernel c against its plain version for both target masks, its
+   time, plain time and bound;
+12. the slot path: data/scenes/dragon_bath.json (WCSPH) with
+   ``backend="pallas_slots"`` through ``Simulation``, 50 timed steps after
+   5, steps/s beside the cell-run path's; the slot map's build time and
+   bytes, max_layers_used and the launch counts; the slot kernels against
+   their plain versions (the slot neighbour lists) and beside the cell-run
+   kernels at the dragon state; one slot step against one cell-run step
+   from the same state (expected: equal bitwise);
+13. the scaled dynamic dragon as WCSPH (dt 4e-4) under
+   ``backend="pallas_slots"``, 10 timed steps after 2: kernel c's slot
+   instantiation once in ``initialize`` and once per step, against its
+   plain version, beside the cell-run kernel c.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -72,6 +95,7 @@ to agree to the bit; the tolerance is the bound that is held.
 """
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -123,6 +147,9 @@ IISPH_APPLY_A_FLOPS_PER_PAIR = 35
 PCISPH_D_RHO_FLOPS_PER_PAIR = 43
 # g2 pressure acceleration (fluid and solid j): f3's 36, geometry 8
 PCISPH_PRESSURE_FLOPS_PER_PAIR = 44
+# counted from csrc/pairs.cu boundary_volume: a within-radius pair costs its
+# distance test (8); a solid one also sqrt 1, W 13, material test and sum 2
+BOUNDARY_VOLUME_FLOPS_PER_PAIR = 24
 
 
 def small_scene(two_way=False):
@@ -208,6 +235,31 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel, reps):
+    """Mean device ms of the CUDA kernel whose name contains ``kernel``,
+    over ``reps`` calls of ``fn`` under torch.profiler (one warm-up).  For
+    a wrapper whose host work (small torch ops before the launch) outlasts
+    its kernel, CUDA events around the calls time the host instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key and str(e.device_type).endswith("CUDA"):
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+            count += e.count
+    if count != reps:
+        raise AssertionError(f"profiler: {count} launches of {kernel} in "
+                             f"{reps} calls")
+    return us / count / 1e3
 
 
 def max_errors(got, ref, name):
@@ -590,15 +642,18 @@ def main_path(device, scene_path, warmup, steps):
         err_frc = max(err_frc, max_errors(a, b, f"dragon wcsph_forces.{name}"))
 
     n = n_real
-    cells = params.num_cells + 2
-    den_bytes = n * (12 + 4 + 4) + 4 * cells + 4 * n
-    frc_bytes = n * (12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4) + 4 * cells + 4 \
-        + n * 36
+    # density walks from every real centre, the forces from the fluid ones
+    # and the dynamic rigids
+    walkers = (q.material == 1) | q.is_dynamic_rigid()
+    den_bytes = n * (12 + 4 + 4) + offset_bytes(params, q.x[:n]) + 4 * n
+    frc_bytes = n * (12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4) \
+        + offset_bytes(params, q.x[walkers]) + 4 + n * 36
     bounds = {
         "density_sum": bound("density_sum", den_bytes,
                              pairs * DENSITY_FLOPS_PER_PAIR),
         "wcsph_forces": bound("wcsph_forces", frc_bytes,
-                              pairs * FORCES_FLOPS_PER_PAIR)}
+                              int(nl.cnt[walkers].long().sum())
+                              * FORCES_FLOPS_PER_PAIR)}
 
     # one kernel step against one plain-engine step from the same state
     plain_solver = build_solver(params, device=device, engine=plain_engine)
@@ -667,6 +722,28 @@ def bound(name, nbytes, flops):
     print(f"{name} bound: {nbytes} bytes -> {t_bytes:.5f} ms, {flops} flop "
           f"-> {t_ops:.5f} ms")
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def offset_bytes(params, xc):
+    """Bytes of the cell offsets that cell-run walks from the centres at
+    ``xc`` read: per (dx, dy) column of a centre, the offsets of its z-run's
+    first cell and of the cell past its last (pair_common.cuh
+    ``CellRunWalk``), each offset counted once."""
+    from sph_taichi_torch.ops.grid import pos_to_cell
+
+    nx, ny, nz = params.grid_num
+    ix, iy, iz = pos_to_cell(xc, params.grid_size).long().unbind(1)
+    zlo = torch.clamp(iz - 1, min=0)
+    zhi = torch.clamp(iz + 1, max=nz - 1)
+    read = torch.zeros(params.num_cells + 1, dtype=torch.bool,
+                       device=xc.device)
+    for dx, dy in itertools.product((-1, 0, 1), repeat=2):
+        cx, cy = ix + dx, iy + dy
+        ok = (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny) & (zlo <= zhi)
+        base = (cx * ny + cy) * nz
+        read[(base + zlo)[ok]] = True
+        read[(base + zhi + 1)[ok]] = True
+    return 4 * int(read.sum())
 
 
 def dfsph_path(device, scene_path, warmup, steps):
@@ -861,7 +938,7 @@ def dfsph_path(device, scene_path, warmup, steps):
               f" ms")
 
     n = params.n_fluid + params.n_solid
-    cells = 4 * (params.num_cells + 2)
+    cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
     bounds = {
         "dfsph_density_factor": bound(
             "dfsph_density_factor", n * 32 + cells,
@@ -1029,6 +1106,21 @@ def reaction_at_scale(device, scene_path, steps, max_lead=200):
           f"(without the reaction {fluid_ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms); max |reaction| on the dragon {moved:.3e} with the state's "
           f"stiffness, {moved_random:.3e} with a random one")
+    # for the record: kernel c over these 18,506 solids beside the dense
+    # path that takes them (the dispatch stays the dense path)
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    c_ms = kernel_ms(lambda: cp.boundary_volume(starts, q, dynr, params),
+                     "boundary_volume_kernel<CellRunWalk>", 20)
+    dense_ms = time_ms(lambda: base._boundary_volume_dense(q, params, dynr),
+                       3)
+    mv_c = cp.boundary_volume(starts, q, dynr, params)[dynr].double()
+    mv_d = base._boundary_volume_dense(q, params, dynr).m_V[dynr].double()
+    print(f"boundary volumes of the dragon's {int(dynr.sum())} solids: "
+          f"kernel c {c_ms:.4f} ms (profiler), dense path {dense_ms:.4f} "
+          f"ms (CUDA events); max rel "
+          f"difference {float(((mv_c - mv_d) / mv_d).abs().max()):.3e} "
+          f"(summation order)")
     return step_ms, react_ms
 
 
@@ -1199,34 +1291,14 @@ def iisph_state_kernels(params, solver, state):
     n_real = params.n_fluid + params.n_solid
     valid = nl.mask()
     mat_j = q.material[nl.idx]
-    fluid_i = (q.material == 1)[:, None]
-    solid_i = (q.material == 0)[:, None]
     pairs = {"real": int(nl.cnt[:n_real].long().sum()),
-             "fluid_j": int((valid & (mat_j == 1))[:n_real].sum()),
-             # for the kernels still to port (unported_bounds)
-             "fluid_i": int((valid & fluid_i).sum()),
-             "solid_solid": int((valid & solid_i & (mat_j == 0)).sum())}
+             "fluid_j": int((valid & (mat_j == 1))[:n_real].sum())}
     print(f"within-radius pairs with a real centre: {pairs['real']}, of them "
-          f"with a fluid neighbour {pairs['fluid_j']}, with a fluid centre "
-          f"{pairs['fluid_i']}, solid-solid {pairs['solid_solid']}; max "
+          f"with a fluid neighbour {pairs['fluid_j']}; max "
           f"neighbours {int(nl.max_cnt)}, max cell occupancy {occ} (the oracle's caps "
           f"{caps.neighbor_cap}, {caps.cell_cap}); last_p max "
           f"{float(last_p.max()):.4f} Pa")
     return q, starts, nl, (a_ii, source, last_p, accel), pairs
-
-
-def unported_bounds(params, pairs):
-    """Bound of the TPU kernel still to port (PERF.md's table), worked out
-    from the JAX term at this state's pair counts, as a cell-walk kernel
-    of this port would do the work: computed, not measured.
-    c. boundary volume (models/base.py:198-213): W over solid pairs of
-       solid centres (distance 8, sqrt+square 2, W 13, sum 1); reads x and
-       material, writes m_V."""
-    n = params.n_fluid + params.n_solid
-    cells = 4 * (params.num_cells + 2)
-    return {
-        "c": bound("boundary volume (2.1 c, not ported)", n * 20 + cells,
-                   pairs["solid_solid"] * 24)}
 
 
 def armadillo_counts(device):
@@ -1434,7 +1506,7 @@ def iisph_path(device, warmup, steps):
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
 
-    cells = 4 * (params.num_cells + 2)
+    cells = offset_bytes(params, q.x[:n])   # every real centre walks
     bounds = {
         "iisph_nonpressure_kick": bound(
             "iisph_nonpressure_kick", n * 60 + cells + 4,
@@ -1451,7 +1523,6 @@ def iisph_path(device, warmup, steps):
             "iisph_apply_A", n * 52 + cells + 5,
             pairs["real"] * IISPH_APPLY_A_FLOPS_PER_PAIR),
     }
-    unported_bounds(params, pairs)
     # the pressure-acceleration entry: both variants, weighted by their
     # launches on the path
     w_loop = launches["iisph_pressure_accel"]
@@ -1945,7 +2016,7 @@ def pcisph_path(device, warmup, steps):
           f"pairs beyond h at x*, density error on "
           f"{float((ref[1] > 0).float().mean()):.3f} of the rows")
 
-    cells = 4 * (params.num_cells + 2)
+    cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
     bounds = {
         # reads x, v, material, is_dynamic, m, density; writes acc
         "nonpressure_accel": bound(
@@ -2000,6 +2071,577 @@ def pcisph_path(device, warmup, steps):
     return kernels, step_ms
 
 
+# ---------------------------------------------------------------------------
+# kernel 2.1 c (boundary volume) and the slot walk (2.2)
+# ---------------------------------------------------------------------------
+
+def volume_scene():
+    """The WCSPH two-way scene with a static rigid block below the dynamic
+    one: both target masks of the boundary volume have rows."""
+    d = small_scene(two_way=True)
+    d["RigidBlocks"].append({
+        "objectId": 2, "start": [0.55, 0.1, 0.55], "end": [0.9, 0.3, 0.9],
+        "translation": [0.0, 0.0, 0.0], "scale": [1.0, 1.0, 1.0],
+        "velocity": [0.0, 0.0, 0.0], "density": 500.0,
+        "color": [100, 100, 100], "isDynamic": False})
+    return d
+
+
+def overflow_clump(params, p, seed=5):
+    """Sorted particles with 40 of them moved into one cell, beyond the
+    slot map's 8 x 4 slots."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    rng = np.random.default_rng(seed)
+    x = p.x.cpu().numpy()
+    c0 = np.array([6, 6, 6]) * params.grid_size + 0.05 * params.grid_size
+    x[40:80] = c0 + rng.uniform(0, 0.9 * params.grid_size, (40, 3))
+    q = p._replace(x=torch.tensor(x, device=p.x.device))
+    q, _, _ = base.bin_and_sort(q, params, GatherEngine(params))
+    starts = base.cell_offsets(
+        base.compute_cell_ids(q.x, q.material, params.grid_size,
+                              params.grid_num), params.num_cells)
+    return q, starts
+
+
+def check_volume_and_slot_kernels_on_small_scenes(device):
+    """Kernel 2.1 c over cell runs, and the three slot instantiations,
+    against their plain versions on the clumped small scene with a static
+    and a dynamic rigid block: a 20-particle cell (three of the four slot
+    layers in use), where the slot kernels must equal the cell-run kernels
+    bitwise, and a 40-particle cell (``slot_overflow``), where kernel and
+    plain slot lists drop the same pairs (called directly)."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops.pairs import GatherEngine
+    from sph_taichi_torch.ops.slots import (
+        build_slot_map, slot_neighbor_list)
+
+    worst = {}
+
+    def check(name, got, ref, label):
+        worst[name] = max(worst.get(name, 0.0), max_errors(
+            got, ref, f"{name}[{label}]"))
+
+    params, solver, p, nl, starts, diag = prepared(volume_scene(), device,
+                                                   seed=0)
+    if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+        raise AssertionError("volume scene: the plain engine's caps "
+                             "overflowed")
+    caps = dataclasses.replace(params, neighbor_cap=256)
+    masks = {"static": p.is_static_rigid(), "dynamic": p.is_dynamic_rigid()}
+    for which, mask in masks.items():
+        if not bool(mask.any()):
+            raise AssertionError(f"no {which} solid in the volume scene")
+        check("boundary_volume", cp.boundary_volume(starts, p, mask, params),
+              cp.boundary_volume_plain(nl, p, mask, params), which)
+    q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(p)
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
+    for kind in ("layers", "overflow"):
+        if kind == "overflow":
+            p, starts = overflow_clump(params, p)
+            q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(p)
+            masks = {"static": p.is_static_rigid(),
+                     "dynamic": p.is_dynamic_rigid()}
+        smap = build_slot_map(starts, params)
+        snl = slot_neighbor_list(smap, p.x, caps)
+        d = {k: int(v) for k, v in smap.diag.items()}
+        print(f"slot map [{kind}]: {d}, plain slot lists: max neighbours "
+              f"{int(snl.max_cnt)}")
+        if int(snl.diag["neighbor_overflow"]):
+            raise AssertionError("plain slot lists overflowed")
+        if d["slot_overflow"] != (kind == "overflow") or \
+                d["max_layers_used"] < 2:
+            raise AssertionError(f"slot map [{kind}]: {d}")
+        got = cp.density_sum(smap, p, params)
+        check("density_sum[slots]", got, cp.density_sum_plain(
+            snl, p.x, p.material, p.m_V, params), kind)
+        # the sums over every pair: plain lists without a cell cap
+        full = GatherEngine(dataclasses.replace(caps, cell_cap=64)).prepare(
+            p.x, starts)
+        dropped = int((got != cp.density_sum_plain(
+            full, p.x, p.material, p.m_V, params)).sum())
+        print(f"  rows whose slot density differs from the sum over every "
+              f"pair: {dropped}")
+        if (dropped > 0) != (kind == "overflow"):
+            raise AssertionError(f"slot walk [{kind}]: {dropped} rows "
+                                 f"differ from the sum over every pair")
+        got = cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt, params)
+        ref = cp.wcsph_forces_plain(snl, q, dpi, p_r02, m_nc, rr0, dt,
+                                    params)
+        for name, a, b in zip(("x", "v", "acc"), got, ref):
+            check("wcsph_forces[slots]", a, b, f"{kind}.{name}")
+        if kind == "layers":
+            for a, b in zip(got, cp.wcsph_forces(starts, q, dpi, p_r02, m_nc,
+                                                 rr0, dt, params)):
+                if not torch.equal(a, b):
+                    raise AssertionError("slot and cell-run forces differ")
+        for which, mask in masks.items():
+            got = cp.boundary_volume(smap, p, mask, params)
+            check("boundary_volume[slots]", got, cp.boundary_volume_plain(
+                snl, p, mask, params), f"{kind}.{which}")
+            if kind == "layers" and not torch.equal(
+                    got, cp.boundary_volume(starts, p, mask, params)):
+                raise AssertionError("slot and cell-run volumes differ")
+    return worst
+
+
+def count_dense_calls():
+    """Wrap the dense boundary-volume path to count its calls; returns the
+    counter (a dict) and a function that restores the path."""
+    from sph_taichi_torch.models import base
+
+    calls = {"dense": 0}
+    dense = base._boundary_volume_dense
+
+    def counted(*args, **kwargs):
+        calls["dense"] += 1
+        return dense(*args, **kwargs)
+
+    base._boundary_volume_dense = counted
+
+    def restore():
+        base._boundary_volume_dense = dense
+    return calls, restore
+
+
+def scaled_dragon_config(method=None, dt=None):
+    """data/scenes/dragon_bath_dynamic_dfsph.json with the dragon scaled by
+    1.25 (34,058 dynamic solids, above DENSE_SOLID_CAP), built in memory;
+    ``method`` and ``dt`` override the scene's."""
+    from sph_taichi_torch import SimConfig
+
+    with open("data/scenes/dragon_bath_dynamic_dfsph.json") as f:
+        d = json.load(f)
+    d["RigidBodies"][0]["scale"] = [1.25, 1.25, 1.25]
+    if method is not None:
+        d["Configuration"]["simulationMethod"] = method
+    if dt is not None:
+        d["Configuration"]["timeStepSize"] = dt
+    return SimConfig(config_dict=d)
+
+
+def volume_pairs(params, q, nl, mask):
+    """Within-radius pairs of the target centres ``mask``, those with a
+    solid neighbour, and the rows a target walk reads (the targets and
+    their neighbours)."""
+    valid = nl.mask() & mask[:, None]
+    solid = valid & (q.material[nl.idx] == 0)
+    touched = mask.clone()
+    touched[nl.idx[valid]] = True
+    return int(valid.sum()), int(solid.sum()), int(touched.sum())
+
+
+def slot_map_bytes(params, smap, xc):
+    """Bytes of the slot map that the walks from the centres at ``xc``
+    must read: every cell in some centre's 27-cell neighbourhood, in each
+    its layers up to the first that holds an empty slot (32 bytes a
+    layer)."""
+    from sph_taichi_torch.ops.grid import pos_to_cell
+
+    nx, ny, nz = params.grid_num
+    dev = xc.device
+    cell = pos_to_cell(xc, params.grid_size).long()
+    hi = torch.tensor([nx, ny, nz], device=dev)
+    seen = torch.zeros((nx, ny, nz), dtype=torch.bool, device=dev)
+    for off in itertools.product((-1, 0, 1), repeat=3):
+        cc = cell + torch.tensor(off, device=dev)
+        cc = cc[((cc >= 0) & (cc < hi)).all(dim=1)]
+        seen[cc[:, 0], cc[:, 1], cc[:, 2]] = True
+    c = params.num_cells
+    cnt = (smap.starts[1:c + 1] - smap.starts[:c]).reshape(nx, ny, nz)
+    layers = torch.clamp(cnt // 8 + 1, max=smap.layers)
+    return int((layers * seen).sum()) * 32
+
+
+def volume_bound(name, params, q, nl, mask, index_bytes):
+    """Bound of kernel c over the targets ``mask``: x and material of the
+    rows the walk reads, the target indices (one per solid), the targets'
+    m_V, and ``index_bytes`` of the walk's index (the cell offsets or the
+    slot map's entries the targets' walks read); the distance test on each
+    within-radius pair and W on each solid one."""
+    pairs, solid, touched = volume_pairs(params, q, nl, mask)
+    n_t = int(mask.sum())
+    nbytes = touched * 16 + params.n_solid * 4 + n_t * 4 + index_bytes
+    flops = (pairs - solid) * 8 + solid * BOUNDARY_VOLUME_FLOPS_PER_PAIR
+    print(f"{name}: {n_t} targets, {pairs} within-radius pairs, {solid} "
+          f"solid-solid, {touched} rows read")
+    return bound(name, nbytes, flops)
+
+
+def volume_path(device, warmup, steps):
+    """The solid-heavy dynamic dragon (dragon_bath_dynamic_dfsph with the
+    dragon scaled by 1.25) through ``Simulation`` with DFSPH: kernel c in
+    ``initialize`` and once per step, the dense path never; returns the
+    kernel's JSON entry."""
+    import warnings
+
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.simulation import Simulation
+
+    calls, restore = count_dense_calls()
+    try:
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        sim = Simulation(config=scaled_dragon_config())
+        torch.cuda.synchronize()
+        params = sim.params
+        init = all_launch_counts()
+        print(f"scaled dynamic dragon (dragon_bath_dynamic_dfsph, dragon "
+              f"scale 1.25): {params.n_particles} particles (fluid "
+              f"{params.n_fluid}, solid {params.n_solid} > DENSE_SOLID_CAP "
+              f"{base.DENSE_SOLID_CAP}), dynamic rigids "
+              f"{params.dynamic_rigid_ids}, grid {params.grid_num}, dt "
+              f"{params.dt0}; scene + initialize "
+              f"{time.perf_counter() - t0:.2f} s; launches in initialize "
+              f"{ {k: v for k, v in init.items() if v} }")
+        if params.n_solid <= base.DENSE_SOLID_CAP:
+            raise AssertionError("the scaled dragon takes the dense path")
+        # the static call (no static solid: no target row writes) and the
+        # dynamic one
+        if init["boundary_volume"] != 2 or sum(init.values()) != 2:
+            raise AssertionError(f"initialize launched {init}")
+        sim.run(warmup, export=False)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, m = sim.solver.step(sim.state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        reads = int(m["divergence_host_reads"] + m["pressure_host_reads"])
+        # the loop tests' reads, and the rigid solve's SVD and determinant
+        loop = [w for w in where if w.startswith("sph_taichi_torch/models/")]
+        other = [w for w in where if w not in loop
+                 and not w.startswith("sph_taichi_torch/ops/linalg.py")]
+        print(f"one step under torch.cuda sync-debug mode 'warn': "
+              f"{len(where)} host syncs {where}; {reads} reads of the loop "
+              f"tests")
+        if len(loop) != reads or other:
+            raise AssertionError("a step syncs outside its loop tests and "
+                                 "its rigid solve")
+
+        reset_all_launch_counts()
+        sim.reset_solver_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sim.run(steps // sim.substeps, export=False)
+        end.record()
+        torch.cuda.synchronize()
+        launches = all_launch_counts()
+        st = sim.read_solver_stats()
+        step_ms = start.elapsed_time(end) / steps
+        print(f"scaled dragon path (DFSPH): {steps} steps, {step_ms:.4f} "
+              f"ms/step, {1e3 / step_ms:.3f} steps/s; iterations "
+              f"divergence {st['divergence_iters_sum']} pressure "
+              f"{st['pressure_iters_sum']}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; dense path "
+              f"calls since the scene was built {calls['dense']}")
+        for name in ("boundary_volume", "dfsph_density_factor",
+                     "nonpressure_kick"):
+            if launches[name] != steps:
+                raise AssertionError(f"{name}: {launches[name]} launches in "
+                                     f"{steps} steps")
+        if calls["dense"] or any(launches[k] for k in launches
+                                 if "[slots]" in k):
+            raise AssertionError("the dense path or a slot kernel ran")
+    finally:
+        restore()
+    busy_ms = profile_steps(sim, 5)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
+              f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+    check_state(sim)
+
+    q, starts, nl, _, _, _ = dragon_state_kernels(params, sim.solver,
+                                                  sim.state)
+    masks = {"static": q.is_static_rigid(), "dynamic": q.is_dynamic_rigid()}
+    err = 0.0
+    for which, mask in masks.items():
+        err = max(err, max_errors(
+            cp.boundary_volume(starts, q, mask, params),
+            cp.boundary_volume_plain(nl, q, mask, params),
+            f"scaled dragon boundary_volume[{which}]"))
+    dyn = masks["dynamic"]
+    def call():
+        return cp.boundary_volume(starts, q, dyn, params)
+
+    k_ms = kernel_ms(call, "boundary_volume_kernel<CellRunWalk>", 20)
+    call_ms = time_ms(call, 20)
+    p_ms = time_ms(lambda: cp.boundary_volume_plain(nl, q, dyn, params), 3)
+    b = volume_bound("boundary_volume", params, q, nl, dyn,
+                     offset_bytes(params, q.x[dyn]))
+    print(f"boundary_volume at the scaled dragon: kernel {k_ms:.4f} ms "
+          f"(profiler), wrapper call {call_ms:.4f} ms (CUDA events, with "
+          f"its target compaction), plain {p_ms:.4f} ms, bound {b[0]:.5f} "
+          f"ms by {b[1]}")
+    return [{"name": "boundary_volume", "route": "cuda",
+             "source": "sph_taichi_torch/csrc/pairs.cu",
+             "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
+             "launches": launches["boundary_volume"], "max_abs_err": err,
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": None}], step_ms
+
+
+def slot_path(device, scene_path, warmup, steps, cell_step_ms):
+    """dragon_bath (WCSPH) with ``backend="pallas_slots"`` through
+    ``Simulation``: the slot instantiations of density_sum and
+    wcsph_forces once per step; the map's build time and bytes; the slot
+    kernels against their plain versions and the cell-run kernels at the
+    dragon state; one slot step against one cell-run step from the same
+    state.  Returns the two kernels' JSON entries."""
+    from sph_taichi_torch import build_solver
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops.slots import (
+        build_slot_map, slot_neighbor_list)
+    from sph_taichi_torch.simulation import Simulation
+
+    t0 = time.perf_counter()
+    sim = Simulation(scene_path, backend="pallas_slots")
+    torch.cuda.synchronize()
+    params = sim.params
+    print(f"dragon_bath with backend pallas_slots (slot_layers "
+          f"{params.slot_layers}): scene + initialize "
+          f"{time.perf_counter() - t0:.2f} s")
+    # the cell-run twin, stepped alike, for the A/B in turns below
+    cell_sim = Simulation(scene_path)
+    sim.run(warmup, export=False)
+    cell_sim.run(warmup + steps, export=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    sim.solver.step(sim.state)
+    torch.cuda.set_sync_debug_mode("default")
+    print("one slot step under torch.cuda sync-debug mode 'error': no host "
+          "sync")
+
+    reset_all_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    step_ms = start.elapsed_time(end) / steps
+    m = sim.metrics
+    print(f"slot path (WCSPH, pallas_slots): {steps} steps, {step_ms:.4f} "
+          f"ms/step, {1e3 / step_ms:.3f} steps/s (cell-run path "
+          f"{cell_step_ms:.4f} ms/step, {1e3 / cell_step_ms:.3f} steps/s); "
+          f"max_layers_used {int(m['max_layers_used'])}, max cell occupancy "
+          f"{int(m['max_cell_occupancy_engine'])}, slot_overflow "
+          f"{bool(m['slot_overflow'])}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    expect = {"density_sum[slots]": steps, "wcsph_forces[slots]": steps}
+    for name, count in launches.items():
+        if count != expect.get(name, 0):
+            raise AssertionError(f"{name}: {count} launches in {steps} slot "
+                                 f"steps, expected {expect.get(name, 0)}")
+    if bool(m["slot_overflow"]):
+        raise AssertionError("slot_overflow on the dragon")
+
+    # A/B on this card: 10 steps of each, in turns, in alternating order
+    per = {"pallas_slots": [], "auto": []}
+    for turn in range(6):
+        order = [("pallas_slots", sim), ("auto", cell_sim)]
+        for name, s in order[::1 if turn % 2 == 0 else -1]:
+            start.record()
+            s.run(10 // s.substeps, export=False)
+            end.record()
+            torch.cuda.synchronize()
+            per[name].append(start.elapsed_time(end) / 10)
+    print("step ms in 6 turns of 10 steps (slot, cell-run): " + json.dumps(
+        {k: [round(t, 4) for t in v] for k, v in per.items()}) + "; medians "
+        + json.dumps({k: round(float(np.median(v)), 4)
+                      for k, v in per.items()}))
+    same = all(torch.equal(getattr(sim.state.p, f),
+                           getattr(cell_sim.state.p, f))
+               for f in ("x", "v", "density", "pressure", "m_V"))
+    print(f"after {int(sim.state.step_count)} steps each, the slot and "
+          f"cell-run simulations hold the same state bitwise: {same}")
+    busy_ms = profile_steps(sim, 10)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
+              f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+    check_state(sim)
+
+    solver, state = sim.solver, sim.state
+    q, smap, _ = base.bin_and_sort(state.p, params, solver.engine,
+                                   solver.tables)
+    starts = smap.starts
+    map_ms = time_ms(lambda: build_slot_map(starts, params), 20)
+    map_bytes = smap.idx.numel() * 4
+    layers_used = int(smap.diag["max_layers_used"])
+    print(f"slot map: {tuple(smap.idx.shape)} i32, {map_bytes} bytes, "
+          f"built in {map_ms:.4f} ms; layers in use {layers_used}")
+    caps = dataclasses.replace(params, neighbor_cap=max(
+        params.neighbor_cap, 96))
+    snl = slot_neighbor_list(smap, q.x, caps)
+    if int(snl.diag["neighbor_overflow"]):
+        raise AssertionError("plain slot lists overflowed")
+    pairs = int(snl.cnt[:params.n_fluid + params.n_solid].long().sum())
+    q = base.compute_densities(q, smap, solver.engine, params)
+    q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(q)
+    dt = state.dt
+    reset_all_launch_counts()
+    ms, plain_ms, err = {}, {}, {}
+    ms["density_sum[slots]"] = time_ms(
+        lambda: cp.density_sum(smap, q, params), 20)
+    ms["density_sum"] = time_ms(lambda: cp.density_sum(starts, q, params), 20)
+    ms["wcsph_forces[slots]"] = time_ms(
+        lambda: cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt, params),
+        20)
+    ms["wcsph_forces"] = time_ms(
+        lambda: cp.wcsph_forces(starts, q, dpi, p_r02, m_nc, rr0, dt, params),
+        20)
+    plain_ms["density_sum[slots]"] = time_ms(
+        lambda: cp.density_sum_plain(snl, q.x, q.material, q.m_V, params), 3)
+    plain_ms["wcsph_forces[slots]"] = time_ms(
+        lambda: cp.wcsph_forces_plain(snl, q, dpi, p_r02, m_nc, rr0, dt,
+                                      params), 3)
+    print("slot and cell-run kernels at this state (ms): " + json.dumps(
+        {k: round(v, 4) for k, v in ms.items()}))
+    err["density_sum[slots]"] = max_errors(
+        cp.density_sum(smap, q, params), cp.density_sum_plain(
+            snl, q.x, q.material, q.m_V, params), "dragon density_sum[slots]")
+    err["wcsph_forces[slots]"] = 0.0
+    for name, a, b in zip(("x", "v", "acc"),
+                          cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt,
+                                          params),
+                          cp.wcsph_forces_plain(snl, q, dpi, p_r02, m_nc,
+                                                rr0, dt, params)):
+        err["wcsph_forces[slots]"] = max(
+            err["wcsph_forces[slots]"],
+            max_errors(a, b, f"dragon wcsph_forces[slots].{name}"))
+
+    # one slot step against one cell-run step from the same state
+    cell_solver = build_solver(dataclasses.replace(params, backend="auto"),
+                               device=device)
+    ss, _ = solver.step(state)
+    cs, _ = cell_solver.step(state)
+    real = cs.p.material != -1
+    same = True
+    for name in ("x", "v", "density", "pressure", "acc"):
+        a, b = getattr(ss.p, name)[real], getattr(cs.p, name)[real]
+        max_errors(a, b, f"slot step vs cell-run step: {name}")
+        same = same and torch.equal(a, b)
+    print(f"the slot step equals the cell-run step bitwise: {same}")
+
+    # the slot walk reads the map's entries and no cell offsets; density
+    # walks from every real centre, the forces from the fluid ones and the
+    # dynamic rigids
+    n = params.n_fluid + params.n_solid
+    walkers = (q.material == 1) | q.is_dynamic_rigid()
+    den_map = slot_map_bytes(params, smap, q.x[:n])
+    frc_map = slot_map_bytes(params, smap, q.x[walkers])
+    print(f"slot map bytes the walks read: density {den_map}, forces "
+          f"{frc_map}")
+    den_bytes = n * (12 + 4 + 4) + 4 * n + den_map
+    frc_bytes = n * (12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4) + 4 + n * 36 \
+        + frc_map
+    bounds = {
+        "density_sum[slots]": bound("density_sum[slots]", den_bytes,
+                                    pairs * DENSITY_FLOPS_PER_PAIR),
+        "wcsph_forces[slots]": bound("wcsph_forces[slots]", frc_bytes,
+                                     int(snl.cnt[walkers].long().sum())
+                                     * FORCES_FLOPS_PER_PAIR)}
+    return [{"name": name, "route": "cuda",
+             "source": "sph_taichi_torch/csrc/pairs.cu",
+             "replaces": "sph_taichi_tpu/ops/retired/pallas_slots.py:355",
+             "launches": launches[name], "max_abs_err": err[name],
+             "ms": ms[name], "plain_ms": plain_ms[name],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+             "library_ms": None}
+            for name in ("density_sum[slots]", "wcsph_forces[slots]")]
+
+
+def slot_volume_path(device, warmup, steps):
+    """The scaled dynamic dragon as WCSPH (dt 4e-4) with
+    ``backend="pallas_slots"``: kernel c's slot instantiation in
+    ``initialize`` and once per step, beside the slot density and the slot
+    forces with the two-way reaction; returns its JSON entry."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops.slots import slot_neighbor_list
+    from sph_taichi_torch.simulation import Simulation
+
+    calls, restore = count_dense_calls()
+    try:
+        reset_all_launch_counts()
+        sim = Simulation(config=scaled_dragon_config(method=0, dt=4e-4),
+                         backend="pallas_slots")
+        torch.cuda.synchronize()
+        params = sim.params
+        init = all_launch_counts()
+        print(f"scaled dynamic dragon as WCSPH with backend pallas_slots: "
+              f"launches in initialize "
+              f"{ {k: v for k, v in init.items() if v} }")
+        # the static call (no target row writes) and the dynamic one
+        if init["boundary_volume[slots]"] != 2 or sum(init.values()) != 2:
+            raise AssertionError(f"initialize launched {init}")
+        sim.run(warmup, export=False)
+        reset_all_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sim.run(steps // sim.substeps, export=False)
+        end.record()
+        torch.cuda.synchronize()
+        launches = all_launch_counts()
+        step_ms = start.elapsed_time(end) / steps
+        print(f"scaled dragon slot path (WCSPH): {steps} steps, "
+              f"{step_ms:.4f} ms/step; max_layers_used "
+              f"{int(sim.metrics['max_layers_used'])}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; dense path "
+              f"calls {calls['dense']}")
+        expect = {"boundary_volume[slots]": steps,
+                  "density_sum[slots]": steps, "wcsph_forces[slots]": steps}
+        if {k: v for k, v in launches.items() if v} != expect or \
+                calls["dense"]:
+            raise AssertionError(f"launches {launches}, expected {expect}")
+    finally:
+        restore()
+    check_state(sim)
+
+    q, smap, _ = base.bin_and_sort(sim.state.p, params, sim.solver.engine,
+                                   sim.solver.tables)
+    caps = dataclasses.replace(params, neighbor_cap=max(
+        params.neighbor_cap, 96))
+    snl = slot_neighbor_list(smap, q.x, caps)
+    if int(snl.diag["neighbor_overflow"]) or bool(smap.diag["slot_overflow"]):
+        raise AssertionError("slot lists or map overflowed")
+    err = 0.0
+    for which, mask in (("static", q.is_static_rigid()),
+                        ("dynamic", q.is_dynamic_rigid())):
+        err = max(err, max_errors(
+            cp.boundary_volume(smap, q, mask, params),
+            cp.boundary_volume_plain(snl, q, mask, params),
+            f"scaled dragon boundary_volume[slots][{which}]"))
+    dyn = q.is_dynamic_rigid()
+    k_ms = kernel_ms(lambda: cp.boundary_volume(smap, q, dyn, params),
+                     "boundary_volume_kernel<SlotWalk>", 20)
+    c_ms = kernel_ms(lambda: cp.boundary_volume(smap.starts, q, dyn, params),
+                     "boundary_volume_kernel<CellRunWalk>", 20)
+    p_ms = time_ms(lambda: cp.boundary_volume_plain(snl, q, dyn, params), 3)
+    map_in_use = slot_map_bytes(params, smap, q.x[dyn])
+    b = volume_bound("boundary_volume[slots]", params, q, snl, dyn,
+                     map_in_use)
+    print(f"boundary_volume[slots] at the scaled dragon: kernel "
+          f"{k_ms:.4f} ms (cell-run kernel {c_ms:.4f} ms; profiler), plain "
+          f"{p_ms:.4f} ms, bound {b[0]:.5f} ms by {b[1]}")
+    return [{"name": "boundary_volume[slots]", "route": "cuda",
+             "source": "sph_taichi_torch/csrc/pairs.cu",
+             "replaces": "sph_taichi_tpu/ops/retired/pallas_slots.py:355",
+             "launches": launches["boundary_volume[slots]"],
+             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": b[0], "bound_by": b[1], "library_ms": None}]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2031,10 +2673,11 @@ def main():
     worst.update(check_dfsph_on_small_scenes(device))
     worst.update(check_iisph_on_small_scenes(device))
     worst.update(check_pcisph_on_small_scenes(device))
+    worst.update(check_volume_and_slot_kernels_on_small_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
-    kernels, _ = main_path(device, "data/scenes/dragon_bath.json",
-                           warmup=5, steps=50)
+    kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",
+                                      warmup=5, steps=50)
     torch.cuda.empty_cache()
     dfsph_kernels, _ = dfsph_path(device, "data/scenes/dragon_bath_dfsph.json",
                                   warmup=3, steps=20)
@@ -2052,6 +2695,14 @@ def main():
     kernels += pcisph_kernels
     torch.cuda.empty_cache()
     armadillo_counts(device)
+    torch.cuda.empty_cache()
+    volume_kernels, _ = volume_path(device, warmup=5, steps=20)
+    kernels += volume_kernels
+    torch.cuda.empty_cache()
+    kernels += slot_path(device, "data/scenes/dragon_bath.json", warmup=5,
+                         steps=50, cell_step_ms=cell_step_ms)
+    torch.cuda.empty_cache()
+    kernels += slot_volume_path(device, warmup=2, steps=10)
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,17 +1,22 @@
 // Device code shared by the pair-traversal kernels (pairs.cu, dfsph.cu,
 // iisph.cu, pcisph.cu): the constants struct, the cubic-spline kernel and
-// its gradient, the cell-range neighbour walk (and its form with the pair
-// geometry at other positions), the viscosity and pressure pair terms, and
-// the symmetric pressure acceleration of the implicit solvers.
+// its gradient, the neighbour walk (over cell runs or over the slot map,
+// and its form with the pair geometry at other positions), the viscosity
+// and pressure pair terms, and the symmetric pressure acceleration of the
+// implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
-// neighbour columns; in each, the z-cells iz-1..iz+1 clipped to the grid
-// are ONE contiguous range of the sorted arrays, starts[flat(zlo)] ..
-// starts[flat(zhi) + 1].  That is exactly the candidate order of the plain
-// engine's neighbour lists (ops/neighbors.py: offsets in itertools.product
-// order, dz innermost, then sorted order within a cell), and sums go into
-// registers in that order: no caps, no atomics, deterministic.
+// neighbour columns; in each, the z-cells iz-1..iz+1 clipped to the grid.
+// The cell-run walk reads them as ONE contiguous range of the sorted
+// arrays, starts[flat(zlo)] .. starts[flat(zhi) + 1]; the slot walk reads
+// the same particles from the slot map (ops/slots.py), z-cells ascending
+// and each cell's slots in rank order, which is the sorted order.  That is
+// exactly the candidate order of the plain engine's neighbour lists
+// (ops/neighbors.py, ops/slots.py: offsets in itertools.product order, dz
+// innermost, then sorted order within a cell), and sums go into registers
+// in that order: no atomics, deterministic.  The cell-run walk has no cap;
+// the slot walk sees the first 8 * layers particles of a cell.
 //
 // Rounding follows the plain path that pinned the goldens: inclusion on the
 // raw sum of squares, self excluded by index, rn = sqrtf(sum), d2 = rn*rn,
@@ -85,12 +90,57 @@ __device__ __forceinline__ PairGeom pair_geom(float s) {
   return g;
 }
 
-// Calls f(j, d0, d1, d2_raw...) for every j != i within h of centre i, in
-// the plain engine's order.
-template <typename F>
-__device__ __forceinline__ void for_each_neighbor(
+// The two candidate walks.  column(cx, cy, zlo, zhi, c, g) calls g(j) for
+// the particles of the z-cells zlo..zhi of column (cx, cy), in sorted order.
+
+// The cell-run walk: the column's z-cells are one range of the sorted
+// arrays, given by the cell offsets (ops/grid.py cell_offsets).
+struct CellRunWalk {
+  const int* starts;
+  template <typename G>
+  __device__ __forceinline__ void column(int cx, int cy, int zlo, int zhi,
+                                         const PairConsts& c, G&& g) const {
+    const int base = (cx * c.ny + cy) * c.nz;
+    const int b = starts[base + zlo];
+    const int e = starts[base + zhi + 1];
+    for (int j = b; j < e; ++j) g(j);
+  }
+};
+
+// The slot walk over the map i32[layers, nx, ny, nz * 8] of ops/slots.py:
+// the particle of rank r in a cell sits in layer r / 8, slot r % 8, and an
+// empty slot holds -1.  Ranks fill a cell's slots in order, so the first
+// empty slot ends the cell.  A cell's 8 layer-0 slots are 32 contiguous
+// bytes, and a column's z-run of three cells 96.
+struct SlotWalk {
+  const int* map;
+  int layers;
+  template <typename G>
+  __device__ __forceinline__ void column(int cx, int cy, int zlo, int zhi,
+                                         const PairConsts& c, G&& g) const {
+    const long long layer_stride = 8LL * c.nx * c.ny * c.nz;
+    const int* col = map + 8LL * ((long long)cx * c.ny + cy) * c.nz;
+    for (int cz = zlo; cz <= zhi; ++cz) {
+      const int* cell = col + 8 * cz;
+      for (int l = 0; l < layers; ++l, cell += layer_stride) {
+        int s = 0;
+        for (; s < 8; ++s) {
+          const int j = cell[s];
+          if (j < 0) break;
+          g(j);
+        }
+        if (s < 8) break;
+      }
+    }
+  }
+};
+
+// Calls f(j, d0, d1, d2, s) for every j != i within h of centre i, in the
+// plain engine's order, over the candidates of ``walk``.
+template <typename Walk, typename F>
+__device__ __forceinline__ void for_each_neighbor_walk(
     int i, float xi0, float xi1, float xi2, const float* __restrict__ x,
-    const int* __restrict__ starts, const PairConsts& c, F&& f) {
+    const Walk& walk, const PairConsts& c, F&& f) {
   const int ix = (int)(xi0 * c.inv_cell);
   const int iy = (int)(xi1 * c.inv_cell);
   const int iz = (int)(xi2 * c.inv_cell);
@@ -103,20 +153,25 @@ __device__ __forceinline__ void for_each_neighbor(
     for (int dy = -1; dy <= 1; ++dy) {
       const int cy = iy + dy;
       if (cy < 0 || cy >= c.ny) continue;
-      const int base = (cx * c.ny + cy) * c.nz;
-      const int b = starts[base + zlo];
-      const int e = starts[base + zhi + 1];
-      for (int j = b; j < e; ++j) {
-        if (j == i) continue;
+      walk.column(cx, cy, zlo, zhi, c, [&](int j) {
+        if (j == i) return;
         const float d0 = xi0 - x[3 * j];
         const float d1 = xi1 - x[3 * j + 1];
         const float d2 = xi2 - x[3 * j + 2];
         const float s = d0 * d0 + d1 * d1 + d2 * d2;
-        if (!(s < c.h2)) continue;
+        if (!(s < c.h2)) return;
         f(j, d0, d1, d2, s);
-      }
+      });
     }
   }
+}
+
+// for_each_neighbor_walk over the cell runs of the offsets ``starts``.
+template <typename F>
+__device__ __forceinline__ void for_each_neighbor(
+    int i, float xi0, float xi1, float xi2, const float* __restrict__ x,
+    const int* __restrict__ starts, const PairConsts& c, F&& f) {
+  for_each_neighbor_walk(i, xi0, xi1, xi2, x, CellRunWalk{starts}, c, f);
 }
 
 // The pairs of for_each_neighbor at the positions x (cell and inclusion),

@@ -1,16 +1,23 @@
-// Pair traversals of the WCSPH step on Hopper (sm_90a), one thread per
-// centre in cell-sorted order.
+// Pair traversals of the WCSPH step and the Akinci boundary volumes on
+// Hopper (sm_90a), one thread per centre in cell-sorted order.
 //
 // Replaces: the Pallas TPU kernel BlockEngine._kernel
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
-// its two specializations on the WCSPH path:
-//   density_sum   <- the density term of models/base.py compute_densities
-//   wcsph_forces  <- the fused WCSPH force term of models/wcsph.py
-//                    compute_forces with its advect + fluid-box-clamp
-//                    epilogue (two-way reaction variant as REACT = true).
+// three specializations:
+//   density_sum      <- the density term of models/base.py compute_densities
+//   wcsph_forces     <- the fused WCSPH force term of models/wcsph.py
+//                       compute_forces with its advect + fluid-box-clamp
+//                       epilogue (two-way reaction variant as REACT = true).
+//   boundary_volume  <- the boundary-volume term of models/base.py
+//                       _boundary_volume_engine (scenes above
+//                       DENSE_SOLID_CAP solids), one thread per target row
+// and the retired SlotEngine._kernel
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same three: each
+// kernel is a template over its candidate walk, CellRunWalk (the cell
+// offsets) or SlotWalk (the slot map of ops/slots.py); the body is shared.
 //
-// The contract, the rounding rules and the neighbour walk are in
-// pair_common.cuh, shared with dfsph.cu and iisph.cu.
+// The contract, the rounding rules and both walks are in pair_common.cuh,
+// shared with dfsph.cu, iisph.cu and pcisph.cu.
 //
 // What bounds it on an H100: irregular loads.  Each centre reads the
 // positions of every candidate in its 27 cells (about 3x more candidates
@@ -19,38 +26,41 @@
 // floating-point work per real pair is ~60 operations, far below the
 // card's 67 TFLOP/s f32.  This first version keeps everything in registers
 // and relies on the caches; staging a cell block's candidates in shared
-// memory is the next step once measured (PERF.md).
+// memory is the next step once measured (PERF.md).  The slot walk reads
+// the map (4 bytes per slot) instead of two offsets per column and stops
+// at a cell's first empty slot: the same candidates, one more dependent
+// load per candidate.  boundary_volume launches only over the target rows
+// (the solids), so its work is the solids' neighbourhoods.
 
 #include "pair_common.cuh"
 
+template <typename Walk>
 __global__ void density_sum_kernel(const float* __restrict__ x,
                                    const int* __restrict__ material,
-                                   const float* __restrict__ m_V,
-                                   const int* __restrict__ starts,
+                                   const float* __restrict__ m_V, Walk walk,
                                    float* __restrict__ out, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= c.n_real) return;
   float sum = 0.0f;
-  for_each_neighbor(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
-                    [&](int j, float, float, float, float s) {
-                      if (material[j] >= 0) {
-                        const float rn = sqrtf(s);
-                        sum += m_V[j] * cubic_w(rn, c);
-                      }
-                    });
+  for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
+                         [&](int j, float, float, float, float s) {
+                           if (material[j] >= 0) {
+                             const float rn = sqrtf(s);
+                             sum += m_V[j] * cubic_w(rn, c);
+                           }
+                         });
   out[i] = sum;
 }
 
-template <bool REACT>
+template <bool REACT, typename Walk>
 __global__ void wcsph_forces_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const int* __restrict__ is_dyn,
     const float* __restrict__ m, const float* __restrict__ m_V,
     const float* __restrict__ dpi, const float* __restrict__ p_r02,
-    const float* __restrict__ m_nc, const float* __restrict__ rr0,
-    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
-    float* __restrict__ x_out, float* __restrict__ v_out,
-    float* __restrict__ acc_out, PairConsts c) {
+    const float* __restrict__ m_nc, const float* __restrict__ rr0, Walk walk,
+    const float* __restrict__ dt_ptr, float* __restrict__ x_out,
+    float* __restrict__ v_out, float* __restrict__ acc_out, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= c.n_real) return;
   const int mat_i = material[i];
@@ -68,8 +78,8 @@ __global__ void wcsph_forces_kernel(
     const float p_r02_i = p_r02[i];
     const float m_V_i = m_V[i];
     const float rr0_i = REACT ? rr0[i] : 0.0f;
-    for_each_neighbor(
-        i, xi0, xi1, xi2, x, starts, c,
+    for_each_neighbor_walk(
+        i, xi0, xi1, xi2, x, walk, c,
         [&](int j, float d0, float d1, float d2, float s) {
           const float rn = sqrtf(s);
           const float r2 = rn * rn;
@@ -148,33 +158,108 @@ __global__ void wcsph_forces_kernel(
   }
 }
 
+// Akinci boundary volume of the target rows (sph_base.py:91-113):
+// m_V[i] = 3 / (W(0) + sum over solid j within h of W(r_ij)), the 3.0 of
+// the reference included.  One thread per entry of ``targets``, the target
+// rows compacted (ops/cuda_pairs.py target_rows; -1 pads the tail); other
+// rows of m_V are not written.
+template <typename Walk>
+__global__ void boundary_volume_kernel(const float* __restrict__ x,
+                                       const int* __restrict__ material,
+                                       Walk walk,
+                                       const int* __restrict__ targets,
+                                       int n_targets,
+                                       float* __restrict__ m_V,
+                                       PairConsts c) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_targets) return;
+  const int i = targets[t];
+  if (i < 0) return;
+  float sum = 0.0f;
+  for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
+                         [&](int j, float, float, float, float s) {
+                           if (material[j] == 0) sum += cubic_w(sqrtf(s), c);
+                         });
+  m_V[i] = 3.0f / (c.w0 + sum);
+}
+
+// Each launcher takes the cell offsets ``starts`` and, for the slot walk,
+// the slot map and its layer count; a null ``slot_map`` selects the
+// cell-run walk.
+
 extern "C" int density_sum_launch(const float* x, const int* material,
                                   const float* m_V, const int* starts,
+                                  const int* slot_map, int layers,
                                   float* out, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    const int grid = (c.n_real + kBlock - 1) / kBlock;
-    density_sum_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        x, material, m_V, starts, out, c);
+    const int grid = grid_for(c);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (slot_map) {
+      density_sum_kernel<SlotWalk><<<grid, kBlock, 0, st>>>(
+          x, material, m_V, SlotWalk{slot_map, layers}, out, c);
+    } else {
+      density_sum_kernel<CellRunWalk><<<grid, kBlock, 0, st>>>(
+          x, material, m_V, CellRunWalk{starts}, out, c);
+    }
   }
   return (int)cudaGetLastError();
+}
+
+template <typename Walk>
+static void wcsph_forces_go(
+    const float* x, const float* v, const int* material, const int* is_dyn,
+    const float* m, const float* m_V, const float* dpi, const float* p_r02,
+    const float* m_nc, const float* rr0, Walk walk, const float* dt,
+    float* x_out, float* v_out, float* acc_out, int react, PairConsts c,
+    cudaStream_t st) {
+  const int grid = grid_for(c);
+  if (react) {
+    wcsph_forces_kernel<true, Walk><<<grid, kBlock, 0, st>>>(
+        x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, walk, dt,
+        x_out, v_out, acc_out, c);
+  } else {
+    wcsph_forces_kernel<false, Walk><<<grid, kBlock, 0, st>>>(
+        x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, walk, dt,
+        x_out, v_out, acc_out, c);
+  }
 }
 
 extern "C" int wcsph_forces_launch(
     const float* x, const float* v, const int* material, const int* is_dyn,
     const float* m, const float* m_V, const float* dpi, const float* p_r02,
     const float* m_nc, const float* rr0, const int* starts,
-    const float* dt, float* x_out, float* v_out, float* acc_out, int react,
-    PairConsts c, void* stream) {
+    const int* slot_map, int layers, const float* dt, float* x_out,
+    float* v_out, float* acc_out, int react, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    const int grid = (c.n_real + kBlock - 1) / kBlock;
-    if (react) {
-      wcsph_forces_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-          x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, starts, dt,
-          x_out, v_out, acc_out, c);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (slot_map) {
+      wcsph_forces_go(x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0,
+                      SlotWalk{slot_map, layers}, dt, x_out, v_out, acc_out,
+                      react, c, st);
     } else {
-      wcsph_forces_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-          x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, starts, dt,
-          x_out, v_out, acc_out, c);
+      wcsph_forces_go(x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0,
+                      CellRunWalk{starts}, dt, x_out, v_out, acc_out, react,
+                      c, st);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int boundary_volume_launch(const float* x, const int* material,
+                                      const int* starts, const int* slot_map,
+                                      int layers, const int* targets,
+                                      int n_targets, float* m_V, PairConsts c,
+                                      void* stream) {
+  if (n_targets > 0) {
+    const int grid = (n_targets + kBlock - 1) / kBlock;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (slot_map) {
+      boundary_volume_kernel<SlotWalk><<<grid, kBlock, 0, st>>>(
+          x, material, SlotWalk{slot_map, layers}, targets, n_targets, m_V,
+          c);
+    } else {
+      boundary_volume_kernel<CellRunWalk><<<grid, kBlock, 0, st>>>(
+          x, material, CellRunWalk{starts}, targets, n_targets, m_V, c);
     }
   }
   return (int)cudaGetLastError();

@@ -123,24 +123,11 @@ def _boundary_volume_dense(p: Particles, params: SimParams, target_mask):
 
 def _boundary_volume_engine(p: Particles, ctx, engine, params: SimParams,
                             target_mask):
-    """Traversal m_V for scenes with more than DENSE_SOLID_CAP solids."""
-    if engine.fused:
-        raise NotImplementedError(
-            "the boundary-volume traversal has no CUDA kernel yet "
-            "(ROADMAP.md, TPU kernels 2.1 c)")
-    h = params.support_radius
-
-    def term(fi, fj, d2, rn, dots):
-        w = cubic_kernel(rn, h, params.dim)
-        return {"delta": torch.where(fj["material"] == MATERIAL_SOLID, w,
-                                     torch.zeros_like(w))}
-
-    out = engine.traverse(ctx, p.x, {"material": p.material}, term,
-                          {"delta": "scalar"})
-    delta = cubic_kernel(torch.zeros((), dtype=p.x.dtype, device=p.x.device),
-                         h, params.dim) + out["delta"]
-    m_v = div_exact(3.0, delta)
-    return p._replace(m_V=torch.where(target_mask, m_v, p.m_V))
+    """Traversal m_V for scenes with more than DENSE_SOLID_CAP solids:
+    kernel 2.1 c on the CUDA engines, its plain version otherwise."""
+    volume = (cuda_pairs.boundary_volume if engine.fused
+              else cuda_pairs.boundary_volume_plain)
+    return p._replace(m_V=volume(ctx, p, target_mask, params))
 
 
 def _boundary_volume(p, ctx, engine, params, target_mask):

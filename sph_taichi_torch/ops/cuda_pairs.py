@@ -1,8 +1,9 @@
-"""The WCSPH step's two pair traversals: CUDA kernels and their plain versions.
+"""The WCSPH step's two pair traversals and the boundary volumes: CUDA
+kernels and their plain versions, and the two CUDA engines.
 
-Ports the two specializations of the Pallas TPU kernel
-``BlockEngine._kernel`` (sph_taichi_tpu/ops/pallas_blocks.py) that the
-WCSPH path runs, as hand-written CUDA C++ in ``csrc/pairs.cu``:
+Ports three specializations of the Pallas TPU kernel
+``BlockEngine._kernel`` (sph_taichi_tpu/ops/pallas_blocks.py) as
+hand-written CUDA C++ in ``csrc/pairs.cu``:
 
 - ``density_sum``: den[i] = sum_j m_V[j] W(r_ij) over neighbours with
   material >= 0 (the term of models/base.py compute_densities);
@@ -10,10 +11,20 @@ WCSPH path runs, as hand-written CUDA C++ in ``csrc/pairs.cu``:
   viscosity, pressure, and with ``rr0`` the two-way reaction on dynamic
   rigid centres), then acceleration select, symplectic Euler and the fluid
   box clamp.  Returns new (x, v, acc); the kernel writes into new buffers
-  because neighbours read the old x and v in the same launch.
+  because neighbours read the old x and v in the same launch;
+- ``boundary_volume``: the Akinci volume 3 / (W(0) + sum of W over solid
+  neighbours) of the target rows (models/base.py _boundary_volume_engine,
+  scenes above DENSE_SOLID_CAP solids), one thread per target row.
+
+The same three kernels port the retired ``SlotEngine._kernel``
+(sph_taichi_tpu/ops/retired/pallas_slots.py): given a ``SlotMap``
+(ops/slots.py, the context of ``CudaSlotEngine``) instead of cell offsets,
+a wrapper launches the kernel's slot-walk instantiation and counts it
+under ``"<name>[slots]"``.
 
 Beside each kernel is its plain version (``*_plain``): the GatherEngine
-traversal with the same term, then the unfused advect and box clamp.  A
+traversal with the same term over the plain engine's lists (the slot
+lists for a ``SlotMap``), then the unfused advect and box clamp.  A
 wrapper runs the plain version only when its tensors lie on the CPU; on a
 CUDA tensor it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[name]``.
@@ -33,10 +44,14 @@ from sph_taichi_torch.ops.grid import inv_grid_size
 from sph_taichi_torch.ops.kernels import (
     norm_const, cubic_kernel, cubic_kernel_derivative_scalar)
 from sph_taichi_torch.ops.pairs import GatherEngine, div_exact, sqrt32
+from sph_taichi_torch.ops.slots import (
+    SlotMap, build_slot_map, slot_neighbor_list)
 from sph_taichi_torch.state import (
     MATERIAL_FLUID, MATERIAL_PAD, MATERIAL_SOLID)
 
-LAUNCHES = {"density_sum": 0, "wcsph_forces": 0}
+LAUNCHES = {"density_sum": 0, "wcsph_forces": 0, "boundary_volume": 0,
+            "density_sum[slots]": 0, "wcsph_forces[slots]": 0,
+            "boundary_volume[slots]": 0}
 
 M_EPS = 1e-5    # DFSPH stiffness gate (DFSPH.py:17)
 
@@ -137,6 +152,24 @@ def wcsph_accel_plain(nl, p, dpi, p_r02, m_nc, rr0, params):
     return torch.where((p.material == MATERIAL_PAD)[:, None], zero, acc)
 
 
+def boundary_volume_plain(nl, p, target_mask, params):
+    """m_V with each target row set to 3 / (W(0) + sum over solid
+    neighbours j of W(r_ij)) (sph_base.py:91-113, the reference's 3.0
+    included); the other rows keep their value."""
+    h = params.support_radius
+
+    def term(fi, fj, d2, rn, dots):
+        w = cubic_kernel(rn, h, params.dim)
+        return {"delta": torch.where(fj["material"] == MATERIAL_SOLID, w,
+                                     torch.zeros_like(w))}
+
+    out = GatherEngine(params).traverse(nl, p.x, {"material": p.material},
+                                        term, {"delta": "scalar"})
+    delta = cubic_kernel(torch.zeros((), dtype=p.x.dtype, device=p.x.device),
+                         h, params.dim) + out["delta"]
+    return torch.where(target_mask, div_exact(3.0, delta), p.m_V)
+
+
 def symplectic_euler(x, v, acc, dyn, dt):
     """WCSPH.py:143-149 for the rows where ``dyn``."""
     dyn = dyn[:, None]
@@ -234,11 +267,16 @@ def _lib():
     from sph_taichi_torch.ops import _build
     lib = _build.load("pairs")
     if not getattr(lib, "_typed", False):
-        lib.density_sum_launch.argtypes = [_PTR] * 5 + [PairConsts, _PTR]
-        lib.density_sum_launch.restype = ctypes.c_int
+        i32 = ctypes.c_int
+        lib.density_sum_launch.argtypes = (
+            [_PTR] * 5 + [i32, _PTR, PairConsts, _PTR])
+        lib.density_sum_launch.restype = i32
         lib.wcsph_forces_launch.argtypes = (
-            [_PTR] * 15 + [ctypes.c_int, PairConsts, _PTR])
-        lib.wcsph_forces_launch.restype = ctypes.c_int
+            [_PTR] * 12 + [i32] + [_PTR] * 4 + [i32, PairConsts, _PTR])
+        lib.wcsph_forces_launch.restype = i32
+        lib.boundary_volume_launch.argtypes = (
+            [_PTR] * 4 + [i32, _PTR, i32, _PTR, PairConsts, _PTR])
+        lib.boundary_volume_launch.restype = i32
         lib._typed = True
     return lib
 
@@ -280,10 +318,25 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _plain_ctx(starts, p, params):
+def _plain_ctx(ctx, p, params):
     """The plain engine's neighbour lists, for a wrapper given CPU
-    tensors."""
-    return GatherEngine(params).prepare(p.x, starts)
+    tensors: over the slot map for a ``SlotMap``, else over the cell
+    offsets."""
+    if isinstance(ctx, SlotMap):
+        return slot_neighbor_list(ctx, p.x, params)
+    return GatherEngine(params).prepare(p.x, ctx)
+
+
+def _walk(ctx, p, params):
+    """(cell offsets, slot map pointer or None, layers, launch-count
+    suffix) of the walk a kernel launches for the context ``ctx``: the
+    slot walk for a ``SlotMap``, the cell-run walk for cell offsets."""
+    if not isinstance(ctx, SlotMap):
+        return ctx, None, 0, ""
+    nx, ny, nz = params.grid_num
+    ptr = _check("slot map", ctx.idx, torch.int32,
+                 (params.slot_layers, nx, ny, nz * 8), p.x.device)
+    return ctx.starts, ptr, params.slot_layers, "[slots]"
 
 
 def _active_ptr(active, dev):
@@ -293,30 +346,33 @@ def _active_ptr(active, dev):
     return _check("active", active, torch.bool, (), dev)
 
 
-def density_sum(starts, p, params):
-    """Kernel wrapper for ``density_sum_plain``.  ``starts``: cell offsets
-    of the sorted particles ``p`` (ops.grid.cell_offsets)."""
+def density_sum(ctx, p, params):
+    """Kernel wrapper for ``density_sum_plain``.  ``ctx``: the cell
+    offsets of the sorted particles ``p`` (ops.grid.cell_offsets), or
+    their ``SlotMap`` for the slot walk."""
     if p.x.device.type == "cpu":
-        return density_sum_plain(_plain_ctx(starts, p, params), p.x,
+        return density_sum_plain(_plain_ctx(ctx, p, params), p.x,
                                  p.material, p.m_V, params)
+    starts, slot_map, layers, suffix = _walk(ctx, p, params)
     dev, n, ptr = _check_common(starts, p, params)
     out = torch.zeros(n, dtype=torch.float32, device=dev)
     rc = _lib().density_sum_launch(
-        ptr["x"], ptr["material"], ptr["m_V"], ptr["starts"], out.data_ptr(),
-        pair_consts(params), _stream(dev))
-    _raise_on(rc, "density_sum")
-    LAUNCHES["density_sum"] += 1
+        ptr["x"], ptr["material"], ptr["m_V"], ptr["starts"], slot_map,
+        layers, out.data_ptr(), pair_consts(params), _stream(dev))
+    _raise_on(rc, "density_sum" + suffix)
+    LAUNCHES["density_sum" + suffix] += 1
     return out
 
 
-def wcsph_forces(starts, p, dpi, p_r02, m_nc, rr0, dt, params):
+def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
     """Kernel wrapper for ``wcsph_forces_plain``: returns new (x, v, acc).
-    ``rr0`` (rho0 / density) selects the two-way reaction variant; ``dt``
-    is a 0-d f32 tensor on the particles' device (read by the kernel, so
-    the step makes no host sync)."""
+    ``ctx`` as for ``density_sum``; ``rr0`` (rho0 / density) selects the
+    two-way reaction variant; ``dt`` is a 0-d f32 tensor on the particles'
+    device (read by the kernel, so the step makes no host sync)."""
     if p.x.device.type == "cpu":
-        return wcsph_forces_plain(_plain_ctx(starts, p, params), p, dpi,
+        return wcsph_forces_plain(_plain_ctx(ctx, p, params), p, dpi,
                                   p_r02, m_nc, rr0, dt, params)
+    starts, slot_map, layers, suffix = _walk(ctx, p, params)
     dev, n, ptr = _check_common(starts, p, params)
     f32, i32 = torch.float32, torch.int32
     react = rr0 is not None
@@ -328,20 +384,58 @@ def wcsph_forces(starts, p, dpi, p_r02, m_nc, rr0, dt, params):
             _check("p_r02", p_r02, f32, (n,), dev),
             _check("m_nc", m_nc, f32, (n,), dev),
             _check("rr0", rr0, f32, (n,), dev) if react else None,
-            ptr["starts"], _check("dt", dt, f32, (), dev)]
+            ptr["starts"], slot_map, layers, _check("dt", dt, f32, (), dev)]
     x_out = torch.empty_like(p.x)
     v_out = torch.empty_like(p.v)
     acc = torch.empty_like(p.x)
     rc = _lib().wcsph_forces_launch(
         *args, x_out.data_ptr(), v_out.data_ptr(), acc.data_ptr(),
         int(react), pair_consts(params), _stream(dev))
-    _raise_on(rc, "wcsph_forces")
-    LAUNCHES["wcsph_forces"] += 1
+    _raise_on(rc, "wcsph_forces" + suffix)
+    LAUNCHES["wcsph_forces" + suffix] += 1
     n_real = params.n_fluid + params.n_solid
     x_out[n_real:] = p.x[n_real:]
     v_out[n_real:] = p.v[n_real:]
     acc[n_real:] = 0.0
     return x_out, v_out, acc
+
+
+def target_rows(target_mask, cap):
+    """i32[cap]: the rows where ``target_mask`` holds, ascending, then -1.
+    ``cap`` (static) bounds their number, so no host sync."""
+    n = target_mask.shape[0]
+    pos = torch.cumsum(target_mask.to(torch.int64), 0) - 1
+    rows = torch.full((cap + 1,), -1, dtype=torch.int32,
+                      device=target_mask.device)
+    rows.scatter_(0, torch.where(target_mask, pos, cap),
+                  torch.arange(n, dtype=torch.int32,
+                               device=target_mask.device))
+    return rows[:cap]
+
+
+def boundary_volume(ctx, p, target_mask, params):
+    """Kernel wrapper for ``boundary_volume_plain``: a new m_V whose
+    target rows hold their Akinci volumes.  ``ctx`` as for
+    ``density_sum``; ``target_mask`` (bool[n]) selects solid rows, so the
+    launch has one thread per solid (params.n_solid, static) over the
+    compacted target rows."""
+    if p.x.device.type == "cpu":
+        return boundary_volume_plain(_plain_ctx(ctx, p, params), p,
+                                     target_mask, params)
+    starts, slot_map, layers, suffix = _walk(ctx, p, params)
+    dev, n, ptr = _check_common(starts, p, params)
+    _check("target_mask", target_mask, torch.bool, (n,), dev)
+    m_V = p.m_V.clone()
+    if params.n_solid == 0:
+        return m_V
+    targets = target_rows(target_mask, params.n_solid)
+    rc = _lib().boundary_volume_launch(
+        ptr["x"], ptr["material"], ptr["starts"], slot_map, layers,
+        targets.data_ptr(), params.n_solid, m_V.data_ptr(),
+        pair_consts(params), _stream(dev))
+    _raise_on(rc, "boundary_volume" + suffix)
+    LAUNCHES["boundary_volume" + suffix] += 1
+    return m_V
 
 
 class CudaEngine:
@@ -358,3 +452,16 @@ class CudaEngine:
 
     def diag(self, starts):
         return {}
+
+
+class CudaSlotEngine(CudaEngine):
+    """Slot engine (``--backend pallas_slots``): its per-step context is
+    the slot map (ops/slots.py), and the kernels above take their slot
+    walk.  Its diagnostics are the map's: ``max_cell_occupancy_engine``,
+    ``max_layers_used`` and the fatal ``slot_overflow``."""
+
+    def prepare(self, x, cell_starts):
+        return build_slot_map(cell_starts, self.params)
+
+    def diag(self, smap):
+        return dict(smap.diag)

@@ -15,7 +15,7 @@ in exactly this order.
 """
 
 import itertools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,6 +27,7 @@ class NeighborList(NamedTuple):
     cnt: torch.Tensor      # i32[N] true within-radius neighbour count (may exceed K)
     max_cnt: torch.Tensor  # i32[] max neighbours seen for any particle
     cell_overflow: torch.Tensor  # i32[] 1 when a cell holds more than cell_cap
+    extra_diag: Optional[dict] = None  # the slot engine's (ops/slots.py)
 
     def mask(self):
         """bool[N, K]: which idx entries are valid."""
@@ -41,7 +42,8 @@ class NeighborList(NamedTuple):
         k = self.idx.shape[1]
         return {"max_neighbors": self.max_cnt,
                 "neighbor_overflow": (self.max_cnt > k).to(torch.int32),
-                "cell_overflow": self.cell_overflow}
+                "cell_overflow": self.cell_overflow,
+                **(self.extra_diag or {})}
 
 
 def build_neighbor_list(x, cell_starts, grid_num, grid_size, support_radius,

@@ -14,7 +14,9 @@ are undefined; callers mask them.
 
 ``GatherEngine`` gathers fields through (N, K) neighbour lists; it is the
 CPU path and the plain version the CUDA kernels (ops/cuda_pairs.py) are
-held against.  ``make_engine`` gives the CUDA engine on a CUDA device.
+held against.  ``make_engine`` picks the engine of ``params.backend`` for
+the device: the CUDA engines on a CUDA device, their plain versions on the
+CPU.
 """
 
 from typing import Callable, Dict
@@ -108,12 +110,39 @@ def sum_in_order(c):
     return out
 
 
+BACKENDS = ("auto", "gather", "pallas_blocks", "pallas_slots")
+
+
 def make_engine(params, device):
-    """The CUDA engine on a CUDA device, the plain engine on the CPU."""
+    """The pair engine of ``params.backend`` on ``device``, with the JAX
+    command line's names (run_simulation.py --backend):
+
+    - ``auto`` and ``pallas_blocks``: the cell-run CUDA engine on a CUDA
+      device, ``GatherEngine`` on the CPU;
+    - ``pallas_slots``: the slot CUDA engine on a CUDA device, the plain
+      slot engine (ops/slots.py) on the CPU;
+    - ``gather``: ``GatherEngine`` on the CPU.  On a CUDA device it
+      raises: the plain engines are oracles, never a path on the card.
+    """
     device = torch.device(device)
-    if device.type == "cuda":
+    backend = params.backend
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no pair engine for device {device}")
+    cuda = device.type == "cuda"
+    if backend == "gather" and cuda:
+        raise ValueError(
+            "backend 'gather' is the plain engine, the CPU path the CUDA "
+            "kernels are held against; on a CUDA device use 'auto', "
+            "'pallas_blocks' or 'pallas_slots'")
+    if backend == "pallas_slots":
+        if cuda:
+            from sph_taichi_torch.ops.cuda_pairs import CudaSlotEngine
+            return CudaSlotEngine(params)
+        from sph_taichi_torch.ops.slots import SlotGatherEngine
+        return SlotGatherEngine(params)
+    if cuda:
         from sph_taichi_torch.ops.cuda_pairs import CudaEngine
         return CudaEngine(params)
-    if device.type == "cpu":
-        return GatherEngine(params)
-    raise ValueError(f"no pair engine for device {device}")
+    return GatherEngine(params)

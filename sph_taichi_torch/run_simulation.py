@@ -12,11 +12,16 @@
     python -m sph_taichi_torch.run_simulation \
         --scene_file data/scenes/dragon_bath.json --method 1 --max_frames 50 \
         --resume dragon_bath_output/checkpoint.npz
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/dragon_bath.json --backend pallas_slots
 
 Runs on the CUDA device unless ``--device cpu`` is given.  With
 ``--checkpoint_interval N`` it writes ``<output_dir>/checkpoint.npz`` every
 N frames; ``--resume`` continues from such a file (one written by the JAX
-package's ``run_simulation.py`` loads too).
+package's ``run_simulation.py`` loads too).  ``--backend`` picks the pair
+engine with the JAX package's names: ``auto`` and ``pallas_blocks`` the
+cell-run CUDA kernels, ``pallas_slots`` the slot-map kernels (WCSPH only),
+``gather`` the plain engine (CPU only).
 """
 
 import argparse
@@ -36,6 +41,13 @@ def main(argv=None):
     parser.add_argument("--method", type=int, default=None,
                         help="override the scene's simulationMethod "
                              "(0 WCSPH, 1 PCISPH, 2 IISPH, 4 DFSPH)")
+    parser.add_argument("--backend", default=None,
+                        choices=["auto", "gather", "pallas_blocks",
+                                 "pallas_slots"],
+                        help="pair engine: 'auto' and 'pallas_blocks' the "
+                             "cell-run CUDA kernels, 'pallas_slots' the "
+                             "slot-map kernels (WCSPH only), 'gather' the "
+                             "plain engine (CPU only)")
     parser.add_argument("--checkpoint_interval", type=int, default=0,
                         help="write <output_dir>/checkpoint.npz every N "
                              "frames (0 = never)")
@@ -54,12 +66,14 @@ def main(argv=None):
     if args.method is not None:
         config.config["Configuration"]["simulationMethod"] = args.method
     sim = Simulation(args.scene_file, config=config, scene_dir=scene_dir,
-                     output_dir=args.output_dir, device=args.device)
+                     output_dir=args.output_dir, device=args.device,
+                     backend=args.backend)
     if args.resume:
         sim.resume(args.resume)
     dev = sim.state.p.x.device
     print(f"scene: {sim.scene_name}  method: "
-          f"{sim.params.simulation_method}  particles: {sim.params.n_particles} "
+          f"{sim.params.simulation_method}  backend: {sim.params.backend}  "
+          f"particles: {sim.params.n_particles} "
           f"(fluid {sim.params.n_fluid} / solid {sim.params.n_solid})  "
           f"dt: {sim.params.dt0}  substeps/frame: {sim.substeps}  "
           f"device: {dev}")

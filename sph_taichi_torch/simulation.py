@@ -8,8 +8,11 @@ shape-matched meshes) at the reference cadence ``int(0.016 / dt)``.
 Fatal flags are read from the device once per frame.  ``run`` can write
 ``output_dir/checkpoint.npz`` every N frames, and ``resume`` continues
 from such a file (utils/checkpoint.py, the JAX package's layout).
+``backend`` overrides the scene's pair engine (ops/pairs.py make_engine),
+as the JAX package's Simulation does.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -27,7 +30,7 @@ HOST_READ_KEYS = ("divergence_host_reads", "pressure_host_reads")
 
 class Simulation:
     def __init__(self, scene_path=None, config=None, scene_dir=None,
-                 output_dir=None, device=None):
+                 output_dir=None, device=None, backend=None):
         self.config = config or SimConfig(scene_path)
         if scene_dir is None:
             scene_dir = os.path.dirname(os.path.dirname(
@@ -47,6 +50,8 @@ class Simulation:
         for o in np.unique(oid0):
             if o >= 0:
                 self._palette[int(o)] = col0[oid0 == o][0]
+        if backend:
+            self.params = dataclasses.replace(self.params, backend=backend)
         self.solver = build_solver(self.params, device=particles.x.device)
         self.state = self.solver.initialize(particles)
         self.metrics = None

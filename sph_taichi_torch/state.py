@@ -105,10 +105,16 @@ class SimParams:
     num_objects: int              # max object id + 1
     rigid_body_ids: tuple         # object ids that are rigid bodies/blocks
     dynamic_rigid_ids: tuple      # subset that is dynamic (reference iteration order)
+    # pair engine (ops/pairs.py make_engine): "auto" | "gather" |
+    # "pallas_blocks" | "pallas_slots"
+    backend: str = "auto"
     # capacities of the plain engine's neighbour lists (ops/neighbors.py);
-    # the CUDA engine walks cell ranges and has no caps
+    # the cell-run CUDA engine walks cell ranges and has no caps
     neighbor_cap: int = 64        # K: max stored neighbours per particle
     cell_cap: int = 32            # M: max particles fetched per grid cell
+    # slot engine (ops/slots.py): a cell holds 8 * slot_layers particles;
+    # 4 matches cell_cap's 32
+    slot_layers: int = 4
     # Per-object constants: material, creation density, is_dynamic and
     # creation mass are single-valued per object id, so bin_and_sort does
     # not permute them and restores them from these tables after the sort.

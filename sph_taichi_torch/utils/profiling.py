@@ -1,9 +1,11 @@
 """Run-time check of the step's fatal flags (counterpart of
 sph_taichi_tpu/utils/profiling.py ``check_overflow``).
 
-The CUDA engine walks whole cell ranges and has no capacity to overflow,
-so three flags remain: the sort invariant (a corrupted sort poisons every
-pair sum) and the plain engine's neighbour-list and cell overflows.
+The cell-run CUDA engine walks whole cell ranges and has no capacity to
+overflow, so four flags remain: the sort invariant (a corrupted sort
+poisons every pair sum), the plain engine's neighbour-list and cell
+overflows, and the slot engine's ``slot_overflow`` (a cell holds more
+particles than its slot layers, ops/slots.py).
 """
 
 import warnings
@@ -11,7 +13,7 @@ import warnings
 import torch
 
 FATAL_KEYS = ("sort_invariant_violated", "neighbor_overflow",
-              "cell_overflow")
+              "cell_overflow", "slot_overflow")
 
 
 def check_overflow(metrics, where="step", strict=False):
@@ -26,8 +28,9 @@ def check_overflow(metrics, where="step", strict=False):
     fired = [k for k, f in zip(present, flags.tolist()) if f]
     if fired:
         msg = (f"fatal flag during {where}: {fired} — pair sums are wrong "
-               f"(a corrupted sort, or params.neighbor_cap or cell_cap too "
-               f"small for the plain engine).")
+               f"(a corrupted sort, params.neighbor_cap or cell_cap too "
+               f"small for the plain engine, or params.slot_layers too "
+               f"small for the slot engine).")
         if strict:
             raise RuntimeError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=2)
