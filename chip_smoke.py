@@ -82,7 +82,25 @@ Phases (any failure raises and exits non-zero):
 13. the scaled dynamic dragon as WCSPH (dt 4e-4) under
    ``backend="pallas_slots"``, 10 timed steps after 2: kernel c's slot
    instantiation once in ``initialize`` and once per step, against its
-   plain version, beside the cell-run kernel c.
+   plain version, beside the cell-run kernel c;
+14. (in phase 2) the 14 slot instantiations of kernels d-g (DFSPH,
+   IISPH, PCISPH) against their plain versions over the slot lists on
+   the clumped DFSPH, IISPH and PCISPH scenes, at a 20-particle cell
+   (each also equal to its cell-run instantiation) and with a
+   40-particle overflow clump: all bitwise;
+15. data/scenes/dragon_bath_dfsph.json (DFSPH) with
+   ``backend="pallas_slots"`` through ``Simulation`` beside a cell-run
+   twin: 20 timed steps after 3 on each, steps/s, iterations, host reads
+   and max_layers_used per step; the slot run launches each kernel of
+   the cell-run run as its ``[slots]`` instantiation as often, runs the
+   same iterations and holds the same state bitwise; six interleaved
+   turns of 5 steps; the slot kernels against their plain versions and
+   their cell-run instantiations at that state, times and bounds;
+16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
+   after 5);
+17. the same for the scaled dynamic dragon as DFSPH (20 steps after 5):
+   kernel c's and the reaction update's slot instantiations every step,
+   the reaction kernel against its plain version.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -150,6 +168,46 @@ PCISPH_PRESSURE_FLOPS_PER_PAIR = 44
 # counted from csrc/pairs.cu boundary_volume: a within-radius pair costs its
 # distance test (8); a solid one also sqrt 1, W 13, material test and sum 2
 BOUNDARY_VOLUME_FLOPS_PER_PAIR = 24
+
+# The bound's counts of each d-g kernel, over either walk: the bytes per
+# real row that it reads once and writes once besides the walk's index, a
+# constant for its device scalars, the within-radius pairs whose term it
+# evaluates and its f32 operations per such pair.  Pairs: "fluid" of a
+# fluid centre, "fluid_ff" of a fluid centre with a fluid neighbour, "real"
+# of any real centre, "real_fj" of a real centre with a fluid neighbour.
+ROW_COSTS = {
+    # reads x, material, m_V, density; writes density, factor
+    "dfsph_density_factor": (32, 0, "fluid", DENSITY_FACTOR_FLOPS_PER_PAIR),
+    # reads x, v, material, m_V (adv: density, dt); writes adv, errt
+    "dfsph_divergence_change": (40, 0, "fluid", DIVERGENCE_FLOPS_PER_PAIR),
+    "dfsph_divergence_adv": (44, 4, "fluid", DIVERGENCE_FLOPS_PER_PAIR),
+    # without the reaction: reads x, material, m_V, kappa, v, dt; writes v
+    "dfsph_solver_dv": (48, 4, "fluid", SOLVER_DV_FLOPS_PER_PAIR),
+    # reads x, v, material, is_dynamic, m, density, dt; writes acc, v
+    "nonpressure_kick": (64, 4, "fluid_ff", NONPRESSURE_FLOPS_PER_PAIR),
+    # reads x, v, material, m, density, dt; writes acc, v
+    "iisph_nonpressure_kick": (60, 4, "real_fj",
+                               IISPH_NONPRESSURE_FLOPS_PER_PAIR),
+    # reads x, v, material, m_V, density, p, dt; writes a_ii, source, last_p
+    "iisph_predict_advection": (52, 4, "real", IISPH_PREDICT_FLOPS_PER_PAIR),
+    # reads x, material, m_V, density, p, the flag (advect: v, dt); writes
+    # acc (advect: v, x); f3 walks fluid and solid j, every real one
+    "iisph_pressure_accel": (40, 1, "real", IISPH_PRESSURE_FLOPS_PER_PAIR),
+    "iisph_pressure_accel_advect": (64, 4, "real",
+                                    IISPH_PRESSURE_FLOPS_PER_PAIR),
+    # reads x, material, m_V, accel, a_ii, source, last_p, dt, the flag;
+    # writes new_p, err
+    "iisph_apply_A": (52, 5, "real", IISPH_APPLY_A_FLOPS_PER_PAIR),
+    # reads x, v, material, is_dynamic, m, density; writes acc
+    "nonpressure_accel": (52, 0, "fluid_ff", NONPRESSURE_FLOPS_PER_PAIR),
+    # reads x, x*, v*, material, m_V, density, p, dt, s_f, the flag; writes
+    # p', rho_err
+    "pcisph_d_rho_correct": (60, 9, "fluid", PCISPH_D_RHO_FLOPS_PER_PAIR),
+    # reads x, x*, material, m_V, density, p, v, acc, dt, the flag; writes
+    # v*', x*'
+    "pcisph_pressure_accel_predict": (88, 5, "fluid",
+                                      PCISPH_PRESSURE_FLOPS_PER_PAIR),
+}
 
 
 def small_scene(two_way=False):
@@ -724,6 +782,15 @@ def bound(name, nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def row_bound(name, n, index_bytes, pairs, label=None):
+    """``bound`` of the d-g kernel ``name`` (ROW_COSTS) over ``n`` real
+    rows, ``index_bytes`` of its walk's index and the within-radius pairs
+    ``pairs`` by class."""
+    per_row, extra, kind, flops = ROW_COSTS[name]
+    return bound(label or name, n * per_row + extra + index_bytes,
+                 pairs[kind] * flops)
+
+
 def offset_bytes(params, xc):
     """Bytes of the cell offsets that cell-run walks from the centres at
     ``xc`` read: per (dx, dy) column of a centre, the offsets of its z-run's
@@ -939,20 +1006,13 @@ def dfsph_path(device, scene_path, warmup, steps):
 
     n = params.n_fluid + params.n_solid
     cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
-    bounds = {
-        "dfsph_density_factor": bound(
-            "dfsph_density_factor", n * 32 + cells,
-            pairs_fc * DENSITY_FACTOR_FLOPS_PER_PAIR),
-        "change": bound("dfsph_divergence change", n * 40 + cells,
-                        pairs_fc * DIVERGENCE_FLOPS_PER_PAIR),
-        "adv": bound("dfsph_divergence adv", n * 44 + cells + 4,
-                     pairs_fc * DIVERGENCE_FLOPS_PER_PAIR),
-        # the variant without reaction reads neither is_dynamic nor density
-        "dfsph_solver_dv": bound("dfsph_solver_dv", n * 48 + cells + 4,
-                                 pairs_fc * SOLVER_DV_FLOPS_PER_PAIR),
-        "nonpressure_kick": bound("nonpressure_kick", n * 64 + cells + 4,
-                                  pairs_ff * NONPRESSURE_FLOPS_PER_PAIR),
-    }
+    pairs = {"fluid": pairs_fc, "fluid_ff": pairs_ff}
+    bounds = {key: row_bound(name, n, cells, pairs) for key, name in (
+        ("dfsph_density_factor", "dfsph_density_factor"),
+        ("change", "dfsph_divergence_change"),
+        ("adv", "dfsph_divergence_adv"),
+        ("dfsph_solver_dv", "dfsph_solver_dv"),
+        ("nonpressure_kick", "nonpressure_kick"))}
     # a later state, where the fluid has hit the bath: iterations and the
     # read interval again
     sim.reset_solver_stats()
@@ -1507,22 +1567,13 @@ def iisph_path(device, warmup, steps):
               f" ms")
 
     cells = offset_bytes(params, q.x[:n])   # every real centre walks
-    bounds = {
-        "iisph_nonpressure_kick": bound(
-            "iisph_nonpressure_kick", n * 60 + cells + 4,
-            pairs["fluid_j"] * IISPH_NONPRESSURE_FLOPS_PER_PAIR),
-        "iisph_predict_advection": bound(
-            "iisph_predict_advection", n * 52 + cells + 4,
-            pairs["real"] * IISPH_PREDICT_FLOPS_PER_PAIR),
-        # f3 walks fluid and solid j: every real one
-        "loop": bound("iisph_pressure_accel<false>", n * 40 + cells + 1,
-                      pairs["real"] * IISPH_PRESSURE_FLOPS_PER_PAIR),
-        "advect": bound("iisph_pressure_accel<true>", n * 64 + cells + 4,
-                        pairs["real"] * IISPH_PRESSURE_FLOPS_PER_PAIR),
-        "iisph_apply_A": bound(
-            "iisph_apply_A", n * 52 + cells + 5,
-            pairs["real"] * IISPH_APPLY_A_FLOPS_PER_PAIR),
-    }
+    pairs = {"real": pairs["real"], "real_fj": pairs["fluid_j"]}
+    bounds = {key: row_bound(name, n, cells, pairs) for key, name in (
+        ("iisph_nonpressure_kick", "iisph_nonpressure_kick"),
+        ("iisph_predict_advection", "iisph_predict_advection"),
+        ("loop", "iisph_pressure_accel"),
+        ("advect", "iisph_pressure_accel_advect"),
+        ("iisph_apply_A", "iisph_apply_A"))}
     # the pressure-acceleration entry: both variants, weighted by their
     # launches on the path
     w_loop = launches["iisph_pressure_accel"]
@@ -2017,21 +2068,10 @@ def pcisph_path(device, warmup, steps):
           f"{float((ref[1] > 0).float().mean()):.3f} of the rows")
 
     cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
-    bounds = {
-        # reads x, v, material, is_dynamic, m, density; writes acc
-        "nonpressure_accel": bound(
-            "nonpressure_accel", n * 52 + cells,
-            pairs["fluid_ff"] * NONPRESSURE_FLOPS_PER_PAIR),
-        # reads x, x*, v*, material, m_V, density, p; writes p', rho_err;
-        # dt, s_f and the flag
-        "pcisph_d_rho_correct": bound(
-            "pcisph_d_rho_correct", n * 60 + cells + 9,
-            pairs["fluid_i"] * PCISPH_D_RHO_FLOPS_PER_PAIR),
-        # reads x, x*, material, m_V, density, p, v, acc; writes v*', x*'
-        "pcisph_pressure_accel_predict": bound(
-            "pcisph_pressure_accel_predict", n * 88 + cells + 5,
-            pairs["fluid_i"] * PCISPH_PRESSURE_FLOPS_PER_PAIR),
-    }
+    pairs = {"fluid": pairs["fluid_i"], "fluid_ff": pairs["fluid_ff"]}
+    bounds = {name: row_bound(name, n, cells, pairs) for name in (
+        "nonpressure_accel", "pcisph_d_rho_correct",
+        "pcisph_pressure_accel_predict")}
 
     # the checkpoint on the card: saved here, resumed into a fresh
     # Simulation, one step on both, bitwise equal
@@ -2642,6 +2682,387 @@ def slot_volume_path(device, warmup, steps):
              "bound_ms": b[0], "bound_by": b[1], "library_ms": None}]
 
 
+# ---------------------------------------------------------------------------
+# kernels d-g over the slot walk (DFSPH, IISPH and PCISPH under
+# --backend pallas_slots)
+# ---------------------------------------------------------------------------
+
+# the entries of the kernels line, one per launch function, and the launch
+# names each one weights by its launches on the path
+SLOT_ENTRIES = {
+    4: {"dfsph_density_factor": ("dfsph_density_factor",),
+        "dfsph_divergence": ("dfsph_divergence_change",
+                             "dfsph_divergence_adv"),
+        "dfsph_solver_dv": ("dfsph_solver_dv",),
+        "nonpressure_kick": ("nonpressure_kick",)},
+    2: {"iisph_nonpressure_kick": ("iisph_nonpressure_kick",),
+        "iisph_predict_advection": ("iisph_predict_advection",),
+        "iisph_pressure_accel": ("iisph_pressure_accel",
+                                 "iisph_pressure_accel_advect"),
+        "iisph_apply_A": ("iisph_apply_A",)},
+    1: {"nonpressure_accel": ("nonpressure_accel",),
+        "pcisph_d_rho_correct": ("pcisph_d_rho_correct",),
+        "pcisph_pressure_accel_predict": ("pcisph_pressure_accel_predict",)},
+}
+SLOT_SOURCES = {"dfsph": "sph_taichi_torch/csrc/dfsph.cu",
+                "nonpressure_accel": "sph_taichi_torch/csrc/dfsph.cu",
+                "iisph": "sph_taichi_torch/csrc/iisph.cu",
+                "pcisph": "sph_taichi_torch/csrc/pcisph.cu"}
+
+
+def solver_calls(method, params, solver, p, nl, seeded=True):
+    """The pair kernels that simulationMethod ``method`` runs, as (label,
+    launch name, wrapper, plain version, the arguments after the
+    context): DFSPH's six instantiations (the solver update with and
+    without the reaction where the scene has a dynamic rigid), IISPH's
+    five, and PCISPH's two with the un-kicked non-pressure kernel.  The
+    inputs are built at the sorted state ``p`` by the plain chain over the
+    lists ``nl``; with ``seeded`` the stiffness, pressure and prediction
+    are seeded (both sides of every gate, pairs leaving the radius),
+    otherwise they are those a step builds at this state."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=p.x.device)
+    fluid = (p.material == 1)[:, None]
+    if method == 4:
+        density, factor = cd.density_factor_plain(nl, p, params)
+        q = p._replace(density=density, dfsph_factor=factor)
+        if seeded:
+            kappa = random_kappa(q)
+            rng = np.random.default_rng(2)
+            acc = torch.tensor(rng.uniform(-5, 5, (p.n, 3))
+                               .astype(np.float32), device=p.x.device)
+        else:
+            adv, _ = cd.divergence_plain(nl, q, q.v, None, None, "change",
+                                         params)
+            kappa = adv * (factor / dt)
+            acc = cd.nonpressure_accel_plain(nl, q, params)
+        calls = [
+            ("dfsph_density_factor", cd.density_factor,
+             cd.density_factor_plain, (p, params)),
+            ("dfsph_divergence_change", cd.divergence, cd.divergence_plain,
+             (q, q.v, None, None, "change", params)),
+            ("dfsph_divergence_adv", cd.divergence, cd.divergence_plain,
+             (q, q.v, q.density, dt, "adv", params)),
+            ("dfsph_solver_dv", cd.solver_dv, cd.solver_dv_plain,
+             (q, kappa, q.v, None, dt, False, params)),
+            ("nonpressure_kick", cd.nonpressure_kick,
+             cd.nonpressure_kick_plain, (q, dt, params))]
+        if params.dynamic_rigid_ids:
+            calls.append(("dfsph_solver_dv<REACT>", cd.solver_dv,
+                          cd.solver_dv_plain,
+                          (q, kappa, q.v, acc, dt, True, params)))
+    elif method == 2:
+        acc, v = ci.nonpressure_kick_plain(nl, p, dt, params)
+        q = p._replace(acc=acc, v=v)
+        a_ii, source, last_p = ci.predict_advection_plain(nl, q, dt, params)
+        pressure = random_pressure(p) if seeded else last_p
+        accel = ci.pressure_accel_plain(nl, q, pressure, params)
+        calls = [
+            ("iisph_nonpressure_kick", ci.nonpressure_kick,
+             ci.nonpressure_kick_plain, (p, dt, params)),
+            ("iisph_predict_advection", ci.predict_advection,
+             ci.predict_advection_plain, (q, dt, params)),
+            ("iisph_pressure_accel", ci.pressure_accel,
+             ci.pressure_accel_plain, (q, pressure, params)),
+            ("iisph_pressure_accel_advect", ci.pressure_accel,
+             ci.pressure_accel_plain, (q, pressure, params, dt)),
+            ("iisph_apply_A", ci.apply_A, ci.apply_A_plain,
+             (q, accel, a_ii, source, pressure, dt, 0.5, params))]
+    else:
+        q = p._replace(acc=cd.nonpressure_accel_plain(nl, p, params))
+        if seeded:
+            xp, vp, pressure, dt, s_f = pcisph_inputs(params, solver, q)
+        else:
+            vp = torch.where(fluid, q.v + dt * q.acc, q.v)
+            xp = torch.where(fluid, q.x + dt * vp, q.x)
+            s_f = solver.scaling_factor(dt)
+            pressure, _ = cg.d_rho_correct_plain(
+                nl, q, xp, vp, torch.zeros_like(q.pressure), dt, s_f,
+                params)
+        calls = [
+            ("nonpressure_accel", cd.nonpressure_accel,
+             cd.nonpressure_accel_plain, (p, params)),
+            ("pcisph_d_rho_correct", cg.d_rho_correct, cg.d_rho_correct_plain,
+             (q, xp, vp, pressure, dt, s_f, params)),
+            ("pcisph_pressure_accel_predict", cg.pressure_accel_predict,
+             cg.pressure_accel_predict_plain, (q, xp, pressure, dt, params))]
+    return [(label, label.split("<")[0], wrapper, plain, args)
+            for label, wrapper, plain, args in calls]
+
+
+def outputs(r):
+    return (r,) if torch.is_tensor(r) else tuple(r)
+
+
+def check_slot_solver_kernels_on_small_scenes(device):
+    """The 14 slot instantiations of kernels d-g against their plain
+    versions over the slot lists on the clumped DFSPH (a dynamic rigid
+    block), IISPH (a static one) and PCISPH (a dynamic one) scenes: at a
+    20-particle cell (three of the four layers), where each also equals
+    its cell-run instantiation, and with the 40-particle overflow clump,
+    where kernel and plain slot lists drop the same pairs.  Every
+    comparison is bitwise."""
+    from sph_taichi_torch.ops.pairs import GatherEngine
+    from sph_taichi_torch.ops.slots import (
+        build_slot_map, slot_neighbor_list)
+
+    worst, labels = {}, set()
+    for method, scene in ((4, dfsph_scene("two_way")),
+                          (2, iisph_scene("rigid")),
+                          (1, pcisph_scene("two_way"))):
+        params, solver, p, _, starts, _ = prepared(scene, device, seed=0)
+        caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=64)
+        for kind in ("layers", "overflow"):
+            if kind == "overflow":
+                p, starts = overflow_clump(params, p)
+            smap = build_slot_map(starts, params)
+            snl = slot_neighbor_list(smap, p.x, caps)
+            full = GatherEngine(caps).prepare(p.x, starts)
+            d = {k: int(v) for k, v in smap.diag.items()}
+            if int(snl.diag["neighbor_overflow"]) or \
+                    int(full.diag["neighbor_overflow"]):
+                raise AssertionError("plain lists overflowed")
+            if d["slot_overflow"] != (kind == "overflow") or \
+                    d["max_layers_used"] < 2:
+                raise AssertionError(f"slot map [{kind}]: {d}")
+            dropped = int((snl.cnt != full.cnt).sum())
+            if (dropped > 0) != (kind == "overflow"):
+                raise AssertionError(f"{dropped} rows lose pairs [{kind}]")
+            calls = solver_calls(method, params, solver, p, snl)
+            for label, _, wrapper, plain, args in calls:
+                got = outputs(wrapper(smap, *args))
+                ref = outputs(plain(snl, *args))
+                cell = outputs(wrapper(starts, *args)) \
+                    if kind == "layers" else ref
+                for a, b, c in zip(got, ref, cell):
+                    if b is None:
+                        continue
+                    err = float((a.double() - b.double()).abs().max())
+                    worst[label + "[slots]"] = max(
+                        worst.get(label + "[slots]", 0.0), err)
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{label}[slots] [method {method}, {kind}]: "
+                            f"not equal to its plain version ({err:.3e})")
+                    if not torch.equal(a, c):
+                        raise AssertionError(
+                            f"{label}[slots] [method {method}]: not equal "
+                            f"to its cell-run instantiation")
+                labels.add(label)
+            print(f"slot kernels d-g, method {method} [{kind}]: slot map "
+                  f"{d}; {len(calls)} instantiations equal to their plain "
+                  f"versions over the slot lists"
+                  + (" and to their cell-run instantiations"
+                     if kind == "layers" else "")
+                  + f" bitwise; rows whose slot lists lose pairs {dropped}")
+    if len(labels) != 14:
+        raise AssertionError(f"{len(labels)} slot instantiations checked, "
+                             f"not 14: {sorted(labels)}")
+    return worst
+
+
+def slot_solver_path(device, config, label, warmup, steps, turns=6,
+                     per_turn=5):
+    """``config`` with ``backend="pallas_slots"`` through ``Simulation``,
+    beside a cell-run twin of the same scene stepped alike: ``warmup``
+    steps on both, then ``steps`` timed on each (launch counts set to 0
+    just before each run and read just after), 5 steps of the slot run
+    under the profiler (its device busy share) and 5 of the twin,
+    ``turns`` interleaved turns of ``per_turn`` steps.  The slot run must
+    launch every kernel of the cell-run run as its ``[slots]``
+    instantiation, as often; run the same iterations with the same host
+    reads; and hold the same state bitwise while no cell overflows.
+    Returns (slot simulation, its launches, its step ms)."""
+    from sph_taichi_torch.simulation import Simulation
+
+    t0 = time.perf_counter()
+    sim = Simulation(config=config, scene_dir=".", backend="pallas_slots")
+    cell = Simulation(config=config, scene_dir=".")
+    torch.cuda.synchronize()
+    params = sim.params
+    print(f"{label} with backend pallas_slots (slot_layers "
+          f"{params.slot_layers}): {params.n_particles} particles (fluid "
+          f"{params.n_fluid}, solid {params.n_solid}), dt {params.dt0}, "
+          f"{type(sim.solver).__name__}; both scenes + initialize "
+          f"{time.perf_counter() - t0:.2f} s")
+    sim.run(warmup // sim.substeps, export=False)
+    cell.run(warmup // cell.substeps, export=False)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    runs = {}
+    for name, s in (("slots", sim), ("cell-run", cell)):
+        reset_all_launch_counts()
+        s.reset_solver_stats()
+        start.record()
+        s.run(steps // s.substeps, export=False)
+        end.record()
+        torch.cuda.synchronize()
+        runs[name] = ({k: v for k, v in all_launch_counts().items() if v},
+                      s.read_solver_stats(), start.elapsed_time(end) / steps)
+    launches, st, step_ms = runs["slots"]
+    cell_launches, cst, cell_ms = runs["cell-run"]
+    m = sim.metrics
+    solves = [k[:-len("_iters_sum")] for k in st if k.endswith("_iters_sum")]
+    per_step = "; ".join(
+        f"{s} iterations {st[s + '_iters_sum'] / steps:.2f} (max "
+        f"{st[s + '_iters_max']}), host reads "
+        f"{st[s + '_host_reads'] / steps:.2f}" for s in solves)
+    print(f"{label} slot path: {steps} steps, {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s (cell-run twin {cell_ms:.4f} ms/step, "
+          f"{1e3 / cell_ms:.3f} steps/s); per step: {per_step}; "
+          f"max_layers_used {int(m['max_layers_used'])}, max cell "
+          f"occupancy {int(m['max_cell_occupancy_engine'])}, slot_overflow "
+          f"{bool(m['slot_overflow'])}; launches {launches}")
+    if bool(m["slot_overflow"]):
+        raise AssertionError(f"{label}: slot_overflow at step "
+                             f"{int(sim.state.step_count)}")
+    expect = {k + "[slots]": v for k, v in cell_launches.items()}
+    if launches != expect:
+        raise AssertionError(f"{label}: slot launches {launches}, the "
+                             f"cell-run run's {cell_launches}")
+    if st != cst:
+        raise AssertionError(f"{label}: solver stats {st}, cell-run {cst}")
+    busy_ms = profile_steps(sim, 5)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms slot "
+              f"step: idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+    cell.run(5 // cell.substeps, export=False)
+
+    per = {"pallas_slots": [], "auto": []}
+    for turn in range(turns):
+        order = [("pallas_slots", sim), ("auto", cell)]
+        for name, s in order[::1 if turn % 2 == 0 else -1]:
+            start.record()
+            s.run(per_turn // s.substeps, export=False)
+            end.record()
+            torch.cuda.synchronize()
+            per[name].append(start.elapsed_time(end) / per_turn)
+    print(f"{label} step ms in {turns} turns of {per_turn} steps (slot, "
+          f"cell-run): " + json.dumps(
+              {k: [round(t, 4) for t in v] for k, v in per.items()})
+          + "; medians " + json.dumps(
+              {k: round(float(np.median(v)), 4) for k, v in per.items()}))
+    same = all(torch.equal(a, getattr(cell.state.p, f))
+               for f, a in sim.state.p._asdict().items() if a is not None)
+    print(f"after {int(sim.state.step_count)} steps each, the slot and "
+          f"cell-run simulations hold the same state bitwise: {same}")
+    if not same:
+        raise AssertionError(f"{label}: slot and cell-run states differ")
+    del cell
+    check_state(sim)
+    return sim, launches, step_ms
+
+
+def slot_solver_kernels(sim, method, launches, label):
+    """The slot instantiations of ``method``'s kernels at the state of
+    ``sim``, on the inputs a step builds there: time (20 launches), the
+    cell-run instantiation's time on the same inputs, the plain version's
+    over the slot lists (3 calls), the error against it, and the bound
+    (the map entries the walks read, no cell offsets).  Returns the
+    kernels-line entries, one per launch function, the entries of several
+    instantiations weighted by their launches on the path, and the error
+    of each instantiation."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops.slots import slot_neighbor_list
+
+    params, solver = sim.params, sim.solver
+    q, smap, _ = base.bin_and_sort(sim.state.p, params, solver.engine,
+                                   solver.tables)
+    caps = dataclasses.replace(params, neighbor_cap=max(
+        params.neighbor_cap, 96))
+    snl = slot_neighbor_list(smap, q.x, caps)
+    if int(snl.diag["neighbor_overflow"]):
+        caps = dataclasses.replace(caps, neighbor_cap=int(snl.max_cnt))
+        snl = slot_neighbor_list(smap, q.x, caps)
+    n = params.n_fluid + params.n_solid
+    fluid = q.material == 1
+    real = q.material >= 0
+    valid = snl.mask()
+    fluid_j = valid & (q.material[snl.idx] == 1)
+    pairs = {"fluid": int(snl.cnt[fluid].long().sum()),
+             "fluid_ff": int(fluid_j[fluid].sum()),
+             "real": int(snl.cnt[real].long().sum()),
+             "real_fj": int(fluid_j[real].sum())}
+    walkers = real if method == 2 else fluid
+    map_bytes = slot_map_bytes(params, smap, q.x[walkers])
+    print(f"{label} at step {int(sim.state.step_count)}: within-radius "
+          f"pairs {pairs}; slot map bytes the walks read {map_bytes}")
+    reset_all_launch_counts()     # comparison launches are not the path's
+    ms, cell_ms, plain_ms, err, bounds = {}, {}, {}, {}, {}
+    for name, key, wrapper, plain, args in solver_calls(
+            method, params, solver, q, snl, seeded=False):
+        ms[name] = time_ms(lambda: wrapper(smap, *args), 20)
+        cell_ms[name] = time_ms(lambda: wrapper(smap.starts, *args), 20)
+        plain_ms[name] = time_ms(lambda: plain(snl, *args), 3)
+        got, ref = outputs(wrapper(smap, *args)), outputs(plain(snl, *args))
+        cell = outputs(wrapper(smap.starts, *args))
+        err[name] = 0.0
+        for k, (a, b, c) in enumerate(zip(got, ref, cell)):
+            if b is None:
+                continue
+            err[name] = max(err[name], max_errors(
+                a[:n], b[:n], f"{label} {name}[slots] output {k}"))
+            if not torch.equal(a, c):
+                raise AssertionError(f"{label} {name}: slot and cell-run "
+                                     f"instantiations differ")
+        if name.endswith("<REACT>"):
+            moved = (got[1] - args[3])[q.is_dynamic_rigid()].abs().max()
+            print(f"  reaction on the dynamic rigid at this state: max "
+                  f"|acc change| {float(moved):.3e}")
+        if key == name:
+            bounds[name] = row_bound(name, n, map_bytes, pairs,
+                                     f"{name}[slots]")
+        print(f"{name}[slots]: kernel {ms[name]:.4f} ms (cell-run "
+              f"{cell_ms[name]:.4f} ms, {ms[name] / cell_ms[name] - 1:+.1%})"
+              f", plain {plain_ms[name]:.4f} ms, equal to the cell-run "
+              f"instantiation bitwise")
+    kernels = []
+    for entry, names in SLOT_ENTRIES[method].items():
+        w = [launches.get(k + "[slots]", 0) for k in names]
+        total = sum(w)
+        if total == 0:
+            raise AssertionError(f"{entry}[slots]: not launched on the path")
+
+        def mixed(d):
+            return sum(wi * d[k] for wi, k in zip(w, names)) / total
+
+        source = SLOT_SOURCES.get(entry, SLOT_SOURCES[
+            {4: "dfsph", 2: "iisph", 1: "pcisph"}[method]])
+        kernels.append({
+            "name": entry + "[slots]", "route": "cuda", "source": source,
+            "replaces": "sph_taichi_tpu/ops/retired/pallas_slots.py:355",
+            "launches": total, "max_abs_err": max(err[k] for k in names),
+            "ms": mixed(ms), "plain_ms": mixed(plain_ms),
+            "bound_ms": mixed({k: bounds[k][0] for k in names}),
+            "bound_by": bounds[names[-1]][1], "library_ms": None})
+    return kernels, err
+
+
+def slot_scaled_dragon_path(device, warmup, steps):
+    """The scaled dynamic dragon (34,058 dynamic solids) as DFSPH under
+    ``backend="pallas_slots"`` beside its cell-run twin
+    (``slot_solver_path``): kernel c's and the reaction solver update's
+    slot instantiations every step, the dense path never; the reaction
+    kernel against its plain version at that state.  Returns its largest
+    difference."""
+    calls, restore = count_dense_calls()
+    try:
+        sim, launches, _ = slot_solver_path(
+            device, scaled_dragon_config(), "scaled dynamic dragon (DFSPH)",
+            warmup, steps)
+    finally:
+        restore()
+    if launches.get("boundary_volume[slots]") != steps or calls["dense"]:
+        raise AssertionError(f"launches {launches}, dense path calls "
+                             f"{calls['dense']}")
+    _, err = slot_solver_kernels(sim, 4, launches, "scaled dragon")
+    return err["dfsph_solver_dv<REACT>"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2674,6 +3095,7 @@ def main():
     worst.update(check_iisph_on_small_scenes(device))
     worst.update(check_pcisph_on_small_scenes(device))
     worst.update(check_volume_and_slot_kernels_on_small_scenes(device))
+    worst.update(check_slot_solver_kernels_on_small_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",
@@ -2703,6 +3125,22 @@ def main():
                          steps=50, cell_step_ms=cell_step_ms)
     torch.cuda.empty_cache()
     kernels += slot_volume_path(device, warmup=2, steps=10)
+    from sph_taichi_torch import SimConfig
+    for method, config, label, warmup in (
+            (4, SimConfig("data/scenes/dragon_bath_dfsph.json"),
+             "dragon_bath_dfsph", 3),
+            (2, dragon_config(2), "dragon_bath IISPH", 5),
+            (1, dragon_config(1), "dragon_bath PCISPH", 5)):
+        torch.cuda.empty_cache()
+        sim, launches, _ = slot_solver_path(device, config, label, warmup,
+                                            steps=20)
+        kernels += slot_solver_kernels(sim, method, launches, label)[0]
+        del sim
+    torch.cuda.empty_cache()
+    react_err = slot_scaled_dragon_path(device, warmup=5, steps=20)
+    for k in kernels:
+        if k["name"] == "dfsph_solver_dv[slots]":
+            k["max_abs_err"] = max(k["max_abs_err"], react_err)
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,8 +8,8 @@ are hand-written CUDA kernels (``csrc/pairs.cu``, ``csrc/dfsph.cu``,
 ``csrc/iisph.cu`` and ``csrc/pcisph.cu``, bound in ``ops/cuda_pairs.py``,
 ``ops/cuda_dfsph.py``, ``ops/cuda_iisph.py`` and ``ops/cuda_pcisph.py``).
 ``backend="pallas_slots"`` walks the slot map of ``ops/slots.py`` instead
-of cell runs (WCSPH).  On the CPU the same steps run through the plain
-PyTorch engines.
+of cell runs, under every solver.  On the CPU the same steps run through
+the plain PyTorch engines.
 
 Public entry points (device=None means the CUDA device; without one, pass
 ``device="cpu"``):
@@ -34,16 +34,9 @@ def build_solver(params, device=None, engine=None):
 
     Any other method is not implemented, as in the reference
     (particle_system.py:214-221).  (The reference's 3D engine has no
-    PCISPH either; method 1 is the JAX package's extension.)  Under
-    ``params.backend == "pallas_slots"`` only WCSPH runs; the others raise.
+    PCISPH either; method 1 is the JAX package's extension.)
     """
     method = params.simulation_method
-    if params.backend == "pallas_slots" and method in (1, 2, 4):
-        raise ValueError(
-            f"backend 'pallas_slots' runs WCSPH (simulationMethod 0) only: "
-            f"the kernels of simulationMethod {method} under the slot walk "
-            f"are still to port (ROADMAP.md, queue 1, TPU kernels 2.1 d-g "
-            f"under the slot walk)")
     if method == 0:
         from sph_taichi_torch.models.wcsph import WCSPHSolver
         return WCSPHSolver(params, device=device, engine=engine)

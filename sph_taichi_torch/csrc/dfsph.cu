@@ -1,5 +1,6 @@
 // Pair traversals of the DFSPH step on Hopper (sm_90a), one thread per
-// centre in cell-sorted order, over the cell-range walk of pair_common.cuh.
+// centre in cell-sorted order, over either candidate walk of
+// pair_common.cuh.
 //
 // Replaces: the Pallas TPU kernel BlockEngine._kernel
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
@@ -16,6 +17,10 @@
 //                             with the acceleration select and, with KICK
 //                             (DFSPH), the velocity kick v += dt * acc of
 //                             its epilogue; without it (PCISPH) acc only
+// and the retired SlotEngine._kernel
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: each
+// kernel is a template over its walk, CellRunWalk (the cell offsets) or
+// SlotWalk (the slot map of ops/slots.py), as in pairs.cu.
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_dfsph.py, in the same operation order.  Padding rows are not
@@ -33,18 +38,19 @@
 
 #include "pair_common.cuh"
 
+template <typename Walk>
 __global__ void dfsph_density_factor_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ density_in,
-    const int* __restrict__ starts, float* __restrict__ density_out,
+    Walk walk, float* __restrict__ density_out,
     float* __restrict__ factor_out, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= c.n_real) return;
   const bool fluid = material[i] == 1;
   float den = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, sq = 0.0f;
   if (fluid) {
-    for_each_neighbor(
-        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+    for_each_neighbor_walk(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
         [&](int j, float d0, float d1, float d2, float s) {
           const int mat_j = material[j];
           if (mat_j < 0) return;
@@ -69,11 +75,11 @@ __global__ void dfsph_density_factor_kernel(
   }
 }
 
-template <bool ADV>
+template <bool ADV, typename Walk>
 __global__ void dfsph_divergence_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const float* __restrict__ m_V,
-    const float* __restrict__ density, const int* __restrict__ starts,
+    const float* __restrict__ density, Walk walk,
     const float* __restrict__ dt_ptr, const unsigned char* __restrict__ active,
     float* __restrict__ adv_out, float* __restrict__ errt_out, PairConsts c) {
   if (active != nullptr && !*active) return;
@@ -83,8 +89,8 @@ __global__ void dfsph_divergence_kernel(
   float div = 0.0f, cnt = 0.0f;
   if (fluid) {
     const float vi0 = v[3 * i], vi1 = v[3 * i + 1], vi2 = v[3 * i + 2];
-    for_each_neighbor(
-        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+    for_each_neighbor_walk(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
         [&](int j, float d0, float d1, float d2, float s) {
           if (material[j] < 0) return;
           const PairGeom p = pair_geom(s);
@@ -112,13 +118,13 @@ __global__ void dfsph_divergence_kernel(
   errt_out[i] = errt;
 }
 
-template <bool REACT>
+template <bool REACT, typename Walk>
 __global__ void dfsph_solver_dv_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
     const int* __restrict__ is_dyn, const float* __restrict__ m_V,
     const float* __restrict__ kappa, const float* __restrict__ density,
-    const float* __restrict__ v, const float* __restrict__ acc,
-    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    const float* __restrict__ v, const float* __restrict__ acc, Walk walk,
+    const float* __restrict__ dt_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ v_out,
     float* __restrict__ acc_out, PairConsts c) {
   if (active != nullptr && !*active) return;
@@ -136,8 +142,8 @@ __global__ void dfsph_solver_dv_kernel(
     const float k_i = kappa[i];
     const float q_i =
         REACT ? m_V[i] / fmaxf(density[i], 1e-30f) : 0.0f;
-    for_each_neighbor(
-        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+    for_each_neighbor_walk(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
         [&](int j, float d0, float d1, float d2, float s) {
           const int mat_j = material[j];
           const bool fluid_j = mat_j == 1;
@@ -180,12 +186,12 @@ __global__ void dfsph_solver_dv_kernel(
   }
 }
 
-template <bool KICK>
+template <bool KICK, typename Walk>
 __global__ void nonpressure_kick_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const int* __restrict__ is_dyn,
     const float* __restrict__ m, const float* __restrict__ density,
-    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    Walk walk, const float* __restrict__ dt_ptr,
     float* __restrict__ acc_out, float* __restrict__ v_out, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= c.n_real) return;
@@ -197,8 +203,8 @@ __global__ void nonpressure_kick_kernel(
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
   if (fluid) {
     const float neg_st_mi = -(c.st / m[i]);
-    for_each_neighbor(
-        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+    for_each_neighbor_walk(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
         [&](int j, float d0, float d1, float d2, float s) {
           // surface tension and viscosity act between fluid particles
           // only; the boundary viscosity is 0.0 (DFSPH.py:80)
@@ -231,35 +237,38 @@ __global__ void nonpressure_kick_kernel(
   }
 }
 
+// Each launcher's walk arguments (starts, slot_map, layers) select the
+// instantiation (pair_common.cuh with_walk).
+
 extern "C" int dfsph_density_factor_launch(
     const float* x, const int* material, const float* m_V,
-    const float* density_in, const int* starts, float* density_out,
-    float* factor_out, PairConsts c, void* stream) {
+    const float* density_in, const int* starts, const int* slot_map,
+    int layers, float* density_out, float* factor_out, PairConsts c,
+    void* stream) {
   if (c.n_real > 0) {
-    dfsph_density_factor_kernel<<<grid_for(c), kBlock, 0,
-                                  (cudaStream_t)stream>>>(
-        x, material, m_V, density_in, starts, density_out, factor_out, c);
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      dfsph_density_factor_kernel<<<grid_for(c), kBlock, 0,
+                                    (cudaStream_t)stream>>>(
+          x, material, m_V, density_in, walk, density_out, factor_out, c);
+    });
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int dfsph_divergence_launch(
     const float* x, const float* v, const int* material, const float* m_V,
-    const float* density, const int* starts, const float* dt,
-    const unsigned char* active, float* adv_out, float* errt_out, int adv,
-    PairConsts c, void* stream) {
+    const float* density, const int* starts, const int* slot_map,
+    int layers, const float* dt, const unsigned char* active, float* adv_out,
+    float* errt_out, int adv, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    if (adv) {
-      dfsph_divergence_kernel<true><<<grid_for(c), kBlock, 0,
-                                      (cudaStream_t)stream>>>(
-          x, v, material, m_V, density, starts, dt, active, adv_out, errt_out,
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      using Walk = decltype(walk);
+      auto kernel = adv ? dfsph_divergence_kernel<true, Walk>
+                        : dfsph_divergence_kernel<false, Walk>;
+      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+          x, v, material, m_V, density, walk, dt, active, adv_out, errt_out,
           c);
-    } else {
-      dfsph_divergence_kernel<false><<<grid_for(c), kBlock, 0,
-                                       (cudaStream_t)stream>>>(
-          x, v, material, m_V, density, starts, dt, active, adv_out, errt_out,
-          c);
-    }
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -267,21 +276,38 @@ extern "C" int dfsph_divergence_launch(
 extern "C" int dfsph_solver_dv_launch(
     const float* x, const int* material, const int* is_dyn, const float* m_V,
     const float* kappa, const float* density, const float* v,
-    const float* acc, const int* starts, const float* dt,
-    const unsigned char* active, float* v_out, float* acc_out, int react,
-    PairConsts c, void* stream) {
+    const float* acc, const int* starts, const int* slot_map, int layers,
+    const float* dt, const unsigned char* active, float* v_out,
+    float* acc_out, int react, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    if (react) {
-      dfsph_solver_dv_kernel<true><<<grid_for(c), kBlock, 0,
-                                     (cudaStream_t)stream>>>(
-          x, material, is_dyn, m_V, kappa, density, v, acc, starts, dt,
-          active, v_out, acc_out, c);
-    } else {
-      dfsph_solver_dv_kernel<false><<<grid_for(c), kBlock, 0,
-                                      (cudaStream_t)stream>>>(
-          x, material, is_dyn, m_V, kappa, density, v, acc, starts, dt,
-          active, v_out, acc_out, c);
-    }
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      using Walk = decltype(walk);
+      auto kernel = react ? dfsph_solver_dv_kernel<true, Walk>
+                          : dfsph_solver_dv_kernel<false, Walk>;
+      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+          x, material, is_dyn, m_V, kappa, density, v, acc, walk, dt, active,
+          v_out, acc_out, c);
+    });
+  }
+  return (int)cudaGetLastError();
+}
+
+// nonpressure_kick_launch (KICK) and nonpressure_accel_launch (acc only,
+// dt and v_out null)
+template <bool KICK>
+static int nonpressure_launch(const float* x, const float* v,
+                              const int* material, const int* is_dyn,
+                              const float* m, const float* density,
+                              const int* starts, const int* slot_map,
+                              int layers, const float* dt, float* acc_out,
+                              float* v_out, PairConsts c, void* stream) {
+  if (c.n_real > 0) {
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      nonpressure_kick_kernel<KICK, decltype(walk)>
+          <<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+              x, v, material, is_dyn, m, density, walk, dt, acc_out, v_out,
+              c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -289,25 +315,19 @@ extern "C" int dfsph_solver_dv_launch(
 extern "C" int nonpressure_kick_launch(
     const float* x, const float* v, const int* material, const int* is_dyn,
     const float* m, const float* density, const int* starts,
-    const float* dt, float* acc_out, float* v_out, PairConsts c,
-    void* stream) {
-  if (c.n_real > 0) {
-    nonpressure_kick_kernel<true><<<grid_for(c), kBlock, 0,
-                                    (cudaStream_t)stream>>>(
-        x, v, material, is_dyn, m, density, starts, dt, acc_out, v_out, c);
-  }
-  return (int)cudaGetLastError();
+    const int* slot_map, int layers, const float* dt, float* acc_out,
+    float* v_out, PairConsts c, void* stream) {
+  return nonpressure_launch<true>(x, v, material, is_dyn, m, density, starts,
+                                  slot_map, layers, dt, acc_out, v_out, c,
+                                  stream);
 }
 
 extern "C" int nonpressure_accel_launch(
     const float* x, const float* v, const int* material, const int* is_dyn,
-    const float* m, const float* density, const int* starts, float* acc_out,
-    PairConsts c, void* stream) {
-  if (c.n_real > 0) {
-    nonpressure_kick_kernel<false><<<grid_for(c), kBlock, 0,
-                                     (cudaStream_t)stream>>>(
-        x, v, material, is_dyn, m, density, starts, nullptr, acc_out,
-        nullptr, c);
-  }
-  return (int)cudaGetLastError();
+    const float* m, const float* density, const int* starts,
+    const int* slot_map, int layers, float* acc_out, PairConsts c,
+    void* stream) {
+  return nonpressure_launch<false>(x, v, material, is_dyn, m, density,
+                                   starts, slot_map, layers, nullptr, acc_out,
+                                   nullptr, c, stream);
 }

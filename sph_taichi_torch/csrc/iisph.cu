@@ -1,5 +1,6 @@
 // Pair traversals of the IISPH step on Hopper (sm_90a), one thread per
-// centre in cell-sorted order, over the cell-range walk of pair_common.cuh.
+// centre in cell-sorted order, over either candidate walk of
+// pair_common.cuh.
 //
 // Replaces: the Pallas TPU kernel BlockEngine._kernel
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
@@ -18,6 +19,10 @@
 //                              x' = x + dt v' on fluid rows (ADVECT = true)
 //   iisph_apply_A           <- _apply_A with the relaxed-Jacobi update and
 //                              the per-centre error column in its epilogue
+// and the retired SlotEngine._kernel
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: each
+// kernel is a template over its walk, CellRunWalk (the cell offsets) or
+// SlotWalk (the slot map of ops/slots.py), as in pairs.cu.
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_iisph.py, in the same operation order.  Padding rows are not
@@ -31,10 +36,11 @@
 
 #include "pair_common.cuh"
 
+template <typename Walk>
 __global__ void iisph_nonpressure_kick_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const float* __restrict__ m,
-    const float* __restrict__ density, const int* __restrict__ starts,
+    const float* __restrict__ density, Walk walk,
     const float* __restrict__ dt_ptr, float* __restrict__ acc_out,
     float* __restrict__ v_out, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -44,8 +50,8 @@ __global__ void iisph_nonpressure_kick_kernel(
   float s[3] = {0.0f, 0.0f, 0.0f};
   // every real centre, static solids included (IISPH.py:236-249); the
   // viscosity acts between a centre and its fluid neighbours only
-  for_each_neighbor(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+  for_each_neighbor_walk(
+      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         if (material[j] != 1) return;
         const PairGeom p = pair_geom(sq);
@@ -68,11 +74,12 @@ __global__ void iisph_nonpressure_kick_kernel(
   }
 }
 
+template <typename Walk>
 __global__ void iisph_predict_advection_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const float* __restrict__ m_V,
     const float* __restrict__ density, const float* __restrict__ pressure,
-    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    Walk walk, const float* __restrict__ dt_ptr,
     float* __restrict__ a_ii_out, float* __restrict__ source_out,
     float* __restrict__ last_p_out, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -81,8 +88,8 @@ __global__ void iisph_predict_advection_kernel(
   float g[3] = {0.0f, 0.0f, 0.0f};
   float s[3] = {0.0f, 0.0f, 0.0f};
   float q = 0.0f, div = 0.0f;
-  for_each_neighbor(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+  for_each_neighbor_walk(
+      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         if (material[j] < 0) return;
         const PairGeom p = pair_geom(sq);
@@ -113,11 +120,11 @@ __global__ void iisph_predict_advection_kernel(
   last_p_out[i] = 0.5f * pressure[i];
 }
 
-template <bool ADVECT>
+template <bool ADVECT, typename Walk>
 __global__ void iisph_pressure_accel_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ density,
-    const float* __restrict__ pr, const int* __restrict__ starts,
+    const float* __restrict__ pr, Walk walk,
     const float* __restrict__ v, const float* __restrict__ dt_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ out0,
     float* __restrict__ out1, PairConsts c) {
@@ -127,7 +134,7 @@ __global__ void iisph_pressure_accel_kernel(
   float s[3] = {0.0f, 0.0f, 0.0f};
   // in the loop every real centre's acceleration is kept, solids' too:
   // _apply_A reads it in (a_i - a_j) . r_ij (iisph.py:340)
-  sym_pressure_sum<false>(i, x, x, material, m_V, density, pr, starts, c, s);
+  sym_pressure_sum<false>(i, x, x, material, m_V, density, pr, walk, c, s);
   if (!ADVECT) {
     for (int k = 0; k < 3; ++k) out0[3 * i + k] = s[k];
     return;
@@ -143,11 +150,12 @@ __global__ void iisph_pressure_accel_kernel(
   }
 }
 
+template <typename Walk>
 __global__ void iisph_apply_A_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ accel,
     const float* __restrict__ a_ii, const float* __restrict__ source,
-    const float* __restrict__ last_p, const int* __restrict__ starts,
+    const float* __restrict__ last_p, Walk walk,
     const float* __restrict__ dt_ptr, const unsigned char* __restrict__ active,
     float omega, float* __restrict__ new_p_out, float* __restrict__ err_out,
     PairConsts c) {
@@ -156,8 +164,8 @@ __global__ void iisph_apply_A_kernel(
   if (i >= c.n_real) return;
   const float ai[3] = {accel[3 * i], accel[3 * i + 1], accel[3 * i + 2]};
   float sum = 0.0f;
-  for_each_neighbor(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+  for_each_neighbor_walk(
+      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         if (material[j] < 0) return;
         const PairGeom p = pair_geom(sq);
@@ -181,14 +189,20 @@ __global__ void iisph_apply_A_kernel(
   err_out[i] = (new_p != 0.0f) ? fabsf(ap - src) / c.rho0 : 0.0f;
 }
 
+// Each launcher's walk arguments (starts, slot_map, layers) select the
+// instantiation (pair_common.cuh with_walk).
+
 extern "C" int iisph_nonpressure_kick_launch(
     const float* x, const float* v, const int* material, const float* m,
-    const float* density, const int* starts, const float* dt,
-    float* acc_out, float* v_out, PairConsts c, void* stream) {
+    const float* density, const int* starts, const int* slot_map, int layers,
+    const float* dt, float* acc_out, float* v_out, PairConsts c,
+    void* stream) {
   if (c.n_real > 0) {
-    iisph_nonpressure_kick_kernel<<<grid_for(c), kBlock, 0,
-                                    (cudaStream_t)stream>>>(
-        x, v, material, m, density, starts, dt, acc_out, v_out, c);
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      iisph_nonpressure_kick_kernel<<<grid_for(c), kBlock, 0,
+                                      (cudaStream_t)stream>>>(
+          x, v, material, m, density, walk, dt, acc_out, v_out, c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -196,13 +210,15 @@ extern "C" int iisph_nonpressure_kick_launch(
 extern "C" int iisph_predict_advection_launch(
     const float* x, const float* v, const int* material, const float* m_V,
     const float* density, const float* pressure, const int* starts,
-    const float* dt, float* a_ii_out, float* source_out, float* last_p_out,
-    PairConsts c, void* stream) {
+    const int* slot_map, int layers, const float* dt, float* a_ii_out,
+    float* source_out, float* last_p_out, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    iisph_predict_advection_kernel<<<grid_for(c), kBlock, 0,
-                                     (cudaStream_t)stream>>>(
-        x, v, material, m_V, density, pressure, starts, dt, a_ii_out,
-        source_out, last_p_out, c);
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      iisph_predict_advection_kernel<<<grid_for(c), kBlock, 0,
+                                       (cudaStream_t)stream>>>(
+          x, v, material, m_V, density, pressure, walk, dt, a_ii_out,
+          source_out, last_p_out, c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -210,20 +226,17 @@ extern "C" int iisph_predict_advection_launch(
 extern "C" int iisph_pressure_accel_launch(
     const float* x, const int* material, const float* m_V,
     const float* density, const float* pr, const int* starts,
-    const float* v, const float* dt, const unsigned char* active,
-    float* out0, float* out1, int advect, PairConsts c, void* stream) {
+    const int* slot_map, int layers, const float* v, const float* dt,
+    const unsigned char* active, float* out0, float* out1, int advect,
+    PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    if (advect) {
-      iisph_pressure_accel_kernel<true><<<grid_for(c), kBlock, 0,
-                                          (cudaStream_t)stream>>>(
-          x, material, m_V, density, pr, starts, v, dt, active, out0, out1,
-          c);
-    } else {
-      iisph_pressure_accel_kernel<false><<<grid_for(c), kBlock, 0,
-                                           (cudaStream_t)stream>>>(
-          x, material, m_V, density, pr, starts, v, dt, active, out0, out1,
-          c);
-    }
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      using Walk = decltype(walk);
+      auto kernel = advect ? iisph_pressure_accel_kernel<true, Walk>
+                           : iisph_pressure_accel_kernel<false, Walk>;
+      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+          x, material, m_V, density, pr, walk, v, dt, active, out0, out1, c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -231,13 +244,15 @@ extern "C" int iisph_pressure_accel_launch(
 extern "C" int iisph_apply_A_launch(
     const float* x, const int* material, const float* m_V,
     const float* accel, const float* a_ii, const float* source,
-    const float* last_p, const int* starts, const float* dt,
-    const unsigned char* active, float omega, float* new_p_out,
-    float* err_out, PairConsts c, void* stream) {
+    const float* last_p, const int* starts, const int* slot_map, int layers,
+    const float* dt, const unsigned char* active, float omega,
+    float* new_p_out, float* err_out, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    iisph_apply_A_kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
-        x, material, m_V, accel, a_ii, source, last_p, starts, dt, active,
-        omega, new_p_out, err_out, c);
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      iisph_apply_A_kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+          x, material, m_V, accel, a_ii, source, last_p, walk, dt, active,
+          omega, new_p_out, err_out, c);
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -166,27 +166,20 @@ __device__ __forceinline__ void for_each_neighbor_walk(
   }
 }
 
-// for_each_neighbor_walk over the cell runs of the offsets ``starts``.
-template <typename F>
-__device__ __forceinline__ void for_each_neighbor(
-    int i, float xi0, float xi1, float xi2, const float* __restrict__ x,
-    const int* __restrict__ starts, const PairConsts& c, F&& f) {
-  for_each_neighbor_walk(i, xi0, xi1, xi2, x, CellRunWalk{starts}, c, f);
-}
-
-// The pairs of for_each_neighbor at the positions x (cell and inclusion),
-// with the pair geometry taken at the positions xg: f(j, d0, d1, d2, s) gets
-// d = xg_i - xg_j and its raw sum of squares.  PCISPH evaluates its loop's
-// terms at the predicted positions over the step-start pair set (the plain
-// engine's step-start neighbour lists); a pair that moves beyond h gets a
-// zero gradient from cubic_grad.
-template <typename F>
+// The pairs of for_each_neighbor_walk at the positions x (cell and
+// inclusion), with the pair geometry taken at the positions xg: f(j, d0,
+// d1, d2, s) gets d = xg_i - xg_j and its raw sum of squares.  PCISPH
+// evaluates its loop's terms at the predicted positions over the step-start
+// pair set (the plain engine's step-start neighbour lists); a pair that
+// moves beyond h gets a zero gradient from cubic_grad.  ``walk`` is over the
+// step-start candidates (cell offsets or slot map of x).
+template <typename Walk, typename F>
 __device__ __forceinline__ void for_each_neighbor_pinned(
     int i, const float* __restrict__ x, const float* __restrict__ xg,
-    const int* __restrict__ starts, const PairConsts& c, F&& f) {
+    const Walk& walk, const PairConsts& c, F&& f) {
   const float g0 = xg[3 * i], g1 = xg[3 * i + 1], g2 = xg[3 * i + 2];
-  for_each_neighbor(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
+  for_each_neighbor_walk(
+      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
       [&](int j, float, float, float, float) {
         const float d0 = g0 - xg[3 * j];
         const float d1 = g1 - xg[3 * j + 1];
@@ -218,13 +211,13 @@ __device__ __forceinline__ float pressure_coef(float m_V_j, float dpi,
 // solid j of pressure_coef * r_ij, with the solid mirror
 // p_j / rho_j^2 := p_i / rho0^2.  Adds into s[0..2].  PINNED takes the
 // pairs of x at the positions xg (for_each_neighbor_pinned, PCISPH);
-// otherwise xg is not read (IISPH).
-template <bool PINNED>
+// otherwise xg is not read (IISPH).  ``walk`` is over the candidates of x.
+template <bool PINNED, typename Walk>
 __device__ __forceinline__ void sym_pressure_sum(
     int i, const float* __restrict__ x, const float* __restrict__ xg,
     const int* __restrict__ material, const float* __restrict__ m_V,
     const float* __restrict__ density, const float* __restrict__ pr,
-    const int* __restrict__ starts, const PairConsts& c, float s[3]) {
+    const Walk& walk, const PairConsts& c, float s[3]) {
   const float pr_i = pr[i];
   const float rho_i = density[i];
   const float dpi = pr_i / (rho_i * rho_i);
@@ -242,10 +235,10 @@ __device__ __forceinline__ void sym_pressure_sum(
     s[2] += a * d2;
   };
   if constexpr (PINNED) {
-    for_each_neighbor_pinned(i, x, xg, starts, c, term);
+    for_each_neighbor_pinned(i, x, xg, walk, c, term);
   } else {
-    for_each_neighbor(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, starts, c,
-                      term);
+    for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk,
+                           c, term);
   }
 }
 
@@ -254,4 +247,19 @@ static const int kBlock = 128;
 
 __host__ inline int grid_for(const PairConsts& c) {
   return (c.n_real + kBlock - 1) / kBlock;
+}
+
+// The walk a launcher's arguments select: every launcher takes the cell
+// offsets ``starts`` and, for the slot walk, the slot map and its layer
+// count.  Calls go(walk) with the SlotWalk for a non-null ``slot_map``,
+// else with the CellRunWalk, so ``go`` launches the kernel's instantiation
+// over that walk.
+template <typename Go>
+__host__ inline void with_walk(const int* starts, const int* slot_map,
+                               int layers, Go&& go) {
+  if (slot_map) {
+    go(SlotWalk{slot_map, layers});
+  } else {
+    go(CellRunWalk{starts});
+  }
 }

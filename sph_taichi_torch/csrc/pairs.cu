@@ -183,45 +183,20 @@ __global__ void boundary_volume_kernel(const float* __restrict__ x,
   m_V[i] = 3.0f / (c.w0 + sum);
 }
 
-// Each launcher takes the cell offsets ``starts`` and, for the slot walk,
-// the slot map and its layer count; a null ``slot_map`` selects the
-// cell-run walk.
+// Each launcher's walk arguments (starts, slot_map, layers) select the
+// instantiation (pair_common.cuh with_walk).
 
 extern "C" int density_sum_launch(const float* x, const int* material,
                                   const float* m_V, const int* starts,
                                   const int* slot_map, int layers,
                                   float* out, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    const int grid = grid_for(c);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (slot_map) {
-      density_sum_kernel<SlotWalk><<<grid, kBlock, 0, st>>>(
-          x, material, m_V, SlotWalk{slot_map, layers}, out, c);
-    } else {
-      density_sum_kernel<CellRunWalk><<<grid, kBlock, 0, st>>>(
-          x, material, m_V, CellRunWalk{starts}, out, c);
-    }
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      density_sum_kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+          x, material, m_V, walk, out, c);
+    });
   }
   return (int)cudaGetLastError();
-}
-
-template <typename Walk>
-static void wcsph_forces_go(
-    const float* x, const float* v, const int* material, const int* is_dyn,
-    const float* m, const float* m_V, const float* dpi, const float* p_r02,
-    const float* m_nc, const float* rr0, Walk walk, const float* dt,
-    float* x_out, float* v_out, float* acc_out, int react, PairConsts c,
-    cudaStream_t st) {
-  const int grid = grid_for(c);
-  if (react) {
-    wcsph_forces_kernel<true, Walk><<<grid, kBlock, 0, st>>>(
-        x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, walk, dt,
-        x_out, v_out, acc_out, c);
-  } else {
-    wcsph_forces_kernel<false, Walk><<<grid, kBlock, 0, st>>>(
-        x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, walk, dt,
-        x_out, v_out, acc_out, c);
-  }
 }
 
 extern "C" int wcsph_forces_launch(
@@ -231,16 +206,14 @@ extern "C" int wcsph_forces_launch(
     const int* slot_map, int layers, const float* dt, float* x_out,
     float* v_out, float* acc_out, int react, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (slot_map) {
-      wcsph_forces_go(x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0,
-                      SlotWalk{slot_map, layers}, dt, x_out, v_out, acc_out,
-                      react, c, st);
-    } else {
-      wcsph_forces_go(x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0,
-                      CellRunWalk{starts}, dt, x_out, v_out, acc_out, react,
-                      c, st);
-    }
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      using Walk = decltype(walk);
+      auto kernel = react ? wcsph_forces_kernel<true, Walk>
+                          : wcsph_forces_kernel<false, Walk>;
+      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+          x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, walk, dt,
+          x_out, v_out, acc_out, c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -252,15 +225,10 @@ extern "C" int boundary_volume_launch(const float* x, const int* material,
                                       void* stream) {
   if (n_targets > 0) {
     const int grid = (n_targets + kBlock - 1) / kBlock;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (slot_map) {
-      boundary_volume_kernel<SlotWalk><<<grid, kBlock, 0, st>>>(
-          x, material, SlotWalk{slot_map, layers}, targets, n_targets, m_V,
-          c);
-    } else {
-      boundary_volume_kernel<CellRunWalk><<<grid, kBlock, 0, st>>>(
-          x, material, CellRunWalk{starts}, targets, n_targets, m_V, c);
-    }
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      boundary_volume_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+          x, material, walk, targets, n_targets, m_V, c);
+    });
   }
   return (int)cudaGetLastError();
 }

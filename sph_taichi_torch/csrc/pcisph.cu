@@ -1,6 +1,6 @@
 // Pair traversals of the PCISPH prediction-correction loop on Hopper
-// (sm_90a), one thread per centre in cell-sorted order, over the cell-range
-// walk of pair_common.cuh.
+// (sm_90a), one thread per centre in cell-sorted order, over either
+// candidate walk of pair_common.cuh.
 //
 // Replaces: the Pallas TPU kernel BlockEngine._kernel
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
@@ -16,6 +16,10 @@
 //                                     solid mirror), then on fluid rows
 //                                     v*' = v + dt (acc + a_p) and
 //                                     x*' = x + dt v*' (x the step start)
+// and the retired SlotEngine._kernel
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same two: each kernel
+// is a template over its walk, CellRunWalk (the cell offsets) or SlotWalk
+// (the slot map of ops/slots.py), as in pairs.cu.
 //
 // Every traversal of the loop runs at the predicted positions x* while the
 // binning stays that of the step start (the fixed-neighbour-list PCISPH):
@@ -23,6 +27,10 @@
 // positions, and its term is evaluated at x* (for_each_neighbor_pinned).
 // That is the plain engine's contract: its neighbour lists are built once
 // per step, and it evaluates the geometry at the positions it is given.
+// The walk is the step's: the cell offsets or the slot map of the
+// step-start positions, for every iteration of the loop.  (The TPU slot
+// kernel masks on the distance at x*, pallas_slots.py:526; the port keeps
+// the plain engine's pair set under both walks.)
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_pcisph.py, in the same operation order; dt and s_f are read from
@@ -37,11 +45,12 @@
 
 #include "pair_common.cuh"
 
+template <typename Walk>
 __global__ void pcisph_d_rho_correct_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     const float* __restrict__ vp, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ density,
-    const float* __restrict__ pr, const int* __restrict__ starts,
+    const float* __restrict__ pr, Walk walk,
     const float* __restrict__ dt_ptr, const float* __restrict__ sf_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ pr_out,
     float* __restrict__ err_out, PairConsts c) {
@@ -56,7 +65,7 @@ __global__ void pcisph_d_rho_correct_kernel(
   const float vi0 = vp[3 * i], vi1 = vp[3 * i + 1], vi2 = vp[3 * i + 2];
   float div = 0.0f;
   for_each_neighbor_pinned(
-      i, x, xp, starts, c,
+      i, x, xp, walk, c,
       [&](int j, float d0, float d1, float d2, float s) {
         if (material[j] < 0) return;
         const PairGeom p = pair_geom(s);
@@ -74,12 +83,13 @@ __global__ void pcisph_d_rho_correct_kernel(
   err_out[i] = rho_err;
 }
 
+template <typename Walk>
 __global__ void pcisph_pressure_accel_predict_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     const int* __restrict__ material, const float* __restrict__ m_V,
     const float* __restrict__ density, const float* __restrict__ pr,
-    const float* __restrict__ v, const float* __restrict__ acc,
-    const int* __restrict__ starts, const float* __restrict__ dt_ptr,
+    const float* __restrict__ v, const float* __restrict__ acc, Walk walk,
+    const float* __restrict__ dt_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ v_out,
     float* __restrict__ x_out, PairConsts c) {
   if (active != nullptr && !*active) return;
@@ -89,8 +99,7 @@ __global__ void pcisph_pressure_accel_predict_kernel(
   float s[3] = {0.0f, 0.0f, 0.0f};
   // only the fluid rows' acceleration is read (pcisph.py:158-168, :245)
   if (fluid) {
-    sym_pressure_sum<true>(i, x, xp, material, m_V, density, pr, starts, c,
-                           s);
+    sym_pressure_sum<true>(i, x, xp, material, m_V, density, pr, walk, c, s);
   }
   const float dt = *dt_ptr;
   for (int k = 0; k < 3; ++k) {
@@ -102,17 +111,22 @@ __global__ void pcisph_pressure_accel_predict_kernel(
   }
 }
 
+// Each launcher's walk arguments (starts, slot_map, layers) select the
+// instantiation (pair_common.cuh with_walk).
+
 extern "C" int pcisph_d_rho_correct_launch(
     const float* x, const float* xp, const float* vp, const int* material,
     const float* m_V, const float* density, const float* pr,
-    const int* starts, const float* dt, const float* s_f,
-    const unsigned char* active, float* pr_out, float* err_out,
-    PairConsts c, void* stream) {
+    const int* starts, const int* slot_map, int layers, const float* dt,
+    const float* s_f, const unsigned char* active, float* pr_out,
+    float* err_out, PairConsts c, void* stream) {
   if (c.n_real > 0) {
-    pcisph_d_rho_correct_kernel<<<grid_for(c), kBlock, 0,
-                                  (cudaStream_t)stream>>>(
-        x, xp, vp, material, m_V, density, pr, starts, dt, s_f, active,
-        pr_out, err_out, c);
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      pcisph_d_rho_correct_kernel<<<grid_for(c), kBlock, 0,
+                                    (cudaStream_t)stream>>>(
+          x, xp, vp, material, m_V, density, pr, walk, dt, s_f, active,
+          pr_out, err_out, c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -120,13 +134,16 @@ extern "C" int pcisph_d_rho_correct_launch(
 extern "C" int pcisph_pressure_accel_predict_launch(
     const float* x, const float* xp, const int* material, const float* m_V,
     const float* density, const float* pr, const float* v, const float* acc,
-    const int* starts, const float* dt, const unsigned char* active,
-    float* v_out, float* x_out, PairConsts c, void* stream) {
+    const int* starts, const int* slot_map, int layers, const float* dt,
+    const unsigned char* active, float* v_out, float* x_out, PairConsts c,
+    void* stream) {
   if (c.n_real > 0) {
-    pcisph_pressure_accel_predict_kernel<<<grid_for(c), kBlock, 0,
-                                           (cudaStream_t)stream>>>(
-        x, xp, material, m_V, density, pr, v, acc, starts, dt, active, v_out,
-        x_out, c);
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      pcisph_pressure_accel_predict_kernel<<<grid_for(c), kBlock, 0,
+                                             (cudaStream_t)stream>>>(
+          x, xp, material, m_V, density, pr, v, acc, walk, dt, active, v_out,
+          x_out, c);
+    });
   }
   return (int)cudaGetLastError();
 }

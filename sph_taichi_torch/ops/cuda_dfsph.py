@@ -19,11 +19,17 @@ hand-written CUDA C++ in ``csrc/dfsph.cu``:
   (``nonpressure_kick<false>``), the acceleration alone, as PCISPH calls
   compute_non_pressure_forces.
 
+The same kernels port the retired ``SlotEngine._kernel``
+(sph_taichi_tpu/ops/retired/pallas_slots.py): given a ``SlotMap``
+(ops/slots.py, the context of ``CudaSlotEngine``) instead of cell offsets,
+a wrapper launches the kernel's slot-walk instantiation and counts it
+under ``"<name>[slots]"``.
+
 Beside each kernel is its plain version (``*_plain``): the GatherEngine
-traversal with the same term, then the unfused epilogue in torch.  A
-wrapper runs the plain version only when its tensors lie on the CPU; on a
-CUDA tensor it launches the kernel or raises.  Each launch adds one to
-``LAUNCHES[name]``.
+traversal with the same term (over the slot lists for a ``SlotMap``),
+then the unfused epilogue in torch.  A wrapper runs the plain version only
+when its tensors lie on the CPU; on a CUDA tensor it launches the kernel
+or raises.  Each launch adds one to ``LAUNCHES[name]``.
 
 ``divergence`` and ``solver_dv`` take an optional ``active`` flag, a 0-d
 bool tensor on the device: when it is false the kernel returns at once and
@@ -40,16 +46,17 @@ import ctypes
 import torch
 
 from sph_taichi_torch.ops.cuda_pairs import (
-    _PTR, _active_ptr, _check, _check_common, _plain_ctx, _raise_on,
-    _stream, min_neighbors, pair_consts, M_EPS, PairConsts)
+    WALK, _PTR, _active_ptr, _check, _plain_ctx, _raise_on, _stream, _walk,
+    min_neighbors, pair_consts, M_EPS, PairConsts)
 from sph_taichi_torch.ops.kernels import (
     cubic_kernel, cubic_kernel_derivative_scalar)
 from sph_taichi_torch.ops.pairs import GatherEngine, div_exact
 from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
 
-LAUNCHES = {"dfsph_density_factor": 0, "dfsph_divergence_change": 0,
-            "dfsph_divergence_adv": 0, "dfsph_solver_dv": 0,
-            "nonpressure_kick": 0, "nonpressure_accel": 0}
+LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
+    "dfsph_density_factor", "dfsph_divergence_change",
+    "dfsph_divergence_adv", "dfsph_solver_dv", "nonpressure_kick",
+    "nonpressure_accel")}
 MODES = ("change", "adv")
 
 
@@ -238,15 +245,17 @@ def _lib():
     lib = _build.load("dfsph")
     if not getattr(lib, "_typed", False):
         lib.dfsph_density_factor_launch.argtypes = (
-            [_PTR] * 7 + [PairConsts, _PTR])
+            [_PTR] * 4 + WALK + [_PTR] * 2 + [PairConsts, _PTR])
         lib.dfsph_divergence_launch.argtypes = (
-            [_PTR] * 10 + [ctypes.c_int, PairConsts, _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 4 + [ctypes.c_int, PairConsts,
+                                              _PTR])
         lib.dfsph_solver_dv_launch.argtypes = (
-            [_PTR] * 13 + [ctypes.c_int, PairConsts, _PTR])
+            [_PTR] * 8 + WALK + [_PTR] * 4 + [ctypes.c_int, PairConsts,
+                                              _PTR])
         lib.nonpressure_kick_launch.argtypes = (
-            [_PTR] * 10 + [PairConsts, _PTR])
+            [_PTR] * 6 + WALK + [_PTR] * 3 + [PairConsts, _PTR])
         lib.nonpressure_accel_launch.argtypes = (
-            [_PTR] * 8 + [PairConsts, _PTR])
+            [_PTR] * 6 + WALK + [_PTR, PairConsts, _PTR])
         for fn in (lib.dfsph_density_factor_launch,
                    lib.dfsph_divergence_launch, lib.dfsph_solver_dv_launch,
                    lib.nonpressure_kick_launch,
@@ -256,37 +265,39 @@ def _lib():
     return lib
 
 
-def density_factor(starts, p, params):
+def density_factor(ctx, p, params):
     """Kernel wrapper for ``density_factor_plain``: (density, factor).
-    ``starts``: cell offsets of the sorted particles ``p``."""
+    ``ctx``: the cell offsets of the sorted particles ``p``
+    (ops.grid.cell_offsets), or their ``SlotMap`` for the slot walk."""
     if p.x.device.type == "cpu":
-        return density_factor_plain(_plain_ctx(starts, p, params), p, params)
-    dev, n, ptr = _check_common(starts, p, params)
+        return density_factor_plain(_plain_ctx(ctx, p, params), p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     density = torch.empty_like(p.m_V)
     factor = torch.empty_like(p.m_V)
     rc = _lib().dfsph_density_factor_launch(
         ptr["x"], ptr["material"], ptr["m_V"],
-        _check("density", p.density, torch.float32, (n,), dev),
-        ptr["starts"], density.data_ptr(), factor.data_ptr(),
-        pair_consts(params), _stream(dev))
-    _raise_on(rc, "dfsph_density_factor")
-    LAUNCHES["dfsph_density_factor"] += 1
+        _check("density", p.density, torch.float32, (n,), dev), *walk,
+        density.data_ptr(), factor.data_ptr(), pair_consts(params),
+        _stream(dev))
+    name = "dfsph_density_factor" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = params.n_fluid + params.n_solid
     density[n_real:] = p.density[n_real:]
     factor[n_real:] = 0.0
     return density, factor
 
 
-def divergence(starts, p, v, density, dt, mode, params, active=None):
-    """Kernel wrapper for ``divergence_plain``: (adv, errt).  ``density``
-    and ``dt`` (a 0-d f32 tensor on the device) are read in mode "adv"
-    only."""
+def divergence(ctx, p, v, density, dt, mode, params, active=None):
+    """Kernel wrapper for ``divergence_plain``: (adv, errt).  ``ctx`` as
+    for ``density_factor``; ``density`` and ``dt`` (a 0-d f32 tensor on
+    the device) are read in mode "adv" only."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}, expected one of {MODES}")
     if p.x.device.type == "cpu":
-        return divergence_plain(_plain_ctx(starts, p, params), p, v,
+        return divergence_plain(_plain_ctx(ctx, p, params), p, v,
                                 density, dt, mode, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     is_adv = mode == "adv"
     adv = torch.empty_like(p.m_V)
@@ -295,23 +306,25 @@ def divergence(starts, p, v, density, dt, mode, params, active=None):
         ptr["x"], _check("v", v, f32, (n, 3), dev), ptr["material"],
         ptr["m_V"],
         _check("density", density, f32, (n,), dev) if is_adv else None,
-        ptr["starts"], _check("dt", dt, f32, (), dev) if is_adv else None,
+        *walk, _check("dt", dt, f32, (), dev) if is_adv else None,
         _active_ptr(active, dev), adv.data_ptr(), errt.data_ptr(),
         int(is_adv), pair_consts(params), _stream(dev))
-    _raise_on(rc, "dfsph_divergence")
-    LAUNCHES[f"dfsph_divergence_{mode}"] += 1
+    name = f"dfsph_divergence_{mode}" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = params.n_fluid + params.n_solid
     adv[n_real:] = 0.0
     errt[n_real:] = 0.0
     return adv, errt
 
 
-def solver_dv(starts, p, kappa, v, acc, dt, react, params, active=None):
-    """Kernel wrapper for ``solver_dv_plain``: (v, acc or None)."""
+def solver_dv(ctx, p, kappa, v, acc, dt, react, params, active=None):
+    """Kernel wrapper for ``solver_dv_plain``: (v, acc or None).  ``ctx``
+    as for ``density_factor``."""
     if p.x.device.type == "cpu":
-        return solver_dv_plain(_plain_ctx(starts, p, params), p, kappa, v,
+        return solver_dv_plain(_plain_ctx(ctx, p, params), p, kappa, v,
                                acc, dt, react, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     v_out = torch.empty_like(v)
     acc_out = torch.empty_like(acc) if react else None
@@ -321,13 +334,13 @@ def solver_dv(starts, p, kappa, v, acc, dt, react, params, active=None):
         ptr["m_V"], _check("kappa", kappa, f32, (n,), dev),
         _check("density", p.density, f32, (n,), dev) if react else None,
         _check("v", v, f32, (n, 3), dev),
-        _check("acc", acc, f32, (n, 3), dev) if react else None,
-        ptr["starts"], _check("dt", dt, f32, (), dev),
-        _active_ptr(active, dev), v_out.data_ptr(),
-        acc_out.data_ptr() if react else None, int(react),
+        _check("acc", acc, f32, (n, 3), dev) if react else None, *walk,
+        _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
+        v_out.data_ptr(), acc_out.data_ptr() if react else None, int(react),
         pair_consts(params), _stream(dev))
-    _raise_on(rc, "dfsph_solver_dv")
-    LAUNCHES["dfsph_solver_dv"] += 1
+    name = "dfsph_solver_dv" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = params.n_fluid + params.n_solid
     v_out[n_real:] = v[n_real:]
     if react:
@@ -335,12 +348,13 @@ def solver_dv(starts, p, kappa, v, acc, dt, react, params, active=None):
     return v_out, acc_out
 
 
-def nonpressure_kick(starts, p, dt, params):
-    """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v)."""
+def nonpressure_kick(ctx, p, dt, params):
+    """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v).  ``ctx``
+    as for ``density_factor``."""
     if p.x.device.type == "cpu":
-        return nonpressure_kick_plain(_plain_ctx(starts, p, params), p, dt,
+        return nonpressure_kick_plain(_plain_ctx(ctx, p, params), p, dt,
                                       params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     acc = torch.empty_like(p.x)
     v_out = torch.empty_like(p.v)
@@ -348,33 +362,36 @@ def nonpressure_kick(starts, p, dt, params):
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
         _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
         _check("m", p.m, f32, (n,), dev),
-        _check("density", p.density, f32, (n,), dev), ptr["starts"],
+        _check("density", p.density, f32, (n,), dev), *walk,
         _check("dt", dt, f32, (), dev), acc.data_ptr(), v_out.data_ptr(),
         pair_consts(params), _stream(dev))
-    _raise_on(rc, "nonpressure_kick")
-    LAUNCHES["nonpressure_kick"] += 1
+    name = "nonpressure_kick" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = params.n_fluid + params.n_solid
     acc[n_real:] = 0.0
     v_out[n_real:] = p.v[n_real:]
     return acc, v_out
 
 
-def nonpressure_accel(starts, p, params):
+def nonpressure_accel(ctx, p, params):
     """Kernel wrapper for ``nonpressure_accel_plain``: acc, from the kernel
-    of ``nonpressure_kick`` without its kick (v is not written)."""
+    of ``nonpressure_kick`` without its kick (v is not written).  ``ctx``
+    as for ``density_factor``."""
     if p.x.device.type == "cpu":
-        return nonpressure_accel_plain(_plain_ctx(starts, p, params), p,
+        return nonpressure_accel_plain(_plain_ctx(ctx, p, params), p,
                                        params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     acc = torch.empty_like(p.x)
     rc = _lib().nonpressure_accel_launch(
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
         _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
         _check("m", p.m, f32, (n,), dev),
-        _check("density", p.density, f32, (n,), dev), ptr["starts"],
+        _check("density", p.density, f32, (n,), dev), *walk,
         acc.data_ptr(), pair_consts(params), _stream(dev))
-    _raise_on(rc, "nonpressure_accel")
-    LAUNCHES["nonpressure_accel"] += 1
+    name = "nonpressure_accel" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     acc[params.n_fluid + params.n_solid:] = 0.0
     return acc

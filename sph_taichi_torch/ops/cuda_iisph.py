@@ -16,11 +16,18 @@ Ports the specializations of the Pallas TPU kernel ``BlockEngine._kernel``
 - ``apply_A``: sum_j m_V_j dW (a_i - a_j) . r_ij (``_apply_A``) with the
   relaxed-Jacobi update and the per-centre error column.
 
+The same kernels port the retired ``SlotEngine._kernel``
+(sph_taichi_tpu/ops/retired/pallas_slots.py): given a ``SlotMap``
+(ops/slots.py, the context of ``CudaSlotEngine``) instead of cell offsets,
+a wrapper launches the kernel's slot-walk instantiation and counts it
+under ``"<name>[slots]"``.
+
 Beside each kernel is its plain version (``*_plain``): the GatherEngine
-traversal with the same term, then the same epilogue in torch, in the
-JAX package's operation order.  A wrapper runs the plain version only
-when its tensors lie on the CPU; on a CUDA tensor it launches the kernel
-or raises.  Each launch adds one to ``LAUNCHES[name]``.
+traversal with the same term (over the slot lists for a ``SlotMap``),
+then the same epilogue in torch, in the JAX package's operation order.  A
+wrapper runs the plain version only when its tensors lie on the CPU; on a
+CUDA tensor it launches the kernel or raises.  Each launch adds one to
+``LAUNCHES[name]``.
 
 ``pressure_accel`` (without ``advect_dt``) and ``apply_A`` run inside the
 Jacobi loop and take an optional ``active`` flag, a 0-d bool tensor on the
@@ -37,15 +44,15 @@ import ctypes
 import torch
 
 from sph_taichi_torch.ops.cuda_pairs import (
-    _PTR, _active_ptr, _check, _check_common, _plain_ctx, _raise_on,
-    _stream, pair_consts, PairConsts)
+    WALK, _PTR, _active_ptr, _check, _plain_ctx, _raise_on, _stream, _walk,
+    pair_consts, PairConsts)
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
 from sph_taichi_torch.ops.pairs import GatherEngine, div_exact
 from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
 
-LAUNCHES = {"iisph_nonpressure_kick": 0, "iisph_predict_advection": 0,
-            "iisph_pressure_accel": 0, "iisph_pressure_accel_advect": 0,
-            "iisph_apply_A": 0}
+LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
+    "iisph_nonpressure_kick", "iisph_predict_advection",
+    "iisph_pressure_accel", "iisph_pressure_accel_advect", "iisph_apply_A")}
 
 
 def reset_launch_counts():
@@ -208,13 +215,15 @@ def _lib():
     lib = _build.load("iisph")
     if not getattr(lib, "_typed", False):
         lib.iisph_nonpressure_kick_launch.argtypes = (
-            [_PTR] * 9 + [PairConsts, _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 3 + [PairConsts, _PTR])
         lib.iisph_predict_advection_launch.argtypes = (
-            [_PTR] * 11 + [PairConsts, _PTR])
+            [_PTR] * 6 + WALK + [_PTR] * 4 + [PairConsts, _PTR])
         lib.iisph_pressure_accel_launch.argtypes = (
-            [_PTR] * 11 + [ctypes.c_int, PairConsts, _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 5 + [ctypes.c_int, PairConsts,
+                                              _PTR])
         lib.iisph_apply_A_launch.argtypes = (
-            [_PTR] * 10 + [ctypes.c_float] + [_PTR] * 2 + [PairConsts, _PTR])
+            [_PTR] * 7 + WALK + [_PTR] * 2 + [ctypes.c_float] + [_PTR] * 2
+            + [PairConsts, _PTR])
         for fn in (lib.iisph_nonpressure_kick_launch,
                    lib.iisph_predict_advection_launch,
                    lib.iisph_pressure_accel_launch,
@@ -224,61 +233,65 @@ def _lib():
     return lib
 
 
-def nonpressure_kick(starts, p, dt, params):
-    """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v*).
-    ``starts``: cell offsets of the sorted particles ``p``; ``dt`` a 0-d
-    f32 tensor on the device."""
+def nonpressure_kick(ctx, p, dt, params):
+    """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v*).  ``ctx``:
+    the cell offsets of the sorted particles ``p`` (ops.grid.cell_offsets),
+    or their ``SlotMap`` for the slot walk; ``dt`` a 0-d f32 tensor on the
+    device."""
     if p.x.device.type == "cpu":
-        return nonpressure_kick_plain(_plain_ctx(starts, p, params), p, dt,
+        return nonpressure_kick_plain(_plain_ctx(ctx, p, params), p, dt,
                                       params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     acc = torch.empty_like(p.x)
     v_out = torch.empty_like(p.v)
     rc = _lib().iisph_nonpressure_kick_launch(
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
         _check("m", p.m, f32, (n,), dev),
-        _check("density", p.density, f32, (n,), dev), ptr["starts"],
+        _check("density", p.density, f32, (n,), dev), *walk,
         _check("dt", dt, f32, (), dev), acc.data_ptr(), v_out.data_ptr(),
         pair_consts(params), _stream(dev))
-    _raise_on(rc, "iisph_nonpressure_kick")
-    LAUNCHES["iisph_nonpressure_kick"] += 1
+    name = "iisph_nonpressure_kick" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = _n_real(params)
     acc[n_real:] = 0.0
     v_out[n_real:] = p.v[n_real:]
     return acc, v_out
 
 
-def predict_advection(starts, p, dt, params):
+def predict_advection(ctx, p, dt, params):
     """Kernel wrapper for ``predict_advection_plain``: (a_ii, source,
-    last_p)."""
+    last_p).  ``ctx`` as for ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
-        return predict_advection_plain(_plain_ctx(starts, p, params), p, dt,
+        return predict_advection_plain(_plain_ctx(ctx, p, params), p, dt,
                                        params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     outs = tuple(torch.empty_like(p.m_V) for _ in range(3))
     rc = _lib().iisph_predict_advection_launch(
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
         ptr["m_V"], _check("density", p.density, f32, (n,), dev),
-        _check("pressure", p.pressure, f32, (n,), dev), ptr["starts"],
+        _check("pressure", p.pressure, f32, (n,), dev), *walk,
         _check("dt", dt, f32, (), dev), *(o.data_ptr() for o in outs),
         pair_consts(params), _stream(dev))
-    _raise_on(rc, "iisph_predict_advection")
-    LAUNCHES["iisph_predict_advection"] += 1
+    name = "iisph_predict_advection" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     for o in outs:
         o[_n_real(params):] = 0.0
     return outs
 
 
-def pressure_accel(starts, p, pressure, params, advect_dt=None, active=None):
+def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
     """Kernel wrapper for ``pressure_accel_plain``: the (N, 3) acceleration
     (``iisph_pressure_accel<false>``, in the Jacobi loop), or with
-    ``advect_dt`` the advected (v, x) (``<true>``, after it)."""
+    ``advect_dt`` the advected (v, x) (``<true>``, after it).  ``ctx`` as
+    for ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
-        return pressure_accel_plain(_plain_ctx(starts, p, params), p,
+        return pressure_accel_plain(_plain_ctx(ctx, p, params), p,
                                     pressure, params, advect_dt)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     adv = advect_dt is not None
     if adv and active is not None:
@@ -289,31 +302,33 @@ def pressure_accel(starts, p, pressure, params, advect_dt=None, active=None):
     rc = _lib().iisph_pressure_accel_launch(
         ptr["x"], ptr["material"], ptr["m_V"],
         _check("density", p.density, f32, (n,), dev),
-        _check("pressure", pressure, f32, (n,), dev), ptr["starts"],
+        _check("pressure", pressure, f32, (n,), dev), *walk,
         _check("v", p.v, f32, (n, 3), dev) if adv else None,
         _check("dt", advect_dt, f32, (), dev) if adv else None,
         _active_ptr(active, dev), out0.data_ptr(),
         out1.data_ptr() if adv else None, int(adv), pair_consts(params),
         _stream(dev))
-    _raise_on(rc, "iisph_pressure_accel")
+    name = ("iisph_pressure_accel_advect" if adv
+            else "iisph_pressure_accel") + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = _n_real(params)
     if not adv:
-        LAUNCHES["iisph_pressure_accel"] += 1
         out0[n_real:] = 0.0
         return out0
-    LAUNCHES["iisph_pressure_accel_advect"] += 1
     out0[n_real:] = p.v[n_real:]
     out1[n_real:] = p.x[n_real:]
     return out0, out1
 
 
-def apply_A(starts, p, accel, a_ii, source, last_p, dt, omega, params,
+def apply_A(ctx, p, accel, a_ii, source, last_p, dt, omega, params,
             active=None):
-    """Kernel wrapper for ``apply_A_plain``: (new_p, err)."""
+    """Kernel wrapper for ``apply_A_plain``: (new_p, err).  ``ctx`` as for
+    ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
-        return apply_A_plain(_plain_ctx(starts, p, params), p, accel, a_ii,
+        return apply_A_plain(_plain_ctx(ctx, p, params), p, accel, a_ii,
                              source, last_p, dt, omega, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     new_p = torch.empty_like(p.m_V)
     err = torch.empty_like(p.m_V)
@@ -322,12 +337,13 @@ def apply_A(starts, p, accel, a_ii, source, last_p, dt, omega, params,
         _check("accel", accel, f32, (n, 3), dev),
         _check("a_ii", a_ii, f32, (n,), dev),
         _check("source", source, f32, (n,), dev),
-        _check("last_p", last_p, f32, (n,), dev), ptr["starts"],
+        _check("last_p", last_p, f32, (n,), dev), *walk,
         _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
         float(omega), new_p.data_ptr(), err.data_ptr(), pair_consts(params),
         _stream(dev))
-    _raise_on(rc, "iisph_apply_A")
-    LAUNCHES["iisph_apply_A"] += 1
+    name = "iisph_apply_A" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = _n_real(params)
     new_p[n_real:] = 0.0
     err[n_real:] = 0.0

@@ -261,6 +261,9 @@ def pair_consts(params):
 
 
 _PTR = ctypes.c_void_p
+# ctypes types of a launcher's walk arguments: cell offsets, slot map (null
+# for the cell-run walk), layers
+WALK = [_PTR, _PTR, ctypes.c_int]
 
 
 def _lib():
@@ -269,13 +272,13 @@ def _lib():
     if not getattr(lib, "_typed", False):
         i32 = ctypes.c_int
         lib.density_sum_launch.argtypes = (
-            [_PTR] * 5 + [i32, _PTR, PairConsts, _PTR])
+            [_PTR] * 3 + WALK + [_PTR, PairConsts, _PTR])
         lib.density_sum_launch.restype = i32
         lib.wcsph_forces_launch.argtypes = (
-            [_PTR] * 12 + [i32] + [_PTR] * 4 + [i32, PairConsts, _PTR])
+            [_PTR] * 10 + WALK + [_PTR] * 4 + [i32, PairConsts, _PTR])
         lib.wcsph_forces_launch.restype = i32
         lib.boundary_volume_launch.argtypes = (
-            [_PTR] * 4 + [i32, _PTR, i32, _PTR, PairConsts, _PTR])
+            [_PTR] * 2 + WALK + [_PTR, i32, _PTR, PairConsts, _PTR])
         lib.boundary_volume_launch.restype = i32
         lib._typed = True
     return lib
@@ -328,15 +331,20 @@ def _plain_ctx(ctx, p, params):
 
 
 def _walk(ctx, p, params):
-    """(cell offsets, slot map pointer or None, layers, launch-count
-    suffix) of the walk a kernel launches for the context ``ctx``: the
-    slot walk for a ``SlotMap``, the cell-run walk for cell offsets."""
-    if not isinstance(ctx, SlotMap):
-        return ctx, None, 0, ""
-    nx, ny, nz = params.grid_num
-    ptr = _check("slot map", ctx.idx, torch.int32,
-                 (params.slot_layers, nx, ny, nz * 8), p.x.device)
-    return ctx.starts, ptr, params.slot_layers, "[slots]"
+    """The checks of ``_check_common`` over the walk a kernel launches for
+    the context ``ctx``: the slot walk for a ``SlotMap``, the cell-run
+    walk for cell offsets.  Returns (device, n, pointers, the launcher's
+    walk arguments (cell offsets, slot map or None, layers), launch-count
+    suffix)."""
+    if isinstance(ctx, SlotMap):
+        nx, ny, nz = params.grid_num
+        slot_map = _check("slot map", ctx.idx, torch.int32,
+                          (params.slot_layers, nx, ny, nz * 8), p.x.device)
+        starts, layers, suffix = ctx.starts, params.slot_layers, "[slots]"
+    else:
+        starts, slot_map, layers, suffix = ctx, None, 0, ""
+    dev, n, ptr = _check_common(starts, p, params)
+    return dev, n, ptr, (ptr["starts"], slot_map, layers), suffix
 
 
 def _active_ptr(active, dev):
@@ -353,12 +361,11 @@ def density_sum(ctx, p, params):
     if p.x.device.type == "cpu":
         return density_sum_plain(_plain_ctx(ctx, p, params), p.x,
                                  p.material, p.m_V, params)
-    starts, slot_map, layers, suffix = _walk(ctx, p, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     out = torch.zeros(n, dtype=torch.float32, device=dev)
     rc = _lib().density_sum_launch(
-        ptr["x"], ptr["material"], ptr["m_V"], ptr["starts"], slot_map,
-        layers, out.data_ptr(), pair_consts(params), _stream(dev))
+        ptr["x"], ptr["material"], ptr["m_V"], *walk, out.data_ptr(),
+        pair_consts(params), _stream(dev))
     _raise_on(rc, "density_sum" + suffix)
     LAUNCHES["density_sum" + suffix] += 1
     return out
@@ -372,8 +379,7 @@ def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
     if p.x.device.type == "cpu":
         return wcsph_forces_plain(_plain_ctx(ctx, p, params), p, dpi,
                                   p_r02, m_nc, rr0, dt, params)
-    starts, slot_map, layers, suffix = _walk(ctx, p, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32, i32 = torch.float32, torch.int32
     react = rr0 is not None
     args = [ptr["x"], _check("v", p.v, f32, (n, 3), dev),
@@ -384,7 +390,7 @@ def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
             _check("p_r02", p_r02, f32, (n,), dev),
             _check("m_nc", m_nc, f32, (n,), dev),
             _check("rr0", rr0, f32, (n,), dev) if react else None,
-            ptr["starts"], slot_map, layers, _check("dt", dt, f32, (), dev)]
+            *walk, _check("dt", dt, f32, (), dev)]
     x_out = torch.empty_like(p.x)
     v_out = torch.empty_like(p.v)
     acc = torch.empty_like(p.x)
@@ -422,16 +428,15 @@ def boundary_volume(ctx, p, target_mask, params):
     if p.x.device.type == "cpu":
         return boundary_volume_plain(_plain_ctx(ctx, p, params), p,
                                      target_mask, params)
-    starts, slot_map, layers, suffix = _walk(ctx, p, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     _check("target_mask", target_mask, torch.bool, (n,), dev)
     m_V = p.m_V.clone()
     if params.n_solid == 0:
         return m_V
     targets = target_rows(target_mask, params.n_solid)
     rc = _lib().boundary_volume_launch(
-        ptr["x"], ptr["material"], ptr["starts"], slot_map, layers,
-        targets.data_ptr(), params.n_solid, m_V.data_ptr(),
+        ptr["x"], ptr["material"], *walk, targets.data_ptr(),
+        params.n_solid, m_V.data_ptr(),
         pair_consts(params), _stream(dev))
     _raise_on(rc, "boundary_volume" + suffix)
     LAUNCHES["boundary_volume" + suffix] += 1

@@ -21,14 +21,22 @@ x*, where a pair that has moved beyond h contributes 0.  The plain engine's
 neighbour lists, built once per step from ``p.x``, give exactly that pair
 set.
 
+The same kernels port the retired ``SlotEngine._kernel``
+(sph_taichi_tpu/ops/retired/pallas_slots.py): given a ``SlotMap`` of the
+step-start particles (ops/slots.py, the context of ``CudaSlotEngine``)
+instead of their cell offsets, a wrapper launches the kernel's slot-walk
+instantiation and counts it under ``"<name>[slots]"``; the loop keeps the
+step-start map for every iteration, as it keeps the step-start offsets.
+
 Beside each kernel is its plain version (``*_plain``): the GatherEngine
-traversal with the same term, then the same epilogue in torch, in the JAX
-package's operation order.  A wrapper runs the plain version only when its
-tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
-Each launch adds one to ``LAUNCHES[name]``.  Both run inside the loop and
-take an optional ``active`` flag, a 0-d bool tensor on the device: when it
-is false the kernel returns at once and its outputs are undefined (the loop
-discards them).  The plain versions ignore it.
+traversal with the same term (over the slot lists for a ``SlotMap``),
+then the same epilogue in torch, in the JAX package's operation order.  A
+wrapper runs the plain version only when its tensors lie on the CPU; on a
+CUDA tensor it launches the kernel or raises.  Each launch adds one to
+``LAUNCHES[name]``.  Both run inside the loop and take an optional
+``active`` flag, a 0-d bool tensor on the device: when it is false the
+kernel returns at once and its outputs are undefined (the loop discards
+them).  The plain versions ignore it.
 
 Padding rows are not launched: the wrappers restore them as the JAX
 package's ``restore_tail`` does (p' and rho_err 0, v*' and x*' from v and
@@ -41,12 +49,13 @@ import torch
 
 from sph_taichi_torch.ops import cuda_iisph
 from sph_taichi_torch.ops.cuda_pairs import (
-    _PTR, _active_ptr, _check, _check_common, _plain_ctx, _raise_on,
-    _stream, pair_consts, PairConsts)
+    WALK, _PTR, _active_ptr, _check, _plain_ctx, _raise_on, _stream, _walk,
+    pair_consts, PairConsts)
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
 from sph_taichi_torch.ops.pairs import GatherEngine
 
-LAUNCHES = {"pcisph_d_rho_correct": 0, "pcisph_pressure_accel_predict": 0}
+LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
+    "pcisph_d_rho_correct", "pcisph_pressure_accel_predict")}
 
 
 def reset_launch_counts():
@@ -111,9 +120,9 @@ def _lib():
     lib = _build.load("pcisph")
     if not getattr(lib, "_typed", False):
         lib.pcisph_d_rho_correct_launch.argtypes = (
-            [_PTR] * 13 + [PairConsts, _PTR])
+            [_PTR] * 7 + WALK + [_PTR] * 5 + [PairConsts, _PTR])
         lib.pcisph_pressure_accel_predict_launch.argtypes = (
-            [_PTR] * 13 + [PairConsts, _PTR])
+            [_PTR] * 8 + WALK + [_PTR] * 4 + [PairConsts, _PTR])
         for fn in (lib.pcisph_d_rho_correct_launch,
                    lib.pcisph_pressure_accel_predict_launch):
             fn.restype = ctypes.c_int
@@ -121,13 +130,14 @@ def _lib():
     return lib
 
 
-def d_rho_correct(starts, p, xp, vp, pressure, dt, s_f, params, active=None):
+def d_rho_correct(ctx, p, xp, vp, pressure, dt, s_f, params, active=None):
     """Kernel wrapper for ``d_rho_correct_plain``: (p', rho_err).
-    ``starts``: cell offsets of the sorted step-start particles ``p``."""
+    ``ctx``: the cell offsets of the sorted step-start particles ``p``, or
+    their ``SlotMap`` for the slot walk."""
     if p.x.device.type == "cpu":
-        return d_rho_correct_plain(_plain_ctx(starts, p, params), p, xp, vp,
+        return d_rho_correct_plain(_plain_ctx(ctx, p, params), p, xp, vp,
                                    pressure, dt, s_f, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     pr_out = torch.empty_like(p.m_V)
     err = torch.empty_like(p.m_V)
@@ -135,24 +145,26 @@ def d_rho_correct(starts, p, xp, vp, pressure, dt, s_f, params, active=None):
         ptr["x"], _check("xp", xp, f32, (n, 3), dev),
         _check("vp", vp, f32, (n, 3), dev), ptr["material"], ptr["m_V"],
         _check("density", p.density, f32, (n,), dev),
-        _check("pressure", pressure, f32, (n,), dev), ptr["starts"],
+        _check("pressure", pressure, f32, (n,), dev), *walk,
         _check("dt", dt, f32, (), dev), _check("s_f", s_f, f32, (), dev),
         _active_ptr(active, dev), pr_out.data_ptr(), err.data_ptr(),
         pair_consts(params), _stream(dev))
-    _raise_on(rc, "pcisph_d_rho_correct")
-    LAUNCHES["pcisph_d_rho_correct"] += 1
+    name = "pcisph_d_rho_correct" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = params.n_fluid + params.n_solid
     pr_out[n_real:] = 0.0
     err[n_real:] = 0.0
     return pr_out, err
 
 
-def pressure_accel_predict(starts, p, xp, pressure, dt, params, active=None):
-    """Kernel wrapper for ``pressure_accel_predict_plain``: (v*', x*')."""
+def pressure_accel_predict(ctx, p, xp, pressure, dt, params, active=None):
+    """Kernel wrapper for ``pressure_accel_predict_plain``: (v*', x*').
+    ``ctx`` as for ``d_rho_correct``."""
     if p.x.device.type == "cpu":
-        return pressure_accel_predict_plain(_plain_ctx(starts, p, params), p,
+        return pressure_accel_predict_plain(_plain_ctx(ctx, p, params), p,
                                             xp, pressure, dt, params)
-    dev, n, ptr = _check_common(starts, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     f32 = torch.float32
     v_out = torch.empty_like(p.v)
     x_out = torch.empty_like(p.x)
@@ -161,12 +173,13 @@ def pressure_accel_predict(starts, p, xp, pressure, dt, params, active=None):
         ptr["m_V"], _check("density", p.density, f32, (n,), dev),
         _check("pressure", pressure, f32, (n,), dev),
         _check("v", p.v, f32, (n, 3), dev),
-        _check("acc", p.acc, f32, (n, 3), dev), ptr["starts"],
+        _check("acc", p.acc, f32, (n, 3), dev), *walk,
         _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
         v_out.data_ptr(), x_out.data_ptr(), pair_consts(params),
         _stream(dev))
-    _raise_on(rc, "pcisph_pressure_accel_predict")
-    LAUNCHES["pcisph_pressure_accel_predict"] += 1
+    name = "pcisph_pressure_accel_predict" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     n_real = params.n_fluid + params.n_solid
     v_out[n_real:] = p.v[n_real:]
     x_out[n_real:] = p.x[n_real:]

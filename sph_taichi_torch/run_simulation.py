@@ -14,14 +14,16 @@
         --resume dragon_bath_output/checkpoint.npz
     python -m sph_taichi_torch.run_simulation \
         --scene_file data/scenes/dragon_bath.json --backend pallas_slots
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/dragon_bath_dfsph.json --backend pallas_slots
 
 Runs on the CUDA device unless ``--device cpu`` is given.  With
 ``--checkpoint_interval N`` it writes ``<output_dir>/checkpoint.npz`` every
 N frames; ``--resume`` continues from such a file (one written by the JAX
 package's ``run_simulation.py`` loads too).  ``--backend`` picks the pair
 engine with the JAX package's names: ``auto`` and ``pallas_blocks`` the
-cell-run CUDA kernels, ``pallas_slots`` the slot-map kernels (WCSPH only),
-``gather`` the plain engine (CPU only).
+cell-run CUDA kernels, ``pallas_slots`` the slot-map kernels (every
+solver), ``gather`` the plain engine (CPU only).
 """
 
 import argparse
@@ -46,8 +48,8 @@ def main(argv=None):
                                  "pallas_slots"],
                         help="pair engine: 'auto' and 'pallas_blocks' the "
                              "cell-run CUDA kernels, 'pallas_slots' the "
-                             "slot-map kernels (WCSPH only), 'gather' the "
-                             "plain engine (CPU only)")
+                             "slot-map kernels, 'gather' the plain engine "
+                             "(CPU only)")
     parser.add_argument("--checkpoint_interval", type=int, default=0,
                         help="write <output_dir>/checkpoint.npz every N "
                              "frames (0 = never)")

@@ -526,7 +526,9 @@ def test_cuda_iisph_needs_no_nvcc_to_import():
     assert c.rho0sq == 1e6
     with pytest.raises(ValueError, match="CUDA kernel"):
         cuda_pairs._check_common(None, part, params)
-    assert set(cuda_iisph.LAUNCHES) == {
-        "iisph_nonpressure_kick", "iisph_predict_advection",
-        "iisph_pressure_accel", "iisph_pressure_accel_advect",
-        "iisph_apply_A"}
+    names = {"iisph_nonpressure_kick", "iisph_predict_advection",
+             "iisph_pressure_accel", "iisph_pressure_accel_advect",
+             "iisph_apply_A"}
+    # each kernel's launches over cell runs and over the slot walk
+    assert set(cuda_iisph.LAUNCHES) == names | {n + "[slots]"
+                                                for n in names}

@@ -8,8 +8,9 @@ engine's neighbour lists must equal the cell-run lists bitwise (when no
 cell overflows, and at cell_cap = 8 * slot_layers when one does).  WCSPH
 steps under the slot backend must match the JAX package's gather engine at
 the engine-equivalence tolerance (atol 2e-5, rtol 2e-4), as the JAX
-package's own tests/test_pallas_slots.py holds its slot engine.  The
-engine choice follows the JAX package's ``--backend`` names.
+package's own tests/test_pallas_slots.py holds its slot engine (the other
+solvers: tests/test_torch_slot_solvers.py).  The engine choice follows the
+JAX package's ``--backend`` names.
 """
 
 import dataclasses
@@ -206,13 +207,19 @@ def test_gather_raises_on_a_cuda_device(monkeypatch):
         make_engine(dataclasses.replace(params, backend="pallas"), "cpu")
 
 
-@pytest.mark.parametrize("method", [1, 2, 4])
-def test_slots_refuse_other_methods(method):
+@pytest.mark.parametrize("method,solver", [(1, "PCISPHSolver"),
+                                           (2, "IISPHSolver"),
+                                           (4, "DFSPHSolver")])
+def test_slots_build_every_method(method, solver):
+    """Under the slot backend every solver is built, on the plain slot
+    engine on the CPU (tests/test_torch_slot_solvers.py steps them)."""
     params = T.build_scene(T.SimConfig(config_dict=small_scene_dict(
         method=method)), device="cpu")[0]
-    with pytest.raises(ValueError, match="ROADMAP"):
-        T.build_solver(dataclasses.replace(params, backend="pallas_slots"),
-                       device="cpu")
+    built = T.build_solver(dataclasses.replace(params,
+                                               backend="pallas_slots"),
+                           device="cpu")
+    assert type(built).__name__ == solver
+    assert isinstance(built.engine, tslots.SlotGatherEngine)
 
 
 def test_cli_backend(tmp_path, capsys):
@@ -227,3 +234,18 @@ def test_cli_backend(tmp_path, capsys):
     with pytest.raises(SystemExit):
         run_simulation.main(["--scene_file", str(scene), "--backend",
                              "pallas"])
+
+
+def test_cli_backend_with_dfsph(tmp_path, capsys):
+    """``--backend pallas_slots --method 4``: two DFSPH frames."""
+    from sph_taichi_torch import run_simulation
+
+    scene = tmp_path / "scene.json"
+    scene.write_text(json.dumps(small_scene_dict()))
+    run_simulation.main(["--scene_file", str(scene), "--max_frames", "2",
+                         "--device", "cpu", "--backend", "pallas_slots",
+                         "--method", "4", "--output_dir",
+                         str(tmp_path / "out")])
+    out = capsys.readouterr().out
+    assert "method: 4  backend: pallas_slots" in out
+    assert "frame 2" in out and "iterations/step divergence" in out
