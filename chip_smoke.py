@@ -100,7 +100,17 @@ Phases (any failure raises and exits non-zero):
    after 5);
 17. the same for the scaled dynamic dragon as DFSPH (20 steps after 5):
    kernel c's and the reaction update's slot instantiations every step,
-   the reaction kernel against its plain version.
+   the reaction kernel against its plain version;
+18. (in phase 2) the two-phase Jacobi kernels (dfsph_divergence in both
+   modes, dfsph_solver_dv with and without the reaction, over cell runs
+   and slots) against their plain versions bitwise on an edge scene (a
+   ~100-particle cell, lists that flush, warps in two columns, a dynamic
+   rigid block), padding rows included, with the walk profile (torch,
+   from the neighbour lists) and one kernel launched per wrapper call; (in
+   phase 4) at the dragon_bath_dfsph state the walk profile, registers,
+   shared memory and resident blocks of each instantiation, a launch with
+   the Jacobi flag false, and the path's iteration and read counts against
+   those of the one-phase walk.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -338,11 +348,11 @@ def max_errors(got, ref, name):
     return float(err.max())
 
 
-def prepared(scene_dict, device, seed, clump=True):
+def prepared(scene_dict, device, seed, clump=True, place=None):
     """Sorted particles with clumped positions (or the scene's own with
-    ``clump=False``) and random velocities, their Akinci volumes and
-    densities (plain engine), the cell offsets and the plain engine's
-    neighbour lists."""
+    ``clump=False``, or ``place(rng, params, x, material)``'s) and random
+    velocities, their Akinci volumes and densities (plain engine), the cell
+    offsets and the plain engine's neighbour lists."""
     from sph_taichi_torch import SimConfig, build_scene, build_solver
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops.pairs import GatherEngine
@@ -351,7 +361,9 @@ def prepared(scene_dict, device, seed, clump=True):
                                   device=device)
     rng = np.random.default_rng(seed)
     x = part.x.cpu().numpy()
-    if clump:
+    if place is not None:
+        x = place(rng, params, x, part.material.cpu().numpy())
+    elif clump:
         x = clumped_positions(rng, params, x)
     v = np.zeros_like(x)
     n = params.n_fluid + params.n_solid
@@ -512,6 +524,298 @@ def check_dfsph_on_small_scenes(device):
                        f"floor impact step {step + 1}: {name}")
         state = ks
     return worst
+
+
+CLUMP = 96
+
+
+def compact_edge_scene():
+    """The two-way DFSPH scene (a fluid block above a dynamic rigid block)
+    with the plain engines' caps raised for the clump of
+    ``compact_edge_positions``."""
+    d = dfsph_scene("two_way")
+    d["TPU"] = {"cellCap": 128, "neighborCap": 192}
+    return d
+
+
+def compact_edge_positions(rng, params, x, material):
+    """The scene's lattice jittered by up to 0.3 particle radii, and the
+    CLUMP highest fluid particles moved into a ball of radius 0.45 h at
+    the centre of cell (2, 3, 2): one cell of ~100 particles, each with ~100
+    neighbours (tests/test_torch_dfsph_compact.py has the same generator)."""
+    x = x.copy()
+    real = material != -1
+    r = params.particle_radius
+    x[real] += rng.uniform(-0.3 * r, 0.3 * r, size=(int(real.sum()), 3))
+    fluid = np.flatnonzero(material == 1)
+    top = fluid[np.argsort(x[fluid, 1], kind="stable")[-CLUMP:]]
+    h = params.support_radius
+    centre = (np.array([2, 3, 2]) + 0.5) * params.grid_size
+    d = rng.normal(size=(CLUMP, 3))
+    d *= (0.45 * h * rng.uniform(0, 1, CLUMP) ** (1 / 3)
+          / np.linalg.norm(d, axis=1))[:, None]
+    x[top] = centre + d
+    return x.astype(np.float32)
+
+
+def walk_profile(params, x, walkers, starts, nl, label):
+    """What the warps of the Jacobi kernels do at the sorted positions
+    ``x``, computed in torch from the cell offsets and the plain neighbour
+    lists ``nl`` (no device counter): warps of 32 consecutive rows, the rows
+    ``walkers`` walking.  The one-phase walk (for_each_neighbor_walk) runs
+    each column's candidates in lockstep, so a warp's candidate iterations
+    are the sum over columns of the most candidates a lane has there, and
+    it runs the pair body at every such iteration where a lane accepts.
+    The two-phase walk over cell runs (for_each_neighbor_compact) runs
+    the same candidate loop, in blocks of COMPACT_UNROLL steps, and the
+    body as often as the fullest list wherever every lane's list flushes:
+    at the end, and before a block where a list of LIST_ENTRIES has fewer
+    than COMPACT_UNROLL entries free.  Also the (ix, iy) column groups of
+    a warp.  Prints and returns the figures."""
+    from sph_taichi_torch.ops.cuda_dfsph import COMPACT_UNROLL as unroll
+    from sph_taichi_torch.ops.cuda_dfsph import LIST_ENTRIES as lists
+    from sph_taichi_torch.ops.grid import pos_to_cell
+
+    dev = x.device
+    n = x.shape[0]
+    nx, ny, nz = params.grid_num
+    nw = (n + 31) // 32
+    cell = pos_to_cell(x, params.grid_size).long()
+    walk = walkers.clone()
+    ix = torch.where(walk, cell[:, 0], 0)
+    iy = torch.where(walk, cell[:, 1], 0)
+    iz = torch.where(walk, cell[:, 2], 0)
+    zlo = torch.clamp(iz - 1, min=0)
+    zhi = torch.clamp(iz + 1, max=nz - 1)
+    walk &= zlo <= zhi
+    st = starts.long()
+    b = torch.zeros(n, 9, dtype=torch.long, device=dev)
+    cand = torch.zeros(n, 9, dtype=torch.long, device=dev)
+    for k, (dx, dy) in enumerate(itertools.product((-1, 0, 1), repeat=2)):
+        cx, cy = ix + dx, iy + dy
+        ok = walk & (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny)
+        base = (cx.clamp(0, nx - 1) * ny + cy.clamp(0, ny - 1)) * nz
+        bb, ee = st[base + zlo], st[base + zhi + 1]
+        b[:, k] = torch.where(ok, bb, 0)
+        cand[:, k] = torch.where(ok, ee - bb, 0)
+    wid = torch.arange(n, device=dev) // 32
+
+    def per_warp(t):
+        out = torch.zeros(nw * 32, *t.shape[1:], dtype=t.dtype, device=dev)
+        out[:n] = t
+        return out.view(nw, 32, *t.shape[1:])
+
+    # accepted pairs of the walking rows, each in its centre's column
+    valid = nl.mask() & walk[:, None]
+    rows = torch.nonzero(valid)[:, 0]
+    j = nl.idx[valid].long()
+    k = ((cell[j, 0] - ix[rows] + 1) * 3 + (cell[j, 1] - iy[rows] + 1))
+    pos = j - b[rows, k]
+    if bool(((k < 0) | (k > 8)).any()) or bool(
+            ((pos < 0) | (pos >= cand[rows, k])).any()):
+        raise AssertionError(f"{label}: a neighbour outside its centre's "
+                             f"candidate runs")
+    accepted = torch.bincount(rows, minlength=n)
+    live = per_warp(walk).any(1)
+    nlive = int(live.sum())
+    mean_acc = float(accepted[walk].double().mean())
+
+    # one-phase walk: columns in lockstep
+    colmax = per_warp(cand).max(1).values
+    colpre = torch.cumsum(colmax, 1) - colmax
+    old_t = colpre[wid[rows], k] + pos
+    span = int(colmax.sum(1).max()) + 1
+    old_body = torch.bincount(torch.unique(wid[rows] * span + old_t) // span,
+                              minlength=nw)
+    old_cand = colmax.sum(1)
+
+    # two-phase walk: the same lockstep candidate loop in blocks of
+    # ``unroll`` steps per column; before a block, every lane's list
+    # flushes if one holds more than lists - unroll pairs, the body running
+    # as often as the fullest list; once more at the end
+    hit = torch.zeros(nw * 32, span, dtype=torch.bool, device=dev)
+    hit[rows, old_t] = True
+    hit = hit.view(nw, 32, span)
+    check = torch.zeros(nw, span, dtype=torch.bool, device=dev)
+    warps = torch.arange(nw, device=dev)
+    for k2 in range(9):
+        for m in range(0, int(colmax[:, k2].max()), unroll):
+            at = m < colmax[:, k2]
+            check[warps[at], (colpre[:, k2] + m)[at]] = True
+    cnt = torch.zeros(nw, 32, dtype=torch.long, device=dev)
+    body = torch.zeros(nw, dtype=torch.long, device=dev)
+    flushes = torch.zeros(nw, dtype=torch.long, device=dev)
+    for t in range(span):
+        full = check[:, t] & (cnt > lists - unroll).any(1)
+        body += torch.where(full, cnt.max(1).values, 0)
+        flushes += full
+        cnt[full] = 0
+        cnt += hit[:, :, t]
+    body += cnt.max(1).values
+    # column groups: the walking lanes of a warp by (ix, iy)
+    key = wid * (nx * ny) + ix * ny + iy
+    ngroups = torch.bincount(torch.unique(key[walk]) // (nx * ny),
+                             minlength=nw)
+
+    fig = {
+        "warps": nlive,
+        "accepted_per_lane": mean_acc,
+        "candidate_iters": float(old_cand[live].double().mean()),
+        "one_phase_body_iters": float(old_body[live].double().mean()),
+        "two_phase_body_iters": float(body[live].double().mean()),
+        "flushes_mean": float(flushes[live].double().mean()),
+        "flushes_max": int(flushes.max()),
+        "warps_2plus_flushes": int((flushes >= 2).sum()),
+        "warps_2plus_groups": int((ngroups >= 2).sum()),
+        "groups_max": int(ngroups.max())}
+    print(f"{label} walk profile (torch, from the neighbour lists): "
+          f"{nlive} warps, {mean_acc:.2f} accepted pairs per walking lane, "
+          f"{fig['candidate_iters']:.1f} candidate iterations per warp; "
+          f"the one-phase walk runs the body in "
+          f"{fig['one_phase_body_iters']:.1f} of them "
+          f"({fig['one_phase_body_iters'] / mean_acc:.2f}x the accepted "
+          f"pairs per lane), the two-phase walk "
+          f"{fig['two_phase_body_iters']:.1f} times "
+          f"({fig['two_phase_body_iters'] / mean_acc:.2f}x); list {lists}: "
+          f"flushes per warp mean {fig['flushes_mean']:.3f} max "
+          f"{fig['flushes_max']}, warps with 2+ flushes "
+          f"{fig['warps_2plus_flushes']}; warps with 2+ column groups "
+          f"{fig['warps_2plus_groups']}, groups per warp max "
+          f"{fig['groups_max']}")
+    return fig
+
+
+def compact_calls(params, solver, p, lists):
+    """The Jacobi kernels' calls of ``solver_calls`` (divergence in both
+    modes, the solver update with and without the reaction)."""
+    return [c for c in solver_calls(4, params, solver, p, lists)
+            if "divergence" in c[0] or "solver_dv" in c[0]]
+
+
+def check_compact_walk_on_edge_scene(device):
+    """The two-phase Jacobi kernels against their plain versions, bitwise,
+    on the edge scene (a ~100-particle cell whose centres flush their lists
+    more than once; warps in two columns; the dynamic rigid block), over
+    cell runs and over the slot map (the cell overflows its 32 slots:
+    kernel and plain slot lists drop the same pairs); the walk profile;
+    each Jacobi wrapper launches one kernel, padding rows included (the
+    whole outputs are compared)."""
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    params, solver, p, nl, starts, diag = prepared(
+        compact_edge_scene(), device, seed=0, place=compact_edge_positions)
+    if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+        raise AssertionError("edge scene: the plain engine's caps overflowed")
+    print(f"compact-walk edge scene: {params.n_particles} particles, max "
+          f"cell occupancy {int(diag['max_cell_occupancy'])}, max "
+          f"neighbours {int(diag['max_neighbors'])}")
+    caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=128)
+    smap = build_slot_map(starts, params)
+    snl = slot_neighbor_list(smap, p.x, caps)
+    if int(snl.diag["neighbor_overflow"]) or \
+            not int(smap.diag["slot_overflow"]):
+        raise AssertionError("edge scene: slot lists overflowed, or the "
+                             "slot map did not")
+    walkers = (p.material == 1) | p.is_dynamic_rigid()
+    fig = walk_profile(params, p.x, walkers, starts, nl, "edge scene")
+    if not (fig["warps_2plus_flushes"] and fig["warps_2plus_groups"]):
+        raise AssertionError("edge scene: no warp flushes twice or holds "
+                             "two column groups")
+    worst, checked = {}, 0
+    for ctx, lists_ in ((starts, nl), (smap, snl)):
+        suffix = "[slots]" if ctx is smap else ""
+        for label, _, wrapper, plain, args in compact_calls(
+                params, solver, p, lists_):
+            got = outputs(wrapper(ctx, *args))
+            ref = outputs(plain(lists_, *args))
+            for a, b in zip(got, ref):
+                if b is None:
+                    continue
+                err = float((a.double() - b.double()).abs().max())
+                worst[label + suffix] = max(worst.get(label + suffix, 0.0),
+                                            err)
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"edge scene {label}{suffix}: not equal to its "
+                        f"plain version ({err:.3e})")
+            checked += 1
+    print(f"  {checked} kernel calls (divergence change / adv, solver_dv "
+          f"with and without the reaction, cell runs and slots) equal to "
+          f"their plain versions bitwise, padding rows included")
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    for label, _, wrapper, _, args in compact_calls(params, solver, p, nl):
+        before = sum(cd.LAUNCHES.values())
+        launched, lost = kernels_per_call(lambda: wrapper(starts, *args))
+        # a warm-up call, then one call per capture
+        counted = (sum(cd.LAUNCHES.values()) - before) / (2 + lost)
+        print(f"  {label}: one wrapper call launches {launched} (its count "
+              f"{counted:g} per call; captures that lost the markers "
+              f"{lost})")
+        if len(launched) != 1 or counted != 1:
+            raise AssertionError(f"{label}: the wrapper launches "
+                                 f"{len(launched)} kernels")
+    return worst
+
+
+MARKER = "spin_kernel"   # the kernel of torch.cuda._sleep
+
+
+def kernels_per_call(fn, tries=5):
+    """The device activities (kernels, copies, fills) of one call of
+    ``fn``, by name, from torch.profiler, and the number of captures taken
+    again.  The call stands between two marker kernels, with a millisecond
+    of host time on either side; a capture counts only if both markers show
+    in it, because the profiler can lose the device records of so short a
+    window (a lost capture is taken again, at most ``tries`` times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(1e-3)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(1e-3)
+        names = [e.key[:60] for e in prof.key_averages()
+                 for _ in range(e.count)
+                 if str(e.device_type).endswith("CUDA")]
+        if sum(MARKER in k for k in names) == 2:
+            return [k for k in names if MARKER not in k], attempt
+    raise AssertionError(f"profiler: the markers of a call were lost in "
+                         f"{tries} captures")
+
+
+def compact_at_dragon(params, q, starts, nl, kappa, dt):
+    """The two-phase walk at the dragon state: its walk profile, the
+    registers, shared memory and resident blocks of each instantiation,
+    and a launch with the Jacobi flag false (no traversal)."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    walk_profile(params, q.x, q.material == 1, starts, nl,
+                 "dragon_bath_dfsph state")
+    for kernel, variant in itertools.product(("divergence", "solver_dv"),
+                                             (False, True)):
+        for slots in (False, True):
+            regs, smem, blocks = cd.jacobi_occupancy(kernel, variant, slots)
+            print(f"  {kernel}<{int(variant)}>{'[slots]' if slots else ''}:"
+                  f" {regs} registers, {smem} bytes of shared memory per "
+                  f"block, {blocks} blocks of 128 per SM (occupancy "
+                  f"{blocks * 4 / 64:.3f})")
+    off = torch.zeros((), dtype=torch.bool, device=q.x.device)
+    calls = {
+        "change": ("dfsph_divergence_kernel<false", lambda: cd.divergence(
+            starts, q, q.v, None, None, "change", params, active=off)),
+        "adv": ("dfsph_divergence_kernel<true", lambda: cd.divergence(
+            starts, q, q.v, q.density, dt, "adv", params, active=off)),
+        "solver_dv": ("dfsph_solver_dv_kernel<false", lambda: cd.solver_dv(
+            starts, q, kappa, q.v, None, dt, False, params, active=off))}
+    for name, (kernel, fn) in calls.items():
+        print(f"  {name}: a launch with the Jacobi flag false takes "
+              f"{kernel_ms(fn, kernel, 20):.4f} ms on the card (profiler)")
 
 
 def profile_steps(sim, steps):
@@ -813,6 +1117,13 @@ def offset_bytes(params, xc):
     return 4 * int(read.sum())
 
 
+# dragon_bath_dfsph, 20 steps after 3: the Jacobi iterations and host reads
+# of the one-phase Jacobi kernels (3.40 / 1.70 iterations and 3.35 reads per
+# step); the two-phase kernels are bitwise equal to them, so they stay
+DFSPH_PATH_COUNTS = {"divergence_iters": 68, "pressure_iters": 34,
+                     "host_reads": 67}
+
+
 def dfsph_path(device, scene_path, warmup, steps):
     """Phase 4: DFSPH dragon through ``Simulation``; returns the kernels'
     JSON entries and the step time."""
@@ -885,6 +1196,13 @@ def dfsph_path(device, scene_path, warmup, steps):
             raise AssertionError(f"{name}: {count} launches in {steps} "
                                  f"DFSPH steps, expected "
                                  f"{expect.get(name, 0)}")
+    counts = {"divergence_iters": n_div, "pressure_iters": n_prs,
+              "host_reads": r_div + r_prs}
+    if steps == 20:
+        print(f"  counts {counts}, those of the one-phase walk "
+              f"{DFSPH_PATH_COUNTS}: equal {counts == DFSPH_PATH_COUNTS}")
+        if counts != DFSPH_PATH_COUNTS:
+            raise AssertionError("the DFSPH path's counts moved")
     for solve, n, r in (("divergence", n_div, r_div),
                         ("pressure", n_prs, r_prs)):
         if not n <= K * r <= n + (K - 1) * steps:
@@ -1004,6 +1322,7 @@ def dfsph_path(device, scene_path, warmup, steps):
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
 
+    compact_at_dragon(params, q, starts, nl, kappa, dt)
     n = params.n_fluid + params.n_solid
     cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
     pairs = {"fluid": pairs_fc, "fluid_ff": pairs_ff}
@@ -3096,6 +3415,7 @@ def main():
     worst.update(check_pcisph_on_small_scenes(device))
     worst.update(check_volume_and_slot_kernels_on_small_scenes(device))
     worst.update(check_slot_solver_kernels_on_small_scenes(device))
+    worst.update(check_compact_walk_on_edge_scene(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

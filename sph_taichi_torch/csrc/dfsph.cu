@@ -24,7 +24,10 @@
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_dfsph.py, in the same operation order.  Padding rows are not
-// launched; the wrappers restore them.
+// launched by density_factor and nonpressure_kick (their wrappers restore
+// them); the Jacobi kernels write them themselves (0 in adv and errt, v and
+// acc passed through), so their wrappers launch one kernel and nothing
+// else.
 //
 // The Jacobi kernels (divergence, solver_dv) take an optional device flag
 // `active`: when it is 0 the launch returns at once and writes nothing, and
@@ -34,7 +37,13 @@
 //
 // What bounds them on an H100: as pairs.cu, irregular candidate loads that
 // mostly hit L1/L2; the f32 work per real pair (20-45 operations) is far
-// below the card's rate.  Everything stays in registers.
+// below the card's rate.  Everything stays in registers.  The Jacobi
+// kernels, which a DFSPH step launches ~15 times, walk the cell runs in two
+// phases (pair_common.cuh for_each_neighbor_compact): the inclusion test
+// alone over the candidates, several candidates' loads in flight per lane,
+// then the pair body over the compacted accepted pairs, so the warp runs
+// the body with most lanes busy; over the slot walk they walk in one
+// phase.
 
 #include "pair_common.cuh"
 
@@ -81,27 +90,32 @@ __global__ void dfsph_divergence_kernel(
     const int* __restrict__ material, const float* __restrict__ m_V,
     const float* __restrict__ density, Walk walk,
     const float* __restrict__ dt_ptr, const unsigned char* __restrict__ active,
-    float* __restrict__ adv_out, float* __restrict__ errt_out, PairConsts c) {
+    float* __restrict__ adv_out, float* __restrict__ errt_out, int n_rows,
+    PairConsts c) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const bool fluid = material[i] == 1;
+  const bool fluid = i < c.n_real && material[i] == 1;
   float div = 0.0f, cnt = 0.0f;
+  float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f, vi0 = 0.0f, vi1 = 0.0f,
+        vi2 = 0.0f;
   if (fluid) {
-    const float vi0 = v[3 * i], vi1 = v[3 * i + 1], vi2 = v[3 * i + 2];
-    for_each_neighbor_walk(
-        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
-        [&](int j, float d0, float d1, float d2, float s) {
-          if (material[j] < 0) return;
-          const PairGeom p = pair_geom(s);
-          const float gradw = cubic_grad(p.rn, p.inv, c);
-          const float v_xy = (vi0 - v[3 * j]) * d0 +
-                             (vi1 - v[3 * j + 1]) * d1 +
-                             (vi2 - v[3 * j + 2]) * d2;
-          div += m_V[j] * gradw * v_xy;
-          cnt += 1.0f;
-        });
+    xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
+    vi0 = v[3 * i], vi1 = v[3 * i + 1], vi2 = v[3 * i + 2];
   }
+  for_each_neighbor_compact(
+      fluid, i, xi0, xi1, xi2, x, walk, c,
+      [&](int j, float d0, float d1, float d2, float s) {
+        if (material[j] < 0) return;
+        const PairGeom p = pair_geom(s);
+        const float gradw = cubic_grad(p.rn, p.inv, c);
+        const float v_xy = (vi0 - v[3 * j]) * d0 +
+                           (vi1 - v[3 * j + 1]) * d1 +
+                           (vi2 - v[3 * j + 2]) * d2;
+        div += m_V[j] * gradw * v_xy;
+        cnt += 1.0f;
+      });
+  if (i >= n_rows) return;
+  // padding rows (i >= n_real) are not fluid: adv and errt 0
   float adv, errt;
   if (ADV) {
     adv = density[i] / c.rho0 + *dt_ptr * div;
@@ -126,11 +140,10 @@ __global__ void dfsph_solver_dv_kernel(
     const float* __restrict__ v, const float* __restrict__ acc, Walk walk,
     const float* __restrict__ dt_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ v_out,
-    float* __restrict__ acc_out, PairConsts c) {
+    float* __restrict__ acc_out, int n_rows, PairConsts c) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const int mat_i = material[i];
+  const int mat_i = i < c.n_real ? material[i] : -1;
   const bool fluid = mat_i == 1;
   // is_dynamic and density are read by the reaction variant only
   const bool dynr = REACT && mat_i == 0 && is_dyn[i] != 0;
@@ -138,42 +151,47 @@ __global__ void dfsph_solver_dv_kernel(
   // the sum is read by fluid centres (dv) and, with the reaction, by
   // dynamic-rigid ones; one radial output carries either, selected by the
   // centre's material
-  if (fluid || (REACT && dynr)) {
-    const float k_i = kappa[i];
-    const float q_i =
-        REACT ? m_V[i] / fmaxf(density[i], 1e-30f) : 0.0f;
-    for_each_neighbor_walk(
-        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
-        [&](int j, float d0, float d1, float d2, float s) {
-          const int mat_j = material[j];
-          const bool fluid_j = mat_j == 1;
-          const bool solid_j = mat_j == 0;
-          if (!fluid_j && !solid_j) return;
-          const PairGeom p = pair_geom(s);
-          const float gradw = cubic_grad(p.rn, p.inv, c);
-          const float k_j = kappa[j];
-          float a;
-          if (REACT && !fluid) {
-            // gather form of the reference's reaction scatter
-            // (DFSPH.py:388-389)
-            a = (fluid_j && fabsf(k_j) > c.m_eps)
-                    ? (k_j * density[j]) * gradw * q_i
-                    : 0.0f;
-          } else {
-            const float k_sum = k_i + k_j;
-            const float cf = (fluid_j && fabsf(k_sum) > c.m_eps)
-                                 ? k_sum * m_V[j] * gradw
-                                 : 0.0f;
-            const float cs = (solid_j && fabsf(k_i) > c.m_eps)
-                                 ? k_i * m_V[j] * gradw
-                                 : 0.0f;
-            a = cf + cs;
-          }
-          s0 += a * d0;
-          s1 += a * d1;
-          s2 += a * d2;
-        });
+  const bool walks = fluid || (REACT && dynr);
+  float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f, k_i = 0.0f, q_i = 0.0f;
+  if (walks) {
+    xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
+    k_i = kappa[i];
+    q_i = REACT ? m_V[i] / fmaxf(density[i], 1e-30f) : 0.0f;
   }
+  for_each_neighbor_compact(
+      walks, i, xi0, xi1, xi2, x, walk, c,
+      [&](int j, float d0, float d1, float d2, float s) {
+        const int mat_j = material[j];
+        const bool fluid_j = mat_j == 1;
+        const bool solid_j = mat_j == 0;
+        if (!fluid_j && !solid_j) return;
+        const PairGeom p = pair_geom(s);
+        const float gradw = cubic_grad(p.rn, p.inv, c);
+        const float k_j = kappa[j];
+        float a;
+        if (REACT && !fluid) {
+          // gather form of the reference's reaction scatter
+          // (DFSPH.py:388-389)
+          a = (fluid_j && fabsf(k_j) > c.m_eps)
+                  ? (k_j * density[j]) * gradw * q_i
+                  : 0.0f;
+        } else {
+          const float k_sum = k_i + k_j;
+          const float cf = (fluid_j && fabsf(k_sum) > c.m_eps)
+                               ? k_sum * m_V[j] * gradw
+                               : 0.0f;
+          const float cs = (solid_j && fabsf(k_i) > c.m_eps)
+                               ? k_i * m_V[j] * gradw
+                               : 0.0f;
+          a = cf + cs;
+        }
+        s0 += a * d0;
+        s1 += a * d1;
+        s2 += a * d2;
+      });
+  if (i >= n_rows) return;
+  // padding rows (i >= n_real) are neither fluid nor dynamic rigid: v and
+  // acc pass through
   const float dt = *dt_ptr;
   const float sums[3] = {s0, s1, s2};
   for (int k = 0; k < 3; ++k) {
@@ -255,19 +273,23 @@ extern "C" int dfsph_density_factor_launch(
   return (int)cudaGetLastError();
 }
 
+// Grid of a Jacobi kernel (divergence, solver_dv): ``n_rows`` rows,
+// padding rows included.
+static int jacobi_grid(int n_rows) { return (n_rows + kBlock - 1) / kBlock; }
+
 extern "C" int dfsph_divergence_launch(
     const float* x, const float* v, const int* material, const float* m_V,
     const float* density, const int* starts, const int* slot_map,
     int layers, const float* dt, const unsigned char* active, float* adv_out,
-    float* errt_out, int adv, PairConsts c, void* stream) {
-  if (c.n_real > 0) {
+    float* errt_out, int adv, int n_rows, PairConsts c, void* stream) {
+  if (n_rows > 0) {
     with_walk(starts, slot_map, layers, [&](auto walk) {
       using Walk = decltype(walk);
       auto kernel = adv ? dfsph_divergence_kernel<true, Walk>
                         : dfsph_divergence_kernel<false, Walk>;
-      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+      kernel<<<jacobi_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
           x, v, material, m_V, density, walk, dt, active, adv_out, errt_out,
-          c);
+          n_rows, c);
     });
   }
   return (int)cudaGetLastError();
@@ -278,18 +300,44 @@ extern "C" int dfsph_solver_dv_launch(
     const float* kappa, const float* density, const float* v,
     const float* acc, const int* starts, const int* slot_map, int layers,
     const float* dt, const unsigned char* active, float* v_out,
-    float* acc_out, int react, PairConsts c, void* stream) {
-  if (c.n_real > 0) {
+    float* acc_out, int react, int n_rows, PairConsts c, void* stream) {
+  if (n_rows > 0) {
     with_walk(starts, slot_map, layers, [&](auto walk) {
       using Walk = decltype(walk);
       auto kernel = react ? dfsph_solver_dv_kernel<true, Walk>
                           : dfsph_solver_dv_kernel<false, Walk>;
-      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
+      kernel<<<jacobi_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
           x, material, is_dyn, m_V, kappa, density, v, acc, walk, dt, active,
-          v_out, acc_out, c);
+          v_out, acc_out, n_rows, c);
     });
   }
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, static shared memory per block and resident blocks
+// per SM of the Jacobi kernels' instantiation ``which`` (bit 0: ADV or
+// REACT; bit 1: solver_dv; bit 2: slot walk).
+extern "C" int dfsph_jacobi_occupancy(int which, int* regs, int* smem_bytes,
+                                      int* blocks_per_sm) {
+  const void* kernels[8] = {
+      (const void*)dfsph_divergence_kernel<false, CellRunWalk>,
+      (const void*)dfsph_divergence_kernel<true, CellRunWalk>,
+      (const void*)dfsph_solver_dv_kernel<false, CellRunWalk>,
+      (const void*)dfsph_solver_dv_kernel<true, CellRunWalk>,
+      (const void*)dfsph_divergence_kernel<false, SlotWalk>,
+      (const void*)dfsph_divergence_kernel<true, SlotWalk>,
+      (const void*)dfsph_solver_dv_kernel<false, SlotWalk>,
+      (const void*)dfsph_solver_dv_kernel<true, SlotWalk>};
+  const void* kernel = kernels[which & 7];
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        kBlock, 0);
+  }
+  *regs = attr.numRegs;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  return (int)err;
 }
 
 // nonpressure_kick_launch (KICK) and nonpressure_accel_launch (acc only,

@@ -1,9 +1,9 @@
 // Device code shared by the pair-traversal kernels (pairs.cu, dfsph.cu,
 // iisph.cu, pcisph.cu): the constants struct, the cubic-spline kernel and
 // its gradient, the neighbour walk (over cell runs or over the slot map,
-// and its form with the pair geometry at other positions), the viscosity
-// and pressure pair terms, and the symmetric pressure acceleration of the
-// implicit solvers.
+// and its form with the pair geometry at other positions), its two-phase
+// form (for_each_neighbor_compact), the viscosity and pressure pair terms,
+// and the symmetric pressure acceleration of the implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
@@ -25,6 +25,8 @@
 // -fmad=false and without fast math so no product is contracted into an FMA.
 
 #pragma once
+
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -188,6 +190,139 @@ __device__ __forceinline__ void for_each_neighbor_pinned(
       });
 }
 
+// ---------------------------------------------------------------------------
+// The two-phase walk: the pairs of for_each_neighbor_walk, in the same order
+// and with the same (d0, d1, d2, s), with the accepted pairs compacted
+// before the pair body (for_each_neighbor_compact).
+//
+// One thread per centre walking its candidates and running the pair body
+// wherever its test accepts leaves most lanes of a warp masked off in the
+// body: at dragon_bath_dfsph a warp's 32 centres accept ~30 of ~220
+// candidates each, at different iterations, and the warp runs the body in
+// ~120 of its ~227 candidate iterations.  Over the cell-run walk
+// (compact_cell_runs) the walk has two phases:
+// - the candidate phase runs the inclusion test alone (j != i, raw sum of
+//   squares < h^2) over the columns in for_each_neighbor_walk's order and
+//   appends each accepted candidate to the thread's list in shared memory;
+//   the warp steps through each column's runs together, kCompactUnroll
+//   candidates per lane at a time, their loads in flight together;
+// - the body phase runs f over each lane's list in list order, for the
+//   whole warp: at the end of the walk, and before a block of candidates
+//   where a list has fewer than kCompactUnroll entries free (one vote per
+//   block), so a centre has any number of neighbours and keeps its order.
+// tools/jacobi_walk_control.py times the Jacobi kernels over this walk
+// against one-phase walks with and without the batched candidate loads.
+// The slot walk keeps the one-phase walk: with a list, its dependent map
+// loads lose the L1 that the list's shared memory takes, and it measured
+// several times slower on an H100.
+//
+// Every thread of a block calls it, with ``walks`` false where the thread
+// has no centre: the warp-wide votes need all 32 lanes.
+// ---------------------------------------------------------------------------
+
+// Threads per block of every pair kernel.
+static const int kBlock = 128;
+// Candidates a lane tests between two checks of the lists: their positions
+// are loaded together, before the tests, so their loads are in flight
+// together.
+constexpr int kCompactUnroll = 8;
+// Accepted pairs a thread's list holds: ~31 per centre at
+// dragon_bath_dfsph, so most lists flush only at the end; 20,480 bytes of
+// shared memory per block.
+constexpr int kListEntries = 40;
+static_assert(kListEntries >= kCompactUnroll,
+              "a block of candidates must fit an emptied list");
+
+// Whether ``Walk`` takes the two-phase walk: the cell-run walk (above).
+template <typename Walk>
+constexpr bool kCompactWalk = std::is_same<Walk, CellRunWalk>::value;
+
+// The two-phase walk over the cell runs (see above).
+template <typename F>
+__device__ __forceinline__ void compact_cell_runs(
+    bool walks, int i, float xi0, float xi1, float xi2,
+    const float* __restrict__ x, const CellRunWalk& walk,
+    const PairConsts& c, F&& f) {
+  // entry k of thread t at lists[k * kBlock + t]: the lanes of a warp hit
+  // 32 banks
+  __shared__ int lists[kListEntries * kBlock];
+  const unsigned kFull = 0xffffffffu;
+  int ix = 0, iy = 0, zlo = 0, zhi = -1;
+  if (walks) {
+    ix = (int)(xi0 * c.inv_cell);
+    iy = (int)(xi1 * c.inv_cell);
+    const int iz = (int)(xi2 * c.inv_cell);
+    zlo = max(iz - 1, 0);
+    zhi = min(iz + 1, c.nz - 1);
+    walks = zlo <= zhi;
+  }
+  int* list = lists + threadIdx.x;
+  int cnt = 0;
+  // the body phase over this lane's list
+  auto flush = [&]() {
+    for (int k = 0; k < cnt; ++k) {
+      const int j = list[k * kBlock];
+      const float d0 = xi0 - x[3 * j];
+      const float d1 = xi1 - x[3 * j + 1];
+      const float d2 = xi2 - x[3 * j + 2];
+      f(j, d0, d1, d2, d0 * d0 + d1 * d1 + d2 * d2);
+    }
+    cnt = 0;
+  };
+  for (int k = 0; k < 9; ++k) {
+    // the warp steps through the lanes' runs of column k together, so that
+    // a list that may fill flushes every lane's list at once
+    const int cx = ix + k / 3 - 1, cy = iy + k % 3 - 1;
+    int b = 0, len = 0;
+    if (walks && cx >= 0 && cx < c.nx && cy >= 0 && cy < c.ny) {
+      const int base = (cx * c.ny + cy) * c.nz;
+      b = walk.starts[base + zlo];
+      len = walk.starts[base + zhi + 1] - b;
+    }
+    const int steps = __reduce_max_sync(kFull, len);
+    for (int t = 0; t < steps; t += kCompactUnroll) {
+      // room for the block's candidates in every list
+      if (__any_sync(kFull, cnt > kListEntries - kCompactUnroll)) flush();
+      // the candidate phase: the block's positions loaded together, then
+      // the test alone, an accepted pair appended
+      float p[kCompactUnroll][3];
+#pragma unroll
+      for (int u = 0; u < kCompactUnroll; ++u) {
+        const int j = b + t + u;
+        if (t + u < len) {
+          p[u][0] = x[3 * j];
+          p[u][1] = x[3 * j + 1];
+          p[u][2] = x[3 * j + 2];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCompactUnroll; ++u) {
+        const int j = b + t + u;
+        if (t + u >= len || j == i) continue;
+        const float d0 = xi0 - p[u][0];
+        const float d1 = xi1 - p[u][1];
+        const float d2 = xi2 - p[u][2];
+        if (d0 * d0 + d1 * d1 + d2 * d2 < c.h2) list[(cnt++) * kBlock] = j;
+      }
+    }
+  }
+  flush();
+}
+
+// f(j, d0, d1, d2, s) for the pairs of for_each_neighbor_walk, in its
+// order: in two phases over the cell-run walk, in one over the slot walk.
+template <typename Walk, typename F>
+__device__ __forceinline__ void for_each_neighbor_compact(
+    bool walks, int i, float xi0, float xi1, float xi2,
+    const float* __restrict__ x, const Walk& walk, const PairConsts& c,
+    F&& f) {
+  if constexpr (kCompactWalk<Walk>) {
+    compact_cell_runs(walks, i, xi0, xi1, xi2, x, walk, c, f);
+  } else if (walks) {
+    for_each_neighbor_walk(i, xi0, xi1, xi2, x, walk, c, f);
+  }
+}
+
 // Viscosity coefficient of a fluid pair (sph_base.py:70-78), in the
 // operation order of every solver's term: 2 (dim + 2) mu (m_j / rho_j)
 // (v_ij . r_ij) / (r^2 + 0.01 h^2) * dW/r.  ``m_over_rho`` is m_j / rho_j.
@@ -242,8 +377,6 @@ __device__ __forceinline__ void sym_pressure_sum(
   }
 }
 
-
-static const int kBlock = 128;
 
 __host__ inline int grid_for(const PairConsts& c) {
   return (c.n_real + kBlock - 1) / kBlock;

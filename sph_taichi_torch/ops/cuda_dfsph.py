@@ -36,9 +36,17 @@ bool tensor on the device: when it is false the kernel returns at once and
 its outputs are undefined (the Jacobi loop discards them).  The plain
 versions ignore it.
 
-Padding rows are not launched: the wrappers restore them as the JAX
-package's ``restore_tail`` does (outputs that carry a field through keep
-its value, the others are 0).
+Padding rows get what the JAX package's ``restore_tail`` gives them
+(outputs that carry a field through keep its value, the others are 0):
+``divergence`` and ``solver_dv`` write them in the kernel, so each of
+these Jacobi wrappers launches one kernel and nothing else; the others
+are not launched over them and the wrappers restore them.
+
+``divergence`` and ``solver_dv`` walk the cell runs in two phases
+(csrc/pair_common.cuh ``for_each_neighbor_compact``): accepted pairs are
+compacted into a list in shared memory before the pair body, in the
+one-phase walk's order (a list that may fill is flushed).  Over the slot
+walk they walk in one phase.
 """
 
 import ctypes
@@ -58,6 +66,11 @@ LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
     "dfsph_divergence_adv", "dfsph_solver_dv", "nonpressure_kick",
     "nonpressure_accel")}
 MODES = ("change", "adv")
+# mirrors of csrc/pair_common.cuh kListEntries and kCompactUnroll: the
+# accepted pairs a thread's list holds in the two-phase walk, and the
+# candidates a lane tests between two checks of the lists
+LIST_ENTRIES = 40
+COMPACT_UNROLL = 8
 
 
 def reset_launch_counts():
@@ -247,17 +260,20 @@ def _lib():
         lib.dfsph_density_factor_launch.argtypes = (
             [_PTR] * 4 + WALK + [_PTR] * 2 + [PairConsts, _PTR])
         lib.dfsph_divergence_launch.argtypes = (
-            [_PTR] * 5 + WALK + [_PTR] * 4 + [ctypes.c_int, PairConsts,
-                                              _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 4 + [ctypes.c_int] * 2
+            + [PairConsts, _PTR])
         lib.dfsph_solver_dv_launch.argtypes = (
-            [_PTR] * 8 + WALK + [_PTR] * 4 + [ctypes.c_int, PairConsts,
-                                              _PTR])
+            [_PTR] * 8 + WALK + [_PTR] * 4 + [ctypes.c_int] * 2
+            + [PairConsts, _PTR])
+        lib.dfsph_jacobi_occupancy.argtypes = (
+            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
         lib.nonpressure_kick_launch.argtypes = (
             [_PTR] * 6 + WALK + [_PTR] * 3 + [PairConsts, _PTR])
         lib.nonpressure_accel_launch.argtypes = (
             [_PTR] * 6 + WALK + [_PTR, PairConsts, _PTR])
         for fn in (lib.dfsph_density_factor_launch,
                    lib.dfsph_divergence_launch, lib.dfsph_solver_dv_launch,
+                   lib.dfsph_jacobi_occupancy,
                    lib.nonpressure_kick_launch,
                    lib.nonpressure_accel_launch):
             fn.restype = ctypes.c_int
@@ -308,13 +324,10 @@ def divergence(ctx, p, v, density, dt, mode, params, active=None):
         _check("density", density, f32, (n,), dev) if is_adv else None,
         *walk, _check("dt", dt, f32, (), dev) if is_adv else None,
         _active_ptr(active, dev), adv.data_ptr(), errt.data_ptr(),
-        int(is_adv), pair_consts(params), _stream(dev))
+        int(is_adv), n, pair_consts(params), _stream(dev))
     name = f"dfsph_divergence_{mode}" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    n_real = params.n_fluid + params.n_solid
-    adv[n_real:] = 0.0
-    errt[n_real:] = 0.0
     return adv, errt
 
 
@@ -337,15 +350,25 @@ def solver_dv(ctx, p, kappa, v, acc, dt, react, params, active=None):
         _check("acc", acc, f32, (n, 3), dev) if react else None, *walk,
         _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
         v_out.data_ptr(), acc_out.data_ptr() if react else None, int(react),
-        pair_consts(params), _stream(dev))
+        n, pair_consts(params), _stream(dev))
     name = "dfsph_solver_dv" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    n_real = params.n_fluid + params.n_solid
-    v_out[n_real:] = v[n_real:]
-    if react:
-        acc_out[n_real:] = acc[n_real:]
     return v_out, acc_out
+
+
+def jacobi_occupancy(kernel, variant, slots=False):
+    """(registers per thread, shared memory bytes per block, resident
+    blocks of 128 threads per SM) of a Jacobi kernel on the current CUDA
+    device: ``kernel`` "divergence" (``variant``: ADV) or "solver_dv"
+    (``variant``: REACT), over the slot walk with ``slots``."""
+    which = int(bool(variant)) | (2 if kernel == "solver_dv" else 0) \
+        | (4 if slots else 0)
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _lib().dfsph_jacobi_occupancy(
+        which, *[ctypes.byref(o) for o in out])
+    _raise_on(rc, f"dfsph_jacobi_occupancy({kernel})")
+    return tuple(o.value for o in out)
 
 
 def nonpressure_kick(ctx, p, dt, params):
