@@ -49,20 +49,26 @@ Phases (any failure raises and exits non-zero):
    the read-interval sweep; at that state (pressures not 0) the loop's
    kernels against their plain
    versions and one kernel step against one plain-engine step;
-8. the PCISPH kernels (the density derivative with its correction, the
-   pressure acceleration with its predict, and the un-kicked non-pressure
-   variant) against their plain versions on the clumped small scene and
-   the two-way scene at a seeded prediction x* = x + dt v* that moves pairs
-   out of the radius; three PCISPH steps of an impact on the floor, kernel
-   engine against plain engine;
+8. the PCISPH kernels (the step-start pair list, the density derivative
+   with its correction and the pressure acceleration with its predict
+   over the list, and the un-kicked non-pressure variant) against their plain versions on the clumped
+   small scene and the two-way scene at a seeded prediction x* = x + dt v*
+   that moves pairs out of the radius; three PCISPH steps of an impact on
+   the floor, kernel engine against plain engine;
 9. the PCISPH path: data/scenes/dragon_bath.json with simulationMethod 1
    (dt 4e-4) through ``Simulation``, 20 steps after 5 of warm-up, timed
    with CUDA events; iterations and host reads per step, launch counts
-   (density = non-pressure = steps, g1 = g2 = k per host read); the host
-   syncs of one step; stage times; the read-interval sweep (k = 1, 2, 3,
-   4); one kernel step against one plain-engine step; per-kernel and
-   plain-version times and bounds; a checkpoint saved there and resumed
-   into a fresh ``Simulation``, one step on both, bitwise equal;
+   (density = non-pressure = the list build = steps, g1 = g2 = k per host
+   read); the host syncs of one step (none in the loop's wrappers); the
+   loop's kernels in 5 profiled steps against their wrappers' calls;
+   stage times; the read-interval sweep (k = 1, 2, 3, 4); one kernel step
+   against one plain-engine step; at that state the walk profile with the
+   list, each loop kernel's registers, shared memory and resident blocks,
+   per-kernel and plain-version times and bounds (g1 and g2 beside the
+   bytes and operations of the list's read), the list against its plain
+   version; a checkpoint
+   saved there and resumed into a fresh ``Simulation``, one step on both,
+   bitwise equal;
 10. the armadillo scene's particle counts (build_scene only): its solids
    take the dense boundary-volume path, not kernel 2.1 c;
 11. the solid-heavy path: dragon_bath_dynamic_dfsph.json with the dragon
@@ -110,7 +116,14 @@ Phases (any failure raises and exits non-zero):
    phase 4) at the dragon_bath_dfsph state the walk profile, registers,
    shared memory and resident blocks of each instantiation, a launch with
    the Jacobi flag false, and the path's iteration and read counts against
-   those of the one-phase walk.
+   those of the one-phase walk;
+19. (in phase 2) PCISPH's step-start pair list and loop kernels on the
+   same edge scene as PCISPH (centres with more accepted pairs than the
+   list holds, so warps reading the list beside warps walking the cells):
+   the list against its plain version, g1 and g2 over the list and over
+   the slot map against their plain versions bitwise, padding rows
+   included; bare cell offsets refused; the walk profile with the list;
+   one kernel per wrapper call.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -175,6 +188,10 @@ IISPH_APPLY_A_FLOPS_PER_PAIR = 35
 PCISPH_D_RHO_FLOPS_PER_PAIR = 43
 # g2 pressure acceleration (fluid and solid j): f3's 36, geometry 8
 PCISPH_PRESSURE_FLOPS_PER_PAIR = 44
+# the distance test at the step-start positions (3 sub, 3 mul, 2 add):
+# pcisph_step_pairs does it for every candidate, g1 and g2 over the
+# step-start list do not
+PCISPH_TEST_FLOPS = 8
 # counted from csrc/pairs.cu boundary_volume: a within-radius pair costs its
 # distance test (8); a solid one also sqrt 1, W 13, material test and sum 2
 BOUNDARY_VOLUME_FLOPS_PER_PAIR = 24
@@ -217,6 +234,18 @@ ROW_COSTS = {
     # v*', x*'
     "pcisph_pressure_accel_predict": (88, 5, "fluid",
                                       PCISPH_PRESSURE_FLOPS_PER_PAIR),
+    # the step-start list: reads x, material; writes the counts (its
+    # entries counted with the index); a distance test per candidate of a
+    # fluid centre
+    "pcisph_step_pairs": (20, 0, "candidates", PCISPH_TEST_FLOPS),
+    # g1 and g2 as this design runs them over the step-start list (a design
+    # figure printed beside their bounds, not a bound: the list is the
+    # design's own intermediate), no warp over it: the list's counts (4 per
+    # row) and entries read, no distance test; g1 reads no step-start x
+    "pcisph_d_rho_correct_list": (
+        52, 9, "fluid", PCISPH_D_RHO_FLOPS_PER_PAIR - PCISPH_TEST_FLOPS),
+    "pcisph_pressure_accel_predict_list": (
+        92, 5, "fluid", PCISPH_PRESSURE_FLOPS_PER_PAIR - PCISPH_TEST_FLOPS),
 }
 
 
@@ -305,29 +334,38 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, kernel, reps):
+def kernel_ms(fn, kernel, reps, tries=5):
     """Mean device ms of the CUDA kernel whose name contains ``kernel``,
     over ``reps`` calls of ``fn`` under torch.profiler (one warm-up).  For
     a wrapper whose host work (small torch ops before the launch) outlasts
-    its kernel, CUDA events around the calls time the host instead."""
+    its kernel, CUDA events around the calls time the host instead.  The
+    profiler can lose device records of a capture: one that holds fewer
+    launches than calls is taken again, at most ``tries`` times; one that
+    holds more raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key and str(e.device_type).endswith("CUDA"):
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-            count += e.count
-    if count != reps:
-        raise AssertionError(f"profiler: {count} launches of {kernel} in "
-                             f"{reps} calls")
-    return us / count / 1e3
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if kernel in e.key and str(e.device_type).endswith("CUDA"):
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+                count += e.count
+        if count == reps:
+            if attempt:
+                print(f"  profiler: {kernel} captured again {attempt} "
+                      f"times (records lost)")
+            return us / count / 1e3
+        if count > reps:
+            break
+    raise AssertionError(f"profiler: {count} launches of {kernel} in "
+                         f"{reps} calls")
 
 
 def max_errors(got, ref, name):
@@ -558,7 +596,7 @@ def compact_edge_positions(rng, params, x, material):
     return x.astype(np.float32)
 
 
-def walk_profile(params, x, walkers, starts, nl, label):
+def walk_profile(params, x, walkers, starts, nl, label, list_entries=None):
     """What the warps of the Jacobi kernels do at the sorted positions
     ``x``, computed in torch from the cell offsets and the plain neighbour
     lists ``nl`` (no device counter): warps of 32 consecutive rows, the rows
@@ -571,7 +609,10 @@ def walk_profile(params, x, walkers, starts, nl, label):
     body as often as the fullest list wherever every lane's list flushes:
     at the end, and before a block where a list of LIST_ENTRIES has fewer
     than COMPACT_UNROLL entries free.  Also the (ix, iy) column groups of
-    a warp.  Prints and returns the figures."""
+    a warp.  With ``list_entries`` also the distribution of accepted
+    pairs per walking lane and the iterations of the step-start list walk
+    (csrc/pair_common.cuh ``for_each_listed_pair``).  Prints and returns
+    the figures."""
     from sph_taichi_torch.ops.cuda_dfsph import COMPACT_UNROLL as unroll
     from sph_taichi_torch.ops.cuda_dfsph import LIST_ENTRIES as lists
     from sph_taichi_torch.ops.grid import pos_to_cell
@@ -667,7 +708,31 @@ def walk_profile(params, x, walkers, starts, nl, label):
         "flushes_max": int(flushes.max()),
         "warps_2plus_flushes": int((flushes >= 2).sum()),
         "warps_2plus_groups": int((ngroups >= 2).sum()),
-        "groups_max": int(ngroups.max())}
+        "groups_max": int(ngroups.max()),
+        # each walking lane's own candidates, itself excluded
+        "candidates_tested": int(cand[walk].sum()) - int(walk.sum())}
+    if list_entries:
+        # the step-start pair list of list_entries per centre: a warp whose
+        # centres all fit reads it, max-over-lanes body iterations; a warp
+        # holding a centre over it walks the cells in one phase
+        acc_w = accepted[walk].double()
+        fig["accepted_max"] = int(acc_w.max())
+        fig["accepted_p99"] = float(torch.quantile(acc_w, 0.99))
+        wmax = per_warp(torch.where(walk, accepted, 0)).max(1).values
+        over = wmax > list_entries
+        fig["share_over_list"] = float((acc_w > list_entries).double().mean())
+        fig["warps_over_list"] = int((over & live).sum())
+        fig["list_body_iters"] = float(torch.where(
+            over, old_cand, wmax)[live].double().mean())
+        print(f"{label} accepted pairs per walking lane: max "
+              f"{fig['accepted_max']}, p99 {fig['accepted_p99']:.1f}, share "
+              f"over {list_entries} {fig['share_over_list']:.2e}; "
+              f"{fig['warps_over_list']} warps hold a centre over "
+              f"{list_entries}; the list walk runs "
+              f"{fig['list_body_iters']:.1f} iterations per warp "
+              f"({fig['list_body_iters'] / mean_acc:.2f}x the accepted "
+              f"pairs per lane; a warp over the list counted with its "
+              f"one-phase candidate iterations)")
     print(f"{label} walk profile (torch, from the neighbour lists): "
           f"{nlive} warps, {mean_acc:.2f} accepted pairs per walking lane, "
           f"{fig['candidate_iters']:.1f} candidate iterations per warp; "
@@ -758,6 +823,94 @@ def check_compact_walk_on_edge_scene(device):
     return worst
 
 
+def check_pcisph_on_edge_scene(device):
+    """PCISPH's loop kernels and the step-start list on the edge scene (a
+    ~100-particle cell: centres over the list, so warps that read the list
+    beside warps that walk the cells in one phase)
+    at a seeded prediction: g1 and g2 over the list and over the slot map
+    (the cell overflows its 32 slots) against their plain versions bitwise,
+    padding rows included, and refusing the bare cell offsets; the list
+    against its plain version; the walk profile; one kernel per wrapper
+    call."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    scene = compact_edge_scene()
+    scene["Configuration"]["simulationMethod"] = 1
+    params, solver, p, nl, starts, diag = prepared(
+        scene, device, seed=0, place=compact_edge_positions)
+    if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+        raise AssertionError("edge scene: the plain engine's caps overflowed")
+    print(f"PCISPH edge scene: {params.n_particles} particles, max cell "
+          f"occupancy {int(diag['max_cell_occupancy'])}, max neighbours "
+          f"{int(diag['max_neighbors'])}")
+    p = p._replace(acc=cd.nonpressure_accel_plain(nl, p, params))
+    xp, vp, pressure, dt, s_f = pcisph_inputs(params, solver, p)
+    buffers = {}
+    pairs = cg.step_pairs(starts, p, params, buffers)
+    worst = {"pcisph_step_pairs": check_pair_list(pairs, nl, p, params,
+                                                  "edge scene")[0]}
+    fig = walk_profile(params, p.x, p.material == 1, starts, nl,
+                       "PCISPH edge scene", list_entries=cg.PAIR_LIST_ENTRIES)
+    if not 0 < fig["warps_over_list"] < fig["warps"]:
+        raise AssertionError("edge scene: no warp over the list beside one "
+                             "within it")
+    caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=128)
+    smap = build_slot_map(starts, params)
+    snl = slot_neighbor_list(smap, p.x, caps)
+    checked = 0
+    for ctx, lists_, how in ((pairs, nl, "list"), (smap, snl, "slots")):
+        ref = cg.d_rho_correct_plain(lists_, p, xp, vp, pressure, dt, s_f,
+                                     params)
+        ref2 = cg.pressure_accel_predict_plain(lists_, p, xp, ref[0], dt,
+                                               params)
+        for name, got, want in (
+                ("pcisph_d_rho_correct", cg.d_rho_correct(
+                    ctx, p, xp, vp, pressure, dt, s_f, params), ref),
+                ("pcisph_pressure_accel_predict", cg.pressure_accel_predict(
+                    ctx, p, xp, ref[0], dt, params), ref2)):
+            key = name + ("[slots]" if how == "slots" else "")
+            for a, b in zip(got, want):
+                err = float((a.double() - b.double()).abs().max())
+                worst[key] = max(worst.get(key, 0.0), err)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"edge scene {name} over {how}: not "
+                                         f"equal to its plain version "
+                                         f"({err:.3e})")
+            checked += 1
+    print(f"  {checked} PCISPH kernel calls (g1, g2 over the list and the "
+          f"slots) equal to their plain versions bitwise, padding rows "
+          f"included")
+    for name, fn in (("pcisph_d_rho_correct", lambda: cg.d_rho_correct(
+            starts, p, xp, vp, pressure, dt, s_f, params)),
+                     ("pcisph_pressure_accel_predict",
+                      lambda: cg.pressure_accel_predict(
+                          starts, p, xp, pressure, dt, params))):
+        try:
+            fn()
+        except TypeError:
+            continue
+        raise AssertionError(f"{name}: bare cell offsets not refused")
+    print("  g1 and g2 refuse bare cell offsets")
+    calls = {
+        "pcisph_step_pairs": lambda: cg.step_pairs(starts, p, params,
+                                                   buffers),
+        "pcisph_d_rho_correct": lambda: cg.d_rho_correct(
+            pairs, p, xp, vp, pressure, dt, s_f, params),
+        "pcisph_pressure_accel_predict": lambda: cg.pressure_accel_predict(
+            pairs, p, xp, pressure, dt, params)}
+    for name, fn in calls.items():
+        before = cg.LAUNCHES[name]
+        launched, lost = kernels_per_call(fn)
+        counted = (cg.LAUNCHES[name] - before) / (2 + lost)
+        print(f"  {name}: one wrapper call launches {launched} (its count "
+              f"{counted:g} per call; captures that lost the markers {lost})")
+        if len(launched) != 1 or name not in launched[0] or counted != 1:
+            raise AssertionError(f"{name}: the wrapper launches {launched}")
+    return worst
+
+
 MARKER = "spin_kernel"   # the kernel of torch.cuda._sleep
 
 
@@ -818,10 +971,11 @@ def compact_at_dragon(params, q, starts, nl, kappa, dt):
               f"{kernel_ms(fn, kernel, 20):.4f} ms on the card (profiler)")
 
 
-def profile_steps(sim, steps):
+def profile_steps(sim, steps, counts=None):
     """Device busy share and the kernels by device time over ``steps``
     steps of ``Simulation.run`` under torch.profiler (the profiler adds
-    host overhead, so the busy share it shows is a lower bound)."""
+    host overhead, so the busy share it shows is a lower bound).  Fills
+    ``counts`` (a dict) with each kernel's launches in the window."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -839,6 +993,8 @@ def profile_steps(sim, steps):
                          getattr(e, "self_cuda_time_total", 0.0))
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
     if not rows:
         print("profiler: no device time recorded; busy share not measured")
         return None
@@ -2052,10 +2208,36 @@ def pairs_moved(nl, xp, h):
     return int((valid & (d2 >= h * h)).sum()), int(valid.sum())
 
 
+def check_pair_list(pairs, nl, p, params, label):
+    """The kernel's step-start pair list ``pairs`` (a ``PairList``) against
+    ``step_pairs_plain`` over the neighbour lists ``nl``: every count and
+    every listed entry equal.  Returns (largest difference, centres with
+    more accepted pairs than the list holds)."""
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+
+    idx, cnt = cg.step_pairs_plain(nl, p, params)
+    k_list = cg.PAIR_LIST_ENTRIES
+    listed = torch.clamp_max(cnt, k_list)
+    valid = torch.arange(k_list, device=cnt.device)[:, None] < listed[None, :]
+    got = torch.where(valid, pairs.idx, -1)
+    err = max(float((got - idx).abs().max()),
+              float((pairs.cnt - cnt).abs().max()))
+    over = int((cnt > k_list).sum())
+    print(f"  {label}: pcisph_step_pairs against its plain version: max abs "
+          f"err {err:g}; {int(listed.sum())} listed pairs, at most "
+          f"{int(cnt.max())} per centre, {over} centres over the list of "
+          f"{k_list}")
+    if err != 0.0:
+        raise AssertionError(f"{label}: the step-start pair list differs "
+                             f"from its plain version")
+    return err, over
+
+
 def compare_pcisph_kernels(params, solver, p, nl, starts, label, worst):
-    """The un-kicked non-pressure kernel, g1 and g2 against their plain
-    versions at one state, each kernel on the plain chain's inputs: equal
-    to the bit (every output's largest difference is 0)."""
+    """The un-kicked non-pressure kernel, the step-start list, g1 and g2
+    (over the list) against their plain versions at one state, each kernel
+    on the plain chain's inputs: equal to the bit (every output's largest
+    difference is 0)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
@@ -2073,22 +2255,25 @@ def compare_pcisph_kernels(params, solver, p, nl, starts, label, worst):
     check("nonpressure_accel", cd.nonpressure_accel(starts, p, params), acc,
           ("acc",))
     p = p._replace(acc=acc)
+    pairs = cg.step_pairs(starts, p, params)
+    worst["pcisph_step_pairs"] = max(worst.get("pcisph_step_pairs", 0.0),
+                                     check_pair_list(pairs, nl, p, params,
+                                                     label)[0])
     xp, vp, pressure, dt, s_f = pcisph_inputs(params, solver, p)
     moved, total = pairs_moved(nl, xp, params.support_radius)
     print(f"  {label}: {moved} of {total} step-start pairs beyond h at x*")
     if moved == 0:
         raise AssertionError("the prediction moved no pair out of the radius")
     ref = cg.d_rho_correct_plain(nl, p, xp, vp, pressure, dt, s_f, params)
-    check("pcisph_d_rho_correct",
-          cg.d_rho_correct(starts, p, xp, vp, pressure, dt, s_f, params), ref,
-          ("pressure", "rho_err"))
+    ref2 = cg.pressure_accel_predict_plain(nl, p, xp, ref[0], dt, params)
+    check("pcisph_d_rho_correct", cg.d_rho_correct(
+        pairs, p, xp, vp, pressure, dt, s_f, params), ref,
+        ("pressure", "rho_err"))
+    check("pcisph_pressure_accel_predict", cg.pressure_accel_predict(
+        pairs, p, xp, ref[0], dt, params), ref2, ("v*", "x*"))
     fluid = p.material == 1
     share = float((ref[1][fluid] > 0).float().mean())
     print(f"  {label}: share of fluid rows with a density error {share:.3f}")
-    check("pcisph_pressure_accel_predict",
-          cg.pressure_accel_predict(starts, p, xp, ref[0], dt, params),
-          cg.pressure_accel_predict_plain(nl, p, xp, ref[0], dt, params),
-          ("v*", "x*"))
     return share
 
 
@@ -2171,7 +2356,8 @@ def pcisph_state_kernels(params, solver, state):
     vp = torch.where(fluid, q.v + dt * q.acc, q.v)
     xp = torch.where(fluid, q.x + dt * vp, q.x)
     s_f = solver.scaling_factor(dt)
-    pressure, _ = cg.d_rho_correct(starts, q, xp, vp, torch.zeros_like(
+    plist = cg.step_pairs(starts, q, params)
+    pressure, _ = cg.d_rho_correct(plist, q, xp, vp, torch.zeros_like(
         q.pressure), dt, s_f, params)
     valid = nl.mask()
     fluid_i = q.material == 1
@@ -2183,7 +2369,7 @@ def pcisph_state_kernels(params, solver, state):
           f"{int(nl.max_cnt)}, max cell occupancy {occ} (the oracle's caps "
           f"{caps.neighbor_cap}, {caps.cell_cap}); first-iteration pressure "
           f"max {float(pressure.max()):.4f} Pa")
-    return q, starts, nl, (xp, vp, pressure, s_f), pairs
+    return q, starts, plist, nl, (xp, vp, pressure, s_f), pairs
 
 
 def pcisph_path(device, warmup, steps):
@@ -2228,6 +2414,10 @@ def pcisph_path(device, warmup, steps):
           f"{int(m['pressure_iters'])}, a read every {K})")
     if len(where) != m["pressure_host_reads"]:
         raise AssertionError("a PCISPH step syncs outside its loop test")
+    inside = [w for w in where if "cuda_pcisph" in w or "csrc" in w]
+    print(f"  host syncs in the loop's kernels and wrappers: {len(inside)}")
+    if inside:
+        raise AssertionError(f"PCISPH wrappers sync: {inside}")
 
     # the PCISPH path: counts to 0 just before, read just after
     reset_all_launch_counts()
@@ -2246,9 +2436,10 @@ def pcisph_path(device, warmup, steps):
           f"{1e3 / step_ms:.3f} steps/s; pressure iterations per step mean "
           f"{n_it / steps:.2f} max {st['pressure_iters_max']}; host reads "
           f"per step {reads / steps:.2f}; launches {launches}")
-    # density = non-pressure = steps; in the loop g1 = g2 = k x reads (the
-    # iterations queued after the exit return at once)
+    # density = non-pressure = the list build = steps; in the loop g1 = g2
+    # = k x reads (the iterations queued after the exit return at once)
     expect = {"density_sum": steps, "nonpressure_accel": steps,
+              "pcisph_step_pairs": steps,
               "pcisph_d_rho_correct": K * reads,
               "pcisph_pressure_accel_predict": K * reads}
     for name, count in launches.items():
@@ -2261,10 +2452,26 @@ def pcisph_path(device, warmup, steps):
     print(f"  pressure loop: {n_it} iterations ran (the launches with work),"
           f" {K * reads - n_it} queued after the exit")
 
-    busy_ms = profile_steps(sim, 5)
+    counts = {}
+    reset_all_launch_counts()
+    busy_ms = profile_steps(sim, 5, counts)
     if busy_ms is not None:
         print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
               f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+        # each wrapper call launched its one kernel: the profiled kernels
+        # equal the wrappers' counts over the same 5 steps
+        names = ("pcisph_step_pairs", "pcisph_d_rho_correct",
+                 "pcisph_pressure_accel_predict")
+        got = {name: sum(c for k, c in counts.items()
+                         if f"{name}_kernel<CellRunWalk>" in k
+                         or k.startswith(f"{name}_kernel("))
+               for name in names}
+        calls = {name: cg.LAUNCHES[name] for name in names}
+        print(f"  the loop's kernels in the profiled 5 steps {got}, their "
+              f"wrappers' calls {calls}")
+        if got != calls or calls["pcisph_step_pairs"] != 5:
+            raise AssertionError(f"PCISPH kernels {got}, wrapper calls "
+                                 f"{calls}")
 
     check_state(sim)
     metrics = sim.metrics
@@ -2330,21 +2537,37 @@ def pcisph_path(device, warmup, steps):
     del plain_solver, ps
 
     # per-kernel times at the dragon state's shapes, and the plain versions
-    q, starts, nl, (xp, vp, pressure, s_f), pairs = pcisph_state_kernels(
-        params, solver, state)
+    q, starts, plist, nl, (xp, vp, pressure, s_f), pairs = \
+        pcisph_state_kernels(params, solver, state)
     dt = state.dt
     reset_all_launch_counts()     # comparison launches are not the path's
+    k_list = cg.PAIR_LIST_ENTRIES
+    fig = walk_profile(params, q.x, q.material == 1, starts, nl,
+                       "dragon_bath PCISPH state", list_entries=k_list)
+    for name, slots in (("pcisph_d_rho_correct", False),
+                        ("pcisph_pressure_accel_predict", False),
+                        ("pcisph_step_pairs", False),
+                        ("pcisph_d_rho_correct", True),
+                        ("pcisph_pressure_accel_predict", True)):
+        regs, smem, blocks = cg.occupancy(name, slots)
+        print(f"  {name}{'[slots]' if slots else ''}: {regs} registers, "
+              f"{smem} bytes of shared memory per block, {blocks} blocks of "
+              f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
+    buffers = {}
     calls = {
         "nonpressure_accel": (
             lambda: cd.nonpressure_accel(starts, q, params),
             lambda: cd.nonpressure_accel_plain(nl, q, params)),
+        "pcisph_step_pairs": (
+            lambda: cg.step_pairs(starts, q, params, buffers),
+            lambda: cg.step_pairs_plain(nl, q, params)),
         "pcisph_d_rho_correct": (
-            lambda: cg.d_rho_correct(starts, q, xp, vp, pressure, dt, s_f,
+            lambda: cg.d_rho_correct(plist, q, xp, vp, pressure, dt, s_f,
                                      params),
             lambda: cg.d_rho_correct_plain(nl, q, xp, vp, pressure, dt, s_f,
                                            params)),
         "pcisph_pressure_accel_predict": (
-            lambda: cg.pressure_accel_predict(starts, q, xp, pressure, dt,
+            lambda: cg.pressure_accel_predict(plist, q, xp, pressure, dt,
                                               params),
             lambda: cg.pressure_accel_predict_plain(nl, q, xp, pressure, dt,
                                                     params)),
@@ -2354,43 +2577,62 @@ def pcisph_path(device, warmup, steps):
     for name, (kern, plain) in calls.items():
         ms[name] = time_ms(kern, 20)
         plain_ms[name] = time_ms(plain, 3)
-        got, ref = kern(), plain()
-        if torch.is_tensor(ref):
-            got, ref = (got,), (ref,)
-        err[name] = 0.0
-        for k, (a, b) in enumerate(zip(got, ref)):
-            err[name] = max(err[name], max_errors(
-                a[:n], b[:n], f"dragon {name} output {k}"))
+        if name == "pcisph_step_pairs":
+            err[name] = check_pair_list(kern(), nl, q, params,
+                                        "dragon state")[0]
+        else:
+            got, ref = kern(), plain()
+            if torch.is_tensor(ref):
+                got, ref = (got,), (ref,)
+            err[name] = 0.0
+            for k, (a, b) in enumerate(zip(got, ref)):
+                err[name] = max(err[name], max_errors(
+                    a, b, f"dragon {name} output {k}"))
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
+    print(f"  the loop's kernels per step: build + 3 x (g1 + g2) = "
+          f"{ms['pcisph_step_pairs'] + 3 * (ms['pcisph_d_rho_correct'] + ms['pcisph_pressure_accel_predict']):.4f}"
+          f" ms")
     # the state's own pressure may be 0 this early: g1 and g2 at a seeded
     # prediction (pairs leave the radius) and pressure too
     xs, vs, prs, _, _ = pcisph_inputs(params, solver, q)
     moved, total = pairs_moved(nl, xs, params.support_radius)
     ref = cg.d_rho_correct_plain(nl, q, xs, vs, prs, dt, s_f, params)
-    got = cg.d_rho_correct(starts, q, xs, vs, prs, dt, s_f, params)
+    ref2 = cg.pressure_accel_predict_plain(nl, q, xs, ref[0], dt, params)
+    got = cg.d_rho_correct(plist, q, xs, vs, prs, dt, s_f, params)
     for k in range(2):
         err["pcisph_d_rho_correct"] = max(
             err["pcisph_d_rho_correct"],
-            max_errors(got[k][:n], ref[k][:n],
-                       f"dragon, seeded x* and p: g1 output {k}"))
-    for k, (a, b) in enumerate(zip(
-            cg.pressure_accel_predict(starts, q, xs, ref[0], dt, params),
-            cg.pressure_accel_predict_plain(nl, q, xs, ref[0], dt,
-                                            params))):
+            max_errors(got[k], ref[k], f"dragon, seeded x* and p: g1 output "
+                                       f"{k}"))
+    got = cg.pressure_accel_predict(plist, q, xs, ref[0], dt, params)
+    for k in range(2):
         err["pcisph_pressure_accel_predict"] = max(
             err["pcisph_pressure_accel_predict"],
-            max_errors(a[:n], b[:n], f"dragon, seeded x* and p: g2 output "
-                                     f"{k}"))
+            max_errors(got[k], ref2[k], f"dragon, seeded x* and p: g2 output "
+                                        f"{k}"))
     print(f"  seeded prediction at the dragon: {moved} of {total} step-start "
           f"pairs beyond h at x*, density error on "
           f"{float((ref[1] > 0).float().mean()):.3f} of the rows")
-
+    if any(err[k] != 0.0 for k in calls if "pcisph" in k):
+        raise AssertionError(f"dragon: a kernel differs from its plain "
+                             f"version: {err}")
     cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
-    pairs = {"fluid": pairs["fluid_i"], "fluid_ff": pairs["fluid_ff"]}
+    listed = int(torch.clamp_max(plist.cnt, k_list).long().sum())
+    list_bytes = 4 * listed
+    pairs = {"fluid": pairs["fluid_i"], "fluid_ff": pairs["fluid_ff"],
+             "candidates": fig["candidates_tested"]}
+    # g1 and g2 are bounded by the function they compute, over the cell
+    # offsets; the list's build is bounded by its output, the list
     bounds = {name: row_bound(name, n, cells, pairs) for name in (
         "nonpressure_accel", "pcisph_d_rho_correct",
         "pcisph_pressure_accel_predict")}
+    bounds["pcisph_step_pairs"] = row_bound("pcisph_step_pairs", n,
+                                            cells + list_bytes, pairs)
+    for name in ("pcisph_d_rho_correct", "pcisph_pressure_accel_predict"):
+        row_bound(name + "_list", n, list_bytes, pairs,
+                  f"{name} design figure (reading the list, "
+                  f"{fig['warps_over_list']} warps over it; not the bound)")
 
     # the checkpoint on the card: saved here, resumed into a fresh
     # Simulation, one step on both, bitwise equal
@@ -2417,8 +2659,8 @@ def pcisph_path(device, warmup, steps):
 
     src = {"nonpressure_accel": "sph_taichi_torch/csrc/dfsph.cu"}
     kernels = []
-    for name in ("nonpressure_accel", "pcisph_d_rho_correct",
-                 "pcisph_pressure_accel_predict"):
+    for name in ("nonpressure_accel", "pcisph_step_pairs",
+                 "pcisph_d_rho_correct", "pcisph_pressure_accel_predict"):
         kernels.append({
             "name": name, "route": "cuda",
             "source": src.get(name, "sph_taichi_torch/csrc/pcisph.cu"),
@@ -3116,6 +3358,16 @@ def outputs(r):
     return (r,) if torch.is_tensor(r) else tuple(r)
 
 
+def cell_run_contexts(method, starts, p, params):
+    """label -> the context of a cell-run instantiation of ``solver_calls``
+    at the sorted particles ``p``: their cell offsets, or for PCISPH's loop
+    kernels the step-start list built over them."""
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+
+    plist = cg.step_pairs(starts, p, params) if method == 1 else None
+    return lambda label: plist if label.startswith("pcisph_") else starts
+
+
 def check_slot_solver_kernels_on_small_scenes(device):
     """The 14 slot instantiations of kernels d-g against their plain
     versions over the slot lists on the clumped DFSPH (a dynamic rigid
@@ -3151,10 +3403,11 @@ def check_slot_solver_kernels_on_small_scenes(device):
             if (dropped > 0) != (kind == "overflow"):
                 raise AssertionError(f"{dropped} rows lose pairs [{kind}]")
             calls = solver_calls(method, params, solver, p, snl)
+            cell_ctx = cell_run_contexts(method, starts, p, params)
             for label, _, wrapper, plain, args in calls:
                 got = outputs(wrapper(smap, *args))
                 ref = outputs(plain(snl, *args))
-                cell = outputs(wrapper(starts, *args)) \
+                cell = outputs(wrapper(cell_ctx(label), *args)) \
                     if kind == "layers" else ref
                 for a, b, c in zip(got, ref, cell):
                     if b is None:
@@ -3239,7 +3492,9 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     if bool(m["slot_overflow"]):
         raise AssertionError(f"{label}: slot_overflow at step "
                              f"{int(sim.state.step_count)}")
-    expect = {k + "[slots]": v for k, v in cell_launches.items()}
+    # the slot walk reads its map in PCISPH's loop: no step-start list
+    expect = {k + "[slots]": v for k, v in cell_launches.items()
+              if k != "pcisph_step_pairs"}
     if launches != expect:
         raise AssertionError(f"{label}: slot launches {launches}, the "
                              f"cell-run run's {cell_launches}")
@@ -3312,13 +3567,15 @@ def slot_solver_kernels(sim, method, launches, label):
           f"pairs {pairs}; slot map bytes the walks read {map_bytes}")
     reset_all_launch_counts()     # comparison launches are not the path's
     ms, cell_ms, plain_ms, err, bounds = {}, {}, {}, {}, {}
+    cell_ctx = cell_run_contexts(method, smap.starts, q, params)
     for name, key, wrapper, plain, args in solver_calls(
             method, params, solver, q, snl, seeded=False):
+        ctx = cell_ctx(name)
         ms[name] = time_ms(lambda: wrapper(smap, *args), 20)
-        cell_ms[name] = time_ms(lambda: wrapper(smap.starts, *args), 20)
+        cell_ms[name] = time_ms(lambda: wrapper(ctx, *args), 20)
         plain_ms[name] = time_ms(lambda: plain(snl, *args), 3)
         got, ref = outputs(wrapper(smap, *args)), outputs(plain(snl, *args))
-        cell = outputs(wrapper(smap.starts, *args))
+        cell = outputs(wrapper(ctx, *args))
         err[name] = 0.0
         for k, (a, b, c) in enumerate(zip(got, ref, cell)):
             if b is None:
@@ -3416,6 +3673,7 @@ def main():
     worst.update(check_volume_and_slot_kernels_on_small_scenes(device))
     worst.update(check_slot_solver_kernels_on_small_scenes(device))
     worst.update(check_compact_walk_on_edge_scene(device))
+    worst.update(check_pcisph_on_edge_scene(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

@@ -134,7 +134,7 @@ __global__ void iisph_pressure_accel_kernel(
   float s[3] = {0.0f, 0.0f, 0.0f};
   // in the loop every real centre's acceleration is kept, solids' too:
   // _apply_A reads it in (a_i - a_j) . r_ij (iisph.py:340)
-  sym_pressure_sum<false>(i, x, x, material, m_V, density, pr, walk, c, s);
+  sym_pressure_sum(i, x, material, m_V, density, pr, walk, c, s);
   if (!ADVECT) {
     for (int k = 0; k < 3; ++k) out0[3 * i + k] = s[k];
     return;

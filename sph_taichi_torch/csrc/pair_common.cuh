@@ -2,8 +2,9 @@
 // iisph.cu, pcisph.cu): the constants struct, the cubic-spline kernel and
 // its gradient, the neighbour walk (over cell runs or over the slot map,
 // and its form with the pair geometry at other positions), its two-phase
-// form (for_each_neighbor_compact), the viscosity and pressure pair terms,
-// and the symmetric pressure acceleration of the implicit solvers.
+// form (for_each_neighbor_compact), the step-start pair list
+// (build_pair_list, for_each_listed_pair), the viscosity and pressure pair
+// terms, and the symmetric pressure acceleration of the implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
@@ -237,15 +238,17 @@ static_assert(kListEntries >= kCompactUnroll,
 template <typename Walk>
 constexpr bool kCompactWalk = std::is_same<Walk, CellRunWalk>::value;
 
-// The two-phase walk over the cell runs (see above).
-template <typename F>
-__device__ __forceinline__ void compact_cell_runs(
+// The candidate phase of the two-phase walk over the cell runs: the
+// inclusion test at the positions x, over the columns in
+// for_each_neighbor_walk's order, the warp stepping through each column's
+// runs together.  accept(j) takes each accepted candidate in that order;
+// before_block() runs, warp-uniform, before each block of kCompactUnroll
+// candidates, whose loads are in flight together.
+template <typename B, typename A>
+__device__ __forceinline__ void cell_run_candidates(
     bool walks, int i, float xi0, float xi1, float xi2,
     const float* __restrict__ x, const CellRunWalk& walk,
-    const PairConsts& c, F&& f) {
-  // entry k of thread t at lists[k * kBlock + t]: the lanes of a warp hit
-  // 32 banks
-  __shared__ int lists[kListEntries * kBlock];
+    const PairConsts& c, B&& before_block, A&& accept) {
   const unsigned kFull = 0xffffffffu;
   int ix = 0, iy = 0, zlo = 0, zhi = -1;
   if (walks) {
@@ -256,19 +259,6 @@ __device__ __forceinline__ void compact_cell_runs(
     zhi = min(iz + 1, c.nz - 1);
     walks = zlo <= zhi;
   }
-  int* list = lists + threadIdx.x;
-  int cnt = 0;
-  // the body phase over this lane's list
-  auto flush = [&]() {
-    for (int k = 0; k < cnt; ++k) {
-      const int j = list[k * kBlock];
-      const float d0 = xi0 - x[3 * j];
-      const float d1 = xi1 - x[3 * j + 1];
-      const float d2 = xi2 - x[3 * j + 2];
-      f(j, d0, d1, d2, d0 * d0 + d1 * d1 + d2 * d2);
-    }
-    cnt = 0;
-  };
   for (int k = 0; k < 9; ++k) {
     // the warp steps through the lanes' runs of column k together, so that
     // a list that may fill flushes every lane's list at once
@@ -281,10 +271,8 @@ __device__ __forceinline__ void compact_cell_runs(
     }
     const int steps = __reduce_max_sync(kFull, len);
     for (int t = 0; t < steps; t += kCompactUnroll) {
-      // room for the block's candidates in every list
-      if (__any_sync(kFull, cnt > kListEntries - kCompactUnroll)) flush();
-      // the candidate phase: the block's positions loaded together, then
-      // the test alone, an accepted pair appended
+      before_block();
+      // the block's positions loaded together, then the test alone
       float p[kCompactUnroll][3];
 #pragma unroll
       for (int u = 0; u < kCompactUnroll; ++u) {
@@ -302,10 +290,42 @@ __device__ __forceinline__ void compact_cell_runs(
         const float d0 = xi0 - p[u][0];
         const float d1 = xi1 - p[u][1];
         const float d2 = xi2 - p[u][2];
-        if (d0 * d0 + d1 * d1 + d2 * d2 < c.h2) list[(cnt++) * kBlock] = j;
+        if (d0 * d0 + d1 * d1 + d2 * d2 < c.h2) accept(j);
       }
     }
   }
+}
+
+// The two-phase walk over the cell runs (see above).
+template <typename F>
+__device__ __forceinline__ void compact_cell_runs(
+    bool walks, int i, float xi0, float xi1, float xi2,
+    const float* __restrict__ x, const CellRunWalk& walk,
+    const PairConsts& c, F&& f) {
+  // entry k of thread t at lists[k * kBlock + t]: the lanes of a warp hit
+  // 32 banks
+  __shared__ int lists[kListEntries * kBlock];
+  const unsigned kFull = 0xffffffffu;
+  int* list = lists + threadIdx.x;
+  int cnt = 0;
+  // the body phase over this lane's list
+  auto flush = [&]() {
+    for (int k = 0; k < cnt; ++k) {
+      const int j = list[k * kBlock];
+      const float d0 = xi0 - x[3 * j];
+      const float d1 = xi1 - x[3 * j + 1];
+      const float d2 = xi2 - x[3 * j + 2];
+      f(j, d0, d1, d2, d0 * d0 + d1 * d1 + d2 * d2);
+    }
+    cnt = 0;
+  };
+  cell_run_candidates(
+      walks, i, xi0, xi1, xi2, x, walk, c,
+      [&]() {
+        // room for the block's candidates in every list
+        if (__any_sync(kFull, cnt > kListEntries - kCompactUnroll)) flush();
+      },
+      [&](int j) { list[(cnt++) * kBlock] = j; });
   flush();
 }
 
@@ -320,6 +340,92 @@ __device__ __forceinline__ void for_each_neighbor_compact(
     compact_cell_runs(walks, i, xi0, xi1, xi2, x, walk, c, f);
   } else if (walks) {
     for_each_neighbor_walk(i, xi0, xi1, xi2, x, walk, c, f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The step-start pair list.  A loop whose pair set stays that of the step
+// start (PCISPH's: inclusion at the step-start positions over the
+// step-start cell offsets, each iteration evaluating its terms at new
+// positions) walks the same candidates and accepts the same pairs in every
+// iteration.  build_pair_list runs the candidate phase of the two-phase
+// walk once and writes each centre's accepted j, in the walk's order, to a
+// list in device memory; for_each_listed_pair then runs only the body phase
+// over it, in every iteration.
+//
+// Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
+// the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
+// the centre's number of accepted pairs, also beyond kPairListEntries,
+// where the list holds the first kPairListEntries.  A warp holding such a
+// centre walks the cells instead (the same pairs in the same order): no
+// pair is dropped and no centre has a limit.
+// ---------------------------------------------------------------------------
+
+// Accepted pairs the list holds per centre: a dragon_bath PCISPH state
+// accepts at most 32 (chip_smoke's walk profile); 64 leaves room for
+// compression and contact at 256 bytes per row.
+constexpr int kPairListEntries = 64;
+
+struct PairList {
+  const int* idx;   // i32[kPairListEntries, stride]
+  const int* cnt;   // i32[stride]
+  int stride;
+};
+
+// The candidate phase of compact_cell_runs for centre i (if ``walks``),
+// writing its accepted j to the list and its count to cnt[i] (0 where the
+// centre does not walk; rows i >= stride write nothing).  Every thread of a
+// block calls it: the walk steps warp-wide.
+__device__ __forceinline__ void build_pair_list(
+    bool walks, int i, float xi0, float xi1, float xi2,
+    const float* __restrict__ x, const CellRunWalk& walk,
+    const PairConsts& c, int* __restrict__ idx, int* __restrict__ cnt,
+    int stride) {
+  int n = 0;
+  cell_run_candidates(
+      walks, i, xi0, xi1, xi2, x, walk, c, []() {}, [&](int j) {
+        if (n < kPairListEntries) idx[n * stride + i] = j;
+        ++n;
+      });
+  if (i < stride) cnt[i] = n;
+}
+
+// List entries a lane loads before their pairs' bodies: their neighbours'
+// loads then do not wait on one list load each (1, 4 and 8 measured: 8 the
+// fastest, tools/pcisph_walk_control.py).
+constexpr int kListUnroll = 8;
+
+// f(j, d0, d1, d2, s) over the pairs of for_each_neighbor_pinned, in its
+// order: read from the step-start list ``pl``, or, in a warp that holds a
+// centre beyond the list, by the one-phase pinned walk.
+// (The two-phase walk there took the kernels to 70-74 registers and their
+// list walk a third slower; tools/pcisph_walk_control.py.)  Every thread
+// of a block calls it, with ``walks`` false where the thread has no
+// centre; (gi0, gi1, gi2) is xg_i.
+template <typename F>
+__device__ __forceinline__ void for_each_listed_pair(
+    bool walks, int i, const float* __restrict__ x, float gi0, float gi1,
+    float gi2, const float* __restrict__ xg, const PairList& pl,
+    const CellRunWalk& walk, const PairConsts& c, F&& f) {
+  const int n = walks ? pl.cnt[i] : 0;
+  if (__any_sync(0xffffffffu, n > kPairListEntries)) {
+    if (walks) for_each_neighbor_pinned(i, x, xg, walk, c, f);
+    return;
+  }
+  for (int k = 0; k < n; k += kListUnroll) {
+    int j[kListUnroll];
+#pragma unroll
+    for (int u = 0; u < kListUnroll; ++u) {
+      j[u] = (k + u < n) ? pl.idx[(k + u) * pl.stride + i] : i;
+    }
+#pragma unroll
+    for (int u = 0; u < kListUnroll; ++u) {
+      if (k + u >= n) break;
+      const float d0 = gi0 - xg[3 * j[u]];
+      const float d1 = gi1 - xg[3 * j[u] + 1];
+      const float d2 = gi2 - xg[3 * j[u] + 2];
+      f(j[u], d0, d1, d2, d0 * d0 + d1 * d1 + d2 * d2);
+    }
   }
 }
 
@@ -341,40 +447,46 @@ __device__ __forceinline__ float pressure_coef(float m_V_j, float dpi,
   return c.neg_rho0 * m_V_j * (dpi + dpj) * gradw;
 }
 
-// Symmetric pressure acceleration of centre i from the pressure field pr
-// (IISPH's and PCISPH's _pressure_accel, one term): the sum over fluid and
-// solid j of pressure_coef * r_ij, with the solid mirror
-// p_j / rho_j^2 := p_i / rho0^2.  Adds into s[0..2].  PINNED takes the
-// pairs of x at the positions xg (for_each_neighbor_pinned, PCISPH);
-// otherwise xg is not read (IISPH).  ``walk`` is over the candidates of x.
-template <bool PINNED, typename Walk>
-__device__ __forceinline__ void sym_pressure_sum(
-    int i, const float* __restrict__ x, const float* __restrict__ xg,
+// The pair term of the symmetric pressure acceleration (IISPH's and
+// PCISPH's _pressure_accel): adds pressure_coef * r_ij into s[0..2] for a
+// fluid or solid j, with dpi = p_i / rho_i^2 and the solid mirror
+// p_j / rho_j^2 := p_i / rho0^2 (``mirror``).
+__device__ __forceinline__ void sym_pressure_pair(
+    int j, float d0, float d1, float d2, float sq, float dpi, float mirror,
     const int* __restrict__ material, const float* __restrict__ m_V,
     const float* __restrict__ density, const float* __restrict__ pr,
-    const Walk& walk, const PairConsts& c, float s[3]) {
+    const PairConsts& c, float s[3]) {
+  const int mat_j = material[j];
+  if (mat_j != 0 && mat_j != 1) return;
+  const PairGeom p = pair_geom(sq);
+  const float gradw = cubic_grad(p.rn, p.inv, c);
+  const float rho_j = density[j];
+  const float dpj = (mat_j == 1) ? pr[j] / (rho_j * rho_j) : mirror;
+  const float a = pressure_coef(m_V[j], dpi, dpj, gradw, c);
+  s[0] += a * d0;
+  s[1] += a * d1;
+  s[2] += a * d2;
+}
+
+// Symmetric pressure acceleration of centre i from the pressure field pr
+// (IISPH's _pressure_accel, one term) over the pairs of ``walk``: adds into
+// s[0..2].
+template <typename Walk>
+__device__ __forceinline__ void sym_pressure_sum(
+    int i, const float* __restrict__ x, const int* __restrict__ material,
+    const float* __restrict__ m_V, const float* __restrict__ density,
+    const float* __restrict__ pr, const Walk& walk, const PairConsts& c,
+    float s[3]) {
   const float pr_i = pr[i];
   const float rho_i = density[i];
   const float dpi = pr_i / (rho_i * rho_i);
   const float mirror = pr_i / c.rho0sq;
-  auto term = [&](int j, float d0, float d1, float d2, float sq) {
-    const int mat_j = material[j];
-    if (mat_j != 0 && mat_j != 1) return;
-    const PairGeom p = pair_geom(sq);
-    const float gradw = cubic_grad(p.rn, p.inv, c);
-    const float rho_j = density[j];
-    const float dpj = (mat_j == 1) ? pr[j] / (rho_j * rho_j) : mirror;
-    const float a = pressure_coef(m_V[j], dpi, dpj, gradw, c);
-    s[0] += a * d0;
-    s[1] += a * d1;
-    s[2] += a * d2;
-  };
-  if constexpr (PINNED) {
-    for_each_neighbor_pinned(i, x, xg, walk, c, term);
-  } else {
-    for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk,
-                           c, term);
-  }
+  for_each_neighbor_walk(
+      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
+      [&](int j, float d0, float d1, float d2, float sq) {
+        sym_pressure_pair(j, d0, d1, d2, sq, dpi, mirror, material, m_V,
+                          density, pr, c, s);
+      });
 }
 
 

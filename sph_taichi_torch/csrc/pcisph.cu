@@ -12,19 +12,22 @@
 //                                     and p' = max(p + s_f rho_err, 0)
 //   pcisph_pressure_accel_predict  <- _pressure_accel with its predict
 //                                     epilogue: the symmetric pressure
-//                                     acceleration a_p (sym_pressure_sum,
+//                                     acceleration a_p (sym_pressure_pair,
 //                                     solid mirror), then on fluid rows
 //                                     v*' = v + dt (acc + a_p) and
 //                                     x*' = x + dt v*' (x the step start)
+//   pcisph_step_pairs              <- the candidate phase of both, run once
+//                                     per step: the step-start pair list
+//                                     they read (see below)
 // and the retired SlotEngine._kernel
-// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same two: each kernel
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the first two: each kernel
 // is a template over its walk, CellRunWalk (the cell offsets) or SlotWalk
 // (the slot map of ops/slots.py), as in pairs.cu.
 //
 // Every traversal of the loop runs at the predicted positions x* while the
 // binning stays that of the step start (the fixed-neighbour-list PCISPH):
 // a pair counts if j != i and |x_i - x_j|^2 < h^2 at the step-start
-// positions, and its term is evaluated at x* (for_each_neighbor_pinned).
+// positions, and its term is evaluated at x*.
 // That is the plain engine's contract: its neighbour lists are built once
 // per step, and it evaluates the geometry at the positions it is given.
 // The walk is the step's: the cell offsets or the slot map of the
@@ -36,45 +39,94 @@
 // ops/cuda_pcisph.py, in the same operation order; dt and s_f are read from
 // device memory.  Both kernels take the loop's device flag `active` and
 // return at once when it is 0 (models/base.py jacobi_while).  Only fluid
-// centres walk their neighbours.  Padding rows are not launched; the
-// wrappers restore them.
+// centres walk their neighbours.  Every row has a thread, padding rows
+// included, and the kernels write the padding rows themselves (p' and
+// rho_err 0, v*' and x*' from v and x, as restore_tail gives them), so each
+// wrapper launches one kernel and nothing else.
 //
-// As the other pair kernels: bound by irregular candidate loads that mostly
-// hit L1/L2; the f32 work per real pair (25-45 operations) is far below the
-// card's rate.  Everything stays in registers.
+// Over the cell runs the pairs come from the step-start pair list
+// (pair_common.cuh build_pair_list, for_each_listed_pair): the loop's pair
+// set does not change through the loop, so pcisph_step_pairs runs the
+// candidate phase of the two-phase walk once per step, before the loop,
+// and writes each fluid centre's accepted j, in the walk's order, to a
+// fixed-stride list in device memory; g1 and g2 run only the pair body over
+// it, 8 list entries loaded ahead.  A warp holding a centre with more
+// accepted pairs than the list holds walks the cells in one phase
+// (for_each_neighbor_pinned), in the same order.  Over the slot walk they
+// walk in one phase, as the other slot instantiations.
+//
+// What bounds them on an H100: the one-phase walk ran ~220 lockstep
+// candidate iterations per warp for ~29 accepted pairs per lane at the
+// dragon_bath state, latency-bound on candidate loads that mostly hit
+// L1/L2, and ran the body in ~94 of them; the list walk runs max-over-lanes
+// of the accepted count (~30.5 per warp there), latency-bound on the
+// body's gathers, so its registers (46-52; the occupancy) and the list
+// loads in flight set its time.  The f32 work per real pair (25-45
+// operations) is far below the card's rate.  Everything stays in
+// registers.
 
 #include "pair_common.cuh"
+
+// The loop's walk: the pairs of the step-start positions x with the
+// geometry at the predicted positions xg, by the list (cell runs) or in one
+// phase (slot walk).  Every thread of a block calls it.
+template <typename Walk, typename F>
+__device__ __forceinline__ void pcisph_pairs(
+    bool walks, int i, const float* __restrict__ x,
+    const float* __restrict__ xg, const Walk& walk, const PairList& pl,
+    const PairConsts& c, F&& f) {
+  if constexpr (kCompactWalk<Walk>) {
+    float gi0 = 0.0f, gi1 = 0.0f, gi2 = 0.0f;
+    if (walks) gi0 = xg[3 * i], gi1 = xg[3 * i + 1], gi2 = xg[3 * i + 2];
+    for_each_listed_pair(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
+  } else if (walks) {
+    for_each_neighbor_pinned(i, x, xg, walk, c, f);
+  }
+}
+
+// The step-start pair list of the fluid centres (cnt 0 on other rows).
+__global__ void pcisph_step_pairs_kernel(
+    const float* __restrict__ x, const int* __restrict__ material,
+    CellRunWalk walk, int* __restrict__ idx, int* __restrict__ cnt,
+    int n_rows, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool fluid = i < c.n_real && material[i] == 1;
+  float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f;
+  if (fluid) xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
+  build_pair_list(fluid, i, xi0, xi1, xi2, x, walk, c, idx, cnt, n_rows);
+}
 
 template <typename Walk>
 __global__ void pcisph_d_rho_correct_kernel(
     const float* __restrict__ x, const float* __restrict__ xp,
     const float* __restrict__ vp, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ density,
-    const float* __restrict__ pr, Walk walk,
+    const float* __restrict__ pr, Walk walk, PairList pl,
     const float* __restrict__ dt_ptr, const float* __restrict__ sf_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ pr_out,
-    float* __restrict__ err_out, PairConsts c) {
+    float* __restrict__ err_out, int n_rows, PairConsts c) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  if (material[i] != 1) {
+  const bool fluid = i < c.n_real && material[i] == 1;
+  float vi0 = 0.0f, vi1 = 0.0f, vi2 = 0.0f;
+  if (fluid) vi0 = vp[3 * i], vi1 = vp[3 * i + 1], vi2 = vp[3 * i + 2];
+  float div = 0.0f;
+  pcisph_pairs(fluid, i, x, xp, walk, pl, c,
+               [&](int j, float d0, float d1, float d2, float s) {
+                 if (material[j] < 0) return;
+                 const PairGeom p = pair_geom(s);
+                 const float gradw = cubic_grad(p.rn, p.inv, c);
+                 const float v_xy = (vi0 - vp[3 * j]) * d0 +
+                                    (vi1 - vp[3 * j + 1]) * d1 +
+                                    (vi2 - vp[3 * j + 2]) * d2;
+                 div += m_V[j] * gradw * v_xy;
+               });
+  if (i >= n_rows) return;
+  if (!fluid) {
     pr_out[i] = 0.0f;
     err_out[i] = 0.0f;
     return;
   }
-  const float vi0 = vp[3 * i], vi1 = vp[3 * i + 1], vi2 = vp[3 * i + 2];
-  float div = 0.0f;
-  for_each_neighbor_pinned(
-      i, x, xp, walk, c,
-      [&](int j, float d0, float d1, float d2, float s) {
-        if (material[j] < 0) return;
-        const PairGeom p = pair_geom(s);
-        const float gradw = cubic_grad(p.rn, p.inv, c);
-        const float v_xy = (vi0 - vp[3 * j]) * d0 +
-                           (vi1 - vp[3 * j + 1]) * d1 +
-                           (vi2 - vp[3 * j + 2]) * d2;
-        div += m_V[j] * gradw * v_xy;
-      });
   // the correction (pcisph.py:93-104): the free-surface clamp of the
   // density error, then the pressure update, in the plain order
   const float d_rho = div * c.rho0;
@@ -89,18 +141,27 @@ __global__ void pcisph_pressure_accel_predict_kernel(
     const int* __restrict__ material, const float* __restrict__ m_V,
     const float* __restrict__ density, const float* __restrict__ pr,
     const float* __restrict__ v, const float* __restrict__ acc, Walk walk,
-    const float* __restrict__ dt_ptr,
+    PairList pl, const float* __restrict__ dt_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ v_out,
-    float* __restrict__ x_out, PairConsts c) {
+    float* __restrict__ x_out, int n_rows, PairConsts c) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const bool fluid = material[i] == 1;
-  float s[3] = {0.0f, 0.0f, 0.0f};
   // only the fluid rows' acceleration is read (pcisph.py:158-168, :245)
+  const bool fluid = i < c.n_real && material[i] == 1;
+  float dpi = 0.0f, mirror = 0.0f;
   if (fluid) {
-    sym_pressure_sum<true>(i, x, xp, material, m_V, density, pr, walk, c, s);
+    const float pr_i = pr[i];
+    const float rho_i = density[i];
+    dpi = pr_i / (rho_i * rho_i);
+    mirror = pr_i / c.rho0sq;
   }
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  pcisph_pairs(fluid, i, x, xp, walk, pl, c,
+               [&](int j, float d0, float d1, float d2, float sq) {
+                 sym_pressure_pair(j, d0, d1, d2, sq, dpi, mirror, material,
+                                   m_V, density, pr, c, s);
+               });
+  if (i >= n_rows) return;
   const float dt = *dt_ptr;
   for (int k = 0; k < 3; ++k) {
     const float vk = v[3 * i + k];
@@ -111,21 +172,53 @@ __global__ void pcisph_pressure_accel_predict_kernel(
   }
 }
 
-// Each launcher's walk arguments (starts, slot_map, layers) select the
-// instantiation (pair_common.cuh with_walk).
+// Grid of a kernel over ``n_rows`` rows, padding rows included.
+static int rows_grid(int n_rows) { return (n_rows + kBlock - 1) / kBlock; }
+
+extern "C" int pcisph_pair_list_entries() { return kPairListEntries; }
+
+// The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` i32[n_rows].
+extern "C" int pcisph_step_pairs_launch(const float* x, const int* material,
+                                        const int* starts, int* idx,
+                                        int* cnt, int n_rows, PairConsts c,
+                                        void* stream) {
+  if (n_rows > 0) {
+    pcisph_step_pairs_kernel<<<rows_grid(n_rows), kBlock, 0,
+                               (cudaStream_t)stream>>>(
+        x, material, CellRunWalk{starts}, idx, cnt, n_rows, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Each loop launcher's walk arguments (starts, slot_map, layers) select the
+// instantiation (pair_common.cuh with_walk); over the cell runs, the list
+// (list_idx, list_cnt) is the step's pcisph_step_pairs output for the same
+// rows, and a launch without it is refused (cudaErrorInvalidValue).
+
+// Whether a loop launch's walk has what it reads: the list, over the cell
+// runs.
+static bool has_list(const int* slot_map, const int* list_idx,
+                     const int* list_cnt) {
+  return slot_map != nullptr || (list_idx != nullptr && list_cnt != nullptr);
+}
 
 extern "C" int pcisph_d_rho_correct_launch(
     const float* x, const float* xp, const float* vp, const int* material,
     const float* m_V, const float* density, const float* pr,
-    const int* starts, const int* slot_map, int layers, const float* dt,
-    const float* s_f, const unsigned char* active, float* pr_out,
-    float* err_out, PairConsts c, void* stream) {
-  if (c.n_real > 0) {
+    const int* starts, const int* slot_map, int layers, const int* list_idx,
+    const int* list_cnt, const float* dt, const float* s_f,
+    const unsigned char* active, float* pr_out, float* err_out, int n_rows,
+    PairConsts c, void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
-      pcisph_d_rho_correct_kernel<<<grid_for(c), kBlock, 0,
+      pcisph_d_rho_correct_kernel<<<rows_grid(n_rows), kBlock, 0,
                                     (cudaStream_t)stream>>>(
-          x, xp, vp, material, m_V, density, pr, walk, dt, s_f, active,
-          pr_out, err_out, c);
+          x, xp, vp, material, m_V, density, pr, walk, pl, dt, s_f, active,
+          pr_out, err_out, n_rows, c);
     });
   }
   return (int)cudaGetLastError();
@@ -134,16 +227,44 @@ extern "C" int pcisph_d_rho_correct_launch(
 extern "C" int pcisph_pressure_accel_predict_launch(
     const float* x, const float* xp, const int* material, const float* m_V,
     const float* density, const float* pr, const float* v, const float* acc,
-    const int* starts, const int* slot_map, int layers, const float* dt,
-    const unsigned char* active, float* v_out, float* x_out, PairConsts c,
-    void* stream) {
-  if (c.n_real > 0) {
+    const int* starts, const int* slot_map, int layers, const int* list_idx,
+    const int* list_cnt, const float* dt, const unsigned char* active,
+    float* v_out, float* x_out, int n_rows, PairConsts c, void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
-      pcisph_pressure_accel_predict_kernel<<<grid_for(c), kBlock, 0,
+      pcisph_pressure_accel_predict_kernel<<<rows_grid(n_rows), kBlock, 0,
                                              (cudaStream_t)stream>>>(
-          x, xp, material, m_V, density, pr, v, acc, walk, dt, active, v_out,
-          x_out, c);
+          x, xp, material, m_V, density, pr, v, acc, walk, pl, dt, active,
+          v_out, x_out, n_rows, c);
     });
   }
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, static shared memory per block and resident blocks
+// per SM of kernel ``which``: 0 d_rho_correct, 1 pressure_accel_predict
+// (+ 2: over the slot walk), 4 step_pairs.
+extern "C" int pcisph_occupancy(int which, int* regs, int* smem_bytes,
+                                int* blocks_per_sm) {
+  const void* kernels[5] = {
+      (const void*)pcisph_d_rho_correct_kernel<CellRunWalk>,
+      (const void*)pcisph_pressure_accel_predict_kernel<CellRunWalk>,
+      (const void*)pcisph_d_rho_correct_kernel<SlotWalk>,
+      (const void*)pcisph_pressure_accel_predict_kernel<SlotWalk>,
+      (const void*)pcisph_step_pairs_kernel};
+  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+  const void* kernel = kernels[which];
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        kBlock, 0);
+  }
+  *regs = attr.numRegs;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  return (int)err;
 }

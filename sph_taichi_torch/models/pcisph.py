@@ -19,7 +19,9 @@ engine has, legacy/engine/sph_solver.py:377-487):
 The loop has the JAX package's fused structure on both engines: on the
 CUDA engine each iteration is the two kernels of ``ops/cuda_pcisph.py``
 with their epilogues (the pressure correction, the velocity and position
-predict); on the plain engine their plain versions apply the same
+predict), reading the step-start pair list that one more kernel builds
+before the loop (over the cell runs; the slot walk reads its map); on the
+plain engine their plain versions apply the same
 epilogues in torch, which is the JAX package's unfused loop with the same
 arithmetic.  The loop is ``jacobi_while`` (models/base.py): the JAX
 condition is evaluated on the device and read to the host once every
@@ -48,6 +50,9 @@ class PCISPHSolver(SPHBase):
         self.check_every = self.min_iterations
         super().__init__(params, device=device, engine=engine)
         self.s_f_base = self._scaling_base(params)
+        # the step-start pair list's device buffers (cuda_pcisph.step_pairs),
+        # allocated at the first step and reused
+        self._pair_buffers = {}
 
     @staticmethod
     def _scaling_base(params):
@@ -97,6 +102,10 @@ class PCISPHSolver(SPHBase):
         tol = self.tolerance_frac * params.density0
         d_rho_correct = self._op("d_rho_correct")
         accel_predict = self._op("pressure_accel_predict")
+        if self.engine.fused:
+            # the loop's pair set is the step start's: over the cell runs,
+            # its list is built once here and read by every iteration
+            ctx = cuda_pcisph.step_pairs(ctx, p, params, self._pair_buffers)
 
         def body(carry, active):
             pressure, vp, xp, _, it = carry

@@ -308,7 +308,9 @@ def test_d_rho_correct_plain_matches_jax():
     assert (ref["rho_err"][fluid] > 0).any() and (ref["rho_err"][fluid]
                                                   == 0).any()
     assert (ref["pr"][fluid] > inp["pressure"].numpy()[fluid]).any()
-    _wrapper_equals_plain(cuda_pcisph.d_rho_correct, (starts, *args), got)
+    # the wrapper takes the step's context, as the solver gives it
+    ctx = cuda_pcisph.step_pairs(starts, tpart, tp)
+    _wrapper_equals_plain(cuda_pcisph.d_rho_correct, (ctx, *args), got)
 
 
 def test_pressure_accel_predict_plain_matches_jax():
@@ -323,8 +325,9 @@ def test_pressure_accel_predict_plain_matches_jax():
     _close(got[1], ref["x_new"], tp, "x*")
     solid = tpart.material.numpy() == 0
     assert np.array_equal(got[0].numpy()[solid], tpart.v.numpy()[solid])
+    ctx = cuda_pcisph.step_pairs(starts, tpart, tp)
     _wrapper_equals_plain(cuda_pcisph.pressure_accel_predict,
-                          (starts, *args), got)
+                          (ctx, *args), got)
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +572,8 @@ def test_cuda_pcisph_needs_no_nvcc_to_import():
     with pytest.raises(ValueError, match="CUDA kernel"):
         cuda_pairs._check_common(None, part, params)
     names = {"pcisph_d_rho_correct", "pcisph_pressure_accel_predict"}
-    # each kernel's launches over cell runs and over the slot walk
+    # each loop kernel's launches over cell runs and over the slot walk,
+    # and the step-start list's, built over the cell runs only
     assert set(cuda_pcisph.LAUNCHES) == names | {n + "[slots]"
-                                                 for n in names}
+                                                 for n in names} | {
+        "pcisph_step_pairs"}
