@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
    DFSPH kernels (both divergence modes, the solver update with and without
    the reaction), and the DFSPH kernels and two whole steps on a block
    that falls onto the floor, where the Jacobi loops iterate; the four
-   IISPH kernels on a clumped scene with a static rigid block and on the
+   IISPH kernels and IISPH's step-start pair list (f3 and f4 over it) on
+   a clumped scene with a static rigid block and on the
    floor impact (pressures from a seed), and the floor impact's first
    three IISPH steps at dt 1e-3 (59 and 7 iterations in the second and
    third), kernel engine against plain engine; kernel 2.1 c (boundary
@@ -39,16 +40,23 @@ Phases (any failure raises and exits non-zero):
 6. the IISPH path: data/scenes/dragon_bath.json with simulationMethod 2
    (442,006 particles, dt 4e-4) through ``Simulation``, 20 steps after 5
    of warm-up, timed with CUDA events; pressure iterations and host reads
-   per step, launch counts (f1 = f2 = steps, f3 and f4 k per host read in
-   the loop, f3 once more per step with the advect); the host syncs of one
-   step; stage times; the step time by the Jacobi loop's read interval;
-   one kernel step against one plain-engine step; per-kernel and
-   plain-version times and bounds;
+   per step, launch counts (f1 = f2 = the list build = steps, f3 and f4 k
+   per host read in the loop, f3 once more per step with the advect); the
+   host syncs of one step (none in the loop's wrappers); the loop's
+   kernels in 5 profiled steps against their wrappers' calls; stage
+   times; the step time by the Jacobi loop's read interval; one kernel
+   step against one plain-engine step; at that state the walk profile of
+   every real centre with the list (and of the fluid and solid centres
+   alone), the registers, shared memory and resident blocks of f3 (both
+   variants), f4 and the build, per-kernel and plain-version times and
+   bounds (f3 and f4 beside the bytes of the list's read), the list
+   against its plain version;
 7. the IISPH iterating regime: the same scene at dt 2e-3, run until a
    step's pressure solve iterates more than once, then 5 timed steps and
-   the read-interval sweep; at that state (pressures not 0) the loop's
-   kernels against their plain
-   versions and one kernel step against one plain-engine step;
+   the read-interval sweep; at that state (pressures not 0) the walk
+   profiles, the list, f3 (both variants) and f4 over it against their
+   plain versions bitwise, and one kernel step against one plain-engine
+   step;
 8. the PCISPH kernels (the step-start pair list, the density derivative
    with its correction and the pressure acceleration with its predict
    over the list, and the un-kicked non-pressure variant) against their plain versions on the clumped
@@ -103,7 +111,7 @@ Phases (any failure raises and exits non-zero):
    turns of 5 steps; the slot kernels against their plain versions and
    their cell-run instantiations at that state, times and bounds;
 16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
-   after 5);
+   after 5; the cell-run twins' loops read their step-start lists);
 17. the same for the scaled dynamic dragon as DFSPH (20 steps after 5):
    kernel c's and the reaction update's slot instantiations every step,
    the reaction kernel against its plain version;
@@ -123,7 +131,13 @@ Phases (any failure raises and exits non-zero):
    the list against its plain version, g1 and g2 over the list and over
    the slot map against their plain versions bitwise, padding rows
    included; bare cell offsets refused; the walk profile with the list;
-   one kernel per wrapper call.
+   one kernel per wrapper call;
+20. (in phase 2) IISPH's step-start pair list, f3 (both variants) and f4
+   on the same edge scene as IISPH, every real centre over the list at a
+   seeded pressure: the list against its plain version, f3 and f4 over
+   the list and over the slot map against their plain versions bitwise,
+   padding rows included; bare cell offsets refused; the walk profile with
+   the list; one kernel per wrapper call.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -246,6 +260,18 @@ ROW_COSTS = {
         52, 9, "fluid", PCISPH_D_RHO_FLOPS_PER_PAIR - PCISPH_TEST_FLOPS),
     "pcisph_pressure_accel_predict_list": (
         92, 5, "fluid", PCISPH_PRESSURE_FLOPS_PER_PAIR - PCISPH_TEST_FLOPS),
+    # IISPH's list of every real centre: reads x; writes the counts (its
+    # entries counted with the index); a distance test per candidate of a
+    # real centre
+    "iisph_step_pairs": (16, 0, "candidates", PCISPH_TEST_FLOPS),
+    # f3 and f4 as this design runs them over the list (a design figure,
+    # not a bound, as g1 and g2's): the list's counts and entries read
+    # besides the function's bytes; the pair geometry is still computed
+    "iisph_pressure_accel_list": (44, 1, "real",
+                                  IISPH_PRESSURE_FLOPS_PER_PAIR),
+    "iisph_pressure_accel_advect_list": (68, 4, "real",
+                                         IISPH_PRESSURE_FLOPS_PER_PAIR),
+    "iisph_apply_A_list": (56, 5, "real", IISPH_APPLY_A_FLOPS_PER_PAIR),
 }
 
 
@@ -909,6 +935,107 @@ def check_pcisph_on_edge_scene(device):
         if len(launched) != 1 or name not in launched[0] or counted != 1:
             raise AssertionError(f"{name}: the wrapper launches {launched}")
     return worst
+
+
+def check_iisph_on_edge_scene(device):
+    """IISPH's step-start list, f3 (both variants) and f4 on the edge scene
+    (a ~100-particle cell: centres over the list, so warps that read the
+    list beside warps that walk the cells in one phase) at a seeded
+    pressure: the list against its plain version; f3 and f4 over the list
+    and over the slot map (the cell overflows its 32 slots) against their
+    plain versions bitwise, padding rows included; bare cell offsets
+    refused; the walk profile; one kernel per wrapper call."""
+    from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    scene = compact_edge_scene()
+    scene["Configuration"]["simulationMethod"] = 2
+    params, solver, p, nl, starts, diag = prepared(
+        scene, device, seed=0, place=compact_edge_positions)
+    if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+        raise AssertionError("edge scene: the plain engine's caps overflowed")
+    print(f"IISPH edge scene: {params.n_particles} particles "
+          f"({params.n_solid} solids), max cell occupancy "
+          f"{int(diag['max_cell_occupancy'])}, max neighbours "
+          f"{int(diag['max_neighbors'])}")
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
+    acc, v = ci.nonpressure_kick_plain(nl, p, dt, params)
+    p = p._replace(acc=acc, v=v)
+    a_ii, source, _ = ci.predict_advection_plain(nl, p, dt, params)
+    pressure = random_pressure(p)
+    # padding rows of v that the advect must carry through
+    n_real = params.n_fluid + params.n_solid
+    vpad = p.v.clone()
+    vpad[n_real:] = torch.arange(3 * (p.n - n_real), dtype=torch.float32,
+                                 device=device).reshape(-1, 3)
+    p = p._replace(v=vpad)
+    buffers = {}
+    pairs = ci.step_pairs(starts, p, params, buffers)
+    worst = {"iisph_step_pairs": check_pair_list(pairs, nl, p, params,
+                                                 "edge scene", ci)[0]}
+    fig = walk_profile(params, p.x, p.material >= 0, starts, nl,
+                       "IISPH edge scene", list_entries=PAIR_LIST_ENTRIES)
+    if not 0 < fig["warps_over_list"] < fig["warps"]:
+        raise AssertionError("edge scene: no warp over the list beside one "
+                             "within it")
+    caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=128)
+    smap = build_slot_map(starts, params)
+    snl = slot_neighbor_list(smap, p.x, caps)
+    accel = ci.pressure_accel_plain(nl, p, pressure, params)
+
+    def calls(ctx):
+        return {
+            "iisph_pressure_accel": lambda: ci.pressure_accel(
+                ctx, p, pressure, params),
+            "iisph_pressure_accel_advect": lambda: ci.pressure_accel(
+                ctx, p, pressure, params, advect_dt=dt),
+            "iisph_apply_A": lambda: ci.apply_A(
+                ctx, p, accel, a_ii, source, pressure, dt, 0.5, params)}
+
+    checked = 0
+    for ctx, lists_, how in ((pairs, nl, "list"), (smap, snl, "slots")):
+        refs = {
+            "iisph_pressure_accel": (ci.pressure_accel_plain(
+                lists_, p, pressure, params),),
+            "iisph_pressure_accel_advect": ci.pressure_accel_plain(
+                lists_, p, pressure, params, advect_dt=dt),
+            "iisph_apply_A": ci.apply_A_plain(lists_, p, accel, a_ii, source,
+                                              pressure, dt, 0.5, params)}
+        for name, fn in calls(ctx).items():
+            got = outputs(fn())
+            key = name + ("[slots]" if how == "slots" else "")
+            for a, b in zip(got, refs[name]):
+                err = float((a.double() - b.double()).abs().max())
+                worst[key] = max(worst.get(key, 0.0), err)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"edge scene {name} over {how}: not "
+                                         f"equal to its plain version "
+                                         f"({err:.3e})")
+            checked += 1
+    print(f"  {checked} IISPH kernel calls (f3, f3 with the advect, f4 over "
+          f"the list and the slots) equal to their plain versions bitwise, "
+          f"padding rows included")
+    for name, fn in calls(starts).items():
+        try:
+            fn()
+        except TypeError:
+            continue
+        raise AssertionError(f"{name}: bare cell offsets not refused")
+    print("  f3 and f4 refuse bare cell offsets")
+    per_call = {"iisph_step_pairs": lambda: ci.step_pairs(starts, p, params,
+                                                          buffers),
+                **calls(pairs)}
+    for name, fn in per_call.items():
+        before = ci.LAUNCHES[name]
+        launched, lost = kernels_per_call(fn)
+        counted = (ci.LAUNCHES[name] - before) / (2 + lost)
+        print(f"  {name}: one wrapper call launches {launched} (its count "
+              f"{counted:g} per call; captures that lost the markers {lost})")
+        kernel = name.replace("_advect", "")
+        if len(launched) != 1 or kernel not in launched[0] or counted != 1:
+            raise AssertionError(f"{name}: the wrapper launches {launched}")
+    return {f"{k} (IISPH edge scene)": v for k, v in worst.items()}
 
 
 MARKER = "spin_kernel"   # the kernel of torch.cuda._sleep
@@ -1691,8 +1818,9 @@ def random_pressure(p, seed=3):
 
 
 def compare_iisph_kernels(params, p, nl, starts, pressure, label, worst):
-    """f1-f4 against their plain versions at one state, each kernel on the
-    plain chain's inputs.  ``pressure`` is the loop's last_p for the
+    """f1-f4 and the step-start list against their plain versions at one
+    state, each kernel on the plain chain's inputs (f3 and f4 over the
+    list, as a step runs them).  ``pressure`` is the loop's last_p for the
     pressure acceleration and A."""
     from sph_taichi_torch.ops import cuda_iisph as ci
 
@@ -1716,17 +1844,21 @@ def compare_iisph_kernels(params, p, nl, starts, pressure, label, worst):
           ci.predict_advection(starts, p, dt, params), ref,
           ("a_ii", "source", "last_p"))
     a_ii, source, _ = ref
+    pairs = ci.step_pairs(starts, p, params)
+    worst["iisph_step_pairs"] = max(worst.get("iisph_step_pairs", 0.0),
+                                    check_pair_list(pairs, nl, p, params,
+                                                    label, ci)[0])
     accel = ci.pressure_accel_plain(nl, p, pressure, params)
-    check("iisph_pressure_accel", ci.pressure_accel(starts, p, pressure,
+    check("iisph_pressure_accel", ci.pressure_accel(pairs, p, pressure,
                                                     params), accel, ("accel",))
     solid = p.material == 0
     if bool(solid.any()) and float(accel[solid].abs().max()) == 0.0:
         raise AssertionError("solid rows' pressure acceleration is 0")
     check("iisph_pressure_accel",
-          ci.pressure_accel(starts, p, pressure, params, advect_dt=dt),
+          ci.pressure_accel(pairs, p, pressure, params, advect_dt=dt),
           ci.pressure_accel_plain(nl, p, pressure, params, advect_dt=dt),
           ("advect.v", "advect.x"))
-    got = ci.apply_A(starts, p, accel, a_ii, source, pressure, dt, omega,
+    got = ci.apply_A(pairs, p, accel, a_ii, source, pressure, dt, omega,
                      params)
     ref = ci.apply_A_plain(nl, p, accel, a_ii, source, pressure, dt, omega,
                            params)
@@ -1804,11 +1936,13 @@ def dragon_config(method, dt=None):
 
 
 def iisph_state_kernels(params, solver, state):
-    """Inputs of the four IISPH kernels at a dragon state, built by the
-    kernels themselves as in a step, the plain engine's neighbour lists
+    """Inputs of the IISPH kernels at a dragon state, built by the kernels
+    themselves as in a step (f3 over the step-start list, which is
+    returned with the cell offsets), the plain engine's neighbour lists
     (caps raised to what the state needs), and the pair counts each
     kernel walks."""
     from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops.pairs import GatherEngine
 
     q, starts, _ = base.bin_and_sort(state.p, params, solver.engine,
@@ -1822,7 +1956,8 @@ def iisph_state_kernels(params, solver, state):
     q = base.compute_densities(q, starts, solver.engine, params)
     q = solver.compute_non_pressure(q, starts, state.dt)
     a_ii, source, last_p = solver.predict_advection(q, starts, state.dt)
-    accel = solver._pressure_accel(q, starts, last_p)
+    plist = ci.step_pairs(starts, q, params)
+    accel = solver._pressure_accel(q, plist, last_p)
     n_real = params.n_fluid + params.n_solid
     valid = nl.mask()
     mat_j = q.material[nl.idx]
@@ -1833,7 +1968,25 @@ def iisph_state_kernels(params, solver, state):
           f"neighbours {int(nl.max_cnt)}, max cell occupancy {occ} (the oracle's caps "
           f"{caps.neighbor_cap}, {caps.cell_cap}); last_p max "
           f"{float(last_p.max()):.4f} Pa")
-    return q, starts, nl, (a_ii, source, last_p, accel), pairs
+    return q, (starts, plist), nl, (a_ii, source, last_p, accel), pairs
+
+
+def iisph_walk_profiles(params, q, starts, nl, label):
+    """The walk profile of IISPH's loop at the sorted state ``q``: every
+    real row walking (with the list of PAIR_LIST_ENTRIES: the list walk's
+    iterations), then the fluid and the solid centres alone (accepted
+    pairs per centre: mean, p99, max; candidate and one-phase body
+    iterations per warp).  Returns the real rows' figures."""
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES as k_list
+
+    fig = walk_profile(params, q.x, q.material >= 0, starts, nl,
+                       f"{label}, every real centre", list_entries=k_list)
+    for kind, rows in (("fluid", q.material == 1), ("solid", q.material == 0)):
+        if bool(rows.any()):
+            walk_profile(params, q.x, rows, starts, nl,
+                         f"{label}, {kind} centres alone",
+                         list_entries=k_list)
+    return fig
 
 
 def armadillo_counts(device):
@@ -1856,7 +2009,8 @@ def armadillo_counts(device):
 
 def iisph_path(device, warmup, steps):
     """The IISPH path: dragon_bath.json with simulationMethod 2 through
-    ``Simulation``; returns the kernels' JSON entries and the step time."""
+    ``Simulation``; returns the kernels' JSON entries (the list build's
+    included) and the step time."""
     import warnings
 
     from sph_taichi_torch import build_solver
@@ -1894,6 +2048,11 @@ def iisph_path(device, warmup, steps):
           f"{int(m['pressure_iters'])}, a read every {K})")
     if len(where) != m["pressure_host_reads"]:
         raise AssertionError("an IISPH step syncs outside its loop test")
+    inside = [w for w in where if "cuda_iisph" in w or "pair_list" in w
+              or "csrc" in w]
+    print(f"  host syncs in the loop's kernels and wrappers: {len(inside)}")
+    if inside:
+        raise AssertionError(f"IISPH wrappers sync: {inside}")
 
     # the IISPH path: counts to 0 just before, read just after
     reset_all_launch_counts()
@@ -1912,11 +2071,11 @@ def iisph_path(device, warmup, steps):
           f"{1e3 / step_ms:.3f} steps/s; pressure iterations per step mean "
           f"{n_it / steps:.2f} max {st['pressure_iters_max']}; host reads "
           f"per step {reads / steps:.2f}; launches {launches}")
-    # f1 = f2 = steps; in the loop f3 = f4 = k x reads (the iterations
-    # queued after the exit return at once); f3 once more per step, with
-    # the advect
+    # f1 = f2 = the list build = steps; in the loop f3 = f4 = k x reads
+    # (the iterations queued after the exit return at once); f3 once more
+    # per step, with the advect
     expect = {"density_sum": steps, "iisph_nonpressure_kick": steps,
-              "iisph_predict_advection": steps,
+              "iisph_predict_advection": steps, "iisph_step_pairs": steps,
               "iisph_pressure_accel": K * reads,
               "iisph_pressure_accel_advect": steps,
               "iisph_apply_A": K * reads}
@@ -1930,10 +2089,30 @@ def iisph_path(device, warmup, steps):
     print(f"  pressure solve: {n_it} iterations ran (the loop launches with "
           f"work), {K * reads - n_it} queued after the exit")
 
-    busy_ms = profile_steps(sim, 5)
+    counts = {}
+    reset_all_launch_counts()
+    busy_ms = profile_steps(sim, 5, counts)
     if busy_ms is not None:
         print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
               f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+        # each wrapper call launched its one kernel: the profiled kernels
+        # equal the wrappers' counts over the same 5 steps
+        kernel_keys = {
+            "iisph_step_pairs": ("iisph_step_pairs_kernel(",),
+            "iisph_pressure_accel": ("iisph_pressure_accel_kernel<false",
+                                     "CellRunWalk"),
+            "iisph_pressure_accel_advect": (
+                "iisph_pressure_accel_kernel<true", "CellRunWalk"),
+            "iisph_apply_A": ("iisph_apply_A_kernel<CellRunWalk",)}
+        got = {name: sum(c for k, c in counts.items()
+                         if all(part in k for part in parts))
+               for name, parts in kernel_keys.items()}
+        calls = {name: ci.LAUNCHES[name] for name in kernel_keys}
+        print(f"  the loop's kernels in the profiled 5 steps {got}, their "
+              f"wrappers' calls {calls}")
+        if got != calls or calls["iisph_step_pairs"] != 5:
+            raise AssertionError(f"IISPH kernels {got}, wrapper calls "
+                                 f"{calls}")
 
     check_state(sim)
     metrics = sim.metrics
@@ -1957,7 +2136,9 @@ def iisph_path(device, warmup, steps):
         ev[3].record()
         a_ii, source, last_p = solver.predict_advection(q, ctx, state.dt)
         ev[4].record()
-        pr, _ = solver.pressure_solve(q, ctx, a_ii, source, last_p, state.dt)
+        # the list build, then the loop
+        pr, ctx, _ = solver.pressure_solve(q, ctx, a_ii, source, last_p,
+                                           state.dt)
         ev[5].record()
         q = solver._pressure_accel(q._replace(pressure=pr), ctx, pr,
                                    advect_dt=state.dt)
@@ -1974,8 +2155,8 @@ def iisph_path(device, warmup, steps):
     stages = {}
     for k, name in enumerate(("bin_and_sort", "densities",
                               "non-pressure + kick", "predict advection",
-                              "pressure solve", "pressure accel + advect",
-                              "rigid + clamp")):
+                              "list + pressure solve",
+                              "pressure accel + advect", "rigid + clamp")):
         stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
     print("IISPH stage ms at this state: " + json.dumps(
         {k: round(v, 4) for k, v in stages.items()}))
@@ -2000,11 +2181,23 @@ def iisph_path(device, warmup, steps):
     del plain_solver, ps
 
     # per-kernel times at the dragon state's shapes, and the plain versions
-    q, starts, nl, (a_ii, source, last_p, accel), pairs = \
+    q, (starts, plist), nl, (a_ii, source, last_p, accel), pairs = \
         iisph_state_kernels(params, solver, state)
     dt = state.dt
     omega = solver.omega
     reset_all_launch_counts()     # comparison launches are not the path's
+    fig = iisph_walk_profiles(params, q, starts, nl, "dragon_bath IISPH state")
+    for name, slots in (("iisph_pressure_accel", False),
+                        ("iisph_pressure_accel_advect", False),
+                        ("iisph_apply_A", False), ("iisph_step_pairs", False),
+                        ("iisph_pressure_accel", True),
+                        ("iisph_pressure_accel_advect", True),
+                        ("iisph_apply_A", True)):
+        regs, smem, blocks = ci.occupancy(name, slots)
+        print(f"  {name}{'[slots]' if slots else ''}: {regs} registers, "
+              f"{smem} bytes of shared memory per block, {blocks} blocks of "
+              f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
+    buffers = {}
     calls = {
         "iisph_nonpressure_kick": (
             lambda: ci.nonpressure_kick(starts, q, dt, params),
@@ -2012,16 +2205,19 @@ def iisph_path(device, warmup, steps):
         "iisph_predict_advection": (
             lambda: ci.predict_advection(starts, q, dt, params),
             lambda: ci.predict_advection_plain(nl, q, dt, params)),
+        "iisph_step_pairs": (
+            lambda: ci.step_pairs(starts, q, params, buffers),
+            lambda: ci.step_pairs_plain(nl, q, params)),
         "loop": (
-            lambda: ci.pressure_accel(starts, q, last_p, params),
+            lambda: ci.pressure_accel(plist, q, last_p, params),
             lambda: ci.pressure_accel_plain(nl, q, last_p, params)),
         "advect": (
-            lambda: ci.pressure_accel(starts, q, last_p, params,
+            lambda: ci.pressure_accel(plist, q, last_p, params,
                                       advect_dt=dt),
             lambda: ci.pressure_accel_plain(nl, q, last_p, params,
                                             advect_dt=dt)),
         "iisph_apply_A": (
-            lambda: ci.apply_A(starts, q, accel, a_ii, source, last_p, dt,
+            lambda: ci.apply_A(plist, q, accel, a_ii, source, last_p, dt,
                                omega, params),
             lambda: ci.apply_A_plain(nl, q, accel, a_ii, source, last_p, dt,
                                      omega, params)),
@@ -2031,24 +2227,49 @@ def iisph_path(device, warmup, steps):
     for name, (kern, plain) in calls.items():
         ms[name] = time_ms(kern, 20)
         plain_ms[name] = time_ms(plain, 3)
-        got, ref = kern(), plain()
-        if torch.is_tensor(ref):
-            got, ref = (got,), (ref,)
-        err[name] = 0.0
-        for k, (a, b) in enumerate(zip(got, ref)):
-            err[name] = max(err[name], max_errors(
-                a[:n], b[:n], f"dragon {name} output {k}"))
+        if name == "iisph_step_pairs":
+            err[name] = check_pair_list(kern(), nl, q, params,
+                                        "dragon state", ci)[0]
+        else:
+            got, ref = kern(), plain()
+            if torch.is_tensor(ref):
+                got, ref = (got,), (ref,)
+            err[name] = 0.0
+            # whole outputs: the kernels write the padding rows
+            for k, (a, b) in enumerate(zip(got, ref)):
+                err[name] = max(err[name], max_errors(
+                    a, b, f"dragon {name} output {k}"))
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
+    per_step = sum(ms[k] for k in ("iisph_step_pairs", "loop",
+                                   "iisph_apply_A", "advect"))
+    print(f"  the loop's kernels per step at one iteration: build + f3 + f4 "
+          f"+ advect = {per_step:.4f} ms")
+    if any(err[k] != 0.0 for k in calls if k not in (
+            "iisph_nonpressure_kick", "iisph_predict_advection")):
+        raise AssertionError(f"dragon: an IISPH loop kernel differs from its "
+                             f"plain version: {err}")
 
     cells = offset_bytes(params, q.x[:n])   # every real centre walks
-    pairs = {"real": pairs["real"], "real_fj": pairs["fluid_j"]}
+    k_list = plist.idx.shape[0]
+    list_bytes = 4 * int(torch.clamp_max(plist.cnt, k_list).long().sum())
+    pairs = {"real": pairs["real"], "real_fj": pairs["fluid_j"],
+             "candidates": fig["candidates_tested"]}
+    # f3 and f4 are bounded by the function they compute, over the cell
+    # offsets; the list's build by its output, the list
     bounds = {key: row_bound(name, n, cells, pairs) for key, name in (
         ("iisph_nonpressure_kick", "iisph_nonpressure_kick"),
         ("iisph_predict_advection", "iisph_predict_advection"),
         ("loop", "iisph_pressure_accel"),
         ("advect", "iisph_pressure_accel_advect"),
         ("iisph_apply_A", "iisph_apply_A"))}
+    bounds["iisph_step_pairs"] = row_bound("iisph_step_pairs", n,
+                                           cells + list_bytes, pairs)
+    for name in ("iisph_pressure_accel", "iisph_pressure_accel_advect",
+                 "iisph_apply_A"):
+        row_bound(name + "_list", n, list_bytes, pairs,
+                  f"{name} design figure (reading the list, "
+                  f"{fig['warps_over_list']} warps over it; not the bound)")
     # the pressure-acceleration entry: both variants, weighted by their
     # launches on the path
     w_loop = launches["iisph_pressure_accel"]
@@ -2067,7 +2288,8 @@ def iisph_path(device, warmup, steps):
     src = "sph_taichi_torch/csrc/iisph.cu"
     kernels = []
     for name in ("iisph_nonpressure_kick", "iisph_predict_advection",
-                 "iisph_pressure_accel", "iisph_apply_A"):
+                 "iisph_step_pairs", "iisph_pressure_accel",
+                 "iisph_apply_A"):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
@@ -2126,6 +2348,10 @@ def iisph_iterating(device, dt, steps, max_lead=400):
           f"pressure error {float(sim.metrics['pressure_error']):.6f}")
     if max(its) < 2:
         raise AssertionError("the timed IISPH steps did not iterate")
+    busy_ms = profile_steps(sim, 5)
+    if busy_ms is not None:
+        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step at "
+              f"dt {dt}: idle share {100 * (1 - busy_ms / step_ms):.1f}%")
     k_sweep(sim.solver, sim.state,
             f"IISPH dt {dt} step {int(sim.state.step_count)}")
 
@@ -2137,20 +2363,31 @@ def iisph_iterating(device, dt, steps, max_lead=400):
     from sph_taichi_torch.ops.pairs import GatherEngine
 
     params, solver, state = sim.params, sim.solver, sim.state
-    q, starts, nl, (a_ii, source, last_p, accel), _ = iisph_state_kernels(
-        params, solver, state)
+    q, (starts, plist), nl, (a_ii, source, last_p, accel), _ = \
+        iisph_state_kernels(params, solver, state)
     if float(last_p.max()) <= 0.0:
         raise AssertionError("no pressure at the iterating state")
-    max_errors(ci.pressure_accel(starts, q, last_p, params),
-               ci.pressure_accel_plain(nl, q, last_p, params),
-               "iterating state iisph_pressure_accel")
-    for name, a, b in zip(
-            ("new_p", "err"),
-            ci.apply_A(starts, q, accel, a_ii, source, last_p, state.dt,
-                       solver.omega, params),
-            ci.apply_A_plain(nl, q, accel, a_ii, source, last_p, state.dt,
-                             solver.omega, params)):
-        max_errors(a, b, f"iterating state iisph_apply_A.{name}")
+    iisph_walk_profiles(params, q, starts, nl, f"IISPH dt {dt} state")
+    errs = [check_pair_list(plist, nl, q, params, "iterating state", ci)[0]]
+    for name, got, ref in (
+            ("iisph_pressure_accel",
+             (ci.pressure_accel(plist, q, last_p, params),),
+             (ci.pressure_accel_plain(nl, q, last_p, params),)),
+            ("iisph_pressure_accel_advect",
+             ci.pressure_accel(plist, q, last_p, params, advect_dt=state.dt),
+             ci.pressure_accel_plain(nl, q, last_p, params,
+                                     advect_dt=state.dt)),
+            ("iisph_apply_A",
+             ci.apply_A(plist, q, accel, a_ii, source, last_p, state.dt,
+                        solver.omega, params),
+             ci.apply_A_plain(nl, q, accel, a_ii, source, last_p, state.dt,
+                              solver.omega, params))):
+        for k, (a, b) in enumerate(zip(got, ref)):
+            errs.append(max_errors(a, b, f"iterating state {name} output "
+                                         f"{k}"))
+    if max(errs) != 0.0:
+        raise AssertionError(f"iterating state: the list or a loop kernel "
+                             f"differs from its plain version ({max(errs)})")
     plain_solver = build_solver(params, device=device,
                                 engine=GatherEngine(params))
     ks, km = solver.step(state)
@@ -2208,22 +2445,25 @@ def pairs_moved(nl, xp, h):
     return int((valid & (d2 >= h * h)).sum()), int(valid.sum())
 
 
-def check_pair_list(pairs, nl, p, params, label):
+def check_pair_list(pairs, nl, p, params, label, module=None):
     """The kernel's step-start pair list ``pairs`` (a ``PairList``) against
-    ``step_pairs_plain`` over the neighbour lists ``nl``: every count and
-    every listed entry equal.  Returns (largest difference, centres with
-    more accepted pairs than the list holds)."""
+    ``module.step_pairs_plain`` (PCISPH's, or IISPH's for ``module``
+    cuda_iisph) over the neighbour lists ``nl``: every count and every
+    listed entry equal.  Returns (largest difference, centres with more
+    accepted pairs than the list holds)."""
     from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES as k_list
 
-    idx, cnt = cg.step_pairs_plain(nl, p, params)
-    k_list = cg.PAIR_LIST_ENTRIES
+    module = module or cg
+    name = module.__name__.split("_")[-1] + "_step_pairs"
+    idx, cnt = module.step_pairs_plain(nl, p, params)
     listed = torch.clamp_max(cnt, k_list)
     valid = torch.arange(k_list, device=cnt.device)[:, None] < listed[None, :]
     got = torch.where(valid, pairs.idx, -1)
     err = max(float((got - idx).abs().max()),
               float((pairs.cnt - cnt).abs().max()))
     over = int((cnt > k_list).sum())
-    print(f"  {label}: pcisph_step_pairs against its plain version: max abs "
+    print(f"  {label}: {name} against its plain version: max abs "
           f"err {err:g}; {int(listed.sum())} listed pairs, at most "
           f"{int(cnt.max())} per centre, {over} centres over the list of "
           f"{k_list}")
@@ -3361,11 +3601,18 @@ def outputs(r):
 def cell_run_contexts(method, starts, p, params):
     """label -> the context of a cell-run instantiation of ``solver_calls``
     at the sorted particles ``p``: their cell offsets, or for PCISPH's loop
-    kernels the step-start list built over them."""
+    kernels and IISPH's f3 and f4 the step-start list built over them."""
+    from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
-    plist = cg.step_pairs(starts, p, params) if method == 1 else None
-    return lambda label: plist if label.startswith("pcisph_") else starts
+    if method == 1:
+        plist = cg.step_pairs(starts, p, params)
+        return lambda label: plist if label.startswith("pcisph_") else starts
+    if method == 2:
+        plist = ci.step_pairs(starts, p, params)
+        return lambda label: plist if label.startswith(
+            ("iisph_pressure_accel", "iisph_apply_A")) else starts
+    return lambda label: starts
 
 
 def check_slot_solver_kernels_on_small_scenes(device):
@@ -3492,9 +3739,10 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     if bool(m["slot_overflow"]):
         raise AssertionError(f"{label}: slot_overflow at step "
                              f"{int(sim.state.step_count)}")
-    # the slot walk reads its map in PCISPH's loop: no step-start list
+    # the slot walk reads its map in PCISPH's and IISPH's loops: no
+    # step-start list
     expect = {k + "[slots]": v for k, v in cell_launches.items()
-              if k != "pcisph_step_pairs"}
+              if k not in ("pcisph_step_pairs", "iisph_step_pairs")}
     if launches != expect:
         raise AssertionError(f"{label}: slot launches {launches}, the "
                              f"cell-run run's {cell_launches}")
@@ -3674,6 +3922,7 @@ def main():
     worst.update(check_slot_solver_kernels_on_small_scenes(device))
     worst.update(check_compact_walk_on_edge_scene(device))
     worst.update(check_pcisph_on_edge_scene(device))
+    worst.update(check_iisph_on_edge_scene(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

@@ -19,20 +19,40 @@
 //                              x' = x + dt v' on fluid rows (ADVECT = true)
 //   iisph_apply_A           <- _apply_A with the relaxed-Jacobi update and
 //                              the per-centre error column in its epilogue
+//   iisph_step_pairs        <- the candidate phase of f3 and f4, run once
+//                              per step: the step-start pair list they read
+//                              (see below)
 // and the retired SlotEngine._kernel
-// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: each
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the first four: each
 // kernel is a template over its walk, CellRunWalk (the cell offsets) or
 // SlotWalk (the slot map of ops/slots.py), as in pairs.cu.
 //
 // Each epilogue is the unfused chain of the plain versions in
-// ops/cuda_iisph.py, in the same operation order.  Padding rows are not
-// launched; the wrappers restore them.  The Jacobi kernels (pressure_accel
-// without ADVECT, apply_A) take the loop's device flag `active` and return
-// at once when it is 0 (models/base.py jacobi_while).
+// ops/cuda_iisph.py, in the same operation order.  The Jacobi kernels
+// (pressure_accel without ADVECT, apply_A) take the loop's device flag
+// `active` and return at once when it is 0 (models/base.py jacobi_while).
 //
-// As dfsph.cu, bound by irregular candidate loads that mostly hit L1/L2;
-// the f32 work per real pair (25-50 operations) is far below the card's
-// rate.  Everything stays in registers.
+// The positions do not move from the sort to the advect epilogue, so f3
+// (both variants) and f4 walk the same pairs in every launch of a step.
+// Over the cell runs they read the step-start pair list
+// (pair_common.cuh build_pair_list, for_each_listed_pair): iisph_step_pairs
+// runs the candidate phase of the two-phase walk once per step, before the
+// Jacobi loop, and writes every real centre's accepted j (solids too: A
+// reads their accelerations), in the walk's order, to a fixed-stride list
+// in device memory; f3 and f4 run only the pair body over it, with the
+// same d and raw sum of squares as the cell walk, so every output stays
+// bitwise that of the plain version.  A warp holding a centre with more
+// accepted pairs than the list holds walks the cells in one phase.  f3 and
+// f4 have a thread for every row, padding rows included, and write the
+// padding rows themselves (the acceleration, p' and the error 0; the
+// advect's v' and x' from v and x, as restore_tail gives them).  Over the
+// slot walk they walk in one phase.  f1 and f2 walk the cell runs in one
+// phase and leave the padding rows to their wrappers.
+//
+// As dfsph.cu, the one-phase walks are bound by irregular candidate loads
+// that mostly hit L1/L2, the list walks by their gathers; the f32 work per
+// real pair (25-50 operations) is far below the card's rate.  Everything
+// stays in registers.
 
 #include "pair_common.cuh"
 
@@ -120,27 +140,37 @@ __global__ void iisph_predict_advection_kernel(
   last_p_out[i] = 0.5f * pressure[i];
 }
 
+// The step-start pair list of every real centre (cnt 0 on padding rows).
+__global__ void iisph_step_pairs_kernel(
+    const float* __restrict__ x, const int* __restrict__ material,
+    CellRunWalk walk, int* __restrict__ idx, int* __restrict__ cnt,
+    int n_rows, PairConsts c) {
+  step_pairs_row<ListCentres::kReal>(x, material, walk, c, idx, cnt, n_rows);
+}
+
 template <bool ADVECT, typename Walk>
 __global__ void iisph_pressure_accel_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ density,
-    const float* __restrict__ pr, Walk walk,
+    const float* __restrict__ pr, Walk walk, PairList pl,
     const float* __restrict__ v, const float* __restrict__ dt_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ out0,
-    float* __restrict__ out1, PairConsts c) {
+    float* __restrict__ out1, int n_rows, PairConsts c) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  float s[3] = {0.0f, 0.0f, 0.0f};
   // in the loop every real centre's acceleration is kept, solids' too:
   // _apply_A reads it in (a_i - a_j) . r_ij (iisph.py:340)
-  sym_pressure_sum(i, x, material, m_V, density, pr, walk, c, s);
+  const bool real = i < c.n_real;
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  sym_pressure_sum<false>(real, i, x, x, material, m_V, density, pr, walk,
+                          pl, c, s);
+  if (i >= n_rows) return;
   if (!ADVECT) {
     for (int k = 0; k < 3; ++k) out0[3 * i + k] = s[k];
     return;
   }
   // advect epilogue (IISPH.py:251-257): v holds v*; fluid rows only
-  const bool fluid = material[i] == 1;
+  const bool fluid = real && material[i] == 1;
   const float dt = *dt_ptr;
   for (int k = 0; k < 3; ++k) {
     const float vk = fluid ? v[3 * i + k] + dt * s[k] : v[3 * i + k];
@@ -155,26 +185,33 @@ __global__ void iisph_apply_A_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ accel,
     const float* __restrict__ a_ii, const float* __restrict__ source,
-    const float* __restrict__ last_p, Walk walk,
+    const float* __restrict__ last_p, Walk walk, PairList pl,
     const float* __restrict__ dt_ptr, const unsigned char* __restrict__ active,
     float omega, float* __restrict__ new_p_out, float* __restrict__ err_out,
-    PairConsts c) {
+    int n_rows, PairConsts c) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const float ai[3] = {accel[3 * i], accel[3 * i + 1], accel[3 * i + 2]};
+  const bool real = i < c.n_real;
+  float ai0 = 0.0f, ai1 = 0.0f, ai2 = 0.0f;
+  if (real) ai0 = accel[3 * i], ai1 = accel[3 * i + 1], ai2 = accel[3 * i + 2];
   float sum = 0.0f;
-  for_each_neighbor_walk(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
+  for_each_step_pair<false>(
+      real, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         if (material[j] < 0) return;
         const PairGeom p = pair_geom(sq);
         const float gradw = cubic_grad(p.rn, p.inv, c);
-        const float a_xy = (ai[0] - accel[3 * j]) * d0 +
-                           (ai[1] - accel[3 * j + 1]) * d1 +
-                           (ai[2] - accel[3 * j + 2]) * d2;
+        const float a_xy = (ai0 - accel[3 * j]) * d0 +
+                           (ai1 - accel[3 * j + 1]) * d1 +
+                           (ai2 - accel[3 * j + 2]) * d2;
         sum += m_V[j] * gradw * a_xy;
       });
+  if (i >= n_rows) return;
+  if (!real) {
+    new_p_out[i] = 0.0f;
+    err_out[i] = 0.0f;
+    return;
+  }
   // relaxed Jacobi (IISPH.py:146-179): Ap = dt^2 rho0 sum; the error
   // column counts the rows whose pressure stays positive
   const float dt = *dt_ptr;
@@ -223,19 +260,41 @@ extern "C" int iisph_predict_advection_launch(
   return (int)cudaGetLastError();
 }
 
+extern "C" int iisph_pair_list_entries() { return kPairListEntries; }
+
+// The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` i32[n_rows].
+extern "C" int iisph_step_pairs_launch(const float* x, const int* material,
+                                       const int* starts, int* idx, int* cnt,
+                                       int n_rows, PairConsts c,
+                                       void* stream) {
+  return launch_step_pairs(iisph_step_pairs_kernel, x, material, starts, idx,
+                           cnt, n_rows, c, stream);
+}
+
+// f3 and f4 over the cell runs read the list (list_idx, list_cnt), the
+// step's iisph_step_pairs output for the same rows; a launch without it is
+// refused (cudaErrorInvalidValue, pair_common.cuh has_list).  Both launch
+// over n_rows rows, padding rows included.
+
 extern "C" int iisph_pressure_accel_launch(
     const float* x, const int* material, const float* m_V,
     const float* density, const float* pr, const int* starts,
-    const int* slot_map, int layers, const float* v, const float* dt,
+    const int* slot_map, int layers, const int* list_idx,
+    const int* list_cnt, const float* v, const float* dt,
     const unsigned char* active, float* out0, float* out1, int advect,
-    PairConsts c, void* stream) {
-  if (c.n_real > 0) {
+    int n_rows, PairConsts c, void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
       using Walk = decltype(walk);
       auto kernel = advect ? iisph_pressure_accel_kernel<true, Walk>
                            : iisph_pressure_accel_kernel<false, Walk>;
-      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
-          x, material, m_V, density, pr, walk, v, dt, active, out0, out1, c);
+      kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
+          x, material, m_V, density, pr, walk, pl, v, dt, active, out0, out1,
+          n_rows, c);
     });
   }
   return (int)cudaGetLastError();
@@ -245,14 +304,46 @@ extern "C" int iisph_apply_A_launch(
     const float* x, const int* material, const float* m_V,
     const float* accel, const float* a_ii, const float* source,
     const float* last_p, const int* starts, const int* slot_map, int layers,
-    const float* dt, const unsigned char* active, float omega,
-    float* new_p_out, float* err_out, PairConsts c, void* stream) {
-  if (c.n_real > 0) {
+    const int* list_idx, const int* list_cnt, const float* dt,
+    const unsigned char* active, float omega, float* new_p_out,
+    float* err_out, int n_rows, PairConsts c, void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
-      iisph_apply_A_kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
-          x, material, m_V, accel, a_ii, source, last_p, walk, dt, active,
-          omega, new_p_out, err_out, c);
+      iisph_apply_A_kernel<<<rows_grid(n_rows), kBlock, 0,
+                             (cudaStream_t)stream>>>(
+          x, material, m_V, accel, a_ii, source, last_p, walk, pl, dt, active,
+          omega, new_p_out, err_out, n_rows, c);
     });
   }
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, static shared memory per block and resident blocks
+// per SM of kernel ``which``: 0 pressure_accel (loop), 1 pressure_accel
+// with the advect, 2 apply_A (+ 3: over the slot walk), 6 step_pairs.
+extern "C" int iisph_occupancy(int which, int* regs, int* smem_bytes,
+                               int* blocks_per_sm) {
+  const void* kernels[7] = {
+      (const void*)iisph_pressure_accel_kernel<false, CellRunWalk>,
+      (const void*)iisph_pressure_accel_kernel<true, CellRunWalk>,
+      (const void*)iisph_apply_A_kernel<CellRunWalk>,
+      (const void*)iisph_pressure_accel_kernel<false, SlotWalk>,
+      (const void*)iisph_pressure_accel_kernel<true, SlotWalk>,
+      (const void*)iisph_apply_A_kernel<SlotWalk>,
+      (const void*)iisph_step_pairs_kernel};
+  if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
+  const void* kernel = kernels[which];
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        kBlock, 0);
+  }
+  *regs = attr.numRegs;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  return (int)err;
 }

@@ -3,8 +3,9 @@
 // its gradient, the neighbour walk (over cell runs or over the slot map,
 // and its form with the pair geometry at other positions), its two-phase
 // form (for_each_neighbor_compact), the step-start pair list
-// (build_pair_list, for_each_listed_pair), the viscosity and pressure pair
-// terms, and the symmetric pressure acceleration of the implicit solvers.
+// (build_pair_list, step_pairs_row, for_each_listed_pair,
+// for_each_step_pair), the viscosity and pressure pair terms, and the
+// symmetric pressure acceleration of the implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
@@ -345,13 +346,14 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 
 // ---------------------------------------------------------------------------
 // The step-start pair list.  A loop whose pair set stays that of the step
-// start (PCISPH's: inclusion at the step-start positions over the
+// start walks the same candidates and accepts the same pairs in every
+// iteration: PCISPH's (inclusion at the step-start positions over the
 // step-start cell offsets, each iteration evaluating its terms at new
-// positions) walks the same candidates and accepts the same pairs in every
-// iteration.  build_pair_list runs the candidate phase of the two-phase
-// walk once and writes each centre's accepted j, in the walk's order, to a
-// list in device memory; for_each_listed_pair then runs only the body phase
-// over it, in every iteration.
+// positions) and IISPH's (the positions stay the step start's from the
+// sort to the advect epilogue).  build_pair_list runs the candidate phase
+// of the two-phase walk once and writes each centre's accepted j, in the
+// walk's order, to a list in device memory; for_each_listed_pair then runs
+// only the body phase over it, in every iteration.
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -359,11 +361,15 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 // where the list holds the first kPairListEntries.  A warp holding such a
 // centre walks the cells instead (the same pairs in the same order): no
 // pair is dropped and no centre has a limit.
+//
+// The centres a list serves (ListCentres): PCISPH's loop walks the fluid
+// centres; IISPH's walks every real one, solids included, because its A
+// reads the solids' pressure accelerations.
 // ---------------------------------------------------------------------------
 
 // Accepted pairs the list holds per centre: a dragon_bath PCISPH state
-// accepts at most 32 (chip_smoke's walk profile); 64 leaves room for
-// compression and contact at 256 bytes per row.
+// accepts at most 32 per fluid centre (chip_smoke's walk profile); 64
+// leaves room for compression and contact at 256 bytes per row.
 constexpr int kPairListEntries = 64;
 
 struct PairList {
@@ -372,15 +378,18 @@ struct PairList {
   int stride;
 };
 
+enum class ListCentres { kFluid, kReal };
+
 // The candidate phase of compact_cell_runs for centre i (if ``walks``),
 // writing its accepted j to the list and its count to cnt[i] (0 where the
 // centre does not walk; rows i >= stride write nothing).  Every thread of a
 // block calls it: the walk steps warp-wide.
 __device__ __forceinline__ void build_pair_list(
-    bool walks, int i, float xi0, float xi1, float xi2,
-    const float* __restrict__ x, const CellRunWalk& walk,
+    bool walks, int i, const float* __restrict__ x, const CellRunWalk& walk,
     const PairConsts& c, int* __restrict__ idx, int* __restrict__ cnt,
     int stride) {
+  float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f;
+  if (walks) xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
   int n = 0;
   cell_run_candidates(
       walks, i, xi0, xi1, xi2, x, walk, c, []() {}, [&](int j) {
@@ -388,6 +397,22 @@ __device__ __forceinline__ void build_pair_list(
         ++n;
       });
   if (i < stride) cnt[i] = n;
+}
+
+// The row of a list-building kernel (one thread per row, padding rows
+// included): the step-start list of the centres CENTRES, cnt 0 on other
+// rows.
+template <ListCentres CENTRES>
+__device__ __forceinline__ void step_pairs_row(
+    const float* __restrict__ x, const int* __restrict__ material,
+    const CellRunWalk& walk, const PairConsts& c, int* __restrict__ idx,
+    int* __restrict__ cnt, int n_rows) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool walks = i < c.n_real;
+  if constexpr (CENTRES == ListCentres::kFluid) {
+    walks = walks && material[i] == 1;
+  }
+  build_pair_list(walks, i, x, walk, c, idx, cnt, n_rows);
 }
 
 // List entries a lane loads before their pairs' bodies: their neighbours'
@@ -425,6 +450,38 @@ __device__ __forceinline__ void for_each_listed_pair(
       const float d1 = gi1 - xg[3 * j[u] + 1];
       const float d2 = gi2 - xg[3 * j[u] + 2];
       f(j[u], d0, d1, d2, d0 * d0 + d1 * d1 + d2 * d2);
+    }
+  }
+}
+
+// The list walk of for_each_step_pair (tools/pcisph_walk_control.cu
+// defines it to its controls before including this header).
+#ifndef PAIR_LIST_WALK
+#define PAIR_LIST_WALK for_each_listed_pair
+#endif
+
+// The walk of a loop over the step start's pair set: the pairs of the
+// positions x with the geometry at xg (for_each_neighbor_pinned; IISPH
+// passes xg = x, and then d and the raw sum of squares are those of
+// for_each_neighbor_walk), read from the step-start list ``pl`` over the
+// cell runs, walked in one phase over the slot walk (pinned where PINNED,
+// else for_each_neighbor_walk itself).  Every thread of a block calls it,
+// with ``walks`` false where the thread has no centre.
+template <bool PINNED, typename Walk, typename F>
+__device__ __forceinline__ void for_each_step_pair(
+    bool walks, int i, const float* __restrict__ x,
+    const float* __restrict__ xg, const Walk& walk, const PairList& pl,
+    const PairConsts& c, F&& f) {
+  if constexpr (kCompactWalk<Walk>) {
+    float gi0 = 0.0f, gi1 = 0.0f, gi2 = 0.0f;
+    if (walks) gi0 = xg[3 * i], gi1 = xg[3 * i + 1], gi2 = xg[3 * i + 2];
+    PAIR_LIST_WALK(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
+  } else if (walks) {
+    if constexpr (PINNED) {
+      for_each_neighbor_pinned(i, x, xg, walk, c, f);
+    } else {
+      for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x,
+                             walk, c, f);
     }
   }
 }
@@ -468,21 +525,26 @@ __device__ __forceinline__ void sym_pressure_pair(
   s[2] += a * d2;
 }
 
-// Symmetric pressure acceleration of centre i from the pressure field pr
-// (IISPH's _pressure_accel, one term) over the pairs of ``walk``: adds into
-// s[0..2].
-template <typename Walk>
+// Symmetric pressure acceleration of centre i (if ``walks``) from the
+// pressure field pr (IISPH's and PCISPH's _pressure_accel, one term) over
+// the pairs of for_each_step_pair: adds into s[0..2].  Every thread of a
+// block calls it.
+template <bool PINNED, typename Walk>
 __device__ __forceinline__ void sym_pressure_sum(
-    int i, const float* __restrict__ x, const int* __restrict__ material,
+    bool walks, int i, const float* __restrict__ x,
+    const float* __restrict__ xg, const int* __restrict__ material,
     const float* __restrict__ m_V, const float* __restrict__ density,
-    const float* __restrict__ pr, const Walk& walk, const PairConsts& c,
-    float s[3]) {
-  const float pr_i = pr[i];
-  const float rho_i = density[i];
-  const float dpi = pr_i / (rho_i * rho_i);
-  const float mirror = pr_i / c.rho0sq;
-  for_each_neighbor_walk(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
+    const float* __restrict__ pr, const Walk& walk, const PairList& pl,
+    const PairConsts& c, float s[3]) {
+  float dpi = 0.0f, mirror = 0.0f;
+  if (walks) {
+    const float pr_i = pr[i];
+    const float rho_i = density[i];
+    dpi = pr_i / (rho_i * rho_i);
+    mirror = pr_i / c.rho0sq;
+  }
+  for_each_step_pair<PINNED>(
+      walks, i, x, xg, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         sym_pressure_pair(j, d0, d1, d2, sq, dpi, mirror, material, m_V,
                           density, pr, c, s);
@@ -492,6 +554,33 @@ __device__ __forceinline__ void sym_pressure_sum(
 
 __host__ inline int grid_for(const PairConsts& c) {
   return (c.n_real + kBlock - 1) / kBlock;
+}
+
+// Grid of a kernel over ``n_rows`` rows, padding rows included.
+__host__ inline int rows_grid(int n_rows) {
+  return (n_rows + kBlock - 1) / kBlock;
+}
+
+// Launches a list-building kernel (step_pairs_row) over ``n_rows`` rows
+// into the list ``idx`` (i32[kPairListEntries, n_rows]) and ``cnt``
+// (i32[n_rows]).
+template <typename K>
+__host__ inline int launch_step_pairs(K kernel, const float* x,
+                                      const int* material, const int* starts,
+                                      int* idx, int* cnt, int n_rows,
+                                      PairConsts c, void* stream) {
+  if (n_rows > 0) {
+    kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
+        x, material, CellRunWalk{starts}, idx, cnt, n_rows, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Whether a loop launch's walk has what it reads: the step-start list
+// (list_idx, list_cnt) over the cell runs; the slot walk reads its map.
+__host__ inline bool has_list(const int* slot_map, const int* list_idx,
+                              const int* list_cnt) {
+  return slot_map != nullptr || (list_idx != nullptr && list_cnt != nullptr);
 }
 
 // The walk a launcher's arguments select: every launcher takes the cell

@@ -67,33 +67,13 @@
 
 #include "pair_common.cuh"
 
-// The loop's walk: the pairs of the step-start positions x with the
-// geometry at the predicted positions xg, by the list (cell runs) or in one
-// phase (slot walk).  Every thread of a block calls it.
-template <typename Walk, typename F>
-__device__ __forceinline__ void pcisph_pairs(
-    bool walks, int i, const float* __restrict__ x,
-    const float* __restrict__ xg, const Walk& walk, const PairList& pl,
-    const PairConsts& c, F&& f) {
-  if constexpr (kCompactWalk<Walk>) {
-    float gi0 = 0.0f, gi1 = 0.0f, gi2 = 0.0f;
-    if (walks) gi0 = xg[3 * i], gi1 = xg[3 * i + 1], gi2 = xg[3 * i + 2];
-    for_each_listed_pair(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
-  } else if (walks) {
-    for_each_neighbor_pinned(i, x, xg, walk, c, f);
-  }
-}
-
 // The step-start pair list of the fluid centres (cnt 0 on other rows).
 __global__ void pcisph_step_pairs_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
     CellRunWalk walk, int* __restrict__ idx, int* __restrict__ cnt,
     int n_rows, PairConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool fluid = i < c.n_real && material[i] == 1;
-  float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f;
-  if (fluid) xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
-  build_pair_list(fluid, i, xi0, xi1, xi2, x, walk, c, idx, cnt, n_rows);
+  step_pairs_row<ListCentres::kFluid>(x, material, walk, c, idx, cnt,
+                                      n_rows);
 }
 
 template <typename Walk>
@@ -111,16 +91,19 @@ __global__ void pcisph_d_rho_correct_kernel(
   float vi0 = 0.0f, vi1 = 0.0f, vi2 = 0.0f;
   if (fluid) vi0 = vp[3 * i], vi1 = vp[3 * i + 1], vi2 = vp[3 * i + 2];
   float div = 0.0f;
-  pcisph_pairs(fluid, i, x, xp, walk, pl, c,
-               [&](int j, float d0, float d1, float d2, float s) {
-                 if (material[j] < 0) return;
-                 const PairGeom p = pair_geom(s);
-                 const float gradw = cubic_grad(p.rn, p.inv, c);
-                 const float v_xy = (vi0 - vp[3 * j]) * d0 +
-                                    (vi1 - vp[3 * j + 1]) * d1 +
-                                    (vi2 - vp[3 * j + 2]) * d2;
-                 div += m_V[j] * gradw * v_xy;
-               });
+  // the loop's walk: the pairs of the step-start positions x with the
+  // geometry at the predicted positions xp
+  for_each_step_pair<true>(
+      fluid, i, x, xp, walk, pl, c,
+      [&](int j, float d0, float d1, float d2, float s) {
+        if (material[j] < 0) return;
+        const PairGeom p = pair_geom(s);
+        const float gradw = cubic_grad(p.rn, p.inv, c);
+        const float v_xy = (vi0 - vp[3 * j]) * d0 +
+                           (vi1 - vp[3 * j + 1]) * d1 +
+                           (vi2 - vp[3 * j + 2]) * d2;
+        div += m_V[j] * gradw * v_xy;
+      });
   if (i >= n_rows) return;
   if (!fluid) {
     pr_out[i] = 0.0f;
@@ -148,19 +131,9 @@ __global__ void pcisph_pressure_accel_predict_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   // only the fluid rows' acceleration is read (pcisph.py:158-168, :245)
   const bool fluid = i < c.n_real && material[i] == 1;
-  float dpi = 0.0f, mirror = 0.0f;
-  if (fluid) {
-    const float pr_i = pr[i];
-    const float rho_i = density[i];
-    dpi = pr_i / (rho_i * rho_i);
-    mirror = pr_i / c.rho0sq;
-  }
   float s[3] = {0.0f, 0.0f, 0.0f};
-  pcisph_pairs(fluid, i, x, xp, walk, pl, c,
-               [&](int j, float d0, float d1, float d2, float sq) {
-                 sym_pressure_pair(j, d0, d1, d2, sq, dpi, mirror, material,
-                                   m_V, density, pr, c, s);
-               });
+  sym_pressure_sum<true>(fluid, i, x, xp, material, m_V, density, pr, walk,
+                         pl, c, s);
   if (i >= n_rows) return;
   const float dt = *dt_ptr;
   for (int k = 0; k < 3; ++k) {
@@ -172,9 +145,6 @@ __global__ void pcisph_pressure_accel_predict_kernel(
   }
 }
 
-// Grid of a kernel over ``n_rows`` rows, padding rows included.
-static int rows_grid(int n_rows) { return (n_rows + kBlock - 1) / kBlock; }
-
 extern "C" int pcisph_pair_list_entries() { return kPairListEntries; }
 
 // The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` i32[n_rows].
@@ -182,25 +152,15 @@ extern "C" int pcisph_step_pairs_launch(const float* x, const int* material,
                                         const int* starts, int* idx,
                                         int* cnt, int n_rows, PairConsts c,
                                         void* stream) {
-  if (n_rows > 0) {
-    pcisph_step_pairs_kernel<<<rows_grid(n_rows), kBlock, 0,
-                               (cudaStream_t)stream>>>(
-        x, material, CellRunWalk{starts}, idx, cnt, n_rows, c);
-  }
-  return (int)cudaGetLastError();
+  return launch_step_pairs(pcisph_step_pairs_kernel, x, material, starts,
+                           idx, cnt, n_rows, c, stream);
 }
 
 // Each loop launcher's walk arguments (starts, slot_map, layers) select the
 // instantiation (pair_common.cuh with_walk); over the cell runs, the list
 // (list_idx, list_cnt) is the step's pcisph_step_pairs output for the same
-// rows, and a launch without it is refused (cudaErrorInvalidValue).
-
-// Whether a loop launch's walk has what it reads: the list, over the cell
-// runs.
-static bool has_list(const int* slot_map, const int* list_idx,
-                     const int* list_cnt) {
-  return slot_map != nullptr || (list_idx != nullptr && list_cnt != nullptr);
-}
+// rows, and a launch without it is refused (cudaErrorInvalidValue,
+// pair_common.cuh has_list).
 
 extern "C" int pcisph_d_rho_correct_launch(
     const float* x, const float* xp, const float* vp, const int* material,

@@ -11,6 +11,11 @@ pressure acceleration and advection (fluid rows: v += dt a_p, x += dt v).
 On the CUDA engine each pair sum is a kernel of ``ops/cuda_iisph.py`` with
 its epilogue; on the plain engine its plain version, which applies the same
 epilogue in torch (the JAX package's unfused path on its gather engine).
+The positions stay those of the sort until the advect, so on the CUDA
+engine the pressure solve first builds the step-start pair list of every
+real centre (one kernel, over the cell runs; the slot walk reads its map),
+and the loop's pressure acceleration and A, and the final pressure
+acceleration with the advect, read it.
 
 The pressure solve is ``jacobi_while`` (models/base.py): the test
 ``it == 0 | (err >= tol & it < 1000)`` is evaluated on the device and read
@@ -38,11 +43,15 @@ class IISPHSolver(SPHBase):
         self.tolerance = 1e-3     # IISPH.py:110
         self.check_every = JACOBI_CHECK_EVERY
         super().__init__(params, device=device, engine=engine)
+        # the step-start pair list's device buffers (cuda_iisph.step_pairs),
+        # allocated at the first step and reused
+        self._pair_buffers = {}
 
     def _op(self, name):
         """The kernel wrapper on the CUDA engine, else its plain version;
-        both take the engine's context (cell offsets or neighbour lists)
-        first."""
+        both take the engine's context (cell offsets or neighbour lists;
+        for the pressure acceleration and A, the step's context from
+        ``pressure_solve``) first."""
         return getattr(cuda_iisph,
                        name if self.engine.fused else f"{name}_plain")
 
@@ -82,9 +91,15 @@ class IISPHSolver(SPHBase):
     def pressure_solve(self, p: Particles, ctx, a_ii, source, last_pressure,
                        dt):
         """Relaxed Jacobi to avg |Ap - s| / rho0 < 1e-3, at most 1000
-        iterations (IISPH.py:102-179), as a device-tested loop."""
+        iterations (IISPH.py:102-179), as a device-tested loop.  Returns
+        (pressure, the step's context, metrics): on the CUDA engine the
+        context is the step-start pair list, built here, which the loop and
+        the final advect read."""
         n_real = self.params.n_fluid + self.params.n_solid
         n_particles = float(self.params.n_particles)
+        if self.engine.fused:
+            ctx = cuda_iisph.step_pairs(ctx, p, self.params,
+                                        self._pair_buffers)
 
         def body(carry, active):
             last_p, _, it = carry
@@ -104,8 +119,9 @@ class IISPHSolver(SPHBase):
                 torch.zeros((), dtype=torch.int32, device=self.device))
         (pressure, err, iters), reads = jacobi_while(cond, body, init,
                                                      self.check_every)
-        return pressure, {"pressure_iters": iters, "pressure_error": err,
-                          "pressure_host_reads": reads}
+        return pressure, ctx, {"pressure_iters": iters,
+                               "pressure_error": err,
+                               "pressure_host_reads": reads}
 
     # ------------------------------------------------------------------
     def advect(self, p: Particles, pressure_accel, dt):
@@ -118,8 +134,8 @@ class IISPHSolver(SPHBase):
         p = compute_densities(p, ctx, self.engine, self.params)
         p = self.compute_non_pressure(p, ctx, dt)
         a_ii, source, last_p = self.predict_advection(p, ctx, dt)
-        pressure, metrics = self.pressure_solve(p, ctx, a_ii, source, last_p,
-                                                dt)
+        pressure, ctx, metrics = self.pressure_solve(p, ctx, a_ii, source,
+                                                     last_p, dt)
         p = p._replace(pressure=pressure)
         # the final acceleration with the advect in its epilogue
         return self._pressure_accel(p, ctx, pressure, advect_dt=dt), metrics

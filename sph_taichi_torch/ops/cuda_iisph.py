@@ -34,15 +34,29 @@ Jacobi loop and take an optional ``active`` flag, a 0-d bool tensor on the
 device: when it is false the kernel returns at once and its outputs are
 undefined (the loop discards them).  The plain versions ignore it.
 
-Padding rows are not launched: the wrappers restore them as the JAX
-package's ``restore_tail`` does (outputs that carry a field through keep
-its value, the others are 0).
+The positions stay the step start's from the sort to the advect, so over
+the cell runs ``pressure_accel`` (both variants) and ``apply_A`` read the
+step-start pair list of every real centre, solids included
+(ops/pair_list.py, shared with PCISPH's loop): ``step_pairs``
+(``csrc/iisph.cu`` ``iisph_step_pairs``) builds it once per step, before
+the Jacobi loop, and given it (a ``PairList``, the step's context) f3 and
+f4 run only the pair body over it.  Over the cell runs these wrappers take
+only the list, not bare cell offsets; on CPU tensors the step's context is
+the plain engine's neighbour lists, which the plain versions read.  The
+slot walk reads its map and no list.
+
+Padding rows: f3 and f4 write them in the kernel, as the JAX package's
+``restore_tail`` gives them (outputs that carry a field through keep its
+value, the others are 0), so each of their wrapper calls launches exactly
+one kernel; ``nonpressure_kick`` and ``predict_advection`` launch the real
+rows and restore the padding rows in the wrapper.
 """
 
 import ctypes
 
 import torch
 
+from sph_taichi_torch.ops import pair_list
 from sph_taichi_torch.ops.cuda_pairs import (
     WALK, _PTR, _active_ptr, _check, _plain_ctx, _raise_on, _stream, _walk,
     pair_consts, PairConsts)
@@ -53,6 +67,7 @@ from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
 LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
     "iisph_nonpressure_kick", "iisph_predict_advection",
     "iisph_pressure_accel", "iisph_pressure_accel_advect", "iisph_apply_A")}
+LAUNCHES["iisph_step_pairs"] = 0
 
 
 def reset_launch_counts():
@@ -206,6 +221,12 @@ def apply_A_plain(nl, p, accel, a_ii, source, last_p, dt, omega, params,
     return new_p, err
 
 
+def step_pairs_plain(nl, p, params):
+    """Plain version of ``step_pairs``: (idx, cnt) of ``PairList`` for every
+    real centre (``pair_list.step_pairs_plain``)."""
+    return pair_list.step_pairs_plain(nl, p, "real")
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -214,23 +235,54 @@ def _lib():
     from sph_taichi_torch.ops import _build
     lib = _build.load("iisph")
     if not getattr(lib, "_typed", False):
+        i32 = ctypes.c_int
         lib.iisph_nonpressure_kick_launch.argtypes = (
             [_PTR] * 5 + WALK + [_PTR] * 3 + [PairConsts, _PTR])
         lib.iisph_predict_advection_launch.argtypes = (
             [_PTR] * 6 + WALK + [_PTR] * 4 + [PairConsts, _PTR])
         lib.iisph_pressure_accel_launch.argtypes = (
-            [_PTR] * 5 + WALK + [_PTR] * 5 + [ctypes.c_int, PairConsts,
-                                              _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 7 + [i32, i32, PairConsts, _PTR])
         lib.iisph_apply_A_launch.argtypes = (
-            [_PTR] * 7 + WALK + [_PTR] * 2 + [ctypes.c_float] + [_PTR] * 2
-            + [PairConsts, _PTR])
+            [_PTR] * 7 + WALK + [_PTR] * 4 + [ctypes.c_float] + [_PTR] * 2
+            + [i32, PairConsts, _PTR])
+        lib.iisph_step_pairs_launch.argtypes = (
+            [_PTR] * 5 + [i32, PairConsts, _PTR])
+        lib.iisph_occupancy.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
         for fn in (lib.iisph_nonpressure_kick_launch,
                    lib.iisph_predict_advection_launch,
                    lib.iisph_pressure_accel_launch,
-                   lib.iisph_apply_A_launch):
-            fn.restype = ctypes.c_int
+                   lib.iisph_apply_A_launch, lib.iisph_step_pairs_launch,
+                   lib.iisph_occupancy, lib.iisph_pair_list_entries):
+            fn.restype = i32
+        pair_list.check_entries(lib.iisph_pair_list_entries(), "IISPH")
         lib._typed = True
     return lib
+
+
+def step_pairs(ctx, p, params, buffers=None):
+    """The step's context of f3 and f4 for the sorted particles ``p``
+    (``pair_list.step_pairs``): over their cell offsets, the list of every
+    real centre built by one launch of ``iisph_step_pairs`` into
+    ``buffers``; a ``SlotMap`` as it is; on CPU tensors the plain engine's
+    neighbour lists."""
+    return pair_list.step_pairs(lambda: _lib().iisph_step_pairs_launch,
+                                "iisph_step_pairs", LAUNCHES, ctx, p, params,
+                                buffers)
+
+
+def occupancy(kernel, slots=False):
+    """(registers per thread, static shared memory bytes per block,
+    resident blocks of 128 threads per SM) of ``kernel``
+    ("iisph_pressure_accel", "iisph_pressure_accel_advect",
+    "iisph_apply_A" (over the slot walk with ``slots``) or
+    "iisph_step_pairs") on the current CUDA device."""
+    which = {"iisph_pressure_accel": 0, "iisph_pressure_accel_advect": 1,
+             "iisph_apply_A": 2, "iisph_step_pairs": 6}[kernel] + (
+                 3 if slots else 0)
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _lib().iisph_occupancy(which, *[ctypes.byref(o) for o in out])
+    _raise_on(rc, f"iisph_occupancy({kernel})")
+    return tuple(o.value for o in out)
 
 
 def nonpressure_kick(ctx, p, dt, params):
@@ -286,12 +338,16 @@ def predict_advection(ctx, p, dt, params):
 def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
     """Kernel wrapper for ``pressure_accel_plain``: the (N, 3) acceleration
     (``iisph_pressure_accel<false>``, in the Jacobi loop), or with
-    ``advect_dt`` the advected (v, x) (``<true>``, after it).  ``ctx`` as
-    for ``nonpressure_kick``."""
+    ``advect_dt`` the advected (v, x) (``<true>``, after it).  ``ctx``: the
+    step's context from ``step_pairs`` for the sorted particles ``p`` (a
+    ``PairList``; on CPU tensors, neighbour lists), or their ``SlotMap``
+    for the slot walk."""
     if p.x.device.type == "cpu":
-        return pressure_accel_plain(_plain_ctx(ctx, p, params), p,
-                                    pressure, params, advect_dt)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+        return pressure_accel_plain(
+            pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, pressure,
+            params, advect_dt)
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
+                                                         "IISPH")
     f32 = torch.float32
     adv = advect_dt is not None
     if adv and active is not None:
@@ -302,33 +358,29 @@ def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
     rc = _lib().iisph_pressure_accel_launch(
         ptr["x"], ptr["material"], ptr["m_V"],
         _check("density", p.density, f32, (n,), dev),
-        _check("pressure", pressure, f32, (n,), dev), *walk,
+        _check("pressure", pressure, f32, (n,), dev), *walk, *lst,
         _check("v", p.v, f32, (n, 3), dev) if adv else None,
         _check("dt", advect_dt, f32, (), dev) if adv else None,
         _active_ptr(active, dev), out0.data_ptr(),
-        out1.data_ptr() if adv else None, int(adv), pair_consts(params),
+        out1.data_ptr() if adv else None, int(adv), n, pair_consts(params),
         _stream(dev))
     name = ("iisph_pressure_accel_advect" if adv
             else "iisph_pressure_accel") + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    n_real = _n_real(params)
-    if not adv:
-        out0[n_real:] = 0.0
-        return out0
-    out0[n_real:] = p.v[n_real:]
-    out1[n_real:] = p.x[n_real:]
-    return out0, out1
+    return (out0, out1) if adv else out0
 
 
 def apply_A(ctx, p, accel, a_ii, source, last_p, dt, omega, params,
             active=None):
     """Kernel wrapper for ``apply_A_plain``: (new_p, err).  ``ctx`` as for
-    ``nonpressure_kick``."""
+    ``pressure_accel``."""
     if p.x.device.type == "cpu":
-        return apply_A_plain(_plain_ctx(ctx, p, params), p, accel, a_ii,
-                             source, last_p, dt, omega, params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+        return apply_A_plain(
+            pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, accel,
+            a_ii, source, last_p, dt, omega, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
+                                                         "IISPH")
     f32 = torch.float32
     new_p = torch.empty_like(p.m_V)
     err = torch.empty_like(p.m_V)
@@ -337,14 +389,11 @@ def apply_A(ctx, p, accel, a_ii, source, last_p, dt, omega, params,
         _check("accel", accel, f32, (n, 3), dev),
         _check("a_ii", a_ii, f32, (n,), dev),
         _check("source", source, f32, (n,), dev),
-        _check("last_p", last_p, f32, (n,), dev), *walk,
+        _check("last_p", last_p, f32, (n,), dev), *walk, *lst,
         _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
-        float(omega), new_p.data_ptr(), err.data_ptr(), pair_consts(params),
-        _stream(dev))
+        float(omega), new_p.data_ptr(), err.data_ptr(), n,
+        pair_consts(params), _stream(dev))
     name = "iisph_apply_A" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    n_real = _n_real(params)
-    new_p[n_real:] = 0.0
-    err[n_real:] = 0.0
     return new_p, err

@@ -38,18 +38,15 @@ CUDA tensor it launches the kernel or raises.  Each launch adds one to
 kernel returns at once and its outputs are undefined (the loop discards
 them).  The plain versions ignore it.
 
-Over the cell runs the loop reads the step-start pair list: ``step_pairs``
-(``csrc/pcisph.cu`` ``pcisph_step_pairs``) runs the candidate phase of the
-two-phase walk once per step and writes each fluid centre's accepted
-neighbours, in the walk's order, to a fixed-stride list in device memory
-(``PairList``, the loop's context); given it, g1 and g2 run only the pair
-body over it.  A warp holding a centre with more than
-``PAIR_LIST_ENTRIES`` accepted pairs walks the cells in one phase inside
-the kernel (the same pairs, in the same order).  Over the cell runs the
-wrappers take only the list, not bare cell offsets.  ``step_pairs_plain``
-is the list from the plain engine's neighbour lists; on CPU tensors the
-loop's context is those lists themselves, which the plain versions read.
-The slot walk keeps its one-phase kernels and no list.
+Over the cell runs the loop reads the step-start pair list of the fluid
+centres (ops/pair_list.py, shared with IISPH's loop): ``step_pairs``
+(``csrc/pcisph.cu`` ``pcisph_step_pairs``) builds it once per step, and
+given it (a ``PairList``, the loop's context) g1 and g2 run only the pair
+body over it.  Over the cell runs the wrappers take only the list, not
+bare cell offsets.  ``step_pairs_plain`` is the list from the plain
+engine's neighbour lists; on CPU tensors the loop's context is those lists
+themselves, which the plain versions read.  The slot walk keeps its
+one-phase kernels and no list.
 
 The kernels write the padding rows themselves, as the JAX package's
 ``restore_tail`` gives them (p' and rho_err 0, v*' and x*' from v and x),
@@ -57,37 +54,22 @@ so each wrapper call launches exactly one kernel.
 """
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
-from sph_taichi_torch.ops import cuda_iisph
+from sph_taichi_torch.ops import cuda_iisph, pair_list
 from sph_taichi_torch.ops.cuda_pairs import (
-    WALK, _PTR, _active_ptr, _check, _plain_ctx, _raise_on, _stream, _walk,
-    pair_consts, PairConsts)
+    WALK, _PTR, _active_ptr, _check, _raise_on, _stream, pair_consts,
+    PairConsts)
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
-from sph_taichi_torch.ops.neighbors import NeighborList
+# the list's size and type, for callers of step_pairs
+from sph_taichi_torch.ops.pair_list import (  # noqa: F401
+    PAIR_LIST_ENTRIES, PairList)
 from sph_taichi_torch.ops.pairs import GatherEngine
-from sph_taichi_torch.ops.slots import SlotMap
 
 LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
     "pcisph_d_rho_correct", "pcisph_pressure_accel_predict")}
 LAUNCHES["pcisph_step_pairs"] = 0
-# mirror of csrc/pair_common.cuh kPairListEntries (checked when the library
-# loads): the accepted pairs the step-start list holds per centre
-PAIR_LIST_ENTRIES = 64
-
-
-class PairList(NamedTuple):
-    """The PCISPH loop's context over the cell runs: the step-start cell
-    offsets and pair list.  Entry k of row i's list at ``idx[k, i]``
-    (i32[PAIR_LIST_ENTRIES, n_pad]), valid for k < min(cnt[i],
-    PAIR_LIST_ENTRIES); ``cnt`` (i32[n_pad]) is each fluid centre's number
-    of accepted step-start pairs, also beyond the list, and 0 on other
-    rows."""
-    starts: torch.Tensor
-    idx: torch.Tensor
-    cnt: torch.Tensor
 
 
 def reset_launch_counts():
@@ -144,23 +126,9 @@ def pressure_accel_predict_plain(nl, p, xp, pressure, dt, params,
 
 
 def step_pairs_plain(nl, p, params):
-    """Plain version of ``step_pairs``: (idx, cnt) of ``PairList`` from the
-    plain engine's neighbour lists ``nl`` of the step-start particles
-    ``p``, which hold each centre's neighbours in the kernels' walk order.
-    Entries past a row's listed pairs are -1.  Raises if ``nl`` holds fewer
-    columns than a row's listed pairs."""
-    k_list = PAIR_LIST_ENTRIES
-    cnt = torch.where(p.is_fluid(), nl.cnt, 0).to(torch.int32)
-    listed = torch.clamp_max(cnt, k_list)
-    cols = min(k_list, nl.idx.shape[1])
-    if int(listed.max()) > cols:
-        raise ValueError(f"the neighbour lists hold {cols} columns, a "
-                         f"centre lists {int(listed.max())} pairs")
-    idx = torch.full((k_list, p.n), -1, dtype=torch.int32,
-                     device=p.x.device)
-    idx[:cols] = nl.idx[:, :cols].T.to(torch.int32)
-    k = torch.arange(k_list, device=p.x.device)[:, None]
-    return torch.where(k < listed[None, :], idx, -1), cnt
+    """Plain version of ``step_pairs``: (idx, cnt) of ``PairList`` for the
+    fluid centres (``pair_list.step_pairs_plain``)."""
+    return pair_list.step_pairs_plain(nl, p, "fluid")
 
 
 # ---------------------------------------------------------------------------
@@ -185,76 +153,20 @@ def _lib():
                    lib.pcisph_step_pairs_launch, lib.pcisph_occupancy,
                    lib.pcisph_pair_list_entries):
             fn.restype = i32
-        entries = lib.pcisph_pair_list_entries()
-        if entries != PAIR_LIST_ENTRIES:
-            raise RuntimeError(f"csrc/pair_common.cuh kPairListEntries is "
-                               f"{entries}, PAIR_LIST_ENTRIES "
-                               f"{PAIR_LIST_ENTRIES}")
+        pair_list.check_entries(lib.pcisph_pair_list_entries(), "PCISPH")
         lib._typed = True
     return lib
 
 
 def step_pairs(ctx, p, params, buffers=None):
-    """The loop's context for the sorted step-start particles ``p``: given
-    their cell offsets, a ``PairList`` built by one launch of
-    ``pcisph_step_pairs`` into ``buffers`` (a dict, filled with the list's
-    tensors at the first call and reused after; None: new tensors); given
-    a ``SlotMap``, the map itself (the slot walk reads no list).  On CPU
-    tensors, given cell offsets, the plain engine's neighbour lists of
-    ``p``: the step-start pairs that the plain versions read
-    (``step_pairs_plain`` gives them in the list's layout)."""
-    if isinstance(ctx, SlotMap):
-        return ctx
-    if p.x.device.type == "cpu":
-        return _plain_ctx(ctx, p, params)
-    dev, n, ptr, _, _ = _walk(ctx, p, params)
-    buffers = {} if buffers is None else buffers
-    if "idx" not in buffers:
-        buffers["idx"] = torch.empty((PAIR_LIST_ENTRIES, n),
-                                     dtype=torch.int32, device=dev)
-        buffers["cnt"] = torch.empty(n, dtype=torch.int32, device=dev)
-    pairs = PairList(ctx, buffers["idx"], buffers["cnt"])
-    rc = _lib().pcisph_step_pairs_launch(
-        ptr["x"], ptr["material"], ptr["starts"],
-        _check("pair list", pairs.idx, torch.int32, (PAIR_LIST_ENTRIES, n),
-               dev),
-        _check("pair counts", pairs.cnt, torch.int32, (n,), dev), n,
-        pair_consts(params), _stream(dev))
-    _raise_on(rc, "pcisph_step_pairs")
-    LAUNCHES["pcisph_step_pairs"] += 1
-    return pairs
-
-
-def _refuse(ctx, kind):
-    raise TypeError(f"PCISPH's loop kernels take the step's context from "
-                    f"step_pairs ({kind} or a SlotMap), not "
-                    f"{type(ctx).__name__}")
-
-
-def _loop_walk(ctx, p, params):
-    """``_walk`` of a loop kernel's context, and the launcher's list
-    arguments: the list of a ``PairList``, none for a ``SlotMap``; raises
-    for any other context."""
-    if isinstance(ctx, SlotMap):
-        return (*_walk(ctx, p, params), (None, None))
-    if not isinstance(ctx, PairList):
-        _refuse(ctx, "a PairList")
-    dev, n, ptr, walk, suffix = _walk(ctx.starts, p, params)
-    lst = (_check("pair list", ctx.idx, torch.int32, (PAIR_LIST_ENTRIES, n),
-                  dev),
-           _check("pair counts", ctx.cnt, torch.int32, (n,), dev))
-    return dev, n, ptr, walk, suffix, lst
-
-
-def _plain_loop_ctx(ctx, p, params):
-    """The plain versions' neighbour lists of a loop context on CPU
-    tensors: the lists ``step_pairs`` gave, or a ``SlotMap``'s slot lists;
-    raises for any other context."""
-    if isinstance(ctx, NeighborList):
-        return ctx
-    if not isinstance(ctx, SlotMap):
-        _refuse(ctx, "neighbour lists on CPU tensors")
-    return _plain_ctx(ctx, p, params)
+    """The loop's context for the sorted step-start particles ``p``
+    (``pair_list.step_pairs``): over their cell offsets, the list of the
+    fluid centres built by one launch of ``pcisph_step_pairs`` into
+    ``buffers``; a ``SlotMap`` as it is; on CPU tensors the plain engine's
+    neighbour lists."""
+    return pair_list.step_pairs(lambda: _lib().pcisph_step_pairs_launch,
+                                "pcisph_step_pairs", LAUNCHES, ctx, p,
+                                params, buffers)
 
 
 def occupancy(kernel, slots=False):
@@ -277,9 +189,11 @@ def d_rho_correct(ctx, p, xp, vp, pressure, dt, s_f, params, active=None):
     step-start particles ``p`` (a ``PairList``; on CPU tensors, neighbour
     lists), or their ``SlotMap`` for the slot walk."""
     if p.x.device.type == "cpu":
-        return d_rho_correct_plain(_plain_loop_ctx(ctx, p, params), p, xp,
-                                   vp, pressure, dt, s_f, params)
-    dev, n, ptr, walk, suffix, lst = _loop_walk(ctx, p, params)
+        return d_rho_correct_plain(
+            pair_list.plain_loop_ctx(ctx, p, params, "PCISPH"), p, xp, vp,
+            pressure, dt, s_f, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
+                                                         "PCISPH")
     f32 = torch.float32
     pr_out = torch.empty_like(p.m_V)
     err = torch.empty_like(p.m_V)
@@ -302,8 +216,10 @@ def pressure_accel_predict(ctx, p, xp, pressure, dt, params, active=None):
     ``ctx`` as for ``d_rho_correct``."""
     if p.x.device.type == "cpu":
         return pressure_accel_predict_plain(
-            _plain_loop_ctx(ctx, p, params), p, xp, pressure, dt, params)
-    dev, n, ptr, walk, suffix, lst = _loop_walk(ctx, p, params)
+            pair_list.plain_loop_ctx(ctx, p, params, "PCISPH"), p, xp,
+            pressure, dt, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
+                                                         "PCISPH")
     f32 = torch.float32
     v_out = torch.empty_like(p.v)
     x_out = torch.empty_like(p.x)

@@ -272,10 +272,12 @@ def test_pressure_accel_plain_matches_jax():
     v, x = cuda_iisph.pressure_accel_plain(tnl, p, last_p, tp, advect_dt=dt)
     _close(v, ref["adv_v"], tp, "v")
     _close(x, ref["adv_x"], tp, "x")
+    # the wrapper takes the step's context, as the solver gives it
+    ctx = cuda_iisph.step_pairs(starts, p, tp)
     _wrapper_equals_plain(cuda_iisph.pressure_accel,
-                          (starts, p, last_p, tp), accel)
+                          (ctx, p, last_p, tp), accel)
     _wrapper_equals_plain(cuda_iisph.pressure_accel,
-                          (starts, p, last_p, tp, dt), (v, x))
+                          (ctx, p, last_p, tp, dt), (v, x))
     # the solver's advect is the epilogue's unfused form
     fluid = p.is_fluid()[:, None]
     q = IISPHSolver(tp, device="cpu").advect(
@@ -302,8 +304,9 @@ def test_apply_A_plain_matches_jax():
     n_real = tp.n_fluid + tp.n_solid
     err = float(torch.sum(got[1][:n_real])) / tp.n_particles
     np.testing.assert_allclose(err, float(ref["err"]), rtol=RTOL, atol=ATOL)
+    ctx = cuda_iisph.step_pairs(starts, p, tp)
     _wrapper_equals_plain(cuda_iisph.apply_A,
-                          (starts, p, accel, a_ii, source, last_p, dt, 0.5,
+                          (ctx, p, accel, a_ii, source, last_p, dt, 0.5,
                            tp), got)
 
 
@@ -529,6 +532,8 @@ def test_cuda_iisph_needs_no_nvcc_to_import():
     names = {"iisph_nonpressure_kick", "iisph_predict_advection",
              "iisph_pressure_accel", "iisph_pressure_accel_advect",
              "iisph_apply_A"}
-    # each kernel's launches over cell runs and over the slot walk
+    # each kernel's launches over cell runs and over the slot walk, and
+    # the step-start list's, built over the cell runs only
     assert set(cuda_iisph.LAUNCHES) == names | {n + "[slots]"
-                                                for n in names}
+                                                for n in names} | {
+        "iisph_step_pairs"}

@@ -1,7 +1,9 @@
 // The PCISPH loop kernels of sph_taichi_torch/csrc/pcisph.cu with the
 // step-start list walk replaced by a control, for
 // tools/pcisph_walk_control.py: the kernels' source is included as it is,
-// with for_each_listed_pair renamed to control_listed_pair.
+// with the list walk of for_each_step_pair (PAIR_LIST_WALK,
+// pair_common.cuh) defined to control_listed_pair, which the kernels'
+// calls find by argument-dependent lookup when they are instantiated.
 // - NO_LIST: the list is not read; every warp walks the cells in two phases
 //   (the candidate phase of compact_cell_runs, the pair geometry at xg in
 //   the body phase): the loop without the step-start list;
@@ -17,6 +19,7 @@
 //        [-DNO_LIST | -DONE_PHASE] [-DLIST_UNROLL=n] [-DOVERFLOW_TWO_PHASE]
 //        tools/pcisph_walk_control.cu
 
+#define PAIR_LIST_WALK control_listed_pair
 #include "pair_common.cuh"
 
 #ifndef LIST_UNROLL
@@ -93,5 +96,4 @@ __device__ __forceinline__ void control_listed_pair(
 #endif
 }
 
-#define for_each_listed_pair control_listed_pair
 #include "pcisph.cu"

@@ -17,9 +17,13 @@ mean of 20 launches) in interleaved turns and the loop's kernels per step
 (the build and 3 x (g1 + g2) over the list, 3 x (g1 + g2) without it);
 then whole steps, with the list and without it (two-phase walk): device
 busy time per step (torch.profiler) and step time (CUDA events), in
-interleaved turns, from the same state, states equal bitwise.
+interleaved turns, from the same state, states equal bitwise.  With
+``--other DIR`` the shipped kernels of another checkout (its
+``sph_taichi_torch/csrc/pcisph.cu``, for example an unpacked parent
+commit) join the designs, so a change to the shipped source is timed
+against the other in the same process.
 
-    python3 tools/pcisph_walk_control.py [--at 30] [--turns 3]
+    python3 tools/pcisph_walk_control.py [--at 30] [--turns 3] [--other DIR]
 
 Needs a CUDA device and nvcc; builds into build/kernels/ and
 build/pcisph_walk_control/.
@@ -52,9 +56,10 @@ LAUNCHERS = ("pcisph_d_rho_correct_launch",
              "pcisph_pressure_accel_predict_launch")
 
 
-def build_controls():
-    """{control: ctypes handle} of CONTROLS, built together, with the
-    shipped launchers' signatures."""
+def build_controls(other=None):
+    """{control: ctypes handle} of CONTROLS (and, with ``other``, the
+    shipped kernels of that checkout), built together, with the shipped
+    launchers' signatures."""
     from sph_taichi_torch.ops import _build
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
@@ -62,12 +67,20 @@ def build_controls():
     out = os.path.join(ROOT, "build", "pcisph_walk_control")
     os.makedirs(out, exist_ok=True)
     src = os.path.join(ROOT, "tools", "pcisph_walk_control.cu")
+    # name -> (source, include directory, flags)
+    sources = {name: (src, str(_build.CSRC), flags)
+               for name, flags in CONTROLS.items()}
+    if other is not None:
+        csrc = os.path.join(os.path.abspath(other), "sph_taichi_torch",
+                            "csrc")
+        sources[f"shipped kernels of {other}"] = (
+            os.path.join(csrc, "pcisph.cu"), csrc, [])
     procs = {}
-    for k, (name, flags) in enumerate(CONTROLS.items()):
+    for k, (name, (source, include, flags)) in enumerate(sources.items()):
         lib = os.path.join(out, f"lib{k}.so")
         procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             *flags, "-o", lib, src], stdout=subprocess.PIPE,
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", include, *flags,
+             "-o", lib, source], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (path, proc) in procs.items():
@@ -239,6 +252,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--at", type=int, nargs="+", default=[30])
     ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--other", help="another checkout whose shipped "
+                    "csrc/pcisph.cu joins the designs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("pcisph_walk_control: no CUDA device", file=sys.stderr)
@@ -255,7 +270,7 @@ def main():
     print(f"card: {smi}")
     t0 = time.perf_counter()
     _build.build(["pairs", "dfsph", "pcisph"])
-    controls = build_controls()
+    controls = build_controls(args.other)
     print(f"built in {time.perf_counter() - t0:.1f} s")
     sim = Simulation(config=cs.dragon_config(1), scene_dir=ROOT)
     for at in sorted(args.at):
