@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero):
    and print the build time and ptxas report;
 2. each kernel against its plain PyTorch version on the card, on small
    scenes with clumped positions (cells above 8 particles, particles in edge
-   cells): the WCSPH kernels with and without the two-way reaction, the
+   cells): the WCSPH kernels (density_sum, density_sum_list with the
+   step's pair list, wcsph_forces over that list with and without the
+   two-way reaction, whole outputs bitwise), the
    DFSPH kernels (both divergence modes, the solver update with and without
    the reaction), and the DFSPH kernels and two whole steps on a block
    that falls onto the floor, where the Jacobi loops iterate; the four
@@ -23,9 +25,14 @@ Phases (any failure raises and exits non-zero):
    kernel and plain slot lists drop the same pairs);
 3. the WCSPH path: data/scenes/dragon_bath.json (442,006 particles)
    through ``Simulation`` on the card, timed with CUDA events; the kernels'
-   launch counts over that run; per-kernel and plain-version times at the
-   dragon state's shapes; one kernel step held index-wise against one
-   plain-engine step from the same state;
+   launch counts over that run (density_sum_list = wcsph_forces = steps);
+   device busy and stage times; at the dragon state the walk profiles of
+   the two kernels' centres (accepted pairs per centre, warps over the
+   list), their registers, shared memory and resident blocks, per-kernel
+   and plain-version times and bounds (each beside the bytes of the list's
+   write or read, a design figure), both against their plain versions bitwise (the list
+   too); one kernel step held index-wise against one plain-engine step
+   from the same state;
 4. the DFSPH path: data/scenes/dragon_bath_dfsph.json (the same particles,
    dt 4e-3) through ``Simulation``, timed with CUDA events; iteration
    counts, host reads per step and launch counts over that run; the host
@@ -48,9 +55,9 @@ Phases (any failure raises and exits non-zero):
    step against one plain-engine step; at that state the walk profile of
    every real centre with the list (and of the fluid and solid centres
    alone), the registers, shared memory and resident blocks of f3 (both
-   variants), f4 and the build, per-kernel and plain-version times and
-   bounds (f3 and f4 beside the bytes of the list's read), the list
-   against its plain version;
+   variants), f4 and the build, per-kernel (the one-phase density_sum's
+   too) and plain-version times and bounds (f3 and f4 beside the bytes of
+   the list's read), the list against its plain version;
 7. the IISPH iterating regime: the same scene at dt 2e-3, run until a
    step's pressure solve iterates more than once, then 5 timed steps and
    the read-interval sweep; at that state (pressures not 0) the walk
@@ -137,7 +144,14 @@ Phases (any failure raises and exits non-zero):
    seeded pressure: the list against its plain version, f3 and f4 over
    the list and over the slot map against their plain versions bitwise,
    padding rows included; bare cell offsets refused; the walk profile with
-   the list; one kernel per wrapper call.
+   the list; one kernel per wrapper call;
+21. (in phase 2) WCSPH's density_sum_list and wcsph_forces over its list
+   on the same edge scene as WCSPH, with and without the reaction,
+   padding velocities not 0: both against their plain versions bitwise
+   (the list too), padding rows included; bare cell offsets refused; the
+   walk profiles of both kernels' centres; one kernel per wrapper call.
+   (density_sum, one phase, now on the IISPH and PCISPH paths only, is
+   timed at phase 6's state.)
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -446,10 +460,52 @@ def prepared(scene_dict, device, seed, clump=True, place=None):
     return params, solver, p, nl, starts, diag
 
 
+def compare_wcsph_list_kernels(params, solver, p, nl, starts, label,
+                               worst):
+    """WCSPH's two kernels over the cell runs against their plain versions
+    at one state, whole outputs (padding rows included) equal bitwise:
+    ``density_sum_list`` (the sums and the step's pair list) and
+    ``wcsph_forces`` over that list, with the two-way reaction where the
+    scene has a dynamic rigid and without it.  Fills ``worst`` and returns
+    (the list, the force inputs, the forces of the scene's own variant)."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+
+    den, pairs = cp.density_sum_list(starts, p, params, {})
+    ref_den, idx, cnt = cp.density_sum_list_plain(nl, p, params)
+    err = max(float((den.double() - ref_den.double()).abs().max()),
+              check_pair_list(pairs, nl, p, params, label,
+                              plain=("density_sum_list", idx, cnt))[0])
+    worst["density_sum_list"] = max(worst.get("density_sum_list", 0.0), err)
+    if not torch.equal(den, ref_den):
+        raise AssertionError(f"{label}: density_sum_list's sums differ from "
+                             f"their plain version ({err:.3e})")
+    q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(p)
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=p.x.device)
+    own = None
+    for react in ((rr0, None) if rr0 is not None else (None,)):
+        got = cp.wcsph_forces(pairs, q, dpi, p_r02, m_nc, react, dt, params)
+        ref = cp.wcsph_forces_plain(nl, q, dpi, p_r02, m_nc, react, dt,
+                                    params)
+        for name, a, b in zip(("x", "v", "acc"), got, ref):
+            e = float((a.double() - b.double()).abs().max())
+            worst["wcsph_forces"] = max(worst.get("wcsph_forces", 0.0), e)
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{label}: wcsph_forces[react={react is not None}].{name}"
+                    f" over the list differs from its plain version "
+                    f"({e:.3e})")
+        own = got if own is None else own
+    variants = "with and without" if rr0 is not None else "without"
+    print(f"  {label}: density_sum_list (sums and list) and wcsph_forces "
+          f"over the list ({variants} the reaction) equal to their plain "
+          f"versions bitwise, padding rows included")
+    return pairs, (q, dpi, p_r02, m_nc, rr0, dt), own
+
+
 def check_kernels_on_small_scenes(device):
     from sph_taichi_torch.ops import cuda_pairs as cp
 
-    worst = {"density_sum": 0.0, "wcsph_forces": 0.0}
+    worst = {"density_sum": 0.0}
     for two_way in (False, True):
         params, solver, p, nl, starts, diag = prepared(
             small_scene(two_way), device, seed=0)
@@ -464,16 +520,10 @@ def check_kernels_on_small_scenes(device):
         ref = cp.density_sum_plain(nl, p.x, p.material, p.m_V, params)
         worst["density_sum"] = max(worst["density_sum"], max_errors(
             got, ref, f"density_sum[two_way={two_way}]"))
-        q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(p)
+        _, (q, _, _, _, rr0, _), got = compare_wcsph_list_kernels(
+            params, solver, p, nl, starts, f"two_way={two_way}", worst)
         if (rr0 is not None) != two_way:
             raise AssertionError("reaction variant not selected as expected")
-        dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
-        got = cp.wcsph_forces(starts, q, dpi, p_r02, m_nc, rr0, dt, params)
-        ref = cp.wcsph_forces_plain(nl, q, dpi, p_r02, m_nc, rr0, dt, params)
-        for name, a, b in zip(("x", "v", "acc"), got, ref):
-            worst["wcsph_forces"] = max(
-                worst["wcsph_forces"],
-                max_errors(a, b, f"wcsph_forces[react={two_way}].{name}"))
         if two_way:
             rigid = q.material == 0
             g = torch.tensor(params.gravity, device=device)
@@ -483,6 +533,74 @@ def check_kernels_on_small_scenes(device):
             if dev_acc < 1e-3:
                 raise AssertionError("two-way reaction not exercised")
     return worst
+
+
+def check_wcsph_on_edge_scene(device):
+    """WCSPH's kernels on the edge scene (a ~100-particle cell: centres
+    over the list, so warps that read the list beside warps that walk the
+    cells in one phase; a dynamic rigid block, so the reaction), with
+    padding velocities that are not 0: density_sum_list and wcsph_forces
+    over its list, with and without the reaction, against their plain
+    versions bitwise, padding rows included; bare cell offsets refused; the
+    walk profiles; one kernel per wrapper call."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
+
+    scene = compact_edge_scene()
+    cfg = scene["Configuration"]
+    cfg["simulationMethod"], cfg["timeStepSize"] = 0, 4e-4
+    params, solver, p, nl, starts, diag = prepared(
+        scene, device, seed=0, place=compact_edge_positions)
+    if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+        raise AssertionError("edge scene: the plain engine's caps overflowed")
+    print(f"WCSPH edge scene: {params.n_particles} particles "
+          f"({params.n_solid} dynamic solids), max cell occupancy "
+          f"{int(diag['max_cell_occupancy'])}, max neighbours "
+          f"{int(diag['max_neighbors'])}")
+    n_real = params.n_fluid + params.n_solid
+    vpad = p.v.clone()
+    vpad[n_real:] = torch.arange(3 * (p.n - n_real), dtype=torch.float32,
+                                 device=device).reshape(-1, 3)
+    p = p._replace(v=vpad)
+    worst = {}
+    pairs, (q, dpi, p_r02, m_nc, rr0, dt), _ = compare_wcsph_list_kernels(
+        params, solver, p, nl, starts, "WCSPH edge scene", worst)
+    if rr0 is None:
+        raise AssertionError("edge scene: no reaction variant")
+    walk_profile(params, p.x, p.material >= 0, starts, nl,
+                 "WCSPH edge scene, density_sum_list's centres (every real "
+                 "one)", list_entries=PAIR_LIST_ENTRIES)
+    fig = walk_profile(params, p.x, (p.material == 1) | p.is_dynamic_rigid(),
+                       starts, nl, "WCSPH edge scene, wcsph_forces' centres "
+                       "(fluid and dynamic rigid)",
+                       list_entries=PAIR_LIST_ENTRIES)
+    if not 0 < fig["warps_over_list"] < fig["warps"]:
+        raise AssertionError("edge scene: no warp over the list beside one "
+                             "within it")
+    try:
+        cp.wcsph_forces(starts, q, dpi, p_r02, m_nc, rr0, dt, params)
+    except TypeError:
+        print("  wcsph_forces refuses bare cell offsets")
+    else:
+        raise AssertionError("wcsph_forces: bare cell offsets not refused")
+    buffers = {}
+    calls = {
+        "density_sum_list": lambda: cp.density_sum_list(starts, p, params,
+                                                        buffers),
+        "wcsph_forces": lambda: cp.wcsph_forces(pairs, q, dpi, p_r02, m_nc,
+                                                rr0, dt, params),
+        "wcsph_forces (no reaction)": lambda: cp.wcsph_forces(
+            pairs, q, dpi, p_r02, m_nc, None, dt, params)}
+    for name, fn in calls.items():
+        key = name.split(" ")[0]
+        before = cp.LAUNCHES[key]
+        launched, lost = kernels_per_call(fn)
+        counted = (cp.LAUNCHES[key] - before) / (2 + lost)
+        print(f"  {name}: one wrapper call launches {launched} (its count "
+              f"{counted:g} per call; captures that lost the markers {lost})")
+        if len(launched) != 1 or key not in launched[0] or counted != 1:
+            raise AssertionError(f"{name}: the wrapper launches {launched}")
+    return {f"{k} (WCSPH edge scene)": v for k, v in worst.items()}
 
 
 def random_kappa(p, seed=1):
@@ -1203,7 +1321,7 @@ def main_path(device, scene_path, warmup, steps):
     step_ms = start.elapsed_time(end) / steps
     print(f"WCSPH path: {steps} steps, {step_ms:.4f} ms/step, "
           f"{1e3 / step_ms:.3f} steps/s; launches {launches}")
-    expect = {"density_sum": steps, "wcsph_forces": steps}
+    expect = {"density_sum_list": steps, "wcsph_forces": steps}
     for name, count in launches.items():
         if count != expect.get(name, 0):
             raise AssertionError(f"{name}: {count} launches in {steps} "
@@ -1233,7 +1351,8 @@ def main_path(device, scene_path, warmup, steps):
         q, ctx, _ = base.bin_and_sort(state.p, params, solver.engine,
                                       solver.tables)
         ev[1].record()
-        q = base.compute_densities(q, ctx, solver.engine, params)
+        q, ctx = base.compute_densities_and_pairs(
+            q, ctx, solver.engine, params, solver._pair_buffers)
         ev[2].record()
         q = solver.compute_forces(q, ctx, dt=state.dt)
         ev[3].record()
@@ -1245,7 +1364,7 @@ def main_path(device, scene_path, warmup, steps):
         staged_step()
     evs = [staged_step() for _ in range(10)]
     torch.cuda.synchronize()
-    for k, name in enumerate(("bin_and_sort", "densities (incl. kernel)",
+    for k, name in enumerate(("bin_and_sort", "densities + list (kernel a)",
                               "forces (EOS + kernel)", "rigid solve")):
         stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 10
     print("stage ms at this state: " + json.dumps(
@@ -1256,49 +1375,104 @@ def main_path(device, scene_path, warmup, steps):
     q, starts, _ = base.bin_and_sort(state.p, params, solver.engine,
                                      solver.tables)
     nl = plain_engine.prepare(q.x, starts)
-    pairs = int(nl.cnt[:params.n_fluid + params.n_solid].long().sum())
+    n = params.n_fluid + params.n_solid
+    pairs = int(nl.cnt[:n].long().sum())
     print(f"within-radius pairs (ordered, j != i): {pairs}; max neighbours "
           f"{int(nl.max_cnt)} (cap {params.neighbor_cap})")
     if int(nl.diag["neighbor_overflow"]):
         raise AssertionError("plain engine's neighbour cap overflowed")
-    q = base.compute_densities(q, starts, solver.engine, params)
+    buffers = {}
+    q, plist = base.compute_densities_and_pairs(q, starts, solver.engine,
+                                                params, buffers)
     q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(q)
-    n_real = params.n_fluid + params.n_solid
     reset_all_launch_counts()     # comparison launches are not the path's
-    k_den = time_ms(lambda: cp.density_sum(starts, q, params), 20)
-    k_frc = time_ms(lambda: cp.wcsph_forces(starts, q, dpi, p_r02, m_nc, rr0,
-                                            state.dt, params), 20)
-    p_den = time_ms(lambda: cp.density_sum_plain(nl, q.x, q.material, q.m_V,
-                                                 params), 3)
-    p_frc = time_ms(lambda: cp.wcsph_forces_plain(nl, q, dpi, p_r02, m_nc,
-                                                  rr0, state.dt, params), 3)
+    # the walk profiles of the two kernels' centres: a's every real row, b's
+    # the fluid and the dynamic rigids
+    k_list = plist.idx.shape[0]
+    walkers = (q.material == 1) | q.is_dynamic_rigid()
+    fig_a = walk_profile(params, q.x, q.material >= 0, starts, nl,
+                         "dragon_bath WCSPH state, density_sum_list's "
+                         "centres (every real one)", list_entries=k_list)
+    fig_b = walk_profile(params, q.x, walkers, starts, nl,
+                         "dragon_bath WCSPH state, wcsph_forces' centres",
+                         list_entries=k_list)
+    for name, slots in (("density_sum_list", False), ("density_sum", False),
+                        ("wcsph_forces", False), ("wcsph_forces_react", False),
+                        ("wcsph_forces", True), ("wcsph_forces_react", True)):
+        regs, smem, blocks = cp.occupancy(name, slots)
+        print(f"  {name}{'[slots]' if slots else ''}: {regs} registers, "
+              f"{smem} bytes of shared memory per block, {blocks} blocks of "
+              f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
+    calls = {
+        "density_sum_list": (
+            lambda: cp.density_sum_list(starts, q, params, buffers),
+            lambda: cp.density_sum_list_plain(nl, q, params)),
+        "wcsph_forces": (
+            lambda: cp.wcsph_forces(plist, q, dpi, p_r02, m_nc, rr0,
+                                    state.dt, params),
+            lambda: cp.wcsph_forces_plain(nl, q, dpi, p_r02, m_nc, rr0,
+                                          state.dt, params))}
+    ms, plain_ms, err = {}, {}, {}
+    for name, (kern, plain) in calls.items():
+        ms[name] = time_ms(kern, 20)
+        plain_ms[name] = time_ms(plain, 3)
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
+              f" ms")
+    one_phase = time_ms(lambda: cp.density_sum(starts, q, params), 20)
+    print(f"  density_sum (one phase, no list; PCISPH's and IISPH's) at this "
+          f"state: {one_phase:.4f} ms; the step's two kernels "
+          f"{ms['density_sum_list'] + ms['wcsph_forces']:.4f} ms")
     nl_ms = time_ms(lambda: plain_engine.prepare(q.x, starts), 3)
     print(f"plain engine neighbour-list build: {nl_ms:.4f} ms")
-    err_den = max_errors(cp.density_sum(starts, q, params)[:n_real],
-                         cp.density_sum_plain(nl, q.x, q.material, q.m_V,
-                                              params)[:n_real],
-                         "dragon density_sum")
-    err_frc = 0.0
-    for name, a, b in zip(("x", "v", "acc"),
-                          cp.wcsph_forces(starts, q, dpi, p_r02, m_nc, rr0,
-                                          state.dt, params),
-                          cp.wcsph_forces_plain(nl, q, dpi, p_r02, m_nc, rr0,
-                                                state.dt, params)):
-        err_frc = max(err_frc, max_errors(a, b, f"dragon wcsph_forces.{name}"))
+    den, got_list = cp.density_sum_list(starts, q, params, buffers)
+    ref_den, idx, cnt = cp.density_sum_list_plain(nl, q, params)
+    err["density_sum_list"] = max(
+        max_errors(den, ref_den, "dragon density_sum_list (whole output)"),
+        check_pair_list(got_list, nl, q, params, "dragon state",
+                        plain=("density_sum_list", idx, cnt))[0])
+    err["wcsph_forces"] = 0.0
+    for name, a, b in zip(("x", "v", "acc"), calls["wcsph_forces"][0](),
+                          calls["wcsph_forces"][1]()):
+        err["wcsph_forces"] = max(err["wcsph_forces"], max_errors(
+            a, b, f"dragon wcsph_forces.{name} (whole output)"))
+    if any(e != 0.0 for e in err.values()):
+        raise AssertionError(f"dragon: a WCSPH kernel differs from its plain "
+                             f"version: {err}")
 
-    n = n_real
-    # density walks from every real centre, the forces from the fluid ones
-    # and the dynamic rigids
-    walkers = (q.material == 1) | q.is_dynamic_rigid()
-    den_bytes = n * (12 + 4 + 4) + offset_bytes(params, q.x[:n]) + 4 * n
-    frc_bytes = n * (12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4) \
-        + offset_bytes(params, q.x[walkers]) + 4 + n * 36
+    # both kernels are bounded by the function they compute, over the cell
+    # offsets: density_sum_list by the density sum (as density_sum on the
+    # IISPH path: x, material, m_V read, the real rows' sums written), the
+    # forces from the fluid centres and the dynamic rigids, every row
+    # written (padding rows carried)
+    listed_a = int(torch.clamp_max(plist.cnt, k_list).long().sum())
+    listed_b = int(torch.clamp_max(plist.cnt[walkers], k_list).long().sum())
+    n_pad = params.n_pad
+    den_read = n * (12 + 4 + 4) + offset_bytes(params, q.x[:n])
+    frc_read = n * (12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4) \
+        + (n_pad - n) * 24 + 4
+    frc_pairs = int(nl.cnt[walkers].long().sum())
     bounds = {
-        "density_sum": bound("density_sum", den_bytes,
-                             pairs * DENSITY_FLOPS_PER_PAIR),
-        "wcsph_forces": bound("wcsph_forces", frc_bytes,
-                              int(nl.cnt[walkers].long().sum())
-                              * FORCES_FLOPS_PER_PAIR)}
+        "density_sum_list": bound("density_sum_list", den_read + 4 * n,
+                                  pairs * DENSITY_FLOPS_PER_PAIR),
+        "wcsph_forces": bound(
+            "wcsph_forces", frc_read + offset_bytes(params, q.x[walkers])
+            + n_pad * 36, frc_pairs * FORCES_FLOPS_PER_PAIR)}
+    # the design as it runs (design figures, not bounds): a also writes
+    # every row's sum and count and the list's entries; b reads the list's
+    # counts and entries instead of the cell offsets, no distance test
+    bound("density_sum_list design figure (writing the list, "
+          f"{fig_a['warps_over_list']} warps over it; not the bound)",
+          den_read + 4 * n_pad + 4 * n_pad + 4 * listed_a,
+          pairs * DENSITY_FLOPS_PER_PAIR)
+    bound("wcsph_forces design figure (reading the list, "
+          f"{fig_b['warps_over_list']} warps over it; not the bound)",
+          frc_read + 4 * int(walkers.sum()) + 4 * listed_b + n_pad * 36,
+          frc_pairs * (FORCES_FLOPS_PER_PAIR - 8))
+    print(f"  the list: {listed_a} entries written ({4 * listed_a} bytes; "
+          f"{k_list} x {n_pad} x 4 = {4 * k_list * n_pad} bytes allocated "
+          f"once per solver), {listed_b} of them read by wcsph_forces; "
+          f"density_sum_list's centres over it {fig_a['warps_over_list']} "
+          f"warps")
 
     # one kernel step against one plain-engine step from the same state
     plain_solver = build_solver(params, device=device, engine=plain_engine)
@@ -1313,18 +1487,13 @@ def main_path(device, scene_path, warmup, steps):
 
     src = "sph_taichi_torch/csrc/pairs.cu"
     kernels = [
-        {"name": "density_sum", "route": "cuda", "source": src,
+        {"name": name, "route": "cuda", "source": src,
          "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
-         "launches": launches["density_sum"], "max_abs_err": err_den,
-         "ms": k_den, "plain_ms": p_den, "bound_ms": bounds["density_sum"][0],
-         "bound_by": bounds["density_sum"][1], "library_ms": None},
-        {"name": "wcsph_forces", "route": "cuda", "source": src,
-         "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
-         "launches": launches["wcsph_forces"], "max_abs_err": err_frc,
-         "ms": k_frc, "plain_ms": p_frc,
-         "bound_ms": bounds["wcsph_forces"][0],
-         "bound_by": bounds["wcsph_forces"][1], "library_ms": None},
-    ]
+         "launches": launches[name], "max_abs_err": err[name],
+         "ms": ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
+        for name in ("density_sum_list", "wcsph_forces")]
     return kernels, step_ms
 
 
@@ -2016,6 +2185,7 @@ def iisph_path(device, warmup, steps):
     from sph_taichi_torch import build_solver
     from sph_taichi_torch.models import base
     from sph_taichi_torch.models.base import JACOBI_CHECK_EVERY as K
+    from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.simulation import Simulation
@@ -2199,6 +2369,11 @@ def iisph_path(device, warmup, steps):
               f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
     buffers = {}
     calls = {
+        # the one-phase density kernel of the IISPH and PCISPH paths (the
+        # WCSPH step's writes its list: density_sum_list, main_path)
+        "density_sum": (
+            lambda: cp.density_sum(starts, q, params),
+            lambda: cp.density_sum_plain(nl, q.x, q.material, q.m_V, params)),
         "iisph_nonpressure_kick": (
             lambda: ci.nonpressure_kick(starts, q, dt, params),
             lambda: ci.nonpressure_kick_plain(nl, q, dt, params)),
@@ -2265,6 +2440,10 @@ def iisph_path(device, warmup, steps):
         ("iisph_apply_A", "iisph_apply_A"))}
     bounds["iisph_step_pairs"] = row_bound("iisph_step_pairs", n,
                                            cells + list_bytes, pairs)
+    # density_sum reads x, material, m_V and writes the sums of the real rows
+    bounds["density_sum"] = bound("density_sum", n * (12 + 4 + 4) + cells
+                                  + 4 * n,
+                                  pairs["real"] * DENSITY_FLOPS_PER_PAIR)
     for name in ("iisph_pressure_accel", "iisph_pressure_accel_advect",
                  "iisph_apply_A"):
         row_bound(name + "_list", n, list_bytes, pairs,
@@ -2285,13 +2464,14 @@ def iisph_path(device, warmup, steps):
         mixed({k: bounds[k][0] for k in ("loop", "advect")}),
         bounds["advect"][1])
     launches["iisph_pressure_accel"] = w_loop + w_adv
-    src = "sph_taichi_torch/csrc/iisph.cu"
     kernels = []
-    for name in ("iisph_nonpressure_kick", "iisph_predict_advection",
-                 "iisph_step_pairs", "iisph_pressure_accel",
-                 "iisph_apply_A"):
+    for name in ("density_sum", "iisph_nonpressure_kick",
+                 "iisph_predict_advection", "iisph_step_pairs",
+                 "iisph_pressure_accel", "iisph_apply_A"):
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda",
+            "source": "sph_taichi_torch/csrc/" + (
+                "pairs.cu" if name == "density_sum" else "iisph.cu"),
             "replaces": "sph_taichi_tpu/ops/pallas_blocks.py:718",
             "launches": launches[name], "max_abs_err": err[name],
             "ms": ms[name], "plain_ms": plain_ms[name],
@@ -2445,18 +2625,22 @@ def pairs_moved(nl, xp, h):
     return int((valid & (d2 >= h * h)).sum()), int(valid.sum())
 
 
-def check_pair_list(pairs, nl, p, params, label, module=None):
+def check_pair_list(pairs, nl, p, params, label, module=None, plain=None):
     """The kernel's step-start pair list ``pairs`` (a ``PairList``) against
     ``module.step_pairs_plain`` (PCISPH's, or IISPH's for ``module``
-    cuda_iisph) over the neighbour lists ``nl``: every count and every
-    listed entry equal.  Returns (largest difference, centres with more
-    accepted pairs than the list holds)."""
+    cuda_iisph) over the neighbour lists ``nl``, or against ``plain``
+    (name, idx, cnt): every count and every listed entry equal.  Returns
+    (largest difference, centres with more accepted pairs than the list
+    holds)."""
     from sph_taichi_torch.ops import cuda_pcisph as cg
     from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES as k_list
 
-    module = module or cg
-    name = module.__name__.split("_")[-1] + "_step_pairs"
-    idx, cnt = module.step_pairs_plain(nl, p, params)
+    if plain is None:
+        module = module or cg
+        name = module.__name__.split("_")[-1] + "_step_pairs"
+        idx, cnt = module.step_pairs_plain(nl, p, params)
+    else:
+        name, idx, cnt = plain
     listed = torch.clamp_max(cnt, k_list)
     valid = torch.arange(k_list, device=cnt.device)[:, None] < listed[None, :]
     got = torch.where(valid, pairs.idx, -1)
@@ -3013,7 +3197,8 @@ def check_volume_and_slot_kernels_on_small_scenes(device):
         for name, a, b in zip(("x", "v", "acc"), got, ref):
             check("wcsph_forces[slots]", a, b, f"{kind}.{name}")
         if kind == "layers":
-            for a, b in zip(got, cp.wcsph_forces(starts, q, dpi, p_r02, m_nc,
+            plist = cp.density_sum_list(starts, p, params)[1]
+            for a, b in zip(got, cp.wcsph_forces(plist, q, dpi, p_r02, m_nc,
                                                  rr0, dt, params)):
                 if not torch.equal(a, b):
                     raise AssertionError("slot and cell-run forces differ")
@@ -3334,11 +3519,15 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     ms["density_sum[slots]"] = time_ms(
         lambda: cp.density_sum(smap, q, params), 20)
     ms["density_sum"] = time_ms(lambda: cp.density_sum(starts, q, params), 20)
+    buffers = {}
+    ms["density_sum_list"] = time_ms(
+        lambda: cp.density_sum_list(starts, q, params, buffers), 20)
+    plist = cp.density_sum_list(starts, q, params, buffers)[1]
     ms["wcsph_forces[slots]"] = time_ms(
         lambda: cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt, params),
         20)
     ms["wcsph_forces"] = time_ms(
-        lambda: cp.wcsph_forces(starts, q, dpi, p_r02, m_nc, rr0, dt, params),
+        lambda: cp.wcsph_forces(plist, q, dpi, p_r02, m_nc, rr0, dt, params),
         20)
     plain_ms["density_sum[slots]"] = time_ms(
         lambda: cp.density_sum_plain(snl, q.x, q.material, q.m_V, params), 3)
@@ -3923,6 +4112,7 @@ def main():
     worst.update(check_compact_walk_on_edge_scene(device))
     worst.update(check_pcisph_on_edge_scene(device))
     worst.update(check_iisph_on_edge_scene(device))
+    worst.update(check_wcsph_on_edge_scene(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

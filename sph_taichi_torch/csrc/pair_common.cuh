@@ -4,8 +4,9 @@
 // and its form with the pair geometry at other positions), its two-phase
 // form (for_each_neighbor_compact), the step-start pair list
 // (build_pair_list, step_pairs_row, for_each_listed_pair,
-// for_each_step_pair), the viscosity and pressure pair terms, and the
-// symmetric pressure acceleration of the implicit solvers.
+// for_each_step_pair; PCISPH's, IISPH's and WCSPH's), the viscosity and
+// pressure pair terms, and the symmetric pressure acceleration of the
+// implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
@@ -242,9 +243,10 @@ constexpr bool kCompactWalk = std::is_same<Walk, CellRunWalk>::value;
 // The candidate phase of the two-phase walk over the cell runs: the
 // inclusion test at the positions x, over the columns in
 // for_each_neighbor_walk's order, the warp stepping through each column's
-// runs together.  accept(j) takes each accepted candidate in that order;
-// before_block() runs, warp-uniform, before each block of kCompactUnroll
-// candidates, whose loads are in flight together.
+// runs together.  accept(j, s) takes each accepted candidate and its raw
+// sum of squares in that order; before_block() runs, warp-uniform, before
+// each block of kCompactUnroll candidates, whose loads are in flight
+// together.
 template <typename B, typename A>
 __device__ __forceinline__ void cell_run_candidates(
     bool walks, int i, float xi0, float xi1, float xi2,
@@ -291,7 +293,8 @@ __device__ __forceinline__ void cell_run_candidates(
         const float d0 = xi0 - p[u][0];
         const float d1 = xi1 - p[u][1];
         const float d2 = xi2 - p[u][2];
-        if (d0 * d0 + d1 * d1 + d2 * d2 < c.h2) accept(j);
+        const float s = d0 * d0 + d1 * d1 + d2 * d2;
+        if (s < c.h2) accept(j, s);
       }
     }
   }
@@ -326,7 +329,7 @@ __device__ __forceinline__ void compact_cell_runs(
         // room for the block's candidates in every list
         if (__any_sync(kFull, cnt > kListEntries - kCompactUnroll)) flush();
       },
-      [&](int j) { list[(cnt++) * kBlock] = j; });
+      [&](int j, float) { list[(cnt++) * kBlock] = j; });
   flush();
 }
 
@@ -353,7 +356,11 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 // sort to the advect epilogue).  build_pair_list runs the candidate phase
 // of the two-phase walk once and writes each centre's accepted j, in the
 // walk's order, to a list in device memory; for_each_listed_pair then runs
-// only the body phase over it, in every iteration.
+// only the body phase over it, in every iteration.  WCSPH's step has no
+// loop, but its positions too stay the sort's until the force kernel's
+// advect epilogue, and its density kernel already walks every real
+// centre's candidates: density_sum_list (pairs.cu) writes the list while
+// it sums, and wcsph_forces, the step's next pair kernel, reads it.
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -364,7 +371,8 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 //
 // The centres a list serves (ListCentres): PCISPH's loop walks the fluid
 // centres; IISPH's walks every real one, solids included, because its A
-// reads the solids' pressure accelerations.
+// reads the solids' pressure accelerations; WCSPH's density walks every
+// real centre, and its forces read the fluid and dynamic-rigid ones.
 // ---------------------------------------------------------------------------
 
 // Accepted pairs the list holds per centre: a dragon_bath PCISPH state
@@ -382,19 +390,23 @@ enum class ListCentres { kFluid, kReal };
 
 // The candidate phase of compact_cell_runs for centre i (if ``walks``),
 // writing its accepted j to the list and its count to cnt[i] (0 where the
-// centre does not walk; rows i >= stride write nothing).  Every thread of a
-// block calls it: the walk steps warp-wide.
+// centre does not walk; rows i >= stride write nothing), and calling
+// f(j, s) on each accepted pair with its raw sum of squares, in the walk's
+// order (WCSPH's density_sum_list sums its density there).  Every thread
+// of a block calls it: the walk steps warp-wide.
+template <typename F>
 __device__ __forceinline__ void build_pair_list(
     bool walks, int i, const float* __restrict__ x, const CellRunWalk& walk,
     const PairConsts& c, int* __restrict__ idx, int* __restrict__ cnt,
-    int stride) {
+    int stride, F&& f) {
   float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f;
   if (walks) xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
   int n = 0;
   cell_run_candidates(
-      walks, i, xi0, xi1, xi2, x, walk, c, []() {}, [&](int j) {
+      walks, i, xi0, xi1, xi2, x, walk, c, []() {}, [&](int j, float s) {
         if (n < kPairListEntries) idx[n * stride + i] = j;
         ++n;
+        f(j, s);
       });
   if (i < stride) cnt[i] = n;
 }
@@ -412,7 +424,8 @@ __device__ __forceinline__ void step_pairs_row(
   if constexpr (CENTRES == ListCentres::kFluid) {
     walks = walks && material[i] == 1;
   }
-  build_pair_list(walks, i, x, walk, c, idx, cnt, n_rows);
+  build_pair_list(walks, i, x, walk, c, idx, cnt, n_rows,
+                  [](int, float) {});
 }
 
 // List entries a lane loads before their pairs' bodies: their neighbours'

@@ -5,6 +5,9 @@
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
 // three specializations:
 //   density_sum      <- the density term of models/base.py compute_densities
+//                       (PCISPH's, IISPH's and the slot walk's)
+//   density_sum_list <- the same term on the WCSPH step over the cell runs,
+//                       writing the step's pair list as it sums (below)
 //   wcsph_forces     <- the fused WCSPH force term of models/wcsph.py
 //                       compute_forces with its advect + fluid-box-clamp
 //                       epilogue (two-way reaction variant as REACT = true).
@@ -24,13 +27,30 @@
 // than neighbours within h), and a warp's 32 centres lie in a few adjacent
 // cells, so their candidate ranges overlap and mostly hit L1/L2; the
 // floating-point work per real pair is ~60 operations, far below the
-// card's 67 TFLOP/s f32.  This first version keeps everything in registers
-// and relies on the caches; staging a cell block's candidates in shared
-// memory is the next step once measured (PERF.md).  The slot walk reads
-// the map (4 bytes per slot) instead of two offsets per column and stops
-// at a cell's first empty slot: the same candidates, one more dependent
-// load per candidate.  boundary_volume launches only over the target rows
-// (the solids), so its work is the solids' neighbourhoods.
+// card's 67 TFLOP/s f32.  Everything stays in registers and the candidate
+// loads rely on the caches.  The slot walk reads the map (4 bytes per
+// slot) instead of two offsets per column and stops at a cell's first
+// empty slot: the same candidates, one more dependent load per candidate.
+// boundary_volume launches only over the target rows (the solids), so its
+// work is the solids' neighbourhoods.
+//
+// The WCSPH step over the cell runs: the positions do not move from the
+// sort to wcsph_forces' advect epilogue, and the force kernel's centres
+// (the fluid and, with the reaction, the dynamic rigids) are a subset of
+// the density kernel's (every real row), so both accept the same pairs.
+// density_sum_list runs the candidate phase of the two-phase walk
+// (pair_common.cuh build_pair_list: the warp steps through each column's
+// runs together, 8 candidate loads in flight per lane), adds each
+// accepted pair's density term in the walk's order (the sum of
+// density_sum, bitwise) and writes every real centre's accepted j to the
+// step's pair list; wcsph_forces then runs only the pair body over the list
+// (for_each_step_pair), so the one-phase candidate walk, where most lanes
+// of a warp sit masked off in the ~60-operation body, runs once per step,
+// not twice.  A warp holding a centre with more accepted pairs than the
+// list holds walks the cells in one phase (the same pairs in the same
+// order).  Both kernels have a thread for every row, padding rows
+// included, and write the padding rows themselves.  Over the slot walk
+// density_sum and wcsph_forces walk in one phase.
 
 #include "pair_common.cuh"
 
@@ -52,6 +72,32 @@ __global__ void density_sum_kernel(const float* __restrict__ x,
   out[i] = sum;
 }
 
+// density_sum over the cell runs for the WCSPH step: the same sum, and
+// every real centre's accepted pairs written to the step's list (idx, cnt;
+// cnt 0 and the density 0 on padding rows).  One thread per row.
+__global__ void density_sum_list_kernel(const float* __restrict__ x,
+                                        const int* __restrict__ material,
+                                        const float* __restrict__ m_V,
+                                        CellRunWalk walk,
+                                        int* __restrict__ idx,
+                                        int* __restrict__ cnt,
+                                        float* __restrict__ out, int n_rows,
+                                        PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float sum = 0.0f;
+  build_pair_list(i < c.n_real, i, x, walk, c, idx, cnt, n_rows,
+                  [&](int j, float s) {
+                    if (material[j] >= 0) {
+                      const float rn = sqrtf(s);
+                      sum += m_V[j] * cubic_w(rn, c);
+                    }
+                  });
+  if (i < n_rows) out[i] = sum;
+}
+
+// One thread per row, padding rows included (x and v carried through, acc
+// 0).  Over the cell runs the pairs come from the step's list ``pl``
+// (density_sum_list); over the slot walk from the one-phase walk.
 template <bool REACT, typename Walk>
 __global__ void wcsph_forces_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -59,60 +105,79 @@ __global__ void wcsph_forces_kernel(
     const float* __restrict__ m, const float* __restrict__ m_V,
     const float* __restrict__ dpi, const float* __restrict__ p_r02,
     const float* __restrict__ m_nc, const float* __restrict__ rr0, Walk walk,
-    const float* __restrict__ dt_ptr, float* __restrict__ x_out,
-    float* __restrict__ v_out, float* __restrict__ acc_out, PairConsts c) {
+    PairList pl, const float* __restrict__ dt_ptr, float* __restrict__ x_out,
+    float* __restrict__ v_out, float* __restrict__ acc_out, int n_rows,
+    PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const int mat_i = material[i];
+  const bool real = i < c.n_real;
+  const int mat_i = real ? material[i] : -1;
   const bool fluid = mat_i == 1;
   const bool solid = mat_i == 0;
-  const bool dyn = is_dyn[i] != 0;
-  const float xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
-  float vi[3] = {v[3 * i], v[3 * i + 1], v[3 * i + 2]};
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  const bool dyn = real && is_dyn[i] != 0;
   // the pair sum is read by fluid centres and, with the reaction, by
   // dynamic-rigid ones; every other centre's acceleration is fixed
-  if (fluid || (REACT && solid && dyn)) {
-    const float neg_st_mi = -(c.st / m[i]);
-    const float dpi_i = dpi[i];
-    const float p_r02_i = p_r02[i];
-    const float m_V_i = m_V[i];
-    const float rr0_i = REACT ? rr0[i] : 0.0f;
-    for_each_neighbor_walk(
-        i, xi0, xi1, xi2, x, walk, c,
-        [&](int j, float d0, float d1, float d2, float s) {
-          const float rn = sqrtf(s);
-          const float r2 = rn * rn;
-          const float inv = 1.0f / sqrtf(fmaxf(r2, 1e-38f));
-          const float gradw = cubic_grad(rn, inv, c);
-          const int mat_j = material[j];
-          const bool fluid_j = mat_j == 1;
-          const bool solid_j = mat_j == 0;
-          float a;
-          if (REACT && !fluid) {
-            // reaction on a dynamic-rigid centre (gather form of the
-            // reference's scatter, WCSPH.py:67-68)
-            const float dpi_k = dpi[j] + p_r02[j];
-            a = fluid_j ? -(c.rho0 * m_V_i * dpi_k) * rr0_i * gradw : 0.0f;
-          } else {
-            const float w_st = (r2 > c.diam2) ? cubic_w(rn, c) : c.wd;
-            const float st_coef = fluid_j ? neg_st_mi * m[j] * w_st : 0.0f;
-            const float v_xy = (vi[0] - v[3 * j]) * d0 +
-                               (vi[1] - v[3 * j + 1]) * d1 +
-                               (vi[2] - v[3 * j + 2]) * d2;
-            const float visc_coef =
-                fluid_j ? viscosity_coef(m_nc[j], v_xy, r2, gradw, c) : 0.0f;
-            const float dpj = fluid_j ? dpi[j] : p_r02_i;
-            const float press_coef =
-                (fluid_j || solid_j)
-                    ? pressure_coef(m_V[j], dpi_i, dpj, gradw, c)
-                    : 0.0f;
-            a = st_coef + visc_coef + press_coef;
-          }
-          s0 += a * d0;
-          s1 += a * d1;
-          s2 += a * d2;
-        });
+  const bool walks = fluid || (REACT && solid && dyn);
+  float vi[3] = {0.0f, 0.0f, 0.0f};
+  float neg_st_mi = 0.0f, dpi_i = 0.0f, p_r02_i = 0.0f, m_V_i = 0.0f;
+  float rr0_i = 0.0f;
+  if (walks) {
+    vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
+    neg_st_mi = -(c.st / m[i]);
+    dpi_i = dpi[i];
+    p_r02_i = p_r02[i];
+    m_V_i = m_V[i];
+    if (REACT) rr0_i = rr0[i];
+  }
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for_each_step_pair<false>(
+      walks, i, x, x, walk, pl, c,
+      [&](int j, float d0, float d1, float d2, float s) {
+        const float rn = sqrtf(s);
+        const float r2 = rn * rn;
+        const float inv = 1.0f / sqrtf(fmaxf(r2, 1e-38f));
+        const float gradw = cubic_grad(rn, inv, c);
+        const int mat_j = material[j];
+        const bool fluid_j = mat_j == 1;
+        const bool solid_j = mat_j == 0;
+        float a;
+        if (REACT && !fluid) {
+          // reaction on a dynamic-rigid centre (gather form of the
+          // reference's scatter, WCSPH.py:67-68)
+          const float dpi_k = dpi[j] + p_r02[j];
+          a = fluid_j ? -(c.rho0 * m_V_i * dpi_k) * rr0_i * gradw : 0.0f;
+        } else {
+          const float w_st = (r2 > c.diam2) ? cubic_w(rn, c) : c.wd;
+          const float st_coef = fluid_j ? neg_st_mi * m[j] * w_st : 0.0f;
+          const float v_xy = (vi[0] - v[3 * j]) * d0 +
+                             (vi[1] - v[3 * j + 1]) * d1 +
+                             (vi[2] - v[3 * j + 2]) * d2;
+          const float visc_coef =
+              fluid_j ? viscosity_coef(m_nc[j], v_xy, r2, gradw, c) : 0.0f;
+          const float dpj = fluid_j ? dpi[j] : p_r02_i;
+          const float press_coef =
+              (fluid_j || solid_j)
+                  ? pressure_coef(m_V[j], dpi_i, dpj, gradw, c)
+                  : 0.0f;
+          a = st_coef + visc_coef + press_coef;
+        }
+        s0 += a * d0;
+        s1 += a * d1;
+        s2 += a * d2;
+      });
+  if (i >= n_rows) return;
+  float xs[3] = {x[3 * i], x[3 * i + 1], x[3 * i + 2]};
+  // the centres that did not walk load their velocity here: loading every
+  // row's before the walk took the slot walk's instantiation from 56 to 62
+  // registers (9 to 8 resident blocks per SM)
+  if (!walks) vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
+  if (!real) {
+    // padding rows: as the plain path leaves them
+    for (int k = 0; k < 3; ++k) {
+      x_out[3 * i + k] = xs[k];
+      v_out[3 * i + k] = vi[k];
+      acc_out[3 * i + k] = 0.0f;
+    }
+    return;
   }
   // epilogue: acceleration select, symplectic Euler, fluid box clamp —
   // the unfused chain of models/wcsph.py and models/base.py, in order
@@ -120,7 +185,6 @@ __global__ void wcsph_forces_kernel(
   const float g[3] = {c.g0, c.g1, c.g2};
   const float sums[3] = {s0, s1, s2};
   const float hi[3] = {c.hi0, c.hi1, c.hi2};
-  float xs[3] = {xi0, xi1, xi2};
   float acc[3];
   for (int k = 0; k < 3; ++k) {
     float a = g[k] + (fluid ? sums[k] : 0.0f);
@@ -199,20 +263,46 @@ extern "C" int density_sum_launch(const float* x, const int* material,
   return (int)cudaGetLastError();
 }
 
+extern "C" int pairs_list_entries() { return kPairListEntries; }
+
+// The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` and ``out``
+// have n_rows rows.
+extern "C" int density_sum_list_launch(const float* x, const int* material,
+                                       const float* m_V, const int* starts,
+                                       int* idx, int* cnt, float* out,
+                                       int n_rows, PairConsts c,
+                                       void* stream) {
+  if (n_rows > 0) {
+    density_sum_list_kernel<<<rows_grid(n_rows), kBlock, 0,
+                              (cudaStream_t)stream>>>(
+        x, material, m_V, CellRunWalk{starts}, idx, cnt, out, n_rows, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Over the cell runs the kernel reads the list (list_idx, list_cnt), the
+// step's density_sum_list output for the same rows; a launch without it is
+// refused (cudaErrorInvalidValue, pair_common.cuh has_list).  It launches
+// over n_rows rows, padding rows included.
 extern "C" int wcsph_forces_launch(
     const float* x, const float* v, const int* material, const int* is_dyn,
     const float* m, const float* m_V, const float* dpi, const float* p_r02,
     const float* m_nc, const float* rr0, const int* starts,
-    const int* slot_map, int layers, const float* dt, float* x_out,
-    float* v_out, float* acc_out, int react, PairConsts c, void* stream) {
-  if (c.n_real > 0) {
+    const int* slot_map, int layers, const int* list_idx, const int* list_cnt,
+    const float* dt, float* x_out, float* v_out, float* acc_out, int react,
+    int n_rows, PairConsts c, void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
       using Walk = decltype(walk);
       auto kernel = react ? wcsph_forces_kernel<true, Walk>
                           : wcsph_forces_kernel<false, Walk>;
-      kernel<<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
-          x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, walk, dt,
-          x_out, v_out, acc_out, c);
+      kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
+          x, v, material, is_dyn, m, m_V, dpi, p_r02, m_nc, rr0, walk, pl,
+          dt, x_out, v_out, acc_out, n_rows, c);
     });
   }
   return (int)cudaGetLastError();
@@ -231,4 +321,30 @@ extern "C" int boundary_volume_launch(const float* x, const int* material,
     });
   }
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, static shared memory per block and resident blocks
+// per SM of kernel ``which``: 0 density_sum_list, 1 density_sum over the
+// cell runs, 2 wcsph_forces<false>, 3 wcsph_forces<true> (over the cell
+// runs; 4, 5 over the slot walk).
+extern "C" int pairs_occupancy(int which, int* regs, int* smem_bytes,
+                               int* blocks_per_sm) {
+  const void* kernels[6] = {
+      (const void*)density_sum_list_kernel,
+      (const void*)density_sum_kernel<CellRunWalk>,
+      (const void*)wcsph_forces_kernel<false, CellRunWalk>,
+      (const void*)wcsph_forces_kernel<true, CellRunWalk>,
+      (const void*)wcsph_forces_kernel<false, SlotWalk>,
+      (const void*)wcsph_forces_kernel<true, SlotWalk>};
+  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
+  const void* kernel = kernels[which];
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        kBlock, 0);
+  }
+  *regs = attr.numRegs;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  return (int)err;
 }

@@ -333,6 +333,26 @@ def compute_densities(p: Particles, ctx, engine, params: SimParams):
     else:
         den_pairs = cuda_pairs.density_sum_plain(ctx, p.x, p.material,
                                                  p.m_V, params)
+    return _with_density(p, den_pairs, params)
+
+
+def compute_densities_and_pairs(p: Particles, ctx, engine, params: SimParams,
+                                buffers=None):
+    """``compute_densities`` for a step whose next pair kernel walks the
+    same pairs at the same positions (WCSPH's forces): returns (p, the
+    context that kernel reads).  On the CUDA engine over the cell runs one
+    kernel sums the densities and writes the step's pair list into
+    ``buffers`` (``cuda_pairs.density_sum_list``); otherwise the context
+    is ``ctx`` (the slot map, or the plain engine's neighbour lists)."""
+    if engine.fused:
+        den_pairs, ctx = cuda_pairs.density_sum_list(ctx, p, params, buffers)
+    else:
+        den_pairs = cuda_pairs.density_sum_plain(ctx, p.x, p.material,
+                                                 p.m_V, params)
+    return _with_density(p, den_pairs, params), ctx
+
+
+def _with_density(p, den_pairs, params):
     w0 = cubic_kernel(torch.zeros((), dtype=p.x.dtype, device=p.x.device),
                       params.support_radius, params.dim)
     density = (p.m_V * w0 + den_pairs) * params.density0

@@ -4,6 +4,10 @@ Substep (WCSPH.py:152-156): densities -> non-pressure and pressure forces
 in one fused pair sum -> symplectic Euler.  On the CUDA engine the force
 kernel also runs advection and the fluid box clamp in its epilogue; the
 plain engine computes accelerations, then advects, and the step clamps.
+The positions stay those of the sort until that epilogue, so on the CUDA
+engine over the cell runs the density kernel writes the step's pair list
+as it sums, and the force kernel reads it (ops/cuda_pairs.py
+``density_sum_list``).
 
 Quirks of the reference kept as they are:
 - density is clamped to >= rho0 *and stored* before the EOS (WCSPH.py:75);
@@ -19,7 +23,8 @@ import torch
 from sph_taichi_torch.state import Particles
 from sph_taichi_torch.ops import cuda_pairs
 from sph_taichi_torch.ops.pairs import div_exact
-from sph_taichi_torch.models.base import SPHBase, compute_densities
+from sph_taichi_torch.models.base import (
+    SPHBase, compute_densities_and_pairs)
 
 
 class WCSPHSolver(SPHBase):
@@ -27,9 +32,15 @@ class WCSPHSolver(SPHBase):
         self.exponent = params.exponent      # WCSPH.py:9-10
         self.stiffness = params.stiffness    # WCSPH.py:12-13
         super().__init__(params, device=device, engine=engine)
+        # the step's pair list's device buffers (density_sum_list),
+        # allocated at the first step and reused
+        self._pair_buffers = {}
 
     def substep(self, p: Particles, ctx, dt):
-        p = compute_densities(p, ctx, self.engine, self.params)
+        # the force kernel's context: the pair list the density kernel
+        # wrote, on the CUDA engine over the cell runs
+        p, ctx = compute_densities_and_pairs(p, ctx, self.engine,
+                                             self.params, self._pair_buffers)
         fused = self.engine.fused
         p = self.compute_forces(p, ctx, dt=dt if fused else None)
         if not fused:
@@ -63,8 +74,9 @@ class WCSPHSolver(SPHBase):
 
     def compute_forces(self, p: Particles, ctx, dt=None):
         """Fused WCSPH.py:88-141 (non-pressure) + :46-85 (pressure) + :67-68
-        (rigid reaction, gather form).  With ``dt`` (CUDA engine) the
-        kernel also advects and clamps; without, p.acc is set."""
+        (rigid reaction, gather form).  With ``dt`` (CUDA engine; ``ctx``
+        from ``compute_densities_and_pairs``) the kernel also advects and
+        clamps; without, p.acc is set."""
         p, dpi, p_r02, m_nc, rr0 = self.force_inputs(p)
         if dt is not None:
             x, v, acc = cuda_pairs.wcsph_forces(ctx, p, dpi, p_r02, m_nc,

@@ -6,12 +6,20 @@ Ports three specializations of the Pallas TPU kernel
 hand-written CUDA C++ in ``csrc/pairs.cu``:
 
 - ``density_sum``: den[i] = sum_j m_V[j] W(r_ij) over neighbours with
-  material >= 0 (the term of models/base.py compute_densities);
+  material >= 0 (the term of models/base.py compute_densities; PCISPH's,
+  IISPH's and the slot walk's);
+- ``density_sum_list``: the same sum on the WCSPH step over the cell runs,
+  whose kernel also writes every real centre's accepted neighbours, in the
+  walk's order, to the step's pair list (ops/pair_list.py ``PairList``):
+  the positions do not move from the sort to the force kernel's advect, so
+  the force kernel's pairs are the density kernel's;
 - ``wcsph_forces``: the fused WCSPH force term (surface tension,
   viscosity, pressure, and with ``rr0`` the two-way reaction on dynamic
   rigid centres), then acceleration select, symplectic Euler and the fluid
   box clamp.  Returns new (x, v, acc); the kernel writes into new buffers
-  because neighbours read the old x and v in the same launch;
+  because neighbours read the old x and v in the same launch.  Over the
+  cell runs it reads the pair list that ``density_sum_list`` wrote, and
+  takes only that context, not bare cell offsets;
 - ``boundary_volume``: the Akinci volume 3 / (W(0) + sum of W over solid
   neighbours) of the target rows (models/base.py _boundary_volume_engine,
   scenes above DENSE_SOLID_CAP solids), one thread per target row.
@@ -30,8 +38,10 @@ CUDA tensor it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[name]``.
 
 Padding rows (the tail past n_fluid + n_solid, sorted to the overflow
-cell) are not launched: the wrappers restore them from the inputs, as the
-plain path leaves them.
+cell): ``density_sum_list`` and ``wcsph_forces`` write them in the kernel
+(the density and the list's count 0; x and v carried through, acc 0), so
+each of their wrapper calls launches exactly one kernel; ``density_sum``
+leaves them 0 and ``boundary_volume`` does not write them.
 """
 
 import ctypes
@@ -43,15 +53,16 @@ import torch
 from sph_taichi_torch.ops.grid import inv_grid_size
 from sph_taichi_torch.ops.kernels import (
     norm_const, cubic_kernel, cubic_kernel_derivative_scalar)
+from sph_taichi_torch.ops.neighbors import NeighborList
 from sph_taichi_torch.ops.pairs import GatherEngine, div_exact, sqrt32
 from sph_taichi_torch.ops.slots import (
     SlotMap, build_slot_map, slot_neighbor_list)
 from sph_taichi_torch.state import (
     MATERIAL_FLUID, MATERIAL_PAD, MATERIAL_SOLID)
 
-LAUNCHES = {"density_sum": 0, "wcsph_forces": 0, "boundary_volume": 0,
-            "density_sum[slots]": 0, "wcsph_forces[slots]": 0,
-            "boundary_volume[slots]": 0}
+LAUNCHES = {"density_sum": 0, "density_sum_list": 0, "wcsph_forces": 0,
+            "boundary_volume": 0, "density_sum[slots]": 0,
+            "wcsph_forces[slots]": 0, "boundary_volume[slots]": 0}
 
 M_EPS = 1e-5    # DFSPH stiffness gate (DFSPH.py:17)
 
@@ -82,6 +93,17 @@ def density_sum_plain(nl, x, material, m_V, params):
     return GatherEngine(params).traverse(
         nl, x, {"material": material, "m_V": m_V}, term,
         {"den": "scalar"})["den"]
+
+
+def density_sum_list_plain(nl, p, params):
+    """Plain version of ``density_sum_list``: (den, idx, cnt), the
+    ``density_sum_plain`` sums and the step's pair list of every real
+    centre (``pair_list.step_pairs_plain``) from the plain engine's
+    neighbour lists ``nl`` of ``p``."""
+    from sph_taichi_torch.ops import pair_list   # it imports this module
+
+    den = density_sum_plain(nl, p.x, p.material, p.m_V, params)
+    return (den, *pair_list.step_pairs_plain(nl, p, "real"))
 
 
 def wcsph_accel_plain(nl, p, dpi, p_r02, m_nc, rr0, params):
@@ -273,13 +295,19 @@ def _lib():
         i32 = ctypes.c_int
         lib.density_sum_launch.argtypes = (
             [_PTR] * 3 + WALK + [_PTR, PairConsts, _PTR])
-        lib.density_sum_launch.restype = i32
+        lib.density_sum_list_launch.argtypes = (
+            [_PTR] * 7 + [i32, PairConsts, _PTR])
         lib.wcsph_forces_launch.argtypes = (
-            [_PTR] * 10 + WALK + [_PTR] * 4 + [i32, PairConsts, _PTR])
-        lib.wcsph_forces_launch.restype = i32
+            [_PTR] * 10 + WALK + [_PTR] * 6 + [i32, i32, PairConsts, _PTR])
         lib.boundary_volume_launch.argtypes = (
             [_PTR] * 2 + WALK + [_PTR, i32, _PTR, PairConsts, _PTR])
-        lib.boundary_volume_launch.restype = i32
+        lib.pairs_occupancy.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+        for fn in (lib.density_sum_launch, lib.density_sum_list_launch,
+                   lib.wcsph_forces_launch, lib.boundary_volume_launch,
+                   lib.pairs_occupancy, lib.pairs_list_entries):
+            fn.restype = i32
+        from sph_taichi_torch.ops import pair_list
+        pair_list.check_entries(lib.pairs_list_entries(), "WCSPH")
         lib._typed = True
     return lib
 
@@ -323,8 +351,10 @@ def _stream(dev):
 
 def _plain_ctx(ctx, p, params):
     """The plain engine's neighbour lists, for a wrapper given CPU
-    tensors: over the slot map for a ``SlotMap``, else over the cell
-    offsets."""
+    tensors: the lists themselves, over the slot map for a ``SlotMap``,
+    else over the cell offsets."""
+    if isinstance(ctx, NeighborList):
+        return ctx
     if isinstance(ctx, SlotMap):
         return slot_neighbor_list(ctx, p.x, params)
     return GatherEngine(params).prepare(p.x, ctx)
@@ -371,15 +401,50 @@ def density_sum(ctx, p, params):
     return out
 
 
+def density_sum_list(ctx, p, params, buffers=None):
+    """``density_sum`` on the WCSPH step, with the context its force kernel
+    reads: (den, ctx').  Given the cell offsets of the sorted particles
+    ``p``, one launch of ``density_sum_list`` sums the densities and writes
+    every real centre's accepted pairs to a ``PairList`` in ``buffers`` (a
+    dict, filled with the list's tensors at the first call and reused
+    after; None: new tensors).  Given a ``SlotMap``, ``density_sum`` over
+    it, and the map.  On CPU tensors, given cell offsets, the plain sums
+    and the plain engine's neighbour lists, which ``wcsph_forces_plain``
+    reads (``density_sum_list_plain`` gives them in the list's layout)."""
+    from sph_taichi_torch.ops import pair_list   # it imports this module
+
+    if isinstance(ctx, SlotMap):
+        return density_sum(ctx, p, params), ctx
+    if p.x.device.type == "cpu":
+        nl = _plain_ctx(ctx, p, params)
+        return density_sum_plain(nl, p.x, p.material, p.m_V, params), nl
+    dev, n, ptr, _, _ = _walk(ctx, p, params)
+    idx, cnt = pair_list.list_buffers(buffers, n, dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    rc = _lib().density_sum_list_launch(
+        ptr["x"], ptr["material"], ptr["m_V"], ptr["starts"],
+        idx.data_ptr(), cnt.data_ptr(), out.data_ptr(), n,
+        pair_consts(params), _stream(dev))
+    _raise_on(rc, "density_sum_list")
+    LAUNCHES["density_sum_list"] += 1
+    return out, pair_list.PairList(ctx, idx, cnt)
+
+
 def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
     """Kernel wrapper for ``wcsph_forces_plain``: returns new (x, v, acc).
-    ``ctx`` as for ``density_sum``; ``rr0`` (rho0 / density) selects the
-    two-way reaction variant; ``dt`` is a 0-d f32 tensor on the particles'
-    device (read by the kernel, so the step makes no host sync)."""
+    ``ctx``: the step's context from ``density_sum_list`` for the sorted
+    particles ``p`` (a ``PairList`` over the cell runs), or their
+    ``SlotMap`` for the slot walk; on CPU tensors also their neighbour
+    lists or cell offsets.  ``rr0`` (rho0 / density) selects the two-way
+    reaction variant; ``dt`` is a 0-d f32 tensor on the particles' device
+    (read by the kernel, so the step makes no host sync)."""
+    from sph_taichi_torch.ops import pair_list   # it imports this module
+
     if p.x.device.type == "cpu":
         return wcsph_forces_plain(_plain_ctx(ctx, p, params), p, dpi,
                                   p_r02, m_nc, rr0, dt, params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(
+        ctx, p, params, "WCSPH", source="density_sum_list")
     f32, i32 = torch.float32, torch.int32
     react = rr0 is not None
     args = [ptr["x"], _check("v", p.v, f32, (n, 3), dev),
@@ -390,20 +455,34 @@ def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
             _check("p_r02", p_r02, f32, (n,), dev),
             _check("m_nc", m_nc, f32, (n,), dev),
             _check("rr0", rr0, f32, (n,), dev) if react else None,
-            *walk, _check("dt", dt, f32, (), dev)]
+            *walk, *lst, _check("dt", dt, f32, (), dev)]
     x_out = torch.empty_like(p.x)
     v_out = torch.empty_like(p.v)
     acc = torch.empty_like(p.x)
     rc = _lib().wcsph_forces_launch(
         *args, x_out.data_ptr(), v_out.data_ptr(), acc.data_ptr(),
-        int(react), pair_consts(params), _stream(dev))
+        int(react), n, pair_consts(params), _stream(dev))
     _raise_on(rc, "wcsph_forces" + suffix)
     LAUNCHES["wcsph_forces" + suffix] += 1
-    n_real = params.n_fluid + params.n_solid
-    x_out[n_real:] = p.x[n_real:]
-    v_out[n_real:] = p.v[n_real:]
-    acc[n_real:] = 0.0
     return x_out, v_out, acc
+
+
+def occupancy(kernel, slots=False):
+    """(registers per thread, static shared memory bytes per block,
+    resident blocks of 128 threads per SM) of ``kernel`` on the current
+    CUDA device: "density_sum_list", "density_sum" (over the cell runs),
+    "wcsph_forces" or "wcsph_forces_react" (over the cell runs, or the
+    slot walk with ``slots``)."""
+    which = {"density_sum_list": 0, "density_sum": 1, "wcsph_forces": 2,
+             "wcsph_forces_react": 3}[kernel]
+    if slots:
+        if which < 2:
+            raise ValueError(f"{kernel}: no slot instantiation counted")
+        which += 2
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _lib().pairs_occupancy(which, *[ctypes.byref(o) for o in out])
+    _raise_on(rc, f"pairs_occupancy({kernel})")
+    return tuple(o.value for o in out)
 
 
 def target_rows(target_mask, cap):

@@ -1,4 +1,4 @@
-"""The step-start pair list of the implicit loops, shared by PCISPH and IISPH.
+"""The step-start pair list of PCISPH's and IISPH's loops and WCSPH's step.
 
 A loop whose pair set stays that of the step start walks the same
 candidates and accepts the same pairs in every iteration: PCISPH's (its
@@ -12,11 +12,15 @@ the loop's context); the loop kernels run only the pair body over it.  A
 warp holding a centre with more than ``PAIR_LIST_ENTRIES`` accepted pairs
 walks the cells in one phase inside the kernel (the same pairs, in the same
 order).  Over the cell runs the loop wrappers take only the list, not bare
-cell offsets.  The slot walk reads its map and no list.
+cell offsets.  The slot walk reads its map and no list.  WCSPH's step has
+no loop, but its positions too stay the sort's until the force kernel's
+advect: its density kernel writes the list while it sums
+(ops/cuda_pairs.py ``density_sum_list``) and its force kernel reads it.
 
 The centres a list serves: PCISPH's loop walks the fluid centres
 (``"fluid"``), IISPH's every real centre (``"real"``), solids included,
-because its A reads the solids' pressure accelerations.
+because its A reads the solids' pressure accelerations; WCSPH's density
+lists every real centre too.
 
 ``step_pairs_plain`` is the list from the plain engine's neighbour lists;
 on CPU tensors the loop's context is those lists themselves, which the
@@ -87,6 +91,21 @@ def step_pairs_plain(nl, p, centres):
     return torch.where(k < listed[None, :], idx, -1), cnt
 
 
+def list_buffers(buffers, n, dev):
+    """(idx, cnt) of a ``PairList`` over ``n`` rows on ``dev``: the
+    tensors of the dict ``buffers``, allocated at its first call and reused
+    after (None: new tensors)."""
+    buffers = {} if buffers is None else buffers
+    if "idx" not in buffers:
+        buffers["idx"] = torch.empty((PAIR_LIST_ENTRIES, n),
+                                     dtype=torch.int32, device=dev)
+        buffers["cnt"] = torch.empty(n, dtype=torch.int32, device=dev)
+    _check("pair list", buffers["idx"], torch.int32, (PAIR_LIST_ENTRIES, n),
+           dev)
+    _check("pair counts", buffers["cnt"], torch.int32, (n,), dev)
+    return buffers["idx"], buffers["cnt"]
+
+
 def step_pairs(launch, name, launches, ctx, p, params, buffers=None):
     """A loop's context for the sorted step-start particles ``p``: given
     their cell offsets, a ``PairList`` built by one launch of the kernel
@@ -102,37 +121,30 @@ def step_pairs(launch, name, launches, ctx, p, params, buffers=None):
     if p.x.device.type == "cpu":
         return _plain_ctx(ctx, p, params)
     dev, n, ptr, _, _ = _walk(ctx, p, params)
-    buffers = {} if buffers is None else buffers
-    if "idx" not in buffers:
-        buffers["idx"] = torch.empty((PAIR_LIST_ENTRIES, n),
-                                     dtype=torch.int32, device=dev)
-        buffers["cnt"] = torch.empty(n, dtype=torch.int32, device=dev)
-    pairs = PairList(ctx, buffers["idx"], buffers["cnt"])
+    pairs = PairList(ctx, *list_buffers(buffers, n, dev))
     rc = launch()(
-        ptr["x"], ptr["material"], ptr["starts"],
-        _check("pair list", pairs.idx, torch.int32, (PAIR_LIST_ENTRIES, n),
-               dev),
-        _check("pair counts", pairs.cnt, torch.int32, (n,), dev), n,
-        pair_consts(params), _stream(dev))
+        ptr["x"], ptr["material"], ptr["starts"], pairs.idx.data_ptr(),
+        pairs.cnt.data_ptr(), n, pair_consts(params), _stream(dev))
     _raise_on(rc, name)
     launches[name] += 1
     return pairs
 
 
-def _refuse(ctx, solver, kind):
-    raise TypeError(f"{solver}'s loop kernels take the step's context from "
-                    f"step_pairs ({kind} or a SlotMap), not "
+def _refuse(ctx, solver, kind, source="step_pairs"):
+    raise TypeError(f"{solver}'s list kernels take the step's context from "
+                    f"{source} ({kind} or a SlotMap), not "
                     f"{type(ctx).__name__}")
 
 
-def loop_walk(ctx, p, params, solver):
-    """``_walk`` of a loop kernel's context, and the launcher's list
+def loop_walk(ctx, p, params, solver, source="step_pairs"):
+    """``_walk`` of a list kernel's context, and the launcher's list
     arguments: the list of a ``PairList``, none for a ``SlotMap``; raises
-    for any other context (``solver`` names the loop in the message)."""
+    for any other context (``solver`` names the kernels and ``source`` the
+    call that makes their context in the message)."""
     if isinstance(ctx, SlotMap):
         return (*_walk(ctx, p, params), (None, None))
     if not isinstance(ctx, PairList):
-        _refuse(ctx, solver, "a PairList")
+        _refuse(ctx, solver, "a PairList", source)
     dev, n, ptr, walk, suffix = _walk(ctx.starts, p, params)
     lst = (_check("pair list", ctx.idx, torch.int32, (PAIR_LIST_ENTRIES, n),
                   dev),

@@ -55,7 +55,7 @@ __device__ __forceinline__ void pinned_compact_cell_runs(
           flush();
         }
       },
-      [&](int j) { list[(cnt++) * kBlock] = j; });
+      [&](int j, float) { list[(cnt++) * kBlock] = j; });
   flush();
 }
 
