@@ -11,8 +11,10 @@ Phases (any failure raises and exits non-zero):
    cells): the WCSPH kernels (density_sum, density_sum_list with the
    step's pair list, wcsph_forces over that list with and without the
    two-way reaction, whole outputs bitwise), the
-   DFSPH kernels (both divergence modes, the solver update with and without
-   the reaction), and the DFSPH kernels and two whole steps on a block
+   DFSPH kernels (e1 with the step's pair list and d over it, whole
+   outputs and the list bitwise; both divergence modes, the solver update
+   with and without the reaction), and the DFSPH kernels and two whole
+   steps on a block
    that falls onto the floor, where the Jacobi loops iterate; the four
    IISPH kernels and IISPH's step-start pair list (f3 and f4 over it) on
    a clumped scene with a static rigid block and on the
@@ -35,13 +37,22 @@ Phases (any failure raises and exits non-zero):
    from the same state;
 4. the DFSPH path: data/scenes/dragon_bath_dfsph.json (the same particles,
    dt 4e-3) through ``Simulation``, timed with CUDA events; iteration
-   counts, host reads per step and launch counts over that run; the host
-   syncs of one step; stage times; the step time by the Jacobi loops'
-   read interval, there and 100 steps later; one kernel step against one
-   plain-engine step; per-kernel and plain-version times;
+   counts, host reads per step and launch counts over that run (e1 = d =
+   steps); the host syncs of one step; device busy, and e1's and d's
+   kernels in 5 profiled steps against their wrappers' calls; stage
+   times; the step time by the Jacobi loops' read interval, there and
+   100 steps later; one kernel step against one plain-engine step; at the
+   dragon state the walk profile of e1's and d's centres with the list,
+   the registers, shared memory and resident blocks of e1 and d (both
+   walks, both variants), per-kernel and plain-version times and bounds
+   (e1 and d beside the bytes of the list's write and read, design
+   figures), e1 (the list too) and d against their plain versions
+   bitwise;
 5. the DFSPH reaction variant at scale: data/scenes/
    dragon_bath_dynamic_dfsph.json (a dynamic dragon), run until the fluid
    reaches the dragon, then 5 timed steps and the reaction kernel's time;
+   at that state the walk profile of e1's and d's centres with the list,
+   and e1 (the list too) and d against their plain versions bitwise;
    for the record, kernel 2.1 c's time over its 18,506 solids beside the
    dense path's, which the dispatch keeps;
 6. the IISPH path: data/scenes/dragon_bath.json with simulationMethod 2
@@ -64,9 +75,10 @@ Phases (any failure raises and exits non-zero):
    profiles, the list, f3 (both variants) and f4 over it against their
    plain versions bitwise, and one kernel step against one plain-engine
    step;
-8. the PCISPH kernels (the step-start pair list, the density derivative
-   with its correction and the pressure acceleration with its predict
-   over the list, and the un-kicked non-pressure variant) against their plain versions on the clumped
+8. the PCISPH kernels (the step-start pair list, and over it the
+   un-kicked non-pressure variant, the density derivative with its
+   correction and the pressure acceleration with its predict) against
+   their plain versions on the clumped
    small scene and the two-way scene at a seeded prediction x* = x + dt v*
    that moves pairs out of the radius; three PCISPH steps of an impact on
    the floor, kernel engine against plain engine;
@@ -75,11 +87,12 @@ Phases (any failure raises and exits non-zero):
    with CUDA events; iterations and host reads per step, launch counts
    (density = non-pressure = the list build = steps, g1 = g2 = k per host
    read); the host syncs of one step (none in the loop's wrappers); the
-   loop's kernels in 5 profiled steps against their wrappers' calls;
-   stage times; the read-interval sweep (k = 1, 2, 3, 4); one kernel step
-   against one plain-engine step; at that state the walk profile with the
-   list, each loop kernel's registers, shared memory and resident blocks,
-   per-kernel and plain-version times and bounds (g1 and g2 beside the
+   build's, d's and the loop's kernels in 5 profiled steps against their
+   wrappers' calls; stage times (the list built before d); the
+   read-interval sweep (k = 1, 2, 3, 4); one kernel step against one
+   plain-engine step; at that state the walk profile with the list, each
+   list kernel's registers, shared memory and resident blocks (d's too),
+   per-kernel and plain-version times and bounds (d, g1 and g2 beside the
    bytes and operations of the list's read), the list against its plain
    version; a checkpoint
    saved there and resumed into a fresh ``Simulation``, one step on both,
@@ -136,9 +149,9 @@ Phases (any failure raises and exits non-zero):
    same edge scene as PCISPH (centres with more accepted pairs than the
    list holds, so warps reading the list beside warps walking the cells):
    the list against its plain version, g1 and g2 over the list and over
-   the slot map against their plain versions bitwise, padding rows
-   included; bare cell offsets refused; the walk profile with the list;
-   one kernel per wrapper call;
+   the slot map and un-kicked d over the list against their plain
+   versions bitwise, padding rows included; bare cell offsets refused; the
+   walk profile with the list; one kernel per wrapper call;
 20. (in phase 2) IISPH's step-start pair list, f3 (both variants) and f4
    on the same edge scene as IISPH, every real centre over the list at a
    seeded pressure: the list against its plain version, f3 and f4 over
@@ -152,6 +165,13 @@ Phases (any failure raises and exits non-zero):
    walk profiles of both kernels' centres; one kernel per wrapper call.
    (density_sum, one phase, now on the IISPH and PCISPH paths only, is
    timed at phase 6's state.)
+22. (in phase 2) DFSPH's e1 with the step's list and d over it on the
+   same edge scene, padding densities and velocities not 0: both against
+   their plain versions bitwise (the list too), e1 and both variants of d
+   over the slot map too, padding rows included; d refuses bare cell
+   offsets (kicked and un-kicked; PCISPH's edge-scene phase runs
+   un-kicked d over its list); the walk profile; one kernel per wrapper
+   call.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -238,8 +258,18 @@ ROW_COSTS = {
     "dfsph_divergence_adv": (44, 4, "fluid", DIVERGENCE_FLOPS_PER_PAIR),
     # without the reaction: reads x, material, m_V, kappa, v, dt; writes v
     "dfsph_solver_dv": (48, 4, "fluid", SOLVER_DV_FLOPS_PER_PAIR),
+    # e1 as this design runs it over the cell runs (a design figure printed
+    # beside its bound, not a bound: the list is the design's own
+    # intermediate): the function's bytes, and the list's counts (4 per
+    # row) and entries written (counted with the index)
+    "dfsph_density_factor_list": (36, 0, "fluid",
+                                  DENSITY_FACTOR_FLOPS_PER_PAIR),
     # reads x, v, material, is_dynamic, m, density, dt; writes acc, v
     "nonpressure_kick": (64, 4, "fluid_ff", NONPRESSURE_FLOPS_PER_PAIR),
+    # d as this design runs it over the step's list (a design figure, as
+    # e1's): the list's counts and entries read instead of the cell
+    # offsets; the pair geometry is still computed
+    "nonpressure_kick_list": (68, 4, "fluid_ff", NONPRESSURE_FLOPS_PER_PAIR),
     # reads x, v, material, m, density, dt; writes acc, v
     "iisph_nonpressure_kick": (60, 4, "real_fj",
                                IISPH_NONPRESSURE_FLOPS_PER_PAIR),
@@ -255,6 +285,7 @@ ROW_COSTS = {
     "iisph_apply_A": (52, 5, "real", IISPH_APPLY_A_FLOPS_PER_PAIR),
     # reads x, v, material, is_dynamic, m, density; writes acc
     "nonpressure_accel": (52, 0, "fluid_ff", NONPRESSURE_FLOPS_PER_PAIR),
+    "nonpressure_accel_list": (56, 0, "fluid_ff", NONPRESSURE_FLOPS_PER_PAIR),
     # reads x, x*, v*, material, m_V, density, p, dt, s_f, the flag; writes
     # p', rho_err
     "pcisph_d_rho_correct": (60, 9, "fluid", PCISPH_D_RHO_FLOPS_PER_PAIR),
@@ -613,14 +644,48 @@ def random_kappa(p, seed=1):
     return torch.where(p.material == 1, k, 0.0)
 
 
+def compare_dfsph_list_kernels(params, p, nl, starts, label, worst):
+    """DFSPH's e1 and d over the cell runs against their plain versions at
+    one state, whole outputs (padding rows included) equal bitwise:
+    ``density_factor_list`` (the density, the factor and the step's pair
+    list) and ``nonpressure_kick`` over that list.  Fills ``worst`` and
+    returns (the list, ``p`` with the density and factor, dt)."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    def equal(name, got, ref, fields):
+        for field, a, b in zip(fields, got, ref):
+            e = float((a.double() - b.double()).abs().max())
+            worst[name] = max(worst.get(name, 0.0), e)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: {name}.{field} differs from "
+                                     f"its plain version ({e:.3e})")
+
+    density, factor, pairs = cd.density_factor_list(starts, p, params, {})
+    ref = cd.density_factor_list_plain(nl, p, params)
+    equal("dfsph_density_factor", (density, factor), ref[:2],
+          ("density", "factor"))
+    worst["dfsph_density_factor"] = max(
+        worst["dfsph_density_factor"], check_pair_list(
+            pairs, nl, p, params, label,
+            plain=("dfsph_density_factor_list", *ref[2:]))[0])
+    q = p._replace(density=density, dfsph_factor=factor)
+    dt = torch.full((), params.dt0, dtype=torch.float32, device=p.x.device)
+    equal("nonpressure_kick", cd.nonpressure_kick(pairs, q, dt, params),
+          cd.nonpressure_kick_plain(nl, q, dt, params), ("acc", "v"))
+    print(f"  {label}: dfsph_density_factor_list (density, factor and list) "
+          f"and nonpressure_kick over the list equal to their plain versions "
+          f"bitwise, padding rows included")
+    return pairs, q, dt
+
+
 def compare_dfsph_kernels(params, solver, p, nl, starts, label, worst):
-    """K1-K4 against their plain versions at one state.  The stiffness is
+    """K1-K4 against their plain versions at one state (e1 and d over the
+    cell runs bitwise, ``compare_dfsph_list_kernels``).  The stiffness is
     random with magnitudes 1e-7 .. 10, on both sides of the m_eps gate and
     large enough that the solver update moves the velocities."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
 
     device = p.x.device
-    dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
 
     def check(name, got, ref, what):
         for field, a, b in zip(what, got, ref):
@@ -629,10 +694,7 @@ def compare_dfsph_kernels(params, solver, p, nl, starts, label, worst):
             worst[name] = max(worst.get(name, 0.0), max_errors(
                 a, b, f"{name}[{label}].{field}"))
 
-    ref = cd.density_factor_plain(nl, p, params)
-    check("dfsph_density_factor", cd.density_factor(starts, p, params), ref,
-          ("density", "factor"))
-    p = p._replace(density=ref[0], dfsph_factor=ref[1])
+    _, p, dt = compare_dfsph_list_kernels(params, p, nl, starts, label, worst)
     for mode in cd.MODES:
         check("dfsph_divergence",
               cd.divergence(starts, p, p.v, p.density, dt, mode, params),
@@ -659,8 +721,6 @@ def compare_dfsph_kernels(params, solver, p, nl, starts, label, worst):
                   f"{moved:.3e}")
             if moved < 1e-6:
                 raise AssertionError("DFSPH reaction not exercised")
-    check("nonpressure_kick", cd.nonpressure_kick(starts, p, dt, params),
-          cd.nonpressure_kick_plain(nl, p, dt, params), ("acc", "v"))
 
 
 def check_dfsph_on_small_scenes(device):
@@ -967,6 +1027,102 @@ def check_compact_walk_on_edge_scene(device):
     return worst
 
 
+def check_dfsph_on_edge_scene(device):
+    """DFSPH's e1 and d on the edge scene (a ~100-particle cell: centres
+    over the list, so warps that read the list beside warps that walk the
+    cells in one phase), with padding densities and velocities that are not
+    0: density_factor_list and nonpressure_kick over its list, and e1 and
+    both variants of d over the slot map (the cell overflows its 32 slots),
+    against their plain versions bitwise, padding rows included; d refuses
+    bare cell offsets; the walk profile of their centres; one kernel per
+    wrapper call."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    params, solver, p, nl, starts, diag = prepared(
+        compact_edge_scene(), device, seed=0, place=compact_edge_positions)
+    if int(diag["neighbor_overflow"]) or int(diag["cell_overflow"]):
+        raise AssertionError("edge scene: the plain engine's caps overflowed")
+    print(f"DFSPH edge scene: {params.n_particles} particles "
+          f"({params.n_solid} dynamic solids), max cell occupancy "
+          f"{int(diag['max_cell_occupancy'])}, max neighbours "
+          f"{int(diag['max_neighbors'])}")
+    n_real = params.n_fluid + params.n_solid
+    pad = torch.arange(3 * (p.n - n_real), dtype=torch.float32,
+                       device=device)
+    v, density = p.v.clone(), p.density.clone()
+    v[n_real:] = pad.reshape(-1, 3)
+    density[n_real:] = 1000.0 + pad[:p.n - n_real]
+    p = p._replace(v=v, density=density)
+    worst = {"dfsph_density_factor": 0.0}
+    pairs, q, dt = compare_dfsph_list_kernels(params, p, nl, starts,
+                                              "DFSPH edge scene", worst)
+    fig = walk_profile(params, p.x, p.material == 1, starts, nl,
+                       "DFSPH edge scene, e1's and d's centres (fluid)",
+                       list_entries=PAIR_LIST_ENTRIES)
+    if not 0 < fig["warps_over_list"] < fig["warps"]:
+        raise AssertionError("edge scene: no warp over the list beside one "
+                             "within it")
+    caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=128)
+    smap = build_slot_map(starts, params)
+    snl = slot_neighbor_list(smap, q.x, caps)
+    for name, got, ref in (
+            ("dfsph_density_factor[slots]", cd.density_factor(smap, p, params),
+             cd.density_factor_plain(snl, p, params)),
+            ("nonpressure_kick[slots]", cd.nonpressure_kick(smap, q, dt, params),
+             cd.nonpressure_kick_plain(snl, q, dt, params)),
+            ("nonpressure_accel[slots]",
+             (cd.nonpressure_accel(smap, q, params),),
+             (cd.nonpressure_accel_plain(snl, q, params),))):
+        for a, b in zip(got, ref):
+            e = float((a.double() - b.double()).abs().max())
+            worst[name] = max(worst.get(name, 0.0), e)
+            if not torch.equal(a, b):
+                raise AssertionError(f"edge scene {name}: not equal to its "
+                                     f"plain version ({e:.3e})")
+    print("  e1, d and un-kicked d over the slot map equal to their plain "
+          "versions bitwise, padding rows included")
+    for name, fn in (("nonpressure_kick",
+                      lambda: cd.nonpressure_kick(starts, q, dt, params)),
+                     ("nonpressure_accel",
+                      lambda: cd.nonpressure_accel(starts, q, params))):
+        try:
+            fn()
+        except TypeError:
+            continue
+        raise AssertionError(f"{name}: bare cell offsets not refused")
+    print("  nonpressure_kick and nonpressure_accel refuse bare cell offsets")
+    buffers = {}
+    # name -> (its launch count, parts of the kernel's name, the call)
+    calls = {
+        "dfsph_density_factor (with the list)": (
+            "dfsph_density_factor", ("dfsph_density_factor_list_kernel",),
+            lambda: cd.density_factor_list(starts, p, params, buffers)),
+        "nonpressure_kick (over the list)": (
+            "nonpressure_kick", ("nonpressure_kick_kernel<true",
+                                 "CellRunWalk"),
+            lambda: cd.nonpressure_kick(pairs, q, dt, params)),
+        "nonpressure_accel (over the list)": (
+            "nonpressure_accel", ("nonpressure_kick_kernel<false",
+                                  "CellRunWalk"),
+            lambda: cd.nonpressure_accel(pairs, q, params)),
+        "nonpressure_kick[slots]": (
+            "nonpressure_kick[slots]", ("nonpressure_kick_kernel<true",
+                                        "SlotWalk"),
+            lambda: cd.nonpressure_kick(smap, q, dt, params))}
+    for name, (key, kernel, fn) in calls.items():
+        before = cd.LAUNCHES[key]
+        launched, lost = kernels_per_call(fn)
+        counted = (cd.LAUNCHES[key] - before) / (2 + lost)
+        print(f"  {name}: one wrapper call launches {launched} (its count "
+              f"{counted:g} per call; captures that lost the markers {lost})")
+        if len(launched) != 1 or counted != 1 or not all(
+                k in launched[0] for k in kernel):
+            raise AssertionError(f"{name}: the wrapper launches {launched}")
+    return {f"{k} (DFSPH edge scene)": v for k, v in worst.items()}
+
+
 def check_pcisph_on_edge_scene(device):
     """PCISPH's loop kernels and the step-start list on the edge scene (a
     ~100-particle cell: centres over the list, so warps that read the list
@@ -1023,34 +1179,49 @@ def check_pcisph_on_edge_scene(device):
                                          f"equal to its plain version "
                                          f"({err:.3e})")
             checked += 1
+    got = cd.nonpressure_accel(pairs, p, params)
+    want = cd.nonpressure_accel_plain(nl, p, params)
+    worst["nonpressure_accel"] = float((got.double() - want.double())
+                                       .abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"edge scene nonpressure_accel over the list: "
+                             f"not equal to its plain version "
+                             f"({worst['nonpressure_accel']:.3e})")
+    checked += 1
     print(f"  {checked} PCISPH kernel calls (g1, g2 over the list and the "
-          f"slots) equal to their plain versions bitwise, padding rows "
-          f"included")
+          f"slots, un-kicked d over the list) equal to their plain versions "
+          f"bitwise, padding rows included")
     for name, fn in (("pcisph_d_rho_correct", lambda: cg.d_rho_correct(
             starts, p, xp, vp, pressure, dt, s_f, params)),
                      ("pcisph_pressure_accel_predict",
                       lambda: cg.pressure_accel_predict(
-                          starts, p, xp, pressure, dt, params))):
+                          starts, p, xp, pressure, dt, params)),
+                     ("nonpressure_accel",
+                      lambda: cd.nonpressure_accel(starts, p, params))):
         try:
             fn()
         except TypeError:
             continue
         raise AssertionError(f"{name}: bare cell offsets not refused")
-    print("  g1 and g2 refuse bare cell offsets")
+    print("  g1, g2 and un-kicked d refuse bare cell offsets")
     calls = {
         "pcisph_step_pairs": lambda: cg.step_pairs(starts, p, params,
                                                    buffers),
         "pcisph_d_rho_correct": lambda: cg.d_rho_correct(
             pairs, p, xp, vp, pressure, dt, s_f, params),
         "pcisph_pressure_accel_predict": lambda: cg.pressure_accel_predict(
-            pairs, p, xp, pressure, dt, params)}
+            pairs, p, xp, pressure, dt, params),
+        "nonpressure_accel": lambda: cd.nonpressure_accel(pairs, p, params)}
     for name, fn in calls.items():
-        before = cg.LAUNCHES[name]
+        module = cd if name == "nonpressure_accel" else cg
+        kernel = ("nonpressure_kick_kernel<false"
+                  if name == "nonpressure_accel" else name)
+        before = module.LAUNCHES[name]
         launched, lost = kernels_per_call(fn)
-        counted = (cg.LAUNCHES[name] - before) / (2 + lost)
+        counted = (module.LAUNCHES[name] - before) / (2 + lost)
         print(f"  {name}: one wrapper call launches {launched} (its count "
               f"{counted:g} per call; captures that lost the markers {lost})")
-        if len(launched) != 1 or name not in launched[0] or counted != 1:
+        if len(launched) != 1 or kernel not in launched[0] or counted != 1:
             raise AssertionError(f"{name}: the wrapper launches {launched}")
     return worst
 
@@ -1662,10 +1833,26 @@ def dfsph_path(device, scene_path, warmup, steps):
         print(f"  {solve}: {n} iterations ran (the launches with work are "
               f"{steps} + {n}), {K * r - n} queued after the exit")
 
-    busy_ms = profile_steps(sim, 5)
+    counts = {}
+    reset_all_launch_counts()
+    busy_ms = profile_steps(sim, 5, counts)
     if busy_ms is not None:
         print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
               f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+        # e1 and d launched their one kernel per wrapper call, once per step
+        got = {name: sum(c for k, c in counts.items()
+                         if all(part in k for part in parts))
+               for name, parts in (
+                   ("dfsph_density_factor",
+                    ("dfsph_density_factor_list_kernel",)),
+                   ("nonpressure_kick", ("nonpressure_kick_kernel<true",
+                                         "CellRunWalk")))}
+        calls = {name: cd.LAUNCHES[name] for name in got}
+        print(f"  e1 and d in the profiled 5 steps {got}, their wrappers' "
+              f"calls {calls}")
+        if got != calls or set(calls.values()) != {5}:
+            raise AssertionError(f"DFSPH e1/d kernels {got}, wrapper calls "
+                                 f"{calls}")
 
     check_state(sim)
     metrics = sim.metrics
@@ -1684,11 +1871,11 @@ def dfsph_path(device, scene_path, warmup, steps):
         q, ctx, _ = base.bin_and_sort(state.p, params, solver.engine,
                                       solver.tables)
         ev[1].record()
-        q = solver.density_and_factor(q, ctx)
+        q, pairs = solver.density_factor_and_pairs(q, ctx)
         ev[2].record()
         q, _ = solver.divergence_solve(q, ctx, state.dt)
         ev[3].record()
-        q = base.compute_non_pressure_forces(q, ctx, solver.engine, params,
+        q = base.compute_non_pressure_forces(q, pairs, solver.engine, params,
                                              predict_dt=state.dt)
         ev[4].record()
         q, _ = solver.pressure_solve(q, ctx, state.dt)
@@ -1704,8 +1891,9 @@ def dfsph_path(device, scene_path, warmup, steps):
     evs = [staged_step() for _ in range(5)]
     torch.cuda.synchronize()
     stages = {}
-    for k, name in enumerate(("bin_and_sort", "density+factor",
-                              "divergence solve", "non-pressure + kick",
+    for k, name in enumerate(("bin_and_sort", "density+factor + list (e1)",
+                              "divergence solve",
+                              "non-pressure + kick (d, over the list)",
                               "pressure solve", "advect + rigid + clamp")):
         stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
     print("DFSPH stage ms at this state: " + json.dumps(
@@ -1737,10 +1925,25 @@ def dfsph_path(device, scene_path, warmup, steps):
         params, solver, state)
     dt = state.dt
     reset_all_launch_counts()     # comparison launches are not the path's
+    buffers = {}
+    plist = cd.density_factor_list(starts, q, params, buffers)[2]
+    k_list = plist.idx.shape[0]
+    fig = walk_profile(params, q.x, q.material == 1, starts, nl,
+                       "dragon_bath_dfsph state, e1's and d's centres "
+                       "(fluid), with the list", list_entries=k_list)
+    for name, slots in (("density_factor_list", False),
+                        ("density_factor", True),
+                        ("nonpressure_kick", False), ("nonpressure_kick", True),
+                        ("nonpressure_accel", False),
+                        ("nonpressure_accel", True)):
+        regs, smem, blocks = cd.occupancy(name, slots)
+        print(f"  {name}{'[slots]' if slots else ''}: {regs} registers, "
+              f"{smem} bytes of shared memory per block, {blocks} blocks of "
+              f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
     calls = {
         "dfsph_density_factor": (
-            lambda: cd.density_factor(starts, q, params),
-            lambda: cd.density_factor_plain(nl, q, params)),
+            lambda: cd.density_factor_list(starts, q, params, buffers),
+            lambda: cd.density_factor_list_plain(nl, q, params)),
         "change": (
             lambda: cd.divergence(starts, q, q.v, None, None, "change",
                                   params),
@@ -1757,7 +1960,7 @@ def dfsph_path(device, scene_path, warmup, steps):
             lambda: cd.solver_dv_plain(nl, q, kappa, q.v, None, dt, False,
                                        params)),
         "nonpressure_kick": (
-            lambda: cd.nonpressure_kick(starts, q, dt, params),
+            lambda: cd.nonpressure_kick(plist, q, dt, params),
             lambda: cd.nonpressure_kick_plain(nl, q, dt, params)),
     }
     ms, plain_ms, err = {}, {}, {}
@@ -1765,14 +1968,28 @@ def dfsph_path(device, scene_path, warmup, steps):
         ms[name] = time_ms(kern, 20)
         plain_ms[name] = time_ms(plain, 3)
         err[name] = 0.0
-        for k, (a, b) in enumerate(zip(kern(), plain())):
+        got, ref = kern(), plain()
+        if name == "dfsph_density_factor":
+            # e1's whole outputs and its list
+            err[name] = check_pair_list(
+                got[2], nl, q, params, "dragon state",
+                plain=("dfsph_density_factor_list", *ref[2:]))[0]
+            got, ref = got[:2], ref[:2]
+        # e1 and d over the whole outputs (padding rows included), the
+        # Jacobi kernels over the real rows
+        rows = slice(None) if name in ("dfsph_density_factor",
+                                       "nonpressure_kick") else slice(
+            0, params.n_fluid + params.n_solid)
+        for k, (a, b) in enumerate(zip(got, ref)):
             if b is not None:
                 err[name] = max(err[name], max_errors(
-                    a[:params.n_fluid + params.n_solid],
-                    b[:params.n_fluid + params.n_solid],
-                    f"dragon {name} output {k}"))
+                    a[rows], b[rows], f"dragon {name} output {k}"))
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
+    if err["dfsph_density_factor"] or err["nonpressure_kick"]:
+        raise AssertionError(f"dragon: e1 or d differs from its plain "
+                             f"version: {err}")
+    print(f"  the step's e1 and d: {ms['dfsph_density_factor'] + ms['nonpressure_kick']:.4f} ms")
 
     compact_at_dragon(params, q, starts, nl, kappa, dt)
     n = params.n_fluid + params.n_solid
@@ -1784,6 +2001,18 @@ def dfsph_path(device, scene_path, warmup, steps):
         ("adv", "dfsph_divergence_adv"),
         ("dfsph_solver_dv", "dfsph_solver_dv"),
         ("nonpressure_kick", "nonpressure_kick"))}
+    # e1 and d are bounded by the function they compute, over the cell
+    # offsets; the list as this design writes and reads it, design figures
+    listed = int(torch.clamp_max(plist.cnt, k_list).long().sum())
+    row_bound("dfsph_density_factor_list", n, cells + 4 * listed, pairs,
+              f"dfsph_density_factor design figure (writing the list, "
+              f"{fig['warps_over_list']} warps over it; not the bound)")
+    row_bound("nonpressure_kick_list", n, 4 * listed, pairs,
+              f"nonpressure_kick design figure (reading the list, "
+              f"{fig['warps_over_list']} warps over it; not the bound)")
+    print(f"  the list: {listed} entries written by e1 and read by d "
+          f"({4 * listed} bytes; {k_list} x {params.n_pad} x 4 = "
+          f"{4 * k_list * params.n_pad} bytes allocated once per solver)")
     # a later state, where the fluid has hit the bath: iterations and the
     # read interval again
     sim.reset_solver_stats()
@@ -1913,6 +2142,27 @@ def reaction_at_scale(device, scene_path, steps, max_lead=200):
     q, starts, nl, kappa, _, _ = dragon_state_kernels(params, sim.solver,
                                                       sim.state)
     dt = sim.state.dt
+    # e1's list and d over it at the contact, where the fullest cells hold
+    # ~54 particles: whole outputs and the list against the plain versions
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
+    walk_profile(params, q.x, q.material == 1, starts, nl,
+                 "dynamic dragon at contact, e1's and d's centres (fluid), "
+                 "with the list", list_entries=PAIR_LIST_ENTRIES)
+    density, factor, plist = cd.density_factor_list(starts, q, params, {})
+    ref = cd.density_factor_list_plain(nl, q, params)
+    err = check_pair_list(plist, nl, q, params, "dynamic dragon at contact",
+                          plain=("dfsph_density_factor_list", *ref[2:]))[0]
+    got = (density, factor, *cd.nonpressure_kick(plist, q, dt, params))
+    want = (*ref[:2], *cd.nonpressure_kick_plain(nl, q, dt, params))
+    for name, a, b in zip(("density", "factor", "acc", "v"), got, want):
+        err = max(err, max_errors(a, b, f"dynamic dragon at contact: "
+                                        f"e1/d {name} (whole output)"))
+    if err != 0.0:
+        raise AssertionError(f"dynamic dragon at contact: e1 or d differs "
+                             f"from its plain version ({err:.3e})")
+    print("  dynamic dragon at contact: dfsph_density_factor_list (density, "
+          "factor and list) and nonpressure_kick over the list equal to "
+          "their plain versions bitwise")
     acc = torch.zeros_like(q.x)
     react_ms = time_ms(lambda: cd.solver_dv(starts, q, kappa, q.v, acc, dt,
                                             True, params), 20)
@@ -2658,10 +2908,10 @@ def check_pair_list(pairs, nl, p, params, label, module=None, plain=None):
 
 
 def compare_pcisph_kernels(params, solver, p, nl, starts, label, worst):
-    """The un-kicked non-pressure kernel, the step-start list, g1 and g2
+    """The step-start list, the un-kicked non-pressure kernel, g1 and g2
     (over the list) against their plain versions at one state, each kernel
     on the plain chain's inputs: equal to the bit (every output's largest
-    difference is 0)."""
+    difference is 0, padding rows included)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
@@ -2675,14 +2925,14 @@ def compare_pcisph_kernels(params, solver, p, nl, starts, label, worst):
                                      f"to its plain version ({err:.3e})")
             worst[name] = max(worst.get(name, 0.0), err)
 
-    acc = cd.nonpressure_accel_plain(nl, p, params)
-    check("nonpressure_accel", cd.nonpressure_accel(starts, p, params), acc,
-          ("acc",))
-    p = p._replace(acc=acc)
     pairs = cg.step_pairs(starts, p, params)
     worst["pcisph_step_pairs"] = max(worst.get("pcisph_step_pairs", 0.0),
                                      check_pair_list(pairs, nl, p, params,
                                                      label)[0])
+    acc = cd.nonpressure_accel_plain(nl, p, params)
+    check("nonpressure_accel", cd.nonpressure_accel(pairs, p, params), acc,
+          ("acc",))
+    p = p._replace(acc=acc)
     xp, vp, pressure, dt, s_f = pcisph_inputs(params, solver, p)
     moved, total = pairs_moved(nl, xp, params.support_radius)
     print(f"  {label}: {moved} of {total} step-start pairs beyond h at x*")
@@ -2774,13 +3024,13 @@ def pcisph_state_kernels(params, solver, state):
         caps = dataclasses.replace(caps, neighbor_cap=int(nl.max_cnt))
         nl = GatherEngine(caps).prepare(q.x, starts)
     q = base.compute_densities(q, starts, solver.engine, params)
-    q = base.compute_non_pressure_forces(q, starts, solver.engine, params)
+    plist = cg.step_pairs(starts, q, params)
+    q = base.compute_non_pressure_forces(q, plist, solver.engine, params)
     dt = state.dt
     fluid = (q.material == 1)[:, None]
     vp = torch.where(fluid, q.v + dt * q.acc, q.v)
     xp = torch.where(fluid, q.x + dt * vp, q.x)
     s_f = solver.scaling_factor(dt)
-    plist = cg.step_pairs(starts, q, params)
     pressure, _ = cg.d_rho_correct(plist, q, xp, vp, torch.zeros_like(
         q.pressure), dt, s_f, params)
     valid = nl.mask()
@@ -2891,9 +3141,14 @@ def pcisph_path(device, warmup, steps):
                          or k.startswith(f"{name}_kernel("))
                for name in names}
         calls = {name: cg.LAUNCHES[name] for name in names}
-        print(f"  the loop's kernels in the profiled 5 steps {got}, their "
-              f"wrappers' calls {calls}")
-        if got != calls or calls["pcisph_step_pairs"] != 5:
+        got["nonpressure_accel"] = sum(
+            c for k, c in counts.items()
+            if "nonpressure_kick_kernel<false" in k and "CellRunWalk" in k)
+        calls["nonpressure_accel"] = cd.LAUNCHES["nonpressure_accel"]
+        print(f"  the list build's, d's and the loop's kernels in the "
+              f"profiled 5 steps {got}, their wrappers' calls {calls}")
+        if got != calls or calls["pcisph_step_pairs"] != 5 \
+                or calls["nonpressure_accel"] != 5:
             raise AssertionError(f"PCISPH kernels {got}, wrapper calls "
                                  f"{calls}")
 
@@ -2917,6 +3172,7 @@ def pcisph_path(device, warmup, steps):
         ev[1].record()
         q = base.compute_densities(q, ctx, solver.engine, params)
         ev[2].record()
+        ctx = solver.step_pairs(q, ctx)
         q = base.compute_non_pressure_forces(q, ctx, solver.engine, params)
         ev[3].record()
         pr, (vp, xp), _ = solver.pressure_solve(q, ctx, state.dt)
@@ -2932,7 +3188,8 @@ def pcisph_path(device, warmup, steps):
     evs = [staged_step() for _ in range(5)]
     torch.cuda.synchronize()
     stages = {}
-    for k, name in enumerate(("bin_and_sort", "densities", "non-pressure",
+    for k, name in enumerate(("bin_and_sort", "densities",
+                              "list build + non-pressure (d over the list)",
                               "pressure loop", "advect + rigid + clamp")):
         stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
     print("PCISPH stage ms at this state: " + json.dumps(
@@ -2972,15 +3229,18 @@ def pcisph_path(device, warmup, steps):
                         ("pcisph_pressure_accel_predict", False),
                         ("pcisph_step_pairs", False),
                         ("pcisph_d_rho_correct", True),
-                        ("pcisph_pressure_accel_predict", True)):
-        regs, smem, blocks = cg.occupancy(name, slots)
+                        ("pcisph_pressure_accel_predict", True),
+                        ("nonpressure_accel", False),
+                        ("nonpressure_accel", True)):
+        module = cd if name == "nonpressure_accel" else cg
+        regs, smem, blocks = module.occupancy(name, slots)
         print(f"  {name}{'[slots]' if slots else ''}: {regs} registers, "
               f"{smem} bytes of shared memory per block, {blocks} blocks of "
               f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
     buffers = {}
     calls = {
         "nonpressure_accel": (
-            lambda: cd.nonpressure_accel(starts, q, params),
+            lambda: cd.nonpressure_accel(plist, q, params),
             lambda: cd.nonpressure_accel_plain(nl, q, params)),
         "pcisph_step_pairs": (
             lambda: cg.step_pairs(starts, q, params, buffers),
@@ -3014,6 +3274,9 @@ def pcisph_path(device, warmup, steps):
                     a, b, f"dragon {name} output {k}"))
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
+    print(f"  the list's kernels per step: build + d + 3 x (g1 + g2) = "
+          f"{ms['pcisph_step_pairs'] + ms['nonpressure_accel'] + 3 * (ms['pcisph_d_rho_correct'] + ms['pcisph_pressure_accel_predict']):.4f}"
+          f" ms")
     print(f"  the loop's kernels per step: build + 3 x (g1 + g2) = "
           f"{ms['pcisph_step_pairs'] + 3 * (ms['pcisph_d_rho_correct'] + ms['pcisph_pressure_accel_predict']):.4f}"
           f" ms")
@@ -3038,7 +3301,7 @@ def pcisph_path(device, warmup, steps):
     print(f"  seeded prediction at the dragon: {moved} of {total} step-start "
           f"pairs beyond h at x*, density error on "
           f"{float((ref[1] > 0).float().mean()):.3f} of the rows")
-    if any(err[k] != 0.0 for k in calls if "pcisph" in k):
+    if any(err[k] != 0.0 for k in calls):
         raise AssertionError(f"dragon: a kernel differs from its plain "
                              f"version: {err}")
     cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
@@ -3053,7 +3316,8 @@ def pcisph_path(device, warmup, steps):
         "pcisph_pressure_accel_predict")}
     bounds["pcisph_step_pairs"] = row_bound("pcisph_step_pairs", n,
                                             cells + list_bytes, pairs)
-    for name in ("pcisph_d_rho_correct", "pcisph_pressure_accel_predict"):
+    for name in ("nonpressure_accel", "pcisph_d_rho_correct",
+                 "pcisph_pressure_accel_predict"):
         row_bound(name + "_list", n, list_bytes, pairs,
                   f"{name} design figure (reading the list, "
                   f"{fig['warps_over_list']} warps over it; not the bound)")
@@ -3790,18 +4054,22 @@ def outputs(r):
 def cell_run_contexts(method, starts, p, params):
     """label -> the context of a cell-run instantiation of ``solver_calls``
     at the sorted particles ``p``: their cell offsets, or for PCISPH's loop
-    kernels and IISPH's f3 and f4 the step-start list built over them."""
+    kernels and un-kicked d, IISPH's f3 and f4 and DFSPH's d the step's
+    list built over them (DFSPH's by e1)."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
     if method == 1:
         plist = cg.step_pairs(starts, p, params)
-        return lambda label: plist if label.startswith("pcisph_") else starts
+        return lambda label: plist if label.startswith(
+            ("pcisph_", "nonpressure_accel")) else starts
     if method == 2:
         plist = ci.step_pairs(starts, p, params)
         return lambda label: plist if label.startswith(
             ("iisph_pressure_accel", "iisph_apply_A")) else starts
-    return lambda label: starts
+    plist = cd.density_factor_list(starts, p, params)[2]
+    return lambda label: plist if label == "nonpressure_kick" else starts
 
 
 def check_slot_solver_kernels_on_small_scenes(device):
@@ -4113,6 +4381,7 @@ def main():
     worst.update(check_pcisph_on_edge_scene(device))
     worst.update(check_iisph_on_edge_scene(device))
     worst.update(check_wcsph_on_edge_scene(device))
+    worst.update(check_dfsph_on_edge_scene(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

@@ -6,7 +6,9 @@
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
 // its specializations on the DFSPH path:
 //   dfsph_density_factor   <- models/dfsph.py density_and_factor (density
-//                             and the alpha factor in one walk)
+//                             and the alpha factor in one walk); over the
+//                             cell runs dfsph_density_factor_list, which
+//                             also writes the step's pair list (below)
 //   dfsph_divergence<ADV>  <- models/dfsph.py _density_change (ADV = false)
 //                             and _density_adv (ADV = true), each with the
 //                             per-centre error column of the Jacobi test
@@ -23,11 +25,12 @@
 // SlotWalk (the slot map of ops/slots.py), as in pairs.cu.
 //
 // Each epilogue is the unfused chain of the plain versions in
-// ops/cuda_dfsph.py, in the same operation order.  Padding rows are not
-// launched by density_factor and nonpressure_kick (their wrappers restore
-// them); the Jacobi kernels write them themselves (0 in adv and errt, v and
-// acc passed through), so their wrappers launch one kernel and nothing
-// else.
+// ops/cuda_dfsph.py, in the same operation order.  dfsph_density_factor over
+// the slot walk is not launched over the padding rows (its wrapper restores
+// them); every other kernel has a thread for every row and writes the
+// padding rows itself (density passed through and factor 0; 0 in adv and
+// errt; v passed through and acc 0 or passed through), so its wrapper
+// launches one kernel and nothing else.
 //
 // The Jacobi kernels (divergence, solver_dv) take an optional device flag
 // `active`: when it is 0 the launch returns at once and writes nothing, and
@@ -36,7 +39,7 @@
 // not a traversal.
 //
 // What bounds them on an H100: as pairs.cu, irregular candidate loads that
-// mostly hit L1/L2; the f32 work per real pair (20-45 operations) is far
+// mostly hit L1/L2; the f32 work per real pair (20-60 operations) is far
 // below the card's rate.  Everything stays in registers.  The Jacobi
 // kernels, which a DFSPH step launches ~15 times, walk the cell runs in two
 // phases (pair_common.cuh for_each_neighbor_compact): the inclusion test
@@ -44,9 +47,64 @@
 // then the pair body over the compacted accepted pairs, so the warp runs
 // the body with most lanes busy; over the slot walk they walk in one
 // phase.
+//
+// The step's pair list over the cell runs: the positions do not move from
+// the density-and-factor kernel to the non-pressure kernel (the divergence
+// solve between them moves v), and both walk the fluid centres, so both
+// accept the same pairs.  dfsph_density_factor_list runs the candidate
+// phase of the two-phase walk (pair_common.cuh build_pair_list), adds each
+// accepted pair's density, gradient and squared-gradient terms in the
+// walk's order (the sums of the one-phase walk, bitwise) and writes every
+// fluid centre's accepted j to the step's pair list; nonpressure_kick then
+// runs only its pair body over the list (for_each_step_pair), so the
+// one-phase candidate walk, where most lanes of a warp sit masked off in
+// the ~60-operation body, runs once per step, not twice.  On the PCISPH
+// step nonpressure_kick<false> reads the loop's list (pcisph.cu
+// pcisph_step_pairs), built just before it.  A warp holding a centre with
+// more accepted pairs than the list holds walks the cells in one phase
+// (the same pairs in the same order).  Over the slot walk both walk in
+// one phase.  The Jacobi kernels keep their two-phase walk.
 
 #include "pair_common.cuh"
 
+// The density-and-factor terms of one accepted pair, added into the
+// centre's sums (den, g0..g2, sq).
+__device__ __forceinline__ void density_factor_pair(
+    int j, float d0, float d1, float d2, float s,
+    const int* __restrict__ material, const float* __restrict__ m_V,
+    const PairConsts& c, float& den, float& g0, float& g1, float& g2,
+    float& sq) {
+  const int mat_j = material[j];
+  if (mat_j < 0) return;
+  const PairGeom p = pair_geom(s);
+  const float mvj = m_V[j];
+  den += mvj * cubic_w(p.rn, c);
+  const float gcoef = -mvj * cubic_grad(p.rn, p.inv, c);
+  const float ng = -gcoef;
+  g0 += ng * d0;
+  g1 += ng * d1;
+  g2 += ng * d2;
+  if (mat_j == 1) sq += gcoef * gcoef * p.r2;
+}
+
+// The epilogue of row i: the density and factor of a fluid centre from its
+// sums; any other row keeps its density and gets factor 0.
+__device__ __forceinline__ void density_factor_out(
+    int i, bool fluid, float den, float g0, float g1, float g2, float sq,
+    const float* __restrict__ m_V, const float* __restrict__ density_in,
+    float* __restrict__ density_out, float* __restrict__ factor_out,
+    const PairConsts& c) {
+  if (fluid) {
+    density_out[i] = (m_V[i] * c.w0 + den) * c.rho0;
+    const float s = sq + g0 * g0 + g1 * g1 + g2 * g2;
+    factor_out[i] = (s > 1e-6f) ? -1.0f / s : 0.0f;
+  } else {
+    density_out[i] = density_in[i];
+    factor_out[i] = 0.0f;
+  }
+}
+
+// Over the slot walk (launched over the real rows).
 template <typename Walk>
 __global__ void dfsph_density_factor_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
@@ -61,27 +119,35 @@ __global__ void dfsph_density_factor_kernel(
     for_each_neighbor_walk(
         i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
         [&](int j, float d0, float d1, float d2, float s) {
-          const int mat_j = material[j];
-          if (mat_j < 0) return;
-          const PairGeom p = pair_geom(s);
-          const float mvj = m_V[j];
-          den += mvj * cubic_w(p.rn, c);
-          const float gcoef = -mvj * cubic_grad(p.rn, p.inv, c);
-          const float ng = -gcoef;
-          g0 += ng * d0;
-          g1 += ng * d1;
-          g2 += ng * d2;
-          if (mat_j == 1) sq += gcoef * gcoef * p.r2;
+          density_factor_pair(j, d0, d1, d2, s, material, m_V, c, den, g0,
+                              g1, g2, sq);
         });
   }
-  if (fluid) {
-    density_out[i] = (m_V[i] * c.w0 + den) * c.rho0;
-    const float s = sq + g0 * g0 + g1 * g1 + g2 * g2;
-    factor_out[i] = (s > 1e-6f) ? -1.0f / s : 0.0f;
-  } else {
-    density_out[i] = density_in[i];
-    factor_out[i] = 0.0f;
-  }
+  density_factor_out(i, fluid, den, g0, g1, g2, sq, m_V, density_in,
+                     density_out, factor_out, c);
+}
+
+// Over the cell runs for the DFSPH step: the same sums, and every fluid
+// centre's accepted pairs written to the step's list (idx, cnt; cnt 0 on
+// other rows).  One thread per row: padding rows keep their density and
+// get factor 0.
+__global__ void dfsph_density_factor_list_kernel(
+    const float* __restrict__ x, const int* __restrict__ material,
+    const float* __restrict__ m_V, const float* __restrict__ density_in,
+    CellRunWalk walk, int* __restrict__ idx, int* __restrict__ cnt,
+    float* __restrict__ density_out, float* __restrict__ factor_out,
+    int n_rows, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool fluid = i < c.n_real && material[i] == 1;
+  float den = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, sq = 0.0f;
+  build_pair_list(fluid, i, x, walk, c, idx, cnt, n_rows,
+                  [&](int j, float d0, float d1, float d2, float s) {
+                    density_factor_pair(j, d0, d1, d2, s, material, m_V, c,
+                                        den, g0, g1, g2, sq);
+                  });
+  if (i >= n_rows) return;
+  density_factor_out(i, fluid, den, g0, g1, g2, sq, m_V, density_in,
+                     density_out, factor_out, c);
 }
 
 template <bool ADV, typename Walk>
@@ -204,78 +270,107 @@ __global__ void dfsph_solver_dv_kernel(
   }
 }
 
+// One thread per row, padding rows included (acc 0, v carried through).
+// Over the cell runs the pairs come from the step's list ``pl``
+// (dfsph_density_factor_list on the DFSPH step, pcisph_step_pairs on the
+// PCISPH step); over the slot walk from the one-phase walk.
 template <bool KICK, typename Walk>
 __global__ void nonpressure_kick_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const int* __restrict__ is_dyn,
     const float* __restrict__ m, const float* __restrict__ density,
-    Walk walk, const float* __restrict__ dt_ptr,
-    float* __restrict__ acc_out, float* __restrict__ v_out, PairConsts c) {
+    Walk walk, PairList pl, const float* __restrict__ dt_ptr,
+    float* __restrict__ acc_out, float* __restrict__ v_out, int n_rows,
+    PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const int mat_i = material[i];
+  const bool real = i < c.n_real;
+  const int mat_i = real ? material[i] : -1;
   const bool fluid = mat_i == 1;
-  const bool solid = mat_i == 0;
-  const bool dyn = is_dyn[i] != 0;
-  float vi[3] = {v[3 * i], v[3 * i + 1], v[3 * i + 2]};
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  float vi[3] = {0.0f, 0.0f, 0.0f};
+  float neg_st_mi = 0.0f;
   if (fluid) {
-    const float neg_st_mi = -(c.st / m[i]);
-    for_each_neighbor_walk(
-        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
-        [&](int j, float d0, float d1, float d2, float s) {
-          // surface tension and viscosity act between fluid particles
-          // only; the boundary viscosity is 0.0 (DFSPH.py:80)
-          if (material[j] != 1) return;
-          const PairGeom p = pair_geom(s);
-          const float gradw = cubic_grad(p.rn, p.inv, c);
-          const float w_st = (p.r2 > c.diam2) ? cubic_w(p.rn, c) : c.wd;
-          const float st_coef = neg_st_mi * m[j] * w_st;
-          const float v_xy = (vi[0] - v[3 * j]) * d0 +
-                             (vi[1] - v[3 * j + 1]) * d1 +
-                             (vi[2] - v[3 * j + 2]) * d2;
-          const float visc_coef =
-              viscosity_coef(m[j] / density[j], v_xy, p.r2, gradw, c);
-          const float a = st_coef + visc_coef;
-          s0 += a * d0;
-          s1 += a * d1;
-          s2 += a * d2;
-        });
+    vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
+    neg_st_mi = -(c.st / m[i]);
   }
-  // epilogue: acceleration select, then with KICK the fluid kick
-  // v += dt * acc (dt and v_out are not read without it)
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for_each_step_pair<false>(
+      fluid, i, x, x, walk, pl, c,
+      [&](int j, float d0, float d1, float d2, float s) {
+        // surface tension and viscosity act between fluid particles
+        // only; the boundary viscosity is 0.0 (DFSPH.py:80)
+        if (material[j] != 1) return;
+        const PairGeom p = pair_geom(s);
+        const float gradw = cubic_grad(p.rn, p.inv, c);
+        const float w_st = (p.r2 > c.diam2) ? cubic_w(p.rn, c) : c.wd;
+        const float st_coef = neg_st_mi * m[j] * w_st;
+        const float v_xy = (vi[0] - v[3 * j]) * d0 +
+                           (vi[1] - v[3 * j + 1]) * d1 +
+                           (vi[2] - v[3 * j + 2]) * d2;
+        const float visc_coef =
+            viscosity_coef(m[j] / density[j], v_xy, p.r2, gradw, c);
+        const float a = st_coef + visc_coef;
+        s0 += a * d0;
+        s1 += a * d1;
+        s2 += a * d2;
+      });
+  if (i >= n_rows) return;
+  // the rows that did not walk load their velocity here (read with KICK
+  // only)
+  if (KICK && !fluid) {
+    vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
+  }
+  const bool solid = mat_i == 0;
+  const bool dyn = real && is_dyn[i] != 0;
+  // epilogue: acceleration select (padding rows 0), then with KICK the
+  // fluid kick v += dt * acc (dt and v_out are not read without it)
   const float dt = KICK ? *dt_ptr : 0.0f;
   const float g[3] = {c.g0, c.g1, c.g2};
   const float sums[3] = {s0, s1, s2};
   for (int k = 0; k < 3; ++k) {
     float a = g[k] + (fluid ? sums[k] : 0.0f);
     if (solid && !dyn) a = 0.0f;
+    if (!real) a = 0.0f;
     acc_out[3 * i + k] = a;
     if (KICK) v_out[3 * i + k] = (fluid && dyn) ? vi[k] + dt * a : vi[k];
   }
 }
 
-// Each launcher's walk arguments (starts, slot_map, layers) select the
-// instantiation (pair_common.cuh with_walk).
-
+// Over the slot walk only (slot_map not null); the cell runs take
+// dfsph_density_factor_list_launch.
 extern "C" int dfsph_density_factor_launch(
     const float* x, const int* material, const float* m_V,
-    const float* density_in, const int* starts, const int* slot_map,
-    int layers, float* density_out, float* factor_out, PairConsts c,
-    void* stream) {
+    const float* density_in, const int* slot_map, int layers,
+    float* density_out, float* factor_out, PairConsts c, void* stream) {
+  if (slot_map == nullptr) return (int)cudaErrorInvalidValue;
   if (c.n_real > 0) {
-    with_walk(starts, slot_map, layers, [&](auto walk) {
-      dfsph_density_factor_kernel<<<grid_for(c), kBlock, 0,
-                                    (cudaStream_t)stream>>>(
-          x, material, m_V, density_in, walk, density_out, factor_out, c);
-    });
+    dfsph_density_factor_kernel<<<grid_for(c), kBlock, 0,
+                                  (cudaStream_t)stream>>>(
+        x, material, m_V, density_in, SlotWalk{slot_map, layers},
+        density_out, factor_out, c);
   }
   return (int)cudaGetLastError();
 }
 
-// Grid of a Jacobi kernel (divergence, solver_dv): ``n_rows`` rows,
-// padding rows included.
-static int jacobi_grid(int n_rows) { return (n_rows + kBlock - 1) / kBlock; }
+extern "C" int dfsph_pair_list_entries() { return kPairListEntries; }
+
+// The list ``idx`` is i32[kPairListEntries, n_rows]; ``cnt``, the density
+// and the factor have n_rows rows.
+extern "C" int dfsph_density_factor_list_launch(
+    const float* x, const int* material, const float* m_V,
+    const float* density_in, const int* starts, int* idx, int* cnt,
+    float* density_out, float* factor_out, int n_rows, PairConsts c,
+    void* stream) {
+  if (n_rows > 0) {
+    dfsph_density_factor_list_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                       (cudaStream_t)stream>>>(
+        x, material, m_V, density_in, CellRunWalk{starts}, idx, cnt,
+        density_out, factor_out, n_rows, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The Jacobi and non-pressure launchers' walk arguments (starts, slot_map,
+// layers) select the instantiation (pair_common.cuh with_walk).
 
 extern "C" int dfsph_divergence_launch(
     const float* x, const float* v, const int* material, const float* m_V,
@@ -287,7 +382,7 @@ extern "C" int dfsph_divergence_launch(
       using Walk = decltype(walk);
       auto kernel = adv ? dfsph_divergence_kernel<true, Walk>
                         : dfsph_divergence_kernel<false, Walk>;
-      kernel<<<jacobi_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
+      kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
           x, v, material, m_V, density, walk, dt, active, adv_out, errt_out,
           n_rows, c);
     });
@@ -306,7 +401,7 @@ extern "C" int dfsph_solver_dv_launch(
       using Walk = decltype(walk);
       auto kernel = react ? dfsph_solver_dv_kernel<true, Walk>
                           : dfsph_solver_dv_kernel<false, Walk>;
-      kernel<<<jacobi_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
+      kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
           x, material, is_dyn, m_V, kappa, density, v, acc, walk, dt, active,
           v_out, acc_out, n_rows, c);
     });
@@ -340,21 +435,56 @@ extern "C" int dfsph_jacobi_occupancy(int which, int* regs, int* smem_bytes,
   return (int)err;
 }
 
+// Registers per thread, static shared memory per block and resident blocks
+// per SM of kernel ``which``: 0 density_factor_list, 1 density_factor over
+// the slot walk, 2 nonpressure_kick<true>, 3 nonpressure_kick<false> (over
+// the cell runs; 4, 5 over the slot walk).
+extern "C" int dfsph_occupancy(int which, int* regs, int* smem_bytes,
+                               int* blocks_per_sm) {
+  const void* kernels[6] = {
+      (const void*)dfsph_density_factor_list_kernel,
+      (const void*)dfsph_density_factor_kernel<SlotWalk>,
+      (const void*)nonpressure_kick_kernel<true, CellRunWalk>,
+      (const void*)nonpressure_kick_kernel<false, CellRunWalk>,
+      (const void*)nonpressure_kick_kernel<true, SlotWalk>,
+      (const void*)nonpressure_kick_kernel<false, SlotWalk>};
+  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
+  const void* kernel = kernels[which];
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        kBlock, 0);
+  }
+  *regs = attr.numRegs;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  return (int)err;
+}
+
 // nonpressure_kick_launch (KICK) and nonpressure_accel_launch (acc only,
-// dt and v_out null)
+// dt and v_out null).  Over the cell runs the kernel reads the step's list
+// (list_idx, list_cnt) for the same rows; a launch without it is refused
+// (cudaErrorInvalidValue, pair_common.cuh has_list).  It launches over
+// n_rows rows, padding rows included.
 template <bool KICK>
 static int nonpressure_launch(const float* x, const float* v,
                               const int* material, const int* is_dyn,
                               const float* m, const float* density,
                               const int* starts, const int* slot_map,
-                              int layers, const float* dt, float* acc_out,
-                              float* v_out, PairConsts c, void* stream) {
-  if (c.n_real > 0) {
+                              int layers, const int* list_idx,
+                              const int* list_cnt, const float* dt,
+                              float* acc_out, float* v_out, int n_rows,
+                              PairConsts c, void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
       nonpressure_kick_kernel<KICK, decltype(walk)>
-          <<<grid_for(c), kBlock, 0, (cudaStream_t)stream>>>(
-              x, v, material, is_dyn, m, density, walk, dt, acc_out, v_out,
-              c);
+          <<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
+              x, v, material, is_dyn, m, density, walk, pl, dt, acc_out,
+              v_out, n_rows, c);
     });
   }
   return (int)cudaGetLastError();
@@ -363,19 +493,22 @@ static int nonpressure_launch(const float* x, const float* v,
 extern "C" int nonpressure_kick_launch(
     const float* x, const float* v, const int* material, const int* is_dyn,
     const float* m, const float* density, const int* starts,
-    const int* slot_map, int layers, const float* dt, float* acc_out,
-    float* v_out, PairConsts c, void* stream) {
+    const int* slot_map, int layers, const int* list_idx,
+    const int* list_cnt, const float* dt, float* acc_out, float* v_out,
+    int n_rows, PairConsts c, void* stream) {
   return nonpressure_launch<true>(x, v, material, is_dyn, m, density, starts,
-                                  slot_map, layers, dt, acc_out, v_out, c,
-                                  stream);
+                                  slot_map, layers, list_idx, list_cnt, dt,
+                                  acc_out, v_out, n_rows, c, stream);
 }
 
 extern "C" int nonpressure_accel_launch(
     const float* x, const float* v, const int* material, const int* is_dyn,
     const float* m, const float* density, const int* starts,
-    const int* slot_map, int layers, float* acc_out, PairConsts c,
+    const int* slot_map, int layers, const int* list_idx,
+    const int* list_cnt, float* acc_out, int n_rows, PairConsts c,
     void* stream) {
   return nonpressure_launch<false>(x, v, material, is_dyn, m, density,
-                                   starts, slot_map, layers, nullptr, acc_out,
-                                   nullptr, c, stream);
+                                   starts, slot_map, layers, list_idx,
+                                   list_cnt, nullptr, acc_out, nullptr,
+                                   n_rows, c, stream);
 }

@@ -4,9 +4,9 @@
 // and its form with the pair geometry at other positions), its two-phase
 // form (for_each_neighbor_compact), the step-start pair list
 // (build_pair_list, step_pairs_row, for_each_listed_pair,
-// for_each_step_pair; PCISPH's, IISPH's and WCSPH's), the viscosity and
-// pressure pair terms, and the symmetric pressure acceleration of the
-// implicit solvers.
+// for_each_step_pair; PCISPH's, IISPH's, WCSPH's and DFSPH's), the
+// viscosity and pressure pair terms, and the symmetric pressure
+// acceleration of the implicit solvers.
 //
 // Contract (sph_taichi_torch/ops/pairs.py): out[i] = sum over j != i with
 // |x_i - x_j|^2 < h^2 of term(i, j).  Each centre walks the 9 (dx, dy)
@@ -243,10 +243,11 @@ constexpr bool kCompactWalk = std::is_same<Walk, CellRunWalk>::value;
 // The candidate phase of the two-phase walk over the cell runs: the
 // inclusion test at the positions x, over the columns in
 // for_each_neighbor_walk's order, the warp stepping through each column's
-// runs together.  accept(j, s) takes each accepted candidate and its raw
-// sum of squares in that order; before_block() runs, warp-uniform, before
-// each block of kCompactUnroll candidates, whose loads are in flight
-// together.
+// runs together.  accept(j, d0, d1, d2, s) takes each accepted candidate,
+// its displacement x_i - x_j and its raw sum of squares in that order, as
+// for_each_neighbor_walk gives them to its body; before_block() runs,
+// warp-uniform, before each block of kCompactUnroll candidates, whose loads
+// are in flight together.
 template <typename B, typename A>
 __device__ __forceinline__ void cell_run_candidates(
     bool walks, int i, float xi0, float xi1, float xi2,
@@ -294,7 +295,7 @@ __device__ __forceinline__ void cell_run_candidates(
         const float d1 = xi1 - p[u][1];
         const float d2 = xi2 - p[u][2];
         const float s = d0 * d0 + d1 * d1 + d2 * d2;
-        if (s < c.h2) accept(j, s);
+        if (s < c.h2) accept(j, d0, d1, d2, s);
       }
     }
   }
@@ -329,7 +330,9 @@ __device__ __forceinline__ void compact_cell_runs(
         // room for the block's candidates in every list
         if (__any_sync(kFull, cnt > kListEntries - kCompactUnroll)) flush();
       },
-      [&](int j, float) { list[(cnt++) * kBlock] = j; });
+      [&](int j, float, float, float, float) {
+        list[(cnt++) * kBlock] = j;
+      });
   flush();
 }
 
@@ -360,7 +363,12 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 // loop, but its positions too stay the sort's until the force kernel's
 // advect epilogue, and its density kernel already walks every real
 // centre's candidates: density_sum_list (pairs.cu) writes the list while
-// it sums, and wcsph_forces, the step's next pair kernel, reads it.
+// it sums, and wcsph_forces, the step's next pair kernel, reads it.  The
+// same holds on the DFSPH step from the density-and-factor kernel to the
+// non-pressure kernel (the solves before it move v, not x):
+// dfsph_density_factor_list (dfsph.cu) writes the fluid centres' list as
+// it sums, and nonpressure_kick reads it; on the PCISPH step the
+// non-pressure kernel reads the loop's list, built just before it.
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -369,9 +377,10 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 // centre walks the cells instead (the same pairs in the same order): no
 // pair is dropped and no centre has a limit.
 //
-// The centres a list serves (ListCentres): PCISPH's loop walks the fluid
-// centres; IISPH's walks every real one, solids included, because its A
-// reads the solids' pressure accelerations; WCSPH's density walks every
+// The centres a list serves (ListCentres): PCISPH's loop and both steps'
+// non-pressure kernel walk the fluid centres, as DFSPH's density-and-factor
+// kernel does; IISPH's walks every real one, solids included, because its
+// A reads the solids' pressure accelerations; WCSPH's density walks every
 // real centre, and its forces read the fluid and dynamic-rigid ones.
 // ---------------------------------------------------------------------------
 
@@ -391,8 +400,10 @@ enum class ListCentres { kFluid, kReal };
 // The candidate phase of compact_cell_runs for centre i (if ``walks``),
 // writing its accepted j to the list and its count to cnt[i] (0 where the
 // centre does not walk; rows i >= stride write nothing), and calling
-// f(j, s) on each accepted pair with its raw sum of squares, in the walk's
-// order (WCSPH's density_sum_list sums its density there).  Every thread
+// f(j, d0, d1, d2, s) on each accepted pair, in the walk's order, with
+// for_each_neighbor_walk's displacement and raw sum of squares (WCSPH's
+// density_sum_list sums its density there, DFSPH's
+// dfsph_density_factor_list its density and factor terms).  Every thread
 // of a block calls it: the walk steps warp-wide.
 template <typename F>
 __device__ __forceinline__ void build_pair_list(
@@ -403,10 +414,11 @@ __device__ __forceinline__ void build_pair_list(
   if (walks) xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
   int n = 0;
   cell_run_candidates(
-      walks, i, xi0, xi1, xi2, x, walk, c, []() {}, [&](int j, float s) {
+      walks, i, xi0, xi1, xi2, x, walk, c, []() {},
+      [&](int j, float d0, float d1, float d2, float s) {
         if (n < kPairListEntries) idx[n * stride + i] = j;
         ++n;
-        f(j, s);
+        f(j, d0, d1, d2, s);
       });
   if (i < stride) cnt[i] = n;
 }
@@ -425,7 +437,7 @@ __device__ __forceinline__ void step_pairs_row(
     walks = walks && material[i] == 1;
   }
   build_pair_list(walks, i, x, walk, c, idx, cnt, n_rows,
-                  [](int, float) {});
+                  [](int, float, float, float, float) {});
 }
 
 // List entries a lane loads before their pairs' bodies: their neighbours'

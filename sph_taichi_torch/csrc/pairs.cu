@@ -86,7 +86,7 @@ __global__ void density_sum_list_kernel(const float* __restrict__ x,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float sum = 0.0f;
   build_pair_list(i < c.n_real, i, x, walk, c, idx, cnt, n_rows,
-                  [&](int j, float s) {
+                  [&](int j, float, float, float, float s) {
                     if (material[j] >= 0) {
                       const float rn = sqrtf(s);
                       sum += m_V[j] * cubic_w(rn, c);

@@ -369,7 +369,10 @@ def compute_non_pressure_forces(p: Particles, ctx, engine, params: SimParams,
     Two forms, as in the JAX package: without ``predict_dt`` (PCISPH) it
     sets p.acc; with it (DFSPH) it also applies the fluid velocity kick
     v += dt * acc (DFSPH.py:392-397), in the kernel's epilogue on the CUDA
-    engine.  Padding rows keep their velocity and get acceleration 0."""
+    engine.  Padding rows keep their velocity and get acceleration 0.  On
+    the CUDA engine over the cell runs ``ctx`` is the step's pair list
+    (DFSPH's from ``density_factor_and_pairs``, PCISPH's from its
+    ``step_pairs``), or the slot map."""
     if predict_dt is None:
         accel = (cuda_dfsph.nonpressure_accel if engine.fused
                  else cuda_dfsph.nonpressure_accel_plain)

@@ -4,6 +4,11 @@ Substep (DFSPH.py:400-408): densities and the alpha factor -> divergence
 solver -> non-pressure forces with the velocity kick -> constant-density
 pressure solver -> advection.  On the CUDA engine each pair sum is a
 kernel of ``ops/cuda_dfsph.py``; on the plain engine its plain version.
+The positions stay those of the sort until the advection, so on the CUDA
+engine over the cell runs the density-and-factor kernel writes the step's
+pair list of the fluid centres as it sums, and the non-pressure kernel
+reads it (``cuda_dfsph.density_factor_list``); the two solves keep the
+cell offsets.
 
 The reference reads the average density error to the host every Jacobi
 iteration (DFSPH.py:248-257, 330-337).  Here each solve is
@@ -44,6 +49,9 @@ class DFSPHSolver(SPHBase):
         self.max_error = 0.05           # %, DFSPH.py:20
         self.check_every = JACOBI_CHECK_EVERY
         super().__init__(params, device=device, engine=engine)
+        # the step's pair list's device buffers (density_factor_list),
+        # allocated at the first step and reused
+        self._pair_buffers = {}
 
     def _op(self, name):
         """The kernel wrapper on the CUDA engine, else its plain version;
@@ -56,8 +64,23 @@ class DFSPHSolver(SPHBase):
     def density_and_factor(self, p: Particles, ctx):
         """compute_densities (DFSPH.py:37-47) and compute_DFSPH_factor
         (DFSPH.py:115-155) in one traversal."""
-        density, factor = self._op("density_factor")(ctx, p, self.params)
-        return p._replace(density=density, dfsph_factor=factor)
+        return self.density_factor_and_pairs(p, ctx)[0]
+
+    def density_factor_and_pairs(self, p: Particles, ctx):
+        """``density_and_factor``, with the context of the step's
+        non-pressure kernel, which walks the same pairs at the same
+        positions: returns (p, that context).  On the CUDA engine over the
+        cell runs one kernel also writes the step's pair list into the
+        solver's buffers (``cuda_dfsph.density_factor_list``); otherwise
+        the context is ``ctx`` (the slot map) or the plain engine's
+        neighbour lists."""
+        if self.engine.fused:
+            density, factor, ctx = cuda_dfsph.density_factor_list(
+                ctx, p, self.params, self._pair_buffers)
+        else:
+            density, factor = cuda_dfsph.density_factor_plain(ctx, p,
+                                                               self.params)
+        return p._replace(density=density, dfsph_factor=factor), ctx
 
     def compute_factor(self, p: Particles, ctx):
         """alpha_i alone (DFSPH.py:115-155); no step calls it.  It is the
@@ -190,11 +213,14 @@ class DFSPHSolver(SPHBase):
         return p._replace(v=v, x=torch.where(dyn, p.x + dt * v, p.x))
 
     def substep(self, p: Particles, ctx, dt):
-        p = self.density_and_factor(p, ctx)
+        # the non-pressure kernel's context: the pair list the
+        # density-and-factor kernel wrote, on the CUDA engine over the cell
+        # runs
+        p, pairs = self.density_factor_and_pairs(p, ctx)
         p, metrics = self.divergence_solve(p, ctx, dt)
         # non-pressure forces and the fluid kick v += dt * acc
         # (DFSPH.py:392-397) in one traversal
-        p = compute_non_pressure_forces(p, ctx, self.engine, self.params,
+        p = compute_non_pressure_forces(p, pairs, self.engine, self.params,
                                         predict_dt=dt)
         p, m = self.pressure_solve(p, ctx, dt)
         metrics.update(m)

@@ -20,10 +20,11 @@ The loop has the JAX package's fused structure on both engines: on the
 CUDA engine each iteration is the two kernels of ``ops/cuda_pcisph.py``
 with their epilogues (the pressure correction, the velocity and position
 predict), reading the step-start pair list that one more kernel builds
-before the loop (over the cell runs; the slot walk reads its map); on the
-plain engine their plain versions apply the same
-epilogues in torch, which is the JAX package's unfused loop with the same
-arithmetic.  The loop is ``jacobi_while`` (models/base.py): the JAX
+after the densities (over the cell runs; the slot walk reads its map),
+which the non-pressure kernel before the loop reads too; on the plain
+engine their plain versions apply the same epilogues in torch, which is
+the JAX package's unfused loop with the same arithmetic.  The loop is
+``jacobi_while`` (models/base.py): the JAX
 condition is evaluated on the device and read to the host once every
 ``check_every`` iterations, so iteration counts and results equal the JAX
 package's ``lax.while_loop``.  ``check_every`` is the minimum iteration
@@ -50,8 +51,8 @@ class PCISPHSolver(SPHBase):
         self.check_every = self.min_iterations
         super().__init__(params, device=device, engine=engine)
         self.s_f_base = self._scaling_base(params)
-        # the step-start pair list's device buffers (cuda_pcisph.step_pairs),
-        # allocated at the first step and reused
+        # the step-start pair list's device buffers (step_pairs), allocated
+        # at the first step and reused
         self._pair_buffers = {}
 
     @staticmethod
@@ -92,20 +93,28 @@ class PCISPHSolver(SPHBase):
                        name if self.engine.fused else f"{name}_plain")
 
     # ------------------------------------------------------------------
+    def step_pairs(self, p: Particles, ctx):
+        """The context of the step's pair kernels after the densities (the
+        non-pressure kernel and the loop's): on the CUDA engine the
+        step-start pair list, built once into the solver's buffers over the
+        cell runs (``cuda_pcisph.step_pairs``; the slot map as it is);
+        otherwise ``ctx``, the plain engine's neighbour lists."""
+        if not self.engine.fused:
+            return ctx
+        return cuda_pcisph.step_pairs(ctx, p, self.params, self._pair_buffers)
+
     def pressure_solve(self, p: Particles, ctx, dt):
         """Prediction-correction loop (legacy:776-797) as a device-tested
-        loop.  Returns (pressure, (v*, x*), metrics): the final prediction
-        is the fluid advect."""
+        loop over the step-start pairs of ``ctx`` (``step_pairs``: the loop's
+        pair set is the step start's, so its list is read by every
+        iteration).  Returns (pressure, (v*, x*), metrics): the final
+        prediction is the fluid advect."""
         params = self.params
         fluid3 = p.is_fluid()[:, None]
         s_f = self.scaling_factor(dt)
         tol = self.tolerance_frac * params.density0
         d_rho_correct = self._op("d_rho_correct")
         accel_predict = self._op("pressure_accel_predict")
-        if self.engine.fused:
-            # the loop's pair set is the step start's: over the cell runs,
-            # its list is built once here and read by every iteration
-            ctx = cuda_pcisph.step_pairs(ctx, p, params, self._pair_buffers)
 
         def body(carry, active):
             pressure, vp, xp, _, it = carry
@@ -149,6 +158,7 @@ class PCISPHSolver(SPHBase):
 
     def substep(self, p: Particles, ctx, dt):
         p = compute_densities(p, ctx, self.engine, self.params)
+        ctx = self.step_pairs(p, ctx)
         p = compute_non_pressure_forces(p, ctx, self.engine, self.params)
         pressure, (vp, xp), metrics = self.pressure_solve(p, ctx, dt)
         return self.advect(p._replace(pressure=pressure), vp, xp, dt), metrics

@@ -4,8 +4,11 @@ Ports the specializations of the Pallas TPU kernel ``BlockEngine._kernel``
 (sph_taichi_tpu/ops/pallas_blocks.py) that the DFSPH path runs, as
 hand-written CUDA C++ in ``csrc/dfsph.cu``:
 
-- ``density_factor``: density and the alpha factor in one walk
-  (models/dfsph.py density_and_factor);
+- ``density_factor_list`` (and ``density_factor``): density and the alpha
+  factor in one walk (models/dfsph.py density_and_factor); over the cell
+  runs its kernel also writes every fluid centre's accepted neighbours, in
+  the walk's order, to the step's pair list (ops/pair_list.py
+  ``PairList``), which the non-pressure kernel reads;
 - ``divergence``: the velocity divergence sum, with the epilogue of
   ``_density_change`` (mode "change") or ``_density_adv`` (mode "adv"),
   and the per-centre column of the average density error;
@@ -38,27 +41,40 @@ versions ignore it.
 
 Padding rows get what the JAX package's ``restore_tail`` gives them
 (outputs that carry a field through keep its value, the others are 0):
-``divergence`` and ``solver_dv`` write them in the kernel, so each of
-these Jacobi wrappers launches one kernel and nothing else; the others
-are not launched over them and the wrappers restore them.
+every kernel writes them itself, so each wrapper launches one kernel and
+nothing else, except ``density_factor`` over the slot walk, which is not
+launched over them and whose wrapper restores them.
 
 ``divergence`` and ``solver_dv`` walk the cell runs in two phases
 (csrc/pair_common.cuh ``for_each_neighbor_compact``): accepted pairs are
 compacted into a list in shared memory before the pair body, in the
 one-phase walk's order (a list that may fill is flushed).  Over the slot
 walk they walk in one phase.
+
+The step's pair list: the positions do not move from the density-and-factor
+kernel to the non-pressure kernel, and both walk the fluid centres.  Over
+the cell runs ``density_factor_list`` writes the list while it sums, and
+``nonpressure_kick`` runs only its pair body over it; on the PCISPH step
+``nonpressure_accel`` reads the loop's list (ops/cuda_pcisph.py
+``step_pairs``), built just before it.  A warp holding a centre with more
+than ``PAIR_LIST_ENTRIES`` accepted pairs walks the cells in one phase
+inside the kernel.  On the card over the cell runs the non-pressure
+wrappers take only a ``PairList``, not bare cell offsets; on CPU tensors
+they take any context their plain versions read.
 """
 
 import ctypes
 
 import torch
 
+from sph_taichi_torch.ops import pair_list
 from sph_taichi_torch.ops.cuda_pairs import (
     WALK, _PTR, _active_ptr, _check, _plain_ctx, _raise_on, _stream, _walk,
     min_neighbors, pair_consts, M_EPS, PairConsts)
 from sph_taichi_torch.ops.kernels import (
     cubic_kernel, cubic_kernel_derivative_scalar)
 from sph_taichi_torch.ops.pairs import GatherEngine, div_exact
+from sph_taichi_torch.ops.slots import SlotMap
 from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
 
 LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
@@ -112,6 +128,15 @@ def density_factor_plain(nl, p, params):
     s = out["sq"] + gx * gx + gy * gy + gz * gz
     factor = torch.where(s > 1e-6, div_exact(-1.0, s), 0.0)
     return density, torch.where(fluid, factor, 0.0)
+
+
+def density_factor_list_plain(nl, p, params):
+    """Plain version of ``density_factor_list``: (density, factor, idx,
+    cnt), the ``density_factor_plain`` outputs and the step's pair list of
+    the fluid centres (``pair_list.step_pairs_plain``) from the plain
+    engine's neighbour lists ``nl`` of ``p``."""
+    return (*density_factor_plain(nl, p, params),
+            *pair_list.step_pairs_plain(nl, p, "fluid"))
 
 
 def divergence_plain(nl, p, v, density, dt, mode, params, active=None):
@@ -257,42 +282,77 @@ def _lib():
     from sph_taichi_torch.ops import _build
     lib = _build.load("dfsph")
     if not getattr(lib, "_typed", False):
+        i32 = ctypes.c_int
         lib.dfsph_density_factor_launch.argtypes = (
-            [_PTR] * 4 + WALK + [_PTR] * 2 + [PairConsts, _PTR])
+            [_PTR] * 5 + [i32] + [_PTR] * 2 + [PairConsts, _PTR])
+        lib.dfsph_density_factor_list_launch.argtypes = (
+            [_PTR] * 9 + [i32, PairConsts, _PTR])
         lib.dfsph_divergence_launch.argtypes = (
             [_PTR] * 5 + WALK + [_PTR] * 4 + [ctypes.c_int] * 2
             + [PairConsts, _PTR])
         lib.dfsph_solver_dv_launch.argtypes = (
             [_PTR] * 8 + WALK + [_PTR] * 4 + [ctypes.c_int] * 2
             + [PairConsts, _PTR])
-        lib.dfsph_jacobi_occupancy.argtypes = (
-            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
+        for fn in (lib.dfsph_jacobi_occupancy, lib.dfsph_occupancy):
+            fn.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
         lib.nonpressure_kick_launch.argtypes = (
-            [_PTR] * 6 + WALK + [_PTR] * 3 + [PairConsts, _PTR])
+            [_PTR] * 6 + WALK + [_PTR] * 5 + [i32, PairConsts, _PTR])
         lib.nonpressure_accel_launch.argtypes = (
-            [_PTR] * 6 + WALK + [_PTR, PairConsts, _PTR])
+            [_PTR] * 6 + WALK + [_PTR] * 3 + [i32, PairConsts, _PTR])
         for fn in (lib.dfsph_density_factor_launch,
+                   lib.dfsph_density_factor_list_launch,
                    lib.dfsph_divergence_launch, lib.dfsph_solver_dv_launch,
-                   lib.dfsph_jacobi_occupancy,
+                   lib.dfsph_jacobi_occupancy, lib.dfsph_occupancy,
                    lib.nonpressure_kick_launch,
-                   lib.nonpressure_accel_launch):
-            fn.restype = ctypes.c_int
+                   lib.nonpressure_accel_launch,
+                   lib.dfsph_pair_list_entries):
+            fn.restype = i32
+        pair_list.check_entries(lib.dfsph_pair_list_entries(), "DFSPH")
         lib._typed = True
     return lib
 
 
-def density_factor(ctx, p, params):
-    """Kernel wrapper for ``density_factor_plain``: (density, factor).
-    ``ctx``: the cell offsets of the sorted particles ``p``
-    (ops.grid.cell_offsets), or their ``SlotMap`` for the slot walk."""
+def density_factor_list(ctx, p, params, buffers=None):
+    """The density and factor of the DFSPH step, with the context its
+    non-pressure kernel reads: (density, factor, ctx').  Given the cell
+    offsets of the sorted particles ``p``, one launch of
+    ``dfsph_density_factor_list`` computes both and writes every fluid
+    centre's accepted pairs to a ``PairList`` in ``buffers`` (a dict,
+    filled with the list's tensors at the first call and reused after;
+    None: new tensors).  Given a ``SlotMap``, the one-phase slot kernel,
+    and the map.  On CPU tensors the plain version over the context's
+    neighbour lists, and, given cell offsets, those lists, which
+    ``nonpressure_kick_plain`` reads (``density_factor_list_plain`` gives
+    them in the list's layout)."""
     if p.x.device.type == "cpu":
-        return density_factor_plain(_plain_ctx(ctx, p, params), p, params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+        nl = _plain_ctx(ctx, p, params)
+        return (*density_factor_plain(nl, p, params),
+                ctx if isinstance(ctx, SlotMap) else nl)
+    if isinstance(ctx, SlotMap):
+        return (*_density_factor_slots(ctx, p, params), ctx)
+    dev, n, ptr, _, _ = _walk(ctx, p, params)
+    idx, cnt = pair_list.list_buffers(buffers, n, dev)
+    density = torch.empty_like(p.m_V)
+    factor = torch.empty_like(p.m_V)
+    rc = _lib().dfsph_density_factor_list_launch(
+        ptr["x"], ptr["material"], ptr["m_V"],
+        _check("density", p.density, torch.float32, (n,), dev),
+        ptr["starts"], idx.data_ptr(), cnt.data_ptr(), density.data_ptr(),
+        factor.data_ptr(), n, pair_consts(params), _stream(dev))
+    _raise_on(rc, "dfsph_density_factor")
+    LAUNCHES["dfsph_density_factor"] += 1
+    return density, factor, pair_list.PairList(ctx, idx, cnt)
+
+
+def _density_factor_slots(smap, p, params):
+    """(density, factor) from the one-phase slot kernel over the real rows;
+    the padding rows restored here."""
+    dev, n, ptr, walk, suffix = _walk(smap, p, params)
     density = torch.empty_like(p.m_V)
     factor = torch.empty_like(p.m_V)
     rc = _lib().dfsph_density_factor_launch(
         ptr["x"], ptr["material"], ptr["m_V"],
-        _check("density", p.density, torch.float32, (n,), dev), *walk,
+        _check("density", p.density, torch.float32, (n,), dev), *walk[1:],
         density.data_ptr(), factor.data_ptr(), pair_consts(params),
         _stream(dev))
     name = "dfsph_density_factor" + suffix
@@ -302,6 +362,15 @@ def density_factor(ctx, p, params):
     density[n_real:] = p.density[n_real:]
     factor[n_real:] = 0.0
     return density, factor
+
+
+def density_factor(ctx, p, params):
+    """Kernel wrapper for ``density_factor_plain``: (density, factor), the
+    first two outputs of ``density_factor_list`` (over the cell runs its
+    list goes to new tensors).  ``ctx``: the cell offsets of the sorted
+    particles ``p`` (ops.grid.cell_offsets), or their ``SlotMap`` for the
+    slot walk."""
+    return density_factor_list(ctx, p, params)[:2]
 
 
 def divergence(ctx, p, v, density, dt, mode, params, active=None):
@@ -371,50 +440,75 @@ def jacobi_occupancy(kernel, variant, slots=False):
     return tuple(o.value for o in out)
 
 
-def nonpressure_kick(ctx, p, dt, params):
-    """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v).  ``ctx``
-    as for ``density_factor``."""
-    if p.x.device.type == "cpu":
-        return nonpressure_kick_plain(_plain_ctx(ctx, p, params), p, dt,
-                                      params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+def occupancy(kernel, slots=False):
+    """(registers per thread, static shared memory bytes per block,
+    resident blocks of 128 threads per SM) of ``kernel`` on the current
+    CUDA device: "density_factor_list" (over the cell runs),
+    "density_factor" (over the slot walk), "nonpressure_kick" or
+    "nonpressure_accel" (over the cell runs, or the slot walk with
+    ``slots``)."""
+    which = {("density_factor_list", False): 0,
+             ("density_factor", True): 1,
+             ("nonpressure_kick", False): 2, ("nonpressure_accel", False): 3,
+             ("nonpressure_kick", True): 4,
+             ("nonpressure_accel", True): 5}[kernel, bool(slots)]
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _lib().dfsph_occupancy(which, *[ctypes.byref(o) for o in out])
+    _raise_on(rc, f"dfsph_occupancy({kernel})")
+    return tuple(o.value for o in out)
+
+
+def _nonpressure_args(ctx, p, params):
+    """The context check and the input pointers of the non-pressure kernel:
+    (device, n, launch-count suffix, its arguments up to the list)."""
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(
+        ctx, p, params, "nonpressure_kick",
+        source="density_factor_list (DFSPH) or cuda_pcisph.step_pairs "
+               "(PCISPH)")
     f32 = torch.float32
-    acc = torch.empty_like(p.x)
-    v_out = torch.empty_like(p.v)
-    rc = _lib().nonpressure_kick_launch(
+    return dev, n, suffix, [
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
         _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
         _check("m", p.m, f32, (n,), dev),
-        _check("density", p.density, f32, (n,), dev), *walk,
-        _check("dt", dt, f32, (), dev), acc.data_ptr(), v_out.data_ptr(),
-        pair_consts(params), _stream(dev))
+        _check("density", p.density, f32, (n,), dev), *walk, *lst]
+
+
+def nonpressure_kick(ctx, p, dt, params):
+    """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v).  ``ctx``:
+    the step's context from ``density_factor_list`` for the sorted
+    particles ``p`` (a ``PairList`` over the cell runs), or their
+    ``SlotMap`` for the slot walk; on CPU tensors also their neighbour
+    lists or cell offsets.  ``dt`` is a 0-d f32 tensor on the particles'
+    device."""
+    if p.x.device.type == "cpu":
+        return nonpressure_kick_plain(_plain_ctx(ctx, p, params), p, dt,
+                                      params)
+    dev, n, suffix, args = _nonpressure_args(ctx, p, params)
+    acc = torch.empty_like(p.x)
+    v_out = torch.empty_like(p.v)
+    rc = _lib().nonpressure_kick_launch(
+        *args, _check("dt", dt, torch.float32, (), dev), acc.data_ptr(),
+        v_out.data_ptr(), n, pair_consts(params), _stream(dev))
     name = "nonpressure_kick" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    n_real = params.n_fluid + params.n_solid
-    acc[n_real:] = 0.0
-    v_out[n_real:] = p.v[n_real:]
     return acc, v_out
 
 
 def nonpressure_accel(ctx, p, params):
     """Kernel wrapper for ``nonpressure_accel_plain``: acc, from the kernel
-    of ``nonpressure_kick`` without its kick (v is not written).  ``ctx``
-    as for ``density_factor``."""
+    of ``nonpressure_kick`` without its kick (v is not written).  ``ctx``:
+    the PCISPH step's context from ``cuda_pcisph.step_pairs`` (a
+    ``PairList`` over the cell runs), or a ``SlotMap``; on CPU tensors also
+    neighbour lists or cell offsets."""
     if p.x.device.type == "cpu":
         return nonpressure_accel_plain(_plain_ctx(ctx, p, params), p,
                                        params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
-    f32 = torch.float32
+    dev, n, suffix, args = _nonpressure_args(ctx, p, params)
     acc = torch.empty_like(p.x)
     rc = _lib().nonpressure_accel_launch(
-        ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
-        _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
-        _check("m", p.m, f32, (n,), dev),
-        _check("density", p.density, f32, (n,), dev), *walk,
-        acc.data_ptr(), pair_consts(params), _stream(dev))
+        *args, acc.data_ptr(), n, pair_consts(params), _stream(dev))
     name = "nonpressure_accel" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    acc[params.n_fluid + params.n_solid:] = 0.0
     return acc

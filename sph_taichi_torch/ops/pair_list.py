@@ -16,11 +16,15 @@ cell offsets.  The slot walk reads its map and no list.  WCSPH's step has
 no loop, but its positions too stay the sort's until the force kernel's
 advect: its density kernel writes the list while it sums
 (ops/cuda_pairs.py ``density_sum_list``) and its force kernel reads it.
+DFSPH's step does the same from its density-and-factor kernel to its
+non-pressure kernel (ops/cuda_dfsph.py ``density_factor_list``), and
+PCISPH's non-pressure kernel reads the loop's list.
 
-The centres a list serves: PCISPH's loop walks the fluid centres
-(``"fluid"``), IISPH's every real centre (``"real"``), solids included,
-because its A reads the solids' pressure accelerations; WCSPH's density
-lists every real centre too.
+The centres a list serves: PCISPH's loop and both steps' non-pressure
+kernel walk the fluid centres (``"fluid"``), as DFSPH's list does;
+IISPH's every real centre (``"real"``), solids included, because its A
+reads the solids' pressure accelerations; WCSPH's density lists every
+real centre too.
 
 ``step_pairs_plain`` is the list from the plain engine's neighbour lists;
 on CPU tensors the loop's context is those lists themselves, which the

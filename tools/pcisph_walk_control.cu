@@ -55,7 +55,9 @@ __device__ __forceinline__ void pinned_compact_cell_runs(
           flush();
         }
       },
-      [&](int j, float) { list[(cnt++) * kBlock] = j; });
+      [&](int j, float, float, float, float) {
+        list[(cnt++) * kBlock] = j;
+      });
   flush();
 }
 

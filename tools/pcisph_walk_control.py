@@ -15,9 +15,11 @@ kernels at step 30) it checks that every design gives equal results
 bitwise, prints each build's registers, times each kernel (CUDA events,
 mean of 20 launches) in interleaved turns and the loop's kernels per step
 (the build and 3 x (g1 + g2) over the list, 3 x (g1 + g2) without it);
-then whole steps, with the list and without it (two-phase walk): device
-busy time per step (torch.profiler) and step time (CUDA events), in
-interleaved turns, from the same state, states equal bitwise.  With
+then whole steps, with the loop over the list and without it (two-phase
+walk; the step still builds the list, which the non-pressure kernel reads
+before the loop): device busy time per step (torch.profiler) and step time
+(CUDA events), in interleaved turns, from the same state, states equal
+bitwise.  With
 ``--other DIR`` the shipped kernels of another checkout (its
 ``sph_taichi_torch/csrc/pcisph.cu``, for example an unpacked parent
 commit) join the designs, so a change to the shipped source is timed
@@ -52,8 +54,11 @@ CONTROLS = {NO_LIST: ["-DNO_LIST"],
             "list 1 deep": ["-DLIST_UNROLL=1"],
             "list 4 deep": ["-DLIST_UNROLL=4"],
             "list, two-phase walk over it": ["-DOVERFLOW_TWO_PHASE"]}
+# the launchers a control library serves through the shipped wrappers (the
+# list build too: the no-list twin's step still builds the list for d)
 LAUNCHERS = ("pcisph_d_rho_correct_launch",
-             "pcisph_pressure_accel_predict_launch")
+             "pcisph_pressure_accel_predict_launch",
+             "pcisph_step_pairs_launch")
 
 
 def build_controls(other=None):
@@ -111,30 +116,6 @@ def using(lib):
         yield
     finally:
         cg._lib = real
-
-
-@contextlib.contextmanager
-def without_list():
-    """PCISPH steps that build no list: the loop is given a ``PairList``
-    whose list is never written (the NO_LIST control does not read it)."""
-    from sph_taichi_torch.ops import cuda_pcisph as cg
-
-    real = cg.step_pairs
-    unread = {}
-
-    def no_build(ctx, p, params, buffers=None):
-        if not unread:
-            unread["idx"] = torch.empty((cg.PAIR_LIST_ENTRIES, p.n),
-                                        dtype=torch.int32, device=p.x.device)
-            unread["cnt"] = torch.empty(p.n, dtype=torch.int32,
-                                        device=p.x.device)
-        return cg.PairList(ctx, unread["idx"], unread["cnt"])
-
-    cg.step_pairs = no_build
-    try:
-        yield
-    finally:
-        cg.step_pairs = real
 
 
 def busy_ms(sim, steps):
@@ -217,8 +198,9 @@ def kernels(sim, controls, turns):
 
 
 def steps(sim, no_list, turns, per_turn=5):
-    """Whole steps with the list and without it (every warp walking the
-    cells in two phases: the library ``no_list``) from the same state, in
+    """Whole steps with the loop over the list and without it (every warp
+    walking the cells in two phases: the library ``no_list``; the list is
+    still built, for the non-pressure kernel) from the same state, in
     interleaved turns: the states stay equal bitwise."""
     from sph_taichi_torch.simulation import Simulation
 
@@ -229,10 +211,7 @@ def steps(sim, no_list, turns, per_turn=5):
     wall = {d: [] for d in sims}
     for turn in range(turns):
         for d in list(sims)[::1 if turn % 2 == 0 else -1]:
-            with contextlib.ExitStack() as stack:
-                if d == NO_LIST:
-                    stack.enter_context(without_list())
-                    stack.enter_context(using(no_list))
+            with using(no_list if d == NO_LIST else None):
                 busy[d].append(busy_ms(sims[d], per_turn))
                 wall[d].append(step_ms(sims[d], per_turn))
     same = all(torch.equal(a, getattr(twin.state.p, f))

@@ -53,7 +53,7 @@ __global__ void density_list_pass_kernel(const float* __restrict__ x,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool walks = i < c.n_real;
   build_pair_list(walks, i, x, walk, c, idx, cnt, n_rows,
-                  [](int, float) {});
+                  [](int, float, float, float, float) {});
   float sum = 0.0f;
   auto term = [&](int j, float s) {
     if (material[j] >= 0) sum += m_V[j] * cubic_w(sqrtf(s), c);
