@@ -15,8 +15,8 @@ Phases (any failure raises and exits non-zero):
    outputs and the list bitwise; both divergence modes, the solver update
    with and without the reaction), and the DFSPH kernels and two whole
    steps on a block
-   that falls onto the floor, where the Jacobi loops iterate; the four
-   IISPH kernels and IISPH's step-start pair list (f3 and f4 over it) on
+   that falls onto the floor, where the Jacobi loops iterate; IISPH's
+   step list (density_sum_list's) and the four IISPH kernels over it on
    a clumped scene with a static rigid block and on the
    floor impact (pressures from a seed), and the floor impact's first
    three IISPH steps at dt 1e-3 (59 and 7 iterations in the second and
@@ -58,24 +58,24 @@ Phases (any failure raises and exits non-zero):
 6. the IISPH path: data/scenes/dragon_bath.json with simulationMethod 2
    (442,006 particles, dt 4e-4) through ``Simulation``, 20 steps after 5
    of warm-up, timed with CUDA events; pressure iterations and host reads
-   per step, launch counts (f1 = f2 = the list build = steps, f3 and f4 k
-   per host read in the loop, f3 once more per step with the advect); the
-   host syncs of one step (none in the loop's wrappers); the loop's
-   kernels in 5 profiled steps against their wrappers' calls; stage
-   times; the step time by the Jacobi loop's read interval; one kernel
-   step against one plain-engine step; at that state the walk profile of
-   every real centre with the list (and of the fluid and solid centres
-   alone), the registers, shared memory and resident blocks of f3 (both
-   variants), f4 and the build, per-kernel (the one-phase density_sum's
-   too) and plain-version times and bounds (f3 and f4 beside the bytes of
-   the list's read), the list against its plain version;
+   per step, launch counts (density_sum_list = f1 = f2 = steps, f3 and f4
+   k per host read in the loop, f3 once more per step with the advect; no
+   one-phase density_sum); the host syncs of one step (none in the loop's
+   wrappers); the step's list kernels in 5 profiled steps against their
+   wrappers' calls; stage times; the step time by the Jacobi loop's read
+   interval; one kernel step against one plain-engine step; at that state
+   the walk profile of every real centre with the list (and of the fluid
+   and solid centres alone), the registers, shared memory and resident
+   blocks of f1-f4 (both walks), per-kernel (density_sum_list's and the
+   one-phase density_sum's too) and plain-version times and bounds (f1-f4
+   beside the bytes of the list's read), the list and f1-f4 against their
+   plain versions bitwise;
 7. the IISPH iterating regime: the same scene at dt 2e-3, run until a
    step's pressure solve iterates more than once, then 5 timed steps and
    the read-interval sweep; at that state (pressures not 0) the walk
-   profiles, the list, f3 (both variants) and f4 over it against their
-   plain versions bitwise, and one kernel step against one plain-engine
-   step;
-8. the PCISPH kernels (the step-start pair list, and over it the
+   profiles, the list and f1-f4 over it against their plain versions
+   bitwise, and one kernel step against one plain-engine step;
+8. the PCISPH kernels (over density_sum_list's step list the
    un-kicked non-pressure variant, the density derivative with its
    correction and the pressure acceleration with its predict) against
    their plain versions on the clumped
@@ -85,10 +85,10 @@ Phases (any failure raises and exits non-zero):
 9. the PCISPH path: data/scenes/dragon_bath.json with simulationMethod 1
    (dt 4e-4) through ``Simulation``, 20 steps after 5 of warm-up, timed
    with CUDA events; iterations and host reads per step, launch counts
-   (density = non-pressure = the list build = steps, g1 = g2 = k per host
-   read); the host syncs of one step (none in the loop's wrappers); the
-   build's, d's and the loop's kernels in 5 profiled steps against their
-   wrappers' calls; stage times (the list built before d); the
+   (density_sum_list = non-pressure = steps, g1 = g2 = k per host read);
+   the host syncs of one step (none in the loop's wrappers); the density
+   kernel's, d's and the loop's kernels in 5 profiled steps against their
+   wrappers' calls; stage times (the list written with the densities); the
    read-interval sweep (k = 1, 2, 3, 4); one kernel step against one
    plain-engine step; at that state the walk profile with the list, each
    list kernel's registers, shared memory and resident blocks (d's too),
@@ -131,7 +131,8 @@ Phases (any failure raises and exits non-zero):
    turns of 5 steps; the slot kernels against their plain versions and
    their cell-run instantiations at that state, times and bounds;
 16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
-   after 5; the cell-run twins' loops read their step-start lists);
+   after 5; the cell-run twins' pair kernels read density_sum_list's step
+   list, which the slot run's density_sum[slots] does not write);
 17. the same for the scaled dynamic dragon as DFSPH (20 steps after 5):
    kernel c's and the reaction update's slot instantiations every step,
    the reaction kernel against its plain version;
@@ -145,26 +146,28 @@ Phases (any failure raises and exits non-zero):
    shared memory and resident blocks of each instantiation, a launch with
    the Jacobi flag false, and the path's iteration and read counts against
    those of the one-phase walk;
-19. (in phase 2) PCISPH's step-start pair list and loop kernels on the
-   same edge scene as PCISPH (centres with more accepted pairs than the
+19. (in phase 2) PCISPH's step list (density_sum_list's) and loop
+   kernels on the same edge scene as PCISPH (centres with more accepted
+   pairs than the
    list holds, so warps reading the list beside warps walking the cells):
    the list against its plain version, g1 and g2 over the list and over
    the slot map and un-kicked d over the list against their plain
    versions bitwise, padding rows included; bare cell offsets refused; the
    walk profile with the list; one kernel per wrapper call;
-20. (in phase 2) IISPH's step-start pair list, f3 (both variants) and f4
-   on the same edge scene as IISPH, every real centre over the list at a
-   seeded pressure: the list against its plain version, f3 and f4 over
-   the list and over the slot map against their plain versions bitwise,
-   padding rows included; bare cell offsets refused; the walk profile with
-   the list; one kernel per wrapper call;
+20. (in phase 2) IISPH's step list (density_sum_list's), f1, f2, f3
+   (both variants) and f4 on the same edge scene as IISPH, every real
+   centre over the list at a seeded pressure, padding velocities not 0:
+   the list against its plain version, f1-f4 over the list and over the
+   slot map against their plain versions bitwise, padding rows included;
+   bare cell offsets refused; the walk profile with the list; one kernel
+   per wrapper call;
 21. (in phase 2) WCSPH's density_sum_list and wcsph_forces over its list
    on the same edge scene as WCSPH, with and without the reaction,
    padding velocities not 0: both against their plain versions bitwise
    (the list too), padding rows included; bare cell offsets refused; the
    walk profiles of both kernels' centres; one kernel per wrapper call.
-   (density_sum, one phase, now on the IISPH and PCISPH paths only, is
-   timed at phase 6's state.)
+   (density_sum, one phase over the cell runs, is on no solver step: it
+   is timed and held against its plain version at phase 6's state.)
 22. (in phase 2) DFSPH's e1 with the step's list and d over it on the
    same edge scene, padding densities and velocities not 0: both against
    their plain versions bitwise (the list too), e1 and both variants of d
@@ -237,8 +240,7 @@ PCISPH_D_RHO_FLOPS_PER_PAIR = 43
 # g2 pressure acceleration (fluid and solid j): f3's 36, geometry 8
 PCISPH_PRESSURE_FLOPS_PER_PAIR = 44
 # the distance test at the step-start positions (3 sub, 3 mul, 2 add):
-# pcisph_step_pairs does it for every candidate, g1 and g2 over the
-# step-start list do not
+# g1 and g2 over the step's list do not do it
 PCISPH_TEST_FLOPS = 8
 # counted from csrc/pairs.cu boundary_volume: a within-radius pair costs its
 # distance test (8); a solid one also sqrt 1, W 13, material test and sum 2
@@ -293,11 +295,7 @@ ROW_COSTS = {
     # v*', x*'
     "pcisph_pressure_accel_predict": (88, 5, "fluid",
                                       PCISPH_PRESSURE_FLOPS_PER_PAIR),
-    # the step-start list: reads x, material; writes the counts (its
-    # entries counted with the index); a distance test per candidate of a
-    # fluid centre
-    "pcisph_step_pairs": (20, 0, "candidates", PCISPH_TEST_FLOPS),
-    # g1 and g2 as this design runs them over the step-start list (a design
+    # g1 and g2 as this design runs them over the step's list (a design
     # figure printed beside their bounds, not a bound: the list is the
     # design's own intermediate), no warp over it: the list's counts (4 per
     # row) and entries read, no distance test; g1 reads no step-start x
@@ -305,13 +303,14 @@ ROW_COSTS = {
         52, 9, "fluid", PCISPH_D_RHO_FLOPS_PER_PAIR - PCISPH_TEST_FLOPS),
     "pcisph_pressure_accel_predict_list": (
         92, 5, "fluid", PCISPH_PRESSURE_FLOPS_PER_PAIR - PCISPH_TEST_FLOPS),
-    # IISPH's list of every real centre: reads x; writes the counts (its
-    # entries counted with the index); a distance test per candidate of a
-    # real centre
-    "iisph_step_pairs": (16, 0, "candidates", PCISPH_TEST_FLOPS),
-    # f3 and f4 as this design runs them over the list (a design figure,
-    # not a bound, as g1 and g2's): the list's counts and entries read
-    # besides the function's bytes; the pair geometry is still computed
+    # f1-f4 as this design runs them over the step's list (a design
+    # figure, not a bound, as g1 and g2's): the list's counts and entries
+    # read besides the function's bytes; the pair geometry is still
+    # computed
+    "iisph_nonpressure_kick_list": (64, 4, "real_fj",
+                                    IISPH_NONPRESSURE_FLOPS_PER_PAIR),
+    "iisph_predict_advection_list": (56, 4, "real",
+                                     IISPH_PREDICT_FLOPS_PER_PAIR),
     "iisph_pressure_accel_list": (44, 1, "real",
                                   IISPH_PRESSURE_FLOPS_PER_PAIR),
     "iisph_pressure_accel_advect_list": (68, 4, "real",
@@ -1124,16 +1123,18 @@ def check_dfsph_on_edge_scene(device):
 
 
 def check_pcisph_on_edge_scene(device):
-    """PCISPH's loop kernels and the step-start list on the edge scene (a
-    ~100-particle cell: centres over the list, so warps that read the list
-    beside warps that walk the cells in one phase)
-    at a seeded prediction: g1 and g2 over the list and over the slot map
-    (the cell overflows its 32 slots) against their plain versions bitwise,
-    padding rows included, and refusing the bare cell offsets; the list
-    against its plain version; the walk profile; one kernel per wrapper
-    call."""
+    """PCISPH's loop kernels over the step's list (``density_sum_list``'s)
+    on the edge scene (a ~100-particle cell: centres over the list, so
+    warps that read the list beside warps that walk the cells in one
+    phase) at a seeded prediction: g1 and g2 over the list and over the
+    slot map (the cell overflows its 32 slots) and un-kicked d over the
+    list against their plain versions bitwise, padding rows included, and
+    refusing the bare cell offsets; the list against its plain version;
+    the walk profile; one kernel per wrapper call."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
     from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
 
     scene = compact_edge_scene()
@@ -1147,12 +1148,11 @@ def check_pcisph_on_edge_scene(device):
           f"{int(diag['max_neighbors'])}")
     p = p._replace(acc=cd.nonpressure_accel_plain(nl, p, params))
     xp, vp, pressure, dt, s_f = pcisph_inputs(params, solver, p)
-    buffers = {}
-    pairs = cg.step_pairs(starts, p, params, buffers)
-    worst = {"pcisph_step_pairs": check_pair_list(pairs, nl, p, params,
-                                                  "edge scene")[0]}
+    pairs = cp.density_sum_list(starts, p, params, {})[1]
+    worst = {"density_sum_list (PCISPH edge scene)": check_pair_list(
+        pairs, nl, p, params, "PCISPH edge scene")[0]}
     fig = walk_profile(params, p.x, p.material == 1, starts, nl,
-                       "PCISPH edge scene", list_entries=cg.PAIR_LIST_ENTRIES)
+                       "PCISPH edge scene", list_entries=PAIR_LIST_ENTRIES)
     if not 0 < fig["warps_over_list"] < fig["warps"]:
         raise AssertionError("edge scene: no warp over the list beside one "
                              "within it")
@@ -1205,8 +1205,6 @@ def check_pcisph_on_edge_scene(device):
         raise AssertionError(f"{name}: bare cell offsets not refused")
     print("  g1, g2 and un-kicked d refuse bare cell offsets")
     calls = {
-        "pcisph_step_pairs": lambda: cg.step_pairs(starts, p, params,
-                                                   buffers),
         "pcisph_d_rho_correct": lambda: cg.d_rho_correct(
             pairs, p, xp, vp, pressure, dt, s_f, params),
         "pcisph_pressure_accel_predict": lambda: cg.pressure_accel_predict(
@@ -1227,14 +1225,17 @@ def check_pcisph_on_edge_scene(device):
 
 
 def check_iisph_on_edge_scene(device):
-    """IISPH's step-start list, f3 (both variants) and f4 on the edge scene
-    (a ~100-particle cell: centres over the list, so warps that read the
-    list beside warps that walk the cells in one phase) at a seeded
-    pressure: the list against its plain version; f3 and f4 over the list
-    and over the slot map (the cell overflows its 32 slots) against their
-    plain versions bitwise, padding rows included; bare cell offsets
-    refused; the walk profile; one kernel per wrapper call."""
+    """IISPH's four kernels over the step's list (``density_sum_list``'s,
+    every real centre) on the edge scene (a ~100-particle cell: centres
+    over the list, so warps that read the list beside warps that walk the
+    cells in one phase) at a seeded pressure, with padding velocities that
+    are not 0: the list against its plain version; f1, f2, f3 (both
+    variants) and f4 over the list and over the slot map (the cell
+    overflows its 32 slots) against their plain versions bitwise, padding
+    rows included; bare cell offsets refused; the walk profile; one kernel
+    per wrapper call."""
     from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
     from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
 
@@ -1249,20 +1250,19 @@ def check_iisph_on_edge_scene(device):
           f"{int(diag['max_cell_occupancy'])}, max neighbours "
           f"{int(diag['max_neighbors'])}")
     dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
-    acc, v = ci.nonpressure_kick_plain(nl, p, dt, params)
-    p = p._replace(acc=acc, v=v)
-    a_ii, source, _ = ci.predict_advection_plain(nl, p, dt, params)
-    pressure = random_pressure(p)
-    # padding rows of v that the advect must carry through
+    # padding rows of v that f1 and the advect must carry through
     n_real = params.n_fluid + params.n_solid
     vpad = p.v.clone()
     vpad[n_real:] = torch.arange(3 * (p.n - n_real), dtype=torch.float32,
                                  device=device).reshape(-1, 3)
-    p = p._replace(v=vpad)
-    buffers = {}
-    pairs = ci.step_pairs(starts, p, params, buffers)
-    worst = {"iisph_step_pairs": check_pair_list(pairs, nl, p, params,
-                                                 "edge scene", ci)[0]}
+    p0 = p._replace(v=vpad, pressure=random_pressure(p, seed=4))
+    acc, v = ci.nonpressure_kick_plain(nl, p0, dt, params)
+    p = p0._replace(acc=acc, v=v)
+    a_ii, source, _ = ci.predict_advection_plain(nl, p, dt, params)
+    pressure = random_pressure(p)
+    pairs = cp.density_sum_list(starts, p, params, {})[1]
+    worst = {"density_sum_list": check_pair_list(
+        pairs, nl, p, params, "IISPH edge scene")[0]}
     fig = walk_profile(params, p.x, p.material >= 0, starts, nl,
                        "IISPH edge scene", list_entries=PAIR_LIST_ENTRIES)
     if not 0 < fig["warps_over_list"] < fig["warps"]:
@@ -1275,6 +1275,10 @@ def check_iisph_on_edge_scene(device):
 
     def calls(ctx):
         return {
+            "iisph_nonpressure_kick": lambda: ci.nonpressure_kick(
+                ctx, p0, dt, params),
+            "iisph_predict_advection": lambda: ci.predict_advection(
+                ctx, p, dt, params),
             "iisph_pressure_accel": lambda: ci.pressure_accel(
                 ctx, p, pressure, params),
             "iisph_pressure_accel_advect": lambda: ci.pressure_accel(
@@ -1285,6 +1289,10 @@ def check_iisph_on_edge_scene(device):
     checked = 0
     for ctx, lists_, how in ((pairs, nl, "list"), (smap, snl, "slots")):
         refs = {
+            "iisph_nonpressure_kick": ci.nonpressure_kick_plain(
+                lists_, p0, dt, params),
+            "iisph_predict_advection": ci.predict_advection_plain(
+                lists_, p, dt, params),
             "iisph_pressure_accel": (ci.pressure_accel_plain(
                 lists_, p, pressure, params),),
             "iisph_pressure_accel_advect": ci.pressure_accel_plain(
@@ -1302,26 +1310,26 @@ def check_iisph_on_edge_scene(device):
                                          f"equal to its plain version "
                                          f"({err:.3e})")
             checked += 1
-    print(f"  {checked} IISPH kernel calls (f3, f3 with the advect, f4 over "
-          f"the list and the slots) equal to their plain versions bitwise, "
-          f"padding rows included")
+    print(f"  {checked} IISPH kernel calls (f1, f2, f3, f3 with the advect, "
+          f"f4 over the list and the slots) equal to their plain versions "
+          f"bitwise, padding rows included (padding velocities not 0)")
     for name, fn in calls(starts).items():
         try:
             fn()
         except TypeError:
             continue
         raise AssertionError(f"{name}: bare cell offsets not refused")
-    print("  f3 and f4 refuse bare cell offsets")
-    per_call = {"iisph_step_pairs": lambda: ci.step_pairs(starts, p, params,
-                                                          buffers),
-                **calls(pairs)}
-    for name, fn in per_call.items():
+    print("  f1, f2, f3 and f4 refuse bare cell offsets")
+    kernels = {"iisph_nonpressure_kick": "iisph_nonpressure_kick_list_kernel",
+               "iisph_predict_advection":
+                   "iisph_predict_advection_list_kernel"}
+    for name, fn in calls(pairs).items():
         before = ci.LAUNCHES[name]
         launched, lost = kernels_per_call(fn)
         counted = (ci.LAUNCHES[name] - before) / (2 + lost)
         print(f"  {name}: one wrapper call launches {launched} (its count "
               f"{counted:g} per call; captures that lost the markers {lost})")
-        kernel = name.replace("_advect", "")
+        kernel = kernels.get(name, name.replace("_advect", ""))
         if len(launched) != 1 or kernel not in launched[0] or counted != 1:
             raise AssertionError(f"{name}: the wrapper launches {launched}")
     return {f"{k} (IISPH edge scene)": v for k, v in worst.items()}
@@ -2237,11 +2245,13 @@ def random_pressure(p, seed=3):
 
 
 def compare_iisph_kernels(params, p, nl, starts, pressure, label, worst):
-    """f1-f4 and the step-start list against their plain versions at one
-    state, each kernel on the plain chain's inputs (f3 and f4 over the
-    list, as a step runs them).  ``pressure`` is the loop's last_p for the
-    pressure acceleration and A."""
+    """The step's list (``density_sum_list``'s) and f1-f4 over it against
+    their plain versions at one state, each kernel on the plain chain's
+    inputs, as a step runs them, equal to the bit (padding rows
+    included).  ``pressure`` is the loop's last_p for the pressure
+    acceleration and A."""
     from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops import cuda_pairs as cp
 
     device = p.x.device
     dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
@@ -2251,22 +2261,25 @@ def compare_iisph_kernels(params, p, nl, starts, pressure, label, worst):
         if torch.is_tensor(ref):
             got, ref = (got,), (ref,)
         for field, a, b in zip(what, got, ref):
-            worst[name] = max(worst.get(name, 0.0), max_errors(
-                a, b, f"{name}[{label}].{field}"))
+            err = max_errors(a, b, f"{name}[{label}].{field}")
+            if err != 0.0:
+                raise AssertionError(f"{name}[{label}].{field}: not equal "
+                                     f"to its plain version ({err:.3e})")
+            worst[name] = max(worst.get(name, 0.0), err)
 
+    pairs = cp.density_sum_list(starts, p, params)[1]
+    worst["density_sum_list (IISPH)"] = max(
+        worst.get("density_sum_list (IISPH)", 0.0),
+        check_pair_list(pairs, nl, p, params, label)[0])
     ref = ci.nonpressure_kick_plain(nl, p, dt, params)
-    check("iisph_nonpressure_kick", ci.nonpressure_kick(starts, p, dt, params),
+    check("iisph_nonpressure_kick", ci.nonpressure_kick(pairs, p, dt, params),
           ref, ("acc", "v"))
     p = p._replace(acc=ref[0], v=ref[1])
     ref = ci.predict_advection_plain(nl, p, dt, params)
     check("iisph_predict_advection",
-          ci.predict_advection(starts, p, dt, params), ref,
+          ci.predict_advection(pairs, p, dt, params), ref,
           ("a_ii", "source", "last_p"))
     a_ii, source, _ = ref
-    pairs = ci.step_pairs(starts, p, params)
-    worst["iisph_step_pairs"] = max(worst.get("iisph_step_pairs", 0.0),
-                                    check_pair_list(pairs, nl, p, params,
-                                                    label, ci)[0])
     accel = ci.pressure_accel_plain(nl, p, pressure, params)
     check("iisph_pressure_accel", ci.pressure_accel(pairs, p, pressure,
                                                     params), accel, ("accel",))
@@ -2356,12 +2369,12 @@ def dragon_config(method, dt=None):
 
 def iisph_state_kernels(params, solver, state):
     """Inputs of the IISPH kernels at a dragon state, built by the kernels
-    themselves as in a step (f3 over the step-start list, which is
-    returned with the cell offsets), the plain engine's neighbour lists
-    (caps raised to what the state needs), and the pair counts each
-    kernel walks."""
+    themselves as in a step (the density kernel writing the step's list,
+    which is returned with the cell offsets, and f1-f3 over it), the
+    particles before f1's kick, the plain engine's neighbour lists (caps
+    raised to what the state needs), and the pair counts each kernel
+    walks."""
     from sph_taichi_torch.models import base
-    from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops.pairs import GatherEngine
 
     q, starts, _ = base.bin_and_sort(state.p, params, solver.engine,
@@ -2372,10 +2385,10 @@ def iisph_state_kernels(params, solver, state):
     if int(nl.diag["neighbor_overflow"]):
         caps = dataclasses.replace(caps, neighbor_cap=int(nl.max_cnt))
         nl = GatherEngine(caps).prepare(q.x, starts)
-    q = base.compute_densities(q, starts, solver.engine, params)
-    q = solver.compute_non_pressure(q, starts, state.dt)
-    a_ii, source, last_p = solver.predict_advection(q, starts, state.dt)
-    plist = ci.step_pairs(starts, q, params)
+    q0, plist = base.compute_densities_and_pairs(q, starts, solver.engine,
+                                                 params)
+    q = solver.compute_non_pressure(q0, plist, state.dt)
+    a_ii, source, last_p = solver.predict_advection(q, plist, state.dt)
     accel = solver._pressure_accel(q, plist, last_p)
     n_real = params.n_fluid + params.n_solid
     valid = nl.mask()
@@ -2387,7 +2400,7 @@ def iisph_state_kernels(params, solver, state):
           f"neighbours {int(nl.max_cnt)}, max cell occupancy {occ} (the oracle's caps "
           f"{caps.neighbor_cap}, {caps.cell_cap}); last_p max "
           f"{float(last_p.max()):.4f} Pa")
-    return q, (starts, plist), nl, (a_ii, source, last_p, accel), pairs
+    return q0, q, (starts, plist), nl, (a_ii, source, last_p, accel), pairs
 
 
 def iisph_walk_profiles(params, q, starts, nl, label):
@@ -2428,8 +2441,9 @@ def armadillo_counts(device):
 
 def iisph_path(device, warmup, steps):
     """The IISPH path: dragon_bath.json with simulationMethod 2 through
-    ``Simulation``; returns the kernels' JSON entries (the list build's
-    included) and the step time."""
+    ``Simulation``; returns the kernels' JSON entries (the one-phase
+    density_sum's, which no solver step launches, with its launches 0)
+    and the step time."""
     import warnings
 
     from sph_taichi_torch import build_solver
@@ -2491,11 +2505,11 @@ def iisph_path(device, warmup, steps):
           f"{1e3 / step_ms:.3f} steps/s; pressure iterations per step mean "
           f"{n_it / steps:.2f} max {st['pressure_iters_max']}; host reads "
           f"per step {reads / steps:.2f}; launches {launches}")
-    # f1 = f2 = the list build = steps; in the loop f3 = f4 = k x reads
-    # (the iterations queued after the exit return at once); f3 once more
-    # per step, with the advect
-    expect = {"density_sum": steps, "iisph_nonpressure_kick": steps,
-              "iisph_predict_advection": steps, "iisph_step_pairs": steps,
+    # the density kernel writing the list = f1 = f2 = steps; in the loop
+    # f3 = f4 = k x reads (the iterations queued after the exit return at
+    # once); f3 once more per step, with the advect
+    expect = {"density_sum_list": steps, "iisph_nonpressure_kick": steps,
+              "iisph_predict_advection": steps,
               "iisph_pressure_accel": K * reads,
               "iisph_pressure_accel_advect": steps,
               "iisph_apply_A": K * reads}
@@ -2518,7 +2532,10 @@ def iisph_path(device, warmup, steps):
         # each wrapper call launched its one kernel: the profiled kernels
         # equal the wrappers' counts over the same 5 steps
         kernel_keys = {
-            "iisph_step_pairs": ("iisph_step_pairs_kernel(",),
+            "density_sum_list": ("density_sum_list_kernel(",),
+            "iisph_nonpressure_kick": ("iisph_nonpressure_kick_list_kernel(",),
+            "iisph_predict_advection": (
+                "iisph_predict_advection_list_kernel(",),
             "iisph_pressure_accel": ("iisph_pressure_accel_kernel<false",
                                      "CellRunWalk"),
             "iisph_pressure_accel_advect": (
@@ -2527,10 +2544,11 @@ def iisph_path(device, warmup, steps):
         got = {name: sum(c for k, c in counts.items()
                          if all(part in k for part in parts))
                for name, parts in kernel_keys.items()}
-        calls = {name: ci.LAUNCHES[name] for name in kernel_keys}
-        print(f"  the loop's kernels in the profiled 5 steps {got}, their "
-              f"wrappers' calls {calls}")
-        if got != calls or calls["iisph_step_pairs"] != 5:
+        calls = {name: all_launch_counts()[name] for name in kernel_keys}
+        print(f"  the step's list kernels in the profiled 5 steps {got}, "
+              f"their wrappers' calls {calls}")
+        if got != calls or calls["density_sum_list"] != 5 \
+                or calls["iisph_nonpressure_kick"] != 5:
             raise AssertionError(f"IISPH kernels {got}, wrapper calls "
                                  f"{calls}")
 
@@ -2550,15 +2568,15 @@ def iisph_path(device, warmup, steps):
         q, ctx, _ = base.bin_and_sort(state.p, params, solver.engine,
                                       solver.tables)
         ev[1].record()
-        q = base.compute_densities(q, ctx, solver.engine, params)
+        q, ctx = base.compute_densities_and_pairs(q, ctx, solver.engine,
+                                                  params,
+                                                  solver._pair_buffers)
         ev[2].record()
         q = solver.compute_non_pressure(q, ctx, state.dt)
         ev[3].record()
         a_ii, source, last_p = solver.predict_advection(q, ctx, state.dt)
         ev[4].record()
-        # the list build, then the loop
-        pr, ctx, _ = solver.pressure_solve(q, ctx, a_ii, source, last_p,
-                                           state.dt)
+        pr, _ = solver.pressure_solve(q, ctx, a_ii, source, last_p, state.dt)
         ev[5].record()
         q = solver._pressure_accel(q._replace(pressure=pr), ctx, pr,
                                    advect_dt=state.dt)
@@ -2573,9 +2591,9 @@ def iisph_path(device, warmup, steps):
     evs = [staged_step() for _ in range(5)]
     torch.cuda.synchronize()
     stages = {}
-    for k, name in enumerate(("bin_and_sort", "densities",
+    for k, name in enumerate(("bin_and_sort", "densities + list",
                               "non-pressure + kick", "predict advection",
-                              "list + pressure solve",
+                              "pressure solve",
                               "pressure accel + advect", "rigid + clamp")):
         stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
     print("IISPH stage ms at this state: " + json.dumps(
@@ -2601,38 +2619,40 @@ def iisph_path(device, warmup, steps):
     del plain_solver, ps
 
     # per-kernel times at the dragon state's shapes, and the plain versions
-    q, (starts, plist), nl, (a_ii, source, last_p, accel), pairs = \
+    q0, q, (starts, plist), nl, (a_ii, source, last_p, accel), pairs = \
         iisph_state_kernels(params, solver, state)
     dt = state.dt
     omega = solver.omega
     reset_all_launch_counts()     # comparison launches are not the path's
     fig = iisph_walk_profiles(params, q, starts, nl, "dragon_bath IISPH state")
-    for name, slots in (("iisph_pressure_accel", False),
-                        ("iisph_pressure_accel_advect", False),
-                        ("iisph_apply_A", False), ("iisph_step_pairs", False),
-                        ("iisph_pressure_accel", True),
-                        ("iisph_pressure_accel_advect", True),
-                        ("iisph_apply_A", True)):
+    for name, slots in itertools.product(
+            ("iisph_nonpressure_kick", "iisph_predict_advection",
+             "iisph_pressure_accel", "iisph_pressure_accel_advect",
+             "iisph_apply_A"), (False, True)):
         regs, smem, blocks = ci.occupancy(name, slots)
         print(f"  {name}{'[slots]' if slots else ''}: {regs} registers, "
               f"{smem} bytes of shared memory per block, {blocks} blocks of "
               f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
     buffers = {}
     calls = {
-        # the one-phase density kernel of the IISPH and PCISPH paths (the
-        # WCSPH step's writes its list: density_sum_list, main_path)
+        # the one-phase density kernel over the cell runs: no solver step
+        # launches it (the IISPH and PCISPH steps, as WCSPH's, take
+        # density_sum_list); held against its plain version here
         "density_sum": (
-            lambda: cp.density_sum(starts, q, params),
-            lambda: cp.density_sum_plain(nl, q.x, q.material, q.m_V, params)),
+            lambda: cp.density_sum(starts, q0, params),
+            lambda: cp.density_sum_plain(nl, q0.x, q0.material, q0.m_V,
+                                         params)),
+        # the IISPH step's density kernel, writing the step's list (its
+        # kernels-line entry is the WCSPH path's, main_path)
+        "density_sum_list": (
+            lambda: cp.density_sum_list(starts, q0, params, buffers),
+            lambda: cp.density_sum_list_plain(nl, q0, params)),
         "iisph_nonpressure_kick": (
-            lambda: ci.nonpressure_kick(starts, q, dt, params),
-            lambda: ci.nonpressure_kick_plain(nl, q, dt, params)),
+            lambda: ci.nonpressure_kick(plist, q0, dt, params),
+            lambda: ci.nonpressure_kick_plain(nl, q0, dt, params)),
         "iisph_predict_advection": (
-            lambda: ci.predict_advection(starts, q, dt, params),
+            lambda: ci.predict_advection(plist, q, dt, params),
             lambda: ci.predict_advection_plain(nl, q, dt, params)),
-        "iisph_step_pairs": (
-            lambda: ci.step_pairs(starts, q, params, buffers),
-            lambda: ci.step_pairs_plain(nl, q, params)),
         "loop": (
             lambda: ci.pressure_accel(plist, q, last_p, params),
             lambda: ci.pressure_accel_plain(nl, q, last_p, params)),
@@ -2652,49 +2672,51 @@ def iisph_path(device, warmup, steps):
     for name, (kern, plain) in calls.items():
         ms[name] = time_ms(kern, 20)
         plain_ms[name] = time_ms(plain, 3)
-        if name == "iisph_step_pairs":
-            err[name] = check_pair_list(kern(), nl, q, params,
-                                        "dragon state", ci)[0]
-        else:
-            got, ref = kern(), plain()
-            if torch.is_tensor(ref):
-                got, ref = (got,), (ref,)
-            err[name] = 0.0
-            # whole outputs: the kernels write the padding rows
-            for k, (a, b) in enumerate(zip(got, ref)):
-                err[name] = max(err[name], max_errors(
-                    a, b, f"dragon {name} output {k}"))
+        got, ref = kern(), plain()
+        if name == "density_sum_list":
+            err[name] = check_pair_list(got[1], nl, q0, params,
+                                        "dragon state")[0]
+            got, ref = got[:1], ref[:1]
+        if torch.is_tensor(ref):
+            got, ref = (got,), (ref,)
+        err[name] = err.get(name, 0.0)
+        # whole outputs: the kernels write the padding rows
+        for k, (a, b) in enumerate(zip(got, ref)):
+            err[name] = max(err[name], max_errors(
+                a, b, f"dragon {name} output {k}"))
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
-    per_step = sum(ms[k] for k in ("iisph_step_pairs", "loop",
+    per_step = sum(ms[k] for k in ("density_sum_list",
+                                   "iisph_nonpressure_kick",
+                                   "iisph_predict_advection", "loop",
                                    "iisph_apply_A", "advect"))
-    print(f"  the loop's kernels per step at one iteration: build + f3 + f4 "
-          f"+ advect = {per_step:.4f} ms")
-    if any(err[k] != 0.0 for k in calls if k not in (
-            "iisph_nonpressure_kick", "iisph_predict_advection")):
-        raise AssertionError(f"dragon: an IISPH loop kernel differs from its "
+    print(f"  the step's pair kernels at one iteration: density_sum_list + "
+          f"f1 + f2 + f3 + f4 + advect = {per_step:.4f} ms")
+    print(f"  density_sum (one phase over the cell runs) is on no solver "
+          f"step: its kernels-line entry counts {launches['density_sum']} "
+          f"launches on the IISPH path")
+    if any(err[k] != 0.0 for k in calls):
+        raise AssertionError(f"dragon: an IISPH kernel differs from its "
                              f"plain version: {err}")
 
     cells = offset_bytes(params, q.x[:n])   # every real centre walks
     k_list = plist.idx.shape[0]
     list_bytes = 4 * int(torch.clamp_max(plist.cnt, k_list).long().sum())
-    pairs = {"real": pairs["real"], "real_fj": pairs["fluid_j"],
-             "candidates": fig["candidates_tested"]}
-    # f3 and f4 are bounded by the function they compute, over the cell
-    # offsets; the list's build by its output, the list
+    pairs = {"real": pairs["real"], "real_fj": pairs["fluid_j"]}
+    # f1-f4 are bounded by the function they compute, over the cell
+    # offsets; reading the list instead is a design figure
     bounds = {key: row_bound(name, n, cells, pairs) for key, name in (
         ("iisph_nonpressure_kick", "iisph_nonpressure_kick"),
         ("iisph_predict_advection", "iisph_predict_advection"),
         ("loop", "iisph_pressure_accel"),
         ("advect", "iisph_pressure_accel_advect"),
         ("iisph_apply_A", "iisph_apply_A"))}
-    bounds["iisph_step_pairs"] = row_bound("iisph_step_pairs", n,
-                                           cells + list_bytes, pairs)
     # density_sum reads x, material, m_V and writes the sums of the real rows
     bounds["density_sum"] = bound("density_sum", n * (12 + 4 + 4) + cells
                                   + 4 * n,
                                   pairs["real"] * DENSITY_FLOPS_PER_PAIR)
-    for name in ("iisph_pressure_accel", "iisph_pressure_accel_advect",
+    for name in ("iisph_nonpressure_kick", "iisph_predict_advection",
+                 "iisph_pressure_accel", "iisph_pressure_accel_advect",
                  "iisph_apply_A"):
         row_bound(name + "_list", n, list_bytes, pairs,
                   f"{name} design figure (reading the list, "
@@ -2716,8 +2738,8 @@ def iisph_path(device, warmup, steps):
     launches["iisph_pressure_accel"] = w_loop + w_adv
     kernels = []
     for name in ("density_sum", "iisph_nonpressure_kick",
-                 "iisph_predict_advection", "iisph_step_pairs",
-                 "iisph_pressure_accel", "iisph_apply_A"):
+                 "iisph_predict_advection", "iisph_pressure_accel",
+                 "iisph_apply_A"):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "sph_taichi_torch/csrc/" + (
@@ -2785,21 +2807,27 @@ def iisph_iterating(device, dt, steps, max_lead=400):
     k_sweep(sim.solver, sim.state,
             f"IISPH dt {dt} step {int(sim.state.step_count)}")
 
-    # where the pressure is not 0: the loop's two kernels against their
-    # plain versions on the state's own inputs, and one kernel step
-    # against one plain-engine step
+    # where the pressure is not 0: the step's list and the four kernels over
+    # it against their plain versions on the state's own inputs, and one
+    # kernel step against one plain-engine step
     from sph_taichi_torch import build_solver
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops.pairs import GatherEngine
 
     params, solver, state = sim.params, sim.solver, sim.state
-    q, (starts, plist), nl, (a_ii, source, last_p, accel), _ = \
+    q0, q, (starts, plist), nl, (a_ii, source, last_p, accel), _ = \
         iisph_state_kernels(params, solver, state)
     if float(last_p.max()) <= 0.0:
         raise AssertionError("no pressure at the iterating state")
     iisph_walk_profiles(params, q, starts, nl, f"IISPH dt {dt} state")
-    errs = [check_pair_list(plist, nl, q, params, "iterating state", ci)[0]]
+    errs = [check_pair_list(plist, nl, q, params, "iterating state")[0]]
     for name, got, ref in (
+            ("iisph_nonpressure_kick",
+             ci.nonpressure_kick(plist, q0, state.dt, params),
+             ci.nonpressure_kick_plain(nl, q0, state.dt, params)),
+            ("iisph_predict_advection",
+             ci.predict_advection(plist, q, state.dt, params),
+             ci.predict_advection_plain(nl, q, state.dt, params)),
             ("iisph_pressure_accel",
              (ci.pressure_accel(plist, q, last_p, params),),
              (ci.pressure_accel_plain(nl, q, last_p, params),)),
@@ -2816,8 +2844,11 @@ def iisph_iterating(device, dt, steps, max_lead=400):
             errs.append(max_errors(a, b, f"iterating state {name} output "
                                          f"{k}"))
     if max(errs) != 0.0:
-        raise AssertionError(f"iterating state: the list or a loop kernel "
-                             f"differs from its plain version ({max(errs)})")
+        raise AssertionError(f"iterating state: the list or a kernel over "
+                             f"it differs from its plain version "
+                             f"({max(errs)})")
+    print(f"  at the iterating state the step's list and f1-f4 over it "
+          f"equal their plain versions bitwise (whole outputs)")
     plain_solver = build_solver(params, device=device,
                                 engine=GatherEngine(params))
     ks, km = solver.step(state)
@@ -2875,22 +2906,19 @@ def pairs_moved(nl, xp, h):
     return int((valid & (d2 >= h * h)).sum()), int(valid.sum())
 
 
-def check_pair_list(pairs, nl, p, params, label, module=None, plain=None):
-    """The kernel's step-start pair list ``pairs`` (a ``PairList``) against
-    ``module.step_pairs_plain`` (PCISPH's, or IISPH's for ``module``
-    cuda_iisph) over the neighbour lists ``nl``, or against ``plain``
-    (name, idx, cnt): every count and every listed entry equal.  Returns
-    (largest difference, centres with more accepted pairs than the list
-    holds)."""
-    from sph_taichi_torch.ops import cuda_pcisph as cg
+def check_pair_list(pairs, nl, p, params, label, plain=None):
+    """The kernel's step pair list ``pairs`` (a ``PairList``) against
+    ``plain`` (name, idx, cnt), by default ``density_sum_list``'s plain
+    list (every real centre's) over the neighbour lists ``nl``: every
+    count and every listed entry equal.  Returns (largest difference,
+    centres with more accepted pairs than the list holds)."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES as k_list
 
     if plain is None:
-        module = module or cg
-        name = module.__name__.split("_")[-1] + "_step_pairs"
-        idx, cnt = module.step_pairs_plain(nl, p, params)
-    else:
-        name, idx, cnt = plain
+        plain = ("density_sum_list", *cp.density_sum_list_plain(
+            nl, p, params)[1:])
+    name, idx, cnt = plain
     listed = torch.clamp_max(cnt, k_list)
     valid = torch.arange(k_list, device=cnt.device)[:, None] < listed[None, :]
     got = torch.where(valid, pairs.idx, -1)
@@ -2902,17 +2930,19 @@ def check_pair_list(pairs, nl, p, params, label, module=None, plain=None):
           f"{int(cnt.max())} per centre, {over} centres over the list of "
           f"{k_list}")
     if err != 0.0:
-        raise AssertionError(f"{label}: the step-start pair list differs "
+        raise AssertionError(f"{label}: the step's pair list differs "
                              f"from its plain version")
     return err, over
 
 
 def compare_pcisph_kernels(params, solver, p, nl, starts, label, worst):
-    """The step-start list, the un-kicked non-pressure kernel, g1 and g2
-    (over the list) against their plain versions at one state, each kernel
-    on the plain chain's inputs: equal to the bit (every output's largest
-    difference is 0, padding rows included)."""
+    """The step's list (``density_sum_list``'s), the un-kicked
+    non-pressure kernel, g1 and g2 (over the list) against their plain
+    versions at one state, each kernel on the plain chain's inputs: equal
+    to the bit (every output's largest difference is 0, padding rows
+    included)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
     def check(name, got, ref, what):
@@ -2925,10 +2955,10 @@ def compare_pcisph_kernels(params, solver, p, nl, starts, label, worst):
                                      f"to its plain version ({err:.3e})")
             worst[name] = max(worst.get(name, 0.0), err)
 
-    pairs = cg.step_pairs(starts, p, params)
-    worst["pcisph_step_pairs"] = max(worst.get("pcisph_step_pairs", 0.0),
-                                     check_pair_list(pairs, nl, p, params,
-                                                     label)[0])
+    pairs = cp.density_sum_list(starts, p, params)[1]
+    worst["density_sum_list (PCISPH)"] = max(
+        worst.get("density_sum_list (PCISPH)", 0.0),
+        check_pair_list(pairs, nl, p, params, label)[0])
     acc = cd.nonpressure_accel_plain(nl, p, params)
     check("nonpressure_accel", cd.nonpressure_accel(pairs, p, params), acc,
           ("acc",))
@@ -3007,10 +3037,11 @@ def check_pcisph_on_small_scenes(device):
 
 
 def pcisph_state_kernels(params, solver, state):
-    """The loop's inputs at a dragon state as a step builds them (density,
-    the non-pressure acceleration, the first prediction and its pressure),
-    the plain engine's neighbour lists (caps raised to what the state
-    needs), and the pair counts each kernel walks."""
+    """The loop's inputs at a dragon state as a step builds them (density
+    and the step's list, the non-pressure acceleration, the first
+    prediction and its pressure), the plain engine's neighbour lists (caps
+    raised to what the state needs), and the pair counts each kernel
+    walks."""
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pcisph as cg
     from sph_taichi_torch.ops.pairs import GatherEngine
@@ -3023,8 +3054,8 @@ def pcisph_state_kernels(params, solver, state):
     if int(nl.diag["neighbor_overflow"]):
         caps = dataclasses.replace(caps, neighbor_cap=int(nl.max_cnt))
         nl = GatherEngine(caps).prepare(q.x, starts)
-    q = base.compute_densities(q, starts, solver.engine, params)
-    plist = cg.step_pairs(starts, q, params)
+    q, plist = base.compute_densities_and_pairs(q, starts, solver.engine,
+                                                params)
     q = base.compute_non_pressure_forces(q, plist, solver.engine, params)
     dt = state.dt
     fluid = (q.material == 1)[:, None]
@@ -3054,6 +3085,7 @@ def pcisph_path(device, warmup, steps):
     from sph_taichi_torch import build_solver
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_pcisph as cg
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.simulation import Simulation
@@ -3110,10 +3142,10 @@ def pcisph_path(device, warmup, steps):
           f"{1e3 / step_ms:.3f} steps/s; pressure iterations per step mean "
           f"{n_it / steps:.2f} max {st['pressure_iters_max']}; host reads "
           f"per step {reads / steps:.2f}; launches {launches}")
-    # density = non-pressure = the list build = steps; in the loop g1 = g2
-    # = k x reads (the iterations queued after the exit return at once)
-    expect = {"density_sum": steps, "nonpressure_accel": steps,
-              "pcisph_step_pairs": steps,
+    # the density kernel writing the list = non-pressure = steps; in the
+    # loop g1 = g2 = k x reads (the iterations queued after the exit return
+    # at once)
+    expect = {"density_sum_list": steps, "nonpressure_accel": steps,
               "pcisph_d_rho_correct": K * reads,
               "pcisph_pressure_accel_predict": K * reads}
     for name, count in launches.items():
@@ -3134,20 +3166,21 @@ def pcisph_path(device, warmup, steps):
               f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
         # each wrapper call launched its one kernel: the profiled kernels
         # equal the wrappers' counts over the same 5 steps
-        names = ("pcisph_step_pairs", "pcisph_d_rho_correct",
+        names = ("density_sum_list", "pcisph_d_rho_correct",
                  "pcisph_pressure_accel_predict")
         got = {name: sum(c for k, c in counts.items()
                          if f"{name}_kernel<CellRunWalk>" in k
                          or k.startswith(f"{name}_kernel("))
                for name in names}
-        calls = {name: cg.LAUNCHES[name] for name in names}
+        calls = {name: all_launch_counts()[name] for name in names}
         got["nonpressure_accel"] = sum(
             c for k, c in counts.items()
             if "nonpressure_kick_kernel<false" in k and "CellRunWalk" in k)
         calls["nonpressure_accel"] = cd.LAUNCHES["nonpressure_accel"]
-        print(f"  the list build's, d's and the loop's kernels in the "
-              f"profiled 5 steps {got}, their wrappers' calls {calls}")
-        if got != calls or calls["pcisph_step_pairs"] != 5 \
+        print(f"  the density kernel's (writing the list), d's and the "
+              f"loop's kernels in the profiled 5 steps {got}, their "
+              f"wrappers' calls {calls}")
+        if got != calls or calls["density_sum_list"] != 5 \
                 or calls["nonpressure_accel"] != 5:
             raise AssertionError(f"PCISPH kernels {got}, wrapper calls "
                                  f"{calls}")
@@ -3170,9 +3203,10 @@ def pcisph_path(device, warmup, steps):
         q, ctx, _ = base.bin_and_sort(state.p, params, solver.engine,
                                       solver.tables)
         ev[1].record()
-        q = base.compute_densities(q, ctx, solver.engine, params)
+        q, ctx = base.compute_densities_and_pairs(q, ctx, solver.engine,
+                                                  params,
+                                                  solver._pair_buffers)
         ev[2].record()
-        ctx = solver.step_pairs(q, ctx)
         q = base.compute_non_pressure_forces(q, ctx, solver.engine, params)
         ev[3].record()
         pr, (vp, xp), _ = solver.pressure_solve(q, ctx, state.dt)
@@ -3188,8 +3222,8 @@ def pcisph_path(device, warmup, steps):
     evs = [staged_step() for _ in range(5)]
     torch.cuda.synchronize()
     stages = {}
-    for k, name in enumerate(("bin_and_sort", "densities",
-                              "list build + non-pressure (d over the list)",
+    for k, name in enumerate(("bin_and_sort", "densities + list",
+                              "non-pressure (d over the list)",
                               "pressure loop", "advect + rigid + clamp")):
         stages[name] = sum(e[k].elapsed_time(e[k + 1]) for e in evs) / 5
     print("PCISPH stage ms at this state: " + json.dumps(
@@ -3222,12 +3256,11 @@ def pcisph_path(device, warmup, steps):
         pcisph_state_kernels(params, solver, state)
     dt = state.dt
     reset_all_launch_counts()     # comparison launches are not the path's
-    k_list = cg.PAIR_LIST_ENTRIES
+    k_list = plist.idx.shape[0]
     fig = walk_profile(params, q.x, q.material == 1, starts, nl,
                        "dragon_bath PCISPH state", list_entries=k_list)
     for name, slots in (("pcisph_d_rho_correct", False),
                         ("pcisph_pressure_accel_predict", False),
-                        ("pcisph_step_pairs", False),
                         ("pcisph_d_rho_correct", True),
                         ("pcisph_pressure_accel_predict", True),
                         ("nonpressure_accel", False),
@@ -3237,14 +3270,10 @@ def pcisph_path(device, warmup, steps):
         print(f"  {name}{'[slots]' if slots else ''}: {regs} registers, "
               f"{smem} bytes of shared memory per block, {blocks} blocks of "
               f"128 per SM (occupancy {blocks * 4 / 64:.3f})")
-    buffers = {}
     calls = {
         "nonpressure_accel": (
             lambda: cd.nonpressure_accel(plist, q, params),
             lambda: cd.nonpressure_accel_plain(nl, q, params)),
-        "pcisph_step_pairs": (
-            lambda: cg.step_pairs(starts, q, params, buffers),
-            lambda: cg.step_pairs_plain(nl, q, params)),
         "pcisph_d_rho_correct": (
             lambda: cg.d_rho_correct(plist, q, xp, vp, pressure, dt, s_f,
                                      params),
@@ -3261,24 +3290,22 @@ def pcisph_path(device, warmup, steps):
     for name, (kern, plain) in calls.items():
         ms[name] = time_ms(kern, 20)
         plain_ms[name] = time_ms(plain, 3)
-        if name == "pcisph_step_pairs":
-            err[name] = check_pair_list(kern(), nl, q, params,
-                                        "dragon state")[0]
-        else:
-            got, ref = kern(), plain()
-            if torch.is_tensor(ref):
-                got, ref = (got,), (ref,)
-            err[name] = 0.0
-            for k, (a, b) in enumerate(zip(got, ref)):
-                err[name] = max(err[name], max_errors(
-                    a, b, f"dragon {name} output {k}"))
+        got, ref = kern(), plain()
+        if torch.is_tensor(ref):
+            got, ref = (got,), (ref,)
+        err[name] = 0.0
+        for k, (a, b) in enumerate(zip(got, ref)):
+            err[name] = max(err[name], max_errors(
+                a, b, f"dragon {name} output {k}"))
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f}"
               f" ms")
-    print(f"  the list's kernels per step: build + d + 3 x (g1 + g2) = "
-          f"{ms['pcisph_step_pairs'] + ms['nonpressure_accel'] + 3 * (ms['pcisph_d_rho_correct'] + ms['pcisph_pressure_accel_predict']):.4f}"
-          f" ms")
-    print(f"  the loop's kernels per step: build + 3 x (g1 + g2) = "
-          f"{ms['pcisph_step_pairs'] + 3 * (ms['pcisph_d_rho_correct'] + ms['pcisph_pressure_accel_predict']):.4f}"
+    err_list = check_pair_list(plist, nl, q, params, "dragon state")[0]
+    list_ms = time_ms(lambda: cp.density_sum_list(starts, q, params, {}), 20)
+    print(f"density_sum_list (the PCISPH step's density kernel, writing the "
+          f"step's list): kernel {list_ms:.4f} ms")
+    print(f"  the step's list kernels per step: density_sum_list + d + 3 x "
+          f"(g1 + g2) = "
+          f"{list_ms + ms['nonpressure_accel'] + 3 * (ms['pcisph_d_rho_correct'] + ms['pcisph_pressure_accel_predict']):.4f}"
           f" ms")
     # the state's own pressure may be 0 this early: g1 and g2 at a seeded
     # prediction (pairs leave the radius) and pressure too
@@ -3301,21 +3328,19 @@ def pcisph_path(device, warmup, steps):
     print(f"  seeded prediction at the dragon: {moved} of {total} step-start "
           f"pairs beyond h at x*, density error on "
           f"{float((ref[1] > 0).float().mean()):.3f} of the rows")
-    if any(err[k] != 0.0 for k in calls):
+    if err_list != 0.0 or any(err[k] != 0.0 for k in calls):
         raise AssertionError(f"dragon: a kernel differs from its plain "
                              f"version: {err}")
     cells = offset_bytes(params, q.x[q.material == 1])   # fluid centres walk
-    listed = int(torch.clamp_max(plist.cnt, k_list).long().sum())
-    list_bytes = 4 * listed
-    pairs = {"fluid": pairs["fluid_i"], "fluid_ff": pairs["fluid_ff"],
-             "candidates": fig["candidates_tested"]}
-    # g1 and g2 are bounded by the function they compute, over the cell
-    # offsets; the list's build is bounded by its output, the list
+    # the fluid rows' entries of the list: the ones d and the loop read
+    fluid_cnt = torch.where(q.material == 1, plist.cnt, 0)
+    list_bytes = 4 * int(torch.clamp_max(fluid_cnt, k_list).long().sum())
+    pairs = {"fluid": pairs["fluid_i"], "fluid_ff": pairs["fluid_ff"]}
+    # d, g1 and g2 are bounded by the function they compute, over the cell
+    # offsets; reading the list instead is a design figure
     bounds = {name: row_bound(name, n, cells, pairs) for name in (
         "nonpressure_accel", "pcisph_d_rho_correct",
         "pcisph_pressure_accel_predict")}
-    bounds["pcisph_step_pairs"] = row_bound("pcisph_step_pairs", n,
-                                            cells + list_bytes, pairs)
     for name in ("nonpressure_accel", "pcisph_d_rho_correct",
                  "pcisph_pressure_accel_predict"):
         row_bound(name + "_list", n, list_bytes, pairs,
@@ -3347,8 +3372,8 @@ def pcisph_path(device, warmup, steps):
 
     src = {"nonpressure_accel": "sph_taichi_torch/csrc/dfsph.cu"}
     kernels = []
-    for name in ("nonpressure_accel", "pcisph_step_pairs",
-                 "pcisph_d_rho_correct", "pcisph_pressure_accel_predict"):
+    for name in ("nonpressure_accel", "pcisph_d_rho_correct",
+                 "pcisph_pressure_accel_predict"):
         kernels.append({
             "name": name, "route": "cuda",
             "source": src.get(name, "sph_taichi_torch/csrc/pcisph.cu"),
@@ -4053,21 +4078,15 @@ def outputs(r):
 
 def cell_run_contexts(method, starts, p, params):
     """label -> the context of a cell-run instantiation of ``solver_calls``
-    at the sorted particles ``p``: their cell offsets, or for PCISPH's loop
-    kernels and un-kicked d, IISPH's f3 and f4 and DFSPH's d the step's
-    list built over them (DFSPH's by e1)."""
+    at the sorted particles ``p``: their cell offsets, or for every PCISPH
+    and IISPH kernel and DFSPH's d the step's list written over them
+    (PCISPH's and IISPH's by density_sum_list, DFSPH's by e1)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
-    from sph_taichi_torch.ops import cuda_iisph as ci
-    from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops import cuda_pairs as cp
 
-    if method == 1:
-        plist = cg.step_pairs(starts, p, params)
-        return lambda label: plist if label.startswith(
-            ("pcisph_", "nonpressure_accel")) else starts
-    if method == 2:
-        plist = ci.step_pairs(starts, p, params)
-        return lambda label: plist if label.startswith(
-            ("iisph_pressure_accel", "iisph_apply_A")) else starts
+    if method in (1, 2):
+        plist = cp.density_sum_list(starts, p, params)[1]
+        return lambda label: plist
     plist = cd.density_factor_list(starts, p, params)[2]
     return lambda label: plist if label == "nonpressure_kick" else starts
 
@@ -4196,10 +4215,10 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     if bool(m["slot_overflow"]):
         raise AssertionError(f"{label}: slot_overflow at step "
                              f"{int(sim.state.step_count)}")
-    # the slot walk reads its map in PCISPH's and IISPH's loops: no
-    # step-start list
-    expect = {k + "[slots]": v for k, v in cell_launches.items()
-              if k not in ("pcisph_step_pairs", "iisph_step_pairs")}
+    # the slot walk writes no list: the cell-run density kernel that
+    # writes one is density_sum[slots] there
+    expect = {k.replace("density_sum_list", "density_sum") + "[slots]": v
+              for k, v in cell_launches.items()}
     if launches != expect:
         raise AssertionError(f"{label}: slot launches {launches}, the "
                              f"cell-run run's {cell_launches}")

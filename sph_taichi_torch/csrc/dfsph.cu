@@ -59,8 +59,8 @@
 // runs only its pair body over the list (for_each_step_pair), so the
 // one-phase candidate walk, where most lanes of a warp sit masked off in
 // the ~60-operation body, runs once per step, not twice.  On the PCISPH
-// step nonpressure_kick<false> reads the loop's list (pcisph.cu
-// pcisph_step_pairs), built just before it.  A warp holding a centre with
+// step nonpressure_kick<false> reads the fluid rows of the step's list,
+// which density_sum_list (pairs.cu) writes.  A warp holding a centre with
 // more accepted pairs than the list holds walks the cells in one phase
 // (the same pairs in the same order).  Over the slot walk both walk in
 // one phase.  The Jacobi kernels keep their two-phase walk.
@@ -272,7 +272,7 @@ __global__ void dfsph_solver_dv_kernel(
 
 // One thread per row, padding rows included (acc 0, v carried through).
 // Over the cell runs the pairs come from the step's list ``pl``
-// (dfsph_density_factor_list on the DFSPH step, pcisph_step_pairs on the
+// (dfsph_density_factor_list on the DFSPH step, density_sum_list on the
 // PCISPH step); over the slot walk from the one-phase walk.
 template <bool KICK, typename Walk>
 __global__ void nonpressure_kick_kernel(

@@ -19,35 +19,37 @@
 //                              x' = x + dt v' on fluid rows (ADVECT = true)
 //   iisph_apply_A           <- _apply_A with the relaxed-Jacobi update and
 //                              the per-centre error column in its epilogue
-//   iisph_step_pairs        <- the candidate phase of f3 and f4, run once
-//                              per step: the step-start pair list they read
-//                              (see below)
 // and the retired SlotEngine._kernel
-// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the first four: each
-// kernel is a template over its walk, CellRunWalk (the cell offsets) or
-// SlotWalk (the slot map of ops/slots.py), as in pairs.cu.
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: f3 and
+// f4 are templates over their walk, CellRunWalk (the cell offsets) or
+// SlotWalk (the slot map of ops/slots.py), as in pairs.cu; f1 and f2 have
+// a kernel over each walk (the cell runs': *_list_kernel), sharing their
+// pair terms.
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_iisph.py, in the same operation order.  The Jacobi kernels
 // (pressure_accel without ADVECT, apply_A) take the loop's device flag
 // `active` and return at once when it is 0 (models/base.py jacobi_while).
 //
-// The positions do not move from the sort to the advect epilogue, so f3
-// (both variants) and f4 walk the same pairs in every launch of a step.
-// Over the cell runs they read the step-start pair list
-// (pair_common.cuh build_pair_list, for_each_listed_pair): iisph_step_pairs
-// runs the candidate phase of the two-phase walk once per step, before the
-// Jacobi loop, and writes every real centre's accepted j (solids too: A
-// reads their accelerations), in the walk's order, to a fixed-stride list
-// in device memory; f3 and f4 run only the pair body over it, with the
-// same d and raw sum of squares as the cell walk, so every output stays
-// bitwise that of the plain version.  A warp holding a centre with more
-// accepted pairs than the list holds walks the cells in one phase.  f3 and
-// f4 have a thread for every row, padding rows included, and write the
-// padding rows themselves (the acceleration, p' and the error 0; the
-// advect's v' and x' from v and x, as restore_tail gives them).  Over the
-// slot walk they walk in one phase.  f1 and f2 walk the cell runs in one
-// phase and leave the padding rows to their wrappers.
+// The positions do not move from the sort to the advect epilogue: f1's
+// kick moves v, not x.  So every pair kernel of the step walks the pairs
+// that the step's density kernel accepted.  Over the cell runs the density
+// kernel, density_sum_list (pairs.cu, pair_common.cuh build_pair_list),
+// writes every real centre's accepted j (solids too: A reads their
+// accelerations), in the walk's order, to the step's pair list as it sums,
+// and f1, f2, f3 (both variants) and f4 run only their pair body over that
+// list (for_each_step_pair), with the same d and raw sum of squares as the
+// cell walk, so every output stays bitwise that of the plain version.  A
+// warp holding a centre with more accepted pairs than the list holds walks
+// the cells in one phase.  Over the cell runs every kernel has a thread for
+// every row, padding rows included, and writes the padding rows itself (the
+// acceleration, a_ii, the source, the warm start, p' and the error 0; v
+// carried through f1, the advect's v' and x' from v and x, as restore_tail
+// gives them), so each wrapper launches one kernel.  Over the slot walk
+// every kernel walks in one phase; f1 and f2 there keep their kernels
+// (iisph_nonpressure_kick_kernel, iisph_predict_advection_kernel, over the
+// real rows; their wrappers restore the padding rows), f3 and f4 are a
+// thread per row.
 //
 // As dfsph.cu, the one-phase walks are bound by irregular candidate loads
 // that mostly hit L1/L2, the list walks by their gathers; the f32 work per
@@ -56,6 +58,69 @@
 
 #include "pair_common.cuh"
 
+// f1's pair term (IISPH.py:236-249): the viscosity between centre i, of
+// velocity vi, and a fluid j, added into s[0..2].
+__device__ __forceinline__ void nonpressure_pair(
+    int j, float d0, float d1, float d2, float sq, const float vi[3],
+    const float* __restrict__ v, const int* __restrict__ material,
+    const float* __restrict__ m, const float* __restrict__ density,
+    const PairConsts& c, float s[3]) {
+  if (material[j] != 1) return;
+  const PairGeom p = pair_geom(sq);
+  const float gradw = cubic_grad(p.rn, p.inv, c);
+  const float v_xy = (vi[0] - v[3 * j]) * d0 +
+                     (vi[1] - v[3 * j + 1]) * d1 +
+                     (vi[2] - v[3 * j + 2]) * d2;
+  const float a = viscosity_coef(m[j] / density[j], v_xy, p.r2, gradw, c);
+  s[0] += a * d0;
+  s[1] += a * d1;
+  s[2] += a * d2;
+}
+
+// f2's pair terms: the four sums G, S (radial), Q and div (scalar) over
+// real j, added into g[0..2], s[0..2], q and div.
+__device__ __forceinline__ void predict_pair(
+    int j, float d0, float d1, float d2, float sq, const float vi[3],
+    const float* __restrict__ v, const int* __restrict__ material,
+    const float* __restrict__ m_V, const float* __restrict__ density,
+    const PairConsts& c, float g[3], float s[3], float& q, float& div) {
+  if (material[j] < 0) return;
+  const PairGeom p = pair_geom(sq);
+  const float gradw = cubic_grad(p.rn, p.inv, c);
+  const float mg = m_V[j] * gradw;
+  const float rho_j = density[j];
+  const float sj = mg / (rho_j * rho_j);
+  const float v_xy = (vi[0] - v[3 * j]) * d0 +
+                     (vi[1] - v[3 * j + 1]) * d1 +
+                     (vi[2] - v[3 * j + 2]) * d2;
+  g[0] += mg * d0;
+  g[1] += mg * d1;
+  g[2] += mg * d2;
+  s[0] += sj * d0;
+  s[1] += sj * d1;
+  s[2] += sj * d2;
+  q += mg * gradw * p.r2;
+  div += mg * v_xy;
+}
+
+// f2's epilogue on a real row: a_ii = dt^2 rho0^2 (-S.G - (m_V_i /
+// rho_i^2) Q), the source term and the warm start (IISPH.py:20-100), in
+// the JAX package's operation order.
+__device__ __forceinline__ void predict_out(
+    int i, const float g[3], const float s[3], float q, float div, float dt,
+    const float* __restrict__ m_V, const float* __restrict__ density,
+    const float* __restrict__ pressure, float* __restrict__ a_ii_out,
+    float* __restrict__ source_out, float* __restrict__ last_p_out,
+    const PairConsts& c) {
+  const float rho_i = density[i];
+  const float dot_sg = s[0] * g[0] + s[1] * g[1] + s[2] * g[2];
+  const float rho2 = rho_i * rho_i;
+  a_ii_out[i] = (dt * dt) * c.rho0sq * (-dot_sg - (m_V[i] / rho2) * q);
+  source_out[i] = c.rho0 - rho_i - dt * div * c.rho0;
+  last_p_out[i] = 0.5f * pressure[i];
+}
+
+// f1 over the slot walk, one thread per real row.
 template <typename Walk>
 __global__ void iisph_nonpressure_kick_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -73,17 +138,8 @@ __global__ void iisph_nonpressure_kick_kernel(
   for_each_neighbor_walk(
       i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
       [&](int j, float d0, float d1, float d2, float sq) {
-        if (material[j] != 1) return;
-        const PairGeom p = pair_geom(sq);
-        const float gradw = cubic_grad(p.rn, p.inv, c);
-        const float v_xy = (vi[0] - v[3 * j]) * d0 +
-                           (vi[1] - v[3 * j + 1]) * d1 +
-                           (vi[2] - v[3 * j + 2]) * d2;
-        const float a =
-            viscosity_coef(m[j] / density[j], v_xy, p.r2, gradw, c);
-        s[0] += a * d0;
-        s[1] += a * d1;
-        s[2] += a * d2;
+        nonpressure_pair(j, d0, d1, d2, sq, vi, v, material, m, density, c,
+                         s);
       });
   const float dt = *dt_ptr;
   const float g[3] = {c.g0, c.g1, c.g2};
@@ -94,6 +150,44 @@ __global__ void iisph_nonpressure_kick_kernel(
   }
 }
 
+// f1 over the step's pair list ``pl`` (density_sum_list's), one thread per
+// row, padding rows included (acc 0, v carried through).
+__global__ void iisph_nonpressure_kick_list_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    const int* __restrict__ material, const float* __restrict__ m,
+    const float* __restrict__ density, CellRunWalk walk, PairList pl,
+    const float* __restrict__ dt_ptr, float* __restrict__ acc_out,
+    float* __restrict__ v_out, int n_rows, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool real = i < c.n_real;
+  float vi[3] = {0.0f, 0.0f, 0.0f};
+  if (real) vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  for_each_step_pair<false>(
+      real, i, x, x, walk, pl, c,
+      [&](int j, float d0, float d1, float d2, float sq) {
+        nonpressure_pair(j, d0, d1, d2, sq, vi, v, material, m, density, c,
+                         s);
+      });
+  if (i >= n_rows) return;
+  if (!real) {
+    for (int k = 0; k < 3; ++k) {
+      acc_out[3 * i + k] = 0.0f;
+      v_out[3 * i + k] = v[3 * i + k];
+    }
+    return;
+  }
+  const bool fluid = material[i] == 1;
+  const float dt = *dt_ptr;
+  const float g[3] = {c.g0, c.g1, c.g2};
+  for (int k = 0; k < 3; ++k) {
+    const float a = g[k] + s[k];
+    acc_out[3 * i + k] = a;
+    v_out[3 * i + k] = fluid ? vi[k] + dt * a : vi[k];
+  }
+}
+
+// f2 over the slot walk, one thread per real row.
 template <typename Walk>
 __global__ void iisph_predict_advection_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -111,41 +205,44 @@ __global__ void iisph_predict_advection_kernel(
   for_each_neighbor_walk(
       i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
       [&](int j, float d0, float d1, float d2, float sq) {
-        if (material[j] < 0) return;
-        const PairGeom p = pair_geom(sq);
-        const float gradw = cubic_grad(p.rn, p.inv, c);
-        const float mg = m_V[j] * gradw;
-        const float rho_j = density[j];
-        const float sj = mg / (rho_j * rho_j);
-        const float v_xy = (vi[0] - v[3 * j]) * d0 +
-                           (vi[1] - v[3 * j + 1]) * d1 +
-                           (vi[2] - v[3 * j + 2]) * d2;
-        g[0] += mg * d0;
-        g[1] += mg * d1;
-        g[2] += mg * d2;
-        s[0] += sj * d0;
-        s[1] += sj * d1;
-        s[2] += sj * d2;
-        q += mg * gradw * p.r2;
-        div += mg * v_xy;
+        predict_pair(j, d0, d1, d2, sq, vi, v, material, m_V, density, c, g,
+                     s, q, div);
       });
-  // a_ii = dt^2 rho0^2 (-S.G - (m_V_i / rho_i^2) Q); source term and the
-  // warm start (IISPH.py:20-100), in the JAX package's operation order
-  const float dt = *dt_ptr;
-  const float rho_i = density[i];
-  const float dot_sg = s[0] * g[0] + s[1] * g[1] + s[2] * g[2];
-  const float rho2 = rho_i * rho_i;
-  a_ii_out[i] = (dt * dt) * c.rho0sq * (-dot_sg - (m_V[i] / rho2) * q);
-  source_out[i] = c.rho0 - rho_i - dt * div * c.rho0;
-  last_p_out[i] = 0.5f * pressure[i];
+  predict_out(i, g, s, q, div, *dt_ptr, m_V, density, pressure, a_ii_out,
+              source_out, last_p_out, c);
 }
 
-// The step-start pair list of every real centre (cnt 0 on padding rows).
-__global__ void iisph_step_pairs_kernel(
-    const float* __restrict__ x, const int* __restrict__ material,
-    CellRunWalk walk, int* __restrict__ idx, int* __restrict__ cnt,
-    int n_rows, PairConsts c) {
-  step_pairs_row<ListCentres::kReal>(x, material, walk, c, idx, cnt, n_rows);
+// f2 over the step's pair list ``pl``, one thread per row, padding rows
+// included (a_ii, the source and the warm start 0).
+__global__ void iisph_predict_advection_list_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    const int* __restrict__ material, const float* __restrict__ m_V,
+    const float* __restrict__ density, const float* __restrict__ pressure,
+    CellRunWalk walk, PairList pl, const float* __restrict__ dt_ptr,
+    float* __restrict__ a_ii_out, float* __restrict__ source_out,
+    float* __restrict__ last_p_out, int n_rows, PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool real = i < c.n_real;
+  float vi[3] = {0.0f, 0.0f, 0.0f};
+  if (real) vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
+  float g[3] = {0.0f, 0.0f, 0.0f};
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  float q = 0.0f, div = 0.0f;
+  for_each_step_pair<false>(
+      real, i, x, x, walk, pl, c,
+      [&](int j, float d0, float d1, float d2, float sq) {
+        predict_pair(j, d0, d1, d2, sq, vi, v, material, m_V, density, c, g,
+                     s, q, div);
+      });
+  if (i >= n_rows) return;
+  if (!real) {
+    a_ii_out[i] = 0.0f;
+    source_out[i] = 0.0f;
+    last_p_out[i] = 0.0f;
+    return;
+  }
+  predict_out(i, g, s, q, div, *dt_ptr, m_V, density, pressure, a_ii_out,
+              source_out, last_p_out, c);
 }
 
 template <bool ADVECT, typename Walk>
@@ -227,19 +324,33 @@ __global__ void iisph_apply_A_kernel(
 }
 
 // Each launcher's walk arguments (starts, slot_map, layers) select the
-// instantiation (pair_common.cuh with_walk).
+// kernel over that walk (pair_common.cuh with_walk).  Over the cell runs
+// every kernel reads the step's list (list_idx, list_cnt: density_sum_list's
+// output for the same rows); a launch without it is refused
+// (cudaErrorInvalidValue, pair_common.cuh has_list).  Over the cell runs,
+// and for f3 and f4 over the slot walk too, a kernel launches over n_rows
+// rows, padding rows included; f1 and f2 over the slot walk launch over the
+// real rows.
 
 extern "C" int iisph_nonpressure_kick_launch(
     const float* x, const float* v, const int* material, const float* m,
     const float* density, const int* starts, const int* slot_map, int layers,
-    const float* dt, float* acc_out, float* v_out, PairConsts c,
-    void* stream) {
-  if (c.n_real > 0) {
-    with_walk(starts, slot_map, layers, [&](auto walk) {
-      iisph_nonpressure_kick_kernel<<<grid_for(c), kBlock, 0,
-                                      (cudaStream_t)stream>>>(
-          x, v, material, m, density, walk, dt, acc_out, v_out, c);
-    });
+    const int* list_idx, const int* list_cnt, const float* dt,
+    float* acc_out, float* v_out, int n_rows, PairConsts c, void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (slot_map != nullptr) {
+    if (c.n_real > 0) {
+      iisph_nonpressure_kick_kernel<<<grid_for(c), kBlock, 0, st>>>(
+          x, v, material, m, density, SlotWalk{slot_map, layers}, dt,
+          acc_out, v_out, c);
+    }
+  } else if (n_rows > 0) {
+    iisph_nonpressure_kick_list_kernel<<<rows_grid(n_rows), kBlock, 0, st>>>(
+        x, v, material, m, density, CellRunWalk{starts},
+        PairList{list_idx, list_cnt, n_rows}, dt, acc_out, v_out, n_rows, c);
   }
   return (int)cudaGetLastError();
 }
@@ -247,34 +358,31 @@ extern "C" int iisph_nonpressure_kick_launch(
 extern "C" int iisph_predict_advection_launch(
     const float* x, const float* v, const int* material, const float* m_V,
     const float* density, const float* pressure, const int* starts,
-    const int* slot_map, int layers, const float* dt, float* a_ii_out,
-    float* source_out, float* last_p_out, PairConsts c, void* stream) {
-  if (c.n_real > 0) {
-    with_walk(starts, slot_map, layers, [&](auto walk) {
-      iisph_predict_advection_kernel<<<grid_for(c), kBlock, 0,
-                                       (cudaStream_t)stream>>>(
-          x, v, material, m_V, density, pressure, walk, dt, a_ii_out,
-          source_out, last_p_out, c);
-    });
+    const int* slot_map, int layers, const int* list_idx,
+    const int* list_cnt, const float* dt, float* a_ii_out,
+    float* source_out, float* last_p_out, int n_rows, PairConsts c,
+    void* stream) {
+  if (!has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (slot_map != nullptr) {
+    if (c.n_real > 0) {
+      iisph_predict_advection_kernel<<<grid_for(c), kBlock, 0, st>>>(
+          x, v, material, m_V, density, pressure, SlotWalk{slot_map, layers},
+          dt, a_ii_out, source_out, last_p_out, c);
+    }
+  } else if (n_rows > 0) {
+    iisph_predict_advection_list_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                          st>>>(
+        x, v, material, m_V, density, pressure, CellRunWalk{starts},
+        PairList{list_idx, list_cnt, n_rows}, dt, a_ii_out, source_out,
+        last_p_out, n_rows, c);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int iisph_pair_list_entries() { return kPairListEntries; }
-
-// The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` i32[n_rows].
-extern "C" int iisph_step_pairs_launch(const float* x, const int* material,
-                                       const int* starts, int* idx, int* cnt,
-                                       int n_rows, PairConsts c,
-                                       void* stream) {
-  return launch_step_pairs(iisph_step_pairs_kernel, x, material, starts, idx,
-                           cnt, n_rows, c, stream);
-}
-
-// f3 and f4 over the cell runs read the list (list_idx, list_cnt), the
-// step's iisph_step_pairs output for the same rows; a launch without it is
-// refused (cudaErrorInvalidValue, pair_common.cuh has_list).  Both launch
-// over n_rows rows, padding rows included.
 
 extern "C" int iisph_pressure_accel_launch(
     const float* x, const int* material, const float* m_V,
@@ -324,18 +432,22 @@ extern "C" int iisph_apply_A_launch(
 
 // Registers per thread, static shared memory per block and resident blocks
 // per SM of kernel ``which``: 0 pressure_accel (loop), 1 pressure_accel
-// with the advect, 2 apply_A (+ 3: over the slot walk), 6 step_pairs.
+// with the advect, 2 apply_A, 3 nonpressure_kick, 4 predict_advection
+// (over the cell runs; + 5: over the slot walk).
 extern "C" int iisph_occupancy(int which, int* regs, int* smem_bytes,
                                int* blocks_per_sm) {
-  const void* kernels[7] = {
+  const void* kernels[10] = {
       (const void*)iisph_pressure_accel_kernel<false, CellRunWalk>,
       (const void*)iisph_pressure_accel_kernel<true, CellRunWalk>,
       (const void*)iisph_apply_A_kernel<CellRunWalk>,
+      (const void*)iisph_nonpressure_kick_list_kernel,
+      (const void*)iisph_predict_advection_list_kernel,
       (const void*)iisph_pressure_accel_kernel<false, SlotWalk>,
       (const void*)iisph_pressure_accel_kernel<true, SlotWalk>,
       (const void*)iisph_apply_A_kernel<SlotWalk>,
-      (const void*)iisph_step_pairs_kernel};
-  if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
+      (const void*)iisph_nonpressure_kick_kernel<SlotWalk>,
+      (const void*)iisph_predict_advection_kernel<SlotWalk>};
+  if (which < 0 || which > 9) return (int)cudaErrorInvalidValue;
   const void* kernel = kernels[which];
   cudaFuncAttributes attr{};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);

@@ -2,9 +2,8 @@
 // iisph.cu, pcisph.cu): the constants struct, the cubic-spline kernel and
 // its gradient, the neighbour walk (over cell runs or over the slot map,
 // and its form with the pair geometry at other positions), its two-phase
-// form (for_each_neighbor_compact), the step-start pair list
-// (build_pair_list, step_pairs_row, for_each_listed_pair,
-// for_each_step_pair; PCISPH's, IISPH's, WCSPH's and DFSPH's), the
+// form (for_each_neighbor_compact), the step's pair list
+// (build_pair_list, for_each_listed_pair, for_each_step_pair), the
 // viscosity and pressure pair terms, and the symmetric pressure
 // acceleration of the implicit solvers.
 //
@@ -351,42 +350,38 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 }
 
 // ---------------------------------------------------------------------------
-// The step-start pair list.  A loop whose pair set stays that of the step
-// start walks the same candidates and accepts the same pairs in every
-// iteration: PCISPH's (inclusion at the step-start positions over the
-// step-start cell offsets, each iteration evaluating its terms at new
-// positions) and IISPH's (the positions stay the step start's from the
-// sort to the advect epilogue).  build_pair_list runs the candidate phase
-// of the two-phase walk once and writes each centre's accepted j, in the
-// walk's order, to a list in device memory; for_each_listed_pair then runs
-// only the body phase over it, in every iteration.  WCSPH's step has no
-// loop, but its positions too stay the sort's until the force kernel's
-// advect epilogue, and its density kernel already walks every real
-// centre's candidates: density_sum_list (pairs.cu) writes the list while
-// it sums, and wcsph_forces, the step's next pair kernel, reads it.  The
-// same holds on the DFSPH step from the density-and-factor kernel to the
-// non-pressure kernel (the solves before it move v, not x):
-// dfsph_density_factor_list (dfsph.cu) writes the fluid centres' list as
-// it sums, and nonpressure_kick reads it; on the PCISPH step the
-// non-pressure kernel reads the loop's list, built just before it.
+// The step's pair list.  On the WCSPH, IISPH and PCISPH steps the
+// positions stay the sort's from the density kernel to the advect (IISPH's
+// f1 kick and PCISPH's loop move v or the predicted positions, not x), and
+// every later pair kernel's centres are a subset of the density kernel's
+// (every real row), so they all accept the density kernel's pairs: PCISPH's
+// loop (inclusion at the step-start positions, each iteration evaluating
+// its terms at new positions) and non-pressure kernel, IISPH's four
+// kernels, WCSPH's force kernel.  The density kernel, density_sum_list
+// (pairs.cu), runs the candidate phase of the two-phase walk
+// (build_pair_list), sums the density in its accept and writes each real
+// centre's accepted j, in the walk's order, to a list in device memory;
+// the later kernels run only their body phase over it
+// (for_each_listed_pair), every loop iteration too.  The same holds on the
+// DFSPH step from the density-and-factor kernel to the non-pressure kernel
+// (the solves before it move v, not x): dfsph_density_factor_list
+// (dfsph.cu) writes the fluid centres' list as it sums, and
+// nonpressure_kick reads it.
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
 // the centre's number of accepted pairs, also beyond kPairListEntries,
 // where the list holds the first kPairListEntries.  A warp holding such a
 // centre walks the cells instead (the same pairs in the same order): no
-// pair is dropped and no centre has a limit.
-//
-// The centres a list serves (ListCentres): PCISPH's loop and both steps'
-// non-pressure kernel walk the fluid centres, as DFSPH's density-and-factor
-// kernel does; IISPH's walks every real one, solids included, because its
-// A reads the solids' pressure accelerations; WCSPH's density walks every
-// real centre, and its forces read the fluid and dynamic-rigid ones.
+// pair is dropped and no centre has a limit.  A kernel reads the counts of
+// the centres it walks only, so a list of every real centre serves a
+// kernel over the fluid centres.
 // ---------------------------------------------------------------------------
 
-// Accepted pairs the list holds per centre: a dragon_bath PCISPH state
-// accepts at most 32 per fluid centre (chip_smoke's walk profile); 64
-// leaves room for compression and contact at 256 bytes per row.
+// Accepted pairs the list holds per centre: a dragon_bath state accepts at
+// most 32 per fluid centre (chip_smoke's walk profiles; 58 at the dynamic
+// dragon's contact); 64 leaves room for compression and contact at 256
+// bytes per row.
 constexpr int kPairListEntries = 64;
 
 struct PairList {
@@ -394,8 +389,6 @@ struct PairList {
   const int* cnt;   // i32[stride]
   int stride;
 };
-
-enum class ListCentres { kFluid, kReal };
 
 // The candidate phase of compact_cell_runs for centre i (if ``walks``),
 // writing its accepted j to the list and its count to cnt[i] (0 where the
@@ -423,30 +416,13 @@ __device__ __forceinline__ void build_pair_list(
   if (i < stride) cnt[i] = n;
 }
 
-// The row of a list-building kernel (one thread per row, padding rows
-// included): the step-start list of the centres CENTRES, cnt 0 on other
-// rows.
-template <ListCentres CENTRES>
-__device__ __forceinline__ void step_pairs_row(
-    const float* __restrict__ x, const int* __restrict__ material,
-    const CellRunWalk& walk, const PairConsts& c, int* __restrict__ idx,
-    int* __restrict__ cnt, int n_rows) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool walks = i < c.n_real;
-  if constexpr (CENTRES == ListCentres::kFluid) {
-    walks = walks && material[i] == 1;
-  }
-  build_pair_list(walks, i, x, walk, c, idx, cnt, n_rows,
-                  [](int, float, float, float, float) {});
-}
-
 // List entries a lane loads before their pairs' bodies: their neighbours'
 // loads then do not wait on one list load each (1, 4 and 8 measured: 8 the
 // fastest, tools/pcisph_walk_control.py).
 constexpr int kListUnroll = 8;
 
 // f(j, d0, d1, d2, s) over the pairs of for_each_neighbor_pinned, in its
-// order: read from the step-start list ``pl``, or, in a warp that holds a
+// order: read from the step's list ``pl``, or, in a warp that holds a
 // centre beyond the list, by the one-phase pinned walk.
 // (The two-phase walk there took the kernels to 70-74 registers and their
 // list walk a third slower; tools/pcisph_walk_control.py.)  Every thread
@@ -488,7 +464,7 @@ __device__ __forceinline__ void for_each_listed_pair(
 // The walk of a loop over the step start's pair set: the pairs of the
 // positions x with the geometry at xg (for_each_neighbor_pinned; IISPH
 // passes xg = x, and then d and the raw sum of squares are those of
-// for_each_neighbor_walk), read from the step-start list ``pl`` over the
+// for_each_neighbor_walk), read from the step's list ``pl`` over the
 // cell runs, walked in one phase over the slot walk (pinned where PINNED,
 // else for_each_neighbor_walk itself).  Every thread of a block calls it,
 // with ``walks`` false where the thread has no centre.
@@ -586,22 +562,7 @@ __host__ inline int rows_grid(int n_rows) {
   return (n_rows + kBlock - 1) / kBlock;
 }
 
-// Launches a list-building kernel (step_pairs_row) over ``n_rows`` rows
-// into the list ``idx`` (i32[kPairListEntries, n_rows]) and ``cnt``
-// (i32[n_rows]).
-template <typename K>
-__host__ inline int launch_step_pairs(K kernel, const float* x,
-                                      const int* material, const int* starts,
-                                      int* idx, int* cnt, int n_rows,
-                                      PairConsts c, void* stream) {
-  if (n_rows > 0) {
-    kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
-        x, material, CellRunWalk{starts}, idx, cnt, n_rows, c);
-  }
-  return (int)cudaGetLastError();
-}
-
-// Whether a loop launch's walk has what it reads: the step-start list
+// Whether a list kernel's launch has what its walk reads: the step's list
 // (list_idx, list_cnt) over the cell runs; the slot walk reads its map.
 __host__ inline bool has_list(const int* slot_map, const int* list_idx,
                               const int* list_cnt) {

@@ -5,9 +5,11 @@
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
 // three specializations:
 //   density_sum      <- the density term of models/base.py compute_densities
-//                       (PCISPH's, IISPH's and the slot walk's)
-//   density_sum_list <- the same term on the WCSPH step over the cell runs,
-//                       writing the step's pair list as it sums (below)
+//                       (over the slot walk; over the cell runs no solver
+//                       step launches it)
+//   density_sum_list <- the same term on the WCSPH, IISPH and PCISPH steps
+//                       over the cell runs, writing the step's pair list as
+//                       it sums (below)
 //   wcsph_forces     <- the fused WCSPH force term of models/wcsph.py
 //                       compute_forces with its advect + fluid-box-clamp
 //                       epilogue (two-way reaction variant as REACT = true).
@@ -38,6 +40,9 @@
 // sort to wcsph_forces' advect epilogue, and the force kernel's centres
 // (the fluid and, with the reaction, the dynamic rigids) are a subset of
 // the density kernel's (every real row), so both accept the same pairs.
+// The same holds on the IISPH and PCISPH steps, whose pair kernels read
+// the list too (iisph.cu, pcisph.cu, dfsph.cu's un-kicked non-pressure
+// kernel).
 // density_sum_list runs the candidate phase of the two-phase walk
 // (pair_common.cuh build_pair_list: the warp steps through each column's
 // runs together, 8 candidate loads in flight per lane), adds each

@@ -16,11 +16,8 @@
 //                                     solid mirror), then on fluid rows
 //                                     v*' = v + dt (acc + a_p) and
 //                                     x*' = x + dt v*' (x the step start)
-//   pcisph_step_pairs              <- the candidate phase of both, run once
-//                                     per step: the step-start pair list
-//                                     they read (see below)
 // and the retired SlotEngine._kernel
-// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the first two: each kernel
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same two: each kernel
 // is a template over its walk, CellRunWalk (the cell offsets) or SlotWalk
 // (the slot map of ops/slots.py), as in pairs.cu.
 //
@@ -44,14 +41,15 @@
 // rho_err 0, v*' and x*' from v and x, as restore_tail gives them), so each
 // wrapper launches one kernel and nothing else.
 //
-// Over the cell runs the pairs come from the step-start pair list
-// (pair_common.cuh build_pair_list, for_each_listed_pair): the loop's pair
-// set does not change through the loop, so pcisph_step_pairs runs the
-// candidate phase of the two-phase walk once per step, before the loop,
-// and writes each fluid centre's accepted j, in the walk's order, to a
-// fixed-stride list in device memory; g1 and g2 run only the pair body over
-// it, 8 list entries loaded ahead.  A warp holding a centre with more
-// accepted pairs than the list holds walks the cells in one phase
+// Over the cell runs the pairs come from the step's pair list
+// (pair_common.cuh for_each_listed_pair): the loop's pair set is the step
+// start's, which the step's density kernel accepted, so
+// density_sum_list (pairs.cu, build_pair_list) writes every real centre's
+// accepted j, in the walk's order, to a fixed-stride list in device memory
+// as it sums, and g1 and g2 (and the un-kicked non-pressure kernel before
+// the loop, dfsph.cu) run only the pair body over the fluid rows of it, 8
+// list entries loaded ahead.  A warp holding a centre with more accepted
+// pairs than the list holds walks the cells in one phase
 // (for_each_neighbor_pinned), in the same order.  Over the slot walk they
 // walk in one phase, as the other slot instantiations.
 //
@@ -66,15 +64,6 @@
 // registers.
 
 #include "pair_common.cuh"
-
-// The step-start pair list of the fluid centres (cnt 0 on other rows).
-__global__ void pcisph_step_pairs_kernel(
-    const float* __restrict__ x, const int* __restrict__ material,
-    CellRunWalk walk, int* __restrict__ idx, int* __restrict__ cnt,
-    int n_rows, PairConsts c) {
-  step_pairs_row<ListCentres::kFluid>(x, material, walk, c, idx, cnt,
-                                      n_rows);
-}
 
 template <typename Walk>
 __global__ void pcisph_d_rho_correct_kernel(
@@ -147,18 +136,9 @@ __global__ void pcisph_pressure_accel_predict_kernel(
 
 extern "C" int pcisph_pair_list_entries() { return kPairListEntries; }
 
-// The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` i32[n_rows].
-extern "C" int pcisph_step_pairs_launch(const float* x, const int* material,
-                                        const int* starts, int* idx,
-                                        int* cnt, int n_rows, PairConsts c,
-                                        void* stream) {
-  return launch_step_pairs(pcisph_step_pairs_kernel, x, material, starts,
-                           idx, cnt, n_rows, c, stream);
-}
-
 // Each loop launcher's walk arguments (starts, slot_map, layers) select the
 // instantiation (pair_common.cuh with_walk); over the cell runs, the list
-// (list_idx, list_cnt) is the step's pcisph_step_pairs output for the same
+// (list_idx, list_cnt) is the step's density_sum_list output for the same
 // rows, and a launch without it is refused (cudaErrorInvalidValue,
 // pair_common.cuh has_list).
 
@@ -207,16 +187,15 @@ extern "C" int pcisph_pressure_accel_predict_launch(
 
 // Registers per thread, static shared memory per block and resident blocks
 // per SM of kernel ``which``: 0 d_rho_correct, 1 pressure_accel_predict
-// (+ 2: over the slot walk), 4 step_pairs.
+// (+ 2: over the slot walk).
 extern "C" int pcisph_occupancy(int which, int* regs, int* smem_bytes,
                                 int* blocks_per_sm) {
-  const void* kernels[5] = {
+  const void* kernels[4] = {
       (const void*)pcisph_d_rho_correct_kernel<CellRunWalk>,
       (const void*)pcisph_pressure_accel_predict_kernel<CellRunWalk>,
       (const void*)pcisph_d_rho_correct_kernel<SlotWalk>,
-      (const void*)pcisph_pressure_accel_predict_kernel<SlotWalk>,
-      (const void*)pcisph_step_pairs_kernel};
-  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+      (const void*)pcisph_pressure_accel_predict_kernel<SlotWalk>};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   const void* kernel = kernels[which];
   cudaFuncAttributes attr{};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);

@@ -327,7 +327,8 @@ class SPHBase:
 def compute_densities(p: Particles, ctx, engine, params: SimParams):
     """rho_i = rho0 * (m_V_i*W(0) + sum_j m_V_j*W(r_ij)) for fluid centres;
     fluid and solid neighbours both contribute (WCSPH.py:19-43).  Solid and
-    padding densities keep their stored values."""
+    padding densities keep their stored values.  The solvers' steps take
+    ``compute_densities_and_pairs``."""
     if engine.fused:
         den_pairs = cuda_pairs.density_sum(ctx, p, params)
     else:
@@ -338,12 +339,13 @@ def compute_densities(p: Particles, ctx, engine, params: SimParams):
 
 def compute_densities_and_pairs(p: Particles, ctx, engine, params: SimParams,
                                 buffers=None):
-    """``compute_densities`` for a step whose next pair kernel walks the
-    same pairs at the same positions (WCSPH's forces): returns (p, the
-    context that kernel reads).  On the CUDA engine over the cell runs one
-    kernel sums the densities and writes the step's pair list into
-    ``buffers`` (``cuda_pairs.density_sum_list``); otherwise the context
-    is ``ctx`` (the slot map, or the plain engine's neighbour lists)."""
+    """``compute_densities`` for a step whose later pair kernels walk the
+    same pairs at the same positions (WCSPH's forces, IISPH's four kernels,
+    PCISPH's non-pressure kernel and loop): returns (p, the context those
+    kernels read).  On the CUDA engine over the cell runs one kernel sums
+    the densities and writes the step's pair list into ``buffers``
+    (``cuda_pairs.density_sum_list``); otherwise the context is ``ctx``
+    (the slot map, or the plain engine's neighbour lists)."""
     if engine.fused:
         den_pairs, ctx = cuda_pairs.density_sum_list(ctx, p, params, buffers)
     else:
@@ -371,8 +373,8 @@ def compute_non_pressure_forces(p: Particles, ctx, engine, params: SimParams,
     v += dt * acc (DFSPH.py:392-397), in the kernel's epilogue on the CUDA
     engine.  Padding rows keep their velocity and get acceleration 0.  On
     the CUDA engine over the cell runs ``ctx`` is the step's pair list
-    (DFSPH's from ``density_factor_and_pairs``, PCISPH's from its
-    ``step_pairs``), or the slot map."""
+    (DFSPH's from ``density_factor_and_pairs``, PCISPH's from
+    ``compute_densities_and_pairs``), or the slot map."""
     if predict_dt is None:
         accel = (cuda_dfsph.nonpressure_accel if engine.fused
                  else cuda_dfsph.nonpressure_accel_plain)

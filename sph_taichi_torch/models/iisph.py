@@ -11,11 +11,13 @@ pressure acceleration and advection (fluid rows: v += dt a_p, x += dt v).
 On the CUDA engine each pair sum is a kernel of ``ops/cuda_iisph.py`` with
 its epilogue; on the plain engine its plain version, which applies the same
 epilogue in torch (the JAX package's unfused path on its gather engine).
-The positions stay those of the sort until the advect, so on the CUDA
-engine the pressure solve first builds the step-start pair list of every
-real centre (one kernel, over the cell runs; the slot walk reads its map),
-and the loop's pressure acceleration and A, and the final pressure
-acceleration with the advect, read it.
+The positions stay those of the sort until the advect (the kick moves v),
+so on the CUDA engine over the cell runs the density kernel writes the
+step's pair list of every real centre as it sums
+(``compute_densities_and_pairs``), and every later pair kernel of the step
+reads it: the non-pressure kick, the advection prediction, the loop's
+pressure acceleration and A, and the final pressure acceleration with the
+advect (the slot walk reads its map).
 
 The pressure solve is ``jacobi_while`` (models/base.py): the test
 ``it == 0 | (err >= tol & it < 1000)`` is evaluated on the device and read
@@ -32,7 +34,7 @@ import torch
 from sph_taichi_torch.ops import cuda_iisph
 from sph_taichi_torch.ops.pairs import div_exact
 from sph_taichi_torch.models.base import (
-    JACOBI_CHECK_EVERY, SPHBase, compute_densities, jacobi_while)
+    JACOBI_CHECK_EVERY, SPHBase, compute_densities_and_pairs, jacobi_while)
 from sph_taichi_torch.state import Particles
 
 
@@ -43,15 +45,15 @@ class IISPHSolver(SPHBase):
         self.tolerance = 1e-3     # IISPH.py:110
         self.check_every = JACOBI_CHECK_EVERY
         super().__init__(params, device=device, engine=engine)
-        # the step-start pair list's device buffers (cuda_iisph.step_pairs),
+        # the step's pair list's device buffers (density_sum_list),
         # allocated at the first step and reused
         self._pair_buffers = {}
 
     def _op(self, name):
         """The kernel wrapper on the CUDA engine, else its plain version;
-        both take the engine's context (cell offsets or neighbour lists;
-        for the pressure acceleration and A, the step's context from
-        ``pressure_solve``) first."""
+        both take the step's context (from ``compute_densities_and_pairs``:
+        the pair list, the slot map or the plain engine's neighbour lists)
+        first."""
         return getattr(cuda_iisph,
                        name if self.engine.fused else f"{name}_plain")
 
@@ -91,15 +93,10 @@ class IISPHSolver(SPHBase):
     def pressure_solve(self, p: Particles, ctx, a_ii, source, last_pressure,
                        dt):
         """Relaxed Jacobi to avg |Ap - s| / rho0 < 1e-3, at most 1000
-        iterations (IISPH.py:102-179), as a device-tested loop.  Returns
-        (pressure, the step's context, metrics): on the CUDA engine the
-        context is the step-start pair list, built here, which the loop and
-        the final advect read."""
+        iterations (IISPH.py:102-179), as a device-tested loop over the
+        step's context ``ctx``.  Returns (pressure, metrics)."""
         n_real = self.params.n_fluid + self.params.n_solid
         n_particles = float(self.params.n_particles)
-        if self.engine.fused:
-            ctx = cuda_iisph.step_pairs(ctx, p, self.params,
-                                        self._pair_buffers)
 
         def body(carry, active):
             last_p, _, it = carry
@@ -119,9 +116,8 @@ class IISPHSolver(SPHBase):
                 torch.zeros((), dtype=torch.int32, device=self.device))
         (pressure, err, iters), reads = jacobi_while(cond, body, init,
                                                      self.check_every)
-        return pressure, ctx, {"pressure_iters": iters,
-                               "pressure_error": err,
-                               "pressure_host_reads": reads}
+        return pressure, {"pressure_iters": iters, "pressure_error": err,
+                          "pressure_host_reads": reads}
 
     # ------------------------------------------------------------------
     def advect(self, p: Particles, pressure_accel, dt):
@@ -131,11 +127,12 @@ class IISPHSolver(SPHBase):
         return p._replace(v=v, x=x)
 
     def substep(self, p: Particles, ctx, dt):
-        p = compute_densities(p, ctx, self.engine, self.params)
+        p, ctx = compute_densities_and_pairs(p, ctx, self.engine, self.params,
+                                             self._pair_buffers)
         p = self.compute_non_pressure(p, ctx, dt)
         a_ii, source, last_p = self.predict_advection(p, ctx, dt)
-        pressure, ctx, metrics = self.pressure_solve(p, ctx, a_ii, source,
-                                                     last_p, dt)
+        pressure, metrics = self.pressure_solve(p, ctx, a_ii, source, last_p,
+                                                dt)
         p = p._replace(pressure=pressure)
         # the final acceleration with the advect in its epilogue
         return self._pressure_accel(p, ctx, pressure, advect_dt=dt), metrics

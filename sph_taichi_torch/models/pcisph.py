@@ -19,12 +19,12 @@ engine has, legacy/engine/sph_solver.py:377-487):
 The loop has the JAX package's fused structure on both engines: on the
 CUDA engine each iteration is the two kernels of ``ops/cuda_pcisph.py``
 with their epilogues (the pressure correction, the velocity and position
-predict), reading the step-start pair list that one more kernel builds
-after the densities (over the cell runs; the slot walk reads its map),
-which the non-pressure kernel before the loop reads too; on the plain
-engine their plain versions apply the same epilogues in torch, which is
-the JAX package's unfused loop with the same arithmetic.  The loop is
-``jacobi_while`` (models/base.py): the JAX
+predict), reading the step's pair list that the density kernel writes as
+it sums (``compute_densities_and_pairs``, over the cell runs; the slot walk
+reads its map), which the non-pressure kernel before the loop reads too;
+on the plain engine their plain versions apply the same epilogues in
+torch, which is the JAX package's unfused loop with the same arithmetic.
+The loop is ``jacobi_while`` (models/base.py): the JAX
 condition is evaluated on the device and read to the host once every
 ``check_every`` iterations, so iteration counts and results equal the JAX
 package's ``lax.while_loop``.  ``check_every`` is the minimum iteration
@@ -39,7 +39,8 @@ from sph_taichi_torch.ops import cuda_pcisph
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
 from sph_taichi_torch.ops.pairs import div_exact
 from sph_taichi_torch.models.base import (
-    SPHBase, compute_densities, compute_non_pressure_forces, jacobi_while)
+    SPHBase, compute_densities_and_pairs, compute_non_pressure_forces,
+    jacobi_while)
 from sph_taichi_torch.state import Particles
 
 
@@ -51,8 +52,8 @@ class PCISPHSolver(SPHBase):
         self.check_every = self.min_iterations
         super().__init__(params, device=device, engine=engine)
         self.s_f_base = self._scaling_base(params)
-        # the step-start pair list's device buffers (step_pairs), allocated
-        # at the first step and reused
+        # the step's pair list's device buffers (density_sum_list),
+        # allocated at the first step and reused
         self._pair_buffers = {}
 
     @staticmethod
@@ -93,22 +94,13 @@ class PCISPHSolver(SPHBase):
                        name if self.engine.fused else f"{name}_plain")
 
     # ------------------------------------------------------------------
-    def step_pairs(self, p: Particles, ctx):
-        """The context of the step's pair kernels after the densities (the
-        non-pressure kernel and the loop's): on the CUDA engine the
-        step-start pair list, built once into the solver's buffers over the
-        cell runs (``cuda_pcisph.step_pairs``; the slot map as it is);
-        otherwise ``ctx``, the plain engine's neighbour lists."""
-        if not self.engine.fused:
-            return ctx
-        return cuda_pcisph.step_pairs(ctx, p, self.params, self._pair_buffers)
-
     def pressure_solve(self, p: Particles, ctx, dt):
         """Prediction-correction loop (legacy:776-797) as a device-tested
-        loop over the step-start pairs of ``ctx`` (``step_pairs``: the loop's
-        pair set is the step start's, so its list is read by every
-        iteration).  Returns (pressure, (v*, x*), metrics): the final
-        prediction is the fluid advect."""
+        loop over the step-start pairs of ``ctx`` (from
+        ``compute_densities_and_pairs``: the loop's pair set is the step
+        start's, so its list is read by every iteration).  Returns
+        (pressure, (v*, x*), metrics): the final prediction is the fluid
+        advect."""
         params = self.params
         fluid3 = p.is_fluid()[:, None]
         s_f = self.scaling_factor(dt)
@@ -157,8 +149,8 @@ class PCISPHSolver(SPHBase):
         return p._replace(v=v, x=x)
 
     def substep(self, p: Particles, ctx, dt):
-        p = compute_densities(p, ctx, self.engine, self.params)
-        ctx = self.step_pairs(p, ctx)
+        p, ctx = compute_densities_and_pairs(p, ctx, self.engine, self.params,
+                                             self._pair_buffers)
         p = compute_non_pressure_forces(p, ctx, self.engine, self.params)
         pressure, (vp, xp), metrics = self.pressure_solve(p, ctx, dt)
         return self.advect(p._replace(pressure=pressure), vp, xp, dt), metrics

@@ -55,8 +55,9 @@ The step's pair list: the positions do not move from the density-and-factor
 kernel to the non-pressure kernel, and both walk the fluid centres.  Over
 the cell runs ``density_factor_list`` writes the list while it sums, and
 ``nonpressure_kick`` runs only its pair body over it; on the PCISPH step
-``nonpressure_accel`` reads the loop's list (ops/cuda_pcisph.py
-``step_pairs``), built just before it.  A warp holding a centre with more
+``nonpressure_accel`` reads the fluid rows of the step's list, which the
+density kernel writes (ops/cuda_pairs.py ``density_sum_list``), as the
+loop does.  A warp holding a centre with more
 than ``PAIR_LIST_ENTRIES`` accepted pairs walks the cells in one phase
 inside the kernel.  On the card over the cell runs the non-pressure
 wrappers take only a ``PairList``, not bare cell offsets; on CPU tensors
@@ -463,8 +464,7 @@ def _nonpressure_args(ctx, p, params):
     (device, n, launch-count suffix, its arguments up to the list)."""
     dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(
         ctx, p, params, "nonpressure_kick",
-        source="density_factor_list (DFSPH) or cuda_pcisph.step_pairs "
-               "(PCISPH)")
+        source="density_factor_list (DFSPH) or density_sum_list (PCISPH)")
     f32 = torch.float32
     return dev, n, suffix, [
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
@@ -498,7 +498,7 @@ def nonpressure_kick(ctx, p, dt, params):
 def nonpressure_accel(ctx, p, params):
     """Kernel wrapper for ``nonpressure_accel_plain``: acc, from the kernel
     of ``nonpressure_kick`` without its kick (v is not written).  ``ctx``:
-    the PCISPH step's context from ``cuda_pcisph.step_pairs`` (a
+    the PCISPH step's context from ``cuda_pairs.density_sum_list`` (a
     ``PairList`` over the cell runs), or a ``SlotMap``; on CPU tensors also
     neighbour lists or cell offsets."""
     if p.x.device.type == "cpu":

@@ -34,22 +34,23 @@ Jacobi loop and take an optional ``active`` flag, a 0-d bool tensor on the
 device: when it is false the kernel returns at once and its outputs are
 undefined (the loop discards them).  The plain versions ignore it.
 
-The positions stay the step start's from the sort to the advect, so over
-the cell runs ``pressure_accel`` (both variants) and ``apply_A`` read the
-step-start pair list of every real centre, solids included
-(ops/pair_list.py, shared with PCISPH's loop): ``step_pairs``
-(``csrc/iisph.cu`` ``iisph_step_pairs``) builds it once per step, before
-the Jacobi loop, and given it (a ``PairList``, the step's context) f3 and
-f4 run only the pair body over it.  Over the cell runs these wrappers take
-only the list, not bare cell offsets; on CPU tensors the step's context is
-the plain engine's neighbour lists, which the plain versions read.  The
-slot walk reads its map and no list.
+The positions stay the sort's from the density kernel to the advect (f1's
+kick moves v, not x), so over the cell runs all four kernels read the
+step's pair list of every real centre, solids included (ops/pair_list.py
+``PairList``), which the step's density kernel writes as it sums
+(ops/cuda_pairs.py ``density_sum_list``, models/base.py
+``compute_densities_and_pairs``); given it, they run only the pair body
+over it.  Over the cell runs these wrappers take only the list, not bare
+cell offsets; on CPU tensors the step's context is the plain engine's
+neighbour lists, which the plain versions read.  The slot walk reads its
+map and no list.
 
-Padding rows: f3 and f4 write them in the kernel, as the JAX package's
-``restore_tail`` gives them (outputs that carry a field through keep its
-value, the others are 0), so each of their wrapper calls launches exactly
-one kernel; ``nonpressure_kick`` and ``predict_advection`` launch the real
-rows and restore the padding rows in the wrapper.
+Padding rows: over the cell runs every kernel writes them, and f3 and f4
+over the slot walk too, as the JAX package's ``restore_tail`` gives them
+(outputs that carry a field through keep its value, the others are 0), so
+each of those wrapper calls launches exactly one kernel; f1 and f2 over
+the slot walk launch the real rows and their wrappers restore the padding
+rows.
 """
 
 import ctypes
@@ -58,8 +59,8 @@ import torch
 
 from sph_taichi_torch.ops import pair_list
 from sph_taichi_torch.ops.cuda_pairs import (
-    WALK, _PTR, _active_ptr, _check, _plain_ctx, _raise_on, _stream, _walk,
-    pair_consts, PairConsts)
+    WALK, _PTR, _active_ptr, _check, _raise_on, _stream, pair_consts,
+    PairConsts)
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
 from sph_taichi_torch.ops.pairs import GatherEngine, div_exact
 from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
@@ -67,7 +68,6 @@ from sph_taichi_torch.state import MATERIAL_FLUID, MATERIAL_SOLID
 LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
     "iisph_nonpressure_kick", "iisph_predict_advection",
     "iisph_pressure_accel", "iisph_pressure_accel_advect", "iisph_apply_A")}
-LAUNCHES["iisph_step_pairs"] = 0
 
 
 def reset_launch_counts():
@@ -221,12 +221,6 @@ def apply_A_plain(nl, p, accel, a_ii, source, last_p, dt, omega, params,
     return new_p, err
 
 
-def step_pairs_plain(nl, p, params):
-    """Plain version of ``step_pairs``: (idx, cnt) of ``PairList`` for every
-    real centre (``pair_list.step_pairs_plain``)."""
-    return pair_list.step_pairs_plain(nl, p, "real")
-
-
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -237,48 +231,36 @@ def _lib():
     if not getattr(lib, "_typed", False):
         i32 = ctypes.c_int
         lib.iisph_nonpressure_kick_launch.argtypes = (
-            [_PTR] * 5 + WALK + [_PTR] * 3 + [PairConsts, _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 5 + [i32, PairConsts, _PTR])
         lib.iisph_predict_advection_launch.argtypes = (
-            [_PTR] * 6 + WALK + [_PTR] * 4 + [PairConsts, _PTR])
+            [_PTR] * 6 + WALK + [_PTR] * 6 + [i32, PairConsts, _PTR])
         lib.iisph_pressure_accel_launch.argtypes = (
             [_PTR] * 5 + WALK + [_PTR] * 7 + [i32, i32, PairConsts, _PTR])
         lib.iisph_apply_A_launch.argtypes = (
             [_PTR] * 7 + WALK + [_PTR] * 4 + [ctypes.c_float] + [_PTR] * 2
             + [i32, PairConsts, _PTR])
-        lib.iisph_step_pairs_launch.argtypes = (
-            [_PTR] * 5 + [i32, PairConsts, _PTR])
         lib.iisph_occupancy.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
         for fn in (lib.iisph_nonpressure_kick_launch,
                    lib.iisph_predict_advection_launch,
                    lib.iisph_pressure_accel_launch,
-                   lib.iisph_apply_A_launch, lib.iisph_step_pairs_launch,
-                   lib.iisph_occupancy, lib.iisph_pair_list_entries):
+                   lib.iisph_apply_A_launch, lib.iisph_occupancy,
+                   lib.iisph_pair_list_entries):
             fn.restype = i32
         pair_list.check_entries(lib.iisph_pair_list_entries(), "IISPH")
         lib._typed = True
     return lib
 
 
-def step_pairs(ctx, p, params, buffers=None):
-    """The step's context of f3 and f4 for the sorted particles ``p``
-    (``pair_list.step_pairs``): over their cell offsets, the list of every
-    real centre built by one launch of ``iisph_step_pairs`` into
-    ``buffers``; a ``SlotMap`` as it is; on CPU tensors the plain engine's
-    neighbour lists."""
-    return pair_list.step_pairs(lambda: _lib().iisph_step_pairs_launch,
-                                "iisph_step_pairs", LAUNCHES, ctx, p, params,
-                                buffers)
-
-
 def occupancy(kernel, slots=False):
     """(registers per thread, static shared memory bytes per block,
     resident blocks of 128 threads per SM) of ``kernel``
     ("iisph_pressure_accel", "iisph_pressure_accel_advect",
-    "iisph_apply_A" (over the slot walk with ``slots``) or
-    "iisph_step_pairs") on the current CUDA device."""
+    "iisph_apply_A", "iisph_nonpressure_kick" or "iisph_predict_advection";
+    over the cell runs, or the slot walk with ``slots``) on the current
+    CUDA device."""
     which = {"iisph_pressure_accel": 0, "iisph_pressure_accel_advect": 1,
-             "iisph_apply_A": 2, "iisph_step_pairs": 6}[kernel] + (
-                 3 if slots else 0)
+             "iisph_apply_A": 2, "iisph_nonpressure_kick": 3,
+             "iisph_predict_advection": 4}[kernel] + (5 if slots else 0)
     out = [ctypes.c_int() for _ in range(3)]
     rc = _lib().iisph_occupancy(which, *[ctypes.byref(o) for o in out])
     _raise_on(rc, f"iisph_occupancy({kernel})")
@@ -287,28 +269,33 @@ def occupancy(kernel, slots=False):
 
 def nonpressure_kick(ctx, p, dt, params):
     """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v*).  ``ctx``:
-    the cell offsets of the sorted particles ``p`` (ops.grid.cell_offsets),
-    or their ``SlotMap`` for the slot walk; ``dt`` a 0-d f32 tensor on the
+    the step's context from ``density_sum_list`` for the sorted particles
+    ``p`` (a ``PairList``; on CPU tensors, neighbour lists), or their
+    ``SlotMap`` for the slot walk; ``dt`` a 0-d f32 tensor on the
     device."""
     if p.x.device.type == "cpu":
-        return nonpressure_kick_plain(_plain_ctx(ctx, p, params), p, dt,
-                                      params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+        return nonpressure_kick_plain(
+            pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, dt,
+            params)
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
+                                                         "IISPH")
     f32 = torch.float32
     acc = torch.empty_like(p.x)
     v_out = torch.empty_like(p.v)
     rc = _lib().iisph_nonpressure_kick_launch(
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
         _check("m", p.m, f32, (n,), dev),
-        _check("density", p.density, f32, (n,), dev), *walk,
-        _check("dt", dt, f32, (), dev), acc.data_ptr(), v_out.data_ptr(),
+        _check("density", p.density, f32, (n,), dev), *walk, *lst,
+        _check("dt", dt, f32, (), dev), acc.data_ptr(), v_out.data_ptr(), n,
         pair_consts(params), _stream(dev))
     name = "iisph_nonpressure_kick" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    n_real = _n_real(params)
-    acc[n_real:] = 0.0
-    v_out[n_real:] = p.v[n_real:]
+    if suffix:
+        # the slot walk's kernel launches over the real rows
+        n_real = _n_real(params)
+        acc[n_real:] = 0.0
+        v_out[n_real:] = p.v[n_real:]
     return acc, v_out
 
 
@@ -316,32 +303,34 @@ def predict_advection(ctx, p, dt, params):
     """Kernel wrapper for ``predict_advection_plain``: (a_ii, source,
     last_p).  ``ctx`` as for ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
-        return predict_advection_plain(_plain_ctx(ctx, p, params), p, dt,
-                                       params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+        return predict_advection_plain(
+            pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, dt,
+            params)
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
+                                                         "IISPH")
     f32 = torch.float32
     outs = tuple(torch.empty_like(p.m_V) for _ in range(3))
     rc = _lib().iisph_predict_advection_launch(
         ptr["x"], _check("v", p.v, f32, (n, 3), dev), ptr["material"],
         ptr["m_V"], _check("density", p.density, f32, (n,), dev),
-        _check("pressure", p.pressure, f32, (n,), dev), *walk,
-        _check("dt", dt, f32, (), dev), *(o.data_ptr() for o in outs),
+        _check("pressure", p.pressure, f32, (n,), dev), *walk, *lst,
+        _check("dt", dt, f32, (), dev), *(o.data_ptr() for o in outs), n,
         pair_consts(params), _stream(dev))
     name = "iisph_predict_advection" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    for o in outs:
-        o[_n_real(params):] = 0.0
+    if suffix:
+        # the slot walk's kernel launches over the real rows
+        for o in outs:
+            o[_n_real(params):] = 0.0
     return outs
 
 
 def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
     """Kernel wrapper for ``pressure_accel_plain``: the (N, 3) acceleration
     (``iisph_pressure_accel<false>``, in the Jacobi loop), or with
-    ``advect_dt`` the advected (v, x) (``<true>``, after it).  ``ctx``: the
-    step's context from ``step_pairs`` for the sorted particles ``p`` (a
-    ``PairList``; on CPU tensors, neighbour lists), or their ``SlotMap``
-    for the slot walk."""
+    ``advect_dt`` the advected (v, x) (``<true>``, after it).  ``ctx`` as
+    for ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
         return pressure_accel_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, pressure,

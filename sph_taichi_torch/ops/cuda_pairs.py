@@ -6,13 +6,14 @@ Ports three specializations of the Pallas TPU kernel
 hand-written CUDA C++ in ``csrc/pairs.cu``:
 
 - ``density_sum``: den[i] = sum_j m_V[j] W(r_ij) over neighbours with
-  material >= 0 (the term of models/base.py compute_densities; PCISPH's,
-  IISPH's and the slot walk's);
-- ``density_sum_list``: the same sum on the WCSPH step over the cell runs,
-  whose kernel also writes every real centre's accepted neighbours, in the
-  walk's order, to the step's pair list (ops/pair_list.py ``PairList``):
-  the positions do not move from the sort to the force kernel's advect, so
-  the force kernel's pairs are the density kernel's;
+  material >= 0 (the term of models/base.py compute_densities; the slot
+  walk's: over the cell runs no solver step launches it);
+- ``density_sum_list``: the same sum on the WCSPH, IISPH and PCISPH steps
+  over the cell runs, whose kernel also writes every real centre's
+  accepted neighbours, in the walk's order, to the step's pair list
+  (ops/pair_list.py ``PairList``): the positions do not move from the sort
+  to the advect, so the step's later pair kernels accept the density
+  kernel's pairs;
 - ``wcsph_forces``: the fused WCSPH force term (surface tension,
   viscosity, pressure, and with ``rr0`` the two-way reaction on dynamic
   rigid centres), then acceleration select, symplectic Euler and the fluid
@@ -402,15 +403,16 @@ def density_sum(ctx, p, params):
 
 
 def density_sum_list(ctx, p, params, buffers=None):
-    """``density_sum`` on the WCSPH step, with the context its force kernel
-    reads: (den, ctx').  Given the cell offsets of the sorted particles
+    """``density_sum`` with the context the step's later pair kernels read
+    (WCSPH's forces, IISPH's four kernels, PCISPH's loop and non-pressure
+    kernel): (den, ctx').  Given the cell offsets of the sorted particles
     ``p``, one launch of ``density_sum_list`` sums the densities and writes
     every real centre's accepted pairs to a ``PairList`` in ``buffers`` (a
     dict, filled with the list's tensors at the first call and reused
     after; None: new tensors).  Given a ``SlotMap``, ``density_sum`` over
     it, and the map.  On CPU tensors, given cell offsets, the plain sums
-    and the plain engine's neighbour lists, which ``wcsph_forces_plain``
-    reads (``density_sum_list_plain`` gives them in the list's layout)."""
+    and the plain engine's neighbour lists, which the plain versions read
+    (``density_sum_list_plain`` gives them in the list's layout)."""
     from sph_taichi_torch.ops import pair_list   # it imports this module
 
     if isinstance(ctx, SlotMap):
@@ -443,8 +445,8 @@ def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
     if p.x.device.type == "cpu":
         return wcsph_forces_plain(_plain_ctx(ctx, p, params), p, dpi,
                                   p_r02, m_nc, rr0, dt, params)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(
-        ctx, p, params, "WCSPH", source="density_sum_list")
+    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
+                                                         "WCSPH")
     f32, i32 = torch.float32, torch.int32
     react = rr0 is not None
     args = [ptr["x"], _check("v", p.v, f32, (n, 3), dev),

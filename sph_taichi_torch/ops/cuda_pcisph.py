@@ -38,15 +38,14 @@ CUDA tensor it launches the kernel or raises.  Each launch adds one to
 kernel returns at once and its outputs are undefined (the loop discards
 them).  The plain versions ignore it.
 
-Over the cell runs the loop reads the step-start pair list of the fluid
-centres (ops/pair_list.py, shared with IISPH's loop): ``step_pairs``
-(``csrc/pcisph.cu`` ``pcisph_step_pairs``) builds it once per step, and
-given it (a ``PairList``, the loop's context) g1 and g2 run only the pair
-body over it.  Over the cell runs the wrappers take only the list, not
-bare cell offsets.  ``step_pairs_plain`` is the list from the plain
-engine's neighbour lists; on CPU tensors the loop's context is those lists
-themselves, which the plain versions read.  The slot walk keeps its
-one-phase kernels and no list.
+Over the cell runs the loop reads the fluid rows of the step's pair list
+(ops/pair_list.py ``PairList``), which the step's density kernel writes as
+it sums at the step-start positions (ops/cuda_pairs.py
+``density_sum_list``, models/base.py ``compute_densities_and_pairs``):
+given it, g1 and g2 run only the pair body over it.  Over the cell runs the
+wrappers take only the list, not bare cell offsets; on CPU tensors the
+loop's context is the plain engine's neighbour lists, which the plain
+versions read.  The slot walk keeps its one-phase kernels and no list.
 
 The kernels write the padding rows themselves, as the JAX package's
 ``restore_tail`` gives them (p' and rho_err 0, v*' and x*' from v and x),
@@ -62,14 +61,10 @@ from sph_taichi_torch.ops.cuda_pairs import (
     WALK, _PTR, _active_ptr, _check, _raise_on, _stream, pair_consts,
     PairConsts)
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
-# the list's size and type, for callers of step_pairs
-from sph_taichi_torch.ops.pair_list import (  # noqa: F401
-    PAIR_LIST_ENTRIES, PairList)
 from sph_taichi_torch.ops.pairs import GatherEngine
 
 LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
     "pcisph_d_rho_correct", "pcisph_pressure_accel_predict")}
-LAUNCHES["pcisph_step_pairs"] = 0
 
 
 def reset_launch_counts():
@@ -125,12 +120,6 @@ def pressure_accel_predict_plain(nl, p, xp, pressure, dt, params,
     return v, torch.where(fluid, p.x + dt * v, p.x)
 
 
-def step_pairs_plain(nl, p, params):
-    """Plain version of ``step_pairs``: (idx, cnt) of ``PairList`` for the
-    fluid centres (``pair_list.step_pairs_plain``)."""
-    return pair_list.step_pairs_plain(nl, p, "fluid")
-
-
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -144,39 +133,25 @@ def _lib():
             [_PTR] * 7 + WALK + [_PTR] * 7 + [i32, PairConsts, _PTR])
         lib.pcisph_pressure_accel_predict_launch.argtypes = (
             [_PTR] * 8 + WALK + [_PTR] * 6 + [i32, PairConsts, _PTR])
-        lib.pcisph_step_pairs_launch.argtypes = (
-            [_PTR] * 5 + [i32, PairConsts, _PTR])
         lib.pcisph_occupancy.argtypes = (
             [i32] + [ctypes.POINTER(i32)] * 3)
         for fn in (lib.pcisph_d_rho_correct_launch,
                    lib.pcisph_pressure_accel_predict_launch,
-                   lib.pcisph_step_pairs_launch, lib.pcisph_occupancy,
-                   lib.pcisph_pair_list_entries):
+                   lib.pcisph_occupancy, lib.pcisph_pair_list_entries):
             fn.restype = i32
         pair_list.check_entries(lib.pcisph_pair_list_entries(), "PCISPH")
         lib._typed = True
     return lib
 
 
-def step_pairs(ctx, p, params, buffers=None):
-    """The loop's context for the sorted step-start particles ``p``
-    (``pair_list.step_pairs``): over their cell offsets, the list of the
-    fluid centres built by one launch of ``pcisph_step_pairs`` into
-    ``buffers``; a ``SlotMap`` as it is; on CPU tensors the plain engine's
-    neighbour lists."""
-    return pair_list.step_pairs(lambda: _lib().pcisph_step_pairs_launch,
-                                "pcisph_step_pairs", LAUNCHES, ctx, p,
-                                params, buffers)
-
-
 def occupancy(kernel, slots=False):
     """(registers per thread, static shared memory bytes per block,
     resident blocks of 128 threads per SM) of ``kernel``
-    ("pcisph_d_rho_correct", "pcisph_pressure_accel_predict" (over the
-    slot walk with ``slots``) or "pcisph_step_pairs") on the current CUDA
+    ("pcisph_d_rho_correct" or "pcisph_pressure_accel_predict"; over the
+    cell runs, or the slot walk with ``slots``) on the current CUDA
     device."""
-    which = {"pcisph_d_rho_correct": 0, "pcisph_pressure_accel_predict": 1,
-             "pcisph_step_pairs": 4}[kernel] + (2 if slots else 0)
+    which = {"pcisph_d_rho_correct": 0,
+             "pcisph_pressure_accel_predict": 1}[kernel] + (2 if slots else 0)
     out = [ctypes.c_int() for _ in range(3)]
     rc = _lib().pcisph_occupancy(which, *[ctypes.byref(o) for o in out])
     _raise_on(rc, f"pcisph_occupancy({kernel})")
@@ -185,7 +160,7 @@ def occupancy(kernel, slots=False):
 
 def d_rho_correct(ctx, p, xp, vp, pressure, dt, s_f, params, active=None):
     """Kernel wrapper for ``d_rho_correct_plain``: (p', rho_err).
-    ``ctx``: the step's context from ``step_pairs`` for the sorted
+    ``ctx``: the step's context from ``density_sum_list`` for the sorted
     step-start particles ``p`` (a ``PairList``; on CPU tensors, neighbour
     lists), or their ``SlotMap`` for the slot walk."""
     if p.x.device.type == "cpu":

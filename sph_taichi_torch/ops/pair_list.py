@@ -1,57 +1,50 @@
-"""The step-start pair list of PCISPH's and IISPH's loops and WCSPH's step.
+"""The step's pair list of the WCSPH, IISPH, PCISPH and DFSPH steps.
 
-A loop whose pair set stays that of the step start walks the same
-candidates and accepts the same pairs in every iteration: PCISPH's (its
-terms at the predicted positions over the step-start pairs) and IISPH's
-(its positions do not move from the sort to the advect).  Over the cell
-runs a kernel (``pcisph_step_pairs``, ``iisph_step_pairs``;
+On the WCSPH, IISPH and PCISPH steps the positions stay the sort's from the
+density kernel to the advect (IISPH's kick moves v; PCISPH's loop
+evaluates its terms at predicted positions over the step-start pairs), and
+every later pair kernel's centres are a subset of the density kernel's
+(every real row), so they all accept its pairs.  Over the cell runs the
+density kernel (ops/cuda_pairs.py ``density_sum_list``;
 csrc/pair_common.cuh ``build_pair_list``) runs the candidate phase of the
-two-phase walk once per step and writes each centre's accepted neighbours,
-in the walk's order, to a fixed-stride list in device memory (``PairList``,
-the loop's context); the loop kernels run only the pair body over it.  A
-warp holding a centre with more than ``PAIR_LIST_ENTRIES`` accepted pairs
-walks the cells in one phase inside the kernel (the same pairs, in the same
-order).  Over the cell runs the loop wrappers take only the list, not bare
-cell offsets.  The slot walk reads its map and no list.  WCSPH's step has
-no loop, but its positions too stay the sort's until the force kernel's
-advect: its density kernel writes the list while it sums
-(ops/cuda_pairs.py ``density_sum_list``) and its force kernel reads it.
-DFSPH's step does the same from its density-and-factor kernel to its
-non-pressure kernel (ops/cuda_dfsph.py ``density_factor_list``), and
-PCISPH's non-pressure kernel reads the loop's list.
+two-phase walk, sums the densities in it and writes each real centre's
+accepted neighbours, in the walk's order, to a fixed-stride list in device
+memory (``PairList``, the step's context); the later kernels (WCSPH's
+forces, IISPH's four kernels, PCISPH's loop and non-pressure kernel) run
+only their pair body over it, every loop iteration too.  A warp holding a
+centre with more than ``PAIR_LIST_ENTRIES`` accepted pairs walks the cells
+in one phase inside the kernel (the same pairs, in the same order).  Over
+the cell runs the list kernels' wrappers take only the list, not bare cell
+offsets.  The slot walk reads its map and no list.  DFSPH's step does the
+same from its density-and-factor kernel to its non-pressure kernel
+(ops/cuda_dfsph.py ``density_factor_list``), listing the fluid centres.
 
-The centres a list serves: PCISPH's loop and both steps' non-pressure
-kernel walk the fluid centres (``"fluid"``), as DFSPH's list does;
-IISPH's every real centre (``"real"``), solids included, because its A
-reads the solids' pressure accelerations; WCSPH's density lists every
-real centre too.
-
-``step_pairs_plain`` is the list from the plain engine's neighbour lists;
-on CPU tensors the loop's context is those lists themselves, which the
-plain versions read.
+``step_pairs_plain`` is a list from the plain engine's neighbour lists
+(the plain versions of the list-writing kernels give it); on CPU tensors
+the step's context is those lists themselves, which the plain versions
+read.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from sph_taichi_torch.ops.cuda_pairs import (
-    _check, _plain_ctx, _raise_on, _stream, _walk, pair_consts)
+from sph_taichi_torch.ops.cuda_pairs import _check, _plain_ctx, _walk
 from sph_taichi_torch.ops.neighbors import NeighborList
 from sph_taichi_torch.ops.slots import SlotMap
 
 # mirror of csrc/pair_common.cuh kPairListEntries (checked when a library
-# loads): the accepted pairs the step-start list holds per centre
+# loads): the accepted pairs the step's list holds per centre
 PAIR_LIST_ENTRIES = 64
 
 
 class PairList(NamedTuple):
-    """A loop's context over the cell runs: the step-start cell offsets and
-    pair list.  Entry k of row i's list at ``idx[k, i]``
+    """A step's context over the cell runs: the cell offsets and the
+    step's pair list.  Entry k of row i's list at ``idx[k, i]``
     (i32[PAIR_LIST_ENTRIES, n_pad]), valid for k < min(cnt[i],
     PAIR_LIST_ENTRIES); ``cnt`` (i32[n_pad]) is each centre's number of
-    accepted step-start pairs, also beyond the list, and 0 on rows that are
-    not centres."""
+    accepted pairs, also beyond the list, and 0 on rows that are not
+    centres."""
     starts: torch.Tensor
     idx: torch.Tensor
     cnt: torch.Tensor
@@ -110,37 +103,13 @@ def list_buffers(buffers, n, dev):
     return buffers["idx"], buffers["cnt"]
 
 
-def step_pairs(launch, name, launches, ctx, p, params, buffers=None):
-    """A loop's context for the sorted step-start particles ``p``: given
-    their cell offsets, a ``PairList`` built by one launch of the kernel
-    ``name`` (``launch()`` gives its launcher, ``<name>_launch`` of its
-    library; counted in ``launches[name]``) into ``buffers`` (a dict,
-    filled with the list's tensors at the first call and reused after;
-    None: new tensors); given a ``SlotMap``, the map itself.  On CPU
-    tensors, given cell offsets, the plain engine's neighbour lists of
-    ``p``: the step-start pairs that the plain versions read
-    (``step_pairs_plain`` gives them in the list's layout)."""
-    if isinstance(ctx, SlotMap):
-        return ctx
-    if p.x.device.type == "cpu":
-        return _plain_ctx(ctx, p, params)
-    dev, n, ptr, _, _ = _walk(ctx, p, params)
-    pairs = PairList(ctx, *list_buffers(buffers, n, dev))
-    rc = launch()(
-        ptr["x"], ptr["material"], ptr["starts"], pairs.idx.data_ptr(),
-        pairs.cnt.data_ptr(), n, pair_consts(params), _stream(dev))
-    _raise_on(rc, name)
-    launches[name] += 1
-    return pairs
-
-
-def _refuse(ctx, solver, kind, source="step_pairs"):
+def _refuse(ctx, solver, kind, source="density_sum_list"):
     raise TypeError(f"{solver}'s list kernels take the step's context from "
                     f"{source} ({kind} or a SlotMap), not "
                     f"{type(ctx).__name__}")
 
 
-def loop_walk(ctx, p, params, solver, source="step_pairs"):
+def loop_walk(ctx, p, params, solver, source="density_sum_list"):
     """``_walk`` of a list kernel's context, and the launcher's list
     arguments: the list of a ``PairList``, none for a ``SlotMap``; raises
     for any other context (``solver`` names the kernels and ``source`` the
@@ -157,9 +126,9 @@ def loop_walk(ctx, p, params, solver, source="step_pairs"):
 
 
 def plain_loop_ctx(ctx, p, params, solver):
-    """The plain versions' neighbour lists of a loop context on CPU
-    tensors: the lists ``step_pairs`` gave, or a ``SlotMap``'s slot lists;
-    raises for any other context."""
+    """The plain versions' neighbour lists of a list kernel's context on
+    CPU tensors: the lists ``density_sum_list`` gave, or a ``SlotMap``'s
+    slot lists; raises for any other context."""
     if isinstance(ctx, NeighborList):
         return ctx
     if not isinstance(ctx, SlotMap):

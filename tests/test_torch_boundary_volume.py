@@ -30,6 +30,15 @@ from sph_taichi_torch.ops.slots import build_slot_map
 from conftest import small_scene_dict
 from test_torch_wcsph import _assert_scene_equal
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL, RTOL = 2e-5, 2e-4
 
 

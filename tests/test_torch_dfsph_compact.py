@@ -34,6 +34,15 @@ from sph_taichi_torch.ops.pairs import GatherEngine
 
 from conftest import small_scene_dict
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL, RTOL = 2e-5, 2e-4
 CLUMP = 96
 

@@ -7,8 +7,9 @@ the fluid centres.  So over the cell runs ``density_factor_list``
 fluid centre's accepted neighbours, in the walk's order, to the step's pair
 list (ops/pair_list.py ``PairList``: at most PAIR_LIST_ENTRIES per centre,
 the count also beyond), and ``nonpressure_kick`` runs its pair body over
-that list.  On the PCISPH step ``nonpressure_accel`` reads the loop's list
-(ops/cuda_pcisph.py ``step_pairs``), which the step now builds before it.
+that list.  On the PCISPH step ``nonpressure_accel`` reads the fluid rows
+of the step's list, which the density kernel writes (ops/cuda_pairs.py
+``density_sum_list``).
 A warp holding a centre over the list walks the cells in one phase.
 chip_smoke.py holds both kernels, their padding rows included, against the
 plain versions bitwise on the card.  Here, on the CPU, over the edge scene
@@ -45,6 +46,7 @@ from sph_taichi_tpu.models import base as jbase
 
 import sph_taichi_torch as T
 from sph_taichi_torch import convert
+from sph_taichi_torch.models import base as tbase
 from sph_taichi_torch.ops import cuda_dfsph, cuda_pairs, pair_list
 from sph_taichi_torch.ops import grid as tgrid
 from sph_taichi_torch.ops.neighbors import NeighborList
@@ -54,6 +56,15 @@ from sph_taichi_torch.ops.slots import build_slot_map
 from conftest import small_scene_dict
 from test_torch_dfsph_compact import edge_positions, edge_scene
 from test_torch_wcsph_list import jittered
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ATOL, RTOL = 2e-5, 2e-4
 K_LIST = pair_list.PAIR_LIST_ENTRIES
@@ -192,7 +203,7 @@ def test_density_factor_and_list_plain_match_jax(case):
 
 def test_nonpressure_plain_over_the_step_contexts_match_jax(case):
     """d's plain versions over the contexts the steps give it (DFSPH's
-    from its density-and-factor call, PCISPH's from its list build, both
+    from its density-and-factor call, PCISPH's from its density call, both
     the neighbour lists on CPU tensors) against the JAX
     ``compute_non_pressure_forces``: kicked (acc, v), un-kicked (acc)."""
     scene, (tp, tpart, starts, _, dt, ref) = case
@@ -206,7 +217,8 @@ def test_nonpressure_plain_over_the_step_contexts_match_jax(case):
     assert np.abs(acc.numpy()[fluid] - g).max() > 1e-3
     assert (v.numpy()[fluid] != tpart.v.numpy()[fluid]).any()
     pcisph = _cuda_solver(scene, method=1)
-    pctx = pcisph.step_pairs(q, starts)
+    pctx = tbase.compute_densities_and_pairs(q, starts, pcisph.engine,
+                                             pcisph.params)[1]
     assert isinstance(pctx, NeighborList)
     un = cuda_dfsph.nonpressure_accel_plain(pctx, q, tp)
     _close(un, ref["acc"], "un-kicked acc")
@@ -256,7 +268,7 @@ def test_wrapper_padding_rows(edge_case, call, ctx):
 def test_step_contexts_and_the_refusal_of_bare_offsets():
     """The contexts the steps give d: the neighbour lists on CPU tensors,
     the slot map as it is, and on the plain engine the context it was
-    given, for DFSPH's density-and-factor call and PCISPH's list build;
+    given, for DFSPH's density-and-factor call and PCISPH's density call;
     one DFSPH step (the static scene) and one PCISPH step (the fluid block
     alone: with the rigid block PCISPH's loop runs to its 1001-iteration
     cap, in both packages) on the CUDA engine over CPU tensors (the
@@ -275,7 +287,8 @@ def test_step_contexts_and_the_refusal_of_bare_offsets():
                 return solver.density_factor_and_pairs(tpart, ctx)[1]
         else:
             def pairs(solver, ctx):
-                return solver.step_pairs(tpart, ctx)
+                return tbase.compute_densities_and_pairs(
+                    tpart, ctx, solver.engine, solver.params)[1]
         assert isinstance(pairs(cuda, starts), NeighborList)
         assert pairs(cuda, smap) is smap
         assert pairs(plain, tnl) is tnl

@@ -241,8 +241,10 @@ def test_nonpressure_kick_plain_matches_jax():
     for mat in (0, 1):
         rows = tpart.material.numpy() == mat
         assert np.abs(ref["acc"][rows] - g).max() > 1e-3, mat
+    # the wrapper takes the step's context, as the solver gives it
+    ctx = cuda_pairs.density_sum_list(starts, tpart, tp)[1]
     _wrapper_equals_plain(cuda_iisph.nonpressure_kick,
-                          (starts, tpart, dt, tp), got)
+                          (ctx, tpart, dt, tp), got)
 
 
 def test_predict_advection_plain_matches_jax():
@@ -254,7 +256,8 @@ def test_predict_advection_plain_matches_jax():
     for name, a in zip(("a_ii", "source", "last_p"), got):
         _close(a, ref[name], tp, name)
         assert np.abs(ref[name][:tp.n_particles]).max() > 0, name
-    _wrapper_equals_plain(cuda_iisph.predict_advection, (starts, p, dt, tp),
+    ctx = cuda_pairs.density_sum_list(starts, p, tp)[1]
+    _wrapper_equals_plain(cuda_iisph.predict_advection, (ctx, p, dt, tp),
                           got)
 
 
@@ -273,7 +276,7 @@ def test_pressure_accel_plain_matches_jax():
     _close(v, ref["adv_v"], tp, "v")
     _close(x, ref["adv_x"], tp, "x")
     # the wrapper takes the step's context, as the solver gives it
-    ctx = cuda_iisph.step_pairs(starts, p, tp)
+    ctx = cuda_pairs.density_sum_list(starts, p, tp)[1]
     _wrapper_equals_plain(cuda_iisph.pressure_accel,
                           (ctx, p, last_p, tp), accel)
     _wrapper_equals_plain(cuda_iisph.pressure_accel,
@@ -304,7 +307,7 @@ def test_apply_A_plain_matches_jax():
     n_real = tp.n_fluid + tp.n_solid
     err = float(torch.sum(got[1][:n_real])) / tp.n_particles
     np.testing.assert_allclose(err, float(ref["err"]), rtol=RTOL, atol=ATOL)
-    ctx = cuda_iisph.step_pairs(starts, p, tp)
+    ctx = cuda_pairs.density_sum_list(starts, p, tp)[1]
     _wrapper_equals_plain(cuda_iisph.apply_A,
                           (ctx, p, accel, a_ii, source, last_p, dt, 0.5,
                            tp), got)
@@ -532,8 +535,6 @@ def test_cuda_iisph_needs_no_nvcc_to_import():
     names = {"iisph_nonpressure_kick", "iisph_predict_advection",
              "iisph_pressure_accel", "iisph_pressure_accel_advect",
              "iisph_apply_A"}
-    # each kernel's launches over cell runs and over the slot walk, and
-    # the step-start list's, built over the cell runs only
+    # each kernel's launches over cell runs and over the slot walk
     assert set(cuda_iisph.LAUNCHES) == names | {n + "[slots]"
-                                                for n in names} | {
-        "iisph_step_pairs"}
+                                                for n in names}

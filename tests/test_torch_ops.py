@@ -9,6 +9,7 @@ the same f32 terms in different orders, and XLA's rsqrt and torch's
 """
 
 import ctypes
+import functools
 import re
 import subprocess
 import sys
@@ -35,6 +36,15 @@ from sph_taichi_torch.ops.pairs import GatherEngine
 from conftest import _clumped_positions, small_scene_dict
 from test_golden import _two_way_scene
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL, RTOL = 2e-5, 2e-4
 
 
@@ -42,10 +52,14 @@ def _jax_particles_numpy(p):
     return {k: np.asarray(v) for k, v in p._asdict().items() if v is not None}
 
 
+@functools.lru_cache(maxsize=None)
 def _prepared(scene, seed=0):
-    """Identical sorted particles in both packages: clumped positions and
-    random velocities, Akinci volumes and densities computed by the JAX
-    package, then carried across with convert.particles_from_numpy."""
+    """Identical sorted particles in both packages on the scene ``scene``
+    ("small" or "two_way"): clumped positions and random velocities,
+    Akinci volumes and densities computed by the JAX package, then carried
+    across with convert.particles_from_numpy.  Computed once per scene in
+    a test process; the tests do not modify them."""
+    scene = small_scene_dict() if scene == "small" else _two_way_scene()
     rng = np.random.default_rng(seed)
     jp, jpart, _ = J.build_scene(J.SimConfig(config_dict=scene))
     x = _clumped_positions(rng, jp, jpart)
@@ -125,8 +139,7 @@ def test_grid_sort_and_offsets_bitwise(scene):
 
 @pytest.mark.parametrize("scene", ["small", "two_way"])
 def test_neighbor_list_bitwise(scene):
-    d = small_scene_dict() if scene == "small" else _two_way_scene()
-    jp, _, p, nl, tp, tpart, starts = _prepared(d)
+    jp, _, p, nl, tp, tpart, starts = _prepared(scene)
     tnl = tneighbors.build_neighbor_list(
         tpart.x, starts, tp.grid_num, tp.grid_size, tp.support_radius,
         tp.neighbor_cap, tp.cell_cap)
@@ -138,8 +151,7 @@ def test_neighbor_list_bitwise(scene):
 
 @pytest.mark.parametrize("scene", ["small", "two_way"])
 def test_density_sum_plain_matches_jax(scene):
-    d = small_scene_dict() if scene == "small" else _two_way_scene()
-    jp, solver, p, nl, tp, tpart, starts = _prepared(d)
+    jp, solver, p, nl, tp, tpart, starts = _prepared(scene)
     h = jp.support_radius
 
     def term(fi, fj, d2, rn, dots):     # models/base.py compute_densities
@@ -166,8 +178,7 @@ def test_density_sum_plain_matches_jax(scene):
 def test_wcsph_forces_plain_matches_jax(scene):
     """Forces + advect + fluid clamp; "two_way" has a dynamic rigid, so
     the reaction variant (rr0) runs."""
-    d = small_scene_dict() if scene == "small" else _two_way_scene()
-    jp, solver, p, nl, tp, tpart, starts = _prepared(d)
+    jp, solver, p, nl, tp, tpart, starts = _prepared(scene)
     assert bool(jp.dynamic_rigid_ids) == (scene == "two_way")
     dt = np.float32(jp.dt0)
     pj = solver.compute_forces(p, nl, dt=None)
@@ -201,7 +212,7 @@ def test_wcsph_forces_plain_matches_jax(scene):
 
 
 def test_boundary_volume_dense_matches_jax():
-    jp, solver, p, nl, tp, tpart, starts = _prepared(_two_way_scene())
+    jp, solver, p, nl, tp, tpart, starts = _prepared("two_way")
     s = np.asarray(p.material) == 0
     jref = jbase._boundary_volume_dense(p, jp, p.material == 0)
     tgot = tbase._boundary_volume_dense(tpart, tp, tpart.material == 0)

@@ -37,7 +37,7 @@ from sph_taichi_tpu.utils import checkpoint as jcheckpoint
 import sph_taichi_torch as T
 from sph_taichi_torch import convert
 from sph_taichi_torch.models.pcisph import PCISPHSolver
-from sph_taichi_torch.ops import cuda_pcisph
+from sph_taichi_torch.ops import cuda_pairs, cuda_pcisph
 from sph_taichi_torch.ops import grid as tgrid
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
 from sph_taichi_torch.ops.pairs import GatherEngine
@@ -309,7 +309,7 @@ def test_d_rho_correct_plain_matches_jax():
                                                   == 0).any()
     assert (ref["pr"][fluid] > inp["pressure"].numpy()[fluid]).any()
     # the wrapper takes the step's context, as the solver gives it
-    ctx = cuda_pcisph.step_pairs(starts, tpart, tp)
+    ctx = cuda_pairs.density_sum_list(starts, tpart, tp)[1]
     _wrapper_equals_plain(cuda_pcisph.d_rho_correct, (ctx, *args), got)
 
 
@@ -325,7 +325,7 @@ def test_pressure_accel_predict_plain_matches_jax():
     _close(got[1], ref["x_new"], tp, "x*")
     solid = tpart.material.numpy() == 0
     assert np.array_equal(got[0].numpy()[solid], tpart.v.numpy()[solid])
-    ctx = cuda_pcisph.step_pairs(starts, tpart, tp)
+    ctx = cuda_pairs.density_sum_list(starts, tpart, tp)[1]
     _wrapper_equals_plain(cuda_pcisph.pressure_accel_predict,
                           (ctx, *args), got)
 
@@ -567,13 +567,10 @@ def test_cli_checkpoint_interval_and_resume(tmp_path):
 def test_cuda_pcisph_needs_no_nvcc_to_import():
     """The module loads without a toolkit (the build happens at the first
     launch), and the kernel checks refuse CPU tensors."""
-    from sph_taichi_torch.ops import cuda_pairs
     params, part, _ = _torch_scene("small")
     with pytest.raises(ValueError, match="CUDA kernel"):
         cuda_pairs._check_common(None, part, params)
     names = {"pcisph_d_rho_correct", "pcisph_pressure_accel_predict"}
-    # each loop kernel's launches over cell runs and over the slot walk,
-    # and the step-start list's, built over the cell runs only
+    # each loop kernel's launches over cell runs and over the slot walk
     assert set(cuda_pcisph.LAUNCHES) == names | {n + "[slots]"
-                                                 for n in names} | {
-        "pcisph_step_pairs"}
+                                                 for n in names}

@@ -301,12 +301,7 @@ def test_wrappers_given_a_slot_map_on_cpu_equal_plain(module, kind):
 @pytest.mark.parametrize("module", [cuda_dfsph, cuda_iisph, cuda_pcisph],
                          ids=["dfsph", "iisph", "pcisph"])
 def test_every_kernel_counts_slot_launches(module):
-    # PCISPH's and IISPH's step-start lists are built over the cell runs
-    # only: the slot walk reads its map in the loop
-    cell_runs_only = {"pcisph_step_pairs", "iisph_step_pairs"} & set(
-        module.LAUNCHES)
-    names = [k for k in module.LAUNCHES
-             if not k.endswith("[slots]") and k not in cell_runs_only]
+    names = [k for k in module.LAUNCHES if not k.endswith("[slots]")]
     assert names
     assert sorted(module.LAUNCHES) == sorted(
-        names + [k + "[slots]" for k in names] + list(cell_runs_only))
+        names + [k + "[slots]" for k in names])

@@ -32,6 +32,15 @@ from sph_taichi_torch.utils.profiling import FATAL_KEYS, check_overflow
 from conftest import _clumped_positions, small_scene_dict
 from test_golden import _two_way_scene
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL, RTOL = 2e-5, 2e-4
 
 

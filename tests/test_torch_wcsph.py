@@ -20,6 +20,15 @@ from sph_taichi_torch.scene import compute_cube_particle_num
 from conftest import small_scene_dict
 from test_golden import _two_way_scene
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL, RTOL = 2e-5, 2e-4
 SCENES = {"small": small_scene_dict, "two_way": _two_way_scene}
 

@@ -55,6 +55,15 @@ from sph_taichi_torch.ops.slots import SlotMap, build_slot_map
 from conftest import small_scene_dict
 from test_torch_dfsph_compact import edge_positions, edge_scene
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL, RTOL = 2e-5, 2e-4
 K_LIST = pair_list.PAIR_LIST_ENTRIES
 SCENES = ["static", "edge"]

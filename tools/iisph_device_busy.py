@@ -1,19 +1,20 @@
-"""IISPH's step on dragon_bath at two time steps: device busy, step time.
+"""IISPH's step on dragon_bath at two time steps, and PCISPH's: device busy, step time.
 
     python3 tools/iisph_device_busy.py [--root DIR] [--steps N]
 
-Runs data/scenes/dragon_bath.json as IISPH (simulationMethod 2) through the
-``Simulation`` of the ``sph_taichi_torch`` package found under ``--root``
-(default: this checkout; another checkout, such as an unpacked parent
-commit, compares two versions on one card) at dt 4e-4 after 5 steps, and
-at dt 2e-3 once a step's pressure solve iterates more than once (the
-counts read every 10 steps, at most 400 steps, as chip_smoke.py's
-iterating phase).  At each, for ``--steps`` steps (5 by default): the step
-time (CUDA events around ``Simulation.run``), pressure iterations and host
-reads per step, then the same number of steps under torch.profiler: the
-device busy time per step (the kernels' summed device time), kernels per
-step and the idle share.  Prints one JSON line per dt and the card's name
-and power limit.  Needs a CUDA device; builds the package's kernels.
+Runs data/scenes/dragon_bath.json as IISPH (simulationMethod 2) and as
+PCISPH (1) through the ``Simulation`` of the ``sph_taichi_torch`` package
+found under ``--root`` (default: this checkout; another checkout, such as
+an unpacked parent commit, compares two versions on one card): IISPH at dt
+4e-4 after 5 steps, and at dt 2e-3 once a step's pressure solve iterates
+more than once (the counts read every 10 steps, at most 400 steps, as
+chip_smoke.py's iterating phase); PCISPH at dt 4e-4 after 5 steps.  At
+each, for ``--steps`` steps (5 by default): the step time (CUDA events
+around ``Simulation.run``), pressure iterations and host reads per step,
+then the same number of steps under torch.profiler: the device busy time
+per step (the kernels' summed device time), kernels per step and the idle
+share.  Prints one JSON line per run and the card's name and power limit.
+Needs a CUDA device; builds the package's kernels.
 """
 
 import argparse
@@ -45,13 +46,13 @@ def device_busy(sim, steps):
     return us / steps / 1e3, count / steps
 
 
-def measure(dt, steps):
+def measure(method, dt, steps):
     from sph_taichi_torch import SimConfig
     from sph_taichi_torch.simulation import Simulation
 
     with open("data/scenes/dragon_bath.json") as f:
         d = json.load(f)
-    d["Configuration"]["simulationMethod"] = 2
+    d["Configuration"]["simulationMethod"] = method
     d["Configuration"]["timeStepSize"] = dt
     sim = Simulation(config=SimConfig(config_dict=d), scene_dir=".")
     if dt < 1e-3:
@@ -76,7 +77,7 @@ def measure(dt, steps):
     step_ms = start.elapsed_time(end) / steps
     st = sim.read_solver_stats()
     busy, kernels = device_busy(sim, steps)
-    return {"dt": dt, "from_step": at, "step_ms": step_ms,
+    return {"method": method, "dt": dt, "from_step": at, "step_ms": step_ms,
             "iters_per_step": st["pressure_iters_sum"] / steps,
             "host_reads_per_step": st["pressure_host_reads"] / steps,
             "busy_ms": busy, "kernels_per_step": kernels,
@@ -98,10 +99,10 @@ def main():
     from sph_taichi_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(["pairs", "iisph"])
+    _build.build(["pairs", "dfsph", "iisph", "pcisph"])
     print(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s")
-    for dt in (4e-4, 2e-3):
-        print(json.dumps(measure(dt, args.steps)))
+    for method, dt in ((2, 4e-4), (2, 2e-3), (1, 4e-4)):
+        print(json.dumps(measure(method, dt, args.steps)), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

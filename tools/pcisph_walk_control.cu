@@ -1,5 +1,5 @@
 // The PCISPH loop kernels of sph_taichi_torch/csrc/pcisph.cu with the
-// step-start list walk replaced by a control, for
+// list walk replaced by a control, for
 // tools/pcisph_walk_control.py: the kernels' source is included as it is,
 // with the list walk of for_each_step_pair (PAIR_LIST_WALK,
 // pair_common.cuh) defined to control_listed_pair, which the kernels'

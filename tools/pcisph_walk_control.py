@@ -1,11 +1,11 @@
-"""Time PCISPH's loop kernels over the step-start pair list against the
-loop without it, and against controls of the list walk.
+"""Time PCISPH's loop kernels over the step's pair list against the loop
+without it, and against controls of the list walk.
 
 In a PCISPH step the loop kernels ``pcisph_d_rho_correct`` (g1) and
-``pcisph_pressure_accel_predict`` (g2) read the step-start pair list that
-``pcisph_step_pairs`` builds once per step (ops/cuda_pcisph.py
-``step_pairs``), 8 entries loaded ahead; a warp over the list walks the
-cells in one phase.  This script builds ``tools/pcisph_walk_control.cu``,
+``pcisph_pressure_accel_predict`` (g2) read the fluid rows of the step's
+pair list that the density kernel writes as it sums (ops/cuda_pairs.py
+``density_sum_list``), 8 entries loaded ahead; a warp over the list walks
+the cells in one phase.  This script builds ``tools/pcisph_walk_control.cu``,
 the same kernels with the list walk replaced: without the list, every warp
 walking the cells in two phases (the loop without the step-start list at
 its fastest) or in one (the kernels before the list); the list loaded 1 or
@@ -14,10 +14,10 @@ PCISPH states (``--at``: steps from the start; chip_smoke.py times its
 kernels at step 30) it checks that every design gives equal results
 bitwise, prints each build's registers, times each kernel (CUDA events,
 mean of 20 launches) in interleaved turns and the loop's kernels per step
-(the build and 3 x (g1 + g2) over the list, 3 x (g1 + g2) without it);
-then whole steps, with the loop over the list and without it (two-phase
-walk; the step still builds the list, which the non-pressure kernel reads
-before the loop): device busy time per step (torch.profiler) and step time
+(3 x (g1 + g2), over the list and without it); then whole steps, with the
+loop over the list and without it (two-phase walk; the density kernel
+still writes the list, which the non-pressure kernel reads before the
+loop): device busy time per step (torch.profiler) and step time
 (CUDA events), in interleaved turns, from the same state, states equal
 bitwise.  With
 ``--other DIR`` the shipped kernels of another checkout (its
@@ -54,11 +54,9 @@ CONTROLS = {NO_LIST: ["-DNO_LIST"],
             "list 1 deep": ["-DLIST_UNROLL=1"],
             "list 4 deep": ["-DLIST_UNROLL=4"],
             "list, two-phase walk over it": ["-DOVERFLOW_TWO_PHASE"]}
-# the launchers a control library serves through the shipped wrappers (the
-# list build too: the no-list twin's step still builds the list for d)
+# the launchers a control library serves through the shipped wrappers
 LAUNCHERS = ("pcisph_d_rho_correct_launch",
-             "pcisph_pressure_accel_predict_launch",
-             "pcisph_step_pairs_launch")
+             "pcisph_pressure_accel_predict_launch")
 
 
 def build_controls(other=None):
@@ -147,9 +145,8 @@ def step_ms(sim, steps):
 
 def kernels(sim, controls, turns):
     """Per-launch times at the state of ``sim``: g1 and g2 over the list
-    (shipped) and in each control of ``controls``, and the list build, in
-    turns, after checking that every design's results are equal
-    bitwise."""
+    (shipped) and in each control of ``controls``, in turns, after checking
+    that every design's results are equal bitwise."""
     import chip_smoke as cs
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
@@ -157,7 +154,6 @@ def kernels(sim, controls, turns):
     q, starts, plist, nl, (xp, vp, pressure, s_f), _ = \
         cs.pcisph_state_kernels(params, solver, state)
     dt = state.dt
-    buffers = {}
     # design -> (library or None for the shipped one, loop context)
     designs = {LIST: (None, plist)}
     designs.update({name: (lib, plist) for name, lib in controls.items()})
@@ -174,14 +170,9 @@ def kernels(sim, controls, turns):
                     raise AssertionError(f"{kernel} [{d}]: not equal to the "
                                          f"shipped list walk")
     print(f"  g1 and g2 equal bitwise in the {len(designs)} designs")
-    times = {("pcisph_step_pairs", LIST): []}
-    times.update({(k, d): [] for k in fns for d in designs})
+    times = {(k, d): [] for k in fns for d in designs}
     for _ in range(turns):
         for (k, d) in times:
-            if k == "pcisph_step_pairs":
-                times[k, d].append(cs.time_ms(lambda: cg.step_pairs(
-                    starts, q, params, buffers), 20))
-                continue
             lib, ctx = designs[d]
             with using(lib):
                 times[k, d].append(cs.time_ms(lambda: fns[k](ctx), 20))
@@ -191,17 +182,16 @@ def kernels(sim, controls, turns):
               f"{[round(x, 4) for x in t]})")
     g = ("pcisph_d_rho_correct", "pcisph_pressure_accel_predict")
     print(f"  the loop's kernels per step (3 iterations): {LIST} "
-          f"{med['pcisph_step_pairs', LIST] + 3 * sum(med[k, LIST] for k in g):.4f}"
-          f" ms (the build included), {NO_LIST} "
+          f"{3 * sum(med[k, LIST] for k in g):.4f} ms, {NO_LIST} "
           f"{3 * sum(med[k, NO_LIST] for k in g):.4f} ms, {ONE_PHASE} "
           f"{3 * sum(med[k, ONE_PHASE] for k in g):.4f} ms")
 
 
 def steps(sim, no_list, turns, per_turn=5):
     """Whole steps with the loop over the list and without it (every warp
-    walking the cells in two phases: the library ``no_list``; the list is
-    still built, for the non-pressure kernel) from the same state, in
-    interleaved turns: the states stay equal bitwise."""
+    walking the cells in two phases: the library ``no_list``; the density
+    kernel still writes the list, for the non-pressure kernel) from the
+    same state, in interleaved turns: the states stay equal bitwise."""
     from sph_taichi_torch.simulation import Simulation
 
     twin = Simulation(config=sim.config, scene_dir=ROOT)

@@ -13,7 +13,9 @@
 // Besides, control_density_pass_launch launches density_list_pass_kernel:
 // density_sum_list with the density term in a pass over the centre's
 // freshly written list (a centre over the list walks the cells in one
-// phase for its sum) instead of inside the candidate phase.
+// phase for its sum) instead of inside the candidate phase; and
+// control_build_launch launches list_build_kernel, a separate build of
+// every real centre's list (the candidate phase alone).
 // Every control adds each centre's pairs in the shipped walk's order, so
 // every result equals the shipped kernels' bitwise.
 // Build: nvcc <the flags of ops/_build.py> -I sph_taichi_torch/csrc
@@ -88,6 +90,28 @@ extern "C" int control_density_pass_launch(const float* x,
     density_list_pass_kernel<<<rows_grid(n_rows), kBlock, 0,
                                (cudaStream_t)stream>>>(
         x, material, m_V, CellRunWalk{starts}, idx, cnt, out, n_rows, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The list of every real centre, written by the candidate phase alone
+// (build_pair_list with no term; cnt 0 on padding rows).
+__global__ void list_build_kernel(const float* __restrict__ x,
+                                  CellRunWalk walk, int* __restrict__ idx,
+                                  int* __restrict__ cnt, int n_rows,
+                                  PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  build_pair_list(i < c.n_real, i, x, walk, c, idx, cnt, n_rows,
+                  [](int, float, float, float, float) {});
+}
+
+extern "C" int control_build_launch(const float* x, const int* starts,
+                                    int* idx, int* cnt, int n_rows,
+                                    PairConsts c, void* stream) {
+  if (n_rows > 0) {
+    list_build_kernel<<<rows_grid(n_rows), kBlock, 0,
+                        (cudaStream_t)stream>>>(x, CellRunWalk{starts}, idx,
+                                                cnt, n_rows, c);
   }
   return (int)cudaGetLastError();
 }

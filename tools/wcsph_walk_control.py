@@ -6,8 +6,9 @@ densities and writes every real centre's accepted pairs to the step's pair
 list as it runs the candidate phase of the two-phase walk, and
 ``wcsph_forces`` runs its pair body over the list (ops/cuda_pairs.py).  This
 script builds ``tools/wcsph_walk_control.cu`` (the same kernels with the
-force kernel's list walk replaced, and the density kernel with its term in
-a pass over its fresh list) and, at dragon_bath WCSPH states (``--at``:
+force kernel's list walk replaced, the density kernel with its term in a
+pass over its fresh list, and a separate list build) and, at dragon_bath
+WCSPH states (``--at``:
 steps from the start; chip_smoke.py times its kernels at step 55), times
 in interleaved turns (CUDA events, mean of 20 launches) each design's
 kernels per step:
@@ -17,8 +18,9 @@ kernels per step:
   phase (the design before the list);
 - (A) two phases: ``density_sum`` + ``wcsph_forces`` walking the cells in
   two phases (``for_each_neighbor_compact``), no list;
-- (B) separate build: ``density_sum`` + a list build (``iisph_step_pairs``,
-  the list of every real centre) + ``wcsph_forces`` over the list;
+- (B) separate build: ``density_sum`` + a list build (the candidate phase
+  alone writing every real centre's list) + ``wcsph_forces`` over the
+  list;
 - (C) density pass: the density term in a pass over the centre's fresh
   list + ``wcsph_forces`` over the list.
 
@@ -90,8 +92,27 @@ def build_controls():
         lib.control_density_pass_launch.argtypes = \
             shipped.density_sum_list_launch.argtypes
         lib.control_density_pass_launch.restype = ctypes.c_int
+        lib.control_build_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int, cp.PairConsts,
+                                     ctypes.c_void_p])
+        lib.control_build_launch.restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def separate_build(lib, starts, p, params, buffers):
+    """Design B's list: every real centre's, written by the control
+    library ``lib``'s separate build kernel into ``buffers``."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops import pair_list
+
+    dev, n, ptr, _, _ = cp._walk(starts, p, params)
+    idx, cnt = pair_list.list_buffers(buffers, n, dev)
+    rc = lib.control_build_launch(ptr["x"], ptr["starts"], idx.data_ptr(),
+                                  cnt.data_ptr(), n, cp.pair_consts(params),
+                                  cp._stream(dev))
+    cp._raise_on(rc, "control_build")
+    return pair_list.PairList(starts, idx, cnt)
 
 
 class _Pass:
@@ -112,7 +133,6 @@ def design(name, libs):
     for the pair kernels and, for the designs whose density kernel writes
     no list, a density call that gives the force kernel the context it
     reads (an unread list, or the separate build's)."""
-    from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import pair_list
 
@@ -125,7 +145,8 @@ def design(name, libs):
         def density_and_context(ctx, p, params, buffers=None):
             den = cp.density_sum(ctx, p, params)
             if name == BUILD:
-                return den, ci.step_pairs(ctx, p, params, buffers)
+                return den, separate_build(libs[PASS], ctx, p, params,
+                                           buffers)
             # the controls read no list: an unwritten one
             idx, cnt = pair_list.list_buffers(buffers, p.n, p.x.device)
             return den, pair_list.PairList(ctx, idx, cnt)
@@ -170,7 +191,6 @@ def kernels(sim, libs, turns):
     bitwise; each design's kernels per step."""
     import chip_smoke as cs
     from sph_taichi_torch.models import base
-    from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
 
     params, solver, state = sim.params, sim.solver, sim.state
@@ -193,8 +213,8 @@ def kernels(sim, libs, turns):
             starts, q, params, buffers),
         ("density_sum_list", PASS): lambda: cp.density_sum_list(
             starts, q, params, buffers),
-        ("iisph_step_pairs", BUILD): lambda: ci.step_pairs(
-            starts, q, params, build_buffers),
+        ("list build", BUILD): lambda: separate_build(
+            libs[PASS], starts, q, params, build_buffers),
         ("wcsph_forces", SHIPPED): lambda: forces(plist),
         ("wcsph_forces", ONE_PHASE): lambda: forces(plist),
         ("wcsph_forces", TWO_PHASE): lambda: forces(plist),
@@ -240,7 +260,7 @@ def kernels(sim, libs, turns):
         + med["wcsph_forces", ONE_PHASE],
         TWO_PHASE: med["density_sum", ONE_PHASE]
         + med["wcsph_forces", TWO_PHASE],
-        BUILD: med["density_sum", ONE_PHASE] + med["iisph_step_pairs", BUILD]
+        BUILD: med["density_sum", ONE_PHASE] + med["list build", BUILD]
         + med["wcsph_forces", SHIPPED],
         PASS: med["density_sum_list", PASS] + med["wcsph_forces", SHIPPED]}
     print("  the step's pair kernels per step (ms): " + ", ".join(
@@ -299,7 +319,7 @@ def main():
         timeout=60).stdout.strip()
     print(f"card: {smi}")
     t0 = time.perf_counter()
-    _build.build(["pairs", "iisph"])
+    _build.build(["pairs"])
     libs = build_controls()
     print(f"built in {time.perf_counter() - t0:.1f} s")
     sim = Simulation(config=cs.dragon_config(0), scene_dir=ROOT)
