@@ -121,24 +121,38 @@ Phases (any failure raises and exits non-zero):
    IISPH, PCISPH) against their plain versions over the slot lists on
    the clumped DFSPH, IISPH and PCISPH scenes, at a 20-particle cell
    (each also equal to its cell-run instantiation) and with a
-   40-particle overflow clump: all bitwise;
+   40-particle overflow clump: all bitwise, DFSPH's Jacobi kernels over
+   the step's list that e1 writes over the slot walk, the list against
+   its plain version (padding rows included);
 15. data/scenes/dragon_bath_dfsph.json (DFSPH) with
    ``backend="pallas_slots"`` through ``Simulation`` beside a cell-run
    twin: 20 timed steps after 3 on each, steps/s, iterations, host reads
    and max_layers_used per step; the slot run launches each kernel of
    the cell-run run as its ``[slots]`` instantiation as often, runs the
-   same iterations and holds the same state bitwise; six interleaved
-   turns of 5 steps; the slot kernels against their plain versions and
-   their cell-run instantiations at that state, times and bounds;
+   same iterations and holds the same state bitwise; the slot run's
+   device busy per step beside that of the Jacobi kernels' one-phase
+   slot design without the list (the control library of
+   tools/jacobi_walk_control.cu, built with the kernels), in the same
+   call; six interleaved turns of 5 steps; at that state the slot list
+   against its plain version, its walk profile (accepted pairs per fluid
+   centre, warps over the list, warps walking the map), the registers,
+   shared memory and resident blocks of e1's and the Jacobi kernels' slot
+   instantiations, the slot kernels against their plain versions and
+   their cell-run instantiations, times (the Jacobi kernels' also beside
+   the one-phase slot design on the same inputs, equal bitwise), bounds
+   and the list's design figures;
 16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
    after 5; the cell-run twins' pair kernels read density_sum_list's step
    list, which the slot run's density_sum[slots] does not write);
 17. the same for the scaled dynamic dragon as DFSPH (20 steps after 5):
    kernel c's and the reaction update's slot instantiations every step,
-   the reaction kernel against its plain version;
+   the reaction kernel against its plain version, the dynamic-rigid
+   centres that e1's slot list holds for it and the reaction variant's
+   time;
 18. (in phase 2) the two-phase Jacobi kernels (dfsph_divergence in both
    modes, dfsph_solver_dv with and without the reaction, over cell runs
-   and slots) against their plain versions bitwise on an edge scene (a
+   and over the slot list) against their plain versions bitwise on an
+   edge scene (a
    ~100-particle cell, lists that flush, warps in two columns, a dynamic
    rigid block), padding rows included, with the walk profile (torch,
    from the neighbour lists) and one kernel launched per wrapper call; (in
@@ -175,6 +189,17 @@ Phases (any failure raises and exits non-zero):
    offsets (kicked and un-kicked; PCISPH's edge-scene phase runs
    un-kicked d over its list); the walk profile; one kernel per wrapper
    call.
+23. (in phase 2) DFSPH's e1 over the slot walk writing the step's list
+   and the four Jacobi instantiations over it on the edge scene (the
+   cell overflows the slot map) and its corner form (the clump on a
+   corner of 8 cells: fluid centres over the list of 64), the dynamic
+   rigid block's centres listed for the reaction, padding densities and
+   velocities not 0: e1 (density, factor and list) and the Jacobi kernels
+   against their plain versions over
+   the slot lists bitwise, padding rows included; the walk profile over
+   the list; the Jacobi wrappers refuse the bare slot map; one kernel per
+   wrapper call; the registers, shared memory and resident blocks of
+   each slot instantiation.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -186,6 +211,8 @@ them in the same order (ops/pairs.py sum_in_order), so they are expected
 to agree to the bit; the tolerance is the bound that is held.
 """
 
+import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -316,6 +343,13 @@ ROW_COSTS = {
     "iisph_pressure_accel_advect_list": (68, 4, "real",
                                          IISPH_PRESSURE_FLOPS_PER_PAIR),
     "iisph_apply_A_list": (56, 5, "real", IISPH_APPLY_A_FLOPS_PER_PAIR),
+    # the DFSPH Jacobi kernels as this design runs them over the slot walk,
+    # reading the step's list (a design figure, as f1-f4's): the list's
+    # counts and entries read instead of the map
+    "dfsph_divergence_change_list": (44, 0, "fluid",
+                                     DIVERGENCE_FLOPS_PER_PAIR),
+    "dfsph_divergence_adv_list": (48, 4, "fluid", DIVERGENCE_FLOPS_PER_PAIR),
+    "dfsph_solver_dv_list": (52, 4, "fluid", SOLVER_DV_FLOPS_PER_PAIR),
 }
 
 
@@ -990,8 +1024,9 @@ def check_compact_walk_on_edge_scene(device):
         raise AssertionError("edge scene: no warp flushes twice or holds "
                              "two column groups")
     worst, checked = {}, 0
-    for ctx, lists_ in ((starts, nl), (smap, snl)):
-        suffix = "[slots]" if ctx is smap else ""
+    slist = slot_contexts(4, smap, p, params, "edge scene", snl)[1]
+    for ctx, lists_ in ((starts, nl), (slist, snl)):
+        suffix = "[slots]" if ctx is slist else ""
         for label, _, wrapper, plain, args in compact_calls(
                 params, solver, p, lists_):
             got = outputs(wrapper(ctx, *args))
@@ -1008,8 +1043,8 @@ def check_compact_walk_on_edge_scene(device):
                         f"plain version ({err:.3e})")
             checked += 1
     print(f"  {checked} kernel calls (divergence change / adv, solver_dv "
-          f"with and without the reaction, cell runs and slots) equal to "
-          f"their plain versions bitwise, padding rows included")
+          f"with and without the reaction, cell runs and the slot list) "
+          f"equal to their plain versions bitwise, padding rows included")
     from sph_taichi_torch.ops import cuda_dfsph as cd
 
     for label, _, wrapper, _, args in compact_calls(params, solver, p, nl):
@@ -1120,6 +1155,196 @@ def check_dfsph_on_edge_scene(device):
                 k in launched[0] for k in kernel):
             raise AssertionError(f"{name}: the wrapper launches {launched}")
     return {f"{k} (DFSPH edge scene)": v for k, v in worst.items()}
+
+
+def corner_positions(rng, params, x, material):
+    """``compact_edge_positions`` with the clump's ball centred on the
+    corner that cells (2..3, 3..4, 2..3) share: ~12 of its particles in
+    each of the 8 cells, none past the slot map's 32, each with ~100
+    neighbours, so fluid centres over the step's list of 64 over the slot
+    walk (tests/test_torch_dfsph_slot_list.py has the same generator)."""
+    x = compact_edge_positions(rng, params, x, material)
+    clump = np.linalg.norm(x - (np.array([2, 3, 2]) + 0.5)
+                           * params.grid_size, axis=1) \
+        < 0.46 * params.support_radius
+    x[clump] += np.float32(0.5 * params.grid_size)
+    return x
+
+
+def slot_list_profile(p, cnt, react, label):
+    """What the warps of DFSPH's Jacobi kernels do over the step's slot
+    list, from its counts ``cnt`` (every row; beyond the list too): warps
+    of 32 consecutive rows, the fluid rows walking and, with ``react``,
+    the dynamic-rigid ones (the list holds both).  A warp whose walking
+    lanes are all within the list reads it (its body runs as often as its
+    fullest lane's count); a warp holding a centre over the list walks the
+    slot map in one phase.  Prints and returns the figures."""
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES as k_list
+
+    n = p.n
+    nw = (n + 31) // 32
+    fluid = p.material == 1
+    dynr = p.is_dynamic_rigid() if react else torch.zeros_like(fluid)
+    walks = fluid | dynr
+
+    def per_warp(t):
+        out = torch.zeros(nw * 32, dtype=t.dtype, device=t.device)
+        out[:n] = t
+        return out.view(nw, 32)
+
+    cnt_w = cnt[walks].double()
+    live = per_warp(walks).any(1)
+    over = per_warp(walks & (cnt > k_list)).any(1)
+    wmax = per_warp(torch.where(walks, cnt, 0)).max(1).values
+    reads = live & ~over
+    fig = {"walking_centres": int(walks.sum()),
+           "dynamic_rigid_centres": int(dynr.sum()),
+           "accepted_mean": float(cnt_w.mean()),
+           "accepted_max": int(cnt_w.max()),
+           "accepted_p99": float(torch.quantile(cnt_w, 0.99)),
+           "centres_over_list": int((cnt_w > k_list).sum()),
+           "warps": int(live.sum()), "warps_over_list": int(over.sum()),
+           "warps_dynamic_rigid": int(per_warp(dynr).any(1).sum()),
+           "list_body_iters": float(wmax[reads].double().mean())
+           if bool(reads.any()) else 0.0}
+    print(f"{label} slot list walk profile (torch, from the list's counts): "
+          f"{fig['walking_centres']} walking centres ("
+          f"{fig['dynamic_rigid_centres']} dynamic rigid, in "
+          f"{fig['warps_dynamic_rigid']} warps), accepted pairs per centre "
+          f"mean {fig['accepted_mean']:.2f} max {fig['accepted_max']} p99 "
+          f"{fig['accepted_p99']:.1f}, {fig['centres_over_list']} over the "
+          f"list of {k_list}; {fig['warps']} warps walk, "
+          f"{fig['warps_over_list']} hold a centre over the list and walk "
+          f"the slot map in one phase; the list warps' body runs "
+          f"{fig['list_body_iters']:.1f} times per warp "
+          f"({fig['list_body_iters'] / max(fig['accepted_mean'], 1e-9):.2f}x "
+          f"the accepted pairs per centre)")
+    return fig
+
+
+def slot_occupancy():
+    """Prints the registers, shared memory and resident blocks of e1's and
+    the Jacobi kernels' slot instantiations (all over the step's list)."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    rows = [("dfsph_density_factor[slots] (writing the list)",
+             cd.occupancy("density_factor", True))]
+    for kernel, variant in itertools.product(("divergence", "solver_dv"),
+                                             (False, True)):
+        rows.append((f"{kernel}<{int(variant)}>[slots] (over the list)",
+                     cd.jacobi_occupancy(kernel, variant, True)))
+    for name, (regs, smem, blocks) in rows:
+        print(f"  {name}: {regs} registers, {smem} bytes of shared memory "
+              f"per block, {blocks} blocks of 128 per SM (occupancy "
+              f"{blocks * 4 / 64:.3f})")
+
+
+def check_dfsph_slot_list_on_edge_scenes(device):
+    """DFSPH's e1 over the slot walk with the step's list and the Jacobi
+    kernels over that list on the edge scene (its ~100-particle cell
+    overflows the slot map) and its corner form (no overflow; fluid
+    centres over the list of 64), the dynamic rigid block's centres listed
+    for the reaction, padding densities
+    and velocities not 0: e1's density, factor and list and the four
+    Jacobi instantiations against their plain versions over the slot lists
+    bitwise, padding rows included; the walk profile over the list; the
+    Jacobi wrappers refusing the bare slot map; one kernel per wrapper
+    call."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    worst = {}
+    for scene, place in (("edge", compact_edge_positions),
+                         ("corner", corner_positions)):
+        params, solver, p, nl, starts, diag = prepared(
+            compact_edge_scene(), device, seed=0, place=place)
+        n_real = params.n_fluid + params.n_solid
+        pad = torch.arange(3 * (p.n - n_real), dtype=torch.float32,
+                           device=device)
+        v, density = p.v.clone(), p.density.clone()
+        v[n_real:] = pad.reshape(-1, 3)
+        density[n_real:] = 1000.0 + pad[:p.n - n_real]
+        p = p._replace(v=v, density=density)
+        caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=128)
+        smap = build_slot_map(starts, params)
+        snl = slot_neighbor_list(smap, p.x, caps)
+        if int(snl.diag["neighbor_overflow"]) or \
+                bool(smap.diag["slot_overflow"]) != (scene == "edge"):
+            raise AssertionError(f"{scene}: slot lists or map {smap.diag}")
+        label = f"DFSPH slot list, {scene} scene"
+        print(f"{label}: {params.n_particles} particles ({params.n_solid} "
+              f"dynamic solids), max cell occupancy "
+              f"{int(diag['max_cell_occupancy'])}, slot map "
+              f"{ {k: int(x) for k, x in smap.diag.items()} }")
+        density, factor, slist = cd.density_factor_list(smap, p, params, {})
+        ref = cd.density_factor_list_plain(snl, p, params, "jacobi")
+        for field, a, b in (("density", density, ref[0]),
+                            ("factor", factor, ref[1])):
+            e = float((a.double() - b.double()).abs().max())
+            worst["dfsph_density_factor[slots]"] = max(
+                worst.get("dfsph_density_factor[slots]", 0.0), e)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: e1 {field} differs from "
+                                     f"its plain version ({e:.3e})")
+        check_pair_list(slist, snl, p, params, label, plain=(
+            "dfsph_density_factor[slots]'s list", *ref[2:]))
+        fig = slot_list_profile(p, slist.cnt, True, label)
+        if not fig["warps_dynamic_rigid"] or fig["warps_over_list"] >= \
+                fig["warps"] or (scene == "corner") != bool(
+                    fig["warps_over_list"]):
+            raise AssertionError(f"{label}: the scene misses an edge: {fig}")
+        q = p._replace(density=density, dfsph_factor=factor)
+        calls = compact_calls(params, solver, q, snl)
+        for name, _, wrapper, plain, args in calls:
+            for a, b in zip(outputs(wrapper(slist, *args)),
+                            outputs(plain(snl, *args))):
+                if b is None:
+                    continue
+                e = float((a.double() - b.double()).abs().max())
+                worst[name + "[slots]"] = max(
+                    worst.get(name + "[slots]", 0.0), e)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: {name} over the list "
+                                         f"differs from its plain version "
+                                         f"({e:.3e})")
+        print(f"  e1 (density, factor and list) and {len(calls)} Jacobi "
+              f"calls over the list equal to their plain versions bitwise, "
+              f"padding rows included")
+        for name, _, wrapper, _, args in calls:
+            try:
+                wrapper(smap, *args)
+            except TypeError:
+                continue
+            raise AssertionError(f"{name}: a bare slot map not refused")
+        print("  the Jacobi wrappers refuse the bare slot map")
+        if scene == "corner":
+            continue
+        buffers = {}
+        per_call = [("dfsph_density_factor[slots] (with the list)",
+                     "dfsph_density_factor[slots]",
+                     ("dfsph_density_factor_slot_kernel",),
+                     lambda: cd.density_factor_list(smap, p, params,
+                                                    buffers))]
+        for name, key, wrapper, _, args in calls:
+            kernel = ("dfsph_divergence_kernel<" if "divergence" in name
+                      else "dfsph_solver_dv_kernel<") + (
+                "true" if name.endswith(("adv", "<REACT>")) else "false")
+            per_call.append((name + "[slots] (over the list)",
+                             key + "[slots]", (kernel, "SlotWalk"),
+                             lambda w=wrapper, a=args: w(slist, *a)))
+        for name, key, kernel, fn in per_call:
+            before = cd.LAUNCHES[key]
+            launched, lost = kernels_per_call(fn)
+            counted = (cd.LAUNCHES[key] - before) / (2 + lost)
+            print(f"  {name}: one wrapper call launches {launched} (its count "
+                  f"{counted:g} per call; captures that lost the markers "
+                  f"{lost})")
+            if len(launched) != 1 or counted != 1 or not all(
+                    k in launched[0] for k in kernel):
+                raise AssertionError(f"{name}: the wrapper launches "
+                                     f"{launched}")
+    slot_occupancy()
+    return {f"{k} (slot list edge scenes)": x for k, x in worst.items()}
 
 
 def check_pcisph_on_edge_scene(device):
@@ -1881,12 +2106,12 @@ def dfsph_path(device, scene_path, warmup, steps):
         ev[1].record()
         q, pairs = solver.density_factor_and_pairs(q, ctx)
         ev[2].record()
-        q, _ = solver.divergence_solve(q, ctx, state.dt)
+        q, _ = solver.divergence_solve(q, pairs, state.dt)
         ev[3].record()
         q = base.compute_non_pressure_forces(q, pairs, solver.engine, params,
                                              predict_dt=state.dt)
         ev[4].record()
-        q, _ = solver.pressure_solve(q, ctx, state.dt)
+        q, _ = solver.pressure_solve(q, pairs, state.dt)
         ev[5].record()
         q = solver.advect(q, state.dt)
         q, _ = base.solve_rigid_body(q, state.rigid_rest_cm, params)
@@ -3983,6 +4208,64 @@ SLOT_ENTRIES = {
         "pcisph_d_rho_correct": ("pcisph_d_rho_correct",),
         "pcisph_pressure_accel_predict": ("pcisph_pressure_accel_predict",)},
 }
+# The design that DFSPH's Jacobi kernels over the slot walk had before
+# they read the step's list (one phase, no list): the control library of
+# tools/jacobi_walk_control.py, built beside the kernels; the slot DFSPH
+# phases time it on the same inputs and step with it (device busy)
+CONTROL_SRC = "tools/jacobi_walk_control.cu"
+CONTROL_LAUNCHERS = ("dfsph_density_factor_list_launch",
+                     "dfsph_divergence_launch", "dfsph_solver_dv_launch",
+                     "nonpressure_kick_launch", "nonpressure_accel_launch")
+CONTROL = {}
+
+
+def start_control_build():
+    """Starts nvcc on the one-phase control of DFSPH's Jacobi kernels:
+    (its library's path, the process)."""
+    from sph_taichi_torch.ops import _build
+
+    out = os.path.join("build", "walk_control")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.abspath(os.path.join(out, "libsmoke_control.so"))
+    return lib, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         lib, CONTROL_SRC], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish_control_build(lib, proc):
+    """Waits for the control's build, loads it with the shipped launchers'
+    signatures into ``CONTROL`` and prints its ptxas report."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    log = proc.communicate(timeout=900)[0]
+    if proc.returncode:
+        raise RuntimeError(f"{CONTROL_SRC}: nvcc exit {proc.returncode}\n"
+                           f"{log}")
+    control, shipped = ctypes.CDLL(lib), cd._lib()
+    for name in CONTROL_LAUNCHERS:
+        fn = getattr(control, name)
+        fn.argtypes = getattr(shipped, name).argtypes
+        fn.restype = ctypes.c_int
+    CONTROL["lib"] = control
+    print(f"{CONTROL_SRC} (the one-phase slot Jacobi kernels) built: "
+          + "; ".join(ln.strip() for ln in log.splitlines()
+                      if "Used" in ln and "registers" in ln))
+
+
+@contextlib.contextmanager
+def control_kernels():
+    """The DFSPH wrappers launching from the control library."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+
+    real = cd._lib
+    cd._lib = lambda: CONTROL["lib"]
+    try:
+        yield
+    finally:
+        cd._lib = real
+
+
 SLOT_SOURCES = {"dfsph": "sph_taichi_torch/csrc/dfsph.cu",
                 "nonpressure_accel": "sph_taichi_torch/csrc/dfsph.cu",
                 "iisph": "sph_taichi_torch/csrc/iisph.cu",
@@ -4076,6 +4359,27 @@ def outputs(r):
     return (r,) if torch.is_tensor(r) else tuple(r)
 
 
+def slot_contexts(method, smap, p, params, label=None, snl=None):
+    """label -> the context of a slot instantiation of ``solver_calls`` at
+    the sorted particles ``p``: their ``SlotMap``, or for DFSPH's Jacobi
+    kernels the step's list over it (``density_factor_list``'s, e1 over the
+    slot walk).  With ``snl`` (the slot lists) the list is held against
+    its plain version first, padding rows included.  Returns (that
+    function, the list or None)."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops.pair_list import step_pairs_plain
+
+    if method != 4:
+        return (lambda name: smap), None
+    slist = cd.density_factor_list(smap, p, params)[2]
+    if snl is not None:
+        check_pair_list(slist, snl, p, params, label, plain=(
+            "dfsph_density_factor[slots]'s list",
+            *step_pairs_plain(snl, p, "jacobi")))
+    return (lambda name: slist if "divergence" in name or "solver_dv" in name
+            else smap), slist
+
+
 def cell_run_contexts(method, starts, p, params):
     """label -> the context of a cell-run instantiation of ``solver_calls``
     at the sorted particles ``p``: their cell offsets, or for every PCISPH
@@ -4127,8 +4431,10 @@ def check_slot_solver_kernels_on_small_scenes(device):
                 raise AssertionError(f"{dropped} rows lose pairs [{kind}]")
             calls = solver_calls(method, params, solver, p, snl)
             cell_ctx = cell_run_contexts(method, starts, p, params)
+            slot_ctx = slot_contexts(method, smap, p, params,
+                                     f"method {method} [{kind}]", snl)[0]
             for label, _, wrapper, plain, args in calls:
-                got = outputs(wrapper(smap, *args))
+                got = outputs(wrapper(slot_ctx(label), *args))
                 ref = outputs(plain(snl, *args))
                 cell = outputs(wrapper(cell_ctx(label), *args)) \
                     if kind == "layers" else ref
@@ -4148,8 +4454,10 @@ def check_slot_solver_kernels_on_small_scenes(device):
                             f"to its cell-run instantiation")
                 labels.add(label)
             print(f"slot kernels d-g, method {method} [{kind}]: slot map "
-                  f"{d}; {len(calls)} instantiations equal to their plain "
-                  f"versions over the slot lists"
+                  f"{d}; {len(calls)} instantiations"
+                  + (" (the Jacobi kernels over e1's slot list)"
+                     if method == 4 else "")
+                  + " equal to their plain versions over the slot lists"
                   + (" and to their cell-run instantiations"
                      if kind == "layers" else "")
                   + f" bitwise; rows whose slot lists lose pairs {dropped}")
@@ -4165,7 +4473,9 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     beside a cell-run twin of the same scene stepped alike: ``warmup``
     steps on both, then ``steps`` timed on each (launch counts set to 0
     just before each run and read just after), 5 steps of the slot run
-    under the profiler (its device busy share) and 5 of the twin,
+    under the profiler (its device busy share; DFSPH: then 5 with the
+    Jacobi kernels' one-phase slot design of the control library and 5
+    more over the list, and two turns fewer) and as many of the twin,
     ``turns`` interleaved turns of ``per_turn`` steps.  The slot run must
     launch every kernel of the cell-run run as its ``[slots]``
     instantiation, as often; run the same iterations with the same host
@@ -4228,7 +4538,23 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     if busy_ms is not None:
         print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms slot "
               f"step: idle share {100 * (1 - busy_ms / step_ms):.1f}%")
-    cell.run(5 // cell.substeps, export=False)
+    profiled = 5
+    if params.simulation_method == 4:
+        # the Jacobi kernels' earlier slot design (one phase, no list) in
+        # the same call, between this design's runs; the results are equal
+        # bitwise, so the state stays the twin's
+        with control_kernels():
+            one_phase_ms = profile_steps(sim, 5)
+        again_ms = profile_steps(sim, 5)
+        profiled += 10
+        # the run keeps its length: the scaled dragon's slot map
+        # overflows from step ~58 (a cell past 32 particles at the contact)
+        turns = max(1, turns - 10 // per_turn)
+        print(f"{label} slot device busy per step (profiler, 5 steps each): "
+              f"Jacobi kernels over the step's list {busy_ms} / {again_ms} "
+              f"ms; one-phase Jacobi kernels, no list ({CONTROL_SRC}) "
+              f"{one_phase_ms} ms")
+    cell.run(profiled // cell.substeps, export=False)
 
     per = {"pallas_slots": [], "auto": []}
     for turn in range(turns):
@@ -4292,13 +4618,30 @@ def slot_solver_kernels(sim, method, launches, label):
     reset_all_launch_counts()     # comparison launches are not the path's
     ms, cell_ms, plain_ms, err, bounds = {}, {}, {}, {}, {}
     cell_ctx = cell_run_contexts(method, smap.starts, q, params)
+    slot_ctx, slist = slot_contexts(method, smap, q, params, label, snl)
+    if slist is not None:
+        fig = slot_list_profile(q, slist.cnt, bool(params.dynamic_rigid_ids),
+                                label)
+        slot_occupancy()
     for name, key, wrapper, plain, args in solver_calls(
             method, params, solver, q, snl, seeded=False):
-        ctx = cell_ctx(name)
-        ms[name] = time_ms(lambda: wrapper(smap, *args), 20)
+        ctx, sctx = cell_ctx(name), slot_ctx(name)
+        ms[name] = time_ms(lambda: wrapper(sctx, *args), 20)
         cell_ms[name] = time_ms(lambda: wrapper(ctx, *args), 20)
         plain_ms[name] = time_ms(lambda: plain(snl, *args), 3)
-        got, ref = outputs(wrapper(smap, *args)), outputs(plain(snl, *args))
+        got, ref = outputs(wrapper(sctx, *args)), outputs(plain(snl, *args))
+        if sctx is slist:
+            # the one-phase slot kernel without the list, same inputs
+            with control_kernels():
+                one_ms = time_ms(lambda: wrapper(sctx, *args), 20)
+                one = outputs(wrapper(sctx, *args))
+            if not all(b is None or torch.equal(a, b)
+                       for a, b in zip(one, got)):
+                raise AssertionError(f"{label} {name}: the one-phase slot "
+                                     f"kernel differs from the list kernel")
+            print(f"{name}[slots]: over the step's list {ms[name]:.4f} ms, "
+                  f"the one-phase slot kernel without it {one_ms:.4f} ms "
+                  f"({ms[name] / one_ms - 1:+.1%}), equal bitwise")
         cell = outputs(wrapper(ctx, *args))
         err[name] = 0.0
         for k, (a, b, c) in enumerate(zip(got, ref, cell)):
@@ -4320,6 +4663,20 @@ def slot_solver_kernels(sim, method, launches, label):
               f"{cell_ms[name]:.4f} ms, {ms[name] / cell_ms[name] - 1:+.1%})"
               f", plain {plain_ms[name]:.4f} ms, equal to the cell-run "
               f"instantiation bitwise")
+    if slist is not None:
+        # the list as the slot design writes (e1) and reads it (the Jacobi
+        # kernels), design figures beside the functions' bounds
+        listed = int(torch.clamp_max(slist.cnt, slist.idx.shape[0])
+                     .long().sum())
+        row_bound("dfsph_density_factor_list", n, map_bytes + 4 * listed,
+                  pairs, "dfsph_density_factor[slots] design figure (writing "
+                  "the list; not the bound)")
+        for name in ("dfsph_divergence_change", "dfsph_divergence_adv",
+                     "dfsph_solver_dv"):
+            row_bound(name + "_list", n, 4 * listed, pairs,
+                      f"{name}[slots] design figure (reading the list, "
+                      f"{fig['warps_over_list']} warps over it; not the "
+                      f"bound)")
     kernels = []
     for entry, names in SLOT_ENTRIES[method].items():
         w = [launches.get(k + "[slots]", 0) for k in names]
@@ -4384,11 +4741,13 @@ def main():
 
     t_start = t0 = time.perf_counter()
     sources = ["pairs", "dfsph", "iisph", "pcisph"]
+    control = start_control_build()
     _build.build(sources)
     print(f"kernels built from sph_taichi_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in sources:
         print(_build.build_log(name).strip())
+    finish_control_build(*control)
 
     worst = check_kernels_on_small_scenes(device)
     worst.update(check_dfsph_on_small_scenes(device))
@@ -4401,6 +4760,7 @@ def main():
     worst.update(check_iisph_on_edge_scene(device))
     worst.update(check_wcsph_on_edge_scene(device))
     worst.update(check_dfsph_on_edge_scene(device))
+    worst.update(check_dfsph_slot_list_on_edge_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

@@ -6,9 +6,10 @@
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
 // its specializations on the DFSPH path:
 //   dfsph_density_factor   <- models/dfsph.py density_and_factor (density
-//                             and the alpha factor in one walk); over the
-//                             cell runs dfsph_density_factor_list, which
-//                             also writes the step's pair list (below)
+//                             and the alpha factor in one walk), which
+//                             also writes the step's pair list (below):
+//                             dfsph_density_factor_list over the cell runs,
+//                             dfsph_density_factor_slot over the slot walk
 //   dfsph_divergence<ADV>  <- models/dfsph.py _density_change (ADV = false)
 //                             and _density_adv (ADV = true), each with the
 //                             per-centre error column of the Jacobi test
@@ -25,12 +26,10 @@
 // SlotWalk (the slot map of ops/slots.py), as in pairs.cu.
 //
 // Each epilogue is the unfused chain of the plain versions in
-// ops/cuda_dfsph.py, in the same operation order.  dfsph_density_factor over
-// the slot walk is not launched over the padding rows (its wrapper restores
-// them); every other kernel has a thread for every row and writes the
-// padding rows itself (density passed through and factor 0; 0 in adv and
-// errt; v passed through and acc 0 or passed through), so its wrapper
-// launches one kernel and nothing else.
+// ops/cuda_dfsph.py, in the same operation order.  Every kernel has a
+// thread for every row and writes the padding rows itself (density passed
+// through and factor 0; 0 in adv and errt; v passed through and acc 0 or
+// passed through), so its wrapper launches one kernel and nothing else.
 //
 // The Jacobi kernels (divergence, solver_dv) take an optional device flag
 // `active`: when it is 0 the launch returns at once and writes nothing, and
@@ -42,11 +41,11 @@
 // mostly hit L1/L2; the f32 work per real pair (20-60 operations) is far
 // below the card's rate.  Everything stays in registers.  The Jacobi
 // kernels, which a DFSPH step launches ~15 times, walk the cell runs in two
-// phases (pair_common.cuh for_each_neighbor_compact): the inclusion test
-// alone over the candidates, several candidates' loads in flight per lane,
-// then the pair body over the compacted accepted pairs, so the warp runs
-// the body with most lanes busy; over the slot walk they walk in one
-// phase.
+// phases (pair_common.cuh compact_cell_runs): the inclusion test alone
+// over the candidates, several candidates' loads in flight per lane, then
+// the pair body over the compacted accepted pairs, so the warp runs the
+// body with most lanes busy; over the slot walk they read the step's pair
+// list (below).
 //
 // The step's pair list over the cell runs: the positions do not move from
 // the density-and-factor kernel to the non-pressure kernel (the divergence
@@ -62,8 +61,18 @@
 // step nonpressure_kick<false> reads the fluid rows of the step's list,
 // which density_sum_list (pairs.cu) writes.  A warp holding a centre with
 // more accepted pairs than the list holds walks the cells in one phase
-// (the same pairs in the same order).  Over the slot walk both walk in
-// one phase.  The Jacobi kernels keep their two-phase walk.
+// (the same pairs in the same order).  Over the cell runs the Jacobi
+// kernels keep their two-phase walk.
+//
+// Over the slot walk the list goes to the Jacobi kernels: the solves move
+// v, not x, so every Jacobi launch of the step accepts e1's pairs.
+// dfsph_density_factor_slot keeps its one-phase walk and its sums and
+// writes the accepted j of every centre of the Jacobi kernels as it
+// walks: the fluid centres and, for the reaction variant of solver_dv,
+// the dynamic-rigid ones (which it walks for their list alone).
+// dfsph_divergence and dfsph_solver_dv run only their pair body over the
+// list (pair_common.cuh for_each_jacobi_pair).  nonpressure_kick keeps its
+// one-phase slot walk.
 
 #include "pair_common.cuh"
 
@@ -104,25 +113,39 @@ __device__ __forceinline__ void density_factor_out(
   }
 }
 
-// Over the slot walk (launched over the real rows).
-template <typename Walk>
-__global__ void dfsph_density_factor_kernel(
+// Over the slot walk for the DFSPH step: the sums of the one-phase walk,
+// and the accepted pairs of every fluid and dynamic-rigid centre (the
+// Jacobi kernels' centres) written to the step's list as it walks, as
+// build_pair_list writes them over the cell runs (idx, cnt; cnt 0 on
+// other rows).  One thread per row: padding rows keep their density and
+// get factor 0.
+__global__ void dfsph_density_factor_slot_kernel(
     const float* __restrict__ x, const int* __restrict__ material,
-    const float* __restrict__ m_V, const float* __restrict__ density_in,
-    Walk walk, float* __restrict__ density_out,
-    float* __restrict__ factor_out, PairConsts c) {
+    const int* __restrict__ is_dyn, const float* __restrict__ m_V,
+    const float* __restrict__ density_in, SlotWalk walk,
+    int* __restrict__ idx, int* __restrict__ cnt,
+    float* __restrict__ density_out, float* __restrict__ factor_out,
+    int n_rows, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const bool fluid = material[i] == 1;
+  if (i >= n_rows) return;
+  const int mat_i = i < c.n_real ? material[i] : -1;
+  const bool fluid = mat_i == 1;
+  const bool listed = fluid || (mat_i == 0 && is_dyn[i] != 0);
   float den = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, sq = 0.0f;
-  if (fluid) {
+  int n = 0;
+  if (listed) {
     for_each_neighbor_walk(
         i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
         [&](int j, float d0, float d1, float d2, float s) {
-          density_factor_pair(j, d0, d1, d2, s, material, m_V, c, den, g0,
-                              g1, g2, sq);
+          if (n < kPairListEntries) idx[n * n_rows + i] = j;
+          ++n;
+          if (fluid) {
+            density_factor_pair(j, d0, d1, d2, s, material, m_V, c, den,
+                                g0, g1, g2, sq);
+          }
         });
   }
+  cnt[i] = n;
   density_factor_out(i, fluid, den, g0, g1, g2, sq, m_V, density_in,
                      density_out, factor_out, c);
 }
@@ -150,6 +173,8 @@ __global__ void dfsph_density_factor_list_kernel(
                      density_out, factor_out, c);
 }
 
+// The Jacobi kernels take the step's list ``pl`` last: the cell-run
+// instantiations do not read it.
 template <bool ADV, typename Walk>
 __global__ void dfsph_divergence_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -157,7 +182,7 @@ __global__ void dfsph_divergence_kernel(
     const float* __restrict__ density, Walk walk,
     const float* __restrict__ dt_ptr, const unsigned char* __restrict__ active,
     float* __restrict__ adv_out, float* __restrict__ errt_out, int n_rows,
-    PairConsts c) {
+    PairConsts c, PairList pl) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool fluid = i < c.n_real && material[i] == 1;
@@ -168,8 +193,8 @@ __global__ void dfsph_divergence_kernel(
     xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
     vi0 = v[3 * i], vi1 = v[3 * i + 1], vi2 = v[3 * i + 2];
   }
-  for_each_neighbor_compact(
-      fluid, i, xi0, xi1, xi2, x, walk, c,
+  for_each_jacobi_pair(
+      fluid, i, xi0, xi1, xi2, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float s) {
         if (material[j] < 0) return;
         const PairGeom p = pair_geom(s);
@@ -206,7 +231,7 @@ __global__ void dfsph_solver_dv_kernel(
     const float* __restrict__ v, const float* __restrict__ acc, Walk walk,
     const float* __restrict__ dt_ptr,
     const unsigned char* __restrict__ active, float* __restrict__ v_out,
-    float* __restrict__ acc_out, int n_rows, PairConsts c) {
+    float* __restrict__ acc_out, int n_rows, PairConsts c, PairList pl) {
   if (active != nullptr && !*active) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int mat_i = i < c.n_real ? material[i] : -1;
@@ -224,8 +249,8 @@ __global__ void dfsph_solver_dv_kernel(
     k_i = kappa[i];
     q_i = REACT ? m_V[i] / fmaxf(density[i], 1e-30f) : 0.0f;
   }
-  for_each_neighbor_compact(
-      walks, i, xi0, xi1, xi2, x, walk, c,
+  for_each_jacobi_pair(
+      walks, i, xi0, xi1, xi2, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float s) {
         const int mat_j = material[j];
         const bool fluid_j = mat_j == 1;
@@ -335,56 +360,64 @@ __global__ void nonpressure_kick_kernel(
   }
 }
 
-// Over the slot walk only (slot_map not null); the cell runs take
-// dfsph_density_factor_list_launch.
-extern "C" int dfsph_density_factor_launch(
-    const float* x, const int* material, const float* m_V,
-    const float* density_in, const int* slot_map, int layers,
-    float* density_out, float* factor_out, PairConsts c, void* stream) {
-  if (slot_map == nullptr) return (int)cudaErrorInvalidValue;
-  if (c.n_real > 0) {
-    dfsph_density_factor_kernel<<<grid_for(c), kBlock, 0,
-                                  (cudaStream_t)stream>>>(
-        x, material, m_V, density_in, SlotWalk{slot_map, layers},
-        density_out, factor_out, c);
-  }
-  return (int)cudaGetLastError();
-}
-
 extern "C" int dfsph_pair_list_entries() { return kPairListEntries; }
 
-// The list ``idx`` is i32[kPairListEntries, n_rows]; ``cnt``, the density
-// and the factor have n_rows rows.
+// e1 with the step's list, over the walk its arguments select (cell
+// offsets ``starts``, or the slot map ``slot_map`` of ``layers`` layers;
+// ``is_dyn`` is read over the slot walk only, whose list also holds the
+// dynamic-rigid centres).  The list ``idx`` is i32[kPairListEntries,
+// n_rows]; ``cnt``, the density and the factor have n_rows rows.
 extern "C" int dfsph_density_factor_list_launch(
-    const float* x, const int* material, const float* m_V,
-    const float* density_in, const int* starts, int* idx, int* cnt,
-    float* density_out, float* factor_out, int n_rows, PairConsts c,
-    void* stream) {
+    const float* x, const int* material, const int* is_dyn,
+    const float* m_V, const float* density_in, const int* starts,
+    const int* slot_map, int layers, int* idx, int* cnt, float* density_out,
+    float* factor_out, int n_rows, PairConsts c, void* stream) {
   if (n_rows > 0) {
-    dfsph_density_factor_list_kernel<<<rows_grid(n_rows), kBlock, 0,
-                                       (cudaStream_t)stream>>>(
-        x, material, m_V, density_in, CellRunWalk{starts}, idx, cnt,
-        density_out, factor_out, n_rows, c);
+    if (slot_map) {
+      dfsph_density_factor_slot_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                         (cudaStream_t)stream>>>(
+          x, material, is_dyn, m_V, density_in, SlotWalk{slot_map, layers},
+          idx, cnt, density_out, factor_out, n_rows, c);
+    } else {
+      dfsph_density_factor_list_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                         (cudaStream_t)stream>>>(
+          x, material, m_V, density_in, CellRunWalk{starts}, idx, cnt,
+          density_out, factor_out, n_rows, c);
+    }
   }
   return (int)cudaGetLastError();
 }
 
 // The Jacobi and non-pressure launchers' walk arguments (starts, slot_map,
-// layers) select the instantiation (pair_common.cuh with_walk).
+// layers) select the instantiation (pair_common.cuh with_walk).  Over the
+// slot walk the Jacobi kernels read the step's list (list_idx, list_cnt),
+// which dfsph_density_factor_list_launch writes there, and a launch
+// without it is refused (cudaErrorInvalidValue); over the cell runs they
+// read no list.
+
+static bool jacobi_has_list(const int* slot_map, const int* list_idx,
+                            const int* list_cnt) {
+  return slot_map == nullptr || (list_idx != nullptr && list_cnt != nullptr);
+}
 
 extern "C" int dfsph_divergence_launch(
     const float* x, const float* v, const int* material, const float* m_V,
     const float* density, const int* starts, const int* slot_map,
-    int layers, const float* dt, const unsigned char* active, float* adv_out,
-    float* errt_out, int adv, int n_rows, PairConsts c, void* stream) {
+    int layers, const int* list_idx, const int* list_cnt, const float* dt,
+    const unsigned char* active, float* adv_out, float* errt_out, int adv,
+    int n_rows, PairConsts c, void* stream) {
+  if (!jacobi_has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
       using Walk = decltype(walk);
       auto kernel = adv ? dfsph_divergence_kernel<true, Walk>
                         : dfsph_divergence_kernel<false, Walk>;
       kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
           x, v, material, m_V, density, walk, dt, active, adv_out, errt_out,
-          n_rows, c);
+          n_rows, c, pl);
     });
   }
   return (int)cudaGetLastError();
@@ -394,16 +427,21 @@ extern "C" int dfsph_solver_dv_launch(
     const float* x, const int* material, const int* is_dyn, const float* m_V,
     const float* kappa, const float* density, const float* v,
     const float* acc, const int* starts, const int* slot_map, int layers,
-    const float* dt, const unsigned char* active, float* v_out,
-    float* acc_out, int react, int n_rows, PairConsts c, void* stream) {
+    const int* list_idx, const int* list_cnt, const float* dt,
+    const unsigned char* active, float* v_out, float* acc_out, int react,
+    int n_rows, PairConsts c, void* stream) {
+  if (!jacobi_has_list(slot_map, list_idx, list_cnt)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
     with_walk(starts, slot_map, layers, [&](auto walk) {
       using Walk = decltype(walk);
       auto kernel = react ? dfsph_solver_dv_kernel<true, Walk>
                           : dfsph_solver_dv_kernel<false, Walk>;
       kernel<<<rows_grid(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
           x, material, is_dyn, m_V, kappa, density, v, acc, walk, dt, active,
-          v_out, acc_out, n_rows, c);
+          v_out, acc_out, n_rows, c, pl);
     });
   }
   return (int)cudaGetLastError();
@@ -411,7 +449,7 @@ extern "C" int dfsph_solver_dv_launch(
 
 // Registers per thread, static shared memory per block and resident blocks
 // per SM of the Jacobi kernels' instantiation ``which`` (bit 0: ADV or
-// REACT; bit 1: solver_dv; bit 2: slot walk).
+// REACT; bit 1: solver_dv; bit 2: slot walk, over the step's list).
 extern "C" int dfsph_jacobi_occupancy(int which, int* regs, int* smem_bytes,
                                       int* blocks_per_sm) {
   const void* kernels[8] = {
@@ -436,14 +474,14 @@ extern "C" int dfsph_jacobi_occupancy(int which, int* regs, int* smem_bytes,
 }
 
 // Registers per thread, static shared memory per block and resident blocks
-// per SM of kernel ``which``: 0 density_factor_list, 1 density_factor over
-// the slot walk, 2 nonpressure_kick<true>, 3 nonpressure_kick<false> (over
-// the cell runs; 4, 5 over the slot walk).
+// per SM of kernel ``which``: 0 density_factor_list, 1 density_factor_slot
+// (both with the list), 2 nonpressure_kick<true>, 3
+// nonpressure_kick<false> (over the cell runs; 4, 5 over the slot walk).
 extern "C" int dfsph_occupancy(int which, int* regs, int* smem_bytes,
                                int* blocks_per_sm) {
   const void* kernels[6] = {
       (const void*)dfsph_density_factor_list_kernel,
-      (const void*)dfsph_density_factor_kernel<SlotWalk>,
+      (const void*)dfsph_density_factor_slot_kernel,
       (const void*)nonpressure_kick_kernel<true, CellRunWalk>,
       (const void*)nonpressure_kick_kernel<false, CellRunWalk>,
       (const void*)nonpressure_kick_kernel<true, SlotWalk>,

@@ -2,8 +2,8 @@
 // iisph.cu, pcisph.cu): the constants struct, the cubic-spline kernel and
 // its gradient, the neighbour walk (over cell runs or over the slot map,
 // and its form with the pair geometry at other positions), its two-phase
-// form (for_each_neighbor_compact), the step's pair list
-// (build_pair_list, for_each_listed_pair, for_each_step_pair), the
+// form (compact_cell_runs), the step's pair list (build_pair_list,
+// for_each_listed_pair, for_each_step_pair, for_each_jacobi_pair), the
 // viscosity and pressure pair terms, and the symmetric pressure
 // acceleration of the implicit solvers.
 //
@@ -195,7 +195,7 @@ __device__ __forceinline__ void for_each_neighbor_pinned(
 // ---------------------------------------------------------------------------
 // The two-phase walk: the pairs of for_each_neighbor_walk, in the same order
 // and with the same (d0, d1, d2, s), with the accepted pairs compacted
-// before the pair body (for_each_neighbor_compact).
+// before the pair body (compact_cell_runs).
 //
 // One thread per centre walking its candidates and running the pair body
 // wherever its test accepts leaves most lanes of a warp masked off in the
@@ -214,9 +214,10 @@ __device__ __forceinline__ void for_each_neighbor_pinned(
 //   block), so a centre has any number of neighbours and keeps its order.
 // tools/jacobi_walk_control.py times the Jacobi kernels over this walk
 // against one-phase walks with and without the batched candidate loads.
-// The slot walk keeps the one-phase walk: with a list, its dependent map
-// loads lose the L1 that the list's shared memory takes, and it measured
-// several times slower on an H100.
+// The slot walk does not take it: with a list, its dependent map loads
+// lose the L1 that the list's shared memory takes, and it measured several
+// times slower on an H100.  Over the slot walk the Jacobi kernels read the
+// step's pair list instead (for_each_jacobi_pair, below).
 //
 // Every thread of a block calls it, with ``walks`` false where the thread
 // has no centre: the warp-wide votes need all 32 lanes.
@@ -335,20 +336,6 @@ __device__ __forceinline__ void compact_cell_runs(
   flush();
 }
 
-// f(j, d0, d1, d2, s) for the pairs of for_each_neighbor_walk, in its
-// order: in two phases over the cell-run walk, in one over the slot walk.
-template <typename Walk, typename F>
-__device__ __forceinline__ void for_each_neighbor_compact(
-    bool walks, int i, float xi0, float xi1, float xi2,
-    const float* __restrict__ x, const Walk& walk, const PairConsts& c,
-    F&& f) {
-  if constexpr (kCompactWalk<Walk>) {
-    compact_cell_runs(walks, i, xi0, xi1, xi2, x, walk, c, f);
-  } else if (walks) {
-    for_each_neighbor_walk(i, xi0, xi1, xi2, x, walk, c, f);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The step's pair list.  On the WCSPH, IISPH and PCISPH steps the
 // positions stay the sort's from the density kernel to the advect (IISPH's
@@ -366,7 +353,10 @@ __device__ __forceinline__ void for_each_neighbor_compact(
 // DFSPH step from the density-and-factor kernel to the non-pressure kernel
 // (the solves before it move v, not x): dfsph_density_factor_list
 // (dfsph.cu) writes the fluid centres' list as it sums, and
-// nonpressure_kick reads it.
+// nonpressure_kick reads it; over the slot walk the DFSPH step's
+// density-and-factor kernel writes a list of the fluid and dynamic-rigid
+// centres in its one-phase walk, and the Jacobi kernels (divergence,
+// solver_dv) read it (for_each_jacobi_pair).
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -423,16 +413,17 @@ constexpr int kListUnroll = 8;
 
 // f(j, d0, d1, d2, s) over the pairs of for_each_neighbor_pinned, in its
 // order: read from the step's list ``pl``, or, in a warp that holds a
-// centre beyond the list, by the one-phase pinned walk.
+// centre beyond the list, by the one-phase pinned walk over ``walk`` (the
+// cell runs or the slot map).
 // (The two-phase walk there took the kernels to 70-74 registers and their
 // list walk a third slower; tools/pcisph_walk_control.py.)  Every thread
 // of a block calls it, with ``walks`` false where the thread has no
 // centre; (gi0, gi1, gi2) is xg_i.
-template <typename F>
+template <typename Walk, typename F>
 __device__ __forceinline__ void for_each_listed_pair(
     bool walks, int i, const float* __restrict__ x, float gi0, float gi1,
     float gi2, const float* __restrict__ xg, const PairList& pl,
-    const CellRunWalk& walk, const PairConsts& c, F&& f) {
+    const Walk& walk, const PairConsts& c, F&& f) {
   const int n = walks ? pl.cnt[i] : 0;
   if (__any_sync(0xffffffffu, n > kPairListEntries)) {
     if (walks) for_each_neighbor_pinned(i, x, xg, walk, c, f);
@@ -484,6 +475,27 @@ __device__ __forceinline__ void for_each_step_pair(
       for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x,
                              walk, c, f);
     }
+  }
+}
+
+// f(j, d0, d1, d2, s) for the pairs of for_each_neighbor_walk, in its
+// order, for DFSPH's Jacobi kernels: in two phases over the cell-run walk
+// (compact_cell_runs; no list), and over the slot walk read from the
+// step's list ``pl``, which the step's density-and-factor kernel writes
+// for the Jacobi kernels' centres, fluid and dynamic rigid
+// (for_each_listed_pair with xg = x: the same displacement and raw sum of
+// squares; a warp that holds a centre beyond the list walks the slot map
+// in one phase).  Every thread of a block calls it, with ``walks`` false
+// where the thread has no centre; (xi0, xi1, xi2) is x_i where it walks.
+template <typename Walk, typename F>
+__device__ __forceinline__ void for_each_jacobi_pair(
+    bool walks, int i, float xi0, float xi1, float xi2,
+    const float* __restrict__ x, const Walk& walk, const PairList& pl,
+    const PairConsts& c, F&& f) {
+  if constexpr (kCompactWalk<Walk>) {
+    compact_cell_runs(walks, i, xi0, xi1, xi2, x, walk, c, f);
+  } else {
+    for_each_listed_pair(walks, i, x, xi0, xi1, xi2, x, pl, walk, c, f);
   }
 }
 

@@ -5,10 +5,12 @@ solver -> non-pressure forces with the velocity kick -> constant-density
 pressure solver -> advection.  On the CUDA engine each pair sum is a
 kernel of ``ops/cuda_dfsph.py``; on the plain engine its plain version.
 The positions stay those of the sort until the advection, so on the CUDA
-engine over the cell runs the density-and-factor kernel writes the step's
-pair list of the fluid centres as it sums, and the non-pressure kernel
-reads it (``cuda_dfsph.density_factor_list``); the two solves keep the
-cell offsets.
+engine the density-and-factor kernel writes the step's pair list of the
+fluid centres as it sums (``cuda_dfsph.density_factor_list``), and every
+later pair kernel of the step is given that context: over the cell runs
+the non-pressure kernel reads the list (the two solves' kernels walk the
+cell runs in two phases), over the slot walk the two solves' kernels read
+it (the non-pressure kernel walks the slot map).
 
 The reference reads the average density error to the host every Jacobi
 iteration (DFSPH.py:248-257, 330-337).  Here each solve is
@@ -67,13 +69,14 @@ class DFSPHSolver(SPHBase):
         return self.density_factor_and_pairs(p, ctx)[0]
 
     def density_factor_and_pairs(self, p: Particles, ctx):
-        """``density_and_factor``, with the context of the step's
-        non-pressure kernel, which walks the same pairs at the same
-        positions: returns (p, that context).  On the CUDA engine over the
-        cell runs one kernel also writes the step's pair list into the
-        solver's buffers (``cuda_dfsph.density_factor_list``); otherwise
-        the context is ``ctx`` (the slot map) or the plain engine's
-        neighbour lists."""
+        """``density_and_factor``, with the context of the step's later
+        pair kernels (the two solves and the non-pressure kernel), which
+        walk the same pairs at the same positions: returns (p, that
+        context).  On the CUDA engine one kernel also writes the step's
+        pair list into the solver's buffers, a ``PairList`` over the cell
+        offsets or the slot map (``cuda_dfsph.density_factor_list``); on
+        CPU tensors the context is the slot map or the plain engine's
+        neighbour lists, and on the plain engine ``ctx``."""
         if self.engine.fused:
             density, factor, ctx = cuda_dfsph.density_factor_list(
                 ctx, p, self.params, self._pair_buffers)
@@ -213,15 +216,14 @@ class DFSPHSolver(SPHBase):
         return p._replace(v=v, x=torch.where(dyn, p.x + dt * v, p.x))
 
     def substep(self, p: Particles, ctx, dt):
-        # the non-pressure kernel's context: the pair list the
-        # density-and-factor kernel wrote, on the CUDA engine over the cell
-        # runs
+        # the later pair kernels' context: on the CUDA engine the pair list
+        # the density-and-factor kernel wrote
         p, pairs = self.density_factor_and_pairs(p, ctx)
-        p, metrics = self.divergence_solve(p, ctx, dt)
+        p, metrics = self.divergence_solve(p, pairs, dt)
         # non-pressure forces and the fluid kick v += dt * acc
         # (DFSPH.py:392-397) in one traversal
         p = compute_non_pressure_forces(p, pairs, self.engine, self.params,
                                         predict_dt=dt)
-        p, m = self.pressure_solve(p, ctx, dt)
+        p, m = self.pressure_solve(p, pairs, dt)
         metrics.update(m)
         return self.advect(p, dt), metrics

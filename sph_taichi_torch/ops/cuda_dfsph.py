@@ -5,10 +5,11 @@ Ports the specializations of the Pallas TPU kernel ``BlockEngine._kernel``
 hand-written CUDA C++ in ``csrc/dfsph.cu``:
 
 - ``density_factor_list`` (and ``density_factor``): density and the alpha
-  factor in one walk (models/dfsph.py density_and_factor); over the cell
-  runs its kernel also writes every fluid centre's accepted neighbours, in
-  the walk's order, to the step's pair list (ops/pair_list.py
-  ``PairList``), which the non-pressure kernel reads;
+  factor in one walk (models/dfsph.py density_and_factor); its kernel also
+  writes every fluid centre's accepted neighbours, in the walk's order, to
+  the step's pair list (ops/pair_list.py ``PairList``), which the
+  non-pressure kernel reads over the cell runs, and over the slot walk
+  every fluid and dynamic-rigid centre's, which the Jacobi kernels read;
 - ``divergence``: the velocity divergence sum, with the epilogue of
   ``_density_change`` (mode "change") or ``_density_adv`` (mode "adv"),
   and the per-centre column of the average density error;
@@ -42,14 +43,13 @@ versions ignore it.
 Padding rows get what the JAX package's ``restore_tail`` gives them
 (outputs that carry a field through keep its value, the others are 0):
 every kernel writes them itself, so each wrapper launches one kernel and
-nothing else, except ``density_factor`` over the slot walk, which is not
-launched over them and whose wrapper restores them.
+nothing else.
 
 ``divergence`` and ``solver_dv`` walk the cell runs in two phases
-(csrc/pair_common.cuh ``for_each_neighbor_compact``): accepted pairs are
+(csrc/pair_common.cuh ``compact_cell_runs``): accepted pairs are
 compacted into a list in shared memory before the pair body, in the
 one-phase walk's order (a list that may fill is flushed).  Over the slot
-walk they walk in one phase.
+walk they read the step's pair list (below).
 
 The step's pair list: the positions do not move from the density-and-factor
 kernel to the non-pressure kernel, and both walk the fluid centres.  Over
@@ -62,6 +62,19 @@ than ``PAIR_LIST_ENTRIES`` accepted pairs walks the cells in one phase
 inside the kernel.  On the card over the cell runs the non-pressure
 wrappers take only a ``PairList``, not bare cell offsets; on CPU tensors
 they take any context their plain versions read.
+
+Over the slot walk the list goes to the Jacobi kernels instead: the solves
+move v, not x, so every Jacobi launch of the step accepts the pairs of the
+density-and-factor kernel, which writes the list of the Jacobi kernels'
+centres (fluid, and dynamic rigid for the reaction) in its one-phase slot
+walk (``density_factor_list`` given a ``SlotMap`` returns a ``PairList``
+over it).  ``divergence`` and ``solver_dv`` given that context run only
+their pair body over the list (csrc/pair_common.cuh
+``for_each_jacobi_pair``); a warp holding a centre over the list walks
+the slot map in one phase.  On the card they refuse a bare ``SlotMap``
+(ops/pair_list.py ``jacobi_walk``); on CPU tensors they take any context
+their plain versions read.  ``nonpressure_kick`` keeps its one-phase slot
+walk.
 """
 
 import ctypes
@@ -131,13 +144,14 @@ def density_factor_plain(nl, p, params):
     return density, torch.where(fluid, factor, 0.0)
 
 
-def density_factor_list_plain(nl, p, params):
+def density_factor_list_plain(nl, p, params, centres="fluid"):
     """Plain version of ``density_factor_list``: (density, factor, idx,
     cnt), the ``density_factor_plain`` outputs and the step's pair list of
-    the fluid centres (``pair_list.step_pairs_plain``) from the plain
-    engine's neighbour lists ``nl`` of ``p``."""
+    ``centres`` (``pair_list.step_pairs_plain``: "fluid" over the cell
+    runs, "jacobi", the fluid and dynamic-rigid centres, over the slot
+    walk) from the plain engine's neighbour lists ``nl`` of ``p``."""
     return (*density_factor_plain(nl, p, params),
-            *pair_list.step_pairs_plain(nl, p, "fluid"))
+            *pair_list.step_pairs_plain(nl, p, centres))
 
 
 def divergence_plain(nl, p, v, density, dt, mode, params, active=None):
@@ -284,24 +298,19 @@ def _lib():
     lib = _build.load("dfsph")
     if not getattr(lib, "_typed", False):
         i32 = ctypes.c_int
-        lib.dfsph_density_factor_launch.argtypes = (
-            [_PTR] * 5 + [i32] + [_PTR] * 2 + [PairConsts, _PTR])
         lib.dfsph_density_factor_list_launch.argtypes = (
-            [_PTR] * 9 + [i32, PairConsts, _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 4 + [i32, PairConsts, _PTR])
         lib.dfsph_divergence_launch.argtypes = (
-            [_PTR] * 5 + WALK + [_PTR] * 4 + [ctypes.c_int] * 2
-            + [PairConsts, _PTR])
+            [_PTR] * 5 + WALK + [_PTR] * 6 + [i32] * 2 + [PairConsts, _PTR])
         lib.dfsph_solver_dv_launch.argtypes = (
-            [_PTR] * 8 + WALK + [_PTR] * 4 + [ctypes.c_int] * 2
-            + [PairConsts, _PTR])
+            [_PTR] * 8 + WALK + [_PTR] * 6 + [i32] * 2 + [PairConsts, _PTR])
         for fn in (lib.dfsph_jacobi_occupancy, lib.dfsph_occupancy):
             fn.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
         lib.nonpressure_kick_launch.argtypes = (
             [_PTR] * 6 + WALK + [_PTR] * 5 + [i32, PairConsts, _PTR])
         lib.nonpressure_accel_launch.argtypes = (
             [_PTR] * 6 + WALK + [_PTR] * 3 + [i32, PairConsts, _PTR])
-        for fn in (lib.dfsph_density_factor_launch,
-                   lib.dfsph_density_factor_list_launch,
+        for fn in (lib.dfsph_density_factor_list_launch,
                    lib.dfsph_divergence_launch, lib.dfsph_solver_dv_launch,
                    lib.dfsph_jacobi_occupancy, lib.dfsph_occupancy,
                    lib.nonpressure_kick_launch,
@@ -314,76 +323,60 @@ def _lib():
 
 
 def density_factor_list(ctx, p, params, buffers=None):
-    """The density and factor of the DFSPH step, with the context its
-    non-pressure kernel reads: (density, factor, ctx').  Given the cell
-    offsets of the sorted particles ``p``, one launch of
-    ``dfsph_density_factor_list`` computes both and writes every fluid
-    centre's accepted pairs to a ``PairList`` in ``buffers`` (a dict,
-    filled with the list's tensors at the first call and reused after;
-    None: new tensors).  Given a ``SlotMap``, the one-phase slot kernel,
-    and the map.  On CPU tensors the plain version over the context's
-    neighbour lists, and, given cell offsets, those lists, which
-    ``nonpressure_kick_plain`` reads (``density_factor_list_plain`` gives
-    them in the list's layout)."""
+    """The density and factor of the DFSPH step, with the context of the
+    kernels that read its pairs: (density, factor, ctx').  Given the cell
+    offsets of the sorted particles ``p``, or their ``SlotMap``, one launch
+    of ``dfsph_density_factor_list`` (``dfsph_density_factor_slot`` over
+    the slot walk) computes both and writes every fluid centre's accepted
+    pairs (over the slot walk also every dynamic-rigid centre's:
+    ``density_factor_list_plain`` with centres "jacobi") to a ``PairList``
+    over that walk in ``buffers`` (a dict, filled with the list's tensors
+    at the first call and reused after; None: new tensors).  On CPU
+    tensors the plain version over the context's neighbour lists, and,
+    given cell offsets, those lists, which the plain versions read
+    (``density_factor_list_plain`` gives them in the list's layout); given
+    a ``SlotMap``, the map."""
     if p.x.device.type == "cpu":
         nl = _plain_ctx(ctx, p, params)
         return (*density_factor_plain(nl, p, params),
                 ctx if isinstance(ctx, SlotMap) else nl)
-    if isinstance(ctx, SlotMap):
-        return (*_density_factor_slots(ctx, p, params), ctx)
-    dev, n, ptr, _, _ = _walk(ctx, p, params)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     idx, cnt = pair_list.list_buffers(buffers, n, dev)
     density = torch.empty_like(p.m_V)
     factor = torch.empty_like(p.m_V)
     rc = _lib().dfsph_density_factor_list_launch(
-        ptr["x"], ptr["material"], ptr["m_V"],
-        _check("density", p.density, torch.float32, (n,), dev),
-        ptr["starts"], idx.data_ptr(), cnt.data_ptr(), density.data_ptr(),
+        ptr["x"], ptr["material"],
+        _check("is_dynamic", p.is_dynamic, torch.int32, (n,), dev),
+        ptr["m_V"], _check("density", p.density, torch.float32, (n,), dev),
+        *walk, idx.data_ptr(), cnt.data_ptr(), density.data_ptr(),
         factor.data_ptr(), n, pair_consts(params), _stream(dev))
-    _raise_on(rc, "dfsph_density_factor")
-    LAUNCHES["dfsph_density_factor"] += 1
-    return density, factor, pair_list.PairList(ctx, idx, cnt)
-
-
-def _density_factor_slots(smap, p, params):
-    """(density, factor) from the one-phase slot kernel over the real rows;
-    the padding rows restored here."""
-    dev, n, ptr, walk, suffix = _walk(smap, p, params)
-    density = torch.empty_like(p.m_V)
-    factor = torch.empty_like(p.m_V)
-    rc = _lib().dfsph_density_factor_launch(
-        ptr["x"], ptr["material"], ptr["m_V"],
-        _check("density", p.density, torch.float32, (n,), dev), *walk[1:],
-        density.data_ptr(), factor.data_ptr(), pair_consts(params),
-        _stream(dev))
     name = "dfsph_density_factor" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    n_real = params.n_fluid + params.n_solid
-    density[n_real:] = p.density[n_real:]
-    factor[n_real:] = 0.0
-    return density, factor
+    return density, factor, pair_list.PairList(ctx, idx, cnt)
 
 
 def density_factor(ctx, p, params):
     """Kernel wrapper for ``density_factor_plain``: (density, factor), the
-    first two outputs of ``density_factor_list`` (over the cell runs its
-    list goes to new tensors).  ``ctx``: the cell offsets of the sorted
-    particles ``p`` (ops.grid.cell_offsets), or their ``SlotMap`` for the
-    slot walk."""
+    first two outputs of ``density_factor_list`` (its list goes to new
+    tensors).  ``ctx``: the cell offsets of the sorted particles ``p``
+    (ops.grid.cell_offsets), or their ``SlotMap`` for the slot walk."""
     return density_factor_list(ctx, p, params)[:2]
 
 
 def divergence(ctx, p, v, density, dt, mode, params, active=None):
-    """Kernel wrapper for ``divergence_plain``: (adv, errt).  ``ctx`` as
-    for ``density_factor``; ``density`` and ``dt`` (a 0-d f32 tensor on
-    the device) are read in mode "adv" only."""
+    """Kernel wrapper for ``divergence_plain``: (adv, errt).  ``ctx``: the
+    cell offsets of the sorted particles ``p`` or a ``PairList`` over them
+    (the two-phase kernel), or the ``PairList`` over their ``SlotMap`` that
+    ``density_factor_list`` gives (the list kernel); on CPU tensors also a
+    bare ``SlotMap`` or neighbour lists.  ``density`` and ``dt`` (a 0-d f32
+    tensor on the device) are read in mode "adv" only."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}, expected one of {MODES}")
     if p.x.device.type == "cpu":
         return divergence_plain(_plain_ctx(ctx, p, params), p, v,
                                 density, dt, mode, params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.jacobi_walk(ctx, p, params)
     f32 = torch.float32
     is_adv = mode == "adv"
     adv = torch.empty_like(p.m_V)
@@ -392,7 +385,7 @@ def divergence(ctx, p, v, density, dt, mode, params, active=None):
         ptr["x"], _check("v", v, f32, (n, 3), dev), ptr["material"],
         ptr["m_V"],
         _check("density", density, f32, (n,), dev) if is_adv else None,
-        *walk, _check("dt", dt, f32, (), dev) if is_adv else None,
+        *walk, *lst, _check("dt", dt, f32, (), dev) if is_adv else None,
         _active_ptr(active, dev), adv.data_ptr(), errt.data_ptr(),
         int(is_adv), n, pair_consts(params), _stream(dev))
     name = f"dfsph_divergence_{mode}" + suffix
@@ -403,11 +396,11 @@ def divergence(ctx, p, v, density, dt, mode, params, active=None):
 
 def solver_dv(ctx, p, kappa, v, acc, dt, react, params, active=None):
     """Kernel wrapper for ``solver_dv_plain``: (v, acc or None).  ``ctx``
-    as for ``density_factor``."""
+    as for ``divergence``."""
     if p.x.device.type == "cpu":
         return solver_dv_plain(_plain_ctx(ctx, p, params), p, kappa, v,
                                acc, dt, react, params)
-    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.jacobi_walk(ctx, p, params)
     f32 = torch.float32
     v_out = torch.empty_like(v)
     acc_out = torch.empty_like(acc) if react else None
@@ -418,7 +411,7 @@ def solver_dv(ctx, p, kappa, v, acc, dt, react, params, active=None):
         _check("density", p.density, f32, (n,), dev) if react else None,
         _check("v", v, f32, (n, 3), dev),
         _check("acc", acc, f32, (n, 3), dev) if react else None, *walk,
-        _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
+        *lst, _check("dt", dt, f32, (), dev), _active_ptr(active, dev),
         v_out.data_ptr(), acc_out.data_ptr() if react else None, int(react),
         n, pair_consts(params), _stream(dev))
     name = "dfsph_solver_dv" + suffix
@@ -445,9 +438,9 @@ def occupancy(kernel, slots=False):
     """(registers per thread, static shared memory bytes per block,
     resident blocks of 128 threads per SM) of ``kernel`` on the current
     CUDA device: "density_factor_list" (over the cell runs),
-    "density_factor" (over the slot walk), "nonpressure_kick" or
-    "nonpressure_accel" (over the cell runs, or the slot walk with
-    ``slots``)."""
+    "density_factor" (over the slot walk, with the list),
+    "nonpressure_kick" or "nonpressure_accel" (over the cell runs, or the
+    slot walk with ``slots``)."""
     which = {("density_factor_list", False): 0,
              ("density_factor", True): 1,
              ("nonpressure_kick", False): 2, ("nonpressure_accel", False): 3,

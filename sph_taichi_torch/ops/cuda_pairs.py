@@ -353,9 +353,12 @@ def _stream(dev):
 def _plain_ctx(ctx, p, params):
     """The plain engine's neighbour lists, for a wrapper given CPU
     tensors: the lists themselves, over the slot map for a ``SlotMap``,
-    else over the cell offsets."""
+    else over the cell offsets (a ``PairList``'s walk's)."""
+    from sph_taichi_torch.ops import pair_list   # it imports this module
     if isinstance(ctx, NeighborList):
         return ctx
+    if isinstance(ctx, pair_list.PairList):
+        ctx = ctx.walk
     if isinstance(ctx, SlotMap):
         return slot_neighbor_list(ctx, p.x, params)
     return GatherEngine(params).prepare(p.x, ctx)

@@ -18,6 +18,10 @@ the cell runs the list kernels' wrappers take only the list, not bare cell
 offsets.  The slot walk reads its map and no list.  DFSPH's step does the
 same from its density-and-factor kernel to its non-pressure kernel
 (ops/cuda_dfsph.py ``density_factor_list``), listing the fluid centres.
+Over the slot walk its density-and-factor kernel writes a list of the
+fluid and dynamic-rigid centres in its one-phase walk (a ``PairList``
+whose walk is the ``SlotMap``), and its Jacobi kernels read it
+(``jacobi_walk``); over the cell runs they keep their two-phase walk.
 
 ``step_pairs_plain`` is a list from the plain engine's neighbour lists
 (the plain versions of the list-writing kernels give it); on CPU tensors
@@ -39,25 +43,29 @@ PAIR_LIST_ENTRIES = 64
 
 
 class PairList(NamedTuple):
-    """A step's context over the cell runs: the cell offsets and the
-    step's pair list.  Entry k of row i's list at ``idx[k, i]``
-    (i32[PAIR_LIST_ENTRIES, n_pad]), valid for k < min(cnt[i],
-    PAIR_LIST_ENTRIES); ``cnt`` (i32[n_pad]) is each centre's number of
-    accepted pairs, also beyond the list, and 0 on rows that are not
-    centres."""
-    starts: torch.Tensor
+    """A step's context: its walk, the cell offsets (or, on the DFSPH step
+    over the slot walk, the ``SlotMap``), and the step's pair list.  Entry
+    k of row i's list at ``idx[k, i]`` (i32[PAIR_LIST_ENTRIES, n_pad]),
+    valid for k < min(cnt[i], PAIR_LIST_ENTRIES); ``cnt`` (i32[n_pad]) is
+    each centre's number of accepted pairs, also beyond the list, and 0 on
+    rows that are not centres."""
+    walk: object
     idx: torch.Tensor
     cnt: torch.Tensor
 
 
 def centre_rows(p, centres):
-    """bool[n]: the rows a list of ``centres`` ("fluid" or "real")
-    serves."""
+    """bool[n]: the rows a list of ``centres`` serves: "fluid", "real", or
+    "jacobi" (the rows DFSPH's Jacobi kernels walk: fluid and dynamic
+    rigid)."""
     if centres == "fluid":
         return p.is_fluid()
     if centres == "real":
         return p.material >= 0
-    raise ValueError(f"centres: {centres!r}, expected 'fluid' or 'real'")
+    if centres == "jacobi":
+        return p.is_fluid() | p.is_dynamic_rigid()
+    raise ValueError(f"centres: {centres!r}, expected 'fluid', 'real' or "
+                     f"'jacobi'")
 
 
 def check_entries(lib_entries, solver):
@@ -103,10 +111,9 @@ def list_buffers(buffers, n, dev):
     return buffers["idx"], buffers["cnt"]
 
 
-def _refuse(ctx, solver, kind, source="density_sum_list"):
+def _refuse(ctx, solver, kinds, source="density_sum_list"):
     raise TypeError(f"{solver}'s list kernels take the step's context from "
-                    f"{source} ({kind} or a SlotMap), not "
-                    f"{type(ctx).__name__}")
+                    f"{source} ({kinds}), not {type(ctx).__name__}")
 
 
 def loop_walk(ctx, p, params, solver, source="density_sum_list"):
@@ -117,12 +124,26 @@ def loop_walk(ctx, p, params, solver, source="density_sum_list"):
     if isinstance(ctx, SlotMap):
         return (*_walk(ctx, p, params), (None, None))
     if not isinstance(ctx, PairList):
-        _refuse(ctx, solver, "a PairList", source)
-    dev, n, ptr, walk, suffix = _walk(ctx.starts, p, params)
+        _refuse(ctx, solver, "a PairList or a SlotMap", source)
+    dev, n, ptr, walk, suffix = _walk(ctx.walk, p, params)
     lst = (_check("pair list", ctx.idx, torch.int32, (PAIR_LIST_ENTRIES, n),
                   dev),
            _check("pair counts", ctx.cnt, torch.int32, (n,), dev))
     return dev, n, ptr, walk, suffix, lst
+
+
+def jacobi_walk(ctx, p, params):
+    """``loop_walk`` of DFSPH's Jacobi kernels' context: over the cell runs
+    bare cell offsets or a ``PairList`` over them (the two-phase kernels,
+    which read no list); over the slot walk the ``PairList`` that
+    ``density_factor_list`` gives for a ``SlotMap`` (the list kernels).  A
+    bare ``SlotMap`` raises: its kernels would have no list to read."""
+    if isinstance(ctx, SlotMap):
+        _refuse(ctx, "dfsph_divergence and dfsph_solver_dv", "a PairList "
+                "over the slot map or the cell offsets", "density_factor_list")
+    if isinstance(ctx, PairList):
+        return loop_walk(ctx, p, params, "DFSPH")
+    return (*_walk(ctx, p, params), (None, None))
 
 
 def plain_loop_ctx(ctx, p, params, solver):
@@ -132,5 +153,5 @@ def plain_loop_ctx(ctx, p, params, solver):
     if isinstance(ctx, NeighborList):
         return ctx
     if not isinstance(ctx, SlotMap):
-        _refuse(ctx, solver, "neighbour lists on CPU tensors")
+        _refuse(ctx, solver, "neighbour lists on CPU tensors or a SlotMap")
     return _plain_ctx(ctx, p, params)

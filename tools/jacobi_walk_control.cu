@@ -1,13 +1,15 @@
 // The DFSPH Jacobi kernels of sph_taichi_torch/csrc/dfsph.cu with their
 // walk replaced by a one-phase control, for tools/jacobi_walk_control.py:
-// the kernels' source is included as it is, with for_each_neighbor_compact
-// renamed to control_walk.
+// the kernels' source is included as it is, with for_each_jacobi_pair
+// renamed to control_jacobi_pair, which reads no pair list.
 // - WALK_BATCHED: the one-phase walk over the cell runs, each lane loading
 //   kCompactUnroll candidates' positions before testing them, the pair
 //   body run where its test accepts (no list, no warp votes);
 // - otherwise the one-phase walk of for_each_neighbor_walk.
-// Both add each centre's pairs in the two-phase walk's order, so every
-// result equals the shipped kernels' bitwise.
+// Over the slot walk both take for_each_neighbor_walk: the slot kernels'
+// walk before they read the step's pair list.  Both add each centre's
+// pairs in the shipped walks' order, so every result equals the shipped
+// kernels' bitwise.
 // Build: nvcc <the flags of ops/_build.py> -I sph_taichi_torch/csrc
 //        [-DWALK_BATCHED] tools/jacobi_walk_control.cu
 
@@ -62,5 +64,14 @@ __device__ __forceinline__ void control_walk(
   for_each_neighbor_walk(i, xi0, xi1, xi2, x, walk, c, f);
 }
 
-#define for_each_neighbor_compact control_walk
+// for_each_jacobi_pair's signature; the step's list is not read
+template <typename Walk, typename F>
+__device__ __forceinline__ void control_jacobi_pair(
+    bool walks, int i, float xi0, float xi1, float xi2,
+    const float* __restrict__ x, const Walk& walk, const PairList&,
+    const PairConsts& c, F&& f) {
+  control_walk(walks, i, xi0, xi1, xi2, x, walk, c, f);
+}
+
+#define for_each_jacobi_pair control_jacobi_pair
 #include "dfsph.cu"

@@ -1,14 +1,18 @@
-"""Time the DFSPH Jacobi kernels' two-phase walk against one-phase controls.
+"""Time the DFSPH Jacobi kernels' walks against one-phase controls.
 
 ``dfsph_divergence`` (both modes) and ``dfsph_solver_dv`` walk the cell
-runs in two phases (csrc/pair_common.cuh ``for_each_neighbor_compact``).
-This script builds ``tools/jacobi_walk_control.cu`` twice, the same
-kernels with a one-phase walk: as ``for_each_neighbor_walk`` (one
-candidate at a time) and with each lane's candidate loads batched
-``kCompactUnroll`` deep.  At dragon_bath_dfsph states (``--at``: steps
-from the start; 28 is the state at which chip_smoke.py times the DFSPH
-kernels) it checks that the three designs give equal results bitwise and
-times each kernel (CUDA events, mean of 20 launches) in interleaved turns.
+runs in two phases (csrc/pair_common.cuh ``compact_cell_runs``) and, over
+the slot walk, read the step's pair list that the density-and-factor
+kernel writes (``for_each_jacobi_pair``).  This script builds
+``tools/jacobi_walk_control.cu`` twice, the same kernels with a one-phase
+walk and no list: as ``for_each_neighbor_walk`` (one candidate at a time)
+and with each lane's candidate loads over the cell runs batched
+``kCompactUnroll`` deep (over the slot map both controls walk as
+``for_each_neighbor_walk``).  At dragon_bath_dfsph states (``--at``:
+steps from the start; 28 is the state at which chip_smoke.py times the
+DFSPH kernels) it checks that the three designs give equal results
+bitwise, over the cell runs and over the slot map, and times each kernel
+(CUDA events, mean of 20 launches) in interleaved turns.
 
     python3 tools/jacobi_walk_control.py [--at 3 28] [--turns 3]
 
@@ -29,7 +33,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-DESIGNS = ("one-phase", "one-phase batched", "two-phase (shipped)")
+DESIGNS = ("one-phase", "one-phase batched",
+           "shipped (two-phase; list over slots)")
 
 
 def build_controls():
@@ -81,11 +86,12 @@ def using(module, lib):
 
 
 def dragon_states(device, at):
-    """Yields (steps, params, sorted particles, cell offsets, a stiffness
-    field, dt) at the dragon_bath_dfsph states ``at`` steps from the
-    start."""
+    """Yields (steps, params, sorted particles, cell offsets, the slot
+    walk's context (the step's list over the slot map), a stiffness field,
+    dt) at the dragon_bath_dfsph states ``at`` steps from the start."""
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops.slots import build_slot_map
     from sph_taichi_torch.simulation import Simulation
 
     sim = Simulation(os.path.join(ROOT, "data/scenes/dragon_bath_dfsph.json"),
@@ -100,7 +106,10 @@ def dragon_states(device, at):
         q = solver.density_and_factor(q, starts)
         adv, _ = cd.divergence(starts, q, q.v, None, None, "change", params)
         kappa = adv * (q.dfsph_factor / state.dt)
-        yield int(state.step_count), params, q, starts, kappa, state.dt
+        slots = cd.density_factor_list(build_slot_map(starts, params), q,
+                                       params)[2]
+        yield (int(state.step_count), params, q, starts, slots, kappa,
+               state.dt)
 
 
 def time_ms(fn, reps=20):
@@ -123,17 +132,20 @@ def compare(libs, at, turns):
     from sph_taichi_torch.ops import cuda_dfsph as cd
 
     names = list(libs)
-    for steps, params, q, starts, kappa, dt in dragon_states(
+    for steps, params, q, starts, slots, kappa, dt in dragon_states(
             torch.device("cuda"), at):
         print(f"dragon_bath_dfsph after {steps} steps: {params.n_particles} "
-              f"particles (fluid {params.n_fluid})")
-        calls = {
-            "change": lambda: cd.divergence(starts, q, q.v, None, None,
-                                            "change", params),
-            "adv": lambda: cd.divergence(starts, q, q.v, q.density, dt,
-                                         "adv", params),
-            "solver_dv": lambda: cd.solver_dv(starts, q, kappa, q.v, None,
-                                              dt, False, params)}
+              f"particles (fluid {params.n_fluid}); fluid centres over the "
+              f"slot list {int((slots.cnt > slots.idx.shape[0]).sum())}")
+        calls = {}
+        for walk, ctx in (("", starts), ("[slots]", slots)):
+            calls.update({
+                "change" + walk: lambda ctx=ctx: cd.divergence(
+                    ctx, q, q.v, None, None, "change", params),
+                "adv" + walk: lambda ctx=ctx: cd.divergence(
+                    ctx, q, q.v, q.density, dt, "adv", params),
+                "solver_dv" + walk: lambda ctx=ctx: cd.solver_dv(
+                    ctx, q, kappa, q.v, None, dt, False, params)})
         with using(cd, libs[names[0]]):
             ref = {name: fn() for name, fn in calls.items()}
         for design in names[1:]:

@@ -6,7 +6,10 @@ Builds ``sph_taichi_torch/csrc``'s libraries in each checkout (its own
 encodings dropped, so a function that moved inside the library compares
 equal).  Prints, per library, the kernels identical in both, those whose
 SASS differs (with their instruction counts), and those only one checkout
-has.
+has.  A kernel whose parameter list changed has a new mangled name: one
+that only each checkout has under the same demangled name and template
+arguments (``cu++filt`` or ``c++filt``) is compared as the same kernel and
+listed with its parameter lists.
 
     python3 tools/sass_diff.py OTHER_ROOT [--root ROOT] [--libs pairs dfsph]
 
@@ -54,6 +57,43 @@ def functions(lib):
     return out
 
 
+def demangled(names):
+    """{mangled name: demangled name} of ``names`` (empty without a
+    demangler)."""
+    tool = (shutil.which("cu++filt") or shutil.which("c++filt")
+            or "/usr/local/cuda/bin/cu++filt")
+    if not names or not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool], input="\n".join(names), check=True,
+                         capture_output=True, text=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+def split_params(name):
+    """(the demangled name with its template arguments, its parameter
+    list): split at the first '(' outside the template brackets."""
+    depth = 0
+    for k, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            return name[:k], name[k:]
+    return name, ""
+
+
+def renamed(a, b):
+    """[(key, name in a, name in b)] of the kernels only ``a`` and only
+    ``b`` has whose demangled names differ only in the parameter list."""
+    only_a, only_b = sorted(a.keys() - b.keys()), sorted(b.keys() - a.keys())
+    names = demangled(only_a + only_b)
+    keys_a = {split_params(names[k])[0]: k for k in only_a if k in names}
+    pairs = []
+    for k in only_b:
+        key = split_params(names.get(k, k))[0]
+        if k in names and key in keys_a:
+            pairs.append((key, keys_a[key], k, names))
+    return pairs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="the checkout to compare with")
@@ -66,15 +106,25 @@ def main():
         a, b = functions(theirs[lib]), functions(mine[lib])
         same = sorted(k for k in a.keys() & b.keys() if a[k] == b[k])
         diff = sorted(k for k in a.keys() & b.keys() if a[k] != b[k])
-        print(f"{lib}: {len(same)} kernels identical, {len(diff)} differ, "
-              f"{len(a.keys() - b.keys())} only in {args.other}, "
-              f"{len(b.keys() - a.keys())} only in {args.root}")
+        moved = renamed(a, b)
+        only_a = sorted(a.keys() - b.keys() - {m[1] for m in moved})
+        only_b = sorted(b.keys() - a.keys() - {m[2] for m in moved})
+        n_same = sum(a[ka] == b[kb] for _, ka, kb, _ in moved)
+        print(f"{lib}: {len(same) + n_same} kernels identical ({n_same} of "
+              f"them with a new parameter list), "
+              f"{len(diff) + len(moved) - n_same} differ, {len(only_a)} "
+              f"only in {args.other}, {len(only_b)} only in {args.root}")
         for k in diff:
             print(f"  differs: {k} ({len(a[k])} -> {len(b[k])} "
                   f"instructions)")
-        for k in sorted(a.keys() - b.keys()):
+        for key, ka, kb, names in moved:
+            print(f"  {'identical' if a[ka] == b[kb] else 'differs'}, "
+                  f"parameters {split_params(names[ka])[1]} -> "
+                  f"{split_params(names[kb])[1]}: {key} ({len(a[ka])} -> "
+                  f"{len(b[kb])} instructions)")
+        for k in only_a:
             print(f"  only in {args.other}: {k} ({len(a[k])} instructions)")
-        for k in sorted(b.keys() - a.keys()):
+        for k in only_b:
             print(f"  only in {args.root}: {k} ({len(b[k])} instructions)")
     return 0
 
