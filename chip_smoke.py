@@ -108,11 +108,15 @@ Phases (any failure raises and exits non-zero):
    time, plain time and bound;
 12. the slot path: data/scenes/dragon_bath.json (WCSPH) with
    ``backend="pallas_slots"`` through ``Simulation``, 50 timed steps after
-   5, steps/s beside the cell-run path's; the slot map's build time and
-   bytes, max_layers_used and the launch counts; the slot kernels against
-   their plain versions (the slot neighbour lists) and beside the cell-run
-   kernels at the dragon state; one slot step against one cell-run step
-   from the same state (expected: equal bitwise);
+   5, steps/s beside the cell-run path's, device busy per step; the slot
+   map's build time and bytes, max_layers_used and the launch counts
+   (density_sum_list[slots], which writes the step's list over the map,
+   = wcsph_forces[slots] = steps); the slot kernels against their plain
+   versions (the slot neighbour lists; the list too) and beside the
+   cell-run kernels at the dragon state, the list kernel beside the
+   one-phase density_sum[slots] (on no step), its walk profile, registers
+   and the design figure of the list's stores; one slot step against one
+   cell-run step from the same state (expected: equal bitwise);
 13. the scaled dynamic dragon as WCSPH (dt 4e-4) under
    ``backend="pallas_slots"``, 10 timed steps after 2: kernel c's slot
    instantiation once in ``initialize`` and once per step, against its
@@ -122,7 +126,8 @@ Phases (any failure raises and exits non-zero):
    the clumped DFSPH, IISPH and PCISPH scenes, at a 20-particle cell
    (each also equal to its cell-run instantiation) and with a
    40-particle overflow clump: all bitwise, DFSPH's Jacobi kernels over
-   the step's list that e1 writes over the slot walk, the list against
+   the step's list that e1 writes over the slot walk and PCISPH's g1 and
+   g2 over the list that density_sum_list[slots] writes, each list against
    its plain version (padding rows included);
 15. data/scenes/dragon_bath_dfsph.json (DFSPH) with
    ``backend="pallas_slots"`` through ``Simulation`` beside a cell-run
@@ -142,8 +147,15 @@ Phases (any failure raises and exits non-zero):
    the one-phase slot design on the same inputs, equal bitwise), bounds
    and the list's design figures;
 16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
-   after 5; the cell-run twins' pair kernels read density_sum_list's step
-   list, which the slot run's density_sum[slots] does not write);
+   after 5; density_sum_list[slots] writes the step's list over the map
+   as density_sum_list does over the cell runs, and the slot run launches
+   it as often): the slot IISPH and PCISPH steps' device busy; PCISPH's
+   g1 and g2 read the list, and its device busy stands beside that of
+   their one-phase slot design without the list (the control library of
+   tools/pcisph_walk_control.cu with ONE_PHASE, built with the kernels),
+   each kernel beside the control on the same inputs (equal bitwise), the
+   slot density kernel beside the one-phase density_sum[slots], the walk
+   profile over the list, registers and the list's design figures;
 17. the same for the scaled dynamic dragon as DFSPH (20 steps after 5):
    kernel c's and the reaction update's slot instantiations every step,
    the reaction kernel against its plain version, the dynamic-rigid
@@ -165,7 +177,7 @@ Phases (any failure raises and exits non-zero):
    pairs than the
    list holds, so warps reading the list beside warps walking the cells):
    the list against its plain version, g1 and g2 over the list and over
-   the slot map and un-kicked d over the list against their plain
+   the slot map's list and un-kicked d over the list against their plain
    versions bitwise, padding rows included; bare cell offsets refused; the
    walk profile with the list; one kernel per wrapper call;
 20. (in phase 2) IISPH's step list (density_sum_list's), f1, f2, f3
@@ -200,6 +212,17 @@ Phases (any failure raises and exits non-zero):
    the list; the Jacobi wrappers refuse the bare slot map; one kernel per
    wrapper call; the registers, shared memory and resident blocks of
    each slot instantiation.
+24. (in phase 2) the slot density kernel writing the step's list of every
+   real centre and PCISPH's g1 and g2 over it on the edge scene as PCISPH
+   (the cell overflows the slot map) and its corner form (fluid centres
+   over the list of 64: their warps walk the map in one phase, pinned),
+   at a seeded prediction, padding velocities and pressures not 0:
+   density_sum_list[slots] (sums and list), g1 and g2 against their plain
+   versions over the slot lists bitwise, padding rows included; the walk
+   profile over the list; the bare map refused by the wrappers (TypeError)
+   and by the launchers (cudaErrorInvalidValue); one kernel per wrapper
+   call; the registers, shared memory and resident blocks of each slot
+   instantiation.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -214,6 +237,7 @@ to agree to the bit; the tolerance is the bound that is held.
 import contextlib
 import ctypes
 import dataclasses
+import importlib
 import itertools
 import json
 import os
@@ -1222,21 +1246,55 @@ def slot_list_profile(p, cnt, react, label):
     return fig
 
 
-def slot_occupancy():
-    """Prints the registers, shared memory and resident blocks of e1's and
-    the Jacobi kernels' slot instantiations (all over the step's list)."""
+def slot_occupancy(method=4):
+    """Prints the registers, shared memory and resident blocks of the slot
+    instantiations that write and read the step's list: e1 and the Jacobi
+    kernels (``method`` 4), or the slot density kernel (beside the
+    one-phase ``density_sum[slots]``) and g1 and g2 (1)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops import cuda_pcisph as cg
 
-    rows = [("dfsph_density_factor[slots] (writing the list)",
-             cd.occupancy("density_factor", True))]
-    for kernel, variant in itertools.product(("divergence", "solver_dv"),
-                                             (False, True)):
-        rows.append((f"{kernel}<{int(variant)}>[slots] (over the list)",
-                     cd.jacobi_occupancy(kernel, variant, True)))
+    if method == 1:
+        rows = [("density_sum_list[slots] (writing the list)",
+                 cp.occupancy("density_sum_list", True)),
+                ("density_sum[slots] (one phase, no list)",
+                 cp.occupancy("density_sum", True))]
+        rows += [(f"{kernel}[slots] (over the list)",
+                  cg.occupancy(kernel, slots=True))
+                 for kernel in ("pcisph_d_rho_correct",
+                                "pcisph_pressure_accel_predict")]
+    else:
+        rows = [("dfsph_density_factor[slots] (writing the list)",
+                 cd.occupancy("density_factor", True))]
+        for kernel, variant in itertools.product(("divergence", "solver_dv"),
+                                                 (False, True)):
+            rows.append((f"{kernel}<{int(variant)}>[slots] (over the list)",
+                         cd.jacobi_occupancy(kernel, variant, True)))
     for name, (regs, smem, blocks) in rows:
         print(f"  {name}: {regs} registers, {smem} bytes of shared memory "
               f"per block, {blocks} blocks of 128 per SM (occupancy "
               f"{blocks * 4 / 64:.3f})")
+
+
+def slot_density_at_state(q, smap, snl, params, label):
+    """The slot density kernel writing the step's list beside the
+    one-phase ``density_sum[slots]`` on the same inputs (20 launches
+    each, CUDA events): the sums equal bitwise, and the list against its
+    plain version."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+
+    buffers = {}
+    ms = time_ms(lambda: cp.density_sum_list(smap, q, params, buffers), 20)
+    one_ms = time_ms(lambda: cp.density_sum(smap, q, params), 20)
+    den, slist = cp.density_sum_list(smap, q, params, buffers)
+    if not torch.equal(den, cp.density_sum(smap, q, params)):
+        raise AssertionError(f"{label}: density_sum_list[slots]'s sums "
+                             f"differ from density_sum[slots]'s")
+    check_pair_list(slist, snl, q, params, f"{label} slot density list")
+    print(f"{label}: density_sum_list[slots] (writing the list) {ms:.4f} ms, "
+          f"density_sum[slots] (one phase, no list) {one_ms:.4f} ms on the "
+          f"same inputs ({ms / one_ms - 1:+.1%}), sums equal bitwise")
 
 
 def check_dfsph_slot_list_on_edge_scenes(device):
@@ -1347,13 +1405,149 @@ def check_dfsph_slot_list_on_edge_scenes(device):
     return {f"{k} (slot list edge scenes)": x for k, x in worst.items()}
 
 
+def check_pcisph_slot_list_on_edge_scenes(device):
+    """The slot density kernel writing the step's list of every real
+    centre and PCISPH's g1 and g2 over that list on the edge scene as
+    PCISPH (its ~100-particle cell overflows the slot map) and its corner
+    form (no overflow; fluid centres over the list of 64, whose warps walk
+    the map in one phase, pinned), at a seeded prediction, padding
+    velocities and pressures not 0: density_sum_list[slots]'s sums and
+    list and g1 and g2 against their plain versions over the slot lists
+    bitwise, padding rows included; the walk profile over the list; the
+    bare map refused by the wrappers (TypeError) and by the launchers
+    (cudaErrorInvalidValue); one kernel per wrapper call."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops import cuda_pcisph as cg
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    worst = {}
+    scene_dict = compact_edge_scene()
+    scene_dict["Configuration"]["simulationMethod"] = 1
+    for scene, place in (("edge", compact_edge_positions),
+                         ("corner", corner_positions)):
+        params, solver, p, nl, starts, diag = prepared(
+            scene_dict, device, seed=0, place=place)
+        n_real = params.n_fluid + params.n_solid
+        pad = torch.arange(3 * (p.n - n_real), dtype=torch.float32,
+                           device=device)
+        v = p.v.clone()
+        v[n_real:] = pad.reshape(-1, 3)
+        p = p._replace(v=v, acc=cd.nonpressure_accel_plain(nl, p, params))
+        xp, vp, pressure, dt, s_f = pcisph_inputs(params, solver, p)
+        vp[n_real:] = -pad.reshape(-1, 3)
+        pressure[n_real:] = 100.0 + pad[:p.n - n_real]
+        caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=128)
+        smap = build_slot_map(starts, params)
+        snl = slot_neighbor_list(smap, p.x, caps)
+        if int(snl.diag["neighbor_overflow"]) or \
+                bool(smap.diag["slot_overflow"]) != (scene == "edge"):
+            raise AssertionError(f"{scene}: slot lists or map {smap.diag}")
+        label = f"PCISPH slot list, {scene} scene"
+        print(f"{label}: {params.n_particles} particles, max cell occupancy "
+              f"{int(diag['max_cell_occupancy'])}, slot map "
+              f"{ {k: int(x) for k, x in smap.diag.items()} }")
+        den, slist = cp.density_sum_list(smap, p, params, {})
+        ref_den = cp.density_sum_plain(snl, p.x, p.material, p.m_V, params)
+        e = float((den.double() - ref_den.double()).abs().max())
+        if not torch.equal(den, ref_den):
+            raise AssertionError(f"{label}: density_sum_list[slots]'s sums "
+                                 f"differ from their plain version ({e:.3e})")
+        worst["density_sum_list[slots]"] = max(e, check_pair_list(
+            slist, snl, p, params, label, plain=(
+                "density_sum_list[slots]'s list",
+                *cp.density_sum_list_plain(snl, p, params)[1:]))[0])
+        fig = slot_list_profile(p, slist.cnt, False, label)
+        if fig["warps_over_list"] >= fig["warps"] or \
+                (scene == "corner") != bool(fig["warps_over_list"]):
+            raise AssertionError(f"{label}: the scene misses an edge: {fig}")
+        if pairs_moved(snl, xp, params.support_radius)[0] == 0:
+            raise AssertionError(f"{label}: the prediction moved no pair "
+                                 f"out of the radius")
+        ref = cg.d_rho_correct_plain(snl, p, xp, vp, pressure, dt, s_f,
+                                     params)
+        ref2 = cg.pressure_accel_predict_plain(snl, p, xp, pressure, dt,
+                                               params)
+        calls = {
+            "pcisph_d_rho_correct": (lambda c: cg.d_rho_correct(
+                c, p, xp, vp, pressure, dt, s_f, params), ref),
+            "pcisph_pressure_accel_predict": (
+                lambda c: cg.pressure_accel_predict(c, p, xp, pressure, dt,
+                                                    params), ref2)}
+        for name, (fn, want) in calls.items():
+            for a, b in zip(fn(slist), want):
+                e = float((a.double() - b.double()).abs().max())
+                worst[name + "[slots]"] = max(
+                    worst.get(name + "[slots]", 0.0), e)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: {name} over the list "
+                                         f"differs from its plain version "
+                                         f"({e:.3e})")
+        print("  density_sum_list[slots] (sums and list), g1 and g2 over the "
+              "list equal to their plain versions bitwise, padding rows "
+              "included (padding velocities and pressures not 0)")
+        for name, (fn, _) in calls.items():
+            try:
+                fn(smap)
+            except TypeError:
+                continue
+            raise AssertionError(f"{name}: a bare slot map not refused")
+        # the launchers given the slot map and no list
+        _, n, ptr, walk, _ = cp._walk(smap, p, params)
+        out = [torch.empty_like(p.m_V) for _ in range(2)] + [
+            torch.empty_like(p.x) for _ in range(2)]
+        rcs = [cg._lib().pcisph_d_rho_correct_launch(
+                   ptr["x"], xp.data_ptr(), vp.data_ptr(), ptr["material"],
+                   ptr["m_V"], p.density.data_ptr(), pressure.data_ptr(),
+                   *walk, None, None, dt.data_ptr(), s_f.data_ptr(), None,
+                   out[0].data_ptr(), out[1].data_ptr(), n,
+                   cp.pair_consts(params), cp._stream(p.x.device)),
+               cg._lib().pcisph_pressure_accel_predict_launch(
+                   ptr["x"], xp.data_ptr(), ptr["material"], ptr["m_V"],
+                   p.density.data_ptr(), pressure.data_ptr(),
+                   p.v.data_ptr(), p.acc.data_ptr(), *walk, None, None,
+                   dt.data_ptr(), None, out[2].data_ptr(),
+                   out[3].data_ptr(), n,
+                   cp.pair_consts(params), cp._stream(p.x.device))]
+        torch.cuda.synchronize()
+        if rcs != [1, 1]:    # cudaErrorInvalidValue
+            raise AssertionError(f"{label}: the launchers given no list "
+                                 f"returned {rcs}")
+        print(f"  the wrappers refuse the bare slot map (TypeError), the "
+              f"launchers a launch without the list (CUDA error {rcs[0]}, "
+              f"cudaErrorInvalidValue)")
+        if scene == "corner":
+            continue
+        per_call = [("density_sum_list[slots] (writing the list)", cp,
+                     "density_sum_list[slots]", "density_sum_slot_kernel",
+                     lambda: cp.density_sum_list(smap, p, params, {}))]
+        per_call += [(f"{name}[slots] (over the list)", cg, name + "[slots]",
+                      f"{name}_kernel<SlotWalk>", lambda f=fn: f(slist))
+                     for name, (fn, _) in calls.items()]
+        for name, module, key, kernel, fn in per_call:
+            before = module.LAUNCHES[key]
+            launched, lost = kernels_per_call(fn)
+            counted = (module.LAUNCHES[key] - before) / (2 + lost)
+            print(f"  {name}: one wrapper call launches {launched} (its count "
+                  f"{counted:g} per call; captures that lost the markers "
+                  f"{lost})")
+            if len(launched) != 1 or counted != 1 or kernel not in \
+                    launched[0]:
+                raise AssertionError(f"{name}: the wrapper launches "
+                                     f"{launched}")
+    slot_occupancy(1)
+    return {f"{k} (PCISPH slot list edge scenes)": x
+            for k, x in worst.items()}
+
+
 def check_pcisph_on_edge_scene(device):
     """PCISPH's loop kernels over the step's list (``density_sum_list``'s)
     on the edge scene (a ~100-particle cell: centres over the list, so
     warps that read the list beside warps that walk the cells in one
     phase) at a seeded prediction: g1 and g2 over the list and over the
-    slot map (the cell overflows its 32 slots) and un-kicked d over the
-    list against their plain versions bitwise, padding rows included, and
+    slot map's list (the cell overflows its 32 slots) and un-kicked d over
+    the list against their plain versions bitwise, padding rows included,
+    and
     refusing the bare cell offsets; the list against its plain version;
     the walk profile; one kernel per wrapper call."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
@@ -1385,7 +1579,9 @@ def check_pcisph_on_edge_scene(device):
     smap = build_slot_map(starts, params)
     snl = slot_neighbor_list(smap, p.x, caps)
     checked = 0
-    for ctx, lists_, how in ((pairs, nl, "list"), (smap, snl, "slots")):
+    # over the slot walk, the list that the slot density kernel writes
+    slist = cp.density_sum_list(smap, p, params, {})[1]
+    for ctx, lists_, how in ((pairs, nl, "list"), (slist, snl, "slots")):
         ref = cg.d_rho_correct_plain(lists_, p, xp, vp, pressure, dt, s_f,
                                      params)
         ref2 = cg.pressure_accel_predict_plain(lists_, p, xp, ref[0], dt,
@@ -3930,11 +4126,13 @@ def volume_path(device, warmup, steps):
 
 def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     """dragon_bath (WCSPH) with ``backend="pallas_slots"`` through
-    ``Simulation``: the slot instantiations of density_sum and
-    wcsph_forces once per step; the map's build time and bytes; the slot
-    kernels against their plain versions and the cell-run kernels at the
-    dragon state; one slot step against one cell-run step from the same
-    state.  Returns the two kernels' JSON entries."""
+    ``Simulation``: the slot instantiations of density_sum_list (writing
+    the step's list) and wcsph_forces once per step; the map's build time
+    and bytes; the slot kernels against their plain versions and the
+    cell-run kernels at the dragon state, the list kernel beside the
+    one-phase density_sum[slots] (on no step); one slot step against one
+    cell-run step from the same state.  Returns the three kernels' JSON
+    entries."""
     from sph_taichi_torch import build_solver
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pairs as cp
@@ -3977,7 +4175,8 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
           f"{int(m['max_cell_occupancy_engine'])}, slot_overflow "
           f"{bool(m['slot_overflow'])}; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    expect = {"density_sum[slots]": steps, "wcsph_forces[slots]": steps}
+    expect = {"density_sum_list[slots]": steps,
+              "wcsph_forces[slots]": steps}
     for name, count in launches.items():
         if count != expect.get(name, 0):
             raise AssertionError(f"{name}: {count} launches in {steps} slot "
@@ -4006,8 +4205,9 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
           f"cell-run simulations hold the same state bitwise: {same}")
     busy_ms = profile_steps(sim, 10)
     if busy_ms is not None:
-        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
-              f"idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+        print(f"dragon_bath WCSPH slot device busy {busy_ms:.4f} ms of the "
+              f"{step_ms:.4f} ms step: idle share "
+              f"{100 * (1 - busy_ms / step_ms):.1f}%")
     check_state(sim)
 
     solver, state = sim.solver, sim.state
@@ -4030,6 +4230,9 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     dt = state.dt
     reset_all_launch_counts()
     ms, plain_ms, err = {}, {}, {}
+    slot_buffers = {}
+    ms["density_sum_list[slots]"] = time_ms(
+        lambda: cp.density_sum_list(smap, q, params, slot_buffers), 20)
     ms["density_sum[slots]"] = time_ms(
         lambda: cp.density_sum(smap, q, params), 20)
     ms["density_sum"] = time_ms(lambda: cp.density_sum(starts, q, params), 20)
@@ -4045,6 +4248,8 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
         20)
     plain_ms["density_sum[slots]"] = time_ms(
         lambda: cp.density_sum_plain(snl, q.x, q.material, q.m_V, params), 3)
+    plain_ms["density_sum_list[slots]"] = time_ms(
+        lambda: cp.density_sum_list_plain(snl, q, params), 3)
     plain_ms["wcsph_forces[slots]"] = time_ms(
         lambda: cp.wcsph_forces_plain(snl, q, dpi, p_r02, m_nc, rr0, dt,
                                       params), 3)
@@ -4053,6 +4258,14 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     err["density_sum[slots]"] = max_errors(
         cp.density_sum(smap, q, params), cp.density_sum_plain(
             snl, q.x, q.material, q.m_V, params), "dragon density_sum[slots]")
+    den, slist = cp.density_sum_list(smap, q, params, slot_buffers)
+    err["density_sum_list[slots]"] = max(check_pair_list(
+        slist, snl, q, params, "dragon density_sum_list[slots]")[0],
+        max_errors(den, cp.density_sum_plain(snl, q.x, q.material, q.m_V,
+                                             params),
+                   "dragon density_sum_list[slots] (sums)"))
+    fig = slot_list_profile(q, slist.cnt, False, "dragon_bath WCSPH")
+    slot_occupancy(1)
     err["wcsph_forces[slots]"] = 0.0
     for name, a, b in zip(("x", "v", "acc"),
                           cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt,
@@ -4088,9 +4301,19 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     den_bytes = n * (12 + 4 + 4) + 4 * n + den_map
     frc_bytes = n * (12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4) + 4 + n * 36 \
         + frc_map
+    # the list as the slot density kernel writes it (every real centre's
+    # entries and count): a design figure beside the function's bound
+    listed = int(torch.clamp_max(slist.cnt, slist.idx.shape[0]).long().sum())
+    bound("density_sum_list[slots] design figure (writing the list, "
+          f"{fig['accepted_max']} pairs at most per fluid centre; not the "
+          "bound)", den_bytes + 4 * listed + 4 * n,
+          pairs * DENSITY_FLOPS_PER_PAIR)
     bounds = {
         "density_sum[slots]": bound("density_sum[slots]", den_bytes,
                                     pairs * DENSITY_FLOPS_PER_PAIR),
+        "density_sum_list[slots]": bound("density_sum_list[slots]",
+                                         den_bytes,
+                                         pairs * DENSITY_FLOPS_PER_PAIR),
         "wcsph_forces[slots]": bound("wcsph_forces[slots]", frc_bytes,
                                      int(snl.cnt[walkers].long().sum())
                                      * FORCES_FLOPS_PER_PAIR)}
@@ -4101,7 +4324,8 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
              "ms": ms[name], "plain_ms": plain_ms[name],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
              "library_ms": None}
-            for name in ("density_sum[slots]", "wcsph_forces[slots]")]
+            for name in ("density_sum_list[slots]", "density_sum[slots]",
+                         "wcsph_forces[slots]")]
 
 
 def slot_volume_path(device, warmup, steps):
@@ -4144,7 +4368,8 @@ def slot_volume_path(device, warmup, steps):
               f"{ {k: v for k, v in launches.items() if v} }; dense path "
               f"calls {calls['dense']}")
         expect = {"boundary_volume[slots]": steps,
-                  "density_sum[slots]": steps, "wcsph_forces[slots]": steps}
+                  "density_sum_list[slots]": steps,
+                  "wcsph_forces[slots]": steps}
         if {k: v for k, v in launches.items() if v} != expect or \
                 calls["dense"]:
             raise AssertionError(f"launches {launches}, expected {expect}")
@@ -4208,62 +4433,83 @@ SLOT_ENTRIES = {
         "pcisph_d_rho_correct": ("pcisph_d_rho_correct",),
         "pcisph_pressure_accel_predict": ("pcisph_pressure_accel_predict",)},
 }
-# The design that DFSPH's Jacobi kernels over the slot walk had before
-# they read the step's list (one phase, no list): the control library of
-# tools/jacobi_walk_control.py, built beside the kernels; the slot DFSPH
-# phases time it on the same inputs and step with it (device busy)
-CONTROL_SRC = "tools/jacobi_walk_control.cu"
-CONTROL_LAUNCHERS = ("dfsph_density_factor_list_launch",
-                     "dfsph_divergence_launch", "dfsph_solver_dv_launch",
-                     "nonpressure_kick_launch", "nonpressure_accel_launch")
+# The designs that the list kernels over the slot walk had before they read
+# the step's list (one phase, no list), per solver: DFSPH's Jacobi kernels
+# (the control library of tools/jacobi_walk_control.py) and PCISPH's loop
+# kernels (tools/pcisph_walk_control.cu with ONE_PHASE), each built beside
+# the kernels; the slot DFSPH and PCISPH phases time them on the same
+# inputs and step with them (device busy).  method -> (source, nvcc
+# flags, the module whose launchers it serves, those launchers, what it is)
+CONTROLS = {
+    4: ("tools/jacobi_walk_control.cu", [], "cuda_dfsph",
+        ("dfsph_density_factor_list_launch", "dfsph_divergence_launch",
+         "dfsph_solver_dv_launch", "nonpressure_kick_launch",
+         "nonpressure_accel_launch"), "the one-phase slot Jacobi kernels"),
+    1: ("tools/pcisph_walk_control.cu", ["-DONE_PHASE"], "cuda_pcisph",
+        ("pcisph_d_rho_correct_launch",
+         "pcisph_pressure_accel_predict_launch"),
+        "the one-phase slot loop kernels of PCISPH"),
+}
 CONTROL = {}
 
 
-def start_control_build():
-    """Starts nvcc on the one-phase control of DFSPH's Jacobi kernels:
-    (its library's path, the process)."""
+def start_control_builds():
+    """Starts nvcc on every control of ``CONTROLS``, all together:
+    {method: (its library's path, the process)}."""
     from sph_taichi_torch.ops import _build
 
     out = os.path.join("build", "walk_control")
     os.makedirs(out, exist_ok=True)
-    lib = os.path.abspath(os.path.join(out, "libsmoke_control.so"))
-    return lib, subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-         lib, CONTROL_SRC], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    procs = {}
+    for method, (src, flags, *_) in CONTROLS.items():
+        lib = os.path.abspath(os.path.join(out, f"libsmoke_control{method}"
+                                                f".so"))
+        procs[method] = lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             *flags, "-o", lib, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    return procs
 
 
-def finish_control_build(lib, proc):
-    """Waits for the control's build, loads it with the shipped launchers'
-    signatures into ``CONTROL`` and prints its ptxas report."""
-    from sph_taichi_torch.ops import cuda_dfsph as cd
+def finish_control_builds(procs):
+    """Waits for the controls' builds, loads each with the shipped
+    launchers' signatures into ``CONTROL`` and prints its ptxas report."""
+    for method, (lib, proc) in procs.items():
+        module, launchers, what = CONTROLS[method][2:]
+        log = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"{control_name(method)}: nvcc exit "
+                               f"{proc.returncode}\n{log}")
+        shipped = importlib.import_module(
+            f"sph_taichi_torch.ops.{module}")._lib()
+        control = ctypes.CDLL(lib)
+        for name in launchers:
+            fn = getattr(control, name)
+            fn.argtypes = getattr(shipped, name).argtypes
+            fn.restype = ctypes.c_int
+        CONTROL[method] = control
+        print(f"{control_name(method)} ({what}) built: "
+              + "; ".join(ln.strip() for ln in log.splitlines()
+                          if "Used" in ln and "registers" in ln))
 
-    log = proc.communicate(timeout=900)[0]
-    if proc.returncode:
-        raise RuntimeError(f"{CONTROL_SRC}: nvcc exit {proc.returncode}\n"
-                           f"{log}")
-    control, shipped = ctypes.CDLL(lib), cd._lib()
-    for name in CONTROL_LAUNCHERS:
-        fn = getattr(control, name)
-        fn.argtypes = getattr(shipped, name).argtypes
-        fn.restype = ctypes.c_int
-    CONTROL["lib"] = control
-    print(f"{CONTROL_SRC} (the one-phase slot Jacobi kernels) built: "
-          + "; ".join(ln.strip() for ln in log.splitlines()
-                      if "Used" in ln and "registers" in ln))
+
+def control_name(method):
+    src, flags = CONTROLS[method][:2]
+    return " ".join([src, *flags])
 
 
 @contextlib.contextmanager
-def control_kernels():
-    """The DFSPH wrappers launching from the control library."""
-    from sph_taichi_torch.ops import cuda_dfsph as cd
-
-    real = cd._lib
-    cd._lib = lambda: CONTROL["lib"]
+def control_kernels(method):
+    """The wrappers of ``method``'s control module launching from its
+    control library."""
+    mod = importlib.import_module(
+        f"sph_taichi_torch.ops.{CONTROLS[method][2]}")
+    real = mod._lib
+    mod._lib = lambda: CONTROL[method]
     try:
         yield
     finally:
-        cd._lib = real
+        mod._lib = real
 
 
 SLOT_SOURCES = {"dfsph": "sph_taichi_torch/csrc/dfsph.cu",
@@ -4361,23 +4607,38 @@ def outputs(r):
 
 def slot_contexts(method, smap, p, params, label=None, snl=None):
     """label -> the context of a slot instantiation of ``solver_calls`` at
-    the sorted particles ``p``: their ``SlotMap``, or for DFSPH's Jacobi
-    kernels the step's list over it (``density_factor_list``'s, e1 over the
-    slot walk).  With ``snl`` (the slot lists) the list is held against
-    its plain version first, padding rows included.  Returns (that
-    function, the list or None)."""
+    the sorted particles ``p``, as the slot step gives it: for DFSPH's
+    Jacobi kernels the step's list over their ``SlotMap``
+    (``density_factor_list``'s, e1 over the slot walk), for PCISPH's
+    kernels the step's list over it (``density_sum_list``'s, the density
+    kernel over the slot walk: the loop reads it, d walks the map), else
+    the map.  With ``snl`` (the slot lists) the list is held against its
+    plain version first, padding rows included.  Returns (that function,
+    the list or None, the labels whose kernels read the list)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pair_list import step_pairs_plain
 
-    if method != 4:
-        return (lambda name: smap), None
-    slist = cd.density_factor_list(smap, p, params)[2]
+    if method == 4:
+        slist = cd.density_factor_list(smap, p, params)[2]
+        plain = ("dfsph_density_factor[slots]'s list",
+                 *step_pairs_plain(snl, p, "jacobi")) \
+            if snl is not None else None
+        readers = ("dfsph_divergence_change", "dfsph_divergence_adv",
+                   "dfsph_solver_dv", "dfsph_solver_dv<REACT>")
+    elif method == 1:
+        slist = cp.density_sum_list(smap, p, params)[1]
+        plain = ("density_sum_list[slots]'s list",
+                 *cp.density_sum_list_plain(snl, p, params)[1:]) \
+            if snl is not None else None
+        readers = ("pcisph_d_rho_correct", "pcisph_pressure_accel_predict")
+    else:
+        return (lambda name: smap), None, ()
     if snl is not None:
-        check_pair_list(slist, snl, p, params, label, plain=(
-            "dfsph_density_factor[slots]'s list",
-            *step_pairs_plain(snl, p, "jacobi")))
-    return (lambda name: slist if "divergence" in name or "solver_dv" in name
-            else smap), slist
+        check_pair_list(slist, snl, p, params, label, plain=plain)
+    if method == 1:
+        return (lambda name: slist), slist, readers
+    return (lambda name: slist if name in readers else smap), slist, readers
 
 
 def cell_run_contexts(method, starts, p, params):
@@ -4401,8 +4662,10 @@ def check_slot_solver_kernels_on_small_scenes(device):
     block), IISPH (a static one) and PCISPH (a dynamic one) scenes: at a
     20-particle cell (three of the four layers), where each also equals
     its cell-run instantiation, and with the 40-particle overflow clump,
-    where kernel and plain slot lists drop the same pairs.  Every
-    comparison is bitwise."""
+    where kernel and plain slot lists drop the same pairs.  DFSPH's Jacobi
+    kernels and PCISPH's g1 and g2 take the step's list over the map (e1's
+    and the slot density kernel's), held against its plain version first.
+    Every comparison is bitwise."""
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.ops.slots import (
         build_slot_map, slot_neighbor_list)
@@ -4455,8 +4718,9 @@ def check_slot_solver_kernels_on_small_scenes(device):
                 labels.add(label)
             print(f"slot kernels d-g, method {method} [{kind}]: slot map "
                   f"{d}; {len(calls)} instantiations"
-                  + (" (the Jacobi kernels over e1's slot list)"
-                     if method == 4 else "")
+                  + {4: " (the Jacobi kernels over e1's slot list)",
+                     1: " (g1 and g2 over density_sum_list[slots]'s list)"}
+                  .get(method, "")
                   + " equal to their plain versions over the slot lists"
                   + (" and to their cell-run instantiations"
                      if kind == "layers" else "")
@@ -4473,9 +4737,10 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     beside a cell-run twin of the same scene stepped alike: ``warmup``
     steps on both, then ``steps`` timed on each (launch counts set to 0
     just before each run and read just after), 5 steps of the slot run
-    under the profiler (its device busy share; DFSPH: then 5 with the
-    Jacobi kernels' one-phase slot design of the control library and 5
-    more over the list, and two turns fewer) and as many of the twin,
+    under the profiler (its device busy share; DFSPH and PCISPH: then 5
+    with the list kernels' one-phase slot design of the control library
+    and 5 more over the list, DFSPH two turns fewer) and as many of the
+    twin,
     ``turns`` interleaved turns of ``per_turn`` steps.  The slot run must
     launch every kernel of the cell-run run as its ``[slots]``
     instantiation, as often; run the same iterations with the same host
@@ -4525,10 +4790,9 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     if bool(m["slot_overflow"]):
         raise AssertionError(f"{label}: slot_overflow at step "
                              f"{int(sim.state.step_count)}")
-    # the slot walk writes no list: the cell-run density kernel that
-    # writes one is density_sum[slots] there
-    expect = {k.replace("density_sum_list", "density_sum") + "[slots]": v
-              for k, v in cell_launches.items()}
+    # every kernel of the cell-run run, the density kernel writing the
+    # step's list included, as its slot instantiation
+    expect = {k + "[slots]": v for k, v in cell_launches.items()}
     if launches != expect:
         raise AssertionError(f"{label}: slot launches {launches}, the "
                              f"cell-run run's {cell_launches}")
@@ -4536,23 +4800,28 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
         raise AssertionError(f"{label}: solver stats {st}, cell-run {cst}")
     busy_ms = profile_steps(sim, 5)
     if busy_ms is not None:
-        print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms slot "
-              f"step: idle share {100 * (1 - busy_ms / step_ms):.1f}%")
+        print(f"{label} slot device busy {busy_ms:.4f} ms of the "
+              f"{step_ms:.4f} ms slot step: idle share "
+              f"{100 * (1 - busy_ms / step_ms):.1f}%")
     profiled = 5
-    if params.simulation_method == 4:
-        # the Jacobi kernels' earlier slot design (one phase, no list) in
+    method = params.simulation_method
+    if method in CONTROLS:
+        # the list kernels' earlier slot design (one phase, no list) in
         # the same call, between this design's runs; the results are equal
         # bitwise, so the state stays the twin's
-        with control_kernels():
+        with control_kernels(method):
             one_phase_ms = profile_steps(sim, 5)
         again_ms = profile_steps(sim, 5)
         profiled += 10
-        # the run keeps its length: the scaled dragon's slot map
-        # overflows from step ~58 (a cell past 32 particles at the contact)
-        turns = max(1, turns - 10 // per_turn)
+        if method == 4:
+            # the run keeps its length: the scaled dragon's slot map
+            # overflows from step ~58 (a cell past 32 particles at the
+            # contact)
+            turns = max(1, turns - 10 // per_turn)
+        kernels = {4: "Jacobi kernels", 1: "loop kernels"}[method]
         print(f"{label} slot device busy per step (profiler, 5 steps each): "
-              f"Jacobi kernels over the step's list {busy_ms} / {again_ms} "
-              f"ms; one-phase Jacobi kernels, no list ({CONTROL_SRC}) "
+              f"{kernels} over the step's list {busy_ms} / {again_ms} ms; "
+              f"one-phase {kernels}, no list ({control_name(method)}) "
               f"{one_phase_ms} ms")
     cell.run(profiled // cell.substeps, export=False)
 
@@ -4618,11 +4887,15 @@ def slot_solver_kernels(sim, method, launches, label):
     reset_all_launch_counts()     # comparison launches are not the path's
     ms, cell_ms, plain_ms, err, bounds = {}, {}, {}, {}, {}
     cell_ctx = cell_run_contexts(method, smap.starts, q, params)
-    slot_ctx, slist = slot_contexts(method, smap, q, params, label, snl)
+    slot_ctx, slist, readers = slot_contexts(method, smap, q, params, label,
+                                             snl)
     if slist is not None:
-        fig = slot_list_profile(q, slist.cnt, bool(params.dynamic_rigid_ids),
-                                label)
-        slot_occupancy()
+        fig = slot_list_profile(
+            q, slist.cnt, method == 4 and bool(params.dynamic_rigid_ids),
+            label)
+        slot_occupancy(method)
+    if method == 1:
+        slot_density_at_state(q, smap, snl, params, label)
     for name, key, wrapper, plain, args in solver_calls(
             method, params, solver, q, snl, seeded=False):
         ctx, sctx = cell_ctx(name), slot_ctx(name)
@@ -4630,9 +4903,9 @@ def slot_solver_kernels(sim, method, launches, label):
         cell_ms[name] = time_ms(lambda: wrapper(ctx, *args), 20)
         plain_ms[name] = time_ms(lambda: plain(snl, *args), 3)
         got, ref = outputs(wrapper(sctx, *args)), outputs(plain(snl, *args))
-        if sctx is slist:
+        if name in readers:
             # the one-phase slot kernel without the list, same inputs
-            with control_kernels():
+            with control_kernels(method):
                 one_ms = time_ms(lambda: wrapper(sctx, *args), 20)
                 one = outputs(wrapper(sctx, *args))
             if not all(b is None or torch.equal(a, b)
@@ -4663,7 +4936,7 @@ def slot_solver_kernels(sim, method, launches, label):
               f"{cell_ms[name]:.4f} ms, {ms[name] / cell_ms[name] - 1:+.1%})"
               f", plain {plain_ms[name]:.4f} ms, equal to the cell-run "
               f"instantiation bitwise")
-    if slist is not None:
+    if method == 4:
         # the list as the slot design writes (e1) and reads it (the Jacobi
         # kernels), design figures beside the functions' bounds
         listed = int(torch.clamp_max(slist.cnt, slist.idx.shape[0])
@@ -4673,6 +4946,16 @@ def slot_solver_kernels(sim, method, launches, label):
                   "the list; not the bound)")
         for name in ("dfsph_divergence_change", "dfsph_divergence_adv",
                      "dfsph_solver_dv"):
+            row_bound(name + "_list", n, 4 * listed, pairs,
+                      f"{name}[slots] design figure (reading the list, "
+                      f"{fig['warps_over_list']} warps over it; not the "
+                      f"bound)")
+    elif method == 1:
+        # the fluid rows of the list, as g1 and g2 read it (the density
+        # kernel's writes are phase 12's design figure)
+        listed = int(torch.clamp_max(slist.cnt[fluid], slist.idx.shape[0])
+                     .long().sum())
+        for name in readers:
             row_bound(name + "_list", n, 4 * listed, pairs,
                       f"{name}[slots] design figure (reading the list, "
                       f"{fig['warps_over_list']} warps over it; not the "
@@ -4741,13 +5024,13 @@ def main():
 
     t_start = t0 = time.perf_counter()
     sources = ["pairs", "dfsph", "iisph", "pcisph"]
-    control = start_control_build()
+    controls = start_control_builds()
     _build.build(sources)
     print(f"kernels built from sph_taichi_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in sources:
         print(_build.build_log(name).strip())
-    finish_control_build(*control)
+    finish_control_builds(controls)
 
     worst = check_kernels_on_small_scenes(device)
     worst.update(check_dfsph_on_small_scenes(device))
@@ -4761,6 +5044,7 @@ def main():
     worst.update(check_wcsph_on_edge_scene(device))
     worst.update(check_dfsph_on_edge_scene(device))
     worst.update(check_dfsph_slot_list_on_edge_scenes(device))
+    worst.update(check_pcisph_slot_list_on_edge_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

@@ -356,7 +356,11 @@ __device__ __forceinline__ void compact_cell_runs(
 // nonpressure_kick reads it; over the slot walk the DFSPH step's
 // density-and-factor kernel writes a list of the fluid and dynamic-rigid
 // centres in its one-phase walk, and the Jacobi kernels (divergence,
-// solver_dv) read it (for_each_jacobi_pair).
+// solver_dv) read it (for_each_jacobi_pair).  Over the slot walk the
+// WCSPH, IISPH and PCISPH steps' density kernel (density_sum_slot_kernel,
+// pairs.cu) writes every real centre's list in its one-phase walk, and
+// PCISPH's loop kernels read it (for_each_step_pair<true>); the other slot
+// kernels of those steps walk the map in one phase.
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -456,25 +460,25 @@ __device__ __forceinline__ void for_each_listed_pair(
 // positions x with the geometry at xg (for_each_neighbor_pinned; IISPH
 // passes xg = x, and then d and the raw sum of squares are those of
 // for_each_neighbor_walk), read from the step's list ``pl`` over the
-// cell runs, walked in one phase over the slot walk (pinned where PINNED,
-// else for_each_neighbor_walk itself).  Every thread of a block calls it,
+// cell runs and, where PINNED (PCISPH's loop kernels), over the slot walk
+// too, whose list the slot density kernel writes (pairs.cu
+// density_sum_slot_kernel); a warp there that holds a centre beyond the
+// list walks the slot map in one phase, pinned (for_each_listed_pair).
+// The other kernels walk the slot map in one phase
+// (for_each_neighbor_walk itself).  Every thread of a block calls it,
 // with ``walks`` false where the thread has no centre.
 template <bool PINNED, typename Walk, typename F>
 __device__ __forceinline__ void for_each_step_pair(
     bool walks, int i, const float* __restrict__ x,
     const float* __restrict__ xg, const Walk& walk, const PairList& pl,
     const PairConsts& c, F&& f) {
-  if constexpr (kCompactWalk<Walk>) {
+  if constexpr (kCompactWalk<Walk> || PINNED) {
     float gi0 = 0.0f, gi1 = 0.0f, gi2 = 0.0f;
     if (walks) gi0 = xg[3 * i], gi1 = xg[3 * i + 1], gi2 = xg[3 * i + 2];
     PAIR_LIST_WALK(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
   } else if (walks) {
-    if constexpr (PINNED) {
-      for_each_neighbor_pinned(i, x, xg, walk, c, f);
-    } else {
-      for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x,
-                             walk, c, f);
-    }
+    for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk,
+                           c, f);
   }
 }
 
@@ -575,7 +579,9 @@ __host__ inline int rows_grid(int n_rows) {
 }
 
 // Whether a list kernel's launch has what its walk reads: the step's list
-// (list_idx, list_cnt) over the cell runs; the slot walk reads its map.
+// (list_idx, list_cnt) over the cell runs; the slot walk of a kernel that
+// walks the map in one phase reads its map.  (PCISPH's loop kernels read
+// the list over both walks: pcisph.cu refuses a launch without it.)
 __host__ inline bool has_list(const int* slot_map, const int* list_idx,
                               const int* list_cnt) {
   return slot_map != nullptr || (list_idx != nullptr && list_cnt != nullptr);

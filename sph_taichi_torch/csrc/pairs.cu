@@ -5,11 +5,13 @@
 // (sph_taichi_tpu/ops/pallas_blocks.py, launched by BlockEngine.traverse) in
 // three specializations:
 //   density_sum      <- the density term of models/base.py compute_densities
-//                       (over the slot walk; over the cell runs no solver
-//                       step launches it)
-//   density_sum_list <- the same term on the WCSPH, IISPH and PCISPH steps
-//                       over the cell runs, writing the step's pair list as
-//                       it sums (below)
+//                       (one phase; no solver step launches it: the one-
+//                       phase reference that chip_smoke and the control
+//                       tools time)
+//   density_sum_list <- the same term on the WCSPH, IISPH and PCISPH steps,
+//                       writing the step's pair list as it sums (below):
+//                       density_sum_list_kernel over the cell runs,
+//                       density_sum_slot_kernel over the slot walk
 //   wcsph_forces     <- the fused WCSPH force term of models/wcsph.py
 //                       compute_forces with its advect + fluid-box-clamp
 //                       epilogue (two-way reaction variant as REACT = true).
@@ -54,8 +56,15 @@
 // not twice.  A warp holding a centre with more accepted pairs than the
 // list holds walks the cells in one phase (the same pairs in the same
 // order).  Both kernels have a thread for every row, padding rows
-// included, and write the padding rows themselves.  Over the slot walk
-// density_sum and wcsph_forces walk in one phase.
+// included, and write the padding rows themselves.
+//
+// Over the slot walk density_sum_slot_kernel keeps density_sum's one-phase
+// walk and sum and writes every real centre's accepted j to the step's
+// list as it walks (the slot walk has no two-phase form: its dependent
+// map loads lose the L1 that the candidate lists' shared memory takes,
+// pair_common.cuh).  PCISPH's loop kernels read that list (pcisph.cu);
+// wcsph_forces, IISPH's kernels and the un-kicked non-pressure kernel walk
+// the slot map in one phase and do not read it.
 
 #include "pair_common.cuh"
 
@@ -98,6 +107,38 @@ __global__ void density_sum_list_kernel(const float* __restrict__ x,
                     }
                   });
   if (i < n_rows) out[i] = sum;
+}
+
+// density_sum over the slot walk for the WCSPH, IISPH and PCISPH steps:
+// the one-phase walk and sum of density_sum_kernel, and every real
+// centre's accepted pairs written to the step's list as it walks (idx,
+// cnt), as build_pair_list writes them over the cell runs.  One thread per
+// row: cnt 0 and the density 0 on padding rows.
+__global__ void density_sum_slot_kernel(const float* __restrict__ x,
+                                        const int* __restrict__ material,
+                                        const float* __restrict__ m_V,
+                                        SlotWalk walk, int* __restrict__ idx,
+                                        int* __restrict__ cnt,
+                                        float* __restrict__ out, int n_rows,
+                                        PairConsts c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rows) return;
+  float sum = 0.0f;
+  int n = 0;
+  if (i < c.n_real) {
+    for_each_neighbor_walk(
+        i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
+        [&](int j, float, float, float, float s) {
+          if (n < kPairListEntries) idx[n * n_rows + i] = j;
+          ++n;
+          if (material[j] >= 0) {
+            const float rn = sqrtf(s);
+            sum += m_V[j] * cubic_w(rn, c);
+          }
+        });
+  }
+  cnt[i] = n;
+  out[i] = sum;
 }
 
 // One thread per row, padding rows included (x and v carried through, acc
@@ -270,17 +311,28 @@ extern "C" int density_sum_launch(const float* x, const int* material,
 
 extern "C" int pairs_list_entries() { return kPairListEntries; }
 
-// The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` and ``out``
-// have n_rows rows.
+// The density with the step's list, over the walk its arguments select
+// (cell offsets ``starts``, or the slot map ``slot_map`` of ``layers``
+// layers).  The list ``idx`` is i32[kPairListEntries, n_rows], ``cnt`` and
+// ``out`` have n_rows rows.
 extern "C" int density_sum_list_launch(const float* x, const int* material,
                                        const float* m_V, const int* starts,
+                                       const int* slot_map, int layers,
                                        int* idx, int* cnt, float* out,
                                        int n_rows, PairConsts c,
                                        void* stream) {
   if (n_rows > 0) {
-    density_sum_list_kernel<<<rows_grid(n_rows), kBlock, 0,
-                              (cudaStream_t)stream>>>(
-        x, material, m_V, CellRunWalk{starts}, idx, cnt, out, n_rows, c);
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      if constexpr (kCompactWalk<decltype(walk)>) {
+        density_sum_list_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                  (cudaStream_t)stream>>>(
+            x, material, m_V, walk, idx, cnt, out, n_rows, c);
+      } else {
+        density_sum_slot_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                  (cudaStream_t)stream>>>(
+            x, material, m_V, walk, idx, cnt, out, n_rows, c);
+      }
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -331,17 +383,20 @@ extern "C" int boundary_volume_launch(const float* x, const int* material,
 // Registers per thread, static shared memory per block and resident blocks
 // per SM of kernel ``which``: 0 density_sum_list, 1 density_sum over the
 // cell runs, 2 wcsph_forces<false>, 3 wcsph_forces<true> (over the cell
-// runs; 4, 5 over the slot walk).
+// runs; 4, 5 over the slot walk), 6 density_sum_slot (the list over the
+// slot walk), 7 density_sum over the slot walk.
 extern "C" int pairs_occupancy(int which, int* regs, int* smem_bytes,
                                int* blocks_per_sm) {
-  const void* kernels[6] = {
+  const void* kernels[8] = {
       (const void*)density_sum_list_kernel,
       (const void*)density_sum_kernel<CellRunWalk>,
       (const void*)wcsph_forces_kernel<false, CellRunWalk>,
       (const void*)wcsph_forces_kernel<true, CellRunWalk>,
       (const void*)wcsph_forces_kernel<false, SlotWalk>,
-      (const void*)wcsph_forces_kernel<true, SlotWalk>};
-  if (which < 0 || which > 5) return (int)cudaErrorInvalidValue;
+      (const void*)wcsph_forces_kernel<true, SlotWalk>,
+      (const void*)density_sum_slot_kernel,
+      (const void*)density_sum_kernel<SlotWalk>};
+  if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
   const void* kernel = kernels[which];
   cudaFuncAttributes attr{};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);

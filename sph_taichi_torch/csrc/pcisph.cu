@@ -41,17 +41,19 @@
 // rho_err 0, v*' and x*' from v and x, as restore_tail gives them), so each
 // wrapper launches one kernel and nothing else.
 //
-// Over the cell runs the pairs come from the step's pair list
+// Over both walks the pairs come from the step's pair list
 // (pair_common.cuh for_each_listed_pair): the loop's pair set is the step
-// start's, which the step's density kernel accepted, so
-// density_sum_list (pairs.cu, build_pair_list) writes every real centre's
-// accepted j, in the walk's order, to a fixed-stride list in device memory
-// as it sums, and g1 and g2 (and the un-kicked non-pressure kernel before
-// the loop, dfsph.cu) run only the pair body over the fluid rows of it, 8
-// list entries loaded ahead.  A warp holding a centre with more accepted
-// pairs than the list holds walks the cells in one phase
-// (for_each_neighbor_pinned), in the same order.  Over the slot walk they
-// walk in one phase, as the other slot instantiations.
+// start's, which the step's density kernel accepted, so the density
+// kernel (pairs.cu: density_sum_list_kernel over the cell runs,
+// build_pair_list; density_sum_slot_kernel over the slot walk, in its
+// one-phase walk) writes every real centre's accepted j, in the walk's
+// order, to a fixed-stride list in device memory as it sums, and g1 and g2
+// run only the pair body over the fluid rows of it, 8 list entries loaded
+// ahead, every iteration.  A warp holding a centre with more accepted
+// pairs than the list holds walks the cells or the slot map in one phase
+// (for_each_neighbor_pinned), in the same order.  (Over the cell runs the
+// un-kicked non-pressure kernel before the loop, dfsph.cu, reads the list
+// too; over the slot walk it walks the map in one phase.)
 //
 // What bounds them on an H100: the one-phase walk ran ~220 lockstep
 // candidate iterations per warp for ~29 accepted pairs per lane at the
@@ -61,7 +63,9 @@
 // body's gathers, so its registers (46-52; the occupancy) and the list
 // loads in flight set its time.  The f32 work per real pair (25-45
 // operations) is far below the card's rate.  Everything stays in
-// registers.
+// registers.  Over the slot walk the list instantiations take 55 and 62
+// registers (9 and 8 resident blocks per SM; 52 and 48 over the cell
+// runs).
 
 #include "pair_common.cuh"
 
@@ -137,10 +141,14 @@ __global__ void pcisph_pressure_accel_predict_kernel(
 extern "C" int pcisph_pair_list_entries() { return kPairListEntries; }
 
 // Each loop launcher's walk arguments (starts, slot_map, layers) select the
-// instantiation (pair_common.cuh with_walk); over the cell runs, the list
-// (list_idx, list_cnt) is the step's density_sum_list output for the same
-// rows, and a launch without it is refused (cudaErrorInvalidValue,
-// pair_common.cuh has_list).
+// instantiation (pair_common.cuh with_walk); the list (list_idx,
+// list_cnt) is the step's density_sum_list output over the same walk for
+// the same rows, read over both walks, and a launch without it is refused
+// (cudaErrorInvalidValue).
+
+static bool loop_has_list(const int* list_idx, const int* list_cnt) {
+  return list_idx != nullptr && list_cnt != nullptr;
+}
 
 extern "C" int pcisph_d_rho_correct_launch(
     const float* x, const float* xp, const float* vp, const int* material,
@@ -149,7 +157,7 @@ extern "C" int pcisph_d_rho_correct_launch(
     const int* list_cnt, const float* dt, const float* s_f,
     const unsigned char* active, float* pr_out, float* err_out, int n_rows,
     PairConsts c, void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!loop_has_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {
@@ -170,7 +178,7 @@ extern "C" int pcisph_pressure_accel_predict_launch(
     const int* starts, const int* slot_map, int layers, const int* list_idx,
     const int* list_cnt, const float* dt, const unsigned char* active,
     float* v_out, float* x_out, int n_rows, PairConsts c, void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!loop_has_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {
@@ -187,7 +195,7 @@ extern "C" int pcisph_pressure_accel_predict_launch(
 
 // Registers per thread, static shared memory per block and resident blocks
 // per SM of kernel ``which``: 0 d_rho_correct, 1 pressure_accel_predict
-// (+ 2: over the slot walk).
+// (+ 2: over the slot walk; both walks over the step's list).
 extern "C" int pcisph_occupancy(int which, int* regs, int* smem_bytes,
                                 int* blocks_per_sm) {
   const void* kernels[4] = {

@@ -342,10 +342,13 @@ def compute_densities_and_pairs(p: Particles, ctx, engine, params: SimParams,
     """``compute_densities`` for a step whose later pair kernels walk the
     same pairs at the same positions (WCSPH's forces, IISPH's four kernels,
     PCISPH's non-pressure kernel and loop): returns (p, the context those
-    kernels read).  On the CUDA engine over the cell runs one kernel sums
-    the densities and writes the step's pair list into ``buffers``
-    (``cuda_pairs.density_sum_list``); otherwise the context is ``ctx``
-    (the slot map, or the plain engine's neighbour lists)."""
+    kernels read).  On the CUDA engine one kernel sums the densities and
+    writes the step's pair list into ``buffers``
+    (``cuda_pairs.density_sum_list``): a ``PairList`` over the cell
+    offsets or the slot map, which over the slot walk PCISPH's loop reads
+    and the other kernels pass through to their one-phase walk; on CPU
+    tensors the context is the slot map or the plain engine's neighbour
+    lists, and on the plain engine ``ctx``."""
     if engine.fused:
         den_pairs, ctx = cuda_pairs.density_sum_list(ctx, p, params, buffers)
     else:
@@ -372,9 +375,10 @@ def compute_non_pressure_forces(p: Particles, ctx, engine, params: SimParams,
     sets p.acc; with it (DFSPH) it also applies the fluid velocity kick
     v += dt * acc (DFSPH.py:392-397), in the kernel's epilogue on the CUDA
     engine.  Padding rows keep their velocity and get acceleration 0.  On
-    the CUDA engine over the cell runs ``ctx`` is the step's pair list
-    (DFSPH's from ``density_factor_and_pairs``, PCISPH's from
-    ``compute_densities_and_pairs``), or the slot map."""
+    the CUDA engine ``ctx`` is the step's pair list (DFSPH's from
+    ``density_factor_and_pairs``, PCISPH's from
+    ``compute_densities_and_pairs``), over the cell runs or the slot map
+    (whose kernels walk the map)."""
     if predict_dt is None:
         accel = (cuda_dfsph.nonpressure_accel if engine.fused
                  else cuda_dfsph.nonpressure_accel_plain)

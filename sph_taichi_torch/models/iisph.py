@@ -12,12 +12,12 @@ On the CUDA engine each pair sum is a kernel of ``ops/cuda_iisph.py`` with
 its epilogue; on the plain engine its plain version, which applies the same
 epilogue in torch (the JAX package's unfused path on its gather engine).
 The positions stay those of the sort until the advect (the kick moves v),
-so on the CUDA engine over the cell runs the density kernel writes the
-step's pair list of every real centre as it sums
-(``compute_densities_and_pairs``), and every later pair kernel of the step
-reads it: the non-pressure kick, the advection prediction, the loop's
-pressure acceleration and A, and the final pressure acceleration with the
-advect (the slot walk reads its map).
+so on the CUDA engine the density kernel writes the step's pair list of
+every real centre as it sums (``compute_densities_and_pairs``), and over
+the cell runs every later pair kernel of the step reads it: the
+non-pressure kick, the advection prediction, the loop's pressure
+acceleration and A, and the final pressure acceleration with the advect
+(over the slot walk they are given the list and walk the map).
 
 The pressure solve is ``jacobi_while`` (models/base.py): the test
 ``it == 0 | (err >= tol & it < 1000)`` is evaluated on the device and read

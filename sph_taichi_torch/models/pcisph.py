@@ -20,8 +20,9 @@ The loop has the JAX package's fused structure on both engines: on the
 CUDA engine each iteration is the two kernels of ``ops/cuda_pcisph.py``
 with their epilogues (the pressure correction, the velocity and position
 predict), reading the step's pair list that the density kernel writes as
-it sums (``compute_densities_and_pairs``, over the cell runs; the slot walk
-reads its map), which the non-pressure kernel before the loop reads too;
+it sums (``compute_densities_and_pairs``, over the cell runs and the slot
+walk alike), which the non-pressure kernel before the loop reads too over
+the cell runs;
 on the plain engine their plain versions apply the same epilogues in
 torch, which is the JAX package's unfused loop with the same arithmetic.
 The loop is ``jacobi_while`` (models/base.py): the JAX

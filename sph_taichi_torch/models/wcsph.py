@@ -5,9 +5,9 @@ in one fused pair sum -> symplectic Euler.  On the CUDA engine the force
 kernel also runs advection and the fluid box clamp in its epilogue; the
 plain engine computes accelerations, then advects, and the step clamps.
 The positions stay those of the sort until that epilogue, so on the CUDA
-engine over the cell runs the density kernel writes the step's pair list
-as it sums, and the force kernel reads it (ops/cuda_pairs.py
-``density_sum_list``).
+engine the density kernel writes the step's pair list as it sums, and
+over the cell runs the force kernel reads it (ops/cuda_pairs.py
+``density_sum_list``; over the slot walk it walks the map).
 
 Quirks of the reference kept as they are:
 - density is clamped to >= rho0 *and stored* before the EOS (WCSPH.py:75);

@@ -492,8 +492,9 @@ def nonpressure_accel(ctx, p, params):
     """Kernel wrapper for ``nonpressure_accel_plain``: acc, from the kernel
     of ``nonpressure_kick`` without its kick (v is not written).  ``ctx``:
     the PCISPH step's context from ``cuda_pairs.density_sum_list`` (a
-    ``PairList`` over the cell runs), or a ``SlotMap``; on CPU tensors also
-    neighbour lists or cell offsets."""
+    ``PairList`` over the cell runs or the slot map: the slot kernel walks
+    the map), or a ``SlotMap``; on CPU tensors also neighbour lists or
+    cell offsets."""
     if p.x.device.type == "cpu":
         return nonpressure_accel_plain(_plain_ctx(ctx, p, params), p,
                                        params)

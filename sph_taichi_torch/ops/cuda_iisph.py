@@ -42,8 +42,10 @@ step's pair list of every real centre, solids included (ops/pair_list.py
 ``compute_densities_and_pairs``); given it, they run only the pair body
 over it.  Over the cell runs these wrappers take only the list, not bare
 cell offsets; on CPU tensors the step's context is the plain engine's
-neighbour lists, which the plain versions read.  The slot walk reads its
-map and no list.
+neighbour lists, which the plain versions read.  Over the slot walk the
+step's density kernel writes the same list over the map (a ``PairList``
+whose walk is the ``SlotMap``), and the slot kernels, given it or the bare
+map, walk the map in one phase and do not read it.
 
 Padding rows: over the cell runs every kernel writes them, and f3 and f4
 over the slot walk too, as the JAX package's ``restore_tail`` gives them
@@ -270,9 +272,9 @@ def occupancy(kernel, slots=False):
 def nonpressure_kick(ctx, p, dt, params):
     """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v*).  ``ctx``:
     the step's context from ``density_sum_list`` for the sorted particles
-    ``p`` (a ``PairList``; on CPU tensors, neighbour lists), or their
-    ``SlotMap`` for the slot walk; ``dt`` a 0-d f32 tensor on the
-    device."""
+    ``p`` (a ``PairList`` over the cell runs or the slot map; on CPU
+    tensors, neighbour lists), or their ``SlotMap`` for the slot walk;
+    ``dt`` a 0-d f32 tensor on the device."""
     if p.x.device.type == "cpu":
         return nonpressure_kick_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, dt,

@@ -6,14 +6,16 @@ Ports three specializations of the Pallas TPU kernel
 hand-written CUDA C++ in ``csrc/pairs.cu``:
 
 - ``density_sum``: den[i] = sum_j m_V[j] W(r_ij) over neighbours with
-  material >= 0 (the term of models/base.py compute_densities; the slot
-  walk's: over the cell runs no solver step launches it);
-- ``density_sum_list``: the same sum on the WCSPH, IISPH and PCISPH steps
-  over the cell runs, whose kernel also writes every real centre's
-  accepted neighbours, in the walk's order, to the step's pair list
-  (ops/pair_list.py ``PairList``): the positions do not move from the sort
-  to the advect, so the step's later pair kernels accept the density
-  kernel's pairs;
+  material >= 0 (the term of models/base.py compute_densities; one phase,
+  on no solver step: the reference that chip_smoke.py and the control
+  tools time);
+- ``density_sum_list``: the same sum on the WCSPH, IISPH and PCISPH steps,
+  whose kernel also writes every real centre's accepted neighbours, in the
+  walk's order, to the step's pair list (ops/pair_list.py ``PairList``):
+  the positions do not move from the sort to the advect, so the step's
+  later pair kernels accept the density kernel's pairs.  Over the slot
+  walk its kernel keeps the one-phase walk and writes the list as it
+  walks, and PCISPH's loop kernels read it;
 - ``wcsph_forces``: the fused WCSPH force term (surface tension,
   viscosity, pressure, and with ``rr0`` the two-way reaction on dynamic
   rigid centres), then acceleration select, symplectic Euler and the fluid
@@ -39,10 +41,11 @@ CUDA tensor it launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[name]``.
 
 Padding rows (the tail past n_fluid + n_solid, sorted to the overflow
-cell): ``density_sum_list`` and ``wcsph_forces`` write them in the kernel
-(the density and the list's count 0; x and v carried through, acc 0), so
-each of their wrapper calls launches exactly one kernel; ``density_sum``
-leaves them 0 and ``boundary_volume`` does not write them.
+cell): ``density_sum_list`` (over both walks) and ``wcsph_forces`` write
+them in the kernel (the density and the list's count 0; x and v carried
+through, acc 0), so each of their wrapper calls launches exactly one
+kernel; ``density_sum`` leaves them 0 and ``boundary_volume`` does not
+write them.
 """
 
 import ctypes
@@ -63,7 +66,8 @@ from sph_taichi_torch.state import (
 
 LAUNCHES = {"density_sum": 0, "density_sum_list": 0, "wcsph_forces": 0,
             "boundary_volume": 0, "density_sum[slots]": 0,
-            "wcsph_forces[slots]": 0, "boundary_volume[slots]": 0}
+            "density_sum_list[slots]": 0, "wcsph_forces[slots]": 0,
+            "boundary_volume[slots]": 0}
 
 M_EPS = 1e-5    # DFSPH stiffness gate (DFSPH.py:17)
 
@@ -297,7 +301,7 @@ def _lib():
         lib.density_sum_launch.argtypes = (
             [_PTR] * 3 + WALK + [_PTR, PairConsts, _PTR])
         lib.density_sum_list_launch.argtypes = (
-            [_PTR] * 7 + [i32, PairConsts, _PTR])
+            [_PTR] * 3 + WALK + [_PTR] * 3 + [i32, PairConsts, _PTR])
         lib.wcsph_forces_launch.argtypes = (
             [_PTR] * 10 + WALK + [_PTR] * 6 + [i32, i32, PairConsts, _PTR])
         lib.boundary_volume_launch.argtypes = (
@@ -409,38 +413,39 @@ def density_sum_list(ctx, p, params, buffers=None):
     """``density_sum`` with the context the step's later pair kernels read
     (WCSPH's forces, IISPH's four kernels, PCISPH's loop and non-pressure
     kernel): (den, ctx').  Given the cell offsets of the sorted particles
-    ``p``, one launch of ``density_sum_list`` sums the densities and writes
-    every real centre's accepted pairs to a ``PairList`` in ``buffers`` (a
-    dict, filled with the list's tensors at the first call and reused
-    after; None: new tensors).  Given a ``SlotMap``, ``density_sum`` over
-    it, and the map.  On CPU tensors, given cell offsets, the plain sums
-    and the plain engine's neighbour lists, which the plain versions read
-    (``density_sum_list_plain`` gives them in the list's layout)."""
+    ``p``, or their ``SlotMap``, one launch of ``density_sum_list``
+    (``density_sum_slot`` over the slot walk, counted as
+    ``density_sum_list[slots]``) sums the densities and writes every real
+    centre's accepted pairs to a ``PairList`` over that walk in
+    ``buffers`` (a dict, filled with the list's tensors at the first call
+    and reused after; None: new tensors).  On CPU tensors the plain sums
+    over the context's neighbour lists, and, given cell offsets, those
+    lists, which the plain versions read (``density_sum_list_plain`` gives
+    them in the list's layout); given a ``SlotMap``, the map."""
     from sph_taichi_torch.ops import pair_list   # it imports this module
 
-    if isinstance(ctx, SlotMap):
-        return density_sum(ctx, p, params), ctx
     if p.x.device.type == "cpu":
         nl = _plain_ctx(ctx, p, params)
-        return density_sum_plain(nl, p.x, p.material, p.m_V, params), nl
-    dev, n, ptr, _, _ = _walk(ctx, p, params)
+        return (density_sum_plain(nl, p.x, p.material, p.m_V, params),
+                ctx if isinstance(ctx, SlotMap) else nl)
+    dev, n, ptr, walk, suffix = _walk(ctx, p, params)
     idx, cnt = pair_list.list_buffers(buffers, n, dev)
     out = torch.empty(n, dtype=torch.float32, device=dev)
     rc = _lib().density_sum_list_launch(
-        ptr["x"], ptr["material"], ptr["m_V"], ptr["starts"],
-        idx.data_ptr(), cnt.data_ptr(), out.data_ptr(), n,
-        pair_consts(params), _stream(dev))
-    _raise_on(rc, "density_sum_list")
-    LAUNCHES["density_sum_list"] += 1
+        ptr["x"], ptr["material"], ptr["m_V"], *walk, idx.data_ptr(),
+        cnt.data_ptr(), out.data_ptr(), n, pair_consts(params), _stream(dev))
+    name = "density_sum_list" + suffix
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out, pair_list.PairList(ctx, idx, cnt)
 
 
 def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
     """Kernel wrapper for ``wcsph_forces_plain``: returns new (x, v, acc).
     ``ctx``: the step's context from ``density_sum_list`` for the sorted
-    particles ``p`` (a ``PairList`` over the cell runs), or their
-    ``SlotMap`` for the slot walk; on CPU tensors also their neighbour
-    lists or cell offsets.  ``rr0`` (rho0 / density) selects the two-way
+    particles ``p`` (a ``PairList`` over the cell runs or the slot map: the
+    slot kernel walks the map), or their ``SlotMap`` for the slot walk; on
+    CPU tensors also their neighbour lists or cell offsets.  ``rr0`` (rho0 / density) selects the two-way
     reaction variant; ``dt`` is a 0-d f32 tensor on the particles' device
     (read by the kernel, so the step makes no host sync)."""
     from sph_taichi_torch.ops import pair_list   # it imports this module
@@ -475,15 +480,13 @@ def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
 def occupancy(kernel, slots=False):
     """(registers per thread, static shared memory bytes per block,
     resident blocks of 128 threads per SM) of ``kernel`` on the current
-    CUDA device: "density_sum_list", "density_sum" (over the cell runs),
-    "wcsph_forces" or "wcsph_forces_react" (over the cell runs, or the
-    slot walk with ``slots``)."""
+    CUDA device: "density_sum_list", "density_sum", "wcsph_forces" or
+    "wcsph_forces_react" (over the cell runs, or the slot walk with
+    ``slots``)."""
     which = {"density_sum_list": 0, "density_sum": 1, "wcsph_forces": 2,
              "wcsph_forces_react": 3}[kernel]
     if slots:
-        if which < 2:
-            raise ValueError(f"{kernel}: no slot instantiation counted")
-        which += 2
+        which += 6 if which < 2 else 2
     out = [ctypes.c_int() for _ in range(3)]
     rc = _lib().pairs_occupancy(which, *[ctypes.byref(o) for o in out])
     _raise_on(rc, f"pairs_occupancy({kernel})")

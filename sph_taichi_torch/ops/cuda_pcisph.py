@@ -22,11 +22,12 @@ neighbour lists, built once per step from ``p.x``, give exactly that pair
 set.
 
 The same kernels port the retired ``SlotEngine._kernel``
-(sph_taichi_tpu/ops/retired/pallas_slots.py): given a ``SlotMap`` of the
-step-start particles (ops/slots.py, the context of ``CudaSlotEngine``)
-instead of their cell offsets, a wrapper launches the kernel's slot-walk
-instantiation and counts it under ``"<name>[slots]"``; the loop keeps the
-step-start map for every iteration, as it keeps the step-start offsets.
+(sph_taichi_tpu/ops/retired/pallas_slots.py): given the step's list over
+the ``SlotMap`` of the step-start particles (ops/slots.py, the context of
+``CudaSlotEngine``) instead of over their cell offsets, a wrapper launches
+the kernel's slot-walk instantiation and counts it under
+``"<name>[slots]"``; the loop keeps the step-start map for every
+iteration, as it keeps the step-start offsets.
 
 Beside each kernel is its plain version (``*_plain``): the GatherEngine
 traversal with the same term (over the slot lists for a ``SlotMap``),
@@ -38,14 +39,18 @@ CUDA tensor it launches the kernel or raises.  Each launch adds one to
 kernel returns at once and its outputs are undefined (the loop discards
 them).  The plain versions ignore it.
 
-Over the cell runs the loop reads the fluid rows of the step's pair list
+Over both walks the loop reads the fluid rows of the step's pair list
 (ops/pair_list.py ``PairList``), which the step's density kernel writes as
 it sums at the step-start positions (ops/cuda_pairs.py
 ``density_sum_list``, models/base.py ``compute_densities_and_pairs``):
-given it, g1 and g2 run only the pair body over it.  Over the cell runs the
-wrappers take only the list, not bare cell offsets; on CPU tensors the
-loop's context is the plain engine's neighbour lists, which the plain
-versions read.  The slot walk keeps its one-phase kernels and no list.
+given it, g1 and g2 run only the pair body over it (csrc/pair_common.cuh
+``for_each_step_pair<true>``); a warp holding a centre over the list walks
+the cells or the slot map in one phase.  On the card the wrappers take
+only the list, not bare cell offsets or a bare ``SlotMap``
+(ops/pair_list.py ``pinned_walk``), and the launchers refuse a launch
+without it; on CPU tensors the loop's context is the plain engine's
+neighbour lists, a ``SlotMap`` or a ``PairList`` over one, whose lists the
+plain versions read.
 
 The kernels write the padding rows themselves, as the JAX package's
 ``restore_tail`` gives them (p' and rho_err 0, v*' and x*' from v and x),
@@ -161,14 +166,14 @@ def occupancy(kernel, slots=False):
 def d_rho_correct(ctx, p, xp, vp, pressure, dt, s_f, params, active=None):
     """Kernel wrapper for ``d_rho_correct_plain``: (p', rho_err).
     ``ctx``: the step's context from ``density_sum_list`` for the sorted
-    step-start particles ``p`` (a ``PairList``; on CPU tensors, neighbour
-    lists), or their ``SlotMap`` for the slot walk."""
+    step-start particles ``p``, a ``PairList`` over their cell offsets or
+    their ``SlotMap`` (the slot walk); on CPU tensors also neighbour lists
+    or a bare ``SlotMap``."""
     if p.x.device.type == "cpu":
         return d_rho_correct_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "PCISPH"), p, xp, vp,
             pressure, dt, s_f, params)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
-                                                         "PCISPH")
+    dev, n, ptr, walk, suffix, lst = pair_list.pinned_walk(ctx, p, params)
     f32 = torch.float32
     pr_out = torch.empty_like(p.m_V)
     err = torch.empty_like(p.m_V)
@@ -193,8 +198,7 @@ def pressure_accel_predict(ctx, p, xp, pressure, dt, params, active=None):
         return pressure_accel_predict_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "PCISPH"), p, xp,
             pressure, dt, params)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
-                                                         "PCISPH")
+    dev, n, ptr, walk, suffix, lst = pair_list.pinned_walk(ctx, p, params)
     f32 = torch.float32
     v_out = torch.empty_like(p.v)
     x_out = torch.empty_like(p.x)

@@ -15,13 +15,16 @@ only their pair body over it, every loop iteration too.  A warp holding a
 centre with more than ``PAIR_LIST_ENTRIES`` accepted pairs walks the cells
 in one phase inside the kernel (the same pairs, in the same order).  Over
 the cell runs the list kernels' wrappers take only the list, not bare cell
-offsets.  The slot walk reads its map and no list.  DFSPH's step does the
-same from its density-and-factor kernel to its non-pressure kernel
-(ops/cuda_dfsph.py ``density_factor_list``), listing the fluid centres.
-Over the slot walk its density-and-factor kernel writes a list of the
-fluid and dynamic-rigid centres in its one-phase walk (a ``PairList``
-whose walk is the ``SlotMap``), and its Jacobi kernels read it
-(``jacobi_walk``); over the cell runs they keep their two-phase walk.
+offsets.  Over the slot walk the density kernel keeps its one-phase walk
+and writes the same list of every real centre as it walks (a ``PairList``
+whose walk is the ``SlotMap``); PCISPH's loop kernels read it and take
+only that context (``pinned_walk``), the step's other slot kernels walk
+the map in one phase.  DFSPH's step does the same from its
+density-and-factor kernel to its non-pressure kernel (ops/cuda_dfsph.py
+``density_factor_list``), listing the fluid centres.  Over the slot walk
+its density-and-factor kernel writes a list of the fluid and
+dynamic-rigid centres in its one-phase walk, and its Jacobi kernels read
+it (``jacobi_walk``); over the cell runs they keep their two-phase walk.
 
 ``step_pairs_plain`` is a list from the plain engine's neighbour lists
 (the plain versions of the list-writing kernels give it); on CPU tensors
@@ -43,12 +46,12 @@ PAIR_LIST_ENTRIES = 64
 
 
 class PairList(NamedTuple):
-    """A step's context: its walk, the cell offsets (or, on the DFSPH step
-    over the slot walk, the ``SlotMap``), and the step's pair list.  Entry
-    k of row i's list at ``idx[k, i]`` (i32[PAIR_LIST_ENTRIES, n_pad]),
-    valid for k < min(cnt[i], PAIR_LIST_ENTRIES); ``cnt`` (i32[n_pad]) is
-    each centre's number of accepted pairs, also beyond the list, and 0 on
-    rows that are not centres."""
+    """A step's context: its walk, the cell offsets or the ``SlotMap``,
+    and the step's pair list.  Entry k of row i's list at ``idx[k, i]``
+    (i32[PAIR_LIST_ENTRIES, n_pad]), valid for k < min(cnt[i],
+    PAIR_LIST_ENTRIES); ``cnt`` (i32[n_pad]) is each centre's number of
+    accepted pairs, also beyond the list, and 0 on rows that are not
+    centres."""
     walk: object
     idx: torch.Tensor
     cnt: torch.Tensor
@@ -146,12 +149,26 @@ def jacobi_walk(ctx, p, params):
     return (*_walk(ctx, p, params), (None, None))
 
 
+def pinned_walk(ctx, p, params):
+    """``loop_walk`` of PCISPH's loop kernels' context, which they read
+    over both walks: the ``PairList`` that ``density_sum_list`` gives, over
+    the cell offsets or the ``SlotMap``.  Bare cell offsets or a bare
+    ``SlotMap`` raise: their kernels would have no list to read."""
+    if not isinstance(ctx, PairList):
+        _refuse(ctx, "PCISPH", "a PairList over the cell offsets or the "
+                "slot map")
+    return loop_walk(ctx, p, params, "PCISPH")
+
+
 def plain_loop_ctx(ctx, p, params, solver):
     """The plain versions' neighbour lists of a list kernel's context on
-    CPU tensors: the lists ``density_sum_list`` gave, or a ``SlotMap``'s
-    slot lists; raises for any other context."""
+    CPU tensors: the lists ``density_sum_list`` gave, or the slot lists of
+    a ``SlotMap`` or of a ``PairList`` over one; raises for any other
+    context."""
     if isinstance(ctx, NeighborList):
         return ctx
-    if not isinstance(ctx, SlotMap):
-        _refuse(ctx, solver, "neighbour lists on CPU tensors or a SlotMap")
+    if not isinstance(ctx, SlotMap) and not (
+            isinstance(ctx, PairList) and isinstance(ctx.walk, SlotMap)):
+        _refuse(ctx, solver, "neighbour lists on CPU tensors, a SlotMap or "
+                "a PairList over one")
     return _plain_ctx(ctx, p, params)

@@ -15,7 +15,9 @@ bitwise on the card.  Here, on the CPU:
   engine's pairs of every fluid and dynamic-rigid centre where no cell
   overflows, and, where a cell holds more than the map's 8 x 4 slots,
   dropping exactly the pairs whose neighbour lies past its cell's first
-  32;
+  32; the same for the slot density kernel's list of every real centre
+  (``cuda_pairs.density_sum_list_plain``, centres "real"), which the
+  WCSPH, IISPH and PCISPH steps write (tests/test_torch_pcisph_slot_list.py);
 - the Jacobi wrappers given that context on CPU tensors equal to their
   plain versions over the slot lists bitwise, padding rows included
   (padding densities, velocities and accelerations not 0), launching
@@ -72,6 +74,9 @@ ATOL, RTOL = 2e-5, 2e-4
 K_LIST = pair_list.PAIR_LIST_ENTRIES
 KINDS = ["layers", "overflow", "edge", "corner"]
 CALLS = ["change", "adv", "solver_dv", "solver_dv_react"]
+# the slot lists' centres: e1's (DFSPH) and the density kernel's (WCSPH,
+# IISPH and PCISPH steps)
+CENTRES = ["jacobi", "real"]
 
 
 def _layers_scene():
@@ -211,15 +216,28 @@ def _slot_context(kind):
     return pair_list.PairList(smap, idx, cnt)
 
 
-def test_slot_list_plain_matches_jax_pairs():
-    """Where no cell overflows, the slot list holds every fluid and
-    dynamic-rigid centre's pairs of the JAX gather engine, in its order,
-    and the JAX count; other rows list none."""
+def _slot_list(snl, p, params, centres):
+    """The plain slot list of ``centres``: e1's ("jacobi", DFSPH's step)
+    or the density kernel's ("real", the WCSPH, IISPH and PCISPH steps':
+    ``density_sum_list_plain``), and the rows it lists."""
+    if centres == "real":
+        return (*cuda_pairs.density_sum_list_plain(snl, p, params)[1:],
+                p.material >= 0)
+    return (*pair_list.step_pairs_plain(snl, p, "jacobi"),
+            p.is_fluid() | p.is_dynamic_rigid())
+
+
+@pytest.mark.parametrize("centres", CENTRES)
+def test_slot_list_plain_matches_jax_pairs(centres):
+    """Where no cell overflows, the slot list holds every listed centre's
+    pairs of the JAX gather engine (fluid and dynamic rigid for e1's,
+    every real centre for the density kernel's), in its order, and the JAX
+    count; other rows list none."""
     params, p, _, _, snl = _case("layers")[:5]
     out = _jax_layers()[4]
-    idx, cnt = pair_list.step_pairs_plain(snl, p, "jacobi")
+    idx, cnt, listed_rows = _slot_list(snl, p, params, centres)
     assert idx.shape == (K_LIST, params.n_pad) and cnt.shape == (params.n_pad,)
-    listed_rows = (p.is_fluid() | p.is_dynamic_rigid()).numpy()
+    listed_rows = listed_rows.numpy()
     assert p.is_dynamic_rigid().any()
     jcnt = np.asarray(out["nl_cnt"])
     np.testing.assert_array_equal(cnt.numpy(), np.where(listed_rows, jcnt, 0))
@@ -233,23 +251,22 @@ def test_slot_list_plain_matches_jax_pairs():
     assert int(cnt.max()) > 0
 
 
+@pytest.mark.parametrize("centres", CENTRES)
 @pytest.mark.parametrize("kind", ["overflow", "edge", "corner"])
-def test_slot_list_drops_the_pairs_past_the_slots(kind):
-    """Each fluid and dynamic-rigid centre's slot list is its cell-run list
-    without the neighbours ranked past the first 8 x layers of their cell
-    (the cells are sorted, so a neighbour's rank is its row less its
-    cell's start), in the same order, and the count is the kept pairs',
-    also beyond the list: some centres lose pairs where a cell overflows
-    the map, none in the corner scene, where centres hold more pairs than
-    the list."""
+def test_slot_list_drops_the_pairs_past_the_slots(kind, centres):
+    """Each listed centre's slot list is its cell-run list without the
+    neighbours ranked past the first 8 x layers of their cell (the cells
+    are sorted, so a neighbour's rank is its row less its cell's start),
+    in the same order, and the count is the kept pairs', also beyond the
+    list: some centres lose pairs where a cell overflows the map, none in
+    the corner scene, where centres hold more pairs than the list."""
     params, p, starts, smap, snl, full = _case(kind)[:6]
-    idx, cnt = pair_list.step_pairs_plain(snl, p, "jacobi")
+    idx, cnt, listed_rows = _slot_list(snl, p, params, centres)
     cell = tgrid.compute_cell_ids(p.x, p.material, params.grid_size,
                                   params.grid_num).long()
     rank = torch.arange(p.n) - starts.long()[cell.clamp_max(
         params.num_cells - 1)]
     slots = 8 * smap.layers
-    listed_rows = p.is_fluid() | p.is_dynamic_rigid()
     lose = 0
     for i in torch.nonzero(listed_rows)[:, 0].tolist():
         nbrs = full.idx[i, :int(full.cnt[i])].long()

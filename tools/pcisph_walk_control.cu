@@ -13,6 +13,10 @@
 //   pairs' bodies (the shipped walk loads kListUnroll);
 // - OVERFLOW_TWO_PHASE: a warp over the list walks the cells in two
 //   phases, not in one.
+// The slot instantiations reach the same hook: under NO_LIST and ONE_PHASE
+// every warp walks the slot map in one phase, pinned (the slot kernels
+// before they read the step's list; the slot walk has no two-phase form),
+// and a warp over the list walks it in one phase under every control.
 // Every control adds each centre's pairs in the shipped walk's order, so
 // every result equals the shipped kernels' bitwise.
 // Build: nvcc <the flags of ops/_build.py> -I sph_taichi_torch/csrc
@@ -61,20 +65,34 @@ __device__ __forceinline__ void pinned_compact_cell_runs(
   flush();
 }
 
-template <typename F>
+// pinned_compact_cell_runs over the cell runs; the one-phase pinned walk
+// over the slot walk
+template <typename Walk, typename F>
+__device__ __forceinline__ void control_two_phase(
+    bool walks, int i, const float* __restrict__ x, float gi0, float gi1,
+    float gi2, const float* __restrict__ xg, const Walk& walk,
+    const PairConsts& c, F&& f) {
+  if constexpr (kCompactWalk<Walk>) {
+    pinned_compact_cell_runs(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
+  } else if (walks) {
+    for_each_neighbor_pinned(i, x, xg, walk, c, f);
+  }
+}
+
+template <typename Walk, typename F>
 __device__ __forceinline__ void control_listed_pair(
     bool walks, int i, const float* __restrict__ x, float gi0, float gi1,
     float gi2, const float* __restrict__ xg, const PairList& pl,
-    const CellRunWalk& walk, const PairConsts& c, F&& f) {
+    const Walk& walk, const PairConsts& c, F&& f) {
 #if defined(NO_LIST)
-  pinned_compact_cell_runs(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
+  control_two_phase(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
 #elif defined(ONE_PHASE)
   if (walks) for_each_neighbor_pinned(i, x, xg, walk, c, f);
 #else
   const int n = walks ? pl.cnt[i] : 0;
   if (__any_sync(0xffffffffu, n > kPairListEntries)) {
 #ifdef OVERFLOW_TWO_PHASE
-    pinned_compact_cell_runs(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
+    control_two_phase(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
 #else
     if (walks) for_each_neighbor_pinned(i, x, xg, walk, c, f);
 #endif

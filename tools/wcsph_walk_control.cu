@@ -80,11 +80,14 @@ __global__ void density_list_pass_kernel(const float* __restrict__ x,
   if (i < n_rows) out[i] = sum;
 }
 
+// density_sum_list_launch's signature; the cell runs only (slot_map and
+// layers are not read)
 extern "C" int control_density_pass_launch(const float* x,
                                            const int* material,
                                            const float* m_V,
-                                           const int* starts, int* idx,
-                                           int* cnt, float* out, int n_rows,
+                                           const int* starts, const int*,
+                                           int, int* idx, int* cnt,
+                                           float* out, int n_rows,
                                            PairConsts c, void* stream) {
   if (n_rows > 0) {
     density_list_pass_kernel<<<rows_grid(n_rows), kBlock, 0,
