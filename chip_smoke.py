@@ -125,37 +125,39 @@ Phases (any failure raises and exits non-zero):
    IISPH, PCISPH) against their plain versions over the slot lists on
    the clumped DFSPH, IISPH and PCISPH scenes, at a 20-particle cell
    (each also equal to its cell-run instantiation) and with a
-   40-particle overflow clump: all bitwise, DFSPH's Jacobi kernels over
-   the step's list that e1 writes over the slot walk and PCISPH's g1 and
-   g2 over the list that density_sum_list[slots] writes, each list against
-   its plain version (padding rows included);
+   40-particle overflow clump: all bitwise, DFSPH's Jacobi kernels and d
+   over the step's list that e1 writes over the slot walk, IISPH's f3 and
+   PCISPH's d, g1 and g2 over the list that density_sum_list[slots]
+   writes, each list against its plain version (padding rows included);
 15. data/scenes/dragon_bath_dfsph.json (DFSPH) with
    ``backend="pallas_slots"`` through ``Simulation`` beside a cell-run
    twin: 20 timed steps after 3 on each, steps/s, iterations, host reads
    and max_layers_used per step; the slot run launches each kernel of
    the cell-run run as its ``[slots]`` instantiation as often, runs the
    same iterations and holds the same state bitwise; the slot run's
-   device busy per step beside that of the Jacobi kernels' one-phase
-   slot design without the list (the control library of
+   device busy per step beside that of the Jacobi kernels' and d's
+   one-phase slot design without the list (the control library of
    tools/jacobi_walk_control.cu, built with the kernels), in the same
    call; six interleaved turns of 5 steps; at that state the slot list
    against its plain version, its walk profile (accepted pairs per fluid
    centre, warps over the list, warps walking the map), the registers,
-   shared memory and resident blocks of e1's and the Jacobi kernels' slot
-   instantiations, the slot kernels against their plain versions and
-   their cell-run instantiations, times (the Jacobi kernels' also beside
+   shared memory and resident blocks of e1's, the Jacobi kernels' and d's
+   slot instantiations, the slot kernels against their plain versions and
+   their cell-run instantiations, times (the list readers' also beside
    the one-phase slot design on the same inputs, equal bitwise), bounds
    and the list's design figures;
 16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
    after 5; density_sum_list[slots] writes the step's list over the map
    as density_sum_list does over the cell runs, and the slot run launches
-   it as often): the slot IISPH and PCISPH steps' device busy; PCISPH's
-   g1 and g2 read the list, and its device busy stands beside that of
-   their one-phase slot design without the list (the control library of
-   tools/pcisph_walk_control.cu with ONE_PHASE, built with the kernels),
-   each kernel beside the control on the same inputs (equal bitwise), the
-   slot density kernel beside the one-phase density_sum[slots], the walk
-   profile over the list, registers and the list's design figures;
+   it as often): IISPH's f3 (both variants) and PCISPH's d, g1 and g2
+   read the list, and each step's device busy stands beside that of their
+   one-phase slot design without the list (the control libraries of
+   tools/iisph_walk_control.cu, and of tools/pcisph_walk_control.cu with
+   ONE_PHASE beside tools/jacobi_walk_control.cu, built with the kernels),
+   each reader beside the control on the same inputs (equal bitwise), the
+   slot density kernel beside the one-phase density_sum[slots] (PCISPH),
+   the walk profile over the list, registers and the list's design
+   figures;
 17. the same for the scaled dynamic dragon as DFSPH (20 steps after 5):
    kernel c's and the reaction update's slot instantiations every step,
    the reaction kernel against its plain version, the dynamic-rigid
@@ -184,7 +186,8 @@ Phases (any failure raises and exits non-zero):
    (both variants) and f4 on the same edge scene as IISPH, every real
    centre over the list at a seeded pressure, padding velocities not 0:
    the list against its plain version, f1-f4 over the list and over the
-   slot map against their plain versions bitwise, padding rows included;
+   slot map's list against their plain versions bitwise, padding rows
+   included;
    bare cell offsets refused; the walk profile with the list; one kernel
    per wrapper call;
 21. (in phase 2) WCSPH's density_sum_list and wcsph_forces over its list
@@ -196,9 +199,9 @@ Phases (any failure raises and exits non-zero):
    is timed and held against its plain version at phase 6's state.)
 22. (in phase 2) DFSPH's e1 with the step's list and d over it on the
    same edge scene, padding densities and velocities not 0: both against
-   their plain versions bitwise (the list too), e1 and both variants of d
-   over the slot map too, padding rows included; d refuses bare cell
-   offsets (kicked and un-kicked; PCISPH's edge-scene phase runs
+   their plain versions bitwise (the list too), e1 over the slot map too
+   (d over the slot walk: phase 25), padding rows included; d refuses
+   bare cell offsets (kicked and un-kicked; PCISPH's edge-scene phase runs
    un-kicked d over its list); the walk profile; one kernel per wrapper
    call.
 23. (in phase 2) DFSPH's e1 over the slot walk writing the step's list
@@ -223,6 +226,18 @@ Phases (any failure raises and exits non-zero):
    and by the launchers (cudaErrorInvalidValue); one kernel per wrapper
    call; the registers, shared memory and resident blocks of each slot
    instantiation.
+25. (in phase 2) the other readers of the slot walk's list on the same
+   edge scene and corner form: IISPH's f3 (both variants, at a seeded
+   pressure) and PCISPH's un-kicked d over density_sum_list[slots]'s list,
+   DFSPH's kicked d over e1's slot list, padding velocities, densities
+   and pressures not 0: each list and reader against its plain version
+   over the slot lists bitwise, padding rows included; the walk profile of
+   each reader's centres over its list (the corner's warps over it walk
+   the map in one phase, pinned); the bare map refused by the wrappers
+   (TypeError naming the context's source) and by the launchers
+   (cudaErrorInvalidValue); one kernel per wrapper call; the registers,
+   shared memory and resident blocks of f3's slot instantiations (d's
+   with phases 23 and 24).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -1089,10 +1104,11 @@ def check_dfsph_on_edge_scene(device):
     """DFSPH's e1 and d on the edge scene (a ~100-particle cell: centres
     over the list, so warps that read the list beside warps that walk the
     cells in one phase), with padding densities and velocities that are not
-    0: density_factor_list and nonpressure_kick over its list, and e1 and
-    both variants of d over the slot map (the cell overflows its 32 slots),
-    against their plain versions bitwise, padding rows included; d refuses
-    bare cell offsets; the walk profile of their centres; one kernel per
+    0: density_factor_list and nonpressure_kick over its list, and e1 over
+    the slot map (the cell overflows its 32 slots; d over the slot walk
+    reads a slot list: ``check_slot_list_readers_on_edge_scenes``), against
+    their plain versions bitwise, padding rows included; d refuses bare
+    cell offsets; the walk profile of their centres; one kernel per
     wrapper call."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
@@ -1125,22 +1141,16 @@ def check_dfsph_on_edge_scene(device):
     caps = dataclasses.replace(params, neighbor_cap=256, cell_cap=128)
     smap = build_slot_map(starts, params)
     snl = slot_neighbor_list(smap, q.x, caps)
-    for name, got, ref in (
-            ("dfsph_density_factor[slots]", cd.density_factor(smap, p, params),
-             cd.density_factor_plain(snl, p, params)),
-            ("nonpressure_kick[slots]", cd.nonpressure_kick(smap, q, dt, params),
-             cd.nonpressure_kick_plain(snl, q, dt, params)),
-            ("nonpressure_accel[slots]",
-             (cd.nonpressure_accel(smap, q, params),),
-             (cd.nonpressure_accel_plain(snl, q, params),))):
-        for a, b in zip(got, ref):
-            e = float((a.double() - b.double()).abs().max())
-            worst[name] = max(worst.get(name, 0.0), e)
-            if not torch.equal(a, b):
-                raise AssertionError(f"edge scene {name}: not equal to its "
-                                     f"plain version ({e:.3e})")
-    print("  e1, d and un-kicked d over the slot map equal to their plain "
-          "versions bitwise, padding rows included")
+    name = "dfsph_density_factor[slots]"
+    for a, b in zip(cd.density_factor(smap, p, params),
+                    cd.density_factor_plain(snl, p, params)):
+        e = float((a.double() - b.double()).abs().max())
+        worst[name] = max(worst.get(name, 0.0), e)
+        if not torch.equal(a, b):
+            raise AssertionError(f"edge scene {name}: not equal to its "
+                                 f"plain version ({e:.3e})")
+    print("  e1 over the slot map equal to its plain version bitwise, "
+          "padding rows included")
     for name, fn in (("nonpressure_kick",
                       lambda: cd.nonpressure_kick(starts, q, dt, params)),
                      ("nonpressure_accel",
@@ -1164,11 +1174,7 @@ def check_dfsph_on_edge_scene(device):
         "nonpressure_accel (over the list)": (
             "nonpressure_accel", ("nonpressure_kick_kernel<false",
                                   "CellRunWalk"),
-            lambda: cd.nonpressure_accel(pairs, q, params)),
-        "nonpressure_kick[slots]": (
-            "nonpressure_kick[slots]", ("nonpressure_kick_kernel<true",
-                                        "SlotWalk"),
-            lambda: cd.nonpressure_kick(smap, q, dt, params))}
+            lambda: cd.nonpressure_accel(pairs, q, params))}
     for name, (key, kernel, fn) in calls.items():
         before = cd.LAUNCHES[key]
         launched, lost = kernels_per_call(fn)
@@ -1195,21 +1201,23 @@ def corner_positions(rng, params, x, material):
     return x
 
 
-def slot_list_profile(p, cnt, react, label):
-    """What the warps of DFSPH's Jacobi kernels do over the step's slot
-    list, from its counts ``cnt`` (every row; beyond the list too): warps
-    of 32 consecutive rows, the fluid rows walking and, with ``react``,
-    the dynamic-rigid ones (the list holds both).  A warp whose walking
-    lanes are all within the list reads it (its body runs as often as its
-    fullest lane's count); a warp holding a centre over the list walks the
-    slot map in one phase.  Prints and returns the figures."""
+def slot_list_profile(p, cnt, react, label, walks=None):
+    """What the warps of a list reader do over the step's slot list, from
+    its counts ``cnt`` (every row; beyond the list too): warps of 32
+    consecutive rows, the rows ``walks`` walking (by default the fluid
+    rows and, with ``react``, the dynamic-rigid ones, as DFSPH's Jacobi
+    kernels walk them; IISPH's f3 walks every real row).  A warp whose
+    walking lanes are all within the list reads it (its body runs as often
+    as its fullest lane's count); a warp holding a centre over the list
+    walks the slot map in one phase.  Prints and returns the figures."""
     from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES as k_list
 
     n = p.n
     nw = (n + 31) // 32
     fluid = p.material == 1
     dynr = p.is_dynamic_rigid() if react else torch.zeros_like(fluid)
-    walks = fluid | dynr
+    if walks is None:
+        walks = fluid | dynr
 
     def per_warp(t):
         out = torch.zeros(nw * 32, dtype=t.dtype, device=t.device)
@@ -1248,22 +1256,32 @@ def slot_list_profile(p, cnt, react, label):
 
 def slot_occupancy(method=4):
     """Prints the registers, shared memory and resident blocks of the slot
-    instantiations that write and read the step's list: e1 and the Jacobi
-    kernels (``method`` 4), or the slot density kernel (beside the
-    one-phase ``density_sum[slots]``) and g1 and g2 (1)."""
+    instantiations that write and read the step's list: e1, the Jacobi
+    kernels and kicked d (``method`` 4), the slot density kernel (beside
+    the one-phase ``density_sum[slots]``) and f3, both variants (2), or
+    the slot density kernel, un-kicked d, g1 and g2 (1)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
-    if method == 1:
+    if method in (1, 2):
         rows = [("density_sum_list[slots] (writing the list)",
                  cp.occupancy("density_sum_list", True)),
                 ("density_sum[slots] (one phase, no list)",
                  cp.occupancy("density_sum", True))]
+    if method == 1:
+        rows += [("nonpressure_accel[slots] (over the list)",
+                  cd.occupancy("nonpressure_accel", slots=True))]
         rows += [(f"{kernel}[slots] (over the list)",
                   cg.occupancy(kernel, slots=True))
                  for kernel in ("pcisph_d_rho_correct",
                                 "pcisph_pressure_accel_predict")]
+    elif method == 2:
+        rows += [(f"{kernel}[slots] (over the list)",
+                  ci.occupancy(kernel, slots=True))
+                 for kernel in ("iisph_pressure_accel",
+                                "iisph_pressure_accel_advect")]
     else:
         rows = [("dfsph_density_factor[slots] (writing the list)",
                  cd.occupancy("density_factor", True))]
@@ -1271,6 +1289,8 @@ def slot_occupancy(method=4):
                                                  (False, True)):
             rows.append((f"{kernel}<{int(variant)}>[slots] (over the list)",
                          cd.jacobi_occupancy(kernel, variant, True)))
+        rows.append(("nonpressure_kick[slots] (over the list)",
+                     cd.occupancy("nonpressure_kick", slots=True)))
     for name, (regs, smem, blocks) in rows:
         print(f"  {name}: {regs} registers, {smem} bytes of shared memory "
               f"per block, {blocks} blocks of 128 per SM (occupancy "
@@ -1540,6 +1560,179 @@ def check_pcisph_slot_list_on_edge_scenes(device):
             for k, x in worst.items()}
 
 
+def slot_reader_calls(method, params, p, snl, smap, dt, pad):
+    """The list readers of the slot step of ``method`` on the edge-scene
+    particles ``p`` (padding rows of v and density not 0) and its slot
+    map: (the step's list over the map, its plain version, the readers'
+    particles, the rows they walk, {name: (the wrapper given a context, its
+    plain outputs over the slot lists, module, parts of the kernel's name,
+    the launcher given the map and no list)}, the call that the wrappers'
+    refusal names).  f3 (both variants) at a seeded pressure (padding pressures
+    not 0) over the slot density kernel's list (IISPH, 2); kicked d over
+    e1's slot list at e1's densities (DFSPH, 4); un-kicked d over the slot
+    density kernel's list (PCISPH, 1)."""
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_iisph as ci
+    from sph_taichi_torch.ops import cuda_pairs as cp
+
+    n_real = params.n_fluid + params.n_solid
+    _, n, ptr, walk, _ = cp._walk(smap, p, params)
+    consts, stream = cp.pair_consts(params), cp._stream(p.x.device)
+    out = [torch.empty_like(p.x) for _ in range(2)]
+    if method == 4:
+        density, factor, slist = cd.density_factor_list(smap, p, params, {})
+        plain = ("dfsph_density_factor[slots]'s list",
+                 *cd.density_factor_list_plain(snl, p, params, "jacobi")[2:])
+        q = p._replace(density=density, dfsph_factor=factor)
+        source = "density_factor_list"
+        calls = {"nonpressure_kick": (
+            lambda c: cd.nonpressure_kick(c, q, dt, params),
+            cd.nonpressure_kick_plain(snl, q, dt, params), cd,
+            ("nonpressure_kick_kernel<true", "SlotWalk"),
+            lambda: cd._lib().nonpressure_kick_launch(
+                ptr["x"], q.v.data_ptr(), ptr["material"],
+                q.is_dynamic.data_ptr(), q.m.data_ptr(),
+                q.density.data_ptr(), *walk, None, None, dt.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), n, consts, stream))}
+        return slist, plain, q, q.material == 1, calls, source
+    slist = cp.density_sum_list(smap, p, params, {})[1]
+    plain = ("density_sum_list[slots]'s list",
+             *cp.density_sum_list_plain(snl, p, params)[1:])
+    source = "density_sum_list"
+    if method == 1:
+        calls = {"nonpressure_accel": (
+            lambda c: (cd.nonpressure_accel(c, p, params),),
+            (cd.nonpressure_accel_plain(snl, p, params),), cd,
+            ("nonpressure_kick_kernel<false", "SlotWalk"),
+            lambda: cd._lib().nonpressure_accel_launch(
+                ptr["x"], p.v.data_ptr(), ptr["material"],
+                p.is_dynamic.data_ptr(), p.m.data_ptr(),
+                p.density.data_ptr(), *walk, None, None, out[0].data_ptr(),
+                n, consts, stream))}
+        return slist, plain, p, p.material == 1, calls, source
+    pressure = random_pressure(p)
+    pressure[n_real:] = 100.0 + pad[:p.n - n_real]
+
+    def launch(adv):
+        return lambda: ci._lib().iisph_pressure_accel_launch(
+            ptr["x"], ptr["material"], ptr["m_V"], p.density.data_ptr(),
+            pressure.data_ptr(), *walk, None, None, p.v.data_ptr(),
+            dt.data_ptr(), None, out[0].data_ptr(), out[1].data_ptr(), adv,
+            n, consts, stream)
+
+    calls = {
+        "iisph_pressure_accel": (
+            lambda c: (ci.pressure_accel(c, p, pressure, params),),
+            (ci.pressure_accel_plain(snl, p, pressure, params),), ci,
+            ("iisph_pressure_accel_kernel<false", "SlotWalk"), launch(0)),
+        "iisph_pressure_accel_advect": (
+            lambda c: ci.pressure_accel(c, p, pressure, params, advect_dt=dt),
+            ci.pressure_accel_plain(snl, p, pressure, params, advect_dt=dt),
+            ci, ("iisph_pressure_accel_kernel<true", "SlotWalk"),
+            launch(1))}
+    return slist, plain, p, p.material >= 0, calls, source
+
+
+def check_slot_list_readers_on_edge_scenes(device):
+    """IISPH's f3 (both variants) and PCISPH's un-kicked d over the list
+    that the slot density kernel writes, and DFSPH's kicked d over the
+    list that e1 writes over the slot walk, on the edge scene (its
+    ~100-particle cell overflows the slot map) and its corner form (no
+    overflow; centres over the list of 64, whose warps walk the map in one
+    phase, pinned), padding velocities, densities and pressures not 0:
+    each list and each reader against its plain version over the slot
+    lists bitwise, padding rows included; the walk profile of each
+    reader's centres over its list; the bare map refused by the wrappers
+    (TypeError naming the context's source) and by the launchers
+    (cudaErrorInvalidValue); one kernel per wrapper call."""
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    worst = {}
+    for scene, place in (("edge", compact_edge_positions),
+                         ("corner", corner_positions)):
+        for method in (2, 4, 1):
+            scene_dict = compact_edge_scene()
+            scene_dict["Configuration"]["simulationMethod"] = method
+            params, _, p, _, starts, diag = prepared(
+                scene_dict, device, seed=0, place=place)
+            n_real = params.n_fluid + params.n_solid
+            pad = torch.arange(3 * (p.n - n_real), dtype=torch.float32,
+                               device=device)
+            v, density = p.v.clone(), p.density.clone()
+            v[n_real:] = pad.reshape(-1, 3)
+            density[n_real:] = 1000.0 + pad[:p.n - n_real]
+            p = p._replace(v=v, density=density)
+            caps = dataclasses.replace(params, neighbor_cap=256,
+                                       cell_cap=128)
+            smap = build_slot_map(starts, params)
+            snl = slot_neighbor_list(smap, p.x, caps)
+            if int(snl.diag["neighbor_overflow"]) or \
+                    bool(smap.diag["slot_overflow"]) != (scene == "edge"):
+                raise AssertionError(f"{scene}: slot lists or map "
+                                     f"{smap.diag}")
+            dt = torch.full((), params.dt0, dtype=torch.float32,
+                            device=device)
+            label = (f"slot list readers, {scene} scene, "
+                     f"{ {2: 'IISPH', 4: 'DFSPH', 1: 'PCISPH'}[method] }")
+            print(f"{label}: {params.n_particles} particles, max cell "
+                  f"occupancy {int(diag['max_cell_occupancy'])}, slot map "
+                  f"{ {k: int(x) for k, x in smap.diag.items()} }")
+            slist, plain, q, walks, calls, source = slot_reader_calls(
+                method, params, p, snl, smap, dt, pad)
+            check_pair_list(slist, snl, q, params, label, plain=plain)
+            fig = slot_list_profile(q, slist.cnt, False, label, walks=walks)
+            if fig["warps_over_list"] >= fig["warps"] or (
+                    scene == "corner" and not fig["warps_over_list"]):
+                raise AssertionError(f"{label}: the scene misses an edge: "
+                                     f"{fig}")
+            for name, (fn, want, _, _, launch) in calls.items():
+                for a, b in zip(outputs(fn(slist)), want):
+                    e = float((a.double() - b.double()).abs().max())
+                    worst[name + "[slots]"] = max(
+                        worst.get(name + "[slots]", 0.0), e)
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{label}: {name} over the "
+                                             f"list differs from its plain "
+                                             f"version ({e:.3e})")
+                try:
+                    fn(smap)
+                except TypeError as e:
+                    if source not in str(e):
+                        raise AssertionError(f"{name}: the refusal does not "
+                                             f"name {source}: {e}")
+                else:
+                    raise AssertionError(f"{name}: a bare slot map not "
+                                         f"refused")
+                rc = launch()
+                torch.cuda.synchronize()
+                if rc != 1:    # cudaErrorInvalidValue
+                    raise AssertionError(f"{label}: {name}'s launcher given "
+                                         f"no list returned {rc}")
+            print(f"  {', '.join(calls)} over the list equal to "
+                  f"{'their' if len(calls) > 1 else 'its'} plain "
+                  f"version{'s' if len(calls) > 1 else ''} bitwise, padding "
+                  f"rows included; the bare map refused by the wrapper "
+                  f"(TypeError naming {source}) and the launcher given no "
+                  f"list (CUDA error 1, cudaErrorInvalidValue)")
+            if scene == "corner":
+                continue
+            for name, (fn, _, module, kernel, _) in calls.items():
+                key = name + "[slots]"
+                before = module.LAUNCHES[key]
+                launched, lost = kernels_per_call(lambda f=fn: f(slist))
+                counted = (module.LAUNCHES[key] - before) / (2 + lost)
+                print(f"  {key} (over the list): one wrapper call launches "
+                      f"{launched} (its count {counted:g} per call; captures "
+                      f"that lost the markers {lost})")
+                if len(launched) != 1 or counted != 1 or not all(
+                        k in launched[0] for k in kernel):
+                    raise AssertionError(f"{key}: the wrapper launches "
+                                         f"{launched}")
+    slot_occupancy(2)
+    return {f"{k} (slot list reader edge scenes)": x
+            for k, x in worst.items()}
+
+
 def check_pcisph_on_edge_scene(device):
     """PCISPH's loop kernels over the step's list (``density_sum_list``'s)
     on the edge scene (a ~100-particle cell: centres over the list, so
@@ -1651,10 +1844,10 @@ def check_iisph_on_edge_scene(device):
     over the list, so warps that read the list beside warps that walk the
     cells in one phase) at a seeded pressure, with padding velocities that
     are not 0: the list against its plain version; f1, f2, f3 (both
-    variants) and f4 over the list and over the slot map (the cell
-    overflows its 32 slots) against their plain versions bitwise, padding
-    rows included; bare cell offsets refused; the walk profile; one kernel
-    per wrapper call."""
+    variants) and f4 over the list and over the slot map's list (the cell
+    overflows its 32 slots; f3 reads that list, f1, f2 and f4 walk the
+    map) against their plain versions bitwise, padding rows included; bare
+    cell offsets refused; the walk profile; one kernel per wrapper call."""
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
@@ -1708,7 +1901,9 @@ def check_iisph_on_edge_scene(device):
                 ctx, p, accel, a_ii, source, pressure, dt, 0.5, params)}
 
     checked = 0
-    for ctx, lists_, how in ((pairs, nl, "list"), (smap, snl, "slots")):
+    # over the slot walk, the list that the slot density kernel writes
+    slist = cp.density_sum_list(smap, p, params, {})[1]
+    for ctx, lists_, how in ((pairs, nl, "list"), (slist, snl, "slots")):
         refs = {
             "iisph_nonpressure_kick": ci.nonpressure_kick_plain(
                 lists_, p0, dt, params),
@@ -4434,37 +4629,48 @@ SLOT_ENTRIES = {
         "pcisph_pressure_accel_predict": ("pcisph_pressure_accel_predict",)},
 }
 # The designs that the list kernels over the slot walk had before they read
-# the step's list (one phase, no list), per solver: DFSPH's Jacobi kernels
-# (the control library of tools/jacobi_walk_control.py) and PCISPH's loop
-# kernels (tools/pcisph_walk_control.cu with ONE_PHASE), each built beside
-# the kernels; the slot DFSPH and PCISPH phases time them on the same
-# inputs and step with them (device busy).  method -> (source, nvcc
+# the step's list (one phase, no list), built beside the kernels: DFSPH's
+# Jacobi kernels and the non-pressure kernel d (tools/jacobi_walk_control.cu,
+# the control library of tools/jacobi_walk_control.py with d's slot list
+# walk in one phase), IISPH's pressure acceleration f3
+# (tools/iisph_walk_control.cu) and PCISPH's loop kernels
+# (tools/pcisph_walk_control.cu with ONE_PHASE).  name -> (source, nvcc
 # flags, the module whose launchers it serves, those launchers, what it is)
-CONTROLS = {
-    4: ("tools/jacobi_walk_control.cu", [], "cuda_dfsph",
-        ("dfsph_density_factor_list_launch", "dfsph_divergence_launch",
-         "dfsph_solver_dv_launch", "nonpressure_kick_launch",
-         "nonpressure_accel_launch"), "the one-phase slot Jacobi kernels"),
-    1: ("tools/pcisph_walk_control.cu", ["-DONE_PHASE"], "cuda_pcisph",
-        ("pcisph_d_rho_correct_launch",
-         "pcisph_pressure_accel_predict_launch"),
-        "the one-phase slot loop kernels of PCISPH"),
+CONTROL_LIBS = {
+    "dfsph": ("tools/jacobi_walk_control.cu", [], "cuda_dfsph",
+              ("dfsph_density_factor_list_launch", "dfsph_divergence_launch",
+               "dfsph_solver_dv_launch", "nonpressure_kick_launch",
+               "nonpressure_accel_launch"),
+              "the one-phase slot Jacobi kernels and d"),
+    "iisph": ("tools/iisph_walk_control.cu", [], "cuda_iisph",
+              ("iisph_nonpressure_kick_launch",
+               "iisph_predict_advection_launch",
+               "iisph_pressure_accel_launch", "iisph_apply_A_launch"),
+              "the one-phase slot f3 of IISPH"),
+    "pcisph": ("tools/pcisph_walk_control.cu", ["-DONE_PHASE"], "cuda_pcisph",
+               ("pcisph_d_rho_correct_launch",
+                "pcisph_pressure_accel_predict_launch"),
+               "the one-phase slot loop kernels of PCISPH"),
 }
+# simulationMethod -> the control libraries whose wrappers its slot step
+# calls: the slot DFSPH, IISPH and PCISPH phases time the list readers and
+# step with them (device busy) on the same inputs
+CONTROLS = {4: ("dfsph",), 2: ("iisph",), 1: ("pcisph", "dfsph")}
 CONTROL = {}
 
 
 def start_control_builds():
-    """Starts nvcc on every control of ``CONTROLS``, all together:
-    {method: (its library's path, the process)}."""
+    """Starts nvcc on every library of ``CONTROL_LIBS``, all together:
+    {name: (its library's path, the process)}."""
     from sph_taichi_torch.ops import _build
 
     out = os.path.join("build", "walk_control")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for method, (src, flags, *_) in CONTROLS.items():
-        lib = os.path.abspath(os.path.join(out, f"libsmoke_control{method}"
+    for name, (src, flags, *_) in CONTROL_LIBS.items():
+        lib = os.path.abspath(os.path.join(out, f"libsmoke_control_{name}"
                                                 f".so"))
-        procs[method] = lib, subprocess.Popen(
+        procs[name] = lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
              *flags, "-o", lib, src], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
@@ -4474,42 +4680,46 @@ def start_control_builds():
 def finish_control_builds(procs):
     """Waits for the controls' builds, loads each with the shipped
     launchers' signatures into ``CONTROL`` and prints its ptxas report."""
-    for method, (lib, proc) in procs.items():
-        module, launchers, what = CONTROLS[method][2:]
+    for name, (lib, proc) in procs.items():
+        src, flags, module, launchers, what = CONTROL_LIBS[name]
         log = proc.communicate(timeout=900)[0]
+        label = " ".join([src, *flags])
         if proc.returncode:
-            raise RuntimeError(f"{control_name(method)}: nvcc exit "
-                               f"{proc.returncode}\n{log}")
+            raise RuntimeError(f"{label}: nvcc exit {proc.returncode}\n{log}")
         shipped = importlib.import_module(
             f"sph_taichi_torch.ops.{module}")._lib()
         control = ctypes.CDLL(lib)
-        for name in launchers:
-            fn = getattr(control, name)
-            fn.argtypes = getattr(shipped, name).argtypes
+        for fn_name in launchers:
+            fn = getattr(control, fn_name)
+            fn.argtypes = getattr(shipped, fn_name).argtypes
             fn.restype = ctypes.c_int
-        CONTROL[method] = control
-        print(f"{control_name(method)} ({what}) built: "
+        CONTROL[name] = control
+        print(f"{label} ({what}) built: "
               + "; ".join(ln.strip() for ln in log.splitlines()
                           if "Used" in ln and "registers" in ln))
 
 
 def control_name(method):
-    src, flags = CONTROLS[method][:2]
-    return " ".join([src, *flags])
+    return " and ".join(" ".join([CONTROL_LIBS[name][0],
+                                  *CONTROL_LIBS[name][1]])
+                        for name in CONTROLS[method])
 
 
 @contextlib.contextmanager
 def control_kernels(method):
-    """The wrappers of ``method``'s control module launching from its
-    control library."""
-    mod = importlib.import_module(
-        f"sph_taichi_torch.ops.{CONTROLS[method][2]}")
-    real = mod._lib
-    mod._lib = lambda: CONTROL[method]
+    """The wrappers of ``method``'s control modules launching from their
+    control libraries."""
+    mods = [(importlib.import_module(
+        f"sph_taichi_torch.ops.{CONTROL_LIBS[name][2]}"), name)
+        for name in CONTROLS[method]]
+    real = [mod._lib for mod, _ in mods]
+    for mod, name in mods:
+        mod._lib = lambda name=name: CONTROL[name]
     try:
         yield
     finally:
-        mod._lib = real
+        for (mod, _), lib in zip(mods, real):
+            mod._lib = lib
 
 
 SLOT_SOURCES = {"dfsph": "sph_taichi_torch/csrc/dfsph.cu",
@@ -4607,14 +4817,15 @@ def outputs(r):
 
 def slot_contexts(method, smap, p, params, label=None, snl=None):
     """label -> the context of a slot instantiation of ``solver_calls`` at
-    the sorted particles ``p``, as the slot step gives it: for DFSPH's
-    Jacobi kernels the step's list over their ``SlotMap``
-    (``density_factor_list``'s, e1 over the slot walk), for PCISPH's
-    kernels the step's list over it (``density_sum_list``'s, the density
-    kernel over the slot walk: the loop reads it, d walks the map), else
-    the map.  With ``snl`` (the slot lists) the list is held against its
-    plain version first, padding rows included.  Returns (that function,
-    the list or None, the labels whose kernels read the list)."""
+    the sorted particles ``p``, as the slot step gives it: on the DFSPH
+    step the step's list over their ``SlotMap`` (``density_factor_list``'s,
+    e1 over the slot walk) for the Jacobi kernels and d, the map for e1;
+    on the IISPH and PCISPH steps the step's list over it
+    (``density_sum_list``'s, the density kernel over the slot walk) for
+    every kernel (IISPH's f3 and PCISPH's d, g1 and g2 read it; f1, f2 and
+    f4 walk the map).  With ``snl`` (the slot lists) the list is held
+    against its plain version first, padding rows included.  Returns (that
+    function, the list, the labels whose kernels read the list)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pair_list import step_pairs_plain
@@ -4625,20 +4836,22 @@ def slot_contexts(method, smap, p, params, label=None, snl=None):
                  *step_pairs_plain(snl, p, "jacobi")) \
             if snl is not None else None
         readers = ("dfsph_divergence_change", "dfsph_divergence_adv",
-                   "dfsph_solver_dv", "dfsph_solver_dv<REACT>")
-    elif method == 1:
+                   "dfsph_solver_dv", "dfsph_solver_dv<REACT>",
+                   "nonpressure_kick")
+    else:
         slist = cp.density_sum_list(smap, p, params)[1]
         plain = ("density_sum_list[slots]'s list",
                  *cp.density_sum_list_plain(snl, p, params)[1:]) \
             if snl is not None else None
-        readers = ("pcisph_d_rho_correct", "pcisph_pressure_accel_predict")
-    else:
-        return (lambda name: smap), None, ()
+        readers = {2: ("iisph_pressure_accel", "iisph_pressure_accel_advect"),
+                   1: ("nonpressure_accel", "pcisph_d_rho_correct",
+                       "pcisph_pressure_accel_predict")}[method]
     if snl is not None:
         check_pair_list(slist, snl, p, params, label, plain=plain)
-    if method == 1:
-        return (lambda name: slist), slist, readers
-    return (lambda name: slist if name in readers else smap), slist, readers
+    if method == 4:
+        return ((lambda name: slist if name in readers else smap), slist,
+                readers)
+    return (lambda name: slist), slist, readers
 
 
 def cell_run_contexts(method, starts, p, params):
@@ -4663,9 +4876,10 @@ def check_slot_solver_kernels_on_small_scenes(device):
     20-particle cell (three of the four layers), where each also equals
     its cell-run instantiation, and with the 40-particle overflow clump,
     where kernel and plain slot lists drop the same pairs.  DFSPH's Jacobi
-    kernels and PCISPH's g1 and g2 take the step's list over the map (e1's
-    and the slot density kernel's), held against its plain version first.
-    Every comparison is bitwise."""
+    kernels and d take the step's list over the map that e1 writes, IISPH's
+    and PCISPH's kernels the one the slot density kernel writes (f3, d, g1
+    and g2 read it), each held against its plain version first.  Every
+    comparison is bitwise."""
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.ops.slots import (
         build_slot_map, slot_neighbor_list)
@@ -4718,9 +4932,10 @@ def check_slot_solver_kernels_on_small_scenes(device):
                 labels.add(label)
             print(f"slot kernels d-g, method {method} [{kind}]: slot map "
                   f"{d}; {len(calls)} instantiations"
-                  + {4: " (the Jacobi kernels over e1's slot list)",
-                     1: " (g1 and g2 over density_sum_list[slots]'s list)"}
-                  .get(method, "")
+                  + {4: " (the Jacobi kernels and d over e1's slot list)",
+                     2: " (f3 over density_sum_list[slots]'s list)",
+                     1: " (d, g1 and g2 over density_sum_list[slots]'s "
+                        "list)"}[method]
                   + " equal to their plain versions over the slot lists"
                   + (" and to their cell-run instantiations"
                      if kind == "layers" else "")
@@ -4737,10 +4952,9 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     beside a cell-run twin of the same scene stepped alike: ``warmup``
     steps on both, then ``steps`` timed on each (launch counts set to 0
     just before each run and read just after), 5 steps of the slot run
-    under the profiler (its device busy share; DFSPH and PCISPH: then 5
-    with the list kernels' one-phase slot design of the control library
-    and 5 more over the list, DFSPH two turns fewer) and as many of the
-    twin,
+    under the profiler (its device busy share; then 5 with the list
+    readers' one-phase slot design of the control libraries and 5 more
+    over the list, DFSPH two turns fewer) and as many of the twin,
     ``turns`` interleaved turns of ``per_turn`` steps.  The slot run must
     launch every kernel of the cell-run run as its ``[slots]``
     instantiation, as often; run the same iterations with the same host
@@ -4818,7 +5032,8 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
             # overflows from step ~58 (a cell past 32 particles at the
             # contact)
             turns = max(1, turns - 10 // per_turn)
-        kernels = {4: "Jacobi kernels", 1: "loop kernels"}[method]
+        kernels = {4: "Jacobi kernels and d", 2: "f3",
+                   1: "loop kernels and d"}[method]
         print(f"{label} slot device busy per step (profiler, 5 steps each): "
               f"{kernels} over the step's list {busy_ms} / {again_ms} ms; "
               f"one-phase {kernels}, no list ({control_name(method)}) "
@@ -4889,11 +5104,10 @@ def slot_solver_kernels(sim, method, launches, label):
     cell_ctx = cell_run_contexts(method, smap.starts, q, params)
     slot_ctx, slist, readers = slot_contexts(method, smap, q, params, label,
                                              snl)
-    if slist is not None:
-        fig = slot_list_profile(
-            q, slist.cnt, method == 4 and bool(params.dynamic_rigid_ids),
-            label)
-        slot_occupancy(method)
+    fig = slot_list_profile(
+        q, slist.cnt, method == 4 and bool(params.dynamic_rigid_ids), label,
+        walks=real if method == 2 else None)
+    slot_occupancy(method)
     if method == 1:
         slot_density_at_state(q, smap, snl, params, label)
     for name, key, wrapper, plain, args in solver_calls(
@@ -4936,30 +5150,25 @@ def slot_solver_kernels(sim, method, launches, label):
               f"{cell_ms[name]:.4f} ms, {ms[name] / cell_ms[name] - 1:+.1%})"
               f", plain {plain_ms[name]:.4f} ms, equal to the cell-run "
               f"instantiation bitwise")
+    # the list as the slot design writes (e1) and reads it (the readers:
+    # the rows each walks), design figures beside the functions' bounds
+    # (the slot density kernel's writes are phase 12's design figure)
+    def listed(rows):
+        return int(torch.clamp_max(slist.cnt[rows], slist.idx.shape[0])
+                   .long().sum())
+
     if method == 4:
-        # the list as the slot design writes (e1) and reads it (the Jacobi
-        # kernels), design figures beside the functions' bounds
-        listed = int(torch.clamp_max(slist.cnt, slist.idx.shape[0])
-                     .long().sum())
-        row_bound("dfsph_density_factor_list", n, map_bytes + 4 * listed,
-                  pairs, "dfsph_density_factor[slots] design figure (writing "
-                  "the list; not the bound)")
-        for name in ("dfsph_divergence_change", "dfsph_divergence_adv",
-                     "dfsph_solver_dv"):
-            row_bound(name + "_list", n, 4 * listed, pairs,
-                      f"{name}[slots] design figure (reading the list, "
-                      f"{fig['warps_over_list']} warps over it; not the "
-                      f"bound)")
-    elif method == 1:
-        # the fluid rows of the list, as g1 and g2 read it (the density
-        # kernel's writes are phase 12's design figure)
-        listed = int(torch.clamp_max(slist.cnt[fluid], slist.idx.shape[0])
-                     .long().sum())
-        for name in readers:
-            row_bound(name + "_list", n, 4 * listed, pairs,
-                      f"{name}[slots] design figure (reading the list, "
-                      f"{fig['warps_over_list']} warps over it; not the "
-                      f"bound)")
+        row_bound("dfsph_density_factor_list", n,
+                  map_bytes + 4 * listed(real), pairs,
+                  "dfsph_density_factor[slots] design figure (writing the "
+                  "list; not the bound)")
+    for name in readers:
+        if name.endswith("<REACT>"):
+            continue
+        rows = real if method == 2 or name.startswith("dfsph_") else fluid
+        row_bound(name + "_list", n, 4 * listed(rows), pairs,
+                  f"{name}[slots] design figure (reading the list, "
+                  f"{fig['warps_over_list']} warps over it; not the bound)")
     kernels = []
     for entry, names in SLOT_ENTRIES[method].items():
         w = [launches.get(k + "[slots]", 0) for k in names]
@@ -5045,6 +5254,7 @@ def main():
     worst.update(check_dfsph_on_edge_scene(device))
     worst.update(check_dfsph_slot_list_on_edge_scenes(device))
     worst.update(check_pcisph_slot_list_on_edge_scenes(device))
+    worst.update(check_slot_list_readers_on_edge_scenes(device))
     print(f"small-scene kernel vs plain max abs err: {json.dumps(worst)}")
 
     kernels, cell_step_ms = main_path(device, "data/scenes/dragon_bath.json",

@@ -62,17 +62,23 @@
 // which density_sum_list (pairs.cu) writes.  A warp holding a centre with
 // more accepted pairs than the list holds walks the cells in one phase
 // (the same pairs in the same order).  Over the cell runs the Jacobi
-// kernels keep their two-phase walk.
+// kernels keep their two-phase walk.  nonpressure_kick reads the list over
+// both walks (for_each_step_pair<true>, below).
 //
-// Over the slot walk the list goes to the Jacobi kernels: the solves move
-// v, not x, so every Jacobi launch of the step accepts e1's pairs.
+// Over the slot walk the list goes to the Jacobi kernels too: the solves
+// move v, not x, so every Jacobi launch of the step accepts e1's pairs.
 // dfsph_density_factor_slot keeps its one-phase walk and its sums and
 // writes the accepted j of every centre of the Jacobi kernels as it
 // walks: the fluid centres and, for the reaction variant of solver_dv,
 // the dynamic-rigid ones (which it walks for their list alone).
 // dfsph_divergence and dfsph_solver_dv run only their pair body over the
-// list (pair_common.cuh for_each_jacobi_pair).  nonpressure_kick keeps its
-// one-phase slot walk.
+// list (pair_common.cuh for_each_jacobi_pair), and so does nonpressure_kick
+// after the divergence solve (its fluid rows: the centres it walks).  On
+// the PCISPH step over the slot walk nonpressure_kick<false> reads the
+// fluid rows of the list that density_sum_slot_kernel (pairs.cu) writes.
+// A warp holding a centre over the list walks the slot map in one phase,
+// pinned with xg = x (the pairs, d and raw sum of squares of the one-phase
+// walk).
 
 #include "pair_common.cuh"
 
@@ -296,9 +302,10 @@ __global__ void dfsph_solver_dv_kernel(
 }
 
 // One thread per row, padding rows included (acc 0, v carried through).
-// Over the cell runs the pairs come from the step's list ``pl``
-// (dfsph_density_factor_list on the DFSPH step, density_sum_list on the
-// PCISPH step); over the slot walk from the one-phase walk.
+// Over both walks the pairs come from the step's list ``pl``: e1's on the
+// DFSPH step (dfsph_density_factor_list over the cell runs,
+// dfsph_density_factor_slot over the slot walk), the density kernel's on
+// the PCISPH step (pairs.cu density_sum_list).
 template <bool KICK, typename Walk>
 __global__ void nonpressure_kick_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -318,7 +325,7 @@ __global__ void nonpressure_kick_kernel(
     neg_st_mi = -(c.st / m[i]);
   }
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  for_each_step_pair<false>(
+  for_each_step_pair<true>(
       fluid, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float s) {
         // surface tension and viscosity act between fluid particles
@@ -393,11 +400,12 @@ extern "C" int dfsph_density_factor_list_launch(
 // slot walk the Jacobi kernels read the step's list (list_idx, list_cnt),
 // which dfsph_density_factor_list_launch writes there, and a launch
 // without it is refused (cudaErrorInvalidValue); over the cell runs they
-// read no list.
+// read no list.  The non-pressure kernel reads the list over both walks
+// (nonpressure_launch, below).
 
 static bool jacobi_has_list(const int* slot_map, const int* list_idx,
                             const int* list_cnt) {
-  return slot_map == nullptr || (list_idx != nullptr && list_cnt != nullptr);
+  return slot_map == nullptr || has_step_list(list_idx, list_cnt);
 }
 
 extern "C" int dfsph_divergence_launch(
@@ -500,9 +508,9 @@ extern "C" int dfsph_occupancy(int which, int* regs, int* smem_bytes,
 }
 
 // nonpressure_kick_launch (KICK) and nonpressure_accel_launch (acc only,
-// dt and v_out null).  Over the cell runs the kernel reads the step's list
+// dt and v_out null).  Over both walks the kernel reads the step's list
 // (list_idx, list_cnt) for the same rows; a launch without it is refused
-// (cudaErrorInvalidValue, pair_common.cuh has_list).  It launches over
+// (cudaErrorInvalidValue, pair_common.cuh has_step_list).  It launches over
 // n_rows rows, padding rows included.
 template <bool KICK>
 static int nonpressure_launch(const float* x, const float* v,
@@ -513,7 +521,7 @@ static int nonpressure_launch(const float* x, const float* v,
                               const int* list_cnt, const float* dt,
                               float* acc_out, float* v_out, int n_rows,
                               PairConsts c, void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {

@@ -45,11 +45,18 @@
 // every row, padding rows included, and writes the padding rows itself (the
 // acceleration, a_ii, the source, the warm start, p' and the error 0; v
 // carried through f1, the advect's v' and x' from v and x, as restore_tail
-// gives them), so each wrapper launches one kernel.  Over the slot walk
-// every kernel walks in one phase; f1 and f2 there keep their kernels
-// (iisph_nonpressure_kick_kernel, iisph_predict_advection_kernel, over the
-// real rows; their wrappers restore the padding rows), f3 and f4 are a
-// thread per row.
+// gives them), so each wrapper launches one kernel.
+//
+// Over the slot walk the density kernel (pairs.cu density_sum_slot_kernel)
+// writes the same list of every real centre in its one-phase walk, and f3
+// (both variants) runs only its pair body over it (sym_pressure_sum<true>):
+// a warp holding a centre over the list walks the slot map in one phase,
+// pinned with xg = x, which gives the pairs, d and raw sum of squares of
+// the one-phase walk.  f3's launcher refuses a launch without the list
+// under both walks.  f1, f2 and f4 walk the slot map in one phase: f1 and
+// f2 keep their kernels (iisph_nonpressure_kick_kernel,
+// iisph_predict_advection_kernel, over the real rows; their wrappers
+// restore the padding rows), f3 and f4 are a thread per row.
 //
 // As dfsph.cu, the one-phase walks are bound by irregular candidate loads
 // that mostly hit L1/L2, the list walks by their gathers; the f32 work per
@@ -259,8 +266,8 @@ __global__ void iisph_pressure_accel_kernel(
   // _apply_A reads it in (a_i - a_j) . r_ij (iisph.py:340)
   const bool real = i < c.n_real;
   float s[3] = {0.0f, 0.0f, 0.0f};
-  sym_pressure_sum<false>(real, i, x, x, material, m_V, density, pr, walk,
-                          pl, c, s);
+  sym_pressure_sum<true>(real, i, x, x, material, m_V, density, pr, walk,
+                         pl, c, s);
   if (i >= n_rows) return;
   if (!ADVECT) {
     for (int k = 0; k < 3; ++k) out0[3 * i + k] = s[k];
@@ -324,13 +331,14 @@ __global__ void iisph_apply_A_kernel(
 }
 
 // Each launcher's walk arguments (starts, slot_map, layers) select the
-// kernel over that walk (pair_common.cuh with_walk).  Over the cell runs
-// every kernel reads the step's list (list_idx, list_cnt: density_sum_list's
-// output for the same rows); a launch without it is refused
-// (cudaErrorInvalidValue, pair_common.cuh has_list).  Over the cell runs,
-// and for f3 and f4 over the slot walk too, a kernel launches over n_rows
-// rows, padding rows included; f1 and f2 over the slot walk launch over the
-// real rows.
+// kernel over that walk (pair_common.cuh with_walk).  Every kernel reads
+// the step's list (list_idx, list_cnt: density_sum_list's output over the
+// same walk for the same rows) over the cell runs, and f3 over the slot walk
+// too; a launch without what its walk reads is refused
+// (cudaErrorInvalidValue: pair_common.cuh has_list, for f3 has_step_list).
+// Over the cell runs, and for f3 and f4 over the slot walk too, a kernel
+// launches over n_rows rows, padding rows included; f1 and f2 over the slot
+// walk launch over the real rows.
 
 extern "C" int iisph_nonpressure_kick_launch(
     const float* x, const float* v, const int* material, const float* m,
@@ -391,7 +399,7 @@ extern "C" int iisph_pressure_accel_launch(
     const int* list_cnt, const float* v, const float* dt,
     const unsigned char* active, float* out0, float* out1, int advect,
     int n_rows, PairConsts c, void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {

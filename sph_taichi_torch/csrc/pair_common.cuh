@@ -356,11 +356,14 @@ __device__ __forceinline__ void compact_cell_runs(
 // nonpressure_kick reads it; over the slot walk the DFSPH step's
 // density-and-factor kernel writes a list of the fluid and dynamic-rigid
 // centres in its one-phase walk, and the Jacobi kernels (divergence,
-// solver_dv) read it (for_each_jacobi_pair).  Over the slot walk the
-// WCSPH, IISPH and PCISPH steps' density kernel (density_sum_slot_kernel,
-// pairs.cu) writes every real centre's list in its one-phase walk, and
-// PCISPH's loop kernels read it (for_each_step_pair<true>); the other slot
-// kernels of those steps walk the map in one phase.
+// solver_dv) and the non-pressure kernel read it (for_each_jacobi_pair,
+// for_each_step_pair<true>).  Over the slot walk the WCSPH, IISPH and
+// PCISPH steps' density kernel (density_sum_slot_kernel, pairs.cu) writes
+// every real centre's list in its one-phase walk, and PCISPH's loop kernels
+// (g1, g2), IISPH's pressure acceleration (f3) and PCISPH's un-kicked
+// non-pressure kernel (d) read it (for_each_step_pair<true>); the other slot
+// kernels of those steps (WCSPH's forces, IISPH's f1, f2 and f4) walk the
+// map in one phase.
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -458,21 +461,26 @@ __device__ __forceinline__ void for_each_listed_pair(
 
 // The walk of a loop over the step start's pair set: the pairs of the
 // positions x with the geometry at xg (for_each_neighbor_pinned; IISPH
-// passes xg = x, and then d and the raw sum of squares are those of
-// for_each_neighbor_walk), read from the step's list ``pl`` over the
-// cell runs and, where PINNED (PCISPH's loop kernels), over the slot walk
-// too, whose list the slot density kernel writes (pairs.cu
-// density_sum_slot_kernel); a warp there that holds a centre beyond the
-// list walks the slot map in one phase, pinned (for_each_listed_pair).
-// The other kernels walk the slot map in one phase
-// (for_each_neighbor_walk itself).  Every thread of a block calls it,
-// with ``walks`` false where the thread has no centre.
-template <bool PINNED, typename Walk, typename F>
+// and the non-pressure kernel pass xg = x, and then d and the raw sum of
+// squares are those of for_each_neighbor_walk), read from the step's list
+// ``pl`` over the cell runs and, where SLOT_LIST, over the slot walk too.
+// The kernels that pass SLOT_LIST true read the slot walk's list: g1 and g2
+// (pcisph.cu) and f3 (iisph.cu) the one the slot density kernel writes
+// (pairs.cu density_sum_slot_kernel), d (dfsph.cu) that one on the PCISPH
+// step and e1's (dfsph_density_factor_slot_kernel) on the DFSPH step; a
+// warp there that holds a centre beyond the list walks the slot map in one
+// phase, pinned (for_each_listed_pair), which with xg = x gives the pairs,
+// d and raw sum of squares of for_each_neighbor_walk.  Their launchers
+// refuse a launch without the list (has_step_list).  The kernels that pass
+// false (b, f1, f2, f4) walk the slot map in one phase
+// (for_each_neighbor_walk itself).  Every thread of a block calls it, with
+// ``walks`` false where the thread has no centre.
+template <bool SLOT_LIST, typename Walk, typename F>
 __device__ __forceinline__ void for_each_step_pair(
     bool walks, int i, const float* __restrict__ x,
     const float* __restrict__ xg, const Walk& walk, const PairList& pl,
     const PairConsts& c, F&& f) {
-  if constexpr (kCompactWalk<Walk> || PINNED) {
+  if constexpr (kCompactWalk<Walk> || SLOT_LIST) {
     float gi0 = 0.0f, gi1 = 0.0f, gi2 = 0.0f;
     if (walks) gi0 = xg[3 * i], gi1 = xg[3 * i + 1], gi2 = xg[3 * i + 2];
     PAIR_LIST_WALK(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
@@ -546,7 +554,7 @@ __device__ __forceinline__ void sym_pressure_pair(
 // pressure field pr (IISPH's and PCISPH's _pressure_accel, one term) over
 // the pairs of for_each_step_pair: adds into s[0..2].  Every thread of a
 // block calls it.
-template <bool PINNED, typename Walk>
+template <bool SLOT_LIST, typename Walk>
 __device__ __forceinline__ void sym_pressure_sum(
     bool walks, int i, const float* __restrict__ x,
     const float* __restrict__ xg, const int* __restrict__ material,
@@ -560,7 +568,7 @@ __device__ __forceinline__ void sym_pressure_sum(
     dpi = pr_i / (rho_i * rho_i);
     mirror = pr_i / c.rho0sq;
   }
-  for_each_step_pair<PINNED>(
+  for_each_step_pair<SLOT_LIST>(
       walks, i, x, xg, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         sym_pressure_pair(j, d0, d1, d2, sq, dpi, mirror, material, m_V,
@@ -578,13 +586,19 @@ __host__ inline int rows_grid(int n_rows) {
   return (n_rows + kBlock - 1) / kBlock;
 }
 
-// Whether a list kernel's launch has what its walk reads: the step's list
-// (list_idx, list_cnt) over the cell runs; the slot walk of a kernel that
-// walks the map in one phase reads its map.  (PCISPH's loop kernels read
-// the list over both walks: pcisph.cu refuses a launch without it.)
+// Whether a launch of a kernel that reads the step's list over both walks
+// (SLOT_LIST true: g1, g2, f3, d) has it: list_idx and list_cnt.
+__host__ inline bool has_step_list(const int* list_idx, const int* list_cnt) {
+  return list_idx != nullptr && list_cnt != nullptr;
+}
+
+// Whether a launch of a kernel that reads the step's list over the cell
+// runs only (SLOT_LIST false: b, f1, f2, f4) has what its walk reads: the
+// list over the cell runs, the map over the slot walk, where it walks in
+// one phase.
 __host__ inline bool has_list(const int* slot_map, const int* list_idx,
                               const int* list_cnt) {
-  return slot_map != nullptr || (list_idx != nullptr && list_cnt != nullptr);
+  return slot_map != nullptr || has_step_list(list_idx, list_cnt);
 }
 
 // The walk a launcher's arguments select: every launcher takes the cell

@@ -62,9 +62,10 @@
 // walk and sum and writes every real centre's accepted j to the step's
 // list as it walks (the slot walk has no two-phase form: its dependent
 // map loads lose the L1 that the candidate lists' shared memory takes,
-// pair_common.cuh).  PCISPH's loop kernels read that list (pcisph.cu);
-// wcsph_forces, IISPH's kernels and the un-kicked non-pressure kernel walk
-// the slot map in one phase and do not read it.
+// pair_common.cuh).  PCISPH's loop kernels (pcisph.cu), IISPH's pressure
+// acceleration (iisph.cu) and the un-kicked non-pressure kernel (dfsph.cu)
+// read that list (for_each_step_pair<true>); wcsph_forces and IISPH's
+// other kernels walk the slot map in one phase and do not read it.
 
 #include "pair_common.cuh"
 

@@ -51,9 +51,9 @@
 // run only the pair body over the fluid rows of it, 8 list entries loaded
 // ahead, every iteration.  A warp holding a centre with more accepted
 // pairs than the list holds walks the cells or the slot map in one phase
-// (for_each_neighbor_pinned), in the same order.  (Over the cell runs the
-// un-kicked non-pressure kernel before the loop, dfsph.cu, reads the list
-// too; over the slot walk it walks the map in one phase.)
+// (for_each_neighbor_pinned), in the same order.  (The un-kicked
+// non-pressure kernel before the loop, dfsph.cu, reads the same list over
+// both walks.)
 //
 // What bounds them on an H100: the one-phase walk ran ~220 lockstep
 // candidate iterations per warp for ~29 accepted pairs per lane at the
@@ -144,11 +144,7 @@ extern "C" int pcisph_pair_list_entries() { return kPairListEntries; }
 // instantiation (pair_common.cuh with_walk); the list (list_idx,
 // list_cnt) is the step's density_sum_list output over the same walk for
 // the same rows, read over both walks, and a launch without it is refused
-// (cudaErrorInvalidValue).
-
-static bool loop_has_list(const int* list_idx, const int* list_cnt) {
-  return list_idx != nullptr && list_cnt != nullptr;
-}
+// (cudaErrorInvalidValue, pair_common.cuh has_step_list).
 
 extern "C" int pcisph_d_rho_correct_launch(
     const float* x, const float* xp, const float* vp, const int* material,
@@ -157,7 +153,7 @@ extern "C" int pcisph_d_rho_correct_launch(
     const int* list_cnt, const float* dt, const float* s_f,
     const unsigned char* active, float* pr_out, float* err_out, int n_rows,
     PairConsts c, void* stream) {
-  if (!loop_has_list(list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {
@@ -178,7 +174,7 @@ extern "C" int pcisph_pressure_accel_predict_launch(
     const int* starts, const int* slot_map, int layers, const int* list_idx,
     const int* list_cnt, const float* dt, const unsigned char* active,
     float* v_out, float* x_out, int n_rows, PairConsts c, void* stream) {
-  if (!loop_has_list(list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {

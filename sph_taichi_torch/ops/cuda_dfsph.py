@@ -9,7 +9,8 @@ hand-written CUDA C++ in ``csrc/dfsph.cu``:
   writes every fluid centre's accepted neighbours, in the walk's order, to
   the step's pair list (ops/pair_list.py ``PairList``), which the
   non-pressure kernel reads over the cell runs, and over the slot walk
-  every fluid and dynamic-rigid centre's, which the Jacobi kernels read;
+  every fluid and dynamic-rigid centre's, which the Jacobi kernels and the
+  non-pressure kernel read;
 - ``divergence``: the velocity divergence sum, with the epilogue of
   ``_density_change`` (mode "change") or ``_density_adv`` (mode "adv"),
   and the per-centre column of the average density error;
@@ -59,11 +60,11 @@ the cell runs ``density_factor_list`` writes the list while it sums, and
 density kernel writes (ops/cuda_pairs.py ``density_sum_list``), as the
 loop does.  A warp holding a centre with more
 than ``PAIR_LIST_ENTRIES`` accepted pairs walks the cells in one phase
-inside the kernel.  On the card over the cell runs the non-pressure
-wrappers take only a ``PairList``, not bare cell offsets; on CPU tensors
-they take any context their plain versions read.
+inside the kernel.  On the card the non-pressure wrappers take only a
+``PairList``, not bare cell offsets (nor a bare ``SlotMap``, below); on CPU
+tensors they take any context their plain versions read.
 
-Over the slot walk the list goes to the Jacobi kernels instead: the solves
+Over the slot walk the list goes to the Jacobi kernels too: the solves
 move v, not x, so every Jacobi launch of the step accepts the pairs of the
 density-and-factor kernel, which writes the list of the Jacobi kernels'
 centres (fluid, and dynamic rigid for the reaction) in its one-phase slot
@@ -73,8 +74,14 @@ their pair body over the list (csrc/pair_common.cuh
 ``for_each_jacobi_pair``); a warp holding a centre over the list walks
 the slot map in one phase.  On the card they refuse a bare ``SlotMap``
 (ops/pair_list.py ``jacobi_walk``); on CPU tensors they take any context
-their plain versions read.  ``nonpressure_kick`` keeps its one-phase slot
-walk.
+their plain versions read.  ``nonpressure_kick`` reads the fluid rows of
+that list over the slot walk too, and on the PCISPH step
+``nonpressure_accel`` the fluid rows of the list that the density kernel
+writes over the map (``density_sum_list`` given a ``SlotMap``): both run
+only their pair body over it (csrc/pair_common.cuh
+``for_each_step_pair<true>``), and on the card take only a ``PairList``,
+over the cell offsets or the map (ops/pair_list.py ``list_walk``), their
+launcher refusing a launch without the list.
 """
 
 import ctypes
@@ -455,7 +462,7 @@ def occupancy(kernel, slots=False):
 def _nonpressure_args(ctx, p, params):
     """The context check and the input pointers of the non-pressure kernel:
     (device, n, launch-count suffix, its arguments up to the list)."""
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(
         ctx, p, params, "nonpressure_kick",
         source="density_factor_list (DFSPH) or density_sum_list (PCISPH)")
     f32 = torch.float32
@@ -469,10 +476,10 @@ def _nonpressure_args(ctx, p, params):
 def nonpressure_kick(ctx, p, dt, params):
     """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v).  ``ctx``:
     the step's context from ``density_factor_list`` for the sorted
-    particles ``p`` (a ``PairList`` over the cell runs), or their
-    ``SlotMap`` for the slot walk; on CPU tensors also their neighbour
-    lists or cell offsets.  ``dt`` is a 0-d f32 tensor on the particles'
-    device."""
+    particles ``p``, a ``PairList`` over their cell offsets or their
+    ``SlotMap`` (the slot walk); on CPU tensors also their neighbour lists,
+    cell offsets or a bare ``SlotMap``.  ``dt`` is a 0-d f32 tensor on the
+    particles' device."""
     if p.x.device.type == "cpu":
         return nonpressure_kick_plain(_plain_ctx(ctx, p, params), p, dt,
                                       params)
@@ -491,10 +498,10 @@ def nonpressure_kick(ctx, p, dt, params):
 def nonpressure_accel(ctx, p, params):
     """Kernel wrapper for ``nonpressure_accel_plain``: acc, from the kernel
     of ``nonpressure_kick`` without its kick (v is not written).  ``ctx``:
-    the PCISPH step's context from ``cuda_pairs.density_sum_list`` (a
-    ``PairList`` over the cell runs or the slot map: the slot kernel walks
-    the map), or a ``SlotMap``; on CPU tensors also neighbour lists or
-    cell offsets."""
+    the PCISPH step's context from ``cuda_pairs.density_sum_list``, a
+    ``PairList`` over the cell offsets or the ``SlotMap`` (the slot walk);
+    on CPU tensors also neighbour lists, cell offsets or a bare
+    ``SlotMap``."""
     if p.x.device.type == "cpu":
         return nonpressure_accel_plain(_plain_ctx(ctx, p, params), p,
                                        params)

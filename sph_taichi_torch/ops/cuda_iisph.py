@@ -44,8 +44,13 @@ over it.  Over the cell runs these wrappers take only the list, not bare
 cell offsets; on CPU tensors the step's context is the plain engine's
 neighbour lists, which the plain versions read.  Over the slot walk the
 step's density kernel writes the same list over the map (a ``PairList``
-whose walk is the ``SlotMap``), and the slot kernels, given it or the bare
-map, walk the map in one phase and do not read it.
+whose walk is the ``SlotMap``): ``pressure_accel`` (f3, both variants)
+runs only its pair body over it (csrc/pair_common.cuh
+``for_each_step_pair<true>``; a warp holding a centre over the list walks
+the map in one phase), and on the card takes only that context, not a bare
+``SlotMap`` (ops/pair_list.py ``list_walk``), its launcher refusing a
+launch without the list; f1, f2 and f4, given it or the bare map, walk the
+map in one phase and do not read it.
 
 Padding rows: over the cell runs every kernel writes them, and f3 and f4
 over the slot walk too, as the JAX package's ``restore_tail`` gives them
@@ -331,14 +336,17 @@ def predict_advection(ctx, p, dt, params):
 def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
     """Kernel wrapper for ``pressure_accel_plain``: the (N, 3) acceleration
     (``iisph_pressure_accel<false>``, in the Jacobi loop), or with
-    ``advect_dt`` the advected (v, x) (``<true>``, after it).  ``ctx`` as
-    for ``nonpressure_kick``."""
+    ``advect_dt`` the advected (v, x) (``<true>``, after it).  ``ctx``:
+    the step's context from ``density_sum_list`` for the sorted particles
+    ``p``, a ``PairList`` over their cell offsets or their ``SlotMap`` (the
+    slot walk); on CPU tensors also neighbour lists or a bare
+    ``SlotMap``."""
     if p.x.device.type == "cpu":
         return pressure_accel_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, pressure,
             params, advect_dt)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
-                                                         "IISPH")
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(
+        ctx, p, params, "iisph_pressure_accel")
     f32 = torch.float32
     adv = advect_dt is not None
     if adv and active is not None:
@@ -365,7 +373,7 @@ def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
 def apply_A(ctx, p, accel, a_ii, source, last_p, dt, omega, params,
             active=None):
     """Kernel wrapper for ``apply_A_plain``: (new_p, err).  ``ctx`` as for
-    ``pressure_accel``."""
+    ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
         return apply_A_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, accel,

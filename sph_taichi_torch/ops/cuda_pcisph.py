@@ -47,7 +47,7 @@ given it, g1 and g2 run only the pair body over it (csrc/pair_common.cuh
 ``for_each_step_pair<true>``); a warp holding a centre over the list walks
 the cells or the slot map in one phase.  On the card the wrappers take
 only the list, not bare cell offsets or a bare ``SlotMap``
-(ops/pair_list.py ``pinned_walk``), and the launchers refuse a launch
+(ops/pair_list.py ``list_walk``), and the launchers refuse a launch
 without it; on CPU tensors the loop's context is the plain engine's
 neighbour lists, a ``SlotMap`` or a ``PairList`` over one, whose lists the
 plain versions read.
@@ -173,7 +173,8 @@ def d_rho_correct(ctx, p, xp, vp, pressure, dt, s_f, params, active=None):
         return d_rho_correct_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "PCISPH"), p, xp, vp,
             pressure, dt, s_f, params)
-    dev, n, ptr, walk, suffix, lst = pair_list.pinned_walk(ctx, p, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(ctx, p, params,
+                                                         "PCISPH")
     f32 = torch.float32
     pr_out = torch.empty_like(p.m_V)
     err = torch.empty_like(p.m_V)
@@ -198,7 +199,8 @@ def pressure_accel_predict(ctx, p, xp, pressure, dt, params, active=None):
         return pressure_accel_predict_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "PCISPH"), p, xp,
             pressure, dt, params)
-    dev, n, ptr, walk, suffix, lst = pair_list.pinned_walk(ctx, p, params)
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(ctx, p, params,
+                                                         "PCISPH")
     f32 = torch.float32
     v_out = torch.empty_like(p.v)
     x_out = torch.empty_like(p.x)

@@ -17,14 +17,17 @@ in one phase inside the kernel (the same pairs, in the same order).  Over
 the cell runs the list kernels' wrappers take only the list, not bare cell
 offsets.  Over the slot walk the density kernel keeps its one-phase walk
 and writes the same list of every real centre as it walks (a ``PairList``
-whose walk is the ``SlotMap``); PCISPH's loop kernels read it and take
-only that context (``pinned_walk``), the step's other slot kernels walk
-the map in one phase.  DFSPH's step does the same from its
-density-and-factor kernel to its non-pressure kernel (ops/cuda_dfsph.py
-``density_factor_list``), listing the fluid centres.  Over the slot walk
-its density-and-factor kernel writes a list of the fluid and
-dynamic-rigid centres in its one-phase walk, and its Jacobi kernels read
-it (``jacobi_walk``); over the cell runs they keep their two-phase walk.
+whose walk is the ``SlotMap``); PCISPH's loop kernels (g1, g2), IISPH's
+pressure acceleration (f3) and PCISPH's non-pressure kernel (d) read it
+and take only that context (``list_walk``); the step's other slot kernels
+(WCSPH's forces, IISPH's f1, f2 and f4) walk the map in one phase.
+DFSPH's step does the same from its density-and-factor kernel to its
+non-pressure kernel (ops/cuda_dfsph.py ``density_factor_list``), listing
+the fluid centres.  Over the slot walk its density-and-factor kernel
+writes a list of the fluid and dynamic-rigid centres in its one-phase
+walk, and its Jacobi kernels (``jacobi_walk``) and its non-pressure kernel
+(``list_walk``) read it; over the cell runs the Jacobi kernels keep their
+two-phase walk.
 
 ``step_pairs_plain`` is a list from the plain engine's neighbour lists
 (the plain versions of the list-writing kernels give it); on CPU tensors
@@ -149,15 +152,17 @@ def jacobi_walk(ctx, p, params):
     return (*_walk(ctx, p, params), (None, None))
 
 
-def pinned_walk(ctx, p, params):
-    """``loop_walk`` of PCISPH's loop kernels' context, which they read
-    over both walks: the ``PairList`` that ``density_sum_list`` gives, over
+def list_walk(ctx, p, params, solver, source="density_sum_list"):
+    """``loop_walk`` of the context of kernels that read the step's list
+    over both walks (PCISPH's loop kernels, IISPH's pressure acceleration,
+    the non-pressure kernel): the ``PairList`` that ``source`` gives, over
     the cell offsets or the ``SlotMap``.  Bare cell offsets or a bare
-    ``SlotMap`` raise: their kernels would have no list to read."""
+    ``SlotMap`` raise TypeError naming ``solver`` and ``source``: their
+    kernels would have no list to read."""
     if not isinstance(ctx, PairList):
-        _refuse(ctx, "PCISPH", "a PairList over the cell offsets or the "
-                "slot map")
-    return loop_walk(ctx, p, params, "PCISPH")
+        _refuse(ctx, solver, "a PairList over the cell offsets or the "
+                "slot map", source)
+    return loop_walk(ctx, p, params, solver, source)
 
 
 def plain_loop_ctx(ctx, p, params, solver):

@@ -18,11 +18,14 @@ their plain versions bitwise on the card.  Here, on the CPU:
   x*, v* and pressure;
 - ``density_sum_list`` on CPU tensors given a ``SlotMap``: the plain sums
   over the slot lists, bitwise, and the map, launching nothing;
-- the loop kernels' context check (``pair_list.pinned_walk``) refusing a
-  bare ``SlotMap`` and bare cell offsets;
-- one slot-backend PCISPH step through ``substep``, the loop given the
-  step's slot list, equal bitwise to the cell-run step, with the same
-  iterations.
+- the context check of the kernels that read the step's list over both
+  walks (``pair_list.list_walk``: PCISPH's loop, IISPH's pressure
+  acceleration, the non-pressure kernel kicked and un-kicked) refusing a
+  bare ``SlotMap`` and bare cell offsets, naming the call that makes the
+  context, in each wrapper;
+- one slot-backend PCISPH, IISPH and DFSPH step through ``substep``, the
+  list readers given the step's slot list, equal bitwise to the cell-run
+  step, with the same iterations.
 Scenes: the clumped two-way scene as PCISPH ("layers": a 20-particle
 cell, three of the four layers; "overflow": also a 40-particle cell past
 the map's 8 x 4 slots), the edge scene of tests/test_torch_dfsph_compact.py
@@ -30,13 +33,14 @@ as PCISPH ("edge": its ~100-particle cell overflows the map) and its
 "corner" form (the clump on a corner of 8 cells: no overflow, fluid
 centres with more accepted pairs than the list holds); the step runs the
 edge scene with its block squeezed to 0.95 and not clumped, as the PCISPH
-substep tests do (on the clumped scene PCISPH's loop runs to its cap in
-both packages).  Tolerance against JAX: atol 2e-5, rtol 2e-4 (the
+and IISPH substep tests do (on the clumped scene PCISPH's loop runs to its
+cap and IISPH diverges in both packages).  Tolerance against JAX: atol 2e-5, rtol 2e-4 (the
 engine-equivalence tolerance of tests/conftest.py).
 """
 
 import dataclasses
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -51,7 +55,8 @@ import sph_taichi_torch as T
 from sph_taichi_torch import convert
 from sph_taichi_torch.models import base as tbase
 from sph_taichi_torch.models.pcisph import PCISPHSolver
-from sph_taichi_torch.ops import cuda_dfsph, cuda_pairs, cuda_pcisph
+from sph_taichi_torch.ops import (
+    cuda_dfsph, cuda_iisph, cuda_pairs, cuda_pcisph)
 from sph_taichi_torch.ops import grid as tgrid
 from sph_taichi_torch.ops import pair_list
 from sph_taichi_torch.ops import slots as tslots
@@ -325,63 +330,138 @@ def test_density_sum_list_on_cpu_given_a_slot_map(kind):
     assert torch.equal(den, cell) == (kind in JAX_KINDS)
 
 
-def test_pinned_walk_refuses_a_bare_slot_map():
-    """On the card the loop wrappers take the ``PairList`` that
-    ``density_sum_list`` gives, over the cell offsets or the slot map, not
-    a bare ``SlotMap`` or bare offsets, whose kernels would have no list to
-    read: the context check raises before any device check, naming the
-    call that makes the context.  On CPU tensors a loop wrapper given the
-    bare map still runs its plain version over the slot lists."""
+# The wrappers that read the step's list over both walks, by the name their
+# context check gives them: (the call that makes their context, their calls)
+LIST_READERS = {
+    "PCISPH": ("density_sum_list", CALLS),
+    "iisph_pressure_accel": ("density_sum_list", ("f3", "f3_advect")),
+    "nonpressure_kick": (
+        "density_factor_list (DFSPH) or density_sum_list (PCISPH)",
+        ("d_kick", "d_accel")),
+}
+
+
+def _outputs(r):
+    return (r,) if torch.is_tensor(r) else tuple(r)
+
+
+def _list_reader(call, p, inp, params):
+    """(wrapper, plain version, arguments after the context) of a wrapper
+    of ``LIST_READERS``."""
+    if call in CALLS:
+        return _loop_call(call, p, inp, params)[:3]
+    return {
+        "f3": (cuda_iisph.pressure_accel, cuda_iisph.pressure_accel_plain,
+               (p, inp["pressure"], params)),
+        "f3_advect": (cuda_iisph.pressure_accel,
+                      cuda_iisph.pressure_accel_plain,
+                      (p, inp["pressure"], params, inp["dt"])),
+        "d_kick": (cuda_dfsph.nonpressure_kick,
+                   cuda_dfsph.nonpressure_kick_plain, (p, inp["dt"], params)),
+        "d_accel": (cuda_dfsph.nonpressure_accel,
+                    cuda_dfsph.nonpressure_accel_plain, (p, params)),
+    }[call]
+
+
+@pytest.mark.parametrize("solver", list(LIST_READERS))
+def test_pinned_walk_refuses_a_bare_slot_map(solver):
+    """On the card the wrappers that read the step's list over both walks
+    (PCISPH's loop, IISPH's f3, d kicked and un-kicked) take the
+    ``PairList`` that the step's density call gives, over the cell offsets
+    or the slot map, not a bare ``SlotMap`` or bare offsets, whose kernels
+    would have no list to read: their context check
+    (``pair_list.list_walk``) raises TypeError naming that call before any
+    device check, in each wrapper given particles off the CPU (the meta
+    device stands for the card), and passes the ``PairList`` on to the
+    device checks.  On CPU tensors a wrapper given the bare map still runs
+    its plain version over the slot lists."""
+    source, calls = LIST_READERS[solver]
     params, p, inputs, smap, snl, _ = _case("layers")
     starts = _starts(p, params)
+    slot_ctx = _slot_context("layers")
+    lists = (slot_ctx, pair_list.PairList(starts, *slot_ctx[1:]))
     for bare in (smap, starts):
-        with pytest.raises(TypeError, match="density_sum_list"):
-            pair_list.pinned_walk(bare, p, params)
-    for ctx in (_slot_context("layers"),
-                pair_list.PairList(starts, *_slot_context("layers")[1:])):
+        with pytest.raises(TypeError, match=re.escape(source)):
+            pair_list.list_walk(bare, p, params, solver, source)
+    for ctx in lists:
         with pytest.raises(ValueError, match="CUDA kernel"):
-            pair_list.pinned_walk(ctx, p, params)
-    for call in CALLS:
-        wrapper, plain, args, _ = _loop_call(call, p, inputs, params)
+            pair_list.list_walk(ctx, p, params, solver, source)
+    off = p._replace(x=p.x.to("meta"))
+    for call in calls:
+        wrapper, plain, args = _list_reader(call, p, inputs, params)
+        for bare in (smap, starts):
+            with pytest.raises(TypeError, match=re.escape(source)):
+                wrapper(bare, off, *args[1:])
+        for ctx in lists:
+            with pytest.raises(ValueError):
+                wrapper(ctx, off, *args[1:])
         assert all(torch.equal(a, b) for a, b in zip(
-            wrapper(smap, *args), plain(snl, *args)))
+            _outputs(wrapper(smap, *args)), _outputs(plain(snl, *args))))
 
 
+# simulationMethod -> (the step's density call that writes its list, the
+# pair calls after it, the least iterations of each loop on the squeezed
+# edge scene)
+STEPS = {
+    1: ((cuda_pairs, "density_sum_list"),
+        ((cuda_dfsph, "nonpressure_accel"), (cuda_pcisph, "d_rho_correct"),
+         (cuda_pcisph, "pressure_accel_predict")),
+        {"pressure_iters": 3}),
+    2: ((cuda_pairs, "density_sum_list"),
+        ((cuda_iisph, "nonpressure_kick"), (cuda_iisph, "predict_advection"),
+         (cuda_iisph, "pressure_accel"), (cuda_iisph, "apply_A")),
+        {"pressure_iters": 1}),
+    4: ((cuda_dfsph, "density_factor_list"),
+        ((cuda_dfsph, "divergence"), (cuda_dfsph, "solver_dv"),
+         (cuda_dfsph, "nonpressure_kick")),
+        {"divergence_iters": 1, "pressure_iters": 1}),
+}
+
+
+@pytest.mark.parametrize("method", sorted(STEPS))
 def test_slot_step_reads_the_step_list_and_equals_the_cell_run_step(
-        monkeypatch):
-    """One PCISPH step of the squeezed edge scene on the slot engine over
-    CPU tensors, the step's density call giving the slot list as on the
-    card (``density_sum_list`` patched to return a ``PairList`` over the
-    slot map from its plain version): ``substep`` hands that context to
-    the non-pressure call and every loop call, and the step equals the
-    cell-run step bitwise, with the same loop iterations."""
-    params, part, _ = T.build_scene(
-        T.SimConfig(config_dict=pcisph_edge_scene()), device="cpu")
+        monkeypatch, method):
+    """One PCISPH (1), IISPH (2) or DFSPH (4) step of the squeezed edge
+    scene on the slot engine over CPU tensors, the step's density call
+    giving the slot list as on the card (``density_sum_list``, or DFSPH's
+    ``density_factor_list``, patched to return a ``PairList`` over the slot
+    map from its plain version): ``substep`` hands that context to every
+    pair call after it (PCISPH's d and loop, IISPH's f1-f4, DFSPH's solves
+    and d), and the step equals the cell-run step bitwise, with the same
+    loop iterations."""
+    (dmod, dname), readers, least = STEPS[method]
+    scene = pcisph_edge_scene()
+    scene["Configuration"]["simulationMethod"] = method
+    params, part, _ = T.build_scene(T.SimConfig(config_dict=scene),
+                                    device="cpu")
     part = part._replace(x=torch.from_numpy(squeezed_positions(
         part.x.numpy(), part.material.numpy())))
-    real_list = cuda_pairs.density_sum_list
+    real_list = getattr(dmod, dname)
 
     def slot_list(ctx, p, prm, buffers=None):
         if not isinstance(ctx, tslots.SlotMap):
             return real_list(ctx, p, prm, buffers)
         snl = tslots.slot_neighbor_list(ctx, p.x, prm)
-        den, idx, cnt = cuda_pairs.density_sum_list_plain(snl, p, prm)
-        return den, pair_list.PairList(ctx, idx, cnt)
+        if method == 4:
+            *out, idx, cnt = cuda_dfsph.density_factor_list_plain(
+                snl, p, prm, "jacobi")
+        else:
+            *out, idx, cnt = cuda_pairs.density_sum_list_plain(snl, p, prm)
+        return (*out, pair_list.PairList(ctx, idx, cnt))
 
     given = {}
 
     def spy(module, name):
         fn = getattr(module, name)
+        key = f"{module.__name__.rsplit('.', 1)[1]}.{name}"
 
         def call(ctx, *args, **kw):
-            given.setdefault(name, set()).add(type(ctx).__name__)
+            given.setdefault(key, set()).add(type(ctx).__name__)
             return fn(ctx, *args, **kw)
         return call
 
-    monkeypatch.setattr(cuda_pairs, "density_sum_list", slot_list)
-    for module, name in ((cuda_dfsph, "nonpressure_accel"),
-                         (cuda_pcisph, "d_rho_correct"),
-                         (cuda_pcisph, "pressure_accel_predict")):
+    monkeypatch.setattr(dmod, dname, slot_list)
+    for module, name in readers:
         monkeypatch.setattr(module, name, spy(module, name))
     slot = T.build_solver(params, device="cpu",
                           engine=cuda_pairs.CudaSlotEngine(params))
@@ -389,11 +469,12 @@ def test_slot_step_reads_the_step_list_and_equals_the_cell_run_step(
                           engine=cuda_pairs.CudaEngine(params))
     state = slot.initialize(part)
     s, sm = slot.step(state)
-    assert given == {name: {"PairList"} for name in (
-        "nonpressure_accel", "d_rho_correct", "pressure_accel_predict")}
+    assert given == {f"{m.__name__.rsplit('.', 1)[1]}.{name}": {"PairList"}
+                     for m, name in readers}
     c, cm = cell.step(state)
     assert not bool(sm["slot_overflow"])
-    assert int(sm["pressure_iters"]) == int(cm["pressure_iters"]) >= 3
+    for k, n in least.items():
+        assert int(sm[k]) == int(cm[k]) >= n, k
     for name, a in c.p._asdict().items():
         if a is not None:
             assert torch.equal(a, getattr(s.p, name)), name

@@ -1,0 +1,215 @@
+"""IISPH's pressure acceleration (f3) and the non-pressure kernel (d) over
+the slot walk read the step's pair list.
+
+Under ``--backend pallas_slots`` the IISPH and PCISPH steps' density
+kernel writes every real centre's accepted neighbours, in the slot walk's
+order, to the step's pair list (ops/cuda_pairs.py ``density_sum_list``
+given a ``SlotMap`` returns a ``PairList`` over it), and the DFSPH step's
+density-and-factor kernel the fluid and dynamic-rigid centres'
+(ops/cuda_dfsph.py ``density_factor_list``).  The positions stay the
+sort's until the advect, so ``cuda_iisph.pressure_accel`` (f3, in the
+loop and with its advect), ``cuda_dfsph.nonpressure_kick`` (d with the
+DFSPH kick, over e1's list) and ``cuda_dfsph.nonpressure_accel`` (d
+without it, PCISPH, over the density kernel's list) run only their pair
+body over that list, a warp over the list walking the slot map in one
+phase, pinned with xg = x.  chip_smoke.py holds the kernels against their
+plain versions bitwise on the card.  Here, on the CPU:
+- each wrapper given that context on CPU tensors equal to its plain
+  version over the slot lists bitwise, padding rows included (padding
+  velocities, densities and pressures not 0; the acceleration 0 there, the
+  advect's v' and x' and d's kicked v the step-start v and x), launching
+  nothing;
+- where no cell overflows, each against the JAX package from the same
+  numpy-seeded inputs, on the JAX gather engine, which runs the fused
+  epilogues unfused: f3 against ``_pressure_accel`` without and with its
+  advect (IISPH's ``advect`` of the fluid rows' acceleration), d against
+  ``compute_non_pressure_forces`` without and with the kick of
+  ``predict_dt`` (DFSPH's ``predict_velocity``).  f3's acceleration is
+  held at that tolerance relative to each row's largest component
+  (tests/test_torch_iisph_compact.py ``_close_rows``: a wall row's
+  cancelling component keeps a few ulps of its terms under XLA's sum
+  order).
+The context check of these wrappers and of PCISPH's loop
+(``pair_list.list_walk``) and one slot step of each solver against its
+cell-run step are in tests/test_torch_pcisph_slot_list.py.
+Scenes: those of tests/test_torch_pcisph_slot_list.py, itself built on
+tests/test_torch_dfsph_slot_list.py's corner form ("layers": the clumped
+two-way scene, a 20-particle cell; "overflow": a 40-particle cell past the
+map's 8 x 4 slots; "edge": a ~100-particle cell; "corner": the clump on a
+corner of 8 cells, no overflow, centres over the list of 64), each with a
+dynamic rigid block, whose centres e1's list holds beside the fluid ones.
+Tolerance against JAX: atol 2e-5, rtol 2e-4 (the engine-equivalence
+tolerance of tests/conftest.py).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import sph_taichi_tpu as J
+from sph_taichi_tpu.models import base as jbase
+from sph_taichi_tpu.models.dfsph import DFSPHSolver as JDFSPHSolver
+from sph_taichi_tpu.models.iisph import IISPHSolver as JIISPHSolver
+
+from sph_taichi_torch.ops import cuda_dfsph, cuda_iisph, cuda_pairs
+from sph_taichi_torch.ops import pair_list
+
+import test_torch_pcisph_slot_list as pcisph_scenes
+from test_torch_iisph_compact import _close_rows
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+ATOL, RTOL = 2e-5, 2e-4
+K_LIST = pair_list.PAIR_LIST_ENTRIES
+KINDS = pcisph_scenes.KINDS
+JAX_KINDS = pcisph_scenes.JAX_KINDS
+# f3 in the loop and with its advect; d with the DFSPH kick and without it
+CALLS = ["f3", "f3_advect", "d_kick", "d_accel"]
+
+
+def _slot_list(call, snl, p, params):
+    """(idx, cnt) of the step's slot list that ``call`` reads, from its
+    plain version over the slot lists ``snl``: e1's (the fluid and
+    dynamic-rigid centres) for kicked d, the density kernel's (every real
+    centre) for f3 and un-kicked d."""
+    if call == "d_kick":
+        return cuda_dfsph.density_factor_list_plain(snl, p, params,
+                                                    "jacobi")[2:]
+    return cuda_pairs.density_sum_list_plain(snl, p, params)[1:]
+
+
+def _state(call, kind):
+    """(params, sorted particles with padding velocities and densities not
+    0, pressure with padding pressures not 0, dt, slot lists, the step's
+    context over the slot map, the rows whose list the reader walks)."""
+    params, p, inputs, smap, snl, _ = pcisph_scenes._case(kind)
+    idx, cnt = _slot_list(call, snl, p, params)
+    pressure = inputs["pressure"].clone()
+    n_real = params.n_fluid + params.n_solid
+    assert p.n > n_real
+    pad = torch.arange(3 * (p.n - n_real), dtype=torch.float32)
+    v, density = p.v.clone(), p.density.clone()
+    v[n_real:] = pad.reshape(-1, 3)
+    density[n_real:] = 1000.0 + pad[:p.n - n_real]
+    pressure[n_real:] = 100.0 + pad[:p.n - n_real]
+    walks = p.material >= 0 if call.startswith("f3") else p.material == 1
+    dt = torch.tensor(np.float32(params.dt0))
+    return (params, p._replace(v=v, density=density), pressure, dt, snl,
+            pair_list.PairList(smap, idx, cnt), walks)
+
+
+def _padding_rows(call, p, params):
+    """The padding rows' outputs of a reader, as the JAX package's
+    restore_tail gives them: the acceleration 0, the advect's v' and x'
+    and d's kicked v the step-start v and x."""
+    n_real = params.n_fluid + params.n_solid
+    zero = torch.zeros(p.n - n_real, 3)
+    return {"f3": (zero,), "f3_advect": (p.v[n_real:], p.x[n_real:]),
+            "d_kick": (zero, p.v[n_real:]), "d_accel": (zero,)}[call]
+
+
+@pytest.mark.parametrize("call", CALLS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_readers_over_the_slot_list_equal_plain(kind, call):
+    """Each reader given the step's slot context on CPU tensors returns
+    exactly its plain version over the slot lists, whole outputs, the
+    padding rows what the JAX package's restore_tail gives them, launching
+    nothing; in the corner scene centres it walks hold more pairs than the
+    list (their warps walk the map on the card)."""
+    params, p, pressure, dt, snl, ctx, walks = _state(call, kind)
+    if kind == "corner":
+        assert int((ctx.cnt[walks] > K_LIST).sum()) > 0
+    wrapper, plain, args = pcisph_scenes._list_reader(
+        call, p, {"pressure": pressure, "dt": dt}, params)
+    expect = _padding_rows(call, p, params)
+    before = (dict(cuda_iisph.LAUNCHES), dict(cuda_dfsph.LAUNCHES))
+    got = pcisph_scenes._outputs(wrapper(ctx, *args))
+    assert (cuda_iisph.LAUNCHES, cuda_dfsph.LAUNCHES) == before
+    ref = pcisph_scenes._outputs(plain(snl, *args))
+    n_real = params.n_fluid + params.n_solid
+    assert len(got) == len(ref) == len(expect)
+    for a, b, e in zip(got, ref, expect):
+        assert torch.equal(a, b)
+        assert torch.equal(a[n_real:], e)
+    assert float(got[0][:n_real].abs().max()) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_refs(kind):
+    """From one compiled JAX program on the scene ``kind`` ("layers" or
+    "corner") at the numpy-seeded state of tests/test_torch_pcisph_slot_
+    list.py (the same positions, velocities and pressure), on the JAX
+    gather engine: f3 at that pressure without and with its advect (dt0:
+    ``_pressure_accel`` then IISPH's ``advect`` of the fluid rows'
+    acceleration), and d without and with the kick (dt0:
+    ``compute_non_pressure_forces`` then DFSPH's ``predict_velocity``, the
+    unfused form of ``predict_dt``'s epilogue)."""
+    rng = np.random.default_rng(0)
+    jp, jpart, _ = J.build_scene(
+        J.SimConfig(config_dict=pcisph_scenes._scene(kind)))
+    x = pcisph_scenes._place(kind, rng, jp, jpart)
+    material = np.asarray(jpart.material)
+    real = material != -1
+    v = np.zeros_like(x)
+    v[real] = rng.uniform(-1.0, 1.0, size=(int(real.sum()), 3))
+    pressure = pcisph_scenes._seeded(rng, x, material)[1]
+    solver = J.build_solver(jp)
+    iisph, dfsph = JIISPHSolver(jp), JDFSPHSolver(jp)
+    dt = jnp.float32(jp.dt0)
+
+    @jax.jit
+    def refs(part, pressure):
+        p, nl, _ = jbase.bin_and_sort(part, jp, solver.engine)
+        p = jbase.compute_static_boundary_volume(p, nl, solver.engine, jp)
+        p = jbase.compute_moving_boundary_volume(p, nl, solver.engine, jp)
+        p = jbase.compute_densities(p, nl, solver.engine, jp)
+        f = jbase.compute_non_pressure_forces(p, nl, solver.engine, jp,
+                                              solver.g)
+        kicked = dfsph.predict_velocity(f, dt)
+        accel = iisph._pressure_accel(p, nl, pressure)
+        adv = iisph.advect(p, jnp.where(p.is_fluid()[:, None], accel, 0.0),
+                           dt)
+        return {"x": p.x, "f3": accel, "f3_advect": (adv.v, adv.x),
+                "d_kick": (f.acc, kicked.v), "d_accel": f.acc}
+
+    return jax.device_get(refs(
+        jpart._replace(x=jnp.asarray(x), v=jnp.asarray(v, jnp.float32)),
+        jnp.asarray(pressure)))
+
+
+@pytest.mark.parametrize("call", CALLS)
+@pytest.mark.parametrize("kind", JAX_KINDS)
+def test_readers_over_the_slot_list_match_jax(kind, call):
+    """Where no cell overflows the slot map, each reader over the step's
+    slot list on CPU tensors matches the JAX package's term on the real
+    rows, from the same numpy-seeded state (the scenes of
+    tests/test_torch_pcisph_slot_list.py, DFSPH's kick on the two-way
+    scene's fluid and dynamic rigid block too)."""
+    params, p, inputs, smap, snl, _ = pcisph_scenes._case(kind)
+    out = _jax_refs(kind)
+    np.testing.assert_array_equal(p.x.numpy(), np.asarray(out["x"]))
+    ctx = pair_list.PairList(smap, *_slot_list(call, snl, p, params))
+    wrapper, _, args = pcisph_scenes._list_reader(call, p, inputs, params)
+    got = pcisph_scenes._outputs(wrapper(ctx, *args))
+    want = out[call]
+    want = want if isinstance(want, tuple) else (want,)
+    n_real = params.n_fluid + params.n_solid
+    assert len(got) == len(want)
+    if call == "f3":
+        _close_rows(got[0], want[0], params, call)
+        return
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy()[:n_real],
+                                   np.asarray(b)[:n_real], atol=ATOL,
+                                   rtol=RTOL, err_msg=call)

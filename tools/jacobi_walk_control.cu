@@ -1,7 +1,12 @@
 // The DFSPH Jacobi kernels of sph_taichi_torch/csrc/dfsph.cu with their
-// walk replaced by a one-phase control, for tools/jacobi_walk_control.py:
-// the kernels' source is included as it is, with for_each_jacobi_pair
-// renamed to control_jacobi_pair, which reads no pair list.
+// walk replaced by a one-phase control, for tools/jacobi_walk_control.py
+// and chip_smoke.py's slot DFSPH and PCISPH phases: the kernels' source is
+// included as it is, with for_each_jacobi_pair renamed to
+// control_jacobi_pair, which reads no pair list, and the list walk of
+// for_each_step_pair (PAIR_LIST_WALK, pair_common.cuh) defined to
+// slot_one_phase_pair (tools/walk_control.cuh): over the slot walk the
+// non-pressure kernel walks the map in one phase and reads no list, over
+// the cell runs it reads the list as shipped.
 // - WALK_BATCHED: the one-phase walk over the cell runs, each lane loading
 //   kCompactUnroll candidates' positions before testing them, the pair
 //   body run where its test accepts (no list, no warp votes);
@@ -13,7 +18,9 @@
 // Build: nvcc <the flags of ops/_build.py> -I sph_taichi_torch/csrc
 //        [-DWALK_BATCHED] tools/jacobi_walk_control.cu
 
+#define PAIR_LIST_WALK slot_one_phase_pair
 #include "pair_common.cuh"
+#include "walk_control.cuh"
 
 template <typename Walk, typename F>
 __device__ __forceinline__ void control_walk(

@@ -16,15 +16,18 @@
 // The slot instantiations reach the same hook: under NO_LIST and ONE_PHASE
 // every warp walks the slot map in one phase, pinned (the slot kernels
 // before they read the step's list; the slot walk has no two-phase form),
-// and a warp over the list walks it in one phase under every control.
-// Every control adds each centre's pairs in the shipped walk's order, so
-// every result equals the shipped kernels' bitwise.
+// and a warp over the list walks it in one phase under every control.  The
+// one-phase walk is tools/walk_control.cuh's one_phase_step_pairs, which
+// the IISPH and DFSPH controls share.  Every control adds each centre's
+// pairs in the shipped walk's order, so every result equals the shipped
+// kernels' bitwise.
 // Build: nvcc <the flags of ops/_build.py> -I sph_taichi_torch/csrc
 //        [-DNO_LIST | -DONE_PHASE] [-DLIST_UNROLL=n] [-DOVERFLOW_TWO_PHASE]
 //        tools/pcisph_walk_control.cu
 
 #define PAIR_LIST_WALK control_listed_pair
 #include "pair_common.cuh"
+#include "walk_control.cuh"
 
 #ifndef LIST_UNROLL
 #define LIST_UNROLL kListUnroll
@@ -74,8 +77,8 @@ __device__ __forceinline__ void control_two_phase(
     const PairConsts& c, F&& f) {
   if constexpr (kCompactWalk<Walk>) {
     pinned_compact_cell_runs(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
-  } else if (walks) {
-    for_each_neighbor_pinned(i, x, xg, walk, c, f);
+  } else {
+    one_phase_step_pairs(walks, i, x, xg, walk, c, f);
   }
 }
 
@@ -87,14 +90,14 @@ __device__ __forceinline__ void control_listed_pair(
 #if defined(NO_LIST)
   control_two_phase(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
 #elif defined(ONE_PHASE)
-  if (walks) for_each_neighbor_pinned(i, x, xg, walk, c, f);
+  one_phase_step_pairs(walks, i, x, xg, walk, c, f);
 #else
   const int n = walks ? pl.cnt[i] : 0;
   if (__any_sync(0xffffffffu, n > kPairListEntries)) {
 #ifdef OVERFLOW_TWO_PHASE
     control_two_phase(walks, i, x, gi0, gi1, gi2, xg, walk, c, f);
 #else
-    if (walks) for_each_neighbor_pinned(i, x, xg, walk, c, f);
+    one_phase_step_pairs(walks, i, x, xg, walk, c, f);
 #endif
     return;
   }
