@@ -108,26 +108,36 @@ Phases (any failure raises and exits non-zero):
    time, plain time and bound;
 12. the slot path: data/scenes/dragon_bath.json (WCSPH) with
    ``backend="pallas_slots"`` through ``Simulation``, 50 timed steps after
-   5, steps/s beside the cell-run path's, device busy per step; the slot
-   map's build time and bytes, max_layers_used and the launch counts
-   (density_sum_list[slots], which writes the step's list over the map,
-   = wcsph_forces[slots] = steps); the slot kernels against their plain
-   versions (the slot neighbour lists; the list too) and beside the
-   cell-run kernels at the dragon state, the list kernel beside the
-   one-phase density_sum[slots] (on no step), its walk profile, registers
-   and the design figure of the list's stores; one slot step against one
-   cell-run step from the same state (expected: equal bitwise);
+   5, steps/s beside the cell-run path's, device busy per step beside
+   that of wcsph_forces' one-phase slot design without the list (the
+   control library of tools/wcsph_walk_control.cu with ONE_PHASE, built
+   with the kernels), in the same run, and the state then bitwise that of
+   the cell-run twin; the slot map's build time and bytes,
+   max_layers_used and the launch counts (density_sum_list[slots], which
+   writes the step's list over the map, = wcsph_forces[slots], which
+   reads it, = steps); the slot kernels against their plain versions (the
+   slot neighbour lists; the list too) and beside the cell-run kernels at
+   the dragon state, the list kernel beside the one-phase
+   density_sum[slots] (on no step), wcsph_forces[slots] beside the
+   control on the same inputs (equal bitwise), the walk profile,
+   registers and the design figures of the list's stores and reads; one
+   slot step against one cell-run step from the same state (expected:
+   equal bitwise);
 13. the scaled dynamic dragon as WCSPH (dt 4e-4) under
    ``backend="pallas_slots"``, 10 timed steps after 2: kernel c's slot
    instantiation once in ``initialize`` and once per step, against its
-   plain version, beside the cell-run kernel c;
+   plain version, beside the cell-run kernel c; device busy per step with
+   the reaction forces over the step's list beside the one-phase control,
+   and the state then bitwise that of a cell-run twin; at that state the
+   reaction forces over the list (its dynamic-rigid centres) against
+   their plain version and beside the control on the same inputs;
 14. (in phase 2) the 14 slot instantiations of kernels d-g (DFSPH,
    IISPH, PCISPH) against their plain versions over the slot lists on
    the clumped DFSPH, IISPH and PCISPH scenes, at a 20-particle cell
    (each also equal to its cell-run instantiation) and with a
    40-particle overflow clump: all bitwise, DFSPH's Jacobi kernels and d
-   over the step's list that e1 writes over the slot walk, IISPH's f3 and
-   PCISPH's d, g1 and g2 over the list that density_sum_list[slots]
+   over the step's list that e1 writes over the slot walk, IISPH's f1 and
+   f3 and PCISPH's d, g1 and g2 over the list that density_sum_list[slots]
    writes, each list against its plain version (padding rows included);
 15. data/scenes/dragon_bath_dfsph.json (DFSPH) with
    ``backend="pallas_slots"`` through ``Simulation`` beside a cell-run
@@ -149,8 +159,8 @@ Phases (any failure raises and exits non-zero):
 16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
    after 5; density_sum_list[slots] writes the step's list over the map
    as density_sum_list does over the cell runs, and the slot run launches
-   it as often): IISPH's f3 (both variants) and PCISPH's d, g1 and g2
-   read the list, and each step's device busy stands beside that of their
+   it as often): IISPH's f1 and f3 (both variants) and PCISPH's d, g1 and
+   g2 read the list, and each step's device busy stands beside that of their
    one-phase slot design without the list (the control libraries of
    tools/iisph_walk_control.cu, and of tools/pcisph_walk_control.cu with
    ONE_PHASE beside tools/jacobi_walk_control.cu, built with the kernels),
@@ -227,17 +237,18 @@ Phases (any failure raises and exits non-zero):
    call; the registers, shared memory and resident blocks of each slot
    instantiation.
 25. (in phase 2) the other readers of the slot walk's list on the same
-   edge scene and corner form: IISPH's f3 (both variants, at a seeded
-   pressure) and PCISPH's un-kicked d over density_sum_list[slots]'s list,
-   DFSPH's kicked d over e1's slot list, padding velocities, densities
-   and pressures not 0: each list and reader against its plain version
+   edge scene and corner form: WCSPH's b (with and without the reaction,
+   at dt 4e-4), IISPH's f1 and f3 (both variants, at a seeded pressure)
+   and PCISPH's un-kicked d over density_sum_list[slots]'s list, DFSPH's
+   kicked d over e1's slot list, padding velocities, densities and
+   pressures not 0: each list and reader against its plain version
    over the slot lists bitwise, padding rows included; the walk profile of
    each reader's centres over its list (the corner's warps over it walk
    the map in one phase, pinned); the bare map refused by the wrappers
    (TypeError naming the context's source) and by the launchers
    (cudaErrorInvalidValue); one kernel per wrapper call; the registers,
-   shared memory and resident blocks of f3's slot instantiations (d's
-   with phases 23 and 24).
+   shared memory and resident blocks of b's, f1's and f3's slot
+   instantiations (d's with phases 23 and 24).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -1258,19 +1269,23 @@ def slot_occupancy(method=4):
     """Prints the registers, shared memory and resident blocks of the slot
     instantiations that write and read the step's list: e1, the Jacobi
     kernels and kicked d (``method`` 4), the slot density kernel (beside
-    the one-phase ``density_sum[slots]``) and f3, both variants (2), or
-    the slot density kernel, un-kicked d, g1 and g2 (1)."""
+    the one-phase ``density_sum[slots]``) and b, both variants (0), f1 and
+    f3, both variants (2), or un-kicked d, g1 and g2 (1)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_pcisph as cg
 
-    if method in (1, 2):
+    if method in (0, 1, 2):
         rows = [("density_sum_list[slots] (writing the list)",
                  cp.occupancy("density_sum_list", True)),
                 ("density_sum[slots] (one phase, no list)",
                  cp.occupancy("density_sum", True))]
-    if method == 1:
+    if method == 0:
+        rows += [(f"{kernel}[slots] (over the list)",
+                  cp.occupancy(kernel, slots=True))
+                 for kernel in ("wcsph_forces", "wcsph_forces_react")]
+    elif method == 1:
         rows += [("nonpressure_accel[slots] (over the list)",
                   cd.occupancy("nonpressure_accel", slots=True))]
         rows += [(f"{kernel}[slots] (over the list)",
@@ -1280,7 +1295,8 @@ def slot_occupancy(method=4):
     elif method == 2:
         rows += [(f"{kernel}[slots] (over the list)",
                   ci.occupancy(kernel, slots=True))
-                 for kernel in ("iisph_pressure_accel",
+                 for kernel in ("iisph_nonpressure_kick",
+                                "iisph_pressure_accel",
                                 "iisph_pressure_accel_advect")]
     else:
         rows = [("dfsph_density_factor[slots] (writing the list)",
@@ -1567,10 +1583,14 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
     particles, the rows they walk, {name: (the wrapper given a context, its
     plain outputs over the slot lists, module, parts of the kernel's name,
     the launcher given the map and no list)}, the call that the wrappers'
-    refusal names).  f3 (both variants) at a seeded pressure (padding pressures
-    not 0) over the slot density kernel's list (IISPH, 2); kicked d over
-    e1's slot list at e1's densities (DFSPH, 4); un-kicked d over the slot
-    density kernel's list (PCISPH, 1)."""
+    refusal names).  A name's launch count is its first word with
+    ``[slots]``.  f1 and f3 (both variants, at a seeded pressure, padding
+    pressures not 0) over the slot density kernel's list (IISPH, 2); kicked
+    d over e1's slot list at e1's densities (DFSPH, 4); un-kicked d over
+    the slot density kernel's list (PCISPH, 1); b with and without the
+    reaction over the slot density kernel's list at the step's density
+    clamp and EOS (WCSPH, 0)."""
+    from sph_taichi_torch import build_solver
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
@@ -1599,6 +1619,33 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
     plain = ("density_sum_list[slots]'s list",
              *cp.density_sum_list_plain(snl, p, params)[1:])
     source = "density_sum_list"
+    if method == 0:
+        q, dpi, p_r02, m_nc, rr0 = build_solver(
+            params, device=p.x.device).force_inputs(p)
+        if rr0 is None:
+            raise AssertionError("WCSPH edge scene: no reaction variant")
+        out.append(torch.empty_like(p.x))
+
+        def forces(react):
+            rr = rr0 if react else None
+            launch = (lambda: cp._lib().wcsph_forces_launch(
+                ptr["x"], q.v.data_ptr(), ptr["material"],
+                q.is_dynamic.data_ptr(), q.m.data_ptr(), ptr["m_V"],
+                dpi.data_ptr(), p_r02.data_ptr(), m_nc.data_ptr(),
+                rr.data_ptr() if react else None, *walk, None, None,
+                dt.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr(), int(react), n, consts, stream))
+            return (lambda c: cp.wcsph_forces(c, q, dpi, p_r02, m_nc, rr,
+                                              dt, params),
+                    cp.wcsph_forces_plain(snl, q, dpi, p_r02, m_nc, rr, dt,
+                                          params), cp,
+                    (f"wcsph_forces_kernel<{str(react).lower()}",
+                     "SlotWalk"), launch)
+
+        calls = {"wcsph_forces": forces(False),
+                 "wcsph_forces (reaction)": forces(True)}
+        return slist, plain, q, (q.material == 1) | q.is_dynamic_rigid(), \
+            calls, source
     if method == 1:
         calls = {"nonpressure_accel": (
             lambda c: (cd.nonpressure_accel(c, p, params),),
@@ -1621,6 +1668,14 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
             n, consts, stream)
 
     calls = {
+        "iisph_nonpressure_kick": (
+            lambda c: ci.nonpressure_kick(c, p, dt, params),
+            ci.nonpressure_kick_plain(snl, p, dt, params), ci,
+            ("iisph_nonpressure_kick_list_kernel", "SlotWalk"),
+            lambda: ci._lib().iisph_nonpressure_kick_launch(
+                ptr["x"], p.v.data_ptr(), ptr["material"], p.m.data_ptr(),
+                p.density.data_ptr(), *walk, None, None, dt.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), n, consts, stream)),
         "iisph_pressure_accel": (
             lambda c: (ci.pressure_accel(c, p, pressure, params),),
             (ci.pressure_accel_plain(snl, p, pressure, params),), ci,
@@ -1634,12 +1689,13 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
 
 
 def check_slot_list_readers_on_edge_scenes(device):
-    """IISPH's f3 (both variants) and PCISPH's un-kicked d over the list
-    that the slot density kernel writes, and DFSPH's kicked d over the
-    list that e1 writes over the slot walk, on the edge scene (its
-    ~100-particle cell overflows the slot map) and its corner form (no
-    overflow; centres over the list of 64, whose warps walk the map in one
-    phase, pinned), padding velocities, densities and pressures not 0:
+    """WCSPH's b (both variants), IISPH's f1 and f3 (both variants) and
+    PCISPH's un-kicked d over the list that the slot density kernel
+    writes, and DFSPH's kicked d over the list that e1 writes over the
+    slot walk, on the edge scene (its ~100-particle cell overflows the
+    slot map) and its corner form (no overflow; centres over the list of
+    64, whose warps walk the map in one phase, pinned), padding
+    velocities, densities and pressures not 0:
     each list and each reader against its plain version over the slot
     lists bitwise, padding rows included; the walk profile of each
     reader's centres over its list; the bare map refused by the wrappers
@@ -1650,9 +1706,12 @@ def check_slot_list_readers_on_edge_scenes(device):
     worst = {}
     for scene, place in (("edge", compact_edge_positions),
                          ("corner", corner_positions)):
-        for method in (2, 4, 1):
+        for method in (2, 4, 1, 0):
             scene_dict = compact_edge_scene()
-            scene_dict["Configuration"]["simulationMethod"] = method
+            cfg = scene_dict["Configuration"]
+            cfg["simulationMethod"] = method
+            if method == 0:
+                cfg["timeStepSize"] = 4e-4    # as the WCSPH edge scene
             params, _, p, _, starts, diag = prepared(
                 scene_dict, device, seed=0, place=place)
             n_real = params.n_fluid + params.n_solid
@@ -1672,8 +1731,8 @@ def check_slot_list_readers_on_edge_scenes(device):
                                      f"{smap.diag}")
             dt = torch.full((), params.dt0, dtype=torch.float32,
                             device=device)
-            label = (f"slot list readers, {scene} scene, "
-                     f"{ {2: 'IISPH', 4: 'DFSPH', 1: 'PCISPH'}[method] }")
+            solver = {2: "IISPH", 4: "DFSPH", 1: "PCISPH", 0: "WCSPH"}
+            label = f"slot list readers, {scene} scene, {solver[method]}"
             print(f"{label}: {params.n_particles} particles, max cell "
                   f"occupancy {int(diag['max_cell_occupancy'])}, slot map "
                   f"{ {k: int(x) for k, x in smap.diag.items()} }")
@@ -1686,10 +1745,10 @@ def check_slot_list_readers_on_edge_scenes(device):
                 raise AssertionError(f"{label}: the scene misses an edge: "
                                      f"{fig}")
             for name, (fn, want, _, _, launch) in calls.items():
+                key = name.split(" ")[0] + "[slots]"
                 for a, b in zip(outputs(fn(slist)), want):
                     e = float((a.double() - b.double()).abs().max())
-                    worst[name + "[slots]"] = max(
-                        worst.get(name + "[slots]", 0.0), e)
+                    worst[key] = max(worst.get(key, 0.0), e)
                     if not torch.equal(a, b):
                         raise AssertionError(f"{label}: {name} over the "
                                              f"list differs from its plain "
@@ -1717,11 +1776,12 @@ def check_slot_list_readers_on_edge_scenes(device):
             if scene == "corner":
                 continue
             for name, (fn, _, module, kernel, _) in calls.items():
-                key = name + "[slots]"
+                key = name.split(" ")[0] + "[slots]"
                 before = module.LAUNCHES[key]
                 launched, lost = kernels_per_call(lambda f=fn: f(slist))
                 counted = (module.LAUNCHES[key] - before) / (2 + lost)
-                print(f"  {key} (over the list): one wrapper call launches "
+                print(f"  {name}[slots] (over the list): one wrapper call "
+                      f"launches "
                       f"{launched} (its count {counted:g} per call; captures "
                       f"that lost the markers {lost})")
                 if len(launched) != 1 or counted != 1 or not all(
@@ -1729,6 +1789,7 @@ def check_slot_list_readers_on_edge_scenes(device):
                     raise AssertionError(f"{key}: the wrapper launches "
                                          f"{launched}")
     slot_occupancy(2)
+    slot_occupancy(0)
     return {f"{k} (slot list reader edge scenes)": x
             for k, x in worst.items()}
 
@@ -1845,7 +1906,7 @@ def check_iisph_on_edge_scene(device):
     cells in one phase) at a seeded pressure, with padding velocities that
     are not 0: the list against its plain version; f1, f2, f3 (both
     variants) and f4 over the list and over the slot map's list (the cell
-    overflows its 32 slots; f3 reads that list, f1, f2 and f4 walk the
+    overflows its 32 slots; f1 and f3 read that list, f2 and f4 walk the
     map) against their plain versions bitwise, padding rows included; bare
     cell offsets refused; the walk profile; one kernel per wrapper call."""
     from sph_taichi_torch.ops import cuda_iisph as ci
@@ -3149,7 +3210,8 @@ def iisph_path(device, warmup, steps):
         # equal the wrappers' counts over the same 5 steps
         kernel_keys = {
             "density_sum_list": ("density_sum_list_kernel(",),
-            "iisph_nonpressure_kick": ("iisph_nonpressure_kick_list_kernel(",),
+            "iisph_nonpressure_kick": (
+                "iisph_nonpressure_kick_list_kernel<CellRunWalk>",),
             "iisph_predict_advection": (
                 "iisph_predict_advection_list_kernel(",),
             "iisph_pressure_accel": ("iisph_pressure_accel_kernel<false",
@@ -4041,7 +4103,9 @@ def check_volume_and_slot_kernels_on_small_scenes(device):
     and a dynamic rigid block: a 20-particle cell (three of the four slot
     layers in use), where the slot kernels must equal the cell-run kernels
     bitwise, and a 40-particle cell (``slot_overflow``), where kernel and
-    plain slot lists drop the same pairs (called directly)."""
+    plain slot lists drop the same pairs (called directly); the slot forces
+    over the list that the slot density kernel writes, held against its
+    plain version first."""
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.ops.slots import (
@@ -4096,7 +4160,11 @@ def check_volume_and_slot_kernels_on_small_scenes(device):
         if (dropped > 0) != (kind == "overflow"):
             raise AssertionError(f"slot walk [{kind}]: {dropped} rows "
                                  f"differ from the sum over every pair")
-        got = cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt, params)
+        # the forces over the list that the slot density kernel writes
+        slist = cp.density_sum_list(smap, p, params)[1]
+        check_pair_list(slist, snl, p, params,
+                        f"volume scene slot list [{kind}]")
+        got = cp.wcsph_forces(slist, q, dpi, p_r02, m_nc, rr0, dt, params)
         ref = cp.wcsph_forces_plain(snl, q, dpi, p_r02, m_nc, rr0, dt,
                                     params)
         for name, a, b in zip(("x", "v", "acc"), got, ref):
@@ -4322,12 +4390,15 @@ def volume_path(device, warmup, steps):
 def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     """dragon_bath (WCSPH) with ``backend="pallas_slots"`` through
     ``Simulation``: the slot instantiations of density_sum_list (writing
-    the step's list) and wcsph_forces once per step; the map's build time
-    and bytes; the slot kernels against their plain versions and the
-    cell-run kernels at the dragon state, the list kernel beside the
-    one-phase density_sum[slots] (on no step); one slot step against one
-    cell-run step from the same state.  Returns the three kernels' JSON
-    entries."""
+    the step's list) and wcsph_forces (reading it) once per step; device
+    busy per step beside wcsph_forces' one-phase slot design (the control
+    library) in the same run, and the state then bitwise the cell-run
+    twin's; the map's build time and bytes; the slot kernels against
+    their plain versions and the cell-run kernels at the dragon state, the
+    list kernel beside the one-phase density_sum[slots] (on no step) and
+    the forces beside their one-phase design on the same inputs; one slot
+    step against one cell-run step from the same state.  Returns the three
+    kernels' JSON entries."""
     from sph_taichi_torch import build_solver
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pairs as cp
@@ -4393,16 +4464,33 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
         {k: [round(t, 4) for t in v] for k, v in per.items()}) + "; medians "
         + json.dumps({k: round(float(np.median(v)), 4)
                       for k, v in per.items()}))
-    same = all(torch.equal(getattr(sim.state.p, f),
-                           getattr(cell_sim.state.p, f))
-               for f in ("x", "v", "density", "pressure", "m_V"))
-    print(f"after {int(sim.state.step_count)} steps each, the slot and "
-          f"cell-run simulations hold the same state bitwise: {same}")
     busy_ms = profile_steps(sim, 10)
     if busy_ms is not None:
         print(f"dragon_bath WCSPH slot device busy {busy_ms:.4f} ms of the "
               f"{step_ms:.4f} ms step: idle share "
               f"{100 * (1 - busy_ms / step_ms):.1f}%")
+    # b's earlier slot design (one phase, no list) in the same call,
+    # between this design's runs; the results are equal bitwise, so the
+    # state stays the twin's (5 steps each: the map holds the fullest
+    # cell's 25-32 particles until step ~130)
+    with control_kernels(0):
+        one_phase_ms = profile_steps(sim, 5)
+    again_ms = profile_steps(sim, 5)
+    print(f"dragon_bath WCSPH slot device busy per step (profiler): "
+          f"wcsph_forces over the step's list {busy_ms} (10 steps) / "
+          f"{again_ms} ms (5 steps); one-phase wcsph_forces, no list "
+          f"({control_name(0)}) {one_phase_ms} ms (5 steps)")
+    cell_sim.run(20 // cell_sim.substeps, export=False)
+    if bool(sim.metrics["slot_overflow"]):
+        raise AssertionError(f"slot_overflow on the dragon by step "
+                             f"{int(sim.state.step_count)}")
+    same = all(torch.equal(a, getattr(cell_sim.state.p, f))
+               for f, a in sim.state.p._asdict().items() if a is not None)
+    print(f"after {int(sim.state.step_count)} steps each, the slot and "
+          f"cell-run simulations hold the same state bitwise: {same}")
+    if not same:
+        raise AssertionError("dragon_bath WCSPH: slot and cell-run states "
+                             "differ")
     check_state(sim)
 
     solver, state = sim.solver, sim.state
@@ -4426,6 +4514,7 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     reset_all_launch_counts()
     ms, plain_ms, err = {}, {}, {}
     slot_buffers = {}
+    den, slist = cp.density_sum_list(smap, q, params, slot_buffers)
     ms["density_sum_list[slots]"] = time_ms(
         lambda: cp.density_sum_list(smap, q, params, slot_buffers), 20)
     ms["density_sum[slots]"] = time_ms(
@@ -4436,8 +4525,21 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
         lambda: cp.density_sum_list(starts, q, params, buffers), 20)
     plist = cp.density_sum_list(starts, q, params, buffers)[1]
     ms["wcsph_forces[slots]"] = time_ms(
-        lambda: cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt, params),
+        lambda: cp.wcsph_forces(slist, q, dpi, p_r02, m_nc, rr0, dt, params),
         20)
+    # b's one-phase slot kernel without the list, same inputs
+    with control_kernels(0):
+        one_ms = time_ms(lambda: cp.wcsph_forces(slist, q, dpi, p_r02, m_nc,
+                                                 rr0, dt, params), 20)
+        one = cp.wcsph_forces(slist, q, dpi, p_r02, m_nc, rr0, dt, params)
+    if not all(torch.equal(a, b) for a, b in zip(one, cp.wcsph_forces(
+            slist, q, dpi, p_r02, m_nc, rr0, dt, params))):
+        raise AssertionError("dragon wcsph_forces[slots]: the one-phase "
+                             "slot kernel differs from the list kernel")
+    print(f"wcsph_forces[slots]: over the step's list "
+          f"{ms['wcsph_forces[slots]']:.4f} ms, the one-phase slot kernel "
+          f"without it {one_ms:.4f} ms "
+          f"({ms['wcsph_forces[slots]'] / one_ms - 1:+.1%}), equal bitwise")
     ms["wcsph_forces"] = time_ms(
         lambda: cp.wcsph_forces(plist, q, dpi, p_r02, m_nc, rr0, dt, params),
         20)
@@ -4460,11 +4562,11 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
                                              params),
                    "dragon density_sum_list[slots] (sums)"))
     fig = slot_list_profile(q, slist.cnt, False, "dragon_bath WCSPH")
-    slot_occupancy(1)
+    slot_occupancy(0)
     err["wcsph_forces[slots]"] = 0.0
     for name, a, b in zip(("x", "v", "acc"),
-                          cp.wcsph_forces(smap, q, dpi, p_r02, m_nc, rr0, dt,
-                                          params),
+                          cp.wcsph_forces(slist, q, dpi, p_r02, m_nc, rr0,
+                                          dt, params),
                           cp.wcsph_forces_plain(snl, q, dpi, p_r02, m_nc,
                                                 rr0, dt, params)):
         err["wcsph_forces[slots]"] = max(
@@ -4503,6 +4605,14 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
           f"{fig['accepted_max']} pairs at most per fluid centre; not the "
           "bound)", den_bytes + 4 * listed + 4 * n,
           pairs * DENSITY_FLOPS_PER_PAIR)
+    # the list as the forces read it (their centres' counts and entries
+    # instead of the map, no distance test): a design figure too
+    listed_b = int(torch.clamp_max(slist.cnt[walkers], slist.idx.shape[0])
+                   .long().sum())
+    bound("wcsph_forces[slots] design figure (reading the list, "
+          f"{fig['warps_over_list']} warps over it; not the bound)",
+          frc_bytes - frc_map + 4 * int(walkers.sum()) + 4 * listed_b,
+          int(snl.cnt[walkers].long().sum()) * (FORCES_FLOPS_PER_PAIR - 8))
     bounds = {
         "density_sum[slots]": bound("density_sum[slots]", den_bytes,
                                     pairs * DENSITY_FLOPS_PER_PAIR),
@@ -4527,7 +4637,13 @@ def slot_volume_path(device, warmup, steps):
     """The scaled dynamic dragon as WCSPH (dt 4e-4) with
     ``backend="pallas_slots"``: kernel c's slot instantiation in
     ``initialize`` and once per step, beside the slot density and the slot
-    forces with the two-way reaction; returns its JSON entry."""
+    forces with the two-way reaction; device busy per step with the forces
+    over the step's list and with their one-phase slot design (the control
+    library), in the same run; the state bitwise that of a cell-run twin
+    stepped alike; at that state the forces with the reaction over the
+    list against their plain version and beside the one-phase design on
+    the same inputs.  Returns (kernel c's JSON entry, the reaction
+    forces' largest difference)."""
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.slots import slot_neighbor_list
@@ -4568,8 +4684,37 @@ def slot_volume_path(device, warmup, steps):
         if {k: v for k, v in launches.items() if v} != expect or \
                 calls["dense"]:
             raise AssertionError(f"launches {launches}, expected {expect}")
+        # the forces' earlier slot design (one phase, no list) between
+        # this design's runs, 5 steps each: the map overflows from step
+        # ~58 (a cell past 32 particles at the contact)
+        busy_ms = profile_steps(sim, 5)
+        with control_kernels(0):
+            one_phase_ms = profile_steps(sim, 5)
+        again_ms = profile_steps(sim, 5)
+        print(f"scaled dragon slot WCSPH device busy per step (profiler, 5 "
+              f"steps each): wcsph_forces with the reaction over the "
+              f"step's list {busy_ms} / {again_ms} ms; one-phase, no list "
+              f"({control_name(0)}) {one_phase_ms} ms")
+        cell = Simulation(config=scaled_dragon_config(method=0, dt=4e-4))
+        cell.run(int(sim.state.step_count) // cell.substeps, export=False)
+        if int(cell.state.step_count) != int(sim.state.step_count):
+            raise AssertionError("the cell-run twin is not at the slot "
+                                 "run's step")
+        if calls["dense"]:
+            raise AssertionError("the cell-run twin took the dense path")
     finally:
         restore()
+    if bool(sim.metrics["slot_overflow"]):
+        raise AssertionError(f"scaled dragon: slot_overflow by step "
+                             f"{int(sim.state.step_count)}")
+    same = all(torch.equal(a, getattr(cell.state.p, f))
+               for f, a in sim.state.p._asdict().items() if a is not None)
+    print(f"after {int(sim.state.step_count)} steps each, the slot and "
+          f"cell-run simulations hold the same state bitwise: {same}")
+    if not same:
+        raise AssertionError("scaled dragon WCSPH: slot and cell-run states "
+                             "differ")
+    del cell
     check_state(sim)
 
     q, smap, _ = base.bin_and_sort(sim.state.p, params, sim.solver.engine,
@@ -4598,12 +4743,52 @@ def slot_volume_path(device, warmup, steps):
     print(f"boundary_volume[slots] at the scaled dragon: kernel "
           f"{k_ms:.4f} ms (cell-run kernel {c_ms:.4f} ms; profiler), plain "
           f"{p_ms:.4f} ms, bound {b[0]:.5f} ms by {b[1]}")
+
+    # the forces with the reaction over the step's slot list
+    q = base.compute_densities(q, smap, sim.solver.engine, params)
+    q, dpi, p_r02, m_nc, rr0 = sim.solver.force_inputs(q)
+    if rr0 is None:
+        raise AssertionError("scaled dragon: no reaction variant")
+    dt = sim.state.dt
+    slist = cp.density_sum_list(smap, q, params, {})[1]
+    check_pair_list(slist, snl, q, params, "scaled dragon WCSPH slot list")
+    fig = slot_list_profile(q, slist.cnt, True, "scaled dragon WCSPH")
+    if not fig["dynamic_rigid_centres"]:
+        raise AssertionError("scaled dragon: no dynamic-rigid centre")
+
+    def forces():
+        return cp.wcsph_forces(slist, q, dpi, p_r02, m_nc, rr0, dt, params)
+
+    f_ms = time_ms(forces, 20)
+    with control_kernels(0):
+        one_ms = time_ms(forces, 20)
+        one = forces()
+    got = forces()
+    if not all(torch.equal(a, o) for a, o in zip(got, one)):
+        raise AssertionError("scaled dragon wcsph_forces[slots]: the "
+                             "one-phase slot kernel differs from the list "
+                             "kernel")
+    fp_ms = time_ms(lambda: cp.wcsph_forces_plain(
+        snl, q, dpi, p_r02, m_nc, rr0, dt, params), 3)
+    react_err = 0.0
+    for name, a, ref in zip(("x", "v", "acc"), got, cp.wcsph_forces_plain(
+            snl, q, dpi, p_r02, m_nc, rr0, dt, params)):
+        react_err = max(react_err, max_errors(
+            a, ref, f"scaled dragon wcsph_forces[slots] (reaction).{name}"))
+    moved = (got[2] - torch.tensor(params.gravity, device=device))[
+        q.is_dynamic_rigid()].abs().max()
+    print(f"wcsph_forces[slots] with the reaction at the scaled dragon: "
+          f"over the step's list {f_ms:.4f} ms, the one-phase slot kernel "
+          f"without it {one_ms:.4f} ms ({f_ms / one_ms - 1:+.1%}), equal "
+          f"bitwise; plain {fp_ms:.4f} ms; the reaction's largest |acc - g| "
+          f"on the dynamic rigid {float(moved):.3e}")
     return [{"name": "boundary_volume[slots]", "route": "cuda",
              "source": "sph_taichi_torch/csrc/pairs.cu",
              "replaces": "sph_taichi_tpu/ops/retired/pallas_slots.py:355",
              "launches": launches["boundary_volume[slots]"],
              "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-             "bound_ms": b[0], "bound_by": b[1], "library_ms": None}]
+             "bound_ms": b[0], "bound_by": b[1], "library_ms": None}], \
+        react_err
 
 
 # ---------------------------------------------------------------------------
@@ -4632,10 +4817,12 @@ SLOT_ENTRIES = {
 # the step's list (one phase, no list), built beside the kernels: DFSPH's
 # Jacobi kernels and the non-pressure kernel d (tools/jacobi_walk_control.cu,
 # the control library of tools/jacobi_walk_control.py with d's slot list
-# walk in one phase), IISPH's pressure acceleration f3
-# (tools/iisph_walk_control.cu) and PCISPH's loop kernels
-# (tools/pcisph_walk_control.cu with ONE_PHASE).  name -> (source, nvcc
-# flags, the module whose launchers it serves, those launchers, what it is)
+# walk in one phase), IISPH's non-pressure kick f1 and pressure
+# acceleration f3 (tools/iisph_walk_control.cu), PCISPH's loop kernels
+# (tools/pcisph_walk_control.cu with ONE_PHASE) and WCSPH's forces b
+# (tools/wcsph_walk_control.cu with ONE_PHASE, the control library of
+# tools/wcsph_walk_control.py).  name -> (source, nvcc flags, the module
+# whose launchers it serves, those launchers, what it is)
 CONTROL_LIBS = {
     "dfsph": ("tools/jacobi_walk_control.cu", [], "cuda_dfsph",
               ("dfsph_density_factor_list_launch", "dfsph_divergence_launch",
@@ -4646,16 +4833,21 @@ CONTROL_LIBS = {
               ("iisph_nonpressure_kick_launch",
                "iisph_predict_advection_launch",
                "iisph_pressure_accel_launch", "iisph_apply_A_launch"),
-              "the one-phase slot f3 of IISPH"),
+              "the one-phase slot f1 and f3 of IISPH"),
     "pcisph": ("tools/pcisph_walk_control.cu", ["-DONE_PHASE"], "cuda_pcisph",
                ("pcisph_d_rho_correct_launch",
                 "pcisph_pressure_accel_predict_launch"),
                "the one-phase slot loop kernels of PCISPH"),
+    "wcsph": ("tools/wcsph_walk_control.cu", ["-DONE_PHASE"], "cuda_pairs",
+              ("density_sum_launch", "density_sum_list_launch",
+               "wcsph_forces_launch", "boundary_volume_launch"),
+              "the one-phase slot b of WCSPH"),
 }
 # simulationMethod -> the control libraries whose wrappers its slot step
-# calls: the slot DFSPH, IISPH and PCISPH phases time the list readers and
-# step with them (device busy) on the same inputs
-CONTROLS = {4: ("dfsph",), 2: ("iisph",), 1: ("pcisph", "dfsph")}
+# calls: the slot WCSPH, DFSPH, IISPH and PCISPH phases time the list
+# readers and step with them (device busy) on the same inputs
+CONTROLS = {4: ("dfsph",), 2: ("iisph",), 1: ("pcisph", "dfsph"),
+            0: ("wcsph",)}
 CONTROL = {}
 
 
@@ -4822,8 +5014,8 @@ def slot_contexts(method, smap, p, params, label=None, snl=None):
     e1 over the slot walk) for the Jacobi kernels and d, the map for e1;
     on the IISPH and PCISPH steps the step's list over it
     (``density_sum_list``'s, the density kernel over the slot walk) for
-    every kernel (IISPH's f3 and PCISPH's d, g1 and g2 read it; f1, f2 and
-    f4 walk the map).  With ``snl`` (the slot lists) the list is held
+    every kernel (IISPH's f1 and f3 and PCISPH's d, g1 and g2 read it; f2
+    and f4 walk the map).  With ``snl`` (the slot lists) the list is held
     against its plain version first, padding rows included.  Returns (that
     function, the list, the labels whose kernels read the list)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
@@ -4843,7 +5035,8 @@ def slot_contexts(method, smap, p, params, label=None, snl=None):
         plain = ("density_sum_list[slots]'s list",
                  *cp.density_sum_list_plain(snl, p, params)[1:]) \
             if snl is not None else None
-        readers = {2: ("iisph_pressure_accel", "iisph_pressure_accel_advect"),
+        readers = {2: ("iisph_nonpressure_kick", "iisph_pressure_accel",
+                       "iisph_pressure_accel_advect"),
                    1: ("nonpressure_accel", "pcisph_d_rho_correct",
                        "pcisph_pressure_accel_predict")}[method]
     if snl is not None:
@@ -4877,8 +5070,8 @@ def check_slot_solver_kernels_on_small_scenes(device):
     its cell-run instantiation, and with the 40-particle overflow clump,
     where kernel and plain slot lists drop the same pairs.  DFSPH's Jacobi
     kernels and d take the step's list over the map that e1 writes, IISPH's
-    and PCISPH's kernels the one the slot density kernel writes (f3, d, g1
-    and g2 read it), each held against its plain version first.  Every
+    and PCISPH's kernels the one the slot density kernel writes (f1, f3, d,
+    g1 and g2 read it), each held against its plain version first.  Every
     comparison is bitwise."""
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.ops.slots import (
@@ -4933,7 +5126,8 @@ def check_slot_solver_kernels_on_small_scenes(device):
             print(f"slot kernels d-g, method {method} [{kind}]: slot map "
                   f"{d}; {len(calls)} instantiations"
                   + {4: " (the Jacobi kernels and d over e1's slot list)",
-                     2: " (f3 over density_sum_list[slots]'s list)",
+                     2: " (f1 and f3 over density_sum_list[slots]'s "
+                        "list)",
                      1: " (d, g1 and g2 over density_sum_list[slots]'s "
                         "list)"}[method]
                   + " equal to their plain versions over the slot lists"
@@ -5032,7 +5226,7 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
             # overflows from step ~58 (a cell past 32 particles at the
             # contact)
             turns = max(1, turns - 10 // per_turn)
-        kernels = {4: "Jacobi kernels and d", 2: "f3",
+        kernels = {4: "Jacobi kernels and d", 2: "f1 and f3",
                    1: "loop kernels and d"}[method]
         print(f"{label} slot device busy per step (profiler, 5 steps each): "
               f"{kernels} over the step's list {busy_ms} / {again_ms} ms; "
@@ -5283,7 +5477,9 @@ def main():
     kernels += slot_path(device, "data/scenes/dragon_bath.json", warmup=5,
                          steps=50, cell_step_ms=cell_step_ms)
     torch.cuda.empty_cache()
-    kernels += slot_volume_path(device, warmup=2, steps=10)
+    volume_kernels, react_forces_err = slot_volume_path(device, warmup=2,
+                                                        steps=10)
+    kernels += volume_kernels
     from sph_taichi_torch import SimConfig
     for method, config, label, warmup in (
             (4, SimConfig("data/scenes/dragon_bath_dfsph.json"),
@@ -5300,6 +5496,8 @@ def main():
     for k in kernels:
         if k["name"] == "dfsph_solver_dv[slots]":
             k["max_abs_err"] = max(k["max_abs_err"], react_err)
+        if k["name"] == "wcsph_forces[slots]":
+            k["max_abs_err"] = max(k["max_abs_err"], react_forces_err)
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

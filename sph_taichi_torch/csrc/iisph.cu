@@ -20,11 +20,10 @@
 //   iisph_apply_A           <- _apply_A with the relaxed-Jacobi update and
 //                              the per-centre error column in its epilogue
 // and the retired SlotEngine._kernel
-// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: f3 and
-// f4 are templates over their walk, CellRunWalk (the cell offsets) or
-// SlotWalk (the slot map of ops/slots.py), as in pairs.cu; f1 and f2 have
-// a kernel over each walk (the cell runs': *_list_kernel), sharing their
-// pair terms.
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: f1, f3
+// and f4 are templates over their walk, CellRunWalk (the cell offsets) or
+// SlotWalk (the slot map of ops/slots.py), as in pairs.cu; f2 has a kernel
+// over each walk (the cell runs': *_list_kernel), sharing its pair terms.
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_iisph.py, in the same operation order.  The Jacobi kernels
@@ -48,15 +47,16 @@
 // gives them), so each wrapper launches one kernel.
 //
 // Over the slot walk the density kernel (pairs.cu density_sum_slot_kernel)
-// writes the same list of every real centre in its one-phase walk, and f3
-// (both variants) runs only its pair body over it (sym_pressure_sum<true>):
-// a warp holding a centre over the list walks the slot map in one phase,
-// pinned with xg = x, which gives the pairs, d and raw sum of squares of
-// the one-phase walk.  f3's launcher refuses a launch without the list
-// under both walks.  f1, f2 and f4 walk the slot map in one phase: f1 and
-// f2 keep their kernels (iisph_nonpressure_kick_kernel,
-// iisph_predict_advection_kernel, over the real rows; their wrappers
-// restore the padding rows), f3 and f4 are a thread per row.
+// writes the same list of every real centre in its one-phase walk, and f1
+// and f3 (both variants) run only their pair body over it
+// (for_each_step_pair<true>): a warp holding a centre over the list walks
+// the slot map in one phase, pinned with xg = x, which gives the pairs, d
+// and raw sum of squares of the one-phase walk.  f1's and f3's launchers
+// refuse a launch without the list under both walks, and their slot
+// instantiations write the padding rows too.  f2 and f4 walk the slot map
+// in one phase: f2 keeps its kernel (iisph_predict_advection_kernel, over
+// the real rows; its wrapper restores the padding rows), f4 is a thread
+// per row.
 //
 // As dfsph.cu, the one-phase walks are bound by irregular candidate loads
 // that mostly hit L1/L2, the list walks by their gathers; the f32 work per
@@ -127,42 +127,16 @@ __device__ __forceinline__ void predict_out(
   last_p_out[i] = 0.5f * pressure[i];
 }
 
-// f1 over the slot walk, one thread per real row.
+// f1 over the step's pair list ``pl`` (density_sum_list's, over either
+// walk), one thread per row, padding rows included (acc 0, v carried
+// through).  Every real centre walks, static solids included
+// (IISPH.py:236-249); the viscosity acts between a centre and its fluid
+// neighbours only.
 template <typename Walk>
-__global__ void iisph_nonpressure_kick_kernel(
-    const float* __restrict__ x, const float* __restrict__ v,
-    const int* __restrict__ material, const float* __restrict__ m,
-    const float* __restrict__ density, Walk walk,
-    const float* __restrict__ dt_ptr, float* __restrict__ acc_out,
-    float* __restrict__ v_out, PairConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const bool fluid = material[i] == 1;
-  const float vi[3] = {v[3 * i], v[3 * i + 1], v[3 * i + 2]};
-  float s[3] = {0.0f, 0.0f, 0.0f};
-  // every real centre, static solids included (IISPH.py:236-249); the
-  // viscosity acts between a centre and its fluid neighbours only
-  for_each_neighbor_walk(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
-      [&](int j, float d0, float d1, float d2, float sq) {
-        nonpressure_pair(j, d0, d1, d2, sq, vi, v, material, m, density, c,
-                         s);
-      });
-  const float dt = *dt_ptr;
-  const float g[3] = {c.g0, c.g1, c.g2};
-  for (int k = 0; k < 3; ++k) {
-    const float a = g[k] + s[k];
-    acc_out[3 * i + k] = a;
-    v_out[3 * i + k] = fluid ? vi[k] + dt * a : vi[k];
-  }
-}
-
-// f1 over the step's pair list ``pl`` (density_sum_list's), one thread per
-// row, padding rows included (acc 0, v carried through).
 __global__ void iisph_nonpressure_kick_list_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const float* __restrict__ m,
-    const float* __restrict__ density, CellRunWalk walk, PairList pl,
+    const float* __restrict__ density, Walk walk, PairList pl,
     const float* __restrict__ dt_ptr, float* __restrict__ acc_out,
     float* __restrict__ v_out, int n_rows, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -170,7 +144,7 @@ __global__ void iisph_nonpressure_kick_list_kernel(
   float vi[3] = {0.0f, 0.0f, 0.0f};
   if (real) vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
   float s[3] = {0.0f, 0.0f, 0.0f};
-  for_each_step_pair<false>(
+  for_each_step_pair<true>(
       real, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         nonpressure_pair(j, d0, d1, d2, sq, vi, v, material, m, density, c,
@@ -333,32 +307,29 @@ __global__ void iisph_apply_A_kernel(
 // Each launcher's walk arguments (starts, slot_map, layers) select the
 // kernel over that walk (pair_common.cuh with_walk).  Every kernel reads
 // the step's list (list_idx, list_cnt: density_sum_list's output over the
-// same walk for the same rows) over the cell runs, and f3 over the slot walk
-// too; a launch without what its walk reads is refused
-// (cudaErrorInvalidValue: pair_common.cuh has_list, for f3 has_step_list).
-// Over the cell runs, and for f3 and f4 over the slot walk too, a kernel
-// launches over n_rows rows, padding rows included; f1 and f2 over the slot
-// walk launch over the real rows.
+// same walk for the same rows) over the cell runs, and f1 and f3 over the
+// slot walk too; a launch without what its walk reads is refused
+// (cudaErrorInvalidValue: pair_common.cuh has_list, for f1 and f3
+// has_step_list).  Over the cell runs, and for f1, f3 and f4 over the slot
+// walk too, a kernel launches over n_rows rows, padding rows included; f2
+// over the slot walk launches over the real rows.
 
 extern "C" int iisph_nonpressure_kick_launch(
     const float* x, const float* v, const int* material, const float* m,
     const float* density, const int* starts, const int* slot_map, int layers,
     const int* list_idx, const int* list_cnt, const float* dt,
     float* acc_out, float* v_out, int n_rows, PairConsts c, void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (slot_map != nullptr) {
-    if (c.n_real > 0) {
-      iisph_nonpressure_kick_kernel<<<grid_for(c), kBlock, 0, st>>>(
-          x, v, material, m, density, SlotWalk{slot_map, layers}, dt,
-          acc_out, v_out, c);
-    }
-  } else if (n_rows > 0) {
-    iisph_nonpressure_kick_list_kernel<<<rows_grid(n_rows), kBlock, 0, st>>>(
-        x, v, material, m, density, CellRunWalk{starts},
-        PairList{list_idx, list_cnt, n_rows}, dt, acc_out, v_out, n_rows, c);
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      iisph_nonpressure_kick_list_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                           (cudaStream_t)stream>>>(
+          x, v, material, m, density, walk, pl, dt, acc_out, v_out, n_rows,
+          c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -448,12 +419,12 @@ extern "C" int iisph_occupancy(int which, int* regs, int* smem_bytes,
       (const void*)iisph_pressure_accel_kernel<false, CellRunWalk>,
       (const void*)iisph_pressure_accel_kernel<true, CellRunWalk>,
       (const void*)iisph_apply_A_kernel<CellRunWalk>,
-      (const void*)iisph_nonpressure_kick_list_kernel,
+      (const void*)iisph_nonpressure_kick_list_kernel<CellRunWalk>,
       (const void*)iisph_predict_advection_list_kernel,
       (const void*)iisph_pressure_accel_kernel<false, SlotWalk>,
       (const void*)iisph_pressure_accel_kernel<true, SlotWalk>,
       (const void*)iisph_apply_A_kernel<SlotWalk>,
-      (const void*)iisph_nonpressure_kick_kernel<SlotWalk>,
+      (const void*)iisph_nonpressure_kick_list_kernel<SlotWalk>,
       (const void*)iisph_predict_advection_kernel<SlotWalk>};
   if (which < 0 || which > 9) return (int)cudaErrorInvalidValue;
   const void* kernel = kernels[which];

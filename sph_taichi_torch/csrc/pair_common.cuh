@@ -359,11 +359,11 @@ __device__ __forceinline__ void compact_cell_runs(
 // solver_dv) and the non-pressure kernel read it (for_each_jacobi_pair,
 // for_each_step_pair<true>).  Over the slot walk the WCSPH, IISPH and
 // PCISPH steps' density kernel (density_sum_slot_kernel, pairs.cu) writes
-// every real centre's list in its one-phase walk, and PCISPH's loop kernels
-// (g1, g2), IISPH's pressure acceleration (f3) and PCISPH's un-kicked
-// non-pressure kernel (d) read it (for_each_step_pair<true>); the other slot
-// kernels of those steps (WCSPH's forces, IISPH's f1, f2 and f4) walk the
-// map in one phase.
+// every real centre's list in its one-phase walk, and WCSPH's forces (b),
+// PCISPH's loop kernels (g1, g2), IISPH's non-pressure kick (f1) and
+// pressure acceleration (f3) and PCISPH's un-kicked non-pressure kernel (d)
+// read it (for_each_step_pair<true>); the other slot kernels of those steps
+// (IISPH's f2 and f4) walk the map in one phase.
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -453,28 +453,29 @@ __device__ __forceinline__ void for_each_listed_pair(
   }
 }
 
-// The list walk of for_each_step_pair (tools/pcisph_walk_control.cu
-// defines it to its controls before including this header).
+// The list walk of for_each_step_pair (the tools/*_walk_control.cu
+// controls define it to theirs before including this header).
 #ifndef PAIR_LIST_WALK
 #define PAIR_LIST_WALK for_each_listed_pair
 #endif
 
 // The walk of a loop over the step start's pair set: the pairs of the
-// positions x with the geometry at xg (for_each_neighbor_pinned; IISPH
-// and the non-pressure kernel pass xg = x, and then d and the raw sum of
-// squares are those of for_each_neighbor_walk), read from the step's list
-// ``pl`` over the cell runs and, where SLOT_LIST, over the slot walk too.
-// The kernels that pass SLOT_LIST true read the slot walk's list: g1 and g2
-// (pcisph.cu) and f3 (iisph.cu) the one the slot density kernel writes
-// (pairs.cu density_sum_slot_kernel), d (dfsph.cu) that one on the PCISPH
-// step and e1's (dfsph_density_factor_slot_kernel) on the DFSPH step; a
-// warp there that holds a centre beyond the list walks the slot map in one
-// phase, pinned (for_each_listed_pair), which with xg = x gives the pairs,
-// d and raw sum of squares of for_each_neighbor_walk.  Their launchers
-// refuse a launch without the list (has_step_list).  The kernels that pass
-// false (b, f1, f2, f4) walk the slot map in one phase
-// (for_each_neighbor_walk itself).  Every thread of a block calls it, with
-// ``walks`` false where the thread has no centre.
+// positions x with the geometry at xg (for_each_neighbor_pinned; WCSPH's
+// forces, IISPH and the non-pressure kernel pass xg = x, and then d and the
+// raw sum of squares are those of for_each_neighbor_walk), read from the
+// step's list ``pl`` over the cell runs and, where SLOT_LIST, over the slot
+// walk too.
+// The kernels that pass SLOT_LIST true read the slot walk's list: b
+// (pairs.cu), g1 and g2 (pcisph.cu), f1 and f3 (iisph.cu) the one the slot
+// density kernel writes (pairs.cu density_sum_slot_kernel), d (dfsph.cu)
+// that one on the PCISPH step and e1's (dfsph_density_factor_slot_kernel)
+// on the DFSPH step; a warp there that holds a centre beyond the list walks
+// the slot map in one phase, pinned (for_each_listed_pair), which with
+// xg = x gives the pairs, d and raw sum of squares of
+// for_each_neighbor_walk.  Their launchers refuse a launch without the
+// list (has_step_list).  The kernels that pass false (f2, f4) walk the
+// slot map in one phase (for_each_neighbor_walk itself).  Every thread of
+// a block calls it, with ``walks`` false where the thread has no centre.
 template <bool SLOT_LIST, typename Walk, typename F>
 __device__ __forceinline__ void for_each_step_pair(
     bool walks, int i, const float* __restrict__ x,
@@ -587,15 +588,15 @@ __host__ inline int rows_grid(int n_rows) {
 }
 
 // Whether a launch of a kernel that reads the step's list over both walks
-// (SLOT_LIST true: g1, g2, f3, d) has it: list_idx and list_cnt.
+// (SLOT_LIST true: b, g1, g2, f1, f3, d) has it: list_idx and list_cnt.
 __host__ inline bool has_step_list(const int* list_idx, const int* list_cnt) {
   return list_idx != nullptr && list_cnt != nullptr;
 }
 
 // Whether a launch of a kernel that reads the step's list over the cell
-// runs only (SLOT_LIST false: b, f1, f2, f4) has what its walk reads: the
-// list over the cell runs, the map over the slot walk, where it walks in
-// one phase.
+// runs only (SLOT_LIST false: f2 and f4 alone) has what its walk reads:
+// the list over the cell runs, the map over the slot walk, where it walks
+// in one phase.
 __host__ inline bool has_list(const int* slot_map, const int* list_idx,
                               const int* list_cnt) {
   return slot_map != nullptr || has_step_list(list_idx, list_cnt);

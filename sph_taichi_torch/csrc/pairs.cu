@@ -62,10 +62,13 @@
 // walk and sum and writes every real centre's accepted j to the step's
 // list as it walks (the slot walk has no two-phase form: its dependent
 // map loads lose the L1 that the candidate lists' shared memory takes,
-// pair_common.cuh).  PCISPH's loop kernels (pcisph.cu), IISPH's pressure
-// acceleration (iisph.cu) and the un-kicked non-pressure kernel (dfsph.cu)
-// read that list (for_each_step_pair<true>); wcsph_forces and IISPH's
-// other kernels walk the slot map in one phase and do not read it.
+// pair_common.cuh).  wcsph_forces (both variants), PCISPH's loop kernels
+// (pcisph.cu), IISPH's non-pressure kick and pressure acceleration
+// (iisph.cu) and the un-kicked non-pressure kernel (dfsph.cu) read that
+// list (for_each_step_pair<true>); a warp holding a centre over the list
+// walks the slot map in one phase, pinned with xg = x, which gives the
+// pairs, d and raw sum of squares of the one-phase walk.  IISPH's f2 and
+// f4 walk the slot map in one phase and do not read it.
 
 #include "pair_common.cuh"
 
@@ -143,8 +146,10 @@ __global__ void density_sum_slot_kernel(const float* __restrict__ x,
 }
 
 // One thread per row, padding rows included (x and v carried through, acc
-// 0).  Over the cell runs the pairs come from the step's list ``pl``
-// (density_sum_list); over the slot walk from the one-phase walk.
+// 0).  Over both walks the pairs come from the step's list ``pl``
+// (density_sum_list over the cell runs, density_sum_slot over the slot
+// walk), which holds every real centre: the fluid ones and, with REACT,
+// the dynamic-rigid ones that the kernel walks.
 template <bool REACT, typename Walk>
 __global__ void wcsph_forces_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -176,7 +181,7 @@ __global__ void wcsph_forces_kernel(
     if (REACT) rr0_i = rr0[i];
   }
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  for_each_step_pair<false>(
+  for_each_step_pair<true>(
       walks, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float s) {
         const float rn = sqrtf(s);
@@ -338,10 +343,10 @@ extern "C" int density_sum_list_launch(const float* x, const int* material,
   return (int)cudaGetLastError();
 }
 
-// Over the cell runs the kernel reads the list (list_idx, list_cnt), the
-// step's density_sum_list output for the same rows; a launch without it is
-// refused (cudaErrorInvalidValue, pair_common.cuh has_list).  It launches
-// over n_rows rows, padding rows included.
+// Over both walks the kernel reads the list (list_idx, list_cnt), the
+// step's density_sum_list output over the same walk for the same rows; a
+// launch without it is refused (cudaErrorInvalidValue, pair_common.cuh
+// has_step_list).  It launches over n_rows rows, padding rows included.
 extern "C" int wcsph_forces_launch(
     const float* x, const float* v, const int* material, const int* is_dyn,
     const float* m, const float* m_V, const float* dpi, const float* p_r02,
@@ -349,7 +354,7 @@ extern "C" int wcsph_forces_launch(
     const int* slot_map, int layers, const int* list_idx, const int* list_cnt,
     const float* dt, float* x_out, float* v_out, float* acc_out, int react,
     int n_rows, PairConsts c, void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {

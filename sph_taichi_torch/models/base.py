@@ -345,10 +345,12 @@ def compute_densities_and_pairs(p: Particles, ctx, engine, params: SimParams,
     kernels read).  On the CUDA engine one kernel sums the densities and
     writes the step's pair list into ``buffers``
     (``cuda_pairs.density_sum_list``): a ``PairList`` over the cell
-    offsets or the slot map, which over the slot walk PCISPH's loop reads
-    and the other kernels pass through to their one-phase walk; on CPU
-    tensors the context is the slot map or the plain engine's neighbour
-    lists, and on the plain engine ``ctx``."""
+    offsets or the slot map, which over the slot walk WCSPH's forces,
+    IISPH's non-pressure kick and pressure accelerations and PCISPH's
+    non-pressure kernel and loop read, and IISPH's advection prediction
+    and A pass through to their one-phase walk; on CPU tensors the context
+    is the slot map or the plain engine's neighbour lists, and on the
+    plain engine ``ctx``."""
     if engine.fused:
         den_pairs, ctx = cuda_pairs.density_sum_list(ctx, p, params, buffers)
     else:

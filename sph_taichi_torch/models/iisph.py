@@ -17,8 +17,9 @@ every real centre as it sums (``compute_densities_and_pairs``), and over
 the cell runs every later pair kernel of the step reads it: the
 non-pressure kick, the advection prediction, the loop's pressure
 acceleration and A, and the final pressure acceleration with the advect.
-Over the slot walk they are given the list over the map: both pressure
-accelerations read it, the other kernels walk the map.
+Over the slot walk they are given the list over the map: the non-pressure
+kick and both pressure accelerations read it, the advection prediction
+and A walk the map.
 
 The pressure solve is ``jacobi_while`` (models/base.py): the test
 ``it == 0 | (err >= tol & it < 1000)`` is evaluated on the device and read

@@ -6,8 +6,8 @@ kernel also runs advection and the fluid box clamp in its epilogue; the
 plain engine computes accelerations, then advects, and the step clamps.
 The positions stay those of the sort until that epilogue, so on the CUDA
 engine the density kernel writes the step's pair list as it sums, and
-over the cell runs the force kernel reads it (ops/cuda_pairs.py
-``density_sum_list``; over the slot walk it walks the map).
+the force kernel reads it, over the cell runs and over the slot walk
+(ops/cuda_pairs.py ``density_sum_list``).
 
 Quirks of the reference kept as they are:
 - density is clamped to >= rho0 *and stored* before the EOS (WCSPH.py:75);
@@ -38,7 +38,7 @@ class WCSPHSolver(SPHBase):
 
     def substep(self, p: Particles, ctx, dt):
         # the force kernel's context: the pair list the density kernel
-        # wrote, on the CUDA engine over the cell runs
+        # wrote, on the CUDA engine over either walk
         p, ctx = compute_densities_and_pairs(p, ctx, self.engine,
                                              self.params, self._pair_buffers)
         fused = self.engine.fused

@@ -44,19 +44,20 @@ over it.  Over the cell runs these wrappers take only the list, not bare
 cell offsets; on CPU tensors the step's context is the plain engine's
 neighbour lists, which the plain versions read.  Over the slot walk the
 step's density kernel writes the same list over the map (a ``PairList``
-whose walk is the ``SlotMap``): ``pressure_accel`` (f3, both variants)
-runs only its pair body over it (csrc/pair_common.cuh
-``for_each_step_pair<true>``; a warp holding a centre over the list walks
-the map in one phase), and on the card takes only that context, not a bare
-``SlotMap`` (ops/pair_list.py ``list_walk``), its launcher refusing a
-launch without the list; f1, f2 and f4, given it or the bare map, walk the
-map in one phase and do not read it.
+whose walk is the ``SlotMap``): ``nonpressure_kick`` (f1) and
+``pressure_accel`` (f3, both variants) run only their pair body over it
+(csrc/pair_common.cuh ``for_each_step_pair<true>``; a warp holding a
+centre over the list walks the map in one phase), and on the card take
+only that context, not a bare ``SlotMap`` (ops/pair_list.py
+``list_walk``), their launchers refusing a launch without the list; f2 and
+f4, given it or the bare map, walk the map in one phase and do not read
+it.
 
-Padding rows: over the cell runs every kernel writes them, and f3 and f4
-over the slot walk too, as the JAX package's ``restore_tail`` gives them
-(outputs that carry a field through keep its value, the others are 0), so
-each of those wrapper calls launches exactly one kernel; f1 and f2 over
-the slot walk launch the real rows and their wrappers restore the padding
+Padding rows: over the cell runs every kernel writes them, and f1, f3 and
+f4 over the slot walk too, as the JAX package's ``restore_tail`` gives
+them (outputs that carry a field through keep its value, the others are
+0), so each of those wrapper calls launches exactly one kernel; f2 over
+the slot walk launches the real rows and its wrapper restores the padding
 rows.
 """
 
@@ -277,15 +278,15 @@ def occupancy(kernel, slots=False):
 def nonpressure_kick(ctx, p, dt, params):
     """Kernel wrapper for ``nonpressure_kick_plain``: (acc, v*).  ``ctx``:
     the step's context from ``density_sum_list`` for the sorted particles
-    ``p`` (a ``PairList`` over the cell runs or the slot map; on CPU
-    tensors, neighbour lists), or their ``SlotMap`` for the slot walk;
-    ``dt`` a 0-d f32 tensor on the device."""
+    ``p``, a ``PairList`` over their cell offsets or their ``SlotMap`` (the
+    slot walk); on CPU tensors also neighbour lists or a bare ``SlotMap``.
+    ``dt`` is a 0-d f32 tensor on the device."""
     if p.x.device.type == "cpu":
         return nonpressure_kick_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, dt,
             params)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
-                                                         "IISPH")
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(
+        ctx, p, params, "iisph_nonpressure_kick")
     f32 = torch.float32
     acc = torch.empty_like(p.x)
     v_out = torch.empty_like(p.v)
@@ -298,17 +299,15 @@ def nonpressure_kick(ctx, p, dt, params):
     name = "iisph_nonpressure_kick" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    if suffix:
-        # the slot walk's kernel launches over the real rows
-        n_real = _n_real(params)
-        acc[n_real:] = 0.0
-        v_out[n_real:] = p.v[n_real:]
     return acc, v_out
 
 
 def predict_advection(ctx, p, dt, params):
     """Kernel wrapper for ``predict_advection_plain``: (a_ii, source,
-    last_p).  ``ctx`` as for ``nonpressure_kick``."""
+    last_p).  ``ctx``: the step's context from ``density_sum_list`` for the
+    sorted particles ``p`` (a ``PairList`` over the cell runs or the slot
+    map: the slot kernel walks the map), or their ``SlotMap`` for the slot
+    walk; on CPU tensors also neighbour lists."""
     if p.x.device.type == "cpu":
         return predict_advection_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, dt,
@@ -373,7 +372,7 @@ def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
 def apply_A(ctx, p, accel, a_ii, source, last_p, dt, omega, params,
             active=None):
     """Kernel wrapper for ``apply_A_plain``: (new_p, err).  ``ctx`` as for
-    ``nonpressure_kick``."""
+    ``predict_advection``."""
     if p.x.device.type == "cpu":
         return apply_A_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, accel,

@@ -15,14 +15,17 @@ hand-written CUDA C++ in ``csrc/pairs.cu``:
   the positions do not move from the sort to the advect, so the step's
   later pair kernels accept the density kernel's pairs.  Over the slot
   walk its kernel keeps the one-phase walk and writes the list as it
-  walks, and PCISPH's loop kernels read it;
+  walks, and the force kernel, IISPH's f1 and f3, PCISPH's loop kernels
+  and the non-pressure kernel read it;
 - ``wcsph_forces``: the fused WCSPH force term (surface tension,
   viscosity, pressure, and with ``rr0`` the two-way reaction on dynamic
   rigid centres), then acceleration select, symplectic Euler and the fluid
   box clamp.  Returns new (x, v, acc); the kernel writes into new buffers
-  because neighbours read the old x and v in the same launch.  Over the
-  cell runs it reads the pair list that ``density_sum_list`` wrote, and
-  takes only that context, not bare cell offsets;
+  because neighbours read the old x and v in the same launch.  Over both
+  walks it reads the pair list that ``density_sum_list`` wrote (a warp
+  holding a centre over the list walks the cells or the slot map in one
+  phase), and on the card takes only that context, not bare cell offsets
+  or a bare ``SlotMap`` (ops/pair_list.py ``list_walk``);
 - ``boundary_volume``: the Akinci volume 3 / (W(0) + sum of W over solid
   neighbours) of the target rows (models/base.py _boundary_volume_engine,
   scenes above DENSE_SOLID_CAP solids), one thread per target row.
@@ -443,18 +446,19 @@ def density_sum_list(ctx, p, params, buffers=None):
 def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
     """Kernel wrapper for ``wcsph_forces_plain``: returns new (x, v, acc).
     ``ctx``: the step's context from ``density_sum_list`` for the sorted
-    particles ``p`` (a ``PairList`` over the cell runs or the slot map: the
-    slot kernel walks the map), or their ``SlotMap`` for the slot walk; on
-    CPU tensors also their neighbour lists or cell offsets.  ``rr0`` (rho0 / density) selects the two-way
-    reaction variant; ``dt`` is a 0-d f32 tensor on the particles' device
-    (read by the kernel, so the step makes no host sync)."""
+    particles ``p``, a ``PairList`` over their cell offsets or their
+    ``SlotMap`` (the slot walk); on CPU tensors also their neighbour lists,
+    cell offsets or a bare ``SlotMap``.  ``rr0`` (rho0 / density) selects
+    the two-way reaction variant; ``dt`` is a 0-d f32 tensor on the
+    particles' device (read by the kernel, so the step makes no host
+    sync)."""
     from sph_taichi_torch.ops import pair_list   # it imports this module
 
     if p.x.device.type == "cpu":
         return wcsph_forces_plain(_plain_ctx(ctx, p, params), p, dpi,
                                   p_r02, m_nc, rr0, dt, params)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
-                                                         "WCSPH")
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(ctx, p, params,
+                                                         "wcsph_forces")
     f32, i32 = torch.float32, torch.int32
     react = rr0 is not None
     args = [ptr["x"], _check("v", p.v, f32, (n, 3), dev),

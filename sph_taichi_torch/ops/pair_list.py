@@ -17,10 +17,12 @@ in one phase inside the kernel (the same pairs, in the same order).  Over
 the cell runs the list kernels' wrappers take only the list, not bare cell
 offsets.  Over the slot walk the density kernel keeps its one-phase walk
 and writes the same list of every real centre as it walks (a ``PairList``
-whose walk is the ``SlotMap``); PCISPH's loop kernels (g1, g2), IISPH's
-pressure acceleration (f3) and PCISPH's non-pressure kernel (d) read it
-and take only that context (``list_walk``); the step's other slot kernels
-(WCSPH's forces, IISPH's f1, f2 and f4) walk the map in one phase.
+whose walk is the ``SlotMap``); WCSPH's forces (b), PCISPH's loop kernels
+(g1, g2), IISPH's non-pressure kick (f1) and pressure acceleration (f3)
+and PCISPH's non-pressure kernel (d) read it and take only that context
+(``list_walk``); the step's other slot kernels (IISPH's f2 and f4),
+given the list or the bare map (``loop_walk``), walk the map in one
+phase.
 DFSPH's step does the same from its density-and-factor kernel to its
 non-pressure kernel (ops/cuda_dfsph.py ``density_factor_list``), listing
 the fluid centres.  Over the slot walk its density-and-factor kernel
@@ -154,11 +156,12 @@ def jacobi_walk(ctx, p, params):
 
 def list_walk(ctx, p, params, solver, source="density_sum_list"):
     """``loop_walk`` of the context of kernels that read the step's list
-    over both walks (PCISPH's loop kernels, IISPH's pressure acceleration,
-    the non-pressure kernel): the ``PairList`` that ``source`` gives, over
-    the cell offsets or the ``SlotMap``.  Bare cell offsets or a bare
-    ``SlotMap`` raise TypeError naming ``solver`` and ``source``: their
-    kernels would have no list to read."""
+    over both walks (WCSPH's forces, PCISPH's loop kernels, IISPH's
+    non-pressure kick and pressure acceleration, the non-pressure kernel):
+    the ``PairList`` that ``source`` gives, over the cell offsets or the
+    ``SlotMap``.  Bare cell offsets or a bare ``SlotMap`` raise TypeError
+    naming ``solver`` and ``source``: their kernels would have no list to
+    read."""
     if not isinstance(ctx, PairList):
         _refuse(ctx, solver, "a PairList over the cell offsets or the "
                 "slot map", source)

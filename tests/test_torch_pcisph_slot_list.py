@@ -19,7 +19,8 @@ their plain versions bitwise on the card.  Here, on the CPU:
 - ``density_sum_list`` on CPU tensors given a ``SlotMap``: the plain sums
   over the slot lists, bitwise, and the map, launching nothing;
 - the context check of the kernels that read the step's list over both
-  walks (``pair_list.list_walk``: PCISPH's loop, IISPH's pressure
+  walks (``pair_list.list_walk``: PCISPH's loop, WCSPH's forces with and
+  without the reaction, IISPH's non-pressure kick and pressure
   acceleration, the non-pressure kernel kicked and un-kicked) refusing a
   bare ``SlotMap`` and bare cell offsets, naming the call that makes the
   context, in each wrapper;
@@ -55,6 +56,7 @@ import sph_taichi_torch as T
 from sph_taichi_torch import convert
 from sph_taichi_torch.models import base as tbase
 from sph_taichi_torch.models.pcisph import PCISPHSolver
+from sph_taichi_torch.models.wcsph import WCSPHSolver
 from sph_taichi_torch.ops import (
     cuda_dfsph, cuda_iisph, cuda_pairs, cuda_pcisph)
 from sph_taichi_torch.ops import grid as tgrid
@@ -334,6 +336,8 @@ def test_density_sum_list_on_cpu_given_a_slot_map(kind):
 # context check gives them: (the call that makes their context, their calls)
 LIST_READERS = {
     "PCISPH": ("density_sum_list", CALLS),
+    "wcsph_forces": ("density_sum_list", ("b", "b_react")),
+    "iisph_nonpressure_kick": ("density_sum_list", ("f1",)),
     "iisph_pressure_accel": ("density_sum_list", ("f3", "f3_advect")),
     "nonpressure_kick": (
         "density_factor_list (DFSPH) or density_sum_list (PCISPH)",
@@ -347,10 +351,21 @@ def _outputs(r):
 
 def _list_reader(call, p, inp, params):
     """(wrapper, plain version, arguments after the context) of a wrapper
-    of ``LIST_READERS``."""
+    of ``LIST_READERS``: WCSPH's forces (b) at the particles' own pressure
+    (the solver's density clamp and EOS), with the reaction (b_react, the
+    scenes' dynamic rigid block) and without it."""
     if call in CALLS:
         return _loop_call(call, p, inp, params)[:3]
+    if call in ("b", "b_react"):
+        q, dpi, p_r02, m_nc, rr0 = WCSPHSolver(
+            params, device="cpu").force_inputs(p)
+        assert rr0 is not None
+        return (cuda_pairs.wcsph_forces, cuda_pairs.wcsph_forces_plain,
+                (q, dpi, p_r02, m_nc, rr0 if call == "b_react" else None,
+                 inp["dt"], params))
     return {
+        "f1": (cuda_iisph.nonpressure_kick, cuda_iisph.nonpressure_kick_plain,
+               (p, inp["dt"], params)),
         "f3": (cuda_iisph.pressure_accel, cuda_iisph.pressure_accel_plain,
                (p, inp["pressure"], params)),
         "f3_advect": (cuda_iisph.pressure_accel,
@@ -364,12 +379,13 @@ def _list_reader(call, p, inp, params):
 
 
 @pytest.mark.parametrize("solver", list(LIST_READERS))
-def test_pinned_walk_refuses_a_bare_slot_map(solver):
+def test_list_walk_refuses_a_bare_slot_map(solver):
     """On the card the wrappers that read the step's list over both walks
-    (PCISPH's loop, IISPH's f3, d kicked and un-kicked) take the
-    ``PairList`` that the step's density call gives, over the cell offsets
-    or the slot map, not a bare ``SlotMap`` or bare offsets, whose kernels
-    would have no list to read: their context check
+    (PCISPH's loop, WCSPH's forces with and without the reaction, IISPH's
+    f1 and f3, d kicked and un-kicked) take the ``PairList`` that the
+    step's density call gives, over the cell offsets or the slot map, not
+    a bare ``SlotMap`` or bare offsets, whose kernels would have no list
+    to read: their context check
     (``pair_list.list_walk``) raises TypeError naming that call before any
     device check, in each wrapper given particles off the CPU (the meta
     device stands for the card), and passes the ``PairList`` on to the

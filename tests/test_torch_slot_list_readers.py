@@ -1,29 +1,36 @@
-"""IISPH's pressure acceleration (f3) and the non-pressure kernel (d) over
-the slot walk read the step's pair list.
+"""The slot walk's readers of the step's pair list: WCSPH's forces (b),
+IISPH's non-pressure kick (f1) and pressure acceleration (f3), and the
+non-pressure kernel (d).
 
-Under ``--backend pallas_slots`` the IISPH and PCISPH steps' density
-kernel writes every real centre's accepted neighbours, in the slot walk's
-order, to the step's pair list (ops/cuda_pairs.py ``density_sum_list``
-given a ``SlotMap`` returns a ``PairList`` over it), and the DFSPH step's
-density-and-factor kernel the fluid and dynamic-rigid centres'
-(ops/cuda_dfsph.py ``density_factor_list``).  The positions stay the
-sort's until the advect, so ``cuda_iisph.pressure_accel`` (f3, in the
-loop and with its advect), ``cuda_dfsph.nonpressure_kick`` (d with the
-DFSPH kick, over e1's list) and ``cuda_dfsph.nonpressure_accel`` (d
-without it, PCISPH, over the density kernel's list) run only their pair
-body over that list, a warp over the list walking the slot map in one
-phase, pinned with xg = x.  chip_smoke.py holds the kernels against their
-plain versions bitwise on the card.  Here, on the CPU:
+Under ``--backend pallas_slots`` the WCSPH, IISPH and PCISPH steps'
+density kernel writes every real centre's accepted neighbours, in the
+slot walk's order, to the step's pair list (ops/cuda_pairs.py
+``density_sum_list`` given a ``SlotMap`` returns a ``PairList`` over it),
+and the DFSPH step's density-and-factor kernel the fluid and
+dynamic-rigid centres' (ops/cuda_dfsph.py ``density_factor_list``).  The
+positions stay the sort's until the advect, so ``cuda_pairs.wcsph_forces``
+(b, with the two-way reaction and without it), ``cuda_iisph.
+nonpressure_kick`` (f1), ``cuda_iisph.pressure_accel`` (f3, in the loop
+and with its advect), ``cuda_dfsph.nonpressure_kick`` (d with the DFSPH
+kick, over e1's list) and ``cuda_dfsph.nonpressure_accel`` (d without it,
+PCISPH, over the density kernel's list) run only their pair body over
+that list, a warp over the list walking the slot map in one phase, pinned
+with xg = x.  chip_smoke.py holds the kernels against their plain
+versions bitwise on the card.  Here, on the CPU:
 - each wrapper given that context on CPU tensors equal to its plain
   version over the slot lists bitwise, padding rows included (padding
   velocities, densities and pressures not 0; the acceleration 0 there, the
-  advect's v' and x' and d's kicked v the step-start v and x), launching
-  nothing;
+  forces' and the advect's x and v and f1's and d's kicked v the
+  step-start x and v), launching nothing;
 - where no cell overflows, each against the JAX package from the same
   numpy-seeded inputs, on the JAX gather engine, which runs the fused
-  epilogues unfused: f3 against ``_pressure_accel`` without and with its
-  advect (IISPH's ``advect`` of the fluid rows' acceleration), d against
-  ``compute_non_pressure_forces`` without and with the kick of
+  epilogues unfused: b against WCSPH's ``compute_forces`` with its
+  advect and fluid box clamp (the reaction from the scene's dynamic rigid
+  block, and without it from the same scene with no dynamic rigid
+  listed), f1 against IISPH's ``compute_non_pressure`` with the kick of
+  ``predict_advection``, f3 against ``_pressure_accel`` without and with
+  its advect (IISPH's ``advect`` of the fluid rows' acceleration), d
+  against ``compute_non_pressure_forces`` without and with the kick of
   ``predict_dt`` (DFSPH's ``predict_velocity``).  f3's acceleration is
   held at that tolerance relative to each row's largest component
   (tests/test_torch_iisph_compact.py ``_close_rows``: a wall row's
@@ -42,6 +49,7 @@ Tolerance against JAX: atol 2e-5, rtol 2e-4 (the engine-equivalence
 tolerance of tests/conftest.py).
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -54,6 +62,7 @@ import sph_taichi_tpu as J
 from sph_taichi_tpu.models import base as jbase
 from sph_taichi_tpu.models.dfsph import DFSPHSolver as JDFSPHSolver
 from sph_taichi_tpu.models.iisph import IISPHSolver as JIISPHSolver
+from sph_taichi_tpu.models.wcsph import WCSPHSolver as JWCSPHSolver
 
 from sph_taichi_torch.ops import cuda_dfsph, cuda_iisph, cuda_pairs
 from sph_taichi_torch.ops import pair_list
@@ -74,15 +83,16 @@ ATOL, RTOL = 2e-5, 2e-4
 K_LIST = pair_list.PAIR_LIST_ENTRIES
 KINDS = pcisph_scenes.KINDS
 JAX_KINDS = pcisph_scenes.JAX_KINDS
-# f3 in the loop and with its advect; d with the DFSPH kick and without it
-CALLS = ["f3", "f3_advect", "d_kick", "d_accel"]
+# f3 in the loop and with its advect; d with the DFSPH kick and without it;
+# b with the two-way reaction and without it; f1
+CALLS = ["f3", "f3_advect", "d_kick", "d_accel", "b", "b_react", "f1"]
 
 
 def _slot_list(call, snl, p, params):
     """(idx, cnt) of the step's slot list that ``call`` reads, from its
     plain version over the slot lists ``snl``: e1's (the fluid and
     dynamic-rigid centres) for kicked d, the density kernel's (every real
-    centre) for f3 and un-kicked d."""
+    centre) for b, f1, f3 and un-kicked d."""
     if call == "d_kick":
         return cuda_dfsph.density_factor_list_plain(snl, p, params,
                                                     "jacobi")[2:]
@@ -103,7 +113,10 @@ def _state(call, kind):
     v[n_real:] = pad.reshape(-1, 3)
     density[n_real:] = 1000.0 + pad[:p.n - n_real]
     pressure[n_real:] = 100.0 + pad[:p.n - n_real]
-    walks = p.material >= 0 if call.startswith("f3") else p.material == 1
+    walks = {"f3": p.material >= 0, "f3_advect": p.material >= 0,
+             "f1": p.material >= 0,
+             "b_react": p.is_fluid() | p.is_dynamic_rigid()}.get(
+                 call, p.material == 1)
     dt = torch.tensor(np.float32(params.dt0))
     return (params, p._replace(v=v, density=density), pressure, dt, snl,
             pair_list.PairList(smap, idx, cnt), walks)
@@ -111,12 +124,15 @@ def _state(call, kind):
 
 def _padding_rows(call, p, params):
     """The padding rows' outputs of a reader, as the JAX package's
-    restore_tail gives them: the acceleration 0, the advect's v' and x'
-    and d's kicked v the step-start v and x."""
+    restore_tail gives them: the acceleration 0, the forces' x and v, the
+    advect's v' and x' and f1's and d's kicked v the step-start x and v."""
     n_real = params.n_fluid + params.n_solid
     zero = torch.zeros(p.n - n_real, 3)
+    forces = (p.x[n_real:], p.v[n_real:], zero)
     return {"f3": (zero,), "f3_advect": (p.v[n_real:], p.x[n_real:]),
-            "d_kick": (zero, p.v[n_real:]), "d_accel": (zero,)}[call]
+            "d_kick": (zero, p.v[n_real:]), "d_accel": (zero,),
+            "b": forces, "b_react": forces,
+            "f1": (zero, p.v[n_real:])}[call]
 
 
 @pytest.mark.parametrize("call", CALLS)
@@ -133,9 +149,10 @@ def test_readers_over_the_slot_list_equal_plain(kind, call):
     wrapper, plain, args = pcisph_scenes._list_reader(
         call, p, {"pressure": pressure, "dt": dt}, params)
     expect = _padding_rows(call, p, params)
-    before = (dict(cuda_iisph.LAUNCHES), dict(cuda_dfsph.LAUNCHES))
+    modules = (cuda_iisph, cuda_dfsph, cuda_pairs)
+    before = tuple(dict(m.LAUNCHES) for m in modules)
     got = pcisph_scenes._outputs(wrapper(ctx, *args))
-    assert (cuda_iisph.LAUNCHES, cuda_dfsph.LAUNCHES) == before
+    assert tuple(m.LAUNCHES for m in modules) == before
     ref = pcisph_scenes._outputs(plain(snl, *args))
     n_real = params.n_fluid + params.n_solid
     assert len(got) == len(ref) == len(expect)
@@ -152,9 +169,14 @@ def _jax_refs(kind):
     list.py (the same positions, velocities and pressure), on the JAX
     gather engine: f3 at that pressure without and with its advect (dt0:
     ``_pressure_accel`` then IISPH's ``advect`` of the fluid rows'
-    acceleration), and d without and with the kick (dt0:
+    acceleration), d without and with the kick (dt0:
     ``compute_non_pressure_forces`` then DFSPH's ``predict_velocity``, the
-    unfused form of ``predict_dt``'s epilogue)."""
+    unfused form of ``predict_dt``'s epilogue), b with and without the
+    reaction (dt0: WCSPH's ``compute_forces``, ``advect`` and the fluid box
+    clamp of ``enforce_boundary``, the unfused form of the force kernel's
+    epilogue; without the reaction on the same scene with no dynamic rigid
+    listed) and f1 (dt0: IISPH's ``compute_non_pressure``, then the fluid
+    kick of ``predict_advection``)."""
     rng = np.random.default_rng(0)
     jp, jpart, _ = J.build_scene(
         J.SimConfig(config_dict=pcisph_scenes._scene(kind)))
@@ -166,7 +188,16 @@ def _jax_refs(kind):
     pressure = pcisph_scenes._seeded(rng, x, material)[1]
     solver = J.build_solver(jp)
     iisph, dfsph = JIISPHSolver(jp), JDFSPHSolver(jp)
+    wcsph = {"b_react": JWCSPHSolver(jp), "b": JWCSPHSolver(
+        dataclasses.replace(jp, dynamic_rigid_ids=()))}
+    assert jp.dynamic_rigid_ids
     dt = jnp.float32(jp.dt0)
+
+    def forces(solver, p, nl):
+        f = solver.advect(solver.compute_forces(p, nl, dt=None), dt)
+        clamped = jbase.enforce_boundary(f, jp, J.state.MATERIAL_FLUID)
+        # the velocity before the box clamp, for _close_forces
+        return clamped.x, clamped.v, clamped.acc, f.v
 
     @jax.jit
     def refs(part, pressure):
@@ -180,8 +211,12 @@ def _jax_refs(kind):
         accel = iisph._pressure_accel(p, nl, pressure)
         adv = iisph.advect(p, jnp.where(p.is_fluid()[:, None], accel, 0.0),
                            dt)
+        f1 = iisph.compute_non_pressure(p, nl)
+        f1_kicked = iisph.predict_advection(f1, nl, dt)[0]
         return {"x": p.x, "f3": accel, "f3_advect": (adv.v, adv.x),
-                "d_kick": (f.acc, kicked.v), "d_accel": f.acc}
+                "d_kick": (f.acc, kicked.v), "d_accel": f.acc,
+                **{k: forces(s, p, nl) for k, s in wcsph.items()},
+                "f1": (f1.acc, f1_kicked.v)}
 
     return jax.device_get(refs(
         jpart._replace(x=jnp.asarray(x), v=jnp.asarray(v, jnp.float32)),
@@ -194,8 +229,8 @@ def test_readers_over_the_slot_list_match_jax(kind, call):
     """Where no cell overflows the slot map, each reader over the step's
     slot list on CPU tensors matches the JAX package's term on the real
     rows, from the same numpy-seeded state (the scenes of
-    tests/test_torch_pcisph_slot_list.py, DFSPH's kick on the two-way
-    scene's fluid and dynamic rigid block too)."""
+    tests/test_torch_pcisph_slot_list.py, DFSPH's kick and WCSPH's forces
+    on the two-way scene's fluid and dynamic rigid block too)."""
     params, p, inputs, smap, snl, _ = pcisph_scenes._case(kind)
     out = _jax_refs(kind)
     np.testing.assert_array_equal(p.x.numpy(), np.asarray(out["x"]))
@@ -205,6 +240,9 @@ def test_readers_over_the_slot_list_match_jax(kind, call):
     want = out[call]
     want = want if isinstance(want, tuple) else (want,)
     n_real = params.n_fluid + params.n_solid
+    if call in ("b", "b_react"):
+        _close_forces(got, want, params, call)
+        return
     assert len(got) == len(want)
     if call == "f3":
         _close_rows(got[0], want[0], params, call)
@@ -213,3 +251,29 @@ def test_readers_over_the_slot_list_match_jax(kind, call):
         np.testing.assert_allclose(a.numpy()[:n_real],
                                    np.asarray(b)[:n_real], atol=ATOL,
                                    rtol=RTOL, err_msg=call)
+
+
+def _close_forces(got, want, params, name):
+    """WCSPH's forces (x, v, acc) against the JAX package's (x, v, acc and
+    the velocity before the fluid box clamp) on the real rows at the engine
+    tolerance, the clamped velocity of a row that the clamp reflected
+    relative to that row's largest velocity component before the clamp:
+    v - (1 + cf)(v . n) n cancels components of a velocity that the clump's
+    pressure drove to ~1e6-1e7 m/s, and keeps a few ulps of them (the two
+    packages add a centre's pair terms in different orders)."""
+    n = params.n_fluid + params.n_solid
+    g = [a.numpy()[:n] for a in got]
+    r = [np.asarray(b)[:n] for b in want]
+    assert len(g) == 3 and len(r) == 4
+    for k in (0, 2):
+        np.testing.assert_allclose(g[k], r[k], atol=ATOL, rtol=RTOL,
+                                   err_msg=f"{name}: {'x v acc'.split()[k]}")
+    reflected = (r[1] != r[3]).any(axis=1, keepdims=True)
+    scale = np.where(reflected, np.abs(r[3]).max(axis=1, keepdims=True),
+                     np.abs(r[1]))
+    bad = np.argwhere(np.abs(g[1] - r[1]) > ATOL + RTOL * scale)
+    assert bad.size == 0, (f"{name}: v off in {len(bad)} components, first "
+                           f"row {bad[0, 0]}: {g[1][bad[0, 0]]} vs "
+                           f"{r[1][bad[0, 0]]}")
+    # the clamp reflected some row, and most keep their velocity
+    assert 0 < int(reflected.sum()) < n // 2

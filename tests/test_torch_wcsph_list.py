@@ -25,8 +25,8 @@ block on a static rigid block (no reaction):
 - the wrappers' padding rows on CPU tensors (their plain versions) against
   the JAX package's ``restore_tail``, over the step's context and over the
   slot map;
-- the contexts the step's call gives on each engine, and that over the
-  cell runs the force kernel's context check refuses bare cell offsets.
+- the contexts the step's call gives on each engine, and that the force
+  kernel's context check refuses bare cell offsets and a bare slot map.
 Tolerance: atol 2e-5, rtol 2e-4 (the engine-equivalence tolerance of
 tests/conftest.py: the two packages sum the same f32 terms in different
 orders).
@@ -253,9 +253,10 @@ def test_step_contexts_and_the_refusal_of_bare_offsets():
     the neighbour lists on CPU tensors, the slot map as it is, and on the
     plain engine the context it was given; one WCSPH step on the CUDA
     engine over CPU tensors (its wrappers' plain versions) equals the plain
-    engine's step bitwise, launching nothing.  Over the cell runs on the
-    card the force kernel takes only a ``PairList``: its context check
-    refuses the bare cell offsets before any device check."""
+    engine's step bitwise, launching nothing.  On the card the force
+    kernel takes only a ``PairList``: its context check
+    (``pair_list.list_walk``) refuses the bare cell offsets and the bare
+    slot map before any device check."""
     tp, tpart, starts, tnl, _, _ = _case("static")
     smap = build_slot_map(starts, tp)
     cuda = cuda_pairs.CudaEngine(tp)
@@ -275,6 +276,7 @@ def test_step_contexts_and_the_refusal_of_bare_offsets():
     assert cuda_pairs.LAUNCHES == before
     for name in ("x", "v", "density", "pressure", "acc"):
         assert torch.equal(getattr(a.p, name), getattr(b.p, name)), name
-    with pytest.raises(TypeError, match="density_sum_list"):
-        pair_list.loop_walk(starts, tpart, tp, "WCSPH",
-                            source="density_sum_list")
+    for bare in (starts, smap):
+        with pytest.raises(TypeError, match="density_sum_list"):
+            pair_list.list_walk(bare, tpart, tp, "wcsph_forces",
+                                source="density_sum_list")

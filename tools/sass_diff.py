@@ -9,7 +9,10 @@ SASS differs (with their instruction counts), and those only one checkout
 has.  A kernel whose parameter list changed has a new mangled name: one
 that only each checkout has under the same demangled name and template
 arguments (``cu++filt`` or ``c++filt``) is compared as the same kernel and
-listed with its parameter lists.
+listed with its parameter lists.  Of the kernels left that only one
+checkout has, those with the same instructions are listed in pairs (a
+kernel renamed, or one that became a template instantiation, where no
+demangler is on the path).
 
     python3 tools/sass_diff.py OTHER_ROOT [--root ROOT] [--libs pairs dfsph]
 
@@ -122,6 +125,10 @@ def main():
                   f"parameters {split_params(names[ka])[1]} -> "
                   f"{split_params(names[kb])[1]}: {key} ({len(a[ka])} -> "
                   f"{len(b[kb])} instructions)")
+        for ka, kb in ((ka, kb) for ka in only_a for kb in only_b
+                       if a[ka] == b[kb]):
+            print(f"  identical instructions: {ka} in {args.other}, {kb} "
+                  f"in {args.root}")
         for k in only_a:
             print(f"  only in {args.other}: {k} ({len(a[k])} instructions)")
         for k in only_b:

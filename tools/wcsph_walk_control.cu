@@ -1,14 +1,18 @@
 // The WCSPH kernels of sph_taichi_torch/csrc/pairs.cu with the force
 // kernel's list walk replaced by a control, for
-// tools/wcsph_walk_control.py: the kernels' source is included as it is,
-// with the list walk of for_each_step_pair (PAIR_LIST_WALK,
-// pair_common.cuh) defined to control_listed_pair, which the kernels'
-// calls find by argument-dependent lookup when they are instantiated.
-// - ONE_PHASE: the list is not read; every warp walks the cells in one
-//   phase (for_each_neighbor_walk): the force kernel before the list;
-// - TWO_PHASE: the list is not read; every warp walks the cells in two
-//   phases (for_each_neighbor_compact: the candidate phase into a list in
-//   shared memory, then the body): the force kernel without a list;
+// tools/wcsph_walk_control.py and chip_smoke.py's slot WCSPH phases: the
+// kernels' source is included as it is, with the list walk of
+// for_each_step_pair (PAIR_LIST_WALK, pair_common.cuh) defined to
+// control_listed_pair, which the kernels' calls find by argument-dependent
+// lookup when they are instantiated, over either walk.
+// - ONE_PHASE: the list is not read; every warp walks the cells or the
+//   slot map in one phase (one_phase_step_pairs, tools/walk_control.cuh):
+//   the force kernel before it read the list;
+// - TWO_PHASE: over the cell runs the list is not read; every warp walks
+//   the cells in two phases (compact_cell_runs: the candidate phase into a
+//   list in shared memory, then the body): the force kernel without a
+//   list.  The slot walk has no two-phase form and takes the shipped list
+//   walk;
 // - neither: the shipped list walk.
 // Besides, control_density_pass_launch launches density_list_pass_kernel:
 // density_sum_list with the density term in a pass over the centre's
@@ -23,16 +27,21 @@
 
 #define PAIR_LIST_WALK control_listed_pair
 #include "pair_common.cuh"
+#include "walk_control.cuh"
 
-template <typename F>
+template <typename Walk, typename F>
 __device__ __forceinline__ void control_listed_pair(
     bool walks, int i, const float* __restrict__ x, float gi0, float gi1,
     float gi2, const float* __restrict__ xg, const PairList& pl,
-    const CellRunWalk& walk, const PairConsts& c, F&& f) {
+    const Walk& walk, const PairConsts& c, F&& f) {
 #if defined(ONE_PHASE)
-  if (walks) for_each_neighbor_walk(i, gi0, gi1, gi2, x, walk, c, f);
+  one_phase_step_pairs(walks, i, x, xg, walk, c, f);
 #elif defined(TWO_PHASE)
-  compact_cell_runs(walks, i, gi0, gi1, gi2, x, walk, c, f);
+  if constexpr (kCompactWalk<Walk>) {
+    compact_cell_runs(walks, i, gi0, gi1, gi2, x, walk, c, f);
+  } else {
+    for_each_listed_pair(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
+  }
 #else
   for_each_listed_pair(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
 #endif
