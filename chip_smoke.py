@@ -136,8 +136,8 @@ Phases (any failure raises and exits non-zero):
    the clumped DFSPH, IISPH and PCISPH scenes, at a 20-particle cell
    (each also equal to its cell-run instantiation) and with a
    40-particle overflow clump: all bitwise, DFSPH's Jacobi kernels and d
-   over the step's list that e1 writes over the slot walk, IISPH's f1 and
-   f3 and PCISPH's d, g1 and g2 over the list that density_sum_list[slots]
+   over the step's list that e1 writes over the slot walk, IISPH's f1-f4
+   and PCISPH's d, g1 and g2 over the list that density_sum_list[slots]
    writes, each list against its plain version (padding rows included);
 15. data/scenes/dragon_bath_dfsph.json (DFSPH) with
    ``backend="pallas_slots"`` through ``Simulation`` beside a cell-run
@@ -159,9 +159,9 @@ Phases (any failure raises and exits non-zero):
 16. the same for dragon_bath as IISPH and as PCISPH (dt 4e-4, 20 steps
    after 5; density_sum_list[slots] writes the step's list over the map
    as density_sum_list does over the cell runs, and the slot run launches
-   it as often): IISPH's f1 and f3 (both variants) and PCISPH's d, g1 and
-   g2 read the list, and each step's device busy stands beside that of their
-   one-phase slot design without the list (the control libraries of
+   it as often): IISPH's f1-f4 (f3 in both variants) and PCISPH's d, g1
+   and g2 read the list, and each step's device busy stands beside that of
+   their one-phase slot design without the list (the control libraries of
    tools/iisph_walk_control.cu, and of tools/pcisph_walk_control.cu with
    ONE_PHASE beside tools/jacobi_walk_control.cu, built with the kernels),
    each reader beside the control on the same inputs (equal bitwise), the
@@ -238,16 +238,17 @@ Phases (any failure raises and exits non-zero):
    instantiation.
 25. (in phase 2) the other readers of the slot walk's list on the same
    edge scene and corner form: WCSPH's b (with and without the reaction,
-   at dt 4e-4), IISPH's f1 and f3 (both variants, at a seeded pressure)
-   and PCISPH's un-kicked d over density_sum_list[slots]'s list, DFSPH's
-   kicked d over e1's slot list, padding velocities, densities and
-   pressures not 0: each list and reader against its plain version
+   at dt 4e-4), IISPH's f1, f2, f3 (both variants, at a seeded pressure)
+   and f4 (at f2's and f3's plain outputs) and PCISPH's un-kicked d over
+   density_sum_list[slots]'s list, DFSPH's kicked d over e1's slot list,
+   padding velocities, densities, pressures and f4's inputs not 0: each
+   list and reader against its plain version
    over the slot lists bitwise, padding rows included; the walk profile of
    each reader's centres over its list (the corner's warps over it walk
    the map in one phase, pinned); the bare map refused by the wrappers
    (TypeError naming the context's source) and by the launchers
    (cudaErrorInvalidValue); one kernel per wrapper call; the registers,
-   shared memory and resident blocks of b's, f1's and f3's slot
+   shared memory and resident blocks of b's and f1-f4's slot
    instantiations (d's with phases 23 and 24).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last lines are a ``kernels`` JSON line, the card line, and
@@ -1217,7 +1218,7 @@ def slot_list_profile(p, cnt, react, label, walks=None):
     its counts ``cnt`` (every row; beyond the list too): warps of 32
     consecutive rows, the rows ``walks`` walking (by default the fluid
     rows and, with ``react``, the dynamic-rigid ones, as DFSPH's Jacobi
-    kernels walk them; IISPH's f3 walks every real row).  A warp whose
+    kernels walk them; IISPH's kernels walk every real row).  A warp whose
     walking lanes are all within the list reads it (its body runs as often
     as its fullest lane's count); a warp holding a centre over the list
     walks the slot map in one phase.  Prints and returns the figures."""
@@ -1269,8 +1270,8 @@ def slot_occupancy(method=4):
     """Prints the registers, shared memory and resident blocks of the slot
     instantiations that write and read the step's list: e1, the Jacobi
     kernels and kicked d (``method`` 4), the slot density kernel (beside
-    the one-phase ``density_sum[slots]``) and b, both variants (0), f1 and
-    f3, both variants (2), or un-kicked d, g1 and g2 (1)."""
+    the one-phase ``density_sum[slots]``) and b, both variants (0), f1-f4,
+    f3 in both variants (2), or un-kicked d, g1 and g2 (1)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
@@ -1296,8 +1297,10 @@ def slot_occupancy(method=4):
         rows += [(f"{kernel}[slots] (over the list)",
                   ci.occupancy(kernel, slots=True))
                  for kernel in ("iisph_nonpressure_kick",
+                                "iisph_predict_advection",
                                 "iisph_pressure_accel",
-                                "iisph_pressure_accel_advect")]
+                                "iisph_pressure_accel_advect",
+                                "iisph_apply_A")]
     else:
         rows = [("dfsph_density_factor[slots] (writing the list)",
                  cd.occupancy("density_factor", True))]
@@ -1584,8 +1587,9 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
     plain outputs over the slot lists, module, parts of the kernel's name,
     the launcher given the map and no list)}, the call that the wrappers'
     refusal names).  A name's launch count is its first word with
-    ``[slots]``.  f1 and f3 (both variants, at a seeded pressure, padding
-    pressures not 0) over the slot density kernel's list (IISPH, 2); kicked
+    ``[slots]``.  f1, f2 and f3 (both variants) at a seeded pressure
+    (padding pressures not 0) and f4 at f2's and f3's plain outputs there
+    (padding rows not 0) over the slot density kernel's list (IISPH, 2); kicked
     d over e1's slot list at e1's densities (DFSPH, 4); un-kicked d over
     the slot density kernel's list (PCISPH, 1); b with and without the
     reaction over the slot density kernel's list at the step's density
@@ -1659,6 +1663,15 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
         return slist, plain, p, p.material == 1, calls, source
     pressure = random_pressure(p)
     pressure[n_real:] = 100.0 + pad[:p.n - n_real]
+    # f2 with the warm start from that pressure; f4 at f2's and f3's plain
+    # outputs, the pressure the last iterate, padding rows not 0
+    pf2 = p._replace(pressure=pressure)
+    a_ii, src, _ = ci.predict_advection_plain(snl, pf2, dt, params)
+    accel = ci.pressure_accel_plain(snl, p, pressure, params)
+    accel[n_real:] = -pad.reshape(-1, 3)
+    a_ii[n_real:] = -1.0 - pad[:p.n - n_real]
+    src[n_real:] = 1.0 + pad[:p.n - n_real]
+    rows = [torch.empty_like(p.m_V) for _ in range(3)]
 
     def launch(adv):
         return lambda: ci._lib().iisph_pressure_accel_launch(
@@ -1676,6 +1689,15 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
                 ptr["x"], p.v.data_ptr(), ptr["material"], p.m.data_ptr(),
                 p.density.data_ptr(), *walk, None, None, dt.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), n, consts, stream)),
+        "iisph_predict_advection": (
+            lambda c: ci.predict_advection(c, pf2, dt, params),
+            ci.predict_advection_plain(snl, pf2, dt, params), ci,
+            ("iisph_predict_advection_list_kernel", "SlotWalk"),
+            lambda: ci._lib().iisph_predict_advection_launch(
+                ptr["x"], p.v.data_ptr(), ptr["material"], ptr["m_V"],
+                p.density.data_ptr(), pressure.data_ptr(), *walk, None, None,
+                dt.data_ptr(), *(r.data_ptr() for r in rows), n, consts,
+                stream)),
         "iisph_pressure_accel": (
             lambda c: (ci.pressure_accel(c, p, pressure, params),),
             (ci.pressure_accel_plain(snl, p, pressure, params),), ci,
@@ -1684,12 +1706,23 @@ def slot_reader_calls(method, params, p, snl, smap, dt, pad):
             lambda c: ci.pressure_accel(c, p, pressure, params, advect_dt=dt),
             ci.pressure_accel_plain(snl, p, pressure, params, advect_dt=dt),
             ci, ("iisph_pressure_accel_kernel<true", "SlotWalk"),
-            launch(1))}
+            launch(1)),
+        "iisph_apply_A": (
+            lambda c: ci.apply_A(c, p, accel, a_ii, src, pressure, dt, 0.5,
+                                 params),
+            ci.apply_A_plain(snl, p, accel, a_ii, src, pressure, dt, 0.5,
+                             params), ci,
+            ("iisph_apply_A_kernel<SlotWalk",),
+            lambda: ci._lib().iisph_apply_A_launch(
+                ptr["x"], ptr["material"], ptr["m_V"], accel.data_ptr(),
+                a_ii.data_ptr(), src.data_ptr(), pressure.data_ptr(),
+                *walk, None, None, dt.data_ptr(), None, 0.5,
+                rows[0].data_ptr(), rows[1].data_ptr(), n, consts, stream))}
     return slist, plain, p, p.material >= 0, calls, source
 
 
 def check_slot_list_readers_on_edge_scenes(device):
-    """WCSPH's b (both variants), IISPH's f1 and f3 (both variants) and
+    """WCSPH's b (both variants), IISPH's f1-f4 (f3 in both variants) and
     PCISPH's un-kicked d over the list that the slot density kernel
     writes, and DFSPH's kicked d over the list that e1 writes over the
     slot walk, on the edge scene (its ~100-particle cell overflows the
@@ -1906,8 +1939,8 @@ def check_iisph_on_edge_scene(device):
     cells in one phase) at a seeded pressure, with padding velocities that
     are not 0: the list against its plain version; f1, f2, f3 (both
     variants) and f4 over the list and over the slot map's list (the cell
-    overflows its 32 slots; f1 and f3 read that list, f2 and f4 walk the
-    map) against their plain versions bitwise, padding rows included; bare
+    overflows its 32 slots) against their plain versions bitwise, padding
+    rows included; bare
     cell offsets refused; the walk profile; one kernel per wrapper call."""
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops import cuda_pairs as cp
@@ -3213,7 +3246,7 @@ def iisph_path(device, warmup, steps):
             "iisph_nonpressure_kick": (
                 "iisph_nonpressure_kick_list_kernel<CellRunWalk>",),
             "iisph_predict_advection": (
-                "iisph_predict_advection_list_kernel(",),
+                "iisph_predict_advection_list_kernel<CellRunWalk>",),
             "iisph_pressure_accel": ("iisph_pressure_accel_kernel<false",
                                      "CellRunWalk"),
             "iisph_pressure_accel_advect": (
@@ -4817,8 +4850,8 @@ SLOT_ENTRIES = {
 # the step's list (one phase, no list), built beside the kernels: DFSPH's
 # Jacobi kernels and the non-pressure kernel d (tools/jacobi_walk_control.cu,
 # the control library of tools/jacobi_walk_control.py with d's slot list
-# walk in one phase), IISPH's non-pressure kick f1 and pressure
-# acceleration f3 (tools/iisph_walk_control.cu), PCISPH's loop kernels
+# walk in one phase), IISPH's four kernels f1-f4
+# (tools/iisph_walk_control.cu), PCISPH's loop kernels
 # (tools/pcisph_walk_control.cu with ONE_PHASE) and WCSPH's forces b
 # (tools/wcsph_walk_control.cu with ONE_PHASE, the control library of
 # tools/wcsph_walk_control.py).  name -> (source, nvcc flags, the module
@@ -4833,7 +4866,7 @@ CONTROL_LIBS = {
               ("iisph_nonpressure_kick_launch",
                "iisph_predict_advection_launch",
                "iisph_pressure_accel_launch", "iisph_apply_A_launch"),
-              "the one-phase slot f1 and f3 of IISPH"),
+              "the one-phase slot f1-f4 of IISPH"),
     "pcisph": ("tools/pcisph_walk_control.cu", ["-DONE_PHASE"], "cuda_pcisph",
                ("pcisph_d_rho_correct_launch",
                 "pcisph_pressure_accel_predict_launch"),
@@ -5014,8 +5047,8 @@ def slot_contexts(method, smap, p, params, label=None, snl=None):
     e1 over the slot walk) for the Jacobi kernels and d, the map for e1;
     on the IISPH and PCISPH steps the step's list over it
     (``density_sum_list``'s, the density kernel over the slot walk) for
-    every kernel (IISPH's f1 and f3 and PCISPH's d, g1 and g2 read it; f2
-    and f4 walk the map).  With ``snl`` (the slot lists) the list is held
+    every kernel (IISPH's f1-f4 and PCISPH's d, g1 and g2 read it).  With
+    ``snl`` (the slot lists) the list is held
     against its plain version first, padding rows included.  Returns (that
     function, the list, the labels whose kernels read the list)."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
@@ -5035,8 +5068,9 @@ def slot_contexts(method, smap, p, params, label=None, snl=None):
         plain = ("density_sum_list[slots]'s list",
                  *cp.density_sum_list_plain(snl, p, params)[1:]) \
             if snl is not None else None
-        readers = {2: ("iisph_nonpressure_kick", "iisph_pressure_accel",
-                       "iisph_pressure_accel_advect"),
+        readers = {2: ("iisph_nonpressure_kick", "iisph_predict_advection",
+                       "iisph_pressure_accel", "iisph_pressure_accel_advect",
+                       "iisph_apply_A"),
                    1: ("nonpressure_accel", "pcisph_d_rho_correct",
                        "pcisph_pressure_accel_predict")}[method]
     if snl is not None:
@@ -5070,7 +5104,7 @@ def check_slot_solver_kernels_on_small_scenes(device):
     its cell-run instantiation, and with the 40-particle overflow clump,
     where kernel and plain slot lists drop the same pairs.  DFSPH's Jacobi
     kernels and d take the step's list over the map that e1 writes, IISPH's
-    and PCISPH's kernels the one the slot density kernel writes (f1, f3, d,
+    and PCISPH's kernels the one the slot density kernel writes (f1-f4, d,
     g1 and g2 read it), each held against its plain version first.  Every
     comparison is bitwise."""
     from sph_taichi_torch.ops.pairs import GatherEngine
@@ -5126,8 +5160,7 @@ def check_slot_solver_kernels_on_small_scenes(device):
             print(f"slot kernels d-g, method {method} [{kind}]: slot map "
                   f"{d}; {len(calls)} instantiations"
                   + {4: " (the Jacobi kernels and d over e1's slot list)",
-                     2: " (f1 and f3 over density_sum_list[slots]'s "
-                        "list)",
+                     2: " (f1-f4 over density_sum_list[slots]'s list)",
                      1: " (d, g1 and g2 over density_sum_list[slots]'s "
                         "list)"}[method]
                   + " equal to their plain versions over the slot lists"
@@ -5226,7 +5259,7 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
             # overflows from step ~58 (a cell past 32 particles at the
             # contact)
             turns = max(1, turns - 10 // per_turn)
-        kernels = {4: "Jacobi kernels and d", 2: "f1 and f3",
+        kernels = {4: "Jacobi kernels and d", 2: "f1-f4",
                    1: "loop kernels and d"}[method]
         print(f"{label} slot device busy per step (profiler, 5 steps each): "
               f"{kernels} over the step's list {busy_ms} / {again_ms} ms; "

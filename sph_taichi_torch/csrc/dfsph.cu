@@ -63,7 +63,7 @@
 // more accepted pairs than the list holds walks the cells in one phase
 // (the same pairs in the same order).  Over the cell runs the Jacobi
 // kernels keep their two-phase walk.  nonpressure_kick reads the list over
-// both walks (for_each_step_pair<true>, below).
+// both walks (for_each_step_pair, below).
 //
 // Over the slot walk the list goes to the Jacobi kernels too: the solves
 // move v, not x, so every Jacobi launch of the step accepts e1's pairs.
@@ -325,7 +325,7 @@ __global__ void nonpressure_kick_kernel(
     neg_st_mi = -(c.st / m[i]);
   }
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  for_each_step_pair<true>(
+  for_each_step_pair(
       fluid, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float s) {
         // surface tension and viscosity act between fluid particles
@@ -403,8 +403,10 @@ extern "C" int dfsph_density_factor_list_launch(
 // read no list.  The non-pressure kernel reads the list over both walks
 // (nonpressure_launch, below).
 
-static bool jacobi_has_list(const int* slot_map, const int* list_idx,
-                            const int* list_cnt) {
+// Whether a Jacobi launch has what its walk reads: the step's list over
+// the slot walk; over the cell runs nothing beyond the offsets.
+static bool has_jacobi_inputs(const int* slot_map, const int* list_idx,
+                              const int* list_cnt) {
   return slot_map == nullptr || has_step_list(list_idx, list_cnt);
 }
 
@@ -414,7 +416,7 @@ extern "C" int dfsph_divergence_launch(
     int layers, const int* list_idx, const int* list_cnt, const float* dt,
     const unsigned char* active, float* adv_out, float* errt_out, int adv,
     int n_rows, PairConsts c, void* stream) {
-  if (!jacobi_has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_jacobi_inputs(slot_map, list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {
@@ -438,7 +440,7 @@ extern "C" int dfsph_solver_dv_launch(
     const int* list_idx, const int* list_cnt, const float* dt,
     const unsigned char* active, float* v_out, float* acc_out, int react,
     int n_rows, PairConsts c, void* stream) {
-  if (!jacobi_has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_jacobi_inputs(slot_map, list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {

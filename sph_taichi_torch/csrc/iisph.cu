@@ -20,10 +20,9 @@
 //   iisph_apply_A           <- _apply_A with the relaxed-Jacobi update and
 //                              the per-centre error column in its epilogue
 // and the retired SlotEngine._kernel
-// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: f1, f3
-// and f4 are templates over their walk, CellRunWalk (the cell offsets) or
-// SlotWalk (the slot map of ops/slots.py), as in pairs.cu; f2 has a kernel
-// over each walk (the cell runs': *_list_kernel), sharing its pair terms.
+// (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same four: each is
+// a template over its walk, CellRunWalk (the cell offsets) or SlotWalk (the
+// slot map of ops/slots.py), as in pairs.cu.
 //
 // Each epilogue is the unfused chain of the plain versions in
 // ops/cuda_iisph.py, in the same operation order.  The Jacobi kernels
@@ -47,21 +46,18 @@
 // gives them), so each wrapper launches one kernel.
 //
 // Over the slot walk the density kernel (pairs.cu density_sum_slot_kernel)
-// writes the same list of every real centre in its one-phase walk, and f1
-// and f3 (both variants) run only their pair body over it
-// (for_each_step_pair<true>): a warp holding a centre over the list walks
-// the slot map in one phase, pinned with xg = x, which gives the pairs, d
-// and raw sum of squares of the one-phase walk.  f1's and f3's launchers
-// refuse a launch without the list under both walks, and their slot
-// instantiations write the padding rows too.  f2 and f4 walk the slot map
-// in one phase: f2 keeps its kernel (iisph_predict_advection_kernel, over
-// the real rows; its wrapper restores the padding rows), f4 is a thread
-// per row.
+// writes the same list of every real centre in its one-phase walk, and all
+// four kernels run only their pair body over it (for_each_step_pair): a
+// warp holding a centre over the list walks the slot map in one phase,
+// pinned with xg = x, which gives the pairs, d and raw sum of squares of
+// the one-phase walk.  The launchers refuse a launch without the list
+// under both walks, and the slot instantiations write the padding rows
+// too.
 //
-// As dfsph.cu, the one-phase walks are bound by irregular candidate loads
-// that mostly hit L1/L2, the list walks by their gathers; the f32 work per
-// real pair (25-50 operations) is far below the card's rate.  Everything
-// stays in registers.
+// As dfsph.cu, the list walks are bound by their gathers (a warp over the
+// list, by irregular candidate loads that mostly hit L1/L2); the f32 work
+// per real pair (25-50 operations) is far below the card's rate.
+// Everything stays in registers.
 
 #include "pair_common.cuh"
 
@@ -144,7 +140,7 @@ __global__ void iisph_nonpressure_kick_list_kernel(
   float vi[3] = {0.0f, 0.0f, 0.0f};
   if (real) vi[0] = v[3 * i], vi[1] = v[3 * i + 1], vi[2] = v[3 * i + 2];
   float s[3] = {0.0f, 0.0f, 0.0f};
-  for_each_step_pair<true>(
+  for_each_step_pair(
       real, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         nonpressure_pair(j, d0, d1, d2, sq, vi, v, material, m, density, c,
@@ -168,38 +164,15 @@ __global__ void iisph_nonpressure_kick_list_kernel(
   }
 }
 
-// f2 over the slot walk, one thread per real row.
+// f2 over the step's pair list ``pl`` (density_sum_list's, over either
+// walk), one thread per row, padding rows included (a_ii, the source and
+// the warm start 0).
 template <typename Walk>
-__global__ void iisph_predict_advection_kernel(
-    const float* __restrict__ x, const float* __restrict__ v,
-    const int* __restrict__ material, const float* __restrict__ m_V,
-    const float* __restrict__ density, const float* __restrict__ pressure,
-    Walk walk, const float* __restrict__ dt_ptr,
-    float* __restrict__ a_ii_out, float* __restrict__ source_out,
-    float* __restrict__ last_p_out, PairConsts c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_real) return;
-  const float vi[3] = {v[3 * i], v[3 * i + 1], v[3 * i + 2]};
-  float g[3] = {0.0f, 0.0f, 0.0f};
-  float s[3] = {0.0f, 0.0f, 0.0f};
-  float q = 0.0f, div = 0.0f;
-  for_each_neighbor_walk(
-      i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk, c,
-      [&](int j, float d0, float d1, float d2, float sq) {
-        predict_pair(j, d0, d1, d2, sq, vi, v, material, m_V, density, c, g,
-                     s, q, div);
-      });
-  predict_out(i, g, s, q, div, *dt_ptr, m_V, density, pressure, a_ii_out,
-              source_out, last_p_out, c);
-}
-
-// f2 over the step's pair list ``pl``, one thread per row, padding rows
-// included (a_ii, the source and the warm start 0).
 __global__ void iisph_predict_advection_list_kernel(
     const float* __restrict__ x, const float* __restrict__ v,
     const int* __restrict__ material, const float* __restrict__ m_V,
     const float* __restrict__ density, const float* __restrict__ pressure,
-    CellRunWalk walk, PairList pl, const float* __restrict__ dt_ptr,
+    Walk walk, PairList pl, const float* __restrict__ dt_ptr,
     float* __restrict__ a_ii_out, float* __restrict__ source_out,
     float* __restrict__ last_p_out, int n_rows, PairConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -209,7 +182,7 @@ __global__ void iisph_predict_advection_list_kernel(
   float g[3] = {0.0f, 0.0f, 0.0f};
   float s[3] = {0.0f, 0.0f, 0.0f};
   float q = 0.0f, div = 0.0f;
-  for_each_step_pair<false>(
+  for_each_step_pair(
       real, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         predict_pair(j, d0, d1, d2, sq, vi, v, material, m_V, density, c, g,
@@ -240,8 +213,8 @@ __global__ void iisph_pressure_accel_kernel(
   // _apply_A reads it in (a_i - a_j) . r_ij (iisph.py:340)
   const bool real = i < c.n_real;
   float s[3] = {0.0f, 0.0f, 0.0f};
-  sym_pressure_sum<true>(real, i, x, x, material, m_V, density, pr, walk,
-                         pl, c, s);
+  sym_pressure_sum(real, i, x, x, material, m_V, density, pr, walk, pl, c,
+                   s);
   if (i >= n_rows) return;
   if (!ADVECT) {
     for (int k = 0; k < 3; ++k) out0[3 * i + k] = s[k];
@@ -273,7 +246,7 @@ __global__ void iisph_apply_A_kernel(
   float ai0 = 0.0f, ai1 = 0.0f, ai2 = 0.0f;
   if (real) ai0 = accel[3 * i], ai1 = accel[3 * i + 1], ai2 = accel[3 * i + 2];
   float sum = 0.0f;
-  for_each_step_pair<false>(
+  for_each_step_pair(
       real, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         if (material[j] < 0) return;
@@ -307,12 +280,9 @@ __global__ void iisph_apply_A_kernel(
 // Each launcher's walk arguments (starts, slot_map, layers) select the
 // kernel over that walk (pair_common.cuh with_walk).  Every kernel reads
 // the step's list (list_idx, list_cnt: density_sum_list's output over the
-// same walk for the same rows) over the cell runs, and f1 and f3 over the
-// slot walk too; a launch without what its walk reads is refused
-// (cudaErrorInvalidValue: pair_common.cuh has_list, for f1 and f3
-// has_step_list).  Over the cell runs, and for f1, f3 and f4 over the slot
-// walk too, a kernel launches over n_rows rows, padding rows included; f2
-// over the slot walk launches over the real rows.
+// same walk for the same rows) over either walk; a launch without it is
+// refused (cudaErrorInvalidValue: pair_common.cuh has_step_list).  Every
+// kernel launches over n_rows rows, padding rows included.
 
 extern "C" int iisph_nonpressure_kick_launch(
     const float* x, const float* v, const int* material, const float* m,
@@ -341,22 +311,17 @@ extern "C" int iisph_predict_advection_launch(
     const int* list_cnt, const float* dt, float* a_ii_out,
     float* source_out, float* last_p_out, int n_rows, PairConsts c,
     void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (slot_map != nullptr) {
-    if (c.n_real > 0) {
-      iisph_predict_advection_kernel<<<grid_for(c), kBlock, 0, st>>>(
-          x, v, material, m_V, density, pressure, SlotWalk{slot_map, layers},
-          dt, a_ii_out, source_out, last_p_out, c);
-    }
-  } else if (n_rows > 0) {
-    iisph_predict_advection_list_kernel<<<rows_grid(n_rows), kBlock, 0,
-                                          st>>>(
-        x, v, material, m_V, density, pressure, CellRunWalk{starts},
-        PairList{list_idx, list_cnt, n_rows}, dt, a_ii_out, source_out,
-        last_p_out, n_rows, c);
+  if (n_rows > 0) {
+    const PairList pl{list_idx, list_cnt, n_rows};
+    with_walk(starts, slot_map, layers, [&](auto walk) {
+      iisph_predict_advection_list_kernel<<<rows_grid(n_rows), kBlock, 0,
+                                            (cudaStream_t)stream>>>(
+          x, v, material, m_V, density, pressure, walk, pl, dt, a_ii_out,
+          source_out, last_p_out, n_rows, c);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -394,7 +359,7 @@ extern "C" int iisph_apply_A_launch(
     const int* list_idx, const int* list_cnt, const float* dt,
     const unsigned char* active, float omega, float* new_p_out,
     float* err_out, int n_rows, PairConsts c, void* stream) {
-  if (!has_list(slot_map, list_idx, list_cnt)) {
+  if (!has_step_list(list_idx, list_cnt)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows > 0) {
@@ -420,12 +385,12 @@ extern "C" int iisph_occupancy(int which, int* regs, int* smem_bytes,
       (const void*)iisph_pressure_accel_kernel<true, CellRunWalk>,
       (const void*)iisph_apply_A_kernel<CellRunWalk>,
       (const void*)iisph_nonpressure_kick_list_kernel<CellRunWalk>,
-      (const void*)iisph_predict_advection_list_kernel,
+      (const void*)iisph_predict_advection_list_kernel<CellRunWalk>,
       (const void*)iisph_pressure_accel_kernel<false, SlotWalk>,
       (const void*)iisph_pressure_accel_kernel<true, SlotWalk>,
       (const void*)iisph_apply_A_kernel<SlotWalk>,
       (const void*)iisph_nonpressure_kick_list_kernel<SlotWalk>,
-      (const void*)iisph_predict_advection_kernel<SlotWalk>};
+      (const void*)iisph_predict_advection_list_kernel<SlotWalk>};
   if (which < 0 || which > 9) return (int)cudaErrorInvalidValue;
   const void* kernel = kernels[which];
   cudaFuncAttributes attr{};

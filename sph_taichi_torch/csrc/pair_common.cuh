@@ -357,13 +357,12 @@ __device__ __forceinline__ void compact_cell_runs(
 // density-and-factor kernel writes a list of the fluid and dynamic-rigid
 // centres in its one-phase walk, and the Jacobi kernels (divergence,
 // solver_dv) and the non-pressure kernel read it (for_each_jacobi_pair,
-// for_each_step_pair<true>).  Over the slot walk the WCSPH, IISPH and
-// PCISPH steps' density kernel (density_sum_slot_kernel, pairs.cu) writes
-// every real centre's list in its one-phase walk, and WCSPH's forces (b),
-// PCISPH's loop kernels (g1, g2), IISPH's non-pressure kick (f1) and
-// pressure acceleration (f3) and PCISPH's un-kicked non-pressure kernel (d)
-// read it (for_each_step_pair<true>); the other slot kernels of those steps
-// (IISPH's f2 and f4) walk the map in one phase.
+// for_each_step_pair).  Over the slot walk the WCSPH, IISPH and PCISPH
+// steps' density kernel (density_sum_slot_kernel, pairs.cu) writes every
+// real centre's list in its one-phase walk, and every later pair kernel of
+// those steps reads it (for_each_step_pair): WCSPH's forces (b), PCISPH's
+// loop kernels (g1, g2) and un-kicked non-pressure kernel (d), IISPH's
+// four kernels (f1-f4).
 //
 // Layout: entry k of centre i at idx[k * stride + i] (stride: the rows of
 // the arrays), so a warp's load of entry k is one 128-byte line; cnt[i] is
@@ -463,32 +462,24 @@ __device__ __forceinline__ void for_each_listed_pair(
 // positions x with the geometry at xg (for_each_neighbor_pinned; WCSPH's
 // forces, IISPH and the non-pressure kernel pass xg = x, and then d and the
 // raw sum of squares are those of for_each_neighbor_walk), read from the
-// step's list ``pl`` over the cell runs and, where SLOT_LIST, over the slot
-// walk too.
-// The kernels that pass SLOT_LIST true read the slot walk's list: b
-// (pairs.cu), g1 and g2 (pcisph.cu), f1 and f3 (iisph.cu) the one the slot
-// density kernel writes (pairs.cu density_sum_slot_kernel), d (dfsph.cu)
-// that one on the PCISPH step and e1's (dfsph_density_factor_slot_kernel)
-// on the DFSPH step; a warp there that holds a centre beyond the list walks
-// the slot map in one phase, pinned (for_each_listed_pair), which with
-// xg = x gives the pairs, d and raw sum of squares of
-// for_each_neighbor_walk.  Their launchers refuse a launch without the
-// list (has_step_list).  The kernels that pass false (f2, f4) walk the
-// slot map in one phase (for_each_neighbor_walk itself).  Every thread of
-// a block calls it, with ``walks`` false where the thread has no centre.
-template <bool SLOT_LIST, typename Walk, typename F>
+// step's list ``pl`` over either walk.  b (pairs.cu), g1 and g2
+// (pcisph.cu) and f1-f4 (iisph.cu) read the list that the density kernel
+// writes (pairs.cu density_sum_list, density_sum_slot_kernel over the slot
+// walk), d (dfsph.cu) that one on the PCISPH step and e1's on the DFSPH
+// step.  A warp that holds a centre beyond the list walks the cells or the
+// slot map in one phase, pinned (for_each_listed_pair), which with xg = x
+// gives the pairs, d and raw sum of squares of for_each_neighbor_walk.
+// Their launchers refuse a launch without the list (has_step_list).  Every
+// thread of a block calls it, with ``walks`` false where the thread has no
+// centre.
+template <typename Walk, typename F>
 __device__ __forceinline__ void for_each_step_pair(
     bool walks, int i, const float* __restrict__ x,
     const float* __restrict__ xg, const Walk& walk, const PairList& pl,
     const PairConsts& c, F&& f) {
-  if constexpr (kCompactWalk<Walk> || SLOT_LIST) {
-    float gi0 = 0.0f, gi1 = 0.0f, gi2 = 0.0f;
-    if (walks) gi0 = xg[3 * i], gi1 = xg[3 * i + 1], gi2 = xg[3 * i + 2];
-    PAIR_LIST_WALK(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
-  } else if (walks) {
-    for_each_neighbor_walk(i, x[3 * i], x[3 * i + 1], x[3 * i + 2], x, walk,
-                           c, f);
-  }
+  float gi0 = 0.0f, gi1 = 0.0f, gi2 = 0.0f;
+  if (walks) gi0 = xg[3 * i], gi1 = xg[3 * i + 1], gi2 = xg[3 * i + 2];
+  PAIR_LIST_WALK(walks, i, x, gi0, gi1, gi2, xg, pl, walk, c, f);
 }
 
 // f(j, d0, d1, d2, s) for the pairs of for_each_neighbor_walk, in its
@@ -555,7 +546,7 @@ __device__ __forceinline__ void sym_pressure_pair(
 // pressure field pr (IISPH's and PCISPH's _pressure_accel, one term) over
 // the pairs of for_each_step_pair: adds into s[0..2].  Every thread of a
 // block calls it.
-template <bool SLOT_LIST, typename Walk>
+template <typename Walk>
 __device__ __forceinline__ void sym_pressure_sum(
     bool walks, int i, const float* __restrict__ x,
     const float* __restrict__ xg, const int* __restrict__ material,
@@ -569,7 +560,7 @@ __device__ __forceinline__ void sym_pressure_sum(
     dpi = pr_i / (rho_i * rho_i);
     mirror = pr_i / c.rho0sq;
   }
-  for_each_step_pair<SLOT_LIST>(
+  for_each_step_pair(
       walks, i, x, xg, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float sq) {
         sym_pressure_pair(j, d0, d1, d2, sq, dpi, mirror, material, m_V,
@@ -587,19 +578,10 @@ __host__ inline int rows_grid(int n_rows) {
   return (n_rows + kBlock - 1) / kBlock;
 }
 
-// Whether a launch of a kernel that reads the step's list over both walks
-// (SLOT_LIST true: b, g1, g2, f1, f3, d) has it: list_idx and list_cnt.
+// Whether a launch of a kernel that reads the step's list (b, d, f1-f4,
+// g1, g2) has it: list_idx and list_cnt.
 __host__ inline bool has_step_list(const int* list_idx, const int* list_cnt) {
   return list_idx != nullptr && list_cnt != nullptr;
-}
-
-// Whether a launch of a kernel that reads the step's list over the cell
-// runs only (SLOT_LIST false: f2 and f4 alone) has what its walk reads:
-// the list over the cell runs, the map over the slot walk, where it walks
-// in one phase.
-__host__ inline bool has_list(const int* slot_map, const int* list_idx,
-                              const int* list_cnt) {
-  return slot_map != nullptr || has_step_list(list_idx, list_cnt);
 }
 
 // The walk a launcher's arguments select: every launcher takes the cell

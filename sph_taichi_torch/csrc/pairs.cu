@@ -63,12 +63,11 @@
 // list as it walks (the slot walk has no two-phase form: its dependent
 // map loads lose the L1 that the candidate lists' shared memory takes,
 // pair_common.cuh).  wcsph_forces (both variants), PCISPH's loop kernels
-// (pcisph.cu), IISPH's non-pressure kick and pressure acceleration
-// (iisph.cu) and the un-kicked non-pressure kernel (dfsph.cu) read that
-// list (for_each_step_pair<true>); a warp holding a centre over the list
-// walks the slot map in one phase, pinned with xg = x, which gives the
-// pairs, d and raw sum of squares of the one-phase walk.  IISPH's f2 and
-// f4 walk the slot map in one phase and do not read it.
+// (pcisph.cu), IISPH's four kernels (iisph.cu) and the un-kicked
+// non-pressure kernel (dfsph.cu) read that list (for_each_step_pair); a
+// warp holding a centre over the list walks the slot map in one phase,
+// pinned with xg = x, which gives the pairs, d and raw sum of squares of
+// the one-phase walk.
 
 #include "pair_common.cuh"
 
@@ -181,7 +180,7 @@ __global__ void wcsph_forces_kernel(
     if (REACT) rr0_i = rr0[i];
   }
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  for_each_step_pair<true>(
+  for_each_step_pair(
       walks, i, x, x, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float s) {
         const float rn = sqrtf(s);

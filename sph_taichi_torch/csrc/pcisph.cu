@@ -86,7 +86,7 @@ __global__ void pcisph_d_rho_correct_kernel(
   float div = 0.0f;
   // the loop's walk: the pairs of the step-start positions x with the
   // geometry at the predicted positions xp
-  for_each_step_pair<true>(
+  for_each_step_pair(
       fluid, i, x, xp, walk, pl, c,
       [&](int j, float d0, float d1, float d2, float s) {
         if (material[j] < 0) return;
@@ -125,8 +125,8 @@ __global__ void pcisph_pressure_accel_predict_kernel(
   // only the fluid rows' acceleration is read (pcisph.py:158-168, :245)
   const bool fluid = i < c.n_real && material[i] == 1;
   float s[3] = {0.0f, 0.0f, 0.0f};
-  sym_pressure_sum<true>(fluid, i, x, xp, material, m_V, density, pr, walk,
-                         pl, c, s);
+  sym_pressure_sum(fluid, i, x, xp, material, m_V, density, pr, walk, pl,
+                   c, s);
   if (i >= n_rows) return;
   const float dt = *dt_ptr;
   for (int k = 0; k < 3; ++k) {

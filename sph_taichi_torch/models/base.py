@@ -345,12 +345,9 @@ def compute_densities_and_pairs(p: Particles, ctx, engine, params: SimParams,
     kernels read).  On the CUDA engine one kernel sums the densities and
     writes the step's pair list into ``buffers``
     (``cuda_pairs.density_sum_list``): a ``PairList`` over the cell
-    offsets or the slot map, which over the slot walk WCSPH's forces,
-    IISPH's non-pressure kick and pressure accelerations and PCISPH's
-    non-pressure kernel and loop read, and IISPH's advection prediction
-    and A pass through to their one-phase walk; on CPU tensors the context
-    is the slot map or the plain engine's neighbour lists, and on the
-    plain engine ``ctx``."""
+    offsets or the slot map, which those kernels read over either walk; on
+    CPU tensors the context is the slot map or the plain engine's
+    neighbour lists, and on the plain engine ``ctx``."""
     if engine.fused:
         den_pairs, ctx = cuda_pairs.density_sum_list(ctx, p, params, buffers)
     else:
@@ -379,8 +376,7 @@ def compute_non_pressure_forces(p: Particles, ctx, engine, params: SimParams,
     engine.  Padding rows keep their velocity and get acceleration 0.  On
     the CUDA engine ``ctx`` is the step's pair list (DFSPH's from
     ``density_factor_and_pairs``, PCISPH's from
-    ``compute_densities_and_pairs``), over the cell runs or the slot map
-    (whose kernels walk the map)."""
+    ``compute_densities_and_pairs``), over the cell runs or the slot map."""
     if predict_dt is None:
         accel = (cuda_dfsph.nonpressure_accel if engine.fused
                  else cuda_dfsph.nonpressure_accel_plain)

@@ -13,13 +13,10 @@ its epilogue; on the plain engine its plain version, which applies the same
 epilogue in torch (the JAX package's unfused path on its gather engine).
 The positions stay those of the sort until the advect (the kick moves v),
 so on the CUDA engine the density kernel writes the step's pair list of
-every real centre as it sums (``compute_densities_and_pairs``), and over
-the cell runs every later pair kernel of the step reads it: the
-non-pressure kick, the advection prediction, the loop's pressure
+every real centre as it sums (``compute_densities_and_pairs``), over the
+cell runs or the slot map, and every later pair kernel of the step reads
+it: the non-pressure kick, the advection prediction, the loop's pressure
 acceleration and A, and the final pressure acceleration with the advect.
-Over the slot walk they are given the list over the map: the non-pressure
-kick and both pressure accelerations read it, the advection prediction
-and A walk the map.
 
 The pressure solve is ``jacobi_while`` (models/base.py): the test
 ``it == 0 | (err >= tol & it < 1000)`` is evaluated on the device and read

@@ -79,7 +79,7 @@ that list over the slot walk too, and on the PCISPH step
 ``nonpressure_accel`` the fluid rows of the list that the density kernel
 writes over the map (``density_sum_list`` given a ``SlotMap``): both run
 only their pair body over it (csrc/pair_common.cuh
-``for_each_step_pair<true>``), and on the card take only a ``PairList``,
+``for_each_step_pair``), and on the card take only a ``PairList``,
 over the cell offsets or the map (ops/pair_list.py ``list_walk``), their
 launcher refusing a launch without the list.
 """

@@ -35,30 +35,23 @@ device: when it is false the kernel returns at once and its outputs are
 undefined (the loop discards them).  The plain versions ignore it.
 
 The positions stay the sort's from the density kernel to the advect (f1's
-kick moves v, not x), so over the cell runs all four kernels read the
-step's pair list of every real centre, solids included (ops/pair_list.py
-``PairList``), which the step's density kernel writes as it sums
-(ops/cuda_pairs.py ``density_sum_list``, models/base.py
-``compute_densities_and_pairs``); given it, they run only the pair body
-over it.  Over the cell runs these wrappers take only the list, not bare
-cell offsets; on CPU tensors the step's context is the plain engine's
-neighbour lists, which the plain versions read.  Over the slot walk the
-step's density kernel writes the same list over the map (a ``PairList``
-whose walk is the ``SlotMap``): ``nonpressure_kick`` (f1) and
-``pressure_accel`` (f3, both variants) run only their pair body over it
-(csrc/pair_common.cuh ``for_each_step_pair<true>``; a warp holding a
-centre over the list walks the map in one phase), and on the card take
-only that context, not a bare ``SlotMap`` (ops/pair_list.py
-``list_walk``), their launchers refusing a launch without the list; f2 and
-f4, given it or the bare map, walk the map in one phase and do not read
-it.
+kick moves v, not x), so all four kernels read the step's pair list of
+every real centre, solids included (ops/pair_list.py ``PairList``), which
+the step's density kernel writes as it sums (ops/cuda_pairs.py
+``density_sum_list``, models/base.py ``compute_densities_and_pairs``),
+over the cell offsets or over the ``SlotMap``; given it, they run only the
+pair body over it (csrc/pair_common.cuh ``for_each_step_pair``; a warp
+holding a centre over the list walks the cells or the map in one phase).
+On the card these wrappers take only that context, not bare cell offsets
+or a bare ``SlotMap`` (ops/pair_list.py ``list_walk``), and their
+launchers refuse a launch without the list; on CPU tensors the step's
+context is the plain engine's neighbour lists, or the slot map, whose
+lists the plain versions read.
 
-Padding rows: over the cell runs every kernel writes them, and f1, f3 and
-f4 over the slot walk too, as the JAX package's ``restore_tail`` gives
-them (outputs that carry a field through keep its value, the others are
-0), so each of those wrapper calls launches exactly one kernel; f2 over
-the slot walk launches the real rows and its wrapper restores the padding
-rows.
+Padding rows: every kernel writes them, over both walks, as the JAX
+package's ``restore_tail`` gives them (outputs that carry a field through
+keep its value, the others are 0), so each wrapper call launches exactly
+one kernel.
 """
 
 import ctypes
@@ -81,10 +74,6 @@ LAUNCHES = {name + walk: 0 for walk in ("", "[slots]") for name in (
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _n_real(params):
-    return params.n_fluid + params.n_solid
 
 
 # ---------------------------------------------------------------------------
@@ -304,16 +293,13 @@ def nonpressure_kick(ctx, p, dt, params):
 
 def predict_advection(ctx, p, dt, params):
     """Kernel wrapper for ``predict_advection_plain``: (a_ii, source,
-    last_p).  ``ctx``: the step's context from ``density_sum_list`` for the
-    sorted particles ``p`` (a ``PairList`` over the cell runs or the slot
-    map: the slot kernel walks the map), or their ``SlotMap`` for the slot
-    walk; on CPU tensors also neighbour lists."""
+    last_p).  ``ctx`` as for ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
         return predict_advection_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, dt,
             params)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
-                                                         "IISPH")
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(
+        ctx, p, params, "iisph_predict_advection")
     f32 = torch.float32
     outs = tuple(torch.empty_like(p.m_V) for _ in range(3))
     rc = _lib().iisph_predict_advection_launch(
@@ -325,10 +311,6 @@ def predict_advection(ctx, p, dt, params):
     name = "iisph_predict_advection" + suffix
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    if suffix:
-        # the slot walk's kernel launches over the real rows
-        for o in outs:
-            o[_n_real(params):] = 0.0
     return outs
 
 
@@ -372,13 +354,13 @@ def pressure_accel(ctx, p, pressure, params, advect_dt=None, active=None):
 def apply_A(ctx, p, accel, a_ii, source, last_p, dt, omega, params,
             active=None):
     """Kernel wrapper for ``apply_A_plain``: (new_p, err).  ``ctx`` as for
-    ``predict_advection``."""
+    ``nonpressure_kick``."""
     if p.x.device.type == "cpu":
         return apply_A_plain(
             pair_list.plain_loop_ctx(ctx, p, params, "IISPH"), p, accel,
             a_ii, source, last_p, dt, omega, params)
-    dev, n, ptr, walk, suffix, lst = pair_list.loop_walk(ctx, p, params,
-                                                         "IISPH")
+    dev, n, ptr, walk, suffix, lst = pair_list.list_walk(
+        ctx, p, params, "iisph_apply_A")
     f32 = torch.float32
     new_p = torch.empty_like(p.m_V)
     err = torch.empty_like(p.m_V)

@@ -15,8 +15,8 @@ hand-written CUDA C++ in ``csrc/pairs.cu``:
   the positions do not move from the sort to the advect, so the step's
   later pair kernels accept the density kernel's pairs.  Over the slot
   walk its kernel keeps the one-phase walk and writes the list as it
-  walks, and the force kernel, IISPH's f1 and f3, PCISPH's loop kernels
-  and the non-pressure kernel read it;
+  walks, and the force kernel, IISPH's four kernels, PCISPH's loop
+  kernels and the non-pressure kernel read it;
 - ``wcsph_forces``: the fused WCSPH force term (surface tension,
   viscosity, pressure, and with ``rr0`` the two-way reaction on dynamic
   rigid centres), then acceleration select, symplectic Euler and the fluid

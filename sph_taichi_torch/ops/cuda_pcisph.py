@@ -44,7 +44,7 @@ Over both walks the loop reads the fluid rows of the step's pair list
 it sums at the step-start positions (ops/cuda_pairs.py
 ``density_sum_list``, models/base.py ``compute_densities_and_pairs``):
 given it, g1 and g2 run only the pair body over it (csrc/pair_common.cuh
-``for_each_step_pair<true>``); a warp holding a centre over the list walks
+``for_each_step_pair``); a warp holding a centre over the list walks
 the cells or the slot map in one phase.  On the card the wrappers take
 only the list, not bare cell offsets or a bare ``SlotMap``
 (ops/pair_list.py ``list_walk``), and the launchers refuse a launch

@@ -14,15 +14,11 @@ forces, IISPH's four kernels, PCISPH's loop and non-pressure kernel) run
 only their pair body over it, every loop iteration too.  A warp holding a
 centre with more than ``PAIR_LIST_ENTRIES`` accepted pairs walks the cells
 in one phase inside the kernel (the same pairs, in the same order).  Over
-the cell runs the list kernels' wrappers take only the list, not bare cell
-offsets.  Over the slot walk the density kernel keeps its one-phase walk
-and writes the same list of every real centre as it walks (a ``PairList``
-whose walk is the ``SlotMap``); WCSPH's forces (b), PCISPH's loop kernels
-(g1, g2), IISPH's non-pressure kick (f1) and pressure acceleration (f3)
-and PCISPH's non-pressure kernel (d) read it and take only that context
-(``list_walk``); the step's other slot kernels (IISPH's f2 and f4),
-given the list or the bare map (``loop_walk``), walk the map in one
-phase.
+the slot walk the density kernel keeps its one-phase walk and writes the
+same list of every real centre as it walks (a ``PairList`` whose walk is
+the ``SlotMap``), and the same kernels read it, a warp over the list
+walking the map in one phase.  On the card their wrappers take only that
+context (``list_walk``), not bare cell offsets or a bare ``SlotMap``.
 DFSPH's step does the same from its density-and-factor kernel to its
 non-pressure kernel (ops/cuda_dfsph.py ``density_factor_list``), listing
 the fluid centres.  Over the slot walk its density-and-factor kernel
@@ -124,15 +120,15 @@ def _refuse(ctx, solver, kinds, source="density_sum_list"):
                     f"{source} ({kinds}), not {type(ctx).__name__}")
 
 
-def loop_walk(ctx, p, params, solver, source="density_sum_list"):
-    """``_walk`` of a list kernel's context, and the launcher's list
-    arguments: the list of a ``PairList``, none for a ``SlotMap``; raises
-    for any other context (``solver`` names the kernels and ``source`` the
-    call that makes their context in the message)."""
-    if isinstance(ctx, SlotMap):
-        return (*_walk(ctx, p, params), (None, None))
+def list_walk(ctx, p, params, solver, source="density_sum_list"):
+    """``_walk`` of the context of kernels that read the step's list, and
+    the launcher's list arguments: the ``PairList`` that ``source`` gives,
+    over the cell offsets or the ``SlotMap``.  Bare cell offsets or a bare
+    ``SlotMap`` raise TypeError naming ``solver`` and ``source``: their
+    kernels would have no list to read."""
     if not isinstance(ctx, PairList):
-        _refuse(ctx, solver, "a PairList or a SlotMap", source)
+        _refuse(ctx, solver, "a PairList over the cell offsets or the "
+                "slot map", source)
     dev, n, ptr, walk, suffix = _walk(ctx.walk, p, params)
     lst = (_check("pair list", ctx.idx, torch.int32, (PAIR_LIST_ENTRIES, n),
                   dev),
@@ -141,31 +137,18 @@ def loop_walk(ctx, p, params, solver, source="density_sum_list"):
 
 
 def jacobi_walk(ctx, p, params):
-    """``loop_walk`` of DFSPH's Jacobi kernels' context: over the cell runs
-    bare cell offsets or a ``PairList`` over them (the two-phase kernels,
-    which read no list); over the slot walk the ``PairList`` that
-    ``density_factor_list`` gives for a ``SlotMap`` (the list kernels).  A
-    bare ``SlotMap`` raises: its kernels would have no list to read."""
+    """``list_walk`` of DFSPH's Jacobi kernels' context: over the cell
+    runs bare cell offsets (the two-phase kernels, which read no list; no
+    list arguments) or a ``PairList`` over them; over the slot walk the
+    ``PairList`` that ``density_factor_list`` gives for a ``SlotMap`` (the
+    list kernels).  A bare ``SlotMap`` raises: its kernels would have no
+    list to read."""
     if isinstance(ctx, SlotMap):
         _refuse(ctx, "dfsph_divergence and dfsph_solver_dv", "a PairList "
                 "over the slot map or the cell offsets", "density_factor_list")
     if isinstance(ctx, PairList):
-        return loop_walk(ctx, p, params, "DFSPH")
+        return list_walk(ctx, p, params, "DFSPH", "density_factor_list")
     return (*_walk(ctx, p, params), (None, None))
-
-
-def list_walk(ctx, p, params, solver, source="density_sum_list"):
-    """``loop_walk`` of the context of kernels that read the step's list
-    over both walks (WCSPH's forces, PCISPH's loop kernels, IISPH's
-    non-pressure kick and pressure acceleration, the non-pressure kernel):
-    the ``PairList`` that ``source`` gives, over the cell offsets or the
-    ``SlotMap``.  Bare cell offsets or a bare ``SlotMap`` raise TypeError
-    naming ``solver`` and ``source``: their kernels would have no list to
-    read."""
-    if not isinstance(ctx, PairList):
-        _refuse(ctx, solver, "a PairList over the cell offsets or the "
-                "slot map", source)
-    return loop_walk(ctx, p, params, solver, source)
 
 
 def plain_loop_ctx(ctx, p, params, solver):

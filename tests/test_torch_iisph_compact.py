@@ -321,9 +321,9 @@ def test_wrapper_padding_rows(call, ctx):
     acceleration, a_ii, the source, the warm start, p' and the error 0;
     f1's v and the advect's v' and x' from v and x, with padding velocities
     that are not 0), given the step's context from ``density_sum_list`` or
-    the slot map.  On the card the kernels write these rows themselves
-    (over the slot walk f1's and f2's wrappers restore them);
-    chip_smoke.py's IISPH edge-scene phase, not this test, holds their
+    the slot map.  On the card the kernels write these rows themselves,
+    over both walks; chip_smoke.py's IISPH edge-scene phase, not this
+    test, holds their
     whole outputs, padding rows included, against the plain versions."""
     tp, tpart, starts, _, inp, _ = _case()
     jp = J.build_scene(J.SimConfig(config_dict=iisph_edge_scene()))[0]

@@ -20,10 +20,9 @@ their plain versions bitwise on the card.  Here, on the CPU:
   over the slot lists, bitwise, and the map, launching nothing;
 - the context check of the kernels that read the step's list over both
   walks (``pair_list.list_walk``: PCISPH's loop, WCSPH's forces with and
-  without the reaction, IISPH's non-pressure kick and pressure
-  acceleration, the non-pressure kernel kicked and un-kicked) refusing a
-  bare ``SlotMap`` and bare cell offsets, naming the call that makes the
-  context, in each wrapper;
+  without the reaction, IISPH's four kernels, the non-pressure kernel
+  kicked and un-kicked) refusing a bare ``SlotMap`` and bare cell offsets,
+  naming the call that makes the context, in each wrapper;
 - one slot-backend PCISPH, IISPH and DFSPH step through ``substep``, the
   list readers given the step's slot list, equal bitwise to the cell-run
   step, with the same iterations.
@@ -338,7 +337,9 @@ LIST_READERS = {
     "PCISPH": ("density_sum_list", CALLS),
     "wcsph_forces": ("density_sum_list", ("b", "b_react")),
     "iisph_nonpressure_kick": ("density_sum_list", ("f1",)),
+    "iisph_predict_advection": ("density_sum_list", ("f2",)),
     "iisph_pressure_accel": ("density_sum_list", ("f3", "f3_advect")),
+    "iisph_apply_A": ("density_sum_list", ("f4",)),
     "nonpressure_kick": (
         "density_factor_list (DFSPH) or density_sum_list (PCISPH)",
         ("d_kick", "d_accel")),
@@ -349,13 +350,33 @@ def _outputs(r):
     return (r,) if torch.is_tensor(r) else tuple(r)
 
 
+# IISPH's relaxation factor (models/iisph.py)
+OMEGA = 0.5
+
+
+def iisph_loop_inputs(p, snl, inp, params):
+    """``inp`` with f4's inputs besides the pressure, from the plain
+    versions over the lists ``snl``: the acceleration of f3 at
+    ``inp["pressure"]`` (``accel``), and f2's a_ii and source."""
+    a_ii, source, _ = cuda_iisph.predict_advection_plain(snl, p, inp["dt"],
+                                                         params)
+    accel = cuda_iisph.pressure_accel_plain(snl, p, inp["pressure"], params)
+    return dict(inp, accel=accel, a_ii=a_ii, source=source)
+
+
 def _list_reader(call, p, inp, params):
     """(wrapper, plain version, arguments after the context) of a wrapper
     of ``LIST_READERS``: WCSPH's forces (b) at the particles' own pressure
     (the solver's density clamp and EOS), with the reaction (b_react, the
-    scenes' dynamic rigid block) and without it."""
+    scenes' dynamic rigid block) and without it; IISPH's f2 with the warm
+    start from ``inp["pressure"]``, and f4 at the inputs of
+    ``iisph_loop_inputs`` with that pressure as the last iterate."""
     if call in CALLS:
         return _loop_call(call, p, inp, params)[:3]
+    if call == "f4":
+        return (cuda_iisph.apply_A, cuda_iisph.apply_A_plain,
+                (p, inp["accel"], inp["a_ii"], inp["source"],
+                 inp["pressure"], inp["dt"], OMEGA, params))
     if call in ("b", "b_react"):
         q, dpi, p_r02, m_nc, rr0 = WCSPHSolver(
             params, device="cpu").force_inputs(p)
@@ -366,6 +387,9 @@ def _list_reader(call, p, inp, params):
     return {
         "f1": (cuda_iisph.nonpressure_kick, cuda_iisph.nonpressure_kick_plain,
                (p, inp["dt"], params)),
+        "f2": (cuda_iisph.predict_advection,
+               cuda_iisph.predict_advection_plain,
+               (p._replace(pressure=inp["pressure"]), inp["dt"], params)),
         "f3": (cuda_iisph.pressure_accel, cuda_iisph.pressure_accel_plain,
                (p, inp["pressure"], params)),
         "f3_advect": (cuda_iisph.pressure_accel,
@@ -382,7 +406,7 @@ def _list_reader(call, p, inp, params):
 def test_list_walk_refuses_a_bare_slot_map(solver):
     """On the card the wrappers that read the step's list over both walks
     (PCISPH's loop, WCSPH's forces with and without the reaction, IISPH's
-    f1 and f3, d kicked and un-kicked) take the ``PairList`` that the
+    f1-f4, d kicked and un-kicked) take the ``PairList`` that the
     step's density call gives, over the cell offsets or the slot map, not
     a bare ``SlotMap`` or bare offsets, whose kernels would have no list
     to read: their context check
@@ -393,6 +417,7 @@ def test_list_walk_refuses_a_bare_slot_map(solver):
     its plain version over the slot lists."""
     source, calls = LIST_READERS[solver]
     params, p, inputs, smap, snl, _ = _case("layers")
+    inputs = iisph_loop_inputs(p, snl, inputs, params)
     starts = _starts(p, params)
     slot_ctx = _slot_context("layers")
     lists = (slot_ctx, pair_list.PairList(starts, *slot_ctx[1:]))

@@ -1,6 +1,5 @@
 """The slot walk's readers of the step's pair list: WCSPH's forces (b),
-IISPH's non-pressure kick (f1) and pressure acceleration (f3), and the
-non-pressure kernel (d).
+IISPH's four kernels (f1-f4), and the non-pressure kernel (d).
 
 Under ``--backend pallas_slots`` the WCSPH, IISPH and PCISPH steps'
 density kernel writes every real centre's accepted neighbours, in the
@@ -10,28 +9,34 @@ and the DFSPH step's density-and-factor kernel the fluid and
 dynamic-rigid centres' (ops/cuda_dfsph.py ``density_factor_list``).  The
 positions stay the sort's until the advect, so ``cuda_pairs.wcsph_forces``
 (b, with the two-way reaction and without it), ``cuda_iisph.
-nonpressure_kick`` (f1), ``cuda_iisph.pressure_accel`` (f3, in the loop
-and with its advect), ``cuda_dfsph.nonpressure_kick`` (d with the DFSPH
-kick, over e1's list) and ``cuda_dfsph.nonpressure_accel`` (d without it,
-PCISPH, over the density kernel's list) run only their pair body over
-that list, a warp over the list walking the slot map in one phase, pinned
-with xg = x.  chip_smoke.py holds the kernels against their plain
-versions bitwise on the card.  Here, on the CPU:
+nonpressure_kick`` (f1), ``cuda_iisph.predict_advection`` (f2),
+``cuda_iisph.pressure_accel`` (f3, in the loop and with its advect),
+``cuda_iisph.apply_A`` (f4, with the Jacobi update),
+``cuda_dfsph.nonpressure_kick`` (d with the DFSPH kick, over e1's list)
+and ``cuda_dfsph.nonpressure_accel`` (d without it, PCISPH, over the
+density kernel's list) run only their pair body over that list, a warp
+over the list walking the slot map in one phase, pinned with xg = x.
+chip_smoke.py holds the kernels against their plain versions bitwise on
+the card.  Here, on the CPU:
 - each wrapper given that context on CPU tensors equal to its plain
   version over the slot lists bitwise, padding rows included (padding
-  velocities, densities and pressures not 0; the acceleration 0 there, the
-  forces' and the advect's x and v and f1's and d's kicked v the
-  step-start x and v), launching nothing;
+  velocities, densities and pressures, and f4's padding accelerations,
+  a_ii and source, not 0; the acceleration, f2's a_ii, source and warm
+  start and f4's p' and error 0 there, the forces' and the advect's x and
+  v and f1's and d's kicked v the step-start x and v), launching nothing;
 - where no cell overflows, each against the JAX package from the same
   numpy-seeded inputs, on the JAX gather engine, which runs the fused
   epilogues unfused: b against WCSPH's ``compute_forces`` with its
   advect and fluid box clamp (the reaction from the scene's dynamic rigid
   block, and without it from the same scene with no dynamic rigid
   listed), f1 against IISPH's ``compute_non_pressure`` with the kick of
-  ``predict_advection``, f3 against ``_pressure_accel`` without and with
-  its advect (IISPH's ``advect`` of the fluid rows' acceleration), d
-  against ``compute_non_pressure_forces`` without and with the kick of
-  ``predict_dt`` (DFSPH's ``predict_velocity``).  f3's acceleration is
+  ``predict_advection``, f2 against ``predict_advection`` (its sums and
+  epilogue, v* the seeded v) at the seeded pressure, f3 against
+  ``_pressure_accel`` without and with its advect (IISPH's ``advect`` of
+  the fluid rows' acceleration), f4 against ``_apply_A`` with the Jacobi
+  update at JAX's f2 and f3 outputs, the seeded pressure the last
+  iterate, d against ``compute_non_pressure_forces`` without and with the
+  kick of ``predict_dt`` (DFSPH's ``predict_velocity``).  f3's acceleration is
   held at that tolerance relative to each row's largest component
   (tests/test_torch_iisph_compact.py ``_close_rows``: a wall row's
   cancelling component keeps a few ulps of its terms under XLA's sum
@@ -84,15 +89,18 @@ K_LIST = pair_list.PAIR_LIST_ENTRIES
 KINDS = pcisph_scenes.KINDS
 JAX_KINDS = pcisph_scenes.JAX_KINDS
 # f3 in the loop and with its advect; d with the DFSPH kick and without it;
-# b with the two-way reaction and without it; f1
-CALLS = ["f3", "f3_advect", "d_kick", "d_accel", "b", "b_react", "f1"]
+# b with the two-way reaction and without it; f1; f2; f4
+CALLS = ["f3", "f3_advect", "d_kick", "d_accel", "b", "b_react", "f1", "f2",
+         "f4"]
+# the calls whose list every real centre walks
+REAL_CENTRES = ("f1", "f2", "f3", "f3_advect", "f4")
 
 
 def _slot_list(call, snl, p, params):
     """(idx, cnt) of the step's slot list that ``call`` reads, from its
     plain version over the slot lists ``snl``: e1's (the fluid and
     dynamic-rigid centres) for kicked d, the density kernel's (every real
-    centre) for b, f1, f3 and un-kicked d."""
+    centre) for b, f1-f4 and un-kicked d."""
     if call == "d_kick":
         return cuda_dfsph.density_factor_list_plain(snl, p, params,
                                                     "jacobi")[2:]
@@ -101,38 +109,50 @@ def _slot_list(call, snl, p, params):
 
 def _state(call, kind):
     """(params, sorted particles with padding velocities and densities not
-    0, pressure with padding pressures not 0, dt, slot lists, the step's
-    context over the slot map, the rows whose list the reader walks)."""
+    0, the readers' inputs (the pressure, dt and f4's inputs of
+    ``iisph_loop_inputs``, their padding rows not 0), slot lists, the
+    step's context over the slot map, the rows whose list the reader
+    walks)."""
     params, p, inputs, smap, snl, _ = pcisph_scenes._case(kind)
     idx, cnt = _slot_list(call, snl, p, params)
-    pressure = inputs["pressure"].clone()
     n_real = params.n_fluid + params.n_solid
     assert p.n > n_real
     pad = torch.arange(3 * (p.n - n_real), dtype=torch.float32)
     v, density = p.v.clone(), p.density.clone()
     v[n_real:] = pad.reshape(-1, 3)
     density[n_real:] = 1000.0 + pad[:p.n - n_real]
+    pressure = inputs["pressure"].clone()
     pressure[n_real:] = 100.0 + pad[:p.n - n_real]
-    walks = {"f3": p.material >= 0, "f3_advect": p.material >= 0,
-             "f1": p.material >= 0,
-             "b_react": p.is_fluid() | p.is_dynamic_rigid()}.get(
-                 call, p.material == 1)
-    dt = torch.tensor(np.float32(params.dt0))
-    return (params, p._replace(v=v, density=density), pressure, dt, snl,
-            pair_list.PairList(smap, idx, cnt), walks)
+    p = p._replace(v=v, density=density)
+    inp = pcisph_scenes.iisph_loop_inputs(
+        p, snl, {"pressure": pressure,
+                 "dt": torch.tensor(np.float32(params.dt0))}, params)
+    inp["accel"][n_real:] = -pad.reshape(-1, 3)
+    inp["a_ii"][n_real:] = -1.0 - pad[:p.n - n_real]
+    inp["source"][n_real:] = 1.0 + pad[:p.n - n_real]
+    if call in REAL_CENTRES:
+        walks = p.material >= 0
+    elif call == "b_react":
+        walks = p.is_fluid() | p.is_dynamic_rigid()
+    else:
+        walks = p.material == 1
+    return (params, p, inp, snl, pair_list.PairList(smap, idx, cnt), walks)
 
 
 def _padding_rows(call, p, params):
     """The padding rows' outputs of a reader, as the JAX package's
-    restore_tail gives them: the acceleration 0, the forces' x and v, the
-    advect's v' and x' and f1's and d's kicked v the step-start x and v."""
+    restore_tail gives them: the acceleration, f2's a_ii, source and warm
+    start and f4's p' and error 0, the forces' x and v, the advect's v'
+    and x' and f1's and d's kicked v the step-start x and v."""
     n_real = params.n_fluid + params.n_solid
     zero = torch.zeros(p.n - n_real, 3)
+    zero1 = torch.zeros(p.n - n_real)
     forces = (p.x[n_real:], p.v[n_real:], zero)
     return {"f3": (zero,), "f3_advect": (p.v[n_real:], p.x[n_real:]),
             "d_kick": (zero, p.v[n_real:]), "d_accel": (zero,),
             "b": forces, "b_react": forces,
-            "f1": (zero, p.v[n_real:])}[call]
+            "f1": (zero, p.v[n_real:]), "f2": (zero1,) * 3,
+            "f4": (zero1,) * 2}[call]
 
 
 @pytest.mark.parametrize("call", CALLS)
@@ -143,11 +163,10 @@ def test_readers_over_the_slot_list_equal_plain(kind, call):
     padding rows what the JAX package's restore_tail gives them, launching
     nothing; in the corner scene centres it walks hold more pairs than the
     list (their warps walk the map on the card)."""
-    params, p, pressure, dt, snl, ctx, walks = _state(call, kind)
+    params, p, inp, snl, ctx, walks = _state(call, kind)
     if kind == "corner":
         assert int((ctx.cnt[walks] > K_LIST).sum()) > 0
-    wrapper, plain, args = pcisph_scenes._list_reader(
-        call, p, {"pressure": pressure, "dt": dt}, params)
+    wrapper, plain, args = pcisph_scenes._list_reader(call, p, inp, params)
     expect = _padding_rows(call, p, params)
     modules = (cuda_iisph, cuda_dfsph, cuda_pairs)
     before = tuple(dict(m.LAUNCHES) for m in modules)
@@ -175,8 +194,12 @@ def _jax_refs(kind):
     reaction (dt0: WCSPH's ``compute_forces``, ``advect`` and the fluid box
     clamp of ``enforce_boundary``, the unfused form of the force kernel's
     epilogue; without the reaction on the same scene with no dynamic rigid
-    listed) and f1 (dt0: IISPH's ``compute_non_pressure``, then the fluid
-    kick of ``predict_advection``)."""
+    listed), f1 (dt0: IISPH's ``compute_non_pressure``, then the fluid
+    kick of ``predict_advection``), f2 (dt0: ``predict_advection`` of the
+    seeded v as v*, the warm start from the seeded pressure) and f4 (dt0:
+    ``_apply_A`` of f3's acceleration with the relaxed-Jacobi update at
+    f2's a_ii and source, the seeded pressure the last iterate; its inputs
+    are returned as ``f4_inputs``)."""
     rng = np.random.default_rng(0)
     jp, jpart, _ = J.build_scene(
         J.SimConfig(config_dict=pcisph_scenes._scene(kind)))
@@ -192,6 +215,9 @@ def _jax_refs(kind):
         dataclasses.replace(jp, dynamic_rigid_ids=()))}
     assert jp.dynamic_rigid_ids
     dt = jnp.float32(jp.dt0)
+    rho0 = jp.density0
+    omega = pcisph_scenes.OMEGA
+    assert iisph.omega == omega
 
     def forces(solver, p, nl):
         f = solver.advect(solver.compute_forces(p, nl, dt=None), dt)
@@ -213,10 +239,25 @@ def _jax_refs(kind):
                            dt)
         f1 = iisph.compute_non_pressure(p, nl)
         f1_kicked = iisph.predict_advection(f1, nl, dt)[0]
+        _, a_ii, source, last_p = iisph.predict_advection(
+            p._replace(pressure=pressure), nl, dt, vstar_done=True)
+        # _apply_A with the relaxed-Jacobi update, as IISPH's loop
+        # (models/iisph.py pressure_solve) runs it on the gather engine
+        ap = iisph._apply_A(p, nl, accel) * (dt * dt) * rho0
+        real = p.material >= 0
+        new_p = jnp.where(
+            jnp.abs(a_ii) > 1e-6,
+            jnp.maximum(pressure + omega * (source - ap) / a_ii, 0.0), 0.0)
+        new_p = jnp.where(real, new_p, 0.0)
+        err = jnp.where(real & (new_p != 0.0),
+                        jnp.abs(ap - source) / rho0, 0.0)
         return {"x": p.x, "f3": accel, "f3_advect": (adv.v, adv.x),
                 "d_kick": (f.acc, kicked.v), "d_accel": f.acc,
                 **{k: forces(s, p, nl) for k, s in wcsph.items()},
-                "f1": (f1.acc, f1_kicked.v)}
+                "f1": (f1.acc, f1_kicked.v), "f2": (a_ii, source, last_p),
+                "f4": (new_p, err),
+                "f4_inputs": {"accel": accel, "a_ii": a_ii,
+                              "source": source}}
 
     return jax.device_get(refs(
         jpart._replace(x=jnp.asarray(x), v=jnp.asarray(v, jnp.float32)),
@@ -234,6 +275,9 @@ def test_readers_over_the_slot_list_match_jax(kind, call):
     params, p, inputs, smap, snl, _ = pcisph_scenes._case(kind)
     out = _jax_refs(kind)
     np.testing.assert_array_equal(p.x.numpy(), np.asarray(out["x"]))
+    # f4 takes the JAX package's own f2 and f3 outputs
+    inputs = dict(inputs, **{k: torch.from_numpy(np.array(a))
+                             for k, a in out["f4_inputs"].items()})
     ctx = pair_list.PairList(smap, *_slot_list(call, snl, p, params))
     wrapper, _, args = pcisph_scenes._list_reader(call, p, inputs, params)
     got = pcisph_scenes._outputs(wrapper(ctx, *args))
@@ -247,6 +291,12 @@ def test_readers_over_the_slot_list_match_jax(kind, call):
     if call == "f3":
         _close_rows(got[0], want[0], params, call)
         return
+    if call in ("f2", "f4"):
+        real = p.material.numpy() >= 0
+        assert all(np.abs(np.asarray(b)[real]).max() > 0 for b in want), call
+        if call == "f4":
+            # both sides of the Jacobi update's clamp at 0
+            assert (want[0][real] > 0).any() and (want[0][real] == 0).any()
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy()[:n_real],
                                    np.asarray(b)[:n_real], atol=ATOL,

@@ -13,8 +13,8 @@
 // The one-phase walk of centre i (if ``walks``) over the pairs of the
 // positions x with the geometry at xg, as the list kernels walked before
 // they read the list: for_each_neighbor_walk itself where xg is x (WCSPH's
-// forces, IISPH's f1 and f3 and the non-pressure kernel pass x twice, so
-// the test folds away when they are compiled), for_each_neighbor_pinned
+// forces, IISPH's four kernels and the non-pressure kernel pass x twice,
+// so the test folds away when they are compiled), for_each_neighbor_pinned
 // otherwise (PCISPH's loop).
 template <typename Walk, typename F>
 __device__ __forceinline__ void one_phase_step_pairs(
