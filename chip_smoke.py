@@ -24,7 +24,10 @@ Phases (any failure raises and exits non-zero):
    volume) and the three slot-walk kernels on a clumped scene with a
    static and a dynamic rigid block, at a 20-particle cell (slot and
    cell-run kernels equal bitwise) and a 40-particle cell (slot_overflow:
-   kernel and plain slot lists drop the same pairs);
+   kernel and plain slot lists drop the same pairs), kernel c's one-thread
+   design and lane groups of 8, 16 and 32 (tools/volume_walk_control.cu,
+   built with the kernels) and its plain version equal to it bitwise over
+   both walks;
 3. the WCSPH path: data/scenes/dragon_bath.json (442,006 particles)
    through ``Simulation`` on the card, timed with CUDA events; the kernels'
    launch counts over that run (density_sum_list = wcsph_forces = steps);
@@ -53,8 +56,11 @@ Phases (any failure raises and exits non-zero):
    reaches the dragon, then 5 timed steps and the reaction kernel's time;
    at that state the walk profile of e1's and d's centres with the list,
    and e1 (the list too) and d against their plain versions bitwise;
-   for the record, kernel 2.1 c's time over its 18,506 solids beside the
-   dense path's, which the dispatch keeps;
+   kernel 2.1 c once per step (the CUDA engines take it at every solid
+   count), at the contact over both walks against its plain versions and
+   its other designs (bitwise) with their times and bounds, beside the
+   dense path that the dispatch took before (the record); one step against
+   one plain-engine step (the dense volumes), at the tolerance;
 6. the IISPH path: data/scenes/dragon_bath.json with simulationMethod 2
    (442,006 particles, dt 4e-4) through ``Simulation``, 20 steps after 5
    of warm-up, timed with CUDA events; pressure iterations and host reads
@@ -98,14 +104,14 @@ Phases (any failure raises and exits non-zero):
    saved there and resumed into a fresh ``Simulation``, one step on both,
    bitwise equal;
 10. the armadillo scene's particle counts (build_scene only): its solids
-   take the dense boundary-volume path, not kernel 2.1 c;
+   take kernel 2.1 c on the card, the dense path on the plain engines;
 11. the solid-heavy path: dragon_bath_dynamic_dfsph.json with the dragon
    scaled by 1.25, built in memory (457,558 particles, 34,058 dynamic
    solids, above DENSE_SOLID_CAP), through ``Simulation`` with DFSPH at dt
-   4e-3, 20 timed steps after 5: kernel 2.1 c once in ``initialize`` (no
-   static solid, so no static launch) and once per step, the dense path
+   4e-3, 20 timed steps after 5: kernel 2.1 c once per step, the dense path
    never; kernel c against its plain version for both target masks, its
-   time, plain time and bound;
+   designs (bitwise) and their times, its registers, plain time and
+   bound;
 12. the slot path: data/scenes/dragon_bath.json (WCSPH) with
    ``backend="pallas_slots"`` through ``Simulation``, 50 timed steps after
    5, steps/s beside the cell-run path's, device busy per step beside
@@ -125,7 +131,7 @@ Phases (any failure raises and exits non-zero):
    equal bitwise);
 13. the scaled dynamic dragon as WCSPH (dt 4e-4) under
    ``backend="pallas_slots"``, 10 timed steps after 2: kernel c's slot
-   instantiation once in ``initialize`` and once per step, against its
+   instantiation once per step, against its
    plain version, beside the cell-run kernel c; device busy per step with
    the reaction forces over the step's list beside the one-phase control,
    and the state then bitwise that of a cell-run twin; at that state the
@@ -251,7 +257,10 @@ Phases (any failure raises and exits non-zero):
    shared memory and resident blocks of b's and f1-f4's slot
    instantiations (d's with phases 23 and 24).
 Each path's launch counts are set to 0 just before it runs and read just
-after.  The last lines are a ``kernels`` JSON line, the card line, and
+after.  Every ``Simulation`` on the card launches kernel c twice in its
+``initialize`` (the static and the moving volumes) and nothing else; the
+dense boundary-volume path is counted (``count_dense_calls``): never on a
+path, never by a CUDA engine.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
 
 Tolerances: atol 2e-5, rtol 2e-4 (the engine-equivalence tolerance of the
@@ -276,6 +285,10 @@ import numpy as np
 import torch
 
 ATOL, RTOL = 2e-5, 2e-4
+# kernel c's volumes against the dense path's: the same terms summed in
+# another order, 5.6e-07-6.3e-07 apart (relative) at the dynamic dragon's
+# 18,506 solids on an NVIDIA H100; the CPU tests hold m_V at this limit
+VOLUME_RTOL = 2e-6
 H100_BYTES_PER_S = 3.35e12     # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores
 # f32 operations per within-radius pair, counted from csrc/pairs.cu
@@ -489,9 +502,18 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_named(key, kernel):
+    """Whether the profiler's kernel name ``key`` contains ``kernel`` (a
+    string, or a tuple of strings it must all contain), spaces ignored."""
+    parts = (kernel,) if isinstance(kernel, str) else kernel
+    key = key.replace(" ", "")
+    return all(p.replace(" ", "") in key for p in parts)
+
+
 def kernel_ms(fn, kernel, reps, tries=5):
-    """Mean device ms of the CUDA kernel whose name contains ``kernel``,
-    over ``reps`` calls of ``fn`` under torch.profiler (one warm-up).  For
+    """Mean device ms of the CUDA kernel whose name contains ``kernel``
+    (``kernel_named``), over ``reps`` calls of ``fn`` under torch.profiler
+    (one warm-up).  For
     a wrapper whose host work (small torch ops before the launch) outlasts
     its kernel, CUDA events around the calls time the host instead.  The
     profiler can lose device records of a capture: one that holds fewer
@@ -508,7 +530,8 @@ def kernel_ms(fn, kernel, reps, tries=5):
             torch.cuda.synchronize()
         us, count = 0.0, 0
         for e in prof.key_averages():
-            if kernel in e.key and str(e.device_type).endswith("CUDA"):
+            if kernel_named(e.key, kernel) and \
+                    str(e.device_type).endswith("CUDA"):
                 us += getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0.0))
                 count += e.count
@@ -2180,11 +2203,10 @@ def main_path(device, scene_path, warmup, steps):
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pairs import GatherEngine
-    from sph_taichi_torch.simulation import Simulation
 
     t0 = time.perf_counter()
-    sim = Simulation(scene_path)
-    torch.cuda.synchronize()
+    sim = simulation(scene_path)
+    dense0 = DENSE_CALLS["dense"]
     params = sim.params
     print(f"dragon_bath: {params.n_particles} particles (fluid "
           f"{params.n_fluid}, solid {params.n_solid}), n_pad {params.n_pad}, "
@@ -2216,6 +2238,7 @@ def main_path(device, scene_path, warmup, steps):
             raise AssertionError(f"{name}: {count} launches in {steps} "
                                  f"WCSPH steps, expected "
                                  f"{expect.get(name, 0)}")
+    dense_calls_since(dense0, "WCSPH path")
 
     busy_ms = profile_steps(sim, 10)
     if busy_ms is not None:
@@ -2475,11 +2498,10 @@ def dfsph_path(device, scene_path, warmup, steps):
     from sph_taichi_torch.models.base import JACOBI_CHECK_EVERY as K
     from sph_taichi_torch.ops import cuda_dfsph as cd
     from sph_taichi_torch.ops.pairs import GatherEngine
-    from sph_taichi_torch.simulation import Simulation
 
     t0 = time.perf_counter()
-    sim = Simulation(scene_path)
-    torch.cuda.synchronize()
+    sim = simulation(scene_path)
+    dense0 = DENSE_CALLS["dense"]
     params = sim.params
     print(f"dragon_bath_dfsph: {params.n_particles} particles (fluid "
           f"{params.n_fluid}, solid {params.n_solid}), dt {params.dt0}; "
@@ -2537,6 +2559,7 @@ def dfsph_path(device, scene_path, warmup, steps):
             raise AssertionError(f"{name}: {count} launches in {steps} "
                                  f"DFSPH steps, expected "
                                  f"{expect.get(name, 0)}")
+    dense_calls_since(dense0, "DFSPH path")
     counts = {"divergence_iters": n_div, "pressure_iters": n_prs,
               "host_reads": r_div + r_prs}
     if steps == 20:
@@ -2818,14 +2841,102 @@ def dragon_contact(sim):
     return float(acc[q.is_dynamic_rigid()].abs().max())
 
 
+def contact_volumes(device, sim, q, starts, nl):
+    """The dynamic dragon's volumes at the contact (sorted particles ``q``,
+    cell offsets ``starts``, the plain engine's lists ``nl``): kernel c,
+    which gives the step's volumes since the dispatch gave the CUDA
+    engines kernel c at every solid count, over both walks against its
+    plain versions and its other designs (``volume_designs``), beside the
+    dense path that took them before (the record); then one step of
+    ``sim`` against one plain-engine step from its state."""
+    from sph_taichi_torch import build_solver
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops.pairs import GatherEngine
+    from sph_taichi_torch.ops.slots import build_slot_map, slot_neighbor_list
+
+    params = sim.params
+    dynr = q.is_dynamic_rigid()
+    volume_occupancy()
+    err, c_ms = volume_designs(starts, q, dynr, params,
+                               "dynamic dragon at contact", nl)
+    caps = dataclasses.replace(
+        params, neighbor_cap=max(params.neighbor_cap, int(nl.max_cnt)),
+        cell_cap=max(params.cell_cap, int(base.max_cell_occupancy(starts))))
+    smap = build_slot_map(starts, params)
+    snl = slot_neighbor_list(smap, q.x, caps)
+    if int(snl.diag["neighbor_overflow"]):
+        raise AssertionError("dynamic dragon: plain slot lists overflowed")
+    print(f"  slot map at contact: max_layers_used "
+          f"{int(smap.diag['max_layers_used'])}, slot_overflow "
+          f"{bool(smap.diag['slot_overflow'])} (kernel and plain slot lists "
+          f"drop the same pairs)")
+    err_s, s_ms = volume_designs(smap, q, dynr, params,
+                                 "dynamic dragon at contact [slots]", snl)
+    dense_ms = time_ms(lambda: base._boundary_volume_dense(q, params, dynr),
+                       3)
+    p_ms = time_ms(lambda: cp.boundary_volume_plain(nl, q, dynr, params), 3)
+    mv_c = cp.boundary_volume(starts, q, dynr, params)[dynr].double()
+    mv_d = base._boundary_volume_dense(q, params, dynr).m_V[dynr].double()
+    rel_cd = float(((mv_c - mv_d) / mv_d).abs().max())
+    b = volume_bound("boundary_volume at the dynamic dragon's contact",
+                     params, q, nl, dynr, offset_bytes(params, q.x[dynr]))
+    b_s = volume_bound("boundary_volume[slots] at the dynamic dragon's "
+                       "contact", params, q, snl, dynr,
+                       slot_map_bytes(params, smap, q.x[dynr]))
+    print(f"boundary volumes of the dragon's {int(dynr.sum())} solids at "
+          f"the contact: kernel c {c_ms['shipped']:.4f} ms, over the slot "
+          f"map {s_ms['shipped']:.4f} ms (profiler; bounds {b[0]:.5f} ms by "
+          f"{b[1]}, {b_s[0]:.5f} ms by {b_s[1]}), plain {p_ms:.4f} ms; the "
+          f"dense path, which the dispatch took before, {dense_ms:.4f} ms "
+          f"(CUDA events); max rel difference kernel c against dense "
+          f"{rel_cd:.3e} (summation order, limit {VOLUME_RTOL:g}); max abs "
+          f"error against the plain versions {err:.3e} / {err_s:.3e}")
+    if not rel_cd <= VOLUME_RTOL:
+        raise AssertionError(f"dynamic dragon at contact: kernel c's volumes "
+                             f"{rel_cd:.3e} from the dense path's")
+    del smap, snl
+
+    # one step from this state on the card's engine and on the plain
+    # engine (caps raised to the state's), whose dispatch takes the dense
+    # path below DENSE_SOLID_CAP: the volumes differ by summation order
+    plain_solver = build_solver(caps, device=device,
+                                engine=GatherEngine(caps))
+    ks, km = sim.solver.step(sim.state)
+    ps, pm = plain_solver.step(sim.state)
+    if int(pm["neighbor_overflow"]):
+        raise AssertionError("plain step overflowed its neighbour cap")
+    its = [(int(km[k]), int(pm[k])) for k in ("divergence_iters",
+                                              "pressure_iters")]
+    print(f"dynamic dragon at contact, step kernel vs plain engine: "
+          f"iterations (kernel, plain) divergence {its[0]}, pressure "
+          f"{its[1]}")
+    real = ps.p.material != -1
+    for name in ("x", "v", "density", "m_V"):
+        max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                   f"dynamic dragon step kernel vs plain engine: {name}")
+    solid = ps.p.material == 0
+    rel = float(((ks.p.m_V[solid].double() - ps.p.m_V[solid].double())
+                 / ps.p.m_V[solid].double()).abs().max())
+    print(f"  m_V of the solids, kernel c against the dense path: max rel "
+          f"difference {rel:.3e} (limit {VOLUME_RTOL:g})")
+    if not rel <= VOLUME_RTOL:
+        raise AssertionError(f"dynamic dragon step: m_V {rel:.3e} from the "
+                             f"plain engine's")
+    del plain_solver, ks, ps
+
+
 def reaction_at_scale(device, scene_path, steps, max_lead=200):
     """Phase 5: the dynamic dragon (DFSPH with the reaction variant): run
     until the fluid reaches the dragon (at most ``max_lead`` steps), then
-    ``steps`` timed steps, and the reaction kernel's time at that state."""
+    ``steps`` timed steps (kernel c once per step, the dense path never),
+    the reaction kernel's time at that state, kernel c's designs over both
+    walks there beside the dense path, and one step against one
+    plain-engine step."""
     from sph_taichi_torch.ops import cuda_dfsph as cd
-    from sph_taichi_torch.simulation import Simulation
 
-    sim = Simulation(scene_path)
+    sim = simulation(scene_path)
+    dense0 = DENSE_CALLS["dense"]
     params = sim.params
     print(f"dragon_bath_dynamic_dfsph: {params.n_particles} particles, "
           f"dynamic rigids {params.dynamic_rigid_ids}")
@@ -2848,10 +2959,16 @@ def reaction_at_scale(device, scene_path, steps, max_lead=200):
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / steps
     st = sim.read_solver_stats()
+    launches = all_launch_counts()
     print(f"dynamic dragon: {steps} steps, {step_ms:.4f} ms/step, "
           f"{1e3 / step_ms:.3f} steps/s; iterations divergence "
           f"{st['divergence_iters_sum']} pressure {st['pressure_iters_sum']};"
-          f" launches {all_launch_counts()}")
+          f" launches {launches}")
+    dense_calls_since(dense0, "dynamic dragon path")
+    if launches["boundary_volume"] != steps or \
+            launches["boundary_volume[slots]"]:
+        raise AssertionError(f"kernel c: {launches['boundary_volume']} "
+                             f"launches in {steps} steps, expected {steps}")
     check_state(sim)
     busy_ms = profile_steps(sim, 3)
     if busy_ms is not None:
@@ -2905,21 +3022,7 @@ def reaction_at_scale(device, scene_path, steps, max_lead=200):
           f"(without the reaction {fluid_ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms); max |reaction| on the dragon {moved:.3e} with the state's "
           f"stiffness, {moved_random:.3e} with a random one")
-    # for the record: kernel c over these 18,506 solids beside the dense
-    # path that takes them (the dispatch stays the dense path)
-    from sph_taichi_torch.models import base
-    from sph_taichi_torch.ops import cuda_pairs as cp
-    c_ms = kernel_ms(lambda: cp.boundary_volume(starts, q, dynr, params),
-                     "boundary_volume_kernel<CellRunWalk>", 20)
-    dense_ms = time_ms(lambda: base._boundary_volume_dense(q, params, dynr),
-                       3)
-    mv_c = cp.boundary_volume(starts, q, dynr, params)[dynr].double()
-    mv_d = base._boundary_volume_dense(q, params, dynr).m_V[dynr].double()
-    print(f"boundary volumes of the dragon's {int(dynr.sum())} solids: "
-          f"kernel c {c_ms:.4f} ms (profiler), dense path {dense_ms:.4f} "
-          f"ms (CUDA events); max rel "
-          f"difference {float(((mv_c - mv_d) / mv_d).abs().max()):.3e} "
-          f"(summation order)")
+    contact_volumes(device, sim, q, starts, nl)
     return step_ms, react_ms
 
 
@@ -3132,9 +3235,10 @@ def iisph_walk_profiles(params, q, starts, nl, label):
 
 
 def armadillo_counts(device):
-    """The armadillo scene's particle counts (build_scene alone): its
-    solids stay under DENSE_SOLID_CAP, so its boundary volumes take the
-    dense path, not kernel 2.1 c."""
+    """The armadillo scene's particle counts (build_scene alone): on the
+    card its boundary volumes take kernel 2.1 c, as every scene's do; its
+    solids stay under DENSE_SOLID_CAP, so the plain engines take the
+    dense path."""
     from sph_taichi_torch import SimConfig, build_scene
     from sph_taichi_torch.models.base import DENSE_SOLID_CAP
 
@@ -3143,8 +3247,9 @@ def armadillo_counts(device):
     dense = params.n_solid <= DENSE_SOLID_CAP
     print(f"armadillo_bath_dynamic: {params.n_fluid} fluid + "
           f"{params.n_solid} solid particles, dynamic rigids "
-          f"{params.dynamic_rigid_ids}; boundary volumes by the "
-          f"{'dense path' if dense else 'traversal (kernel 2.1 c)'} "
+          f"{params.dynamic_rigid_ids}; boundary volumes by kernel 2.1 c on "
+          f"the card, by the "
+          f"{'dense path' if dense else 'traversal'} on the plain engines "
           f"(cap {DENSE_SOLID_CAP})")
     return params.n_fluid, params.n_solid
 
@@ -3162,11 +3267,10 @@ def iisph_path(device, warmup, steps):
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_iisph as ci
     from sph_taichi_torch.ops.pairs import GatherEngine
-    from sph_taichi_torch.simulation import Simulation
 
     t0 = time.perf_counter()
-    sim = Simulation(config=dragon_config(2), scene_dir=".")
-    torch.cuda.synchronize()
+    sim = simulation(config=dragon_config(2), scene_dir=".")
+    dense0 = DENSE_CALLS["dense"]
     params = sim.params
     if type(sim.solver).__name__ != "IISPHSolver":
         raise AssertionError(f"method 2 built {type(sim.solver).__name__}")
@@ -3228,6 +3332,7 @@ def iisph_path(device, warmup, steps):
             raise AssertionError(f"{name}: {count} launches in {steps} "
                                  f"IISPH steps, expected "
                                  f"{expect.get(name, 0)}")
+    dense_calls_since(dense0, "IISPH path")
     if not n_it <= K * reads <= n_it + (K - 1) * steps:
         raise AssertionError(f"{n_it} iterations, {reads} reads")
     print(f"  pressure solve: {n_it} iterations ran (the loop launches with "
@@ -3467,9 +3572,8 @@ def iisph_iterating(device, dt, steps, max_lead=400):
     """The IISPH dragon at a larger dt: run until a step's pressure solve
     iterates more than once (reading the counts every 10 steps, at most
     ``max_lead`` steps), then ``steps`` timed steps."""
-    from sph_taichi_torch.simulation import Simulation
 
-    sim = Simulation(config=dragon_config(2, dt), scene_dir=".")
+    sim = simulation(config=dragon_config(2, dt), scene_dir=".")
     t0 = time.perf_counter()
     first = None
     while True:
@@ -3799,11 +3903,10 @@ def pcisph_path(device, warmup, steps):
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops import cuda_pcisph as cg
     from sph_taichi_torch.ops.pairs import GatherEngine
-    from sph_taichi_torch.simulation import Simulation
 
     t0 = time.perf_counter()
-    sim = Simulation(config=dragon_config(1), scene_dir=".")
-    torch.cuda.synchronize()
+    sim = simulation(config=dragon_config(1), scene_dir=".")
+    dense0 = DENSE_CALLS["dense"]
     params = sim.params
     if type(sim.solver).__name__ != "PCISPHSolver":
         raise AssertionError(f"method 1 built {type(sim.solver).__name__}")
@@ -3864,6 +3967,7 @@ def pcisph_path(device, warmup, steps):
             raise AssertionError(f"{name}: {count} launches in {steps} "
                                  f"PCISPH steps, expected "
                                  f"{expect.get(name, 0)}")
+    dense_calls_since(dense0, "PCISPH path")
     if not 3 * steps <= n_it <= K * reads <= n_it + (K - 1) * steps:
         raise AssertionError(f"{n_it} iterations, {reads} reads")
     print(f"  pressure loop: {n_it} iterations ran (the launches with work),"
@@ -4063,7 +4167,7 @@ def pcisph_path(device, warmup, steps):
     path = os.path.join("build", "chip_smoke", "checkpoint.npz")
     sim.save(path)
     t0 = time.perf_counter()
-    fresh = Simulation(config=dragon_config(1), scene_dir=".")
+    fresh = simulation(config=dragon_config(1), scene_dir=".")
     fresh.resume(path)
     print(f"checkpoint: {os.path.getsize(path)} bytes at step "
           f"{int(sim.state.step_count)}, resumed into a fresh Simulation in "
@@ -4138,7 +4242,9 @@ def check_volume_and_slot_kernels_on_small_scenes(device):
     bitwise, and a 40-particle cell (``slot_overflow``), where kernel and
     plain slot lists drop the same pairs (called directly); the slot forces
     over the list that the slot density kernel writes, held against its
-    plain version first."""
+    plain version first.  Kernel c's one-thread design and its lane groups
+    (``volume_designs``) equal it bitwise over both walks, for both target
+    masks (the static one padded with -1)."""
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.pairs import GatherEngine
     from sph_taichi_torch.ops.slots import (
@@ -4160,8 +4266,10 @@ def check_volume_and_slot_kernels_on_small_scenes(device):
     for which, mask in masks.items():
         if not bool(mask.any()):
             raise AssertionError(f"no {which} solid in the volume scene")
-        check("boundary_volume", cp.boundary_volume(starts, p, mask, params),
-              cp.boundary_volume_plain(nl, p, mask, params), which)
+        worst["boundary_volume"] = max(
+            worst.get("boundary_volume", 0.0),
+            volume_designs(starts, p, mask, params,
+                           f"volume scene [{which}]", nl, reps=0)[0])
     q, dpi, p_r02, m_nc, rr0 = solver.force_inputs(p)
     dt = torch.full((), params.dt0, dtype=torch.float32, device=device)
     for kind in ("layers", "overflow"):
@@ -4208,33 +4316,97 @@ def check_volume_and_slot_kernels_on_small_scenes(device):
                                                  rr0, dt, params)):
                 if not torch.equal(a, b):
                     raise AssertionError("slot and cell-run forces differ")
+        # kernel c's designs over both walks (-1 pads the static mask's
+        # targets), the cell runs of the clump against the lists of every
+        # pair
         for which, mask in masks.items():
+            worst["boundary_volume[slots]"] = max(
+                worst.get("boundary_volume[slots]", 0.0),
+                volume_designs(smap, p, mask, params,
+                               f"volume scene [{kind}, slots, {which}]", snl,
+                               reps=0)[0])
+            worst["boundary_volume"] = max(
+                worst["boundary_volume"],
+                volume_designs(starts, p, mask, params,
+                               f"volume scene [{kind}, {which}]", full,
+                               reps=0)[0])
             got = cp.boundary_volume(smap, p, mask, params)
-            check("boundary_volume[slots]", got, cp.boundary_volume_plain(
-                snl, p, mask, params), f"{kind}.{which}")
             if kind == "layers" and not torch.equal(
                     got, cp.boundary_volume(starts, p, mask, params)):
                 raise AssertionError("slot and cell-run volumes differ")
     return worst
 
 
+# the dense boundary-volume path's calls since main() wrapped it
+# (count_dense_calls): all of them, and those a fused (CUDA) engine's
+# dispatch made, which must stay 0
+DENSE_CALLS = {"dense": 0, "fused": 0}
+
+
 def count_dense_calls():
-    """Wrap the dense boundary-volume path to count its calls; returns the
-    counter (a dict) and a function that restores the path."""
+    """Wrap the boundary-volume dispatch and its dense path to count the
+    dense path's calls in ``DENSE_CALLS``: every call, and the calls that
+    a fused engine's dispatch made; returns a function that restores
+    both."""
     from sph_taichi_torch.models import base
 
-    calls = {"dense": 0}
-    dense = base._boundary_volume_dense
+    dense, dispatch = base._boundary_volume_dense, base._boundary_volume
+    fused = [False]
+
+    def counted_dispatch(p, ctx, engine, params, target_mask):
+        fused[0] = engine.fused
+        try:
+            return dispatch(p, ctx, engine, params, target_mask)
+        finally:
+            fused[0] = False
 
     def counted(*args, **kwargs):
-        calls["dense"] += 1
+        DENSE_CALLS["dense"] += 1
+        DENSE_CALLS["fused"] += int(fused[0])
         return dense(*args, **kwargs)
 
+    base._boundary_volume = counted_dispatch
     base._boundary_volume_dense = counted
 
     def restore():
+        base._boundary_volume = dispatch
         base._boundary_volume_dense = dense
-    return calls, restore
+    return restore
+
+
+def simulation(*args, **kwargs):
+    """``Simulation(*args, **kwargs)`` on the card: its ``initialize``
+    must launch kernel c twice over the engine's walk (the static and the
+    moving volumes; a target mask without rows writes nothing) and nothing
+    else, and never take the dense path."""
+    from sph_taichi_torch.simulation import Simulation
+
+    reset_all_launch_counts()
+    before = DENSE_CALLS["dense"]
+    sim = Simulation(*args, **kwargs)
+    torch.cuda.synchronize()
+    init = {k: v for k, v in all_launch_counts().items() if v}
+    dense = DENSE_CALLS["dense"] - before
+    name = "boundary_volume" + (
+        "[slots]" if sim.params.backend == "pallas_slots" else "")
+    print(f"initialize ({sim.params.n_solid} solids, backend "
+          f"{sim.params.backend}): launches {init}, dense path calls "
+          f"{dense}")
+    if init != {name: 2} or dense:
+        raise AssertionError(f"initialize launched {init} and took the dense "
+                             f"path {dense} times; expected {{{name!r}: 2}} "
+                             f"and none")
+    return sim
+
+
+def dense_calls_since(before, label):
+    """Raises if the dense path ran since ``DENSE_CALLS["dense"]`` read
+    ``before``; prints the count."""
+    n = DENSE_CALLS["dense"] - before
+    print(f"{label}: dense path calls {n}")
+    if n:
+        raise AssertionError(f"{label}: the dense boundary-volume path ran "
+                             f"{n} times")
 
 
 def scaled_dragon_config(method=None, dt=None):
@@ -4301,89 +4473,157 @@ def volume_bound(name, params, q, nl, mask, index_bytes):
     return bound(name, nbytes, flops)
 
 
+# lanes per target of kernel c's designs in the control library
+VOLUME_GROUPS = (8, 16, 32)
+# the shipped kernel c over each walk, as the profiler names it
+VOLUME_KERNELS = {"CellRunWalk": "boundary_volume_warp_kernel(",
+                  "SlotWalk": "boundary_volume_thread_kernel<SlotWalk>"}
+
+
+def volume_designs(ctx, q, mask, params, label, nl, reps=20):
+    """Kernel c at these inputs (``ctx`` the cell offsets or a SlotMap,
+    ``mask`` the targets): the shipped kernel (a warp per target over the
+    cell runs, a thread per target over the slot map) equal bitwise to its
+    plain version over the lists ``nl``, and to it bitwise the one-thread
+    design and every lane group of VOLUME_GROUPS (the control library of
+    tools/volume_walk_control.cu) on the same inputs; with ``reps``, each
+    design's device ms (profiler).  Returns (the largest difference from
+    the plain version, which is 0, {design: ms})."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops.slots import SlotMap
+
+    walk = "SlotWalk" if isinstance(ctx, SlotMap) else "CellRunWalk"
+
+    def call():
+        return cp.boundary_volume(ctx, q, mask, params)
+
+    shipped = call()
+    plain = cp.boundary_volume_plain(nl, q, mask, params)
+    err = max_errors(shipped, plain, f"{label}: boundary_volume over {walk}")
+    if not torch.equal(shipped, plain):
+        raise AssertionError(f"{label}: kernel c over {walk} is not bitwise "
+                             f"its plain version")
+    ms = {}
+    if reps:
+        ms["shipped"] = kernel_ms(call, VOLUME_KERNELS[walk], reps)
+    lib = CONTROL["volume"]
+    designs = {"one thread": (1, f"boundary_volume_thread_kernel<{walk}>")}
+    designs.update({f"{g} lanes": (g, f"boundary_volume_group_kernel<{g},"
+                                      f"{walk}>") for g in VOLUME_GROUPS})
+    with control_libs("volume"):
+        for name, (group, kernel) in designs.items():
+            if lib.control_volume_group(group):
+                raise AssertionError(f"control_volume_group({group})")
+            try:
+                if not torch.equal(call(), shipped):
+                    raise AssertionError(f"{label}: kernel c's {name} design "
+                                         f"over {walk} differs from the "
+                                         f"shipped kernel")
+                if reps:
+                    ms[name] = kernel_ms(call, kernel, reps)
+            finally:
+                lib.control_volume_group(0)
+    print(f"  {label}: kernel c over {walk}, {int(mask.sum())} targets: "
+          f"equal to its plain version bitwise, and the one-thread design "
+          f"and lane groups {VOLUME_GROUPS} equal to it bitwise"
+          + (f"; device ms (profiler, {reps} launches each) "
+             + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) if reps
+             else ""))
+    return err, ms
+
+
+def volume_occupancy():
+    """Registers, shared memory and resident blocks of kernel c over both
+    walks, and of the design not shipped on each (the control library)."""
+    from sph_taichi_torch.ops import cuda_pairs as cp
+
+    for k, slots in enumerate((False, True)):
+        regs, smem, blocks = cp.occupancy("boundary_volume", slots)
+        out = [ctypes.c_int() for _ in range(3)]
+        if CONTROL["volume"].control_volume_occupancy(
+                k, *[ctypes.byref(o) for o in out]):
+            raise AssertionError("control_volume_occupancy")
+        shipped, other = (("a thread per target", "the lane group of 32")
+                          if slots else
+                          ("a warp per target", "a thread per target"))
+        print(f"  boundary_volume{'[slots]' if slots else ''} ({shipped}): "
+              f"{regs} registers, {smem} bytes of shared memory per block, "
+              f"{blocks} blocks of 128 per SM (occupancy {blocks * 4 / 64:.3f})"
+              f"; {other} {out[0].value} registers, {out[2].value} blocks "
+              f"per SM")
+
+
 def volume_path(device, warmup, steps):
     """The solid-heavy dynamic dragon (dragon_bath_dynamic_dfsph with the
     dragon scaled by 1.25) through ``Simulation`` with DFSPH: kernel c in
-    ``initialize`` and once per step, the dense path never; returns the
-    kernel's JSON entry."""
+    ``initialize`` and once per step, the dense path never; at that state
+    kernel c against its plain version (both target masks) and its
+    designs (``volume_designs``); returns the kernel's JSON entry."""
     import warnings
 
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pairs as cp
-    from sph_taichi_torch.simulation import Simulation
 
-    calls, restore = count_dense_calls()
-    try:
-        reset_all_launch_counts()
-        t0 = time.perf_counter()
-        sim = Simulation(config=scaled_dragon_config())
-        torch.cuda.synchronize()
-        params = sim.params
-        init = all_launch_counts()
-        print(f"scaled dynamic dragon (dragon_bath_dynamic_dfsph, dragon "
-              f"scale 1.25): {params.n_particles} particles (fluid "
-              f"{params.n_fluid}, solid {params.n_solid} > DENSE_SOLID_CAP "
-              f"{base.DENSE_SOLID_CAP}), dynamic rigids "
-              f"{params.dynamic_rigid_ids}, grid {params.grid_num}, dt "
-              f"{params.dt0}; scene + initialize "
-              f"{time.perf_counter() - t0:.2f} s; launches in initialize "
-              f"{ {k: v for k, v in init.items() if v} }")
-        if params.n_solid <= base.DENSE_SOLID_CAP:
-            raise AssertionError("the scaled dragon takes the dense path")
-        # the static call (no static solid: no target row writes) and the
-        # dynamic one
-        if init["boundary_volume"] != 2 or sum(init.values()) != 2:
-            raise AssertionError(f"initialize launched {init}")
-        sim.run(warmup, export=False)
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                _, m = sim.solver.step(sim.state)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                 if "called a synchronizing" in str(w.message)]
-        reads = int(m["divergence_host_reads"] + m["pressure_host_reads"])
-        # the loop tests' reads, and the rigid solve's SVD and determinant
-        loop = [w for w in where if w.startswith("sph_taichi_torch/models/")]
-        other = [w for w in where if w not in loop
-                 and not w.startswith("sph_taichi_torch/ops/linalg.py")]
-        print(f"one step under torch.cuda sync-debug mode 'warn': "
-              f"{len(where)} host syncs {where}; {reads} reads of the loop "
-              f"tests")
-        if len(loop) != reads or other:
-            raise AssertionError("a step syncs outside its loop tests and "
-                                 "its rigid solve")
+    t0 = time.perf_counter()
+    sim = simulation(config=scaled_dragon_config())
+    dense0 = DENSE_CALLS["dense"]
+    params = sim.params
+    print(f"scaled dynamic dragon (dragon_bath_dynamic_dfsph, dragon "
+          f"scale 1.25): {params.n_particles} particles (fluid "
+          f"{params.n_fluid}, solid {params.n_solid} > DENSE_SOLID_CAP "
+          f"{base.DENSE_SOLID_CAP}), dynamic rigids "
+          f"{params.dynamic_rigid_ids}, grid {params.grid_num}, dt "
+          f"{params.dt0}; scene + initialize "
+          f"{time.perf_counter() - t0:.2f} s")
+    if params.n_solid <= base.DENSE_SOLID_CAP:
+        raise AssertionError("the scaled dragon is not above the cap")
+    sim.run(warmup, export=False)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, m = sim.solver.step(sim.state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    reads = int(m["divergence_host_reads"] + m["pressure_host_reads"])
+    # the loop tests' reads, and the rigid solve's SVD and determinant
+    loop = [w for w in where if w.startswith("sph_taichi_torch/models/")]
+    other = [w for w in where if w not in loop
+             and not w.startswith("sph_taichi_torch/ops/linalg.py")]
+    print(f"one step under torch.cuda sync-debug mode 'warn': "
+          f"{len(where)} host syncs {where}; {reads} reads of the loop "
+          f"tests")
+    if len(loop) != reads or other:
+        raise AssertionError("a step syncs outside its loop tests and "
+                             "its rigid solve")
 
-        reset_all_launch_counts()
-        sim.reset_solver_stats()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        sim.run(steps // sim.substeps, export=False)
-        end.record()
-        torch.cuda.synchronize()
-        launches = all_launch_counts()
-        st = sim.read_solver_stats()
-        step_ms = start.elapsed_time(end) / steps
-        print(f"scaled dragon path (DFSPH): {steps} steps, {step_ms:.4f} "
-              f"ms/step, {1e3 / step_ms:.3f} steps/s; iterations "
-              f"divergence {st['divergence_iters_sum']} pressure "
-              f"{st['pressure_iters_sum']}; launches "
-              f"{ {k: v for k, v in launches.items() if v} }; dense path "
-              f"calls since the scene was built {calls['dense']}")
-        for name in ("boundary_volume", "dfsph_density_factor",
-                     "nonpressure_kick"):
-            if launches[name] != steps:
-                raise AssertionError(f"{name}: {launches[name]} launches in "
-                                     f"{steps} steps")
-        if calls["dense"] or any(launches[k] for k in launches
-                                 if "[slots]" in k):
-            raise AssertionError("the dense path or a slot kernel ran")
-    finally:
-        restore()
+    reset_all_launch_counts()
+    sim.reset_solver_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    st = sim.read_solver_stats()
+    step_ms = start.elapsed_time(end) / steps
+    print(f"scaled dragon path (DFSPH): {steps} steps, {step_ms:.4f} "
+          f"ms/step, {1e3 / step_ms:.3f} steps/s; iterations "
+          f"divergence {st['divergence_iters_sum']} pressure "
+          f"{st['pressure_iters_sum']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    dense_calls_since(dense0, "scaled dragon path")
+    for name in ("boundary_volume", "dfsph_density_factor",
+                 "nonpressure_kick"):
+        if launches[name] != steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} steps")
+    if any(launches[k] for k in launches if "[slots]" in k):
+        raise AssertionError("a slot kernel ran")
     busy_ms = profile_steps(sim, 5)
     if busy_ms is not None:
         print(f"device busy {busy_ms:.4f} ms of the {step_ms:.4f} ms step: "
@@ -4392,19 +4632,17 @@ def volume_path(device, warmup, steps):
 
     q, starts, nl, _, _, _ = dragon_state_kernels(params, sim.solver,
                                                   sim.state)
+    volume_occupancy()
     masks = {"static": q.is_static_rigid(), "dynamic": q.is_dynamic_rigid()}
     err = 0.0
     for which, mask in masks.items():
-        err = max(err, max_errors(
-            cp.boundary_volume(starts, q, mask, params),
-            cp.boundary_volume_plain(nl, q, mask, params),
-            f"scaled dragon boundary_volume[{which}]"))
+        e, ms = volume_designs(starts, q, mask, params,
+                               f"scaled dragon [{which}]", nl,
+                               reps=20 if which == "dynamic" else 0)
+        err = max(err, e)
     dyn = masks["dynamic"]
-    def call():
-        return cp.boundary_volume(starts, q, dyn, params)
-
-    k_ms = kernel_ms(call, "boundary_volume_kernel<CellRunWalk>", 20)
-    call_ms = time_ms(call, 20)
+    k_ms = ms["shipped"]
+    call_ms = time_ms(lambda: cp.boundary_volume(starts, q, dyn, params), 20)
     p_ms = time_ms(lambda: cp.boundary_volume_plain(nl, q, dyn, params), 3)
     b = volume_bound("boundary_volume", params, q, nl, dyn,
                      offset_bytes(params, q.x[dyn]))
@@ -4437,17 +4675,16 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.slots import (
         build_slot_map, slot_neighbor_list)
-    from sph_taichi_torch.simulation import Simulation
 
     t0 = time.perf_counter()
-    sim = Simulation(scene_path, backend="pallas_slots")
-    torch.cuda.synchronize()
+    sim = simulation(scene_path, backend="pallas_slots")
+    dense0 = DENSE_CALLS["dense"]
     params = sim.params
     print(f"dragon_bath with backend pallas_slots (slot_layers "
           f"{params.slot_layers}): scene + initialize "
           f"{time.perf_counter() - t0:.2f} s")
     # the cell-run twin, stepped alike, for the A/B in turns below
-    cell_sim = Simulation(scene_path)
+    cell_sim = simulation(scene_path)
     sim.run(warmup, export=False)
     cell_sim.run(warmup + steps, export=False)
     torch.cuda.synchronize()
@@ -4480,6 +4717,7 @@ def slot_path(device, scene_path, warmup, steps, cell_step_ms):
         if count != expect.get(name, 0):
             raise AssertionError(f"{name}: {count} launches in {steps} slot "
                                  f"steps, expected {expect.get(name, 0)}")
+    dense_calls_since(dense0, "slot path")
     if bool(m["slot_overflow"]):
         raise AssertionError("slot_overflow on the dragon")
 
@@ -4680,63 +4918,49 @@ def slot_volume_path(device, warmup, steps):
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pairs as cp
     from sph_taichi_torch.ops.slots import slot_neighbor_list
-    from sph_taichi_torch.simulation import Simulation
 
-    calls, restore = count_dense_calls()
-    try:
-        reset_all_launch_counts()
-        sim = Simulation(config=scaled_dragon_config(method=0, dt=4e-4),
-                         backend="pallas_slots")
-        torch.cuda.synchronize()
-        params = sim.params
-        init = all_launch_counts()
-        print(f"scaled dynamic dragon as WCSPH with backend pallas_slots: "
-              f"launches in initialize "
-              f"{ {k: v for k, v in init.items() if v} }")
-        # the static call (no target row writes) and the dynamic one
-        if init["boundary_volume[slots]"] != 2 or sum(init.values()) != 2:
-            raise AssertionError(f"initialize launched {init}")
-        sim.run(warmup, export=False)
-        reset_all_launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        sim.run(steps // sim.substeps, export=False)
-        end.record()
-        torch.cuda.synchronize()
-        launches = all_launch_counts()
-        step_ms = start.elapsed_time(end) / steps
-        print(f"scaled dragon slot path (WCSPH): {steps} steps, "
-              f"{step_ms:.4f} ms/step; max_layers_used "
-              f"{int(sim.metrics['max_layers_used'])}; launches "
-              f"{ {k: v for k, v in launches.items() if v} }; dense path "
-              f"calls {calls['dense']}")
-        expect = {"boundary_volume[slots]": steps,
-                  "density_sum_list[slots]": steps,
-                  "wcsph_forces[slots]": steps}
-        if {k: v for k, v in launches.items() if v} != expect or \
-                calls["dense"]:
-            raise AssertionError(f"launches {launches}, expected {expect}")
-        # the forces' earlier slot design (one phase, no list) between
-        # this design's runs, 5 steps each: the map overflows from step
-        # ~58 (a cell past 32 particles at the contact)
-        busy_ms = profile_steps(sim, 5)
-        with control_kernels(0):
-            one_phase_ms = profile_steps(sim, 5)
-        again_ms = profile_steps(sim, 5)
-        print(f"scaled dragon slot WCSPH device busy per step (profiler, 5 "
-              f"steps each): wcsph_forces with the reaction over the "
-              f"step's list {busy_ms} / {again_ms} ms; one-phase, no list "
-              f"({control_name(0)}) {one_phase_ms} ms")
-        cell = Simulation(config=scaled_dragon_config(method=0, dt=4e-4))
-        cell.run(int(sim.state.step_count) // cell.substeps, export=False)
-        if int(cell.state.step_count) != int(sim.state.step_count):
-            raise AssertionError("the cell-run twin is not at the slot "
-                                 "run's step")
-        if calls["dense"]:
-            raise AssertionError("the cell-run twin took the dense path")
-    finally:
-        restore()
+    sim = simulation(config=scaled_dragon_config(method=0, dt=4e-4),
+                     backend="pallas_slots")
+    dense0 = DENSE_CALLS["dense"]
+    params = sim.params
+    sim.run(warmup, export=False)
+    reset_all_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    step_ms = start.elapsed_time(end) / steps
+    print(f"scaled dragon slot path (WCSPH): {steps} steps, "
+          f"{step_ms:.4f} ms/step; max_layers_used "
+          f"{int(sim.metrics['max_layers_used'])}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    dense_calls_since(dense0, "scaled dragon slot path")
+    expect = {"boundary_volume[slots]": steps,
+              "density_sum_list[slots]": steps,
+              "wcsph_forces[slots]": steps}
+    if {k: v for k, v in launches.items() if v} != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    # the forces' earlier slot design (one phase, no list) between
+    # this design's runs, 5 steps each: the map overflows from step
+    # ~58 (a cell past 32 particles at the contact)
+    busy_ms = profile_steps(sim, 5)
+    with control_kernels(0):
+        one_phase_ms = profile_steps(sim, 5)
+    again_ms = profile_steps(sim, 5)
+    print(f"scaled dragon slot WCSPH device busy per step (profiler, 5 "
+          f"steps each): wcsph_forces with the reaction over the "
+          f"step's list {busy_ms} / {again_ms} ms; one-phase, no list "
+          f"({control_name(0)}) {one_phase_ms} ms")
+    cell = simulation(config=scaled_dragon_config(method=0, dt=4e-4))
+    dense0 = DENSE_CALLS["dense"]
+    cell.run(int(sim.state.step_count) // cell.substeps, export=False)
+    if int(cell.state.step_count) != int(sim.state.step_count):
+        raise AssertionError("the cell-run twin is not at the slot "
+                             "run's step")
+    dense_calls_since(dense0, "scaled dragon cell-run twin")
     if bool(sim.metrics["slot_overflow"]):
         raise AssertionError(f"scaled dragon: slot_overflow by step "
                              f"{int(sim.state.step_count)}")
@@ -4760,15 +4984,14 @@ def slot_volume_path(device, warmup, steps):
     err = 0.0
     for which, mask in (("static", q.is_static_rigid()),
                         ("dynamic", q.is_dynamic_rigid())):
-        err = max(err, max_errors(
-            cp.boundary_volume(smap, q, mask, params),
-            cp.boundary_volume_plain(snl, q, mask, params),
-            f"scaled dragon boundary_volume[slots][{which}]"))
+        e, ms = volume_designs(smap, q, mask, params,
+                               f"scaled dragon [slots, {which}]", snl,
+                               reps=20 if which == "dynamic" else 0)
+        err = max(err, e)
     dyn = q.is_dynamic_rigid()
-    k_ms = kernel_ms(lambda: cp.boundary_volume(smap, q, dyn, params),
-                     "boundary_volume_kernel<SlotWalk>", 20)
+    k_ms = ms["shipped"]
     c_ms = kernel_ms(lambda: cp.boundary_volume(smap.starts, q, dyn, params),
-                     "boundary_volume_kernel<CellRunWalk>", 20)
+                     VOLUME_KERNELS["CellRunWalk"], 20)
     p_ms = time_ms(lambda: cp.boundary_volume_plain(snl, q, dyn, params), 3)
     map_in_use = slot_map_bytes(params, smap, q.x[dyn])
     b = volume_bound("boundary_volume[slots]", params, q, snl, dyn,
@@ -4875,10 +5098,16 @@ CONTROL_LIBS = {
               ("density_sum_launch", "density_sum_list_launch",
                "wcsph_forces_launch", "boundary_volume_launch"),
               "the one-phase slot b of WCSPH"),
+    "volume": ("tools/volume_walk_control.cu", [], "cuda_pairs",
+               ("density_sum_launch", "density_sum_list_launch",
+                "wcsph_forces_launch", "boundary_volume_launch"),
+               "kernel c's one-thread design and lane groups of 8, 16 and "
+               "32, over either walk"),
 }
 # simulationMethod -> the control libraries whose wrappers its slot step
 # calls: the slot WCSPH, DFSPH, IISPH and PCISPH phases time the list
-# readers and step with them (device busy) on the same inputs
+# readers and step with them (device busy) on the same inputs; kernel c's
+# designs ("volume") are timed beside it (volume_designs)
 CONTROLS = {4: ("dfsph",), 2: ("iisph",), 1: ("pcisph", "dfsph"),
             0: ("wcsph",)}
 CONTROL = {}
@@ -4930,13 +5159,19 @@ def control_name(method):
                         for name in CONTROLS[method])
 
 
-@contextlib.contextmanager
 def control_kernels(method):
     """The wrappers of ``method``'s control modules launching from their
     control libraries."""
+    return control_libs(*CONTROLS[method])
+
+
+@contextlib.contextmanager
+def control_libs(*names):
+    """The wrappers of the modules that the control libraries ``names``
+    serve launching from those libraries."""
     mods = [(importlib.import_module(
         f"sph_taichi_torch.ops.{CONTROL_LIBS[name][2]}"), name)
-        for name in CONTROLS[method]]
+        for name in names]
     real = [mod._lib for mod, _ in mods]
     for mod, name in mods:
         mod._lib = lambda name=name: CONTROL[name]
@@ -5187,11 +5422,10 @@ def slot_solver_path(device, config, label, warmup, steps, turns=6,
     instantiation, as often; run the same iterations with the same host
     reads; and hold the same state bitwise while no cell overflows.
     Returns (slot simulation, its launches, its step ms)."""
-    from sph_taichi_torch.simulation import Simulation
 
     t0 = time.perf_counter()
-    sim = Simulation(config=config, scene_dir=".", backend="pallas_slots")
-    cell = Simulation(config=config, scene_dir=".")
+    sim = simulation(config=config, scene_dir=".", backend="pallas_slots")
+    cell = simulation(config=config, scene_dir=".")
     torch.cuda.synchronize()
     params = sim.params
     print(f"{label} with backend pallas_slots (slot_layers "
@@ -5425,16 +5659,13 @@ def slot_scaled_dragon_path(device, warmup, steps):
     slot instantiations every step, the dense path never; the reaction
     kernel against its plain version at that state.  Returns its largest
     difference."""
-    calls, restore = count_dense_calls()
-    try:
-        sim, launches, _ = slot_solver_path(
-            device, scaled_dragon_config(), "scaled dynamic dragon (DFSPH)",
-            warmup, steps)
-    finally:
-        restore()
-    if launches.get("boundary_volume[slots]") != steps or calls["dense"]:
-        raise AssertionError(f"launches {launches}, dense path calls "
-                             f"{calls['dense']}")
+    dense0 = DENSE_CALLS["dense"]
+    sim, launches, _ = slot_solver_path(
+        device, scaled_dragon_config(), "scaled dynamic dragon (DFSPH)",
+        warmup, steps)
+    dense_calls_since(dense0, "scaled dragon slot and cell-run paths")
+    if launches.get("boundary_volume[slots]") != steps:
+        raise AssertionError(f"launches {launches}")
     _, err = slot_solver_kernels(sim, 4, launches, "scaled dragon")
     return err["dfsph_solver_dv<REACT>"]
 
@@ -5467,6 +5698,7 @@ def main():
     for name in sources:
         print(_build.build_log(name).strip())
     finish_control_builds(controls)
+    restore = count_dense_calls()
 
     worst = check_kernels_on_small_scenes(device)
     worst.update(check_dfsph_on_small_scenes(device))
@@ -5531,6 +5763,13 @@ def main():
             k["max_abs_err"] = max(k["max_abs_err"], react_err)
         if k["name"] == "wcsph_forces[slots]":
             k["max_abs_err"] = max(k["max_abs_err"], react_forces_err)
+    restore()
+    print(f"the dense boundary-volume path: {DENSE_CALLS['dense']} calls, "
+          f"all by the plain engines' comparisons; {DENSE_CALLS['fused']} by "
+          f"a CUDA engine")
+    if DENSE_CALLS["fused"]:
+        raise AssertionError("a CUDA engine took the dense boundary-volume "
+                             "path")
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,8 +16,10 @@
 //                       compute_forces with its advect + fluid-box-clamp
 //                       epilogue (two-way reaction variant as REACT = true).
 //   boundary_volume  <- the boundary-volume term of models/base.py
-//                       _boundary_volume_engine (scenes above
-//                       DENSE_SOLID_CAP solids), one thread per target row
+//                       _boundary_volume_engine (every scene with solids
+//                       on the CUDA engines): a warp per target row over
+//                       the cell runs, a thread per target row over the
+//                       slot map (below)
 // and the retired SlotEngine._kernel
 // (sph_taichi_tpu/ops/retired/pallas_slots.py) in the same three: each
 // kernel is a template over its candidate walk, CellRunWalk (the cell
@@ -36,7 +38,7 @@
 // slot) instead of two offsets per column and stops at a cell's first
 // empty slot: the same candidates, one more dependent load per candidate.
 // boundary_volume launches only over the target rows (the solids), so its
-// work is the solids' neighbourhoods.
+// work is the solids' neighbourhoods (its note, below).
 //
 // The WCSPH step over the cell runs: the positions do not move from the
 // sort to wcsph_forces' advect epilogue, and the force kernel's centres
@@ -275,17 +277,103 @@ __global__ void wcsph_forces_kernel(
 
 // Akinci boundary volume of the target rows (sph_base.py:91-113):
 // m_V[i] = 3 / (W(0) + sum over solid j within h of W(r_ij)), the 3.0 of
-// the reference included.  One thread per entry of ``targets``, the target
-// rows compacted (ops/cuda_pairs.py target_rows; -1 pads the tail); other
-// rows of m_V are not written.
+// the reference included, for each entry of ``targets``, the target rows
+// compacted (ops/cuda_pairs.py target_rows; -1 pads the tail); other rows
+// of m_V are not written.  Two designs: boundary_volume_warp_kernel, a
+// warp per target, over the cell runs; boundary_volume_thread_kernel, a
+// thread per target, over the slot map, where it measured faster
+// (chip_smoke.py times both designs over both walks, and lane groups of
+// 8 and 16: tools/volume_walk_control.cu).
+//
+// What bounds it on an H100: the latency of its loads.  A target reads
+// ~200 candidates and keeps the few solid ones within h.  A thread per
+// target leaves ~8 warps per SM for the scaled dragon's 34,058 targets
+// (4-5 for the dynamic dragon's 18,506), each lane walking its candidates
+// through a chain of loads (a column's offsets or a cell's slots, then
+// each candidate).  In the warp design a target's 32 lanes share its walk:
+// they load 32 candidates of a column's z-run (~24 of them) at once,
+// coalesced, run the inclusion test, the solid test and W in parallel, and
+// add the solid terms by shuffle in lane order, walking a ballot: the
+// one-thread walk's adds in its order, so the volumes equal it and
+// boundary_volume_plain bitwise.  It has 32 times the warps, and spends
+// more instructions per candidate (idle lanes past a run's end, the
+// ballot, one shuffle and add after another); over the slot map, where
+// each round also waits on the map, that cost outweighs the warps.  The
+// target, its cell and z-range come from lane 0; a padding target's warp
+// walks nothing, and every lane reaches every ballot and shuffle, so no
+// lane returns early.
+__global__ void boundary_volume_warp_kernel(const float* __restrict__ x,
+                                            const int* __restrict__ material,
+                                            CellRunWalk walk,
+                                            const int* __restrict__ targets,
+                                            int n_targets,
+                                            float* __restrict__ m_V,
+                                            PairConsts c) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int i = -1, ix = 0, iy = 0, zlo = 0, zhi = -1;
+  float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f;
+  if (lane == 0 && t < n_targets) {
+    i = targets[t];
+    if (i >= 0) {
+      xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
+      ix = (int)(xi0 * c.inv_cell);
+      iy = (int)(xi1 * c.inv_cell);
+      const int iz = (int)(xi2 * c.inv_cell);
+      zlo = max(iz - 1, 0);
+      zhi = min(iz + 1, c.nz - 1);
+    }
+  }
+  i = __shfl_sync(kAll, i, 0);
+  ix = __shfl_sync(kAll, ix, 0), iy = __shfl_sync(kAll, iy, 0);
+  zlo = __shfl_sync(kAll, zlo, 0), zhi = __shfl_sync(kAll, zhi, 0);
+  xi0 = __shfl_sync(kAll, xi0, 0), xi1 = __shfl_sync(kAll, xi1, 0);
+  xi2 = __shfl_sync(kAll, xi2, 0);
+  float sum = 0.0f;
+  if (i >= 0 && zlo <= zhi) {
+    for (int dx = -1; dx <= 1; ++dx) {
+      const int cx = ix + dx;
+      if (cx < 0 || cx >= c.nx) continue;
+      for (int dy = -1; dy <= 1; ++dy) {
+        const int cy = iy + dy;
+        if (cy < 0 || cy >= c.ny) continue;
+        const int base = (cx * c.ny + cy) * c.nz;
+        const int b = walk.starts[base + zlo];
+        const int e = walk.starts[base + zhi + 1];
+        // lane k takes the run's k-th candidate of the round: the
+        // inclusion test of for_each_neighbor_walk, the solid test and W,
+        // then the round's solid terms added in lane order
+        for (int j0 = b; j0 < e; j0 += 32) {
+          const int j = j0 + lane;
+          float w = 0.0f;
+          bool take = false;
+          if (j < e) {
+            const float d0 = xi0 - x[3 * j];
+            const float d1 = xi1 - x[3 * j + 1];
+            const float d2 = xi2 - x[3 * j + 2];
+            const int mat = material[j];
+            const float s = d0 * d0 + d1 * d1 + d2 * d2;
+            take = j != i && s < c.h2 && mat == 0;
+            if (take) w = cubic_w(sqrtf(s), c);
+          }
+          for (unsigned bits = __ballot_sync(kAll, take); bits;
+               bits &= bits - 1) {
+            sum += __shfl_sync(kAll, w, __ffs(bits) - 1);
+          }
+        }
+      }
+    }
+  }
+  if (lane == 0 && i >= 0) m_V[i] = 3.0f / (c.w0 + sum);
+}
+
+// A thread per target, walking its candidates with for_each_neighbor_walk.
 template <typename Walk>
-__global__ void boundary_volume_kernel(const float* __restrict__ x,
-                                       const int* __restrict__ material,
-                                       Walk walk,
-                                       const int* __restrict__ targets,
-                                       int n_targets,
-                                       float* __restrict__ m_V,
-                                       PairConsts c) {
+__global__ void boundary_volume_thread_kernel(
+    const float* __restrict__ x, const int* __restrict__ material, Walk walk,
+    const int* __restrict__ targets, int n_targets, float* __restrict__ m_V,
+    PairConsts c) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_targets) return;
   const int i = targets[t];
@@ -296,6 +384,28 @@ __global__ void boundary_volume_kernel(const float* __restrict__ x,
                            if (material[j] == 0) sum += cubic_w(sqrtf(s), c);
                          });
   m_V[i] = 3.0f / (c.w0 + sum);
+}
+
+// Launches the warp design over the cell runs.
+__host__ void launch_volume_warp(const float* x, const int* material,
+                                 CellRunWalk walk, const int* targets,
+                                 int n_targets, float* m_V,
+                                 const PairConsts& c, cudaStream_t stream) {
+  const long long threads = (long long)n_targets * 32;
+  const int grid = (int)((threads + kBlock - 1) / kBlock);
+  boundary_volume_warp_kernel<<<grid, kBlock, 0, stream>>>(
+      x, material, walk, targets, n_targets, m_V, c);
+}
+
+// Launches the one-thread design over ``walk``.
+template <typename Walk>
+__host__ void launch_volume_thread(const float* x, const int* material,
+                                   Walk walk, const int* targets,
+                                   int n_targets, float* m_V,
+                                   const PairConsts& c, cudaStream_t stream) {
+  boundary_volume_thread_kernel<Walk>
+      <<<(n_targets + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
+          x, material, walk, targets, n_targets, m_V, c);
 }
 
 // Each launcher's walk arguments (starts, slot_map, layers) select the
@@ -370,16 +480,22 @@ extern "C" int wcsph_forces_launch(
   return (int)cudaGetLastError();
 }
 
+// Kernel c over the walk its arguments select: the warp design over the
+// cell runs, the one-thread design over the slot map.
 extern "C" int boundary_volume_launch(const float* x, const int* material,
                                       const int* starts, const int* slot_map,
                                       int layers, const int* targets,
                                       int n_targets, float* m_V, PairConsts c,
                                       void* stream) {
   if (n_targets > 0) {
-    const int grid = (n_targets + kBlock - 1) / kBlock;
     with_walk(starts, slot_map, layers, [&](auto walk) {
-      boundary_volume_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-          x, material, walk, targets, n_targets, m_V, c);
+      if constexpr (kCompactWalk<decltype(walk)>) {
+        launch_volume_warp(x, material, walk, targets, n_targets, m_V, c,
+                           (cudaStream_t)stream);
+      } else {
+        launch_volume_thread(x, material, walk, targets, n_targets, m_V, c,
+                             (cudaStream_t)stream);
+      }
     });
   }
   return (int)cudaGetLastError();
@@ -389,10 +505,11 @@ extern "C" int boundary_volume_launch(const float* x, const int* material,
 // per SM of kernel ``which``: 0 density_sum_list, 1 density_sum over the
 // cell runs, 2 wcsph_forces<false>, 3 wcsph_forces<true> (over the cell
 // runs; 4, 5 over the slot walk), 6 density_sum_slot (the list over the
-// slot walk), 7 density_sum over the slot walk.
+// slot walk), 7 density_sum over the slot walk, 8 boundary_volume over the
+// cell runs (a warp per target), 9 over the slot walk (a thread per target).
 extern "C" int pairs_occupancy(int which, int* regs, int* smem_bytes,
                                int* blocks_per_sm) {
-  const void* kernels[8] = {
+  const void* kernels[10] = {
       (const void*)density_sum_list_kernel,
       (const void*)density_sum_kernel<CellRunWalk>,
       (const void*)wcsph_forces_kernel<false, CellRunWalk>,
@@ -400,8 +517,10 @@ extern "C" int pairs_occupancy(int which, int* regs, int* smem_bytes,
       (const void*)wcsph_forces_kernel<false, SlotWalk>,
       (const void*)wcsph_forces_kernel<true, SlotWalk>,
       (const void*)density_sum_slot_kernel,
-      (const void*)density_sum_kernel<SlotWalk>};
-  if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
+      (const void*)density_sum_kernel<SlotWalk>,
+      (const void*)boundary_volume_warp_kernel,
+      (const void*)boundary_volume_thread_kernel<SlotWalk>};
+  if (which < 0 || which > 9) return (int)cudaErrorInvalidValue;
   const void* kernel = kernels[which];
   cudaFuncAttributes attr{};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);

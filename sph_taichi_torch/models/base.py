@@ -93,7 +93,14 @@ def bin_and_sort(p: Particles, params: SimParams, engine, tables=None):
 # Akinci boundary volumes (sph_base.py:91-113)
 # ---------------------------------------------------------------------------
 
-# Up to this many solids the dense all-pairs W-sum replaces a traversal.
+# Up to this many solids the plain engines (GatherEngine, SlotGatherEngine)
+# take the dense all-pairs W-sum instead of the traversal, as the JAX
+# package does at the same cap (a TPU threshold: there the dense sum was the
+# faster), so the CPU goldens and comparisons with it hold.  The CUDA
+# engines take kernel c at every solid count: on an NVIDIA H100 80GB HBM3
+# at 700 W the dense path took ~35 ms of a dragon_bath_dynamic_dfsph step
+# at the contact for its 18,506 solids, kernel c 0.026 ms for the same
+# volumes (chip_smoke.py).
 DENSE_SOLID_CAP = 32768
 
 
@@ -123,8 +130,9 @@ def _boundary_volume_dense(p: Particles, params: SimParams, target_mask):
 
 def _boundary_volume_engine(p: Particles, ctx, engine, params: SimParams,
                             target_mask):
-    """Traversal m_V for scenes with more than DENSE_SOLID_CAP solids:
-    kernel 2.1 c on the CUDA engines, its plain version otherwise."""
+    """Traversal m_V: kernel 2.1 c on the CUDA engines (every scene with
+    solids), its plain version on the plain engines (scenes with more than
+    DENSE_SOLID_CAP solids)."""
     volume = (cuda_pairs.boundary_volume if engine.fused
               else cuda_pairs.boundary_volume_plain)
     return p._replace(m_V=volume(ctx, p, target_mask, params))
@@ -133,9 +141,9 @@ def _boundary_volume_engine(p: Particles, ctx, engine, params: SimParams,
 def _boundary_volume(p, ctx, engine, params, target_mask):
     if params.n_solid == 0:
         return p        # no solid row to update
-    if params.n_solid <= DENSE_SOLID_CAP:
-        return _boundary_volume_dense(p, params, target_mask)
-    return _boundary_volume_engine(p, ctx, engine, params, target_mask)
+    if engine.fused or params.n_solid > DENSE_SOLID_CAP:
+        return _boundary_volume_engine(p, ctx, engine, params, target_mask)
+    return _boundary_volume_dense(p, params, target_mask)
 
 
 def compute_static_boundary_volume(p, ctx, engine, params):

@@ -27,8 +27,11 @@ hand-written CUDA C++ in ``csrc/pairs.cu``:
   phase), and on the card takes only that context, not bare cell offsets
   or a bare ``SlotMap`` (ops/pair_list.py ``list_walk``);
 - ``boundary_volume``: the Akinci volume 3 / (W(0) + sum of W over solid
-  neighbours) of the target rows (models/base.py _boundary_volume_engine,
-  scenes above DENSE_SOLID_CAP solids), one thread per target row.
+  neighbours) of the target rows (models/base.py _boundary_volume_engine:
+  every scene with solids on the CUDA engines): over the cell runs a
+  warp per target row walking its candidates together and adding the
+  solid terms in the walk's order, over the slot map a thread per target
+  row (there the faster of the two).
 
 The same three kernels port the retired ``SlotEngine._kernel``
 (sph_taichi_tpu/ops/retired/pallas_slots.py): given a ``SlotMap``
@@ -484,13 +487,12 @@ def wcsph_forces(ctx, p, dpi, p_r02, m_nc, rr0, dt, params):
 def occupancy(kernel, slots=False):
     """(registers per thread, static shared memory bytes per block,
     resident blocks of 128 threads per SM) of ``kernel`` on the current
-    CUDA device: "density_sum_list", "density_sum", "wcsph_forces" or
-    "wcsph_forces_react" (over the cell runs, or the slot walk with
-    ``slots``)."""
-    which = {"density_sum_list": 0, "density_sum": 1, "wcsph_forces": 2,
-             "wcsph_forces_react": 3}[kernel]
-    if slots:
-        which += 6 if which < 2 else 2
+    CUDA device: "density_sum_list", "density_sum", "wcsph_forces",
+    "wcsph_forces_react" or "boundary_volume" (over the cell runs, or the
+    slot walk with ``slots``)."""
+    which = {"density_sum_list": (0, 6), "density_sum": (1, 7),
+             "wcsph_forces": (2, 4), "wcsph_forces_react": (3, 5),
+             "boundary_volume": (8, 9)}[kernel][int(slots)]
     out = [ctypes.c_int() for _ in range(3)]
     rc = _lib().pairs_occupancy(which, *[ctypes.byref(o) for o in out])
     _raise_on(rc, f"pairs_occupancy({kernel})")
@@ -514,7 +516,7 @@ def boundary_volume(ctx, p, target_mask, params):
     """Kernel wrapper for ``boundary_volume_plain``: a new m_V whose
     target rows hold their Akinci volumes.  ``ctx`` as for
     ``density_sum``; ``target_mask`` (bool[n]) selects solid rows, so the
-    launch has one thread per solid (params.n_solid, static) over the
+    launch covers one target per solid (params.n_solid, static) over the
     compacted target rows."""
     if p.x.device.type == "cpu":
         return boundary_volume_plain(_plain_ctx(ctx, p, params), p,

@@ -1,18 +1,23 @@
 """The boundary-volume traversal (TPU kernel 2.1 c) of the port against the
 JAX package, on the CPU.
 
-Scenes with more than DENSE_SOLID_CAP solids compute the Akinci volumes by
-a pair traversal in ``initialize`` and, with dynamic rigids, in every step
-(models/base.py ``_boundary_volume_engine``).  Its plain version must equal
+The CUDA engines compute the Akinci volumes by a pair traversal in
+``initialize`` and, with dynamic rigids, in every step, at every solid
+count; the plain engines do so only above DENSE_SOLID_CAP solids and take
+the dense sum below it, as the JAX package does (models/base.py
+``_boundary_volume``).  Its plain version must equal
 the JAX package's traversal (gather backend) and the port's dense path at
 rtol 2e-6 (a port of tests/test_physics.py
 test_boundary_volume_dense_matches_engine), and whole steps taken through it
 must match the JAX package's at the engine-equivalence tolerance (atol
-2e-5, rtol 2e-4), with DENSE_SOLID_CAP set to 0 in both packages.  The
+2e-5, rtol 2e-4), with DENSE_SOLID_CAP set to 0 in both packages, and so
+must the CUDA engine's steps over CPU tensors against the JAX package's
+dense path.  The
 scene that reaches it on the card, dragon_bath_dynamic_dfsph with the
 dragon scaled by 1.25, must build the same arrays in both packages.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -25,7 +30,7 @@ from sph_taichi_torch import convert
 from sph_taichi_torch.models import base as tbase
 from sph_taichi_torch.ops import cuda_pairs
 from sph_taichi_torch.ops.pairs import GatherEngine
-from sph_taichi_torch.ops.slots import build_slot_map
+from sph_taichi_torch.ops.slots import SlotGatherEngine, build_slot_map
 
 from conftest import small_scene_dict
 from test_torch_wcsph import _assert_scene_equal
@@ -112,31 +117,49 @@ def test_target_rows():
                                   3).tolist() == [-1, -1, -1]
 
 
-def _forbid_dense(monkeypatch, module):
-    monkeypatch.setattr(module, "DENSE_SOLID_CAP", 0)
-
+def _dense_raises(monkeypatch, module):
     def dense(*args, **kwargs):
         raise AssertionError("the dense boundary-volume path ran")
 
     monkeypatch.setattr(module, "_boundary_volume_dense", dense)
 
 
-@pytest.mark.parametrize("method", [0, 4])
-def test_steps_through_the_traversal_match_jax(method, monkeypatch):
+def _forbid_dense(monkeypatch, module):
+    monkeypatch.setattr(module, "DENSE_SOLID_CAP", 0)
+    _dense_raises(monkeypatch, module)
+
+
+@pytest.mark.parametrize("method, fused", [(0, False), (4, False),
+                                           (0, True), (4, True)],
+                         ids=["0", "4", "cuda-engine-0", "cuda-engine-4"])
+def test_steps_through_the_traversal_match_jax(method, fused, monkeypatch):
     """initialize and three steps with the boundary volumes taken by the
-    traversal in both packages (DENSE_SOLID_CAP patched to 0 before the
-    JAX solver is built, since its programs read it when traced); each
-    step from the JAX state, index by index."""
+    traversal, each step from the JAX state, index by index (m_V of the
+    solid rows at rtol 2e-6).  Either DENSE_SOLID_CAP is patched to 0 in
+    both packages (before the JAX solver is built, since its programs read
+    it when traced), or (``fused``) the port's solver runs on
+    ``CudaEngine`` over CPU tensors with the cap as it is, where the
+    dispatch takes the traversal at every solid count (its wrapper's plain
+    version, no launch), against the JAX package's own path below the cap,
+    the dense sum.  The dense path is patched to raise in the port."""
     from sph_taichi_tpu.models import base as jbase
 
-    _forbid_dense(monkeypatch, jbase)
-    _forbid_dense(monkeypatch, tbase)
+    if fused:
+        _dense_raises(monkeypatch, tbase)
+    else:
+        _forbid_dense(monkeypatch, jbase)
+        _forbid_dense(monkeypatch, tbase)
     d = _rigid_scene(method)
     jp, jpart, _ = J.build_scene(J.SimConfig(config_dict=d))
     jsolver = J.build_solver(jp)
     js = jsolver.initialize(jpart)
     tp, tpart, _ = T.build_scene(T.SimConfig(config_dict=d), device="cpu")
-    tsolver = T.build_solver(tp, device="cpu")
+    # below the cap: only the fused engine's dispatch takes the traversal
+    assert 0 < tp.n_solid <= (tbase.DENSE_SOLID_CAP if fused else 1 << 30)
+    engine = cuda_pairs.CudaEngine(tp) if fused else None
+    tsolver = T.build_solver(tp, device="cpu", engine=engine)
+    assert tsolver.engine.fused == fused
+    before = dict(cuda_pairs.LAUNCHES)
     ts = tsolver.initialize(tpart)
     solid = np.asarray(js.p.material) == 0
     np.testing.assert_allclose(ts.p.m_V.numpy()[solid],
@@ -155,6 +178,48 @@ def test_steps_through_the_traversal_match_jax(method, monkeypatch):
                 getattr(ts.p, name).numpy()[real],
                 np.asarray(getattr(js.p, name))[real], atol=ATOL,
                 rtol=RTOL, err_msg=name)
+        solid = np.asarray(js.p.material) == 0
+        np.testing.assert_allclose(ts.p.m_V.numpy()[solid],
+                                   np.asarray(js.p.m_V)[solid], rtol=2e-6)
+    assert cuda_pairs.LAUNCHES == before
+
+
+@pytest.mark.parametrize("backend", ["gather", "pallas_slots"])
+def test_plain_engines_take_the_dense_path_below_the_cap(backend,
+                                                         monkeypatch):
+    """The plain engines (``GatherEngine``; ``SlotGatherEngine`` under
+    ``pallas_slots``) keep the dense path below DENSE_SOLID_CAP, as the
+    JAX package does: with the traversal patched to raise, ``initialize``
+    takes the dense path twice (the static and the moving volumes) and a
+    step once (the dynamic rigid's), and the state keeps the volumes of
+    the last dense call."""
+    d = _rigid_scene()
+    tp, tpart, _ = T.build_scene(T.SimConfig(config_dict=d), device="cpu")
+    tp = dataclasses.replace(tp, backend=backend)
+    solver = T.build_solver(tp, device="cpu")
+    assert type(solver.engine) is {"gather": GatherEngine,
+                                   "pallas_slots": SlotGatherEngine}[backend]
+
+    def engine(*args, **kwargs):
+        raise AssertionError("the traversal ran on a plain engine")
+
+    calls = []
+    dense = tbase._boundary_volume_dense
+
+    def counted(p, params, mask):
+        out = dense(p, params, mask)
+        calls.append((p, mask, out))
+        return out
+
+    monkeypatch.setattr(tbase, "_boundary_volume_engine", engine)
+    monkeypatch.setattr(tbase, "_boundary_volume_dense", counted)
+    state = solver.initialize(tpart)
+    assert len(calls) == 2
+    assert torch.equal(state.p.m_V, calls[-1][2].m_V)
+    state, _ = solver.step(state)
+    assert len(calls) == 3
+    assert bool(calls[-1][1].any())
+    assert torch.equal(state.p.m_V, calls[-1][2].m_V)
 
 
 def test_scaled_dynamic_dragon_matches_jax():
