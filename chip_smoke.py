@@ -256,6 +256,22 @@ Phases (any failure raises and exits non-zero):
    (cudaErrorInvalidValue); one kernel per wrapper call; the registers,
    shared memory and resident blocks of b's and f1-f4's slot
    instantiations (d's with phases 23 and 24).
+26. the legacy 2D engine (sph_taichi_torch/legacy2d.py, plain torch: it
+   reaches no Pallas kernel) through its driver's ``run``
+   (sph_taichi_torch/run_simulation_2d.py), run_simulation_2d's scene
+   unchanged (capacity 2^14, dx 0.1, the 3 x 5 dam break, the emission at
+   t > 0.4 s) for WCSPH, PCISPH and DFSPH with adaptive dt to t >= 0.5 s:
+   steps, simulated time and steps/s (CUDA events around the run), host
+   reads and iterations per step, n before and after the emission (1,500
+   and 2,000), a ``StepTimer`` report of the steps and the emission; then
+   20 steps under ``utils/profiling.trace`` (device busy per step, the
+   Chrome trace's bytes); the state finite and the fluid inside the padded
+   bounds; from the state just after the emission one step on the card
+   against one step of the port on the CPU (``convert.state2d_*``), at
+   ``state2d_step_tolerances`` with ``DEVICE_STEP_TOL`` and equal
+   iterations, and both against the same step in f64 on the CPU
+   (``state2d_f64_witness``: the card's no more than twice as far from it
+   as the CPU's, plus ``JAX_STEP_TOL``'s share); no hand kernel launched.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Every ``Simulation`` on the card launches kernel c twice in its
 ``initialize`` (the static and the moving volumes) and nothing else; the
@@ -513,21 +529,34 @@ def kernel_named(key, kernel):
 def kernel_ms(fn, kernel, reps, tries=5):
     """Mean device ms of the CUDA kernel whose name contains ``kernel``
     (``kernel_named``), over ``reps`` calls of ``fn`` under torch.profiler
-    (one warm-up).  For
+    (one warm-up).  ``fn`` is one call of a wrapper that launches the
+    kernel once, and the wrappers' counters (``all_launch_counts``) must
+    show ``reps`` launches in every capture.  For
     a wrapper whose host work (small torch ops before the launch) outlasts
     its kernel, CUDA events around the calls time the host instead.  The
     profiler can lose device records of a capture: one that holds fewer
-    launches than calls is taken again, at most ``tries`` times; one that
-    holds more raises."""
+    launches than calls is taken again, at most ``tries`` times.  If the
+    last capture still lacks records, it is taken only when it lacks one
+    (the mean is then over the ``reps - 1`` recorded launches); fewer, or
+    more launches than calls, raise."""
     from torch.profiler import ProfilerActivity, profile
+
+    def launched():
+        return sum(all_launch_counts().values())
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(tries):
+        first = launched()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        counted = launched() - first
+        if counted != reps:
+            raise AssertionError(f"kernel_ms: the wrappers counted "
+                                 f"{counted} launches in {reps} calls of "
+                                 f"{kernel}")
         us, count = 0.0, 0
         for e in prof.key_averages():
             if kernel_named(e.key, kernel) and \
@@ -542,6 +571,11 @@ def kernel_ms(fn, kernel, reps, tries=5):
             return us / count / 1e3
         if count > reps:
             break
+    if count == reps - 1:
+        print(f"  profiler: {kernel}: {count} of {reps} launches recorded "
+              f"in the last of {tries} captures, {reps} counted by the "
+              f"wrapper (one record lost); the mean is over the {count}")
+        return us / count / 1e3
     raise AssertionError(f"profiler: {count} launches of {kernel} in "
                          f"{reps} calls")
 
@@ -2128,6 +2162,20 @@ def compact_at_dragon(params, q, starts, nl, kappa, dt):
               f"{kernel_ms(fn, kernel, 20):.4f} ms on the card (profiler)")
 
 
+def kernel_rows(prof):
+    """(device us, launches, name) of each kernel a profiler recorded:
+    kernel rows only, since an aten op's row repeats its kernels' time."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    return rows
+
+
 def profile_steps(sim, steps, counts=None):
     """Device busy share and the kernels by device time over ``steps``
     steps of ``Simulation.run`` under torch.profiler (the profiler adds
@@ -2141,17 +2189,10 @@ def profile_steps(sim, steps, counts=None):
         sim.run(steps // sim.substeps, export=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        # kernel rows only: an aten op's row repeats its kernels' time
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-            if counts is not None:
-                counts[e.key] = counts.get(e.key, 0) + e.count
+    rows = kernel_rows(prof)
+    if counts is not None:
+        for _, count, key in rows:
+            counts[key] = counts.get(key, 0) + count
     if not rows:
         print("profiler: no device time recorded; busy share not measured")
         return None
@@ -5670,6 +5711,146 @@ def slot_scaled_dragon_path(device, warmup, steps):
     return err["dfsph_solver_dv<REACT>"]
 
 
+LEGACY2D_METHODS = ("WCSPH", "PCISPH", "DFSPH")
+LEGACY2D_MAX_TIME = 0.5      # simulated seconds: past the emission at 0.4
+LEGACY2D_TRACE_STEPS = 20
+
+
+def legacy2d_inside(sph):
+    """Finite positions and velocities, the fluid inside the padded bounds
+    that ``_enforce_boundary`` pushes it back to (1e-5 m for the push's
+    rounding)."""
+    s = sph.state
+    x, v = s.x[:s.n], s.v[:s.n]
+    if not bool(torch.isfinite(x).all() & torch.isfinite(v).all()):
+        raise AssertionError("legacy2d: non-finite positions or velocities")
+    xf = x[s.material[:s.n] == 1].cpu().numpy()
+    eps = 1e-5
+    lo = (sph.left_bound + 0.5 * sph.padding, sph.bottom_bound + sph.padding)
+    hi = (sph.right_bound - 0.5 * sph.padding, sph.top_bound - sph.padding)
+    if not ((xf >= np.array(lo) - eps).all() and
+            (xf <= np.array(hi) + eps).all()):
+        raise AssertionError("legacy2d: fluid outside the padded bounds")
+
+
+def legacy2d_path(device, smi):
+    """Phase 26: the legacy 2D engine through its driver, each method to
+    t >= LEGACY2D_MAX_TIME, then a traced window and the card step against
+    the CPU step from the state just after the emission."""
+    from types import SimpleNamespace
+
+    import tempfile
+
+    from sph_taichi_torch import run_simulation_2d as r2d
+    from sph_taichi_torch.convert import (
+        DEVICE_STEP_TOL, state2d_errors, state2d_f64_witness,
+        state2d_from_numpy, state2d_step_tolerances, state2d_to_numpy)
+    from sph_taichi_torch.utils.profiling import StepTimer, trace
+
+    for method in LEGACY2D_METHODS:
+        opt = SimpleNamespace(method=method, adaptive=True, save=False,
+                              max_frames=10 ** 6,
+                              max_time=LEGACY2D_MAX_TIME, output_dir=None)
+        emitted = {}
+        progress = []
+        timer = StepTimer(device)
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = r2d.run(opt, device=device, timer=timer,
+                      on_emission=lambda sph: emitted.update(
+                          state2d_to_numpy(sph.state)),
+                      log=progress.append)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        launches = {k: v for k, v in all_launch_counts().items() if v}
+        sph, steps = out["solver"], out["frames"]
+        its = np.array(out["iterations"])
+        print(f"legacy2d {method} (run_simulation_2d's scene, adaptive dt, "
+              f"to t >= {LEGACY2D_MAX_TIME} s): {steps} steps to t = "
+              f"{out['t']:.4f} s in {ms:.1f} ms, {steps / ms * 1e3:.1f} "
+              f"steps/s (CUDA events around run(); {smi})")
+        print(f"  host reads per step {sum(out['reads']) / steps:.3f} (the "
+              f"loops' reads and step()'s one transfer of dt and "
+              f"iterations); iterations per step mean {its.mean():.3f}, max "
+              f"{its.max()}; n {out['n_before']} before the emission, "
+              f"{out['n_after']} after; hand-kernel launches {launches}")
+        print(f"  StepTimer (CUDA events; {smi}): "
+              + timer.report().replace("\n", "; "))
+        print(f"  the driver's last lines: {' | '.join(progress[-2:])}")
+        if not out["emitted"] or (out["n_before"], out["n_after"]) != (
+                1500, 2000):
+            raise AssertionError(f"legacy2d {method}: emission {out['n_before']}"
+                                 f" -> {out['n_after']}, not 1500 -> 2000")
+        if launches:
+            raise AssertionError(f"legacy2d {method} launched hand kernels: "
+                                 f"{launches}")
+        legacy2d_inside(sph)
+
+        t_trace = time.perf_counter()
+        with tempfile.TemporaryDirectory() as log_dir:
+            with trace(log_dir) as prof:
+                t0 = time.perf_counter()
+                for _ in range(LEGACY2D_TRACE_STEPS):
+                    sph.step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            trace_bytes = os.path.getsize(prof.trace_path)
+        rows = kernel_rows(prof)
+        if not rows:
+            raise AssertionError(f"legacy2d {method}: the trace holds no "
+                                 f"device time")
+        busy_ms = sum(r[0] for r in rows) / LEGACY2D_TRACE_STEPS / 1e3
+        t_trace = time.perf_counter() - t_trace
+        print(f"  device busy per step {busy_ms:.4f} ms, "
+              f"{sum(r[1] for r in rows) / LEGACY2D_TRACE_STEPS:.1f} kernels "
+              f"per step, wall {wall_ms / LEGACY2D_TRACE_STEPS:.4f} ms per "
+              f"step under the profiler, over {LEGACY2D_TRACE_STEPS} steps "
+              f"(profiling.trace; Chrome trace {trace_bytes} bytes, "
+              f"removed; the window with the trace's export and summary "
+              f"{t_trace:.1f} s; {smi})")
+        legacy2d_inside(sph)
+
+        t_cpu = time.perf_counter()
+        cpu = r2d.build_solver(method, True, 1, device="cpu")
+        ref, ref_it = cpu._step(state2d_from_numpy(emitted, "cpu"))
+        t_cpu = time.perf_counter() - t_cpu
+        got, got_it = sph._step(state2d_from_numpy(emitted, device))
+        ref64, it64 = cpu._step(state2d_from_numpy(emitted, "cpu",
+                                                   torch.float64))
+        ref, got = state2d_to_numpy(ref), state2d_to_numpy(got)
+        ref64 = state2d_to_numpy(ref64)
+        err = state2d_errors(got, ref)
+        tol = state2d_step_tolerances(sph, ref, int(ref_it), emitted["dt"],
+                                      *DEVICE_STEP_TOL)
+        bad = {k: (err[k], tol[k]) for k in err if not err[k] <= tol[k]}
+        print(f"  one step from the state just after the emission, card "
+              f"against CPU (the CPU step {t_cpu:.1f} s): iterations "
+              f"{int(got_it)} / {int(ref_it)}, max abs err (tolerance) "
+              + ", ".join(f"{k} {err[k]:.3g} ({tol[k]:.3g})" for k in err
+                          if tol[k] or err[k]))
+        if bad or int(got_it) != int(ref_it):
+            raise AssertionError(f"legacy2d {method}: the card step differs "
+                                 f"from the CPU step: {bad}, iterations "
+                                 f"{int(got_it)} / {int(ref_it)}")
+        far, worse = state2d_f64_witness(cpu, got, ref, ref64, int(it64),
+                                         emitted["dt"])
+        print(f"  the same step in f64 on the CPU: iterations {int(it64)}; "
+              f"max abs distance from it, card / CPU: "
+              + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b)
+                          in far.items() if a or b))
+        if worse or int(it64) != int(ref_it):
+            raise AssertionError(f"legacy2d {method}: the card's f32 step "
+                                 f"lies further from the f64 step than the "
+                                 f"CPU's allows: {worse}, iterations "
+                                 f"{int(it64)} / {int(ref_it)}")
+        del sph, out
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5770,6 +5951,9 @@ def main():
     if DENSE_CALLS["fused"]:
         raise AssertionError("a CUDA engine took the dense boundary-volume "
                              "path")
+    t0 = time.perf_counter()
+    legacy2d_path(device, smi)
+    print(f"legacy2d phase in {time.perf_counter() - t0:.1f} s ({smi})")
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
