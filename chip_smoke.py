@@ -272,6 +272,23 @@ Phases (any failure raises and exits non-zero):
    iterations, and both against the same step in f64 on the CPU
    (``state2d_f64_witness``: the card's no more than twice as far from it
    as the CPU's, plus ``JAX_STEP_TOL``'s share); no hand kernel launched.
+27. spatial slab sharding (sph_taichi_torch/parallel): the port's
+   single-device WCSPH step of data/scenes/armadillo_bath_dynamic.json
+   (1,723,968 fluid + 5,349 solids, three dynamic armadillos, the middle
+   one across the slab boundary at x = 2.52 m) on the card, then the same
+   scene in slabs of D = 2 (two processes sharing the card over gloo,
+   staged through the host; halo_cap from the scene's fullest x-layer)
+   and D = 1 (one process, NCCL), spawned by parallel/comm.py ``launch``
+   with the kernels built above: after 1 step each state against the
+   single-device step through a nearest-position bijection at the
+   tolerance below, after 5 the particle count, a finite state inside the
+   padded box, no overflow flag and each rigid's rms radius within 1e-3
+   relative; per rank the hand-kernel launches per step (each of
+   density_sum_list, wcsph_forces and boundary_volume in every step; the
+   ranks count their own), collectives and bytes hopped per step and the
+   step ms beside the single device's; then the small scene's methods 0,
+   1, 2 and 4 at D = 2 against the single-device step on the card,
+   iterations equal.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Every ``Simulation`` on the card launches kernel c twice in its
 ``initialize`` (the static and the moving volumes) and nothing else; the
@@ -2224,19 +2241,13 @@ def check_state(sim):
 
 
 def reset_all_launch_counts():
-    from sph_taichi_torch.ops import (
-        cuda_dfsph, cuda_iisph, cuda_pairs, cuda_pcisph)
-    cuda_pairs.reset_launch_counts()
-    cuda_dfsph.reset_launch_counts()
-    cuda_iisph.reset_launch_counts()
-    cuda_pcisph.reset_launch_counts()
+    from sph_taichi_torch import entry
+    entry.reset_launch_counts()
 
 
 def all_launch_counts():
-    from sph_taichi_torch.ops import (
-        cuda_dfsph, cuda_iisph, cuda_pairs, cuda_pcisph)
-    return {**cuda_pairs.LAUNCHES, **cuda_dfsph.LAUNCHES,
-            **cuda_iisph.LAUNCHES, **cuda_pcisph.LAUNCHES}
+    from sph_taichi_torch import entry
+    return entry.launch_counts()
 
 
 def main_path(device, scene_path, warmup, steps):
@@ -5851,6 +5862,182 @@ def legacy2d_path(device, smi):
         torch.cuda.empty_cache()
 
 
+SHARDED_SCENE = "data/scenes/armadillo_bath_dynamic.json"
+SHARDED_FIELDS = ("x", "v", "density", "material", "object_id")
+# the hand kernels of a sharded WCSPH step with dynamic rigids, per rank
+SHARDED_KERNELS = ("density_sum_list", "wcsph_forces", "boundary_volume")
+
+
+def sharded_capacities(params, particles, world):
+    """(halo_cap, loc_cap): the fullest x-layer of the scene with a quarter
+    to spare, and the most particles a rank owns with 2% and 4,096 to
+    spare, each rounded up to 256."""
+    from sph_taichi_torch.ops.grid import pos_to_cell
+
+    real = particles.material >= 0
+    ix = pos_to_cell(particles.x[real], params.grid_size)[:, 0].long()
+    layers = torch.bincount(ix, minlength=params.grid_num[0])
+    nxd = -(-params.grid_num[0] // world)
+    per_rank = [int(layers[r * nxd:(r + 1) * nxd].sum()) for r in range(world)]
+
+    def up(n):
+        return -(-int(n) // 256) * 256
+
+    return (up(1.25 * int(layers.max())), up(1.02 * max(per_rank) + 4096),
+            int(layers.max()), per_rank)
+
+
+def rms_radii(state, ids):
+    """{object id: rms distance of its particles from their centroid}."""
+    out = {}
+    for i in ids:
+        xs = state["x"][state["object_id"] == i].astype(np.float64)
+        out[i] = float(np.sqrt(((xs - xs.mean(0)) ** 2).sum(1).mean()))
+    return out
+
+
+def sharded_path(device, smi):
+    """Phase 27: spatial slab sharding (sph_taichi_torch/parallel) on one
+    card.  armadillo_bath_dynamic (WCSPH, three dynamic armadillos) at its
+    full size in slabs of D = 2 (two processes sharing the card over gloo,
+    staged through the host) and D = 1 (one process, NCCL), against the
+    port's single-device step; then the small scene's methods 0, 1, 2
+    and 4 at D = 2 against the single-device step.  The kernels were built
+    in phase 1: the ranks load them."""
+    from sph_taichi_torch import SimConfig, build_scene, build_solver, entry
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.parallel import comm as pcomm
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params, particles, _ = build_scene(SimConfig(SHARDED_SCENE),
+                                       device=device)
+    halo_cap, loc_cap, layer_max, per_rank = sharded_capacities(
+        params, particles, 2)
+    print(f"{SHARDED_SCENE}: {params.n_fluid} fluid + {params.n_solid} solid "
+          f"particles, dynamic rigids {params.dynamic_rigid_ids}, grid "
+          f"{params.grid_num}; fullest x-layer {layer_max} particles, owned "
+          f"per slab at D = 2 {per_rank}: halo_cap {halo_cap}, loc_cap "
+          f"{loc_cap}; scene {time.perf_counter() - t0:.1f} s")
+
+    # the single-device step: the reference after 1 step, and its time
+    solver = build_solver(params, device=device)
+    state = solver.initialize(particles)
+    del particles
+    state, _ = solver.step(state)
+    real = state.p.material >= 0
+    ref1 = {f: getattr(state.p, f)[real].cpu().numpy()
+            for f in SHARDED_FIELDS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        state, _ = solver.step(state)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / 4 * 1e3
+    del solver, state, real
+    torch.cuda.empty_cache()
+
+    spec = {"scene": SHARDED_SCENE, "steps": 5, "record": [0, 1, 5],
+            "fields": SHARDED_FIELDS, "mig_cap": 4096, "halo_cap": halo_cap,
+            "loc_cap": loc_cap, "time": True}
+    small = []
+    for m in (0, 1, 2, 4):
+        scene = small_scene()
+        scene["Configuration"]["simulationMethod"] = m
+        scene["Configuration"]["timeStepSize"] = 4e-4 if m == 0 else 4e-3
+        small.append({"scene": scene, "steps": 1, "record": [1],
+                      "mig_cap": 128, "halo_cap": 512})
+    t0 = time.perf_counter()
+    d2 = pcomm.launch(entry.run_scenarios, 2, args=([spec] + small,),
+                      backend="gloo", devices=["cuda:0", "cuda:0"],
+                      timeout=600.0)[0]
+    print(f"D = 2 (gloo, staged through the host, both ranks on cuda:0): "
+          f"{time.perf_counter() - t0:.1f} s, processes started and joined")
+    t0 = time.perf_counter()
+    d1 = pcomm.launch(entry.run_scenarios, 1,
+                      args=([dict(spec, loc_cap=params.n_pad)],),
+                      backend="nccl", devices=["cuda:0"], timeout=600.0)[0]
+    print(f"D = 1 (NCCL): {time.perf_counter() - t0:.1f} s")
+
+    lo, hi = cp.box_limits(params)
+    ids = params.dynamic_rigid_ids
+    for world, rec in ((2, d2[0]), (1, d1[0])):
+        label = f"armadillo_bath_dynamic sharded D = {world}"
+        worst = entry.match_states(ref1, rec["states"][1], dict.fromkeys(
+            ("x", "v", "density"), ATOL), RTOL)
+        print(f"{label}: step 1 against the single-device step through the "
+              f"nearest-position bijection: max |difference| {worst} (atol "
+              f"{ATOL}, rtol {RTOL})")
+        last, first = rec["states"][5], rec["states"][0]
+        if last["x"].shape[0] != params.n_particles:
+            raise AssertionError(f"{label}: {last['x'].shape[0]} particles "
+                                 f"after 5 steps, {params.n_particles} "
+                                 f"before")
+        if not (np.isfinite(last["x"]).all() and np.isfinite(last["v"]).all()):
+            raise AssertionError(f"{label}: non-finite state")
+        if not ((last["x"] >= lo - 1e-4).all()
+                and (last["x"] <= np.array(hi) + 1e-4).all()):
+            raise AssertionError(f"{label}: a particle left the padded box")
+        flags = [(i, k) for i, m in enumerate(rec["metrics"])
+                 for k in ("migration_overflow", "halo_overflow")
+                 if m.get(k)]
+        if flags:
+            raise AssertionError(f"{label}: overflow {flags}")
+        r0, r5 = rms_radii(first, ids), rms_radii(last, ids)
+        drift = {i: abs(r5[i] - r0[i]) / r0[i] for i in ids}
+        if max(drift.values()) >= 1e-3:
+            raise AssertionError(f"{label}: rigid shape not kept {drift}")
+        print(f"{label}: after 5 steps {last['x'].shape[0]} particles, "
+              f"finite, inside the padded box, no overflow flag; rigid rms "
+              f"radius drift (relative) "
+              + ", ".join(f"{i}: {d:.2e}" for i, d in drift.items()))
+        for r, rr in enumerate(rec["ranks"]):
+            per_step = rr["launches"]
+            missing = [(i + 1, k) for i, c in enumerate(per_step)
+                       for k in SHARDED_KERNELS if not c.get(k)]
+            if missing:
+                raise AssertionError(f"{label} rank {r}: no launch of "
+                                     f"{missing}")
+            ms = rr["ms"][1:]
+            print(f"  rank {r}: owned rows per object id "
+                  f"{rr['owned_by_object']}; hand-kernel launches per step "
+                  f"{per_step[-1]}; "
+                  f"collectives per step {rr['collectives'][-1]}, bytes "
+                  f"hopped per step {rr['hop_bytes'][-1]}; step "
+                  f"{np.median(ms):.2f} ms (median of steps 2-5), single "
+                  f"device {single_ms:.2f} ms ({smi})")
+        if world == 2:
+            straddle = [i for i in ids if all(
+                rr["owned_by_object"][i] > 0 for rr in rec["ranks"])]
+            if not straddle:
+                raise AssertionError(f"{label}: no rigid spans both slabs")
+            print(f"  rigids owned by both slabs: {straddle} (the summed "
+                  f"rigid solve and the ghost moving volumes)")
+
+    for spec_m, rec in zip(small, d2[1:]):
+        m = spec_m["scene"]["Configuration"]["simulationMethod"]
+        sp, spart, _ = build_scene(SimConfig(config_dict=spec_m["scene"]),
+                                   device=device)
+        solver = build_solver(sp, device=device)
+        ss, sm = solver.step(solver.initialize(spart))
+        real = ss.p.material >= 0
+        ref = {f: getattr(ss.p, f)[real].cpu().numpy()
+               for f in SHARDED_FIELDS}
+        worst = entry.match_states(ref, rec["states"][1], dict.fromkeys(
+            ("x", "v", "density"), ATOL), RTOL)
+        its = {k: (int(sm[k]), int(rec["metrics"][0][k]))
+               for k in ("pressure_iters", "divergence_iters") if k in sm}
+        if any(a != b for a, b in its.values()):
+            raise AssertionError(f"small scene method {m} D = 2: iterations "
+                                 f"{its} (single, sharded)")
+        print(f"small scene method {m} D = 2 against the single-device step "
+              f"on the card: max |difference| {worst}; iterations (single, "
+              f"sharded) {its}; launches per rank "
+              f"{[rr['launches'][0] for rr in rec['ranks']]}")
+    print(f"sharded phase in {time.perf_counter() - t_phase:.1f} s ({smi}); "
+          f"NCCL across two cards not run: one card")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5871,7 +6058,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = t0 = time.perf_counter()
-    sources = ["pairs", "dfsph", "iisph", "pcisph"]
+    sources = _build.SOURCES
     controls = start_control_builds()
     _build.build(sources)
     print(f"kernels built from sph_taichi_torch/csrc in "
@@ -5954,6 +6141,8 @@ def main():
     t0 = time.perf_counter()
     legacy2d_path(device, smi)
     print(f"legacy2d phase in {time.perf_counter() - t0:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+    sharded_path(device, smi)
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

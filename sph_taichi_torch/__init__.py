@@ -17,6 +17,9 @@ Public entry points (device=None means the CUDA device; without one, pass
     ``build_scene``      — scene -> (SimParams, Particles, SceneObjects)
     ``build_solver``     — simulationMethod -> solver
     ``simulation.Simulation`` — scene file -> frames, exports, checkpoints
+    ``parallel.sharding.ShardedSolver`` — one rank's slab of a spatially
+                           sharded solver over ``torch.distributed``
+    ``entry``            — a WCSPH step function and the sharded dry run
 
 The package imports neither JAX nor ``sph_taichi_tpu``.
 """

@@ -6,8 +6,10 @@ be fed to both (the parity tests do): every solver's fields, the DFSPH
 extras and the pressure that an IISPH state carries from step to step (its
 warm start) included.  The legacy 2D engine's ``State2D`` carries the same
 way (``state2d_from_numpy`` / ``state2d_to_numpy``), every field with n
-and dt.  Nothing here imports the JAX package: the callers pass plain
-dicts of arrays.
+and dt, and a JAX ``ShardedSolver``'s global arrays split into the port's
+per-rank slabs (``sharded_segments_from_numpy`` / ``..._to_numpy``).
+Nothing here imports the JAX package: the callers pass plain dicts of
+arrays.
 """
 
 import numpy as np
@@ -162,3 +164,27 @@ def state2d_f64_witness(sph, got, ref, ref64, it, dt):
            if k not in ("n",) + _INT_FIELDS_2D}
     worse = {k: v for k, v in far.items() if v[0] > 2.0 * v[1] + tol[k]}
     return far, worse
+
+
+def sharded_segments_from_numpy(arrays, world, device):
+    """Per-rank ``Particles`` on ``device`` from a JAX ``ShardedSolver``'s
+    global particle arrays (a dict of numpy arrays by field, world * n_ext
+    rows, rank d's slab in rows d * n_ext .. (d + 1) * n_ext): a list of
+    ``world`` slabs, the rows of parallel/sharding.py ``ShardedSolver``'s
+    states, ghost rows tagged ``is_dynamic = -1`` in both."""
+    n = len(next(iter(arrays.values())))
+    if n % world:
+        raise ValueError(f"{n} rows do not split into {world} slabs")
+    seg = n // world
+    return [particles_from_numpy(
+        {k: None if a is None else np.asarray(a)[d * seg:(d + 1) * seg]
+         for k, a in arrays.items()}, device) for d in range(world)]
+
+
+def sharded_segments_to_numpy(slabs):
+    """The JAX ``ShardedSolver``'s global arrays (a dict by field) from the
+    per-rank ``Particles`` (or numpy dicts) of a sharded run, rank after
+    rank."""
+    dicts = [s if isinstance(s, dict) else particles_to_numpy(s)
+             for s in slabs]
+    return {k: np.concatenate([d[k] for d in dicts]) for k in dicts[0]}

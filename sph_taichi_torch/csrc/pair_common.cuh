@@ -23,8 +23,9 @@
 // Rounding follows the plain path that pinned the goldens: inclusion on the
 // raw sum of squares, self excluded by index, rn = sqrtf(sum), d2 = rn*rn,
 // inv = 1/sqrtf(max(d2, 1e-38)), no rsqrtf; the centre's cell is computed
-// unclipped from the host's f32 reciprocal of the cell size.  Built with
-// -fmad=false and without fast math so no product is contracted into an FMA.
+// unclipped from the host's f32 reciprocal of the cell size (cell_x for x).
+// Built with -fmad=false and without fast math so no product is contracted
+// into an FMA.
 
 #pragma once
 
@@ -35,6 +36,7 @@
 // Mirror: PairConsts in sph_taichi_torch/ops/cuda_pairs.py, field for field.
 struct PairConsts {
   int n_real, nx, ny, nz;
+  int x_origin;     // the grid's first global x-layer (0 on one device)
   float inv_cell;   // f32(1) / f32(cell size), computed on the host
   float h2;         // f32(h * h)
   float inv_h;      // f32(1 / h)
@@ -94,6 +96,25 @@ __device__ __forceinline__ PairGeom pair_geom(float s) {
   return g;
 }
 
+// The x-layer of a centre's cell on the grid the arrays are sorted over:
+// trunc(x / cell) less the grid's first global x-layer (SimParams.x_origin:
+// 0 on one device; a slab of a sharded run, parallel/sharding.py, sorts over
+// its own extended grid).  The subtraction is an integer one after the f32
+// product, so no position is shifted.  Each coordinate is capped first, so
+// that a padding row parked at 1e9 (the cast saturates there), which a slab
+// may walk as a centre (n_real is the global count), lies far outside every
+// grid with no integer overflow.
+constexpr int kFarCell = 1 << 29;
+
+// trunc(x / cell), capped at kFarCell: the y and z coordinates of a cell.
+__device__ __forceinline__ int cell_coord(float x, const PairConsts& c) {
+  return min((int)(x * c.inv_cell), kFarCell);
+}
+
+__device__ __forceinline__ int cell_x(float x, const PairConsts& c) {
+  return cell_coord(x, c) - c.x_origin;
+}
+
 // The two candidate walks.  column(cx, cy, zlo, zhi, c, g) calls g(j) for
 // the particles of the z-cells zlo..zhi of column (cx, cy), in sorted order.
 
@@ -145,9 +166,9 @@ template <typename Walk, typename F>
 __device__ __forceinline__ void for_each_neighbor_walk(
     int i, float xi0, float xi1, float xi2, const float* __restrict__ x,
     const Walk& walk, const PairConsts& c, F&& f) {
-  const int ix = (int)(xi0 * c.inv_cell);
-  const int iy = (int)(xi1 * c.inv_cell);
-  const int iz = (int)(xi2 * c.inv_cell);
+  const int ix = cell_x(xi0, c);
+  const int iy = cell_coord(xi1, c);
+  const int iz = cell_coord(xi2, c);
   const int zlo = max(iz - 1, 0);
   const int zhi = min(iz + 1, c.nz - 1);
   if (zlo > zhi) return;
@@ -256,9 +277,9 @@ __device__ __forceinline__ void cell_run_candidates(
   const unsigned kFull = 0xffffffffu;
   int ix = 0, iy = 0, zlo = 0, zhi = -1;
   if (walks) {
-    ix = (int)(xi0 * c.inv_cell);
-    iy = (int)(xi1 * c.inv_cell);
-    const int iz = (int)(xi2 * c.inv_cell);
+    ix = cell_x(xi0, c);
+    iy = cell_coord(xi1, c);
+    const int iz = cell_coord(xi2, c);
     zlo = max(iz - 1, 0);
     zhi = min(iz + 1, c.nz - 1);
     walks = zlo <= zhi;

@@ -12,7 +12,16 @@ kernels on the card, the plain GatherEngine on the CPU.  The reference's
 atomic scatters onto rigid neighbours are gathers from the rigid side, so
 every step is deterministic.  A step makes no host sync: metrics stay on
 the device.
+
+A step of a slab of a sharded run (parallel/sharding.py) hands the solvers
+a ``StepCtx`` instead of the engine's bare context: it carries the ghost
+sync that refreshes the ghost rows' copies of a field that a pair sum
+wrote before a later one reads it at neighbours (``sync_fields``), the
+communicator of the global reductions, and the rows the slab owns.  On one
+device the bare context passes through the same calls unchanged.
 """
+
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -25,6 +34,83 @@ from sph_taichi_torch.ops.grid import (
     compute_cell_ids, sort_by_cell, cell_offsets, max_cell_occupancy)
 from sph_taichi_torch.ops.linalg import polar_rotation
 from sph_taichi_torch.ops.pairs import div_exact, make_engine, sqrt32
+
+
+# ---------------------------------------------------------------------------
+# step context: the engine's context, and a slab's ghost sync and reductions
+# ---------------------------------------------------------------------------
+
+class StepCtx(NamedTuple):
+    """What a slab's step needs besides the engine's context: ``ghost_sync``
+    maps a list of per-row f32 tensors to the same tensors with the ghost
+    rows' values taken from their owners; ``comm`` reduces across ranks
+    (parallel/comm.py); ``owned`` (bool[n]) marks the real rows the slab
+    owns.  Single-device steps pass the bare engine context."""
+    engine_ctx: Any
+    ghost_sync: Optional[Callable] = None
+    comm: Any = None
+    owned: Optional[torch.Tensor] = None
+
+
+def ectx(ctx):
+    """The engine's context of ``ctx``, a ``StepCtx`` or a bare one."""
+    return ctx.engine_ctx if isinstance(ctx, StepCtx) else ctx
+
+
+def with_engine_ctx(ctx, engine_ctx):
+    """``ctx`` with the engine context ``engine_ctx`` (the step's pair list
+    that a density kernel returns): a ``StepCtx`` stays one."""
+    if isinstance(ctx, StepCtx):
+        return ctx._replace(engine_ctx=engine_ctx)
+    return engine_ctx
+
+
+def sharded(ctx):
+    return isinstance(ctx, StepCtx) and ctx.ghost_sync is not None
+
+
+def sync_tensors(ctx, *tensors):
+    """The tensors (per-row f32, (n,) or (n, k)) with their ghost rows
+    refreshed from the rows' owners; as they are on one device."""
+    if not sharded(ctx):
+        return tensors if len(tensors) > 1 else tensors[0]
+    out = ctx.ghost_sync(list(tensors))
+    return tuple(out) if len(out) > 1 else out[0]
+
+
+def sync_fields(ctx, p: Particles, names):
+    """``p`` with the ghost copies of the fields ``names`` refreshed (after
+    the rows' owners recomputed them, before a pair sum reads them at
+    neighbours); ``p`` itself on one device."""
+    if not sharded(ctx):
+        return p
+    out = sync_tensors(ctx, *[getattr(p, n) for n in names])
+    if len(names) == 1:
+        out = (out,)
+    return p._replace(**dict(zip(names, out)))
+
+
+def owned_sum(ctx, t, n_real):
+    """The sum of the per-row ``t`` over the real rows: on one device the
+    first ``n_real`` rows (padding sorts to the tail); on a slab the rows
+    it owns (owned and ghost rows interleave by cell), summed across
+    ranks, so every rank holds the same value."""
+    if not sharded(ctx):
+        return torch.sum(t[:n_real])
+    return ctx.comm.psum(torch.sum(torch.where(ctx.owned, t, 0.0)))
+
+
+def owned_max(ctx, t):
+    """The largest of the per-row ``t`` (>= 0 off the rows that count):
+    over every row on one device, over the owned rows maxed across ranks
+    on a slab."""
+    if not sharded(ctx):
+        return torch.amax(t)
+    return ctx.comm.pmax(torch.amax(torch.where(ctx.owned, t, 0.0)))
+
+
+def _psum(comm, t):
+    return t if comm is None else comm.psum(t)
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +152,7 @@ def bin_and_sort(p: Particles, params: SimParams, engine, tables=None):
     if tables is not None:
         transient += ["material", "is_dynamic", "m", "density"]
     cell_ids = compute_cell_ids(p.x, p.material, params.grid_size,
-                                params.grid_num)
+                                params.grid_num, params.x_origin)
     p, sorted_ids = sort_by_cell(p, cell_ids, extra_transient=transient)
     if tables is not None:
         oid = p.object_id
@@ -139,10 +225,14 @@ def _boundary_volume_engine(p: Particles, ctx, engine, params: SimParams,
 
 
 def _boundary_volume(p, ctx, engine, params, target_mask):
+    """A slab takes the traversal at every solid count (the dense sum sees
+    only its own solids), then refreshes its ghosts' volumes."""
     if params.n_solid == 0:
         return p        # no solid row to update
-    if engine.fused or params.n_solid > DENSE_SOLID_CAP:
-        return _boundary_volume_engine(p, ctx, engine, params, target_mask)
+    if engine.fused or sharded(ctx) or params.n_solid > DENSE_SOLID_CAP:
+        p = _boundary_volume_engine(p, ectx(ctx), engine, params,
+                                    target_mask)
+        return sync_fields(ctx, p, ["m_V"])
     return _boundary_volume_dense(p, params, target_mask)
 
 
@@ -170,48 +260,60 @@ def enforce_boundary(p: Particles, params: SimParams, particle_type):
 # shape-matching rigid solve (sph_base.py:182-260)
 # ---------------------------------------------------------------------------
 
-def compute_com(p: Particles, object_id):
+# A rigid body may span slabs: with a communicator ``comm`` its sums run
+# over this rank's dynamic rigid rows (a slab's ghost rows are not
+# dynamic during its step) and then across ranks.
+
+def _weighted_mean(w, x, comm):
+    """sum w x / sum w over the rows (and across ranks, in one reduction)."""
+    num, den = torch.sum(w[:, None] * x, dim=0), torch.sum(w)
+    if comm is not None:
+        sums = comm.psum(torch.cat([num, den[None]]))
+        num, den = sums[:-1], sums[-1]
+    return num / den
+
+
+def compute_com(p: Particles, object_id, comm=None):
     """Mass-weighted COM over this object's dynamic rigid particles.
     Mass = m_V0 * density, the stored p.m (not the Akinci m_V),
     sph_base.py:188."""
     mask = p.is_dynamic_rigid() & (p.object_id == object_id)
-    w = torch.where(mask, p.m, 0.0)
-    return torch.sum(w[:, None] * p.x, dim=0) / torch.sum(w)
+    return _weighted_mean(torch.where(mask, p.m, 0.0), p.x, comm)
 
 
-def solve_constraints(p: Particles, rest_cm, object_id):
+def solve_constraints(p: Particles, rest_cm, object_id, comm=None):
     """One shape-matching projection for one object (sph_base.py:200-222)."""
     mask = p.is_dynamic_rigid() & (p.object_id == object_id)
     w = torch.where(mask, p.m, 0.0)
-    cm = torch.sum(w[:, None] * p.x, dim=0) / torch.sum(w)
+    cm = _weighted_mean(w, p.x, comm)
     q = p.x0 - rest_cm[None, :]
     pv = p.x - cm[None, :]
     # A = sum m * p (x) q  (outer_product(p, q), sph_base.py:210)
-    a = torch.einsum("n,ni,nj->ij", w, pv, q)
+    a = _psum(comm, torch.einsum("n,ni,nj->ij", w, pv, q))
     r = polar_rotation(a)
     goal = cm[None, :] + q @ r.T
     return p._replace(x=torch.where(mask[:, None], goal, p.x)), r, cm
 
 
-def compute_rigid_rest_cm(p: Particles, params: SimParams):
+def compute_rigid_rest_cm(p: Particles, params: SimParams, comm=None):
     """rigid_rest_cm per object id (sph_base.py:87-89); zeros for objects
     without dynamic rigid particles."""
     cms = []
     for obj in range(max(params.num_objects, 1)):
         if obj in params.dynamic_rigid_ids:
-            cms.append(compute_com(p, obj))
+            cms.append(compute_com(p, obj, comm))
         else:
             cms.append(torch.zeros(params.dim, dtype=p.x.dtype,
                                    device=p.x.device))
     return torch.stack(cms, dim=0)
 
 
-def solve_rigid_body(p: Particles, rest_cm, params: SimParams):
+def solve_rigid_body(p: Particles, rest_cm, params: SimParams, comm=None):
     """Shape-match + solid box clamp per dynamic object, in the reference's
     order (sph_base.py:247-260)."""
     rots, cms = [], []
     for obj in params.dynamic_rigid_ids:
-        p, r, cm = solve_constraints(p, rest_cm[obj], obj)
+        p, r, cm = solve_constraints(p, rest_cm[obj], obj, comm)
         p = enforce_boundary(p, params, MATERIAL_SOLID)
         rots.append(r)
         cms.append(cm)
@@ -304,6 +406,10 @@ class SPHBase:
         """One full step (reference SPHBase.step, sph_base.py:263-271);
         returns (new_state, metrics) with metrics on the device."""
         params = self.params
+        if params.axis_name:
+            raise ValueError(
+                "a slab's solver steps through parallel.ShardedSolver, "
+                "whose step carries its ghost sync and reductions")
         p, ctx, diag = bin_and_sort(state.p, params, self.engine, self.tables)
         if params.n_solid > 0 and params.dynamic_rigid_ids:
             p = compute_moving_boundary_volume(p, ctx, self.engine, params)
@@ -337,12 +443,14 @@ def compute_densities(p: Particles, ctx, engine, params: SimParams):
     fluid and solid neighbours both contribute (WCSPH.py:19-43).  Solid and
     padding densities keep their stored values.  The solvers' steps take
     ``compute_densities_and_pairs``."""
+    step, ctx = ctx, ectx(ctx)
     if engine.fused:
         den_pairs = cuda_pairs.density_sum(ctx, p, params)
     else:
         den_pairs = cuda_pairs.density_sum_plain(ctx, p.x, p.material,
                                                  p.m_V, params)
-    return _with_density(p, den_pairs, params)
+    return sync_fields(step, _with_density(p, den_pairs, params),
+                       ["density"])
 
 
 def compute_densities_and_pairs(p: Particles, ctx, engine, params: SimParams,
@@ -355,13 +463,18 @@ def compute_densities_and_pairs(p: Particles, ctx, engine, params: SimParams,
     (``cuda_pairs.density_sum_list``): a ``PairList`` over the cell
     offsets or the slot map, which those kernels read over either walk; on
     CPU tensors the context is the slot map or the plain engine's
-    neighbour lists, and on the plain engine ``ctx``."""
+    neighbour lists, and on the plain engine ``ctx``.  Given a
+    ``StepCtx`` it refreshes the ghost densities and returns a ``StepCtx``
+    over that context: the slab's step list holds its ghost rows as
+    candidates, which the syncs keep current."""
+    step, ctx = ctx, ectx(ctx)
     if engine.fused:
         den_pairs, ctx = cuda_pairs.density_sum_list(ctx, p, params, buffers)
     else:
         den_pairs = cuda_pairs.density_sum_plain(ctx, p.x, p.material,
                                                  p.m_V, params)
-    return _with_density(p, den_pairs, params), ctx
+    p = sync_fields(step, _with_density(p, den_pairs, params), ["density"])
+    return p, with_engine_ctx(step, ctx)
 
 
 def _with_density(p, den_pairs, params):
@@ -385,6 +498,7 @@ def compute_non_pressure_forces(p: Particles, ctx, engine, params: SimParams,
     the CUDA engine ``ctx`` is the step's pair list (DFSPH's from
     ``density_factor_and_pairs``, PCISPH's from
     ``compute_densities_and_pairs``), over the cell runs or the slot map."""
+    ctx = ectx(ctx)
     if predict_dt is None:
         accel = (cuda_dfsph.nonpressure_accel if engine.fused
                  else cuda_dfsph.nonpressure_accel_plain)

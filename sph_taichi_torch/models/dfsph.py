@@ -30,8 +30,15 @@ Parity notes (as the JAX package):
   forces that follow it in the reference (DFSPH.py:98-99);
 - advection: v += dt * acc for dynamic rigids, x += dt * v for every
   dynamic particle (DFSPH.py:105-112).
-The JAX package's ghost syncs (identity on one device), its lane buffers
-and its fused solver update are TPU-only and not ported.
+On a slab of a sharded run (parallel/sharding.py) the step refreshes the
+ghost rows' copies where the JAX package syncs them: density and factor
+after the density-and-factor kernel, v after each Jacobi velocity update
+and after the non-pressure kick, the density change after each of its
+kernels; the step's pair list, written over the step-start positions,
+holds the ghost rows as candidates and serves the slab's kernels.  The
+solves' errors are summed over the owned fluid rows across ranks, so every
+rank runs the same iterations.  The JAX package's lane buffers and fused
+solver update are TPU-only and not ported.
 """
 
 import torch
@@ -39,7 +46,8 @@ import torch
 from sph_taichi_torch.ops import cuda_dfsph
 from sph_taichi_torch.ops.pairs import div_exact
 from sph_taichi_torch.models.base import (
-    JACOBI_CHECK_EVERY, SPHBase, compute_non_pressure_forces, jacobi_while)
+    JACOBI_CHECK_EVERY, SPHBase, compute_non_pressure_forces, ectx,
+    jacobi_while, owned_sum, sync_fields, sync_tensors, with_engine_ctx)
 from sph_taichi_torch.state import Particles
 
 class DFSPHSolver(SPHBase):
@@ -76,14 +84,20 @@ class DFSPHSolver(SPHBase):
         pair list into the solver's buffers, a ``PairList`` over the cell
         offsets or the slot map (``cuda_dfsph.density_factor_list``); on
         CPU tensors the context is the slot map or the plain engine's
-        neighbour lists, and on the plain engine ``ctx``."""
+        neighbour lists, and on the plain engine ``ctx``.  Given a
+        ``StepCtx`` it refreshes the ghost rows' density and factor and
+        returns a ``StepCtx`` over that context."""
+        step, ctx = ctx, ectx(ctx)
         if self.engine.fused:
             density, factor, ctx = cuda_dfsph.density_factor_list(
                 ctx, p, self.params, self._pair_buffers)
         else:
             density, factor = cuda_dfsph.density_factor_plain(ctx, p,
                                                                self.params)
-        return p._replace(density=density, dfsph_factor=factor), ctx
+        p = sync_fields(step, p._replace(density=density,
+                                         dfsph_factor=factor),
+                        ["density", "dfsph_factor"])
+        return p, with_engine_ctx(step, ctx)
 
     def compute_factor(self, p: Particles, ctx):
         """alpha_i alone (DFSPH.py:115-155); no step calls it.  It is the
@@ -91,28 +105,36 @@ class DFSPHSolver(SPHBase):
         return self.density_and_factor(p, ctx).dfsph_factor
 
     def _density_change(self, p: Particles, ctx, v, active=None):
-        """(adv, errt) of compute_density_change (DFSPH.py:158-194)."""
-        return self._op("divergence")(ctx, p, v, None, None, "change",
-                                      self.params, active=active)
+        """(adv, errt) of compute_density_change (DFSPH.py:158-194); adv's
+        ghost rows refreshed."""
+        adv, errt = self._op("divergence")(ectx(ctx), p, v, None, None,
+                                           "change", self.params,
+                                           active=active)
+        return sync_tensors(ctx, adv), errt
 
     def _density_adv(self, p: Particles, ctx, v, density, dt, active=None):
-        """(adv, errt) of compute_density_adv (DFSPH.py:197-218)."""
-        return self._op("divergence")(ctx, p, v, density, dt, "adv",
-                                      self.params, active=active)
+        """(adv, errt) of compute_density_adv (DFSPH.py:197-218); adv's
+        ghost rows refreshed."""
+        adv, errt = self._op("divergence")(ectx(ctx), p, v, density, dt,
+                                           "adv", self.params, active=active)
+        return sync_tensors(ctx, adv), errt
 
-    def _avg_density_error(self, errt):
+    def _avg_density_error(self, errt, ctx=None):
         """sum over fluid of (rho0 adv - offset) / n_fluid
-        (DFSPH.py:221-227), from the traversal's per-centre column."""
+        (DFSPH.py:221-227), from the traversal's per-centre column (0 off
+        fluid rows): on a slab over its owned rows, across ranks."""
         n_real = self.params.n_fluid + self.params.n_solid
-        return div_exact(torch.sum(errt[:n_real]), float(self.params.n_fluid))
+        return div_exact(owned_sum(ctx, errt, n_real),
+                         float(self.params.n_fluid))
 
     def _solver_dv(self, p, ctx, kappa, with_reaction, dt, v, acc=None,
                    active=None):
-        """One Jacobi velocity update (v, acc or None); see
-        cuda_dfsph.solver_dv_plain."""
-        return self._op("solver_dv")(ctx, p, kappa, v, acc, dt,
-                                     with_reaction, self.params,
-                                     active=active)
+        """One Jacobi velocity update (v, acc or None), v's ghost rows
+        refreshed; see cuda_dfsph.solver_dv_plain."""
+        v, acc = self._op("solver_dv")(ectx(ctx), p, kappa, v, acc, dt,
+                                       with_reaction, self.params,
+                                       active=active)
+        return sync_tensors(ctx, v), acc
 
     # ------------------------------------------------------------------
     def divergence_solve(self, p: Particles, ctx, dt):
@@ -139,7 +161,7 @@ class DFSPHSolver(SPHBase):
             v, _ = self._solver_dv(p, ctx, kappa, False, dt, v,
                                    active=active)
             adv, errt = self._density_change(p, ctx, v, active=active)
-            return (v, adv, kacc + kappa, self._avg_density_error(errt),
+            return (v, adv, kacc + kappa, self._avg_density_error(errt, ctx),
                     it + 1)
 
         def cond(carry):
@@ -188,7 +210,7 @@ class DFSPHSolver(SPHBase):
             adv, errt = self._density_adv(p, ctx, v, p.density, dt,
                                           active=active)
             return (v, acc, adv, kacc + kappa,
-                    self._avg_density_error(errt), it + 1)
+                    self._avg_density_error(errt, ctx), it + 1)
 
         def cond(carry):
             err, it = carry[-2:]
@@ -224,6 +246,7 @@ class DFSPHSolver(SPHBase):
         # (DFSPH.py:392-397) in one traversal
         p = compute_non_pressure_forces(p, pairs, self.engine, self.params,
                                         predict_dt=dt)
+        p = sync_fields(pairs, p, ["v"])
         p, m = self.pressure_solve(p, pairs, dt)
         metrics.update(m)
         return self.advect(p, dt), metrics

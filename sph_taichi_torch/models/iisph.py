@@ -24,8 +24,16 @@ to the host once every JACOBI_CHECK_EVERY iterations, so iteration counts
 and results equal the JAX package's ``lax.while_loop``.  Inside the loop
 the pressure acceleration of every real row is kept, solids' too: A reads
 it in (a_i - a_j) . r_ij.  Only the final acceleration is applied, to fluid
-rows.  The JAX package's ghost syncs, lane buffers and fused switch are
-TPU or sharding machinery and are not ported.
+rows.
+
+On a slab of a sharded run (parallel/sharding.py) the step refreshes the
+ghost rows' density after the density kernel, v* after the kick, and in
+each iteration the pressure acceleration (A reads a_j at neighbours; the
+JAX package's sharded loop does not refresh it) and the new pressure; the
+step's pair list holds the ghost rows as candidates and serves the slab's
+kernels.  The error is summed over the owned real rows across ranks.  The
+JAX package's lane buffers and fused switch are TPU machinery and are not
+ported.
 """
 
 import torch
@@ -33,7 +41,8 @@ import torch
 from sph_taichi_torch.ops import cuda_iisph
 from sph_taichi_torch.ops.pairs import div_exact
 from sph_taichi_torch.models.base import (
-    JACOBI_CHECK_EVERY, SPHBase, compute_densities_and_pairs, jacobi_while)
+    JACOBI_CHECK_EVERY, SPHBase, compute_densities_and_pairs, ectx,
+    jacobi_while, owned_sum, sync_fields, sync_tensors)
 from sph_taichi_torch.state import Particles
 
 
@@ -60,21 +69,22 @@ class IISPHSolver(SPHBase):
     def compute_non_pressure(self, p: Particles, ctx, dt):
         """Gravity + fluid viscosity for every real particle
         (IISPH.py:236-249) into p.acc, and the fluid kick v* = v + dt acc
-        (IISPH.py:73-75) into p.v."""
-        acc, v = self._op("nonpressure_kick")(ctx, p, dt, self.params)
-        return p._replace(acc=acc, v=v)
+        (IISPH.py:73-75) into p.v, whose ghost rows are refreshed."""
+        acc, v = self._op("nonpressure_kick")(ectx(ctx), p, dt, self.params)
+        return sync_fields(ctx, p._replace(acc=acc, v=v), ["v"])
 
     def predict_advection(self, p: Particles, ctx, dt):
         """(a_ii, source, last_p) from v* (IISPH.py:20-100)."""
-        return self._op("predict_advection")(ctx, p, dt, self.params)
+        return self._op("predict_advection")(ectx(ctx), p, dt, self.params)
 
     def _pressure_accel(self, p: Particles, ctx, pressure, advect_dt=None,
                         active=None):
         """Symmetric pressure acceleration of every real row
         (IISPH.py:114-144); with ``advect_dt`` the fluid advect follows
         (IISPH.py:251-257) and p with the new (v, x) is returned."""
-        out = self._op("pressure_accel")(ctx, p, pressure, self.params,
-                                         advect_dt=advect_dt, active=active)
+        out = self._op("pressure_accel")(ectx(ctx), p, pressure,
+                                         self.params, advect_dt=advect_dt,
+                                         active=active)
         if advect_dt is None:
             return out
         v, x = out
@@ -85,8 +95,9 @@ class IISPHSolver(SPHBase):
         """One relaxed-Jacobi update from Ap_i = dt^2 rho0 sum_j m_V_j
         (a_i - a_j) . gradW_ij (IISPH.py:146-179): (new_p, per-row error
         term)."""
-        return self._op("apply_A")(ctx, p, accel, a_ii, source, last_p, dt,
-                                   self.omega, self.params, active=active)
+        return self._op("apply_A")(ectx(ctx), p, accel, a_ii, source,
+                                   last_p, dt, self.omega, self.params,
+                                   active=active)
 
     # ------------------------------------------------------------------
     def pressure_solve(self, p: Particles, ctx, a_ii, source, last_pressure,
@@ -99,10 +110,12 @@ class IISPHSolver(SPHBase):
 
         def body(carry, active):
             last_p, _, it = carry
-            accel = self._pressure_accel(p, ctx, last_p, active=active)
+            accel = sync_tensors(ctx, self._pressure_accel(p, ctx, last_p,
+                                                           active=active))
             new_p, err_t = self._apply_A(p, ctx, accel, a_ii, source, last_p,
                                          dt, active=active)
-            return (new_p, div_exact(torch.sum(err_t[:n_real]), n_particles),
+            return (sync_tensors(ctx, new_p),
+                    div_exact(owned_sum(ctx, err_t, n_real), n_particles),
                     it + 1)
 
         def cond(carry):

@@ -31,6 +31,13 @@ condition is evaluated on the device and read to the host once every
 package's ``lax.while_loop``.  ``check_every`` is the minimum iteration
 count, 3: the first read comes at the first iteration where the loop can
 exit.
+
+On a slab of a sharded run (parallel/sharding.py) the step refreshes the
+ghost rows' density after the density kernel, the prediction (x*, v*) and
+the pressure at the top of each iteration, and the corrected pressure
+before the pressure acceleration reads it; the error is the largest over
+the owned rows across ranks.  The step's pair list holds the ghost rows as
+candidates and serves the slab's kernels.
 """
 
 import numpy as np
@@ -40,8 +47,8 @@ from sph_taichi_torch.ops import cuda_pcisph
 from sph_taichi_torch.ops.kernels import cubic_kernel_derivative_scalar
 from sph_taichi_torch.ops.pairs import div_exact
 from sph_taichi_torch.models.base import (
-    SPHBase, compute_densities_and_pairs, compute_non_pressure_forces,
-    jacobi_while)
+    SPHBase, compute_densities_and_pairs, compute_non_pressure_forces, ectx,
+    jacobi_while, owned_max, sync_tensors)
 from sph_taichi_torch.state import Particles
 
 
@@ -109,13 +116,17 @@ class PCISPHSolver(SPHBase):
         d_rho_correct = self._op("d_rho_correct")
         accel_predict = self._op("pressure_accel_predict")
 
+        pairs = ectx(ctx)
+
         def body(carry, active):
             pressure, vp, xp, _, it = carry
-            pressure, rho_err = d_rho_correct(ctx, p, xp, vp, pressure, dt,
+            xp, vp, pressure = sync_tensors(ctx, xp, vp, pressure)
+            pressure, rho_err = d_rho_correct(pairs, p, xp, vp, pressure, dt,
                                               s_f, params, active=active)
+            pressure = sync_tensors(ctx, pressure)
             # rho_err >= 0, and 0 off fluid rows
-            err = torch.amax(rho_err)
-            vp, xp = accel_predict(ctx, p, xp, pressure, dt, params,
+            err = owned_max(ctx, rho_err)
+            vp, xp = accel_predict(pairs, p, xp, pressure, dt, params,
                                    active=active)
             return pressure, vp, xp, err, it + 1
 

@@ -7,7 +7,10 @@ plain engine computes accelerations, then advects, and the step clamps.
 The positions stay those of the sort until that epilogue, so on the CUDA
 engine the density kernel writes the step's pair list as it sums, and
 the force kernel reads it, over the cell runs and over the slot walk
-(ops/cuda_pairs.py ``density_sum_list``).
+(ops/cuda_pairs.py ``density_sum_list``).  On a slab of a sharded run
+(parallel/sharding.py) the ghost densities are refreshed between the two
+kernels; the list, written over the step-start positions, holds the ghost
+rows as candidates and serves the force kernel there too.
 
 Quirks of the reference kept as they are:
 - density is clamped to >= rho0 *and stored* before the EOS (WCSPH.py:75);
@@ -24,7 +27,7 @@ from sph_taichi_torch.state import Particles
 from sph_taichi_torch.ops import cuda_pairs
 from sph_taichi_torch.ops.pairs import div_exact
 from sph_taichi_torch.models.base import (
-    SPHBase, compute_densities_and_pairs)
+    SPHBase, compute_densities_and_pairs, ectx)
 
 
 class WCSPHSolver(SPHBase):
@@ -78,6 +81,7 @@ class WCSPHSolver(SPHBase):
         from ``compute_densities_and_pairs``) the kernel also advects and
         clamps; without, p.acc is set."""
         p, dpi, p_r02, m_nc, rr0 = self.force_inputs(p)
+        ctx = ectx(ctx)
         if dt is not None:
             x, v, acc = cuda_pairs.wcsph_forces(ctx, p, dpi, p_r02, m_nc,
                                                 rr0, dt, self.params)

@@ -23,6 +23,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded = {}
 
+# every source a step may load
+SOURCES = ("pairs", "dfsph", "iisph", "pcisph")
+
 
 def _nvcc():
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"

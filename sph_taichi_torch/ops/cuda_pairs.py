@@ -256,7 +256,8 @@ def wcsph_forces_plain(nl, p, dpi, p_r02, m_nc, rr0, dt, params):
 class PairConsts(ctypes.Structure):
     """Mirror of ``struct PairConsts`` in csrc/pair_common.cuh (field for
     field), shared by the WCSPH, DFSPH and IISPH kernels."""
-    _fields_ = [(n, ctypes.c_int) for n in ("n_real", "nx", "ny", "nz")] + [
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "n_real", "nx", "ny", "nz", "x_origin")] + [
         (n, ctypes.c_float) for n in (
             "inv_cell", "h2", "inv_h", "kw", "kw2", "kg", "nkg",
             "diam2", "wd", "st", "dvisc", "eps_h2", "neg_rho0", "rho0",
@@ -277,7 +278,10 @@ def pair_consts(params):
     lo, hi = box_limits(params)
     gn = params.grid_num
     return PairConsts(
-        n_real=params.n_fluid + params.n_solid, nx=gn[0], ny=gn[1], nz=gn[2],
+        # a slab of a sharded run holds fewer rows than the global count
+        n_real=min(params.n_fluid + params.n_solid, params.n_pad),
+        nx=gn[0], ny=gn[1], nz=gn[2],
+        x_origin=params.x_origin,
         inv_cell=float(inv_grid_size(params.grid_size)), h2=h * h,
         inv_h=1.0 / h, kw=k, kw2=k * 2.0, kg=6.0 * k, nkg=-(6.0 * k),
         diam2=diameter * diameter, wd=wd, st=params.surface_tension,

@@ -19,14 +19,24 @@ def inv_grid_size(grid_size):
     return np.float32(1.0) / np.float32(grid_size)
 
 
-def pos_to_cell(x, grid_size):
-    """Integer cell coords by truncation toward zero (reference :288-289).
+def pos_to_cell(x, grid_size, x_origin=0):
+    """Integer cell coords of each row by truncation toward zero (reference
+    :288-289), the x coordinate less ``x_origin`` (a slab's first x-layer,
+    SimParams.x_origin; 0 on one device).
 
     A multiply by the host-computed f32 reciprocal, never a division: an
     IEEE f32 multiply rounds the same on every device, so a particle on a
-    lattice plane lands in the same cell on the CPU and on the card.
+    lattice plane lands in the same cell on the CPU and on the card.  The
+    origin is an integer subtracted after the cast: positions are never
+    shifted.  Padding rows parked at 1e9 fall outside int32, where torch's
+    cast gives no defined value (the card's saturates): every caller masks
+    them or finds them outside the grid, and the sharded owner lookup
+    (parallel/sharding.py ``owner_of``) clips first.
     """
-    return (x * float(inv_grid_size(grid_size))).to(torch.int32)
+    cell = (x * float(inv_grid_size(grid_size))).to(torch.int32)
+    if x_origin:
+        cell = torch.cat([cell[..., :1] - x_origin, cell[..., 1:]], dim=-1)
+    return cell
 
 
 def flatten_cell(cell, grid_num):
@@ -35,14 +45,14 @@ def flatten_cell(cell, grid_num):
     return cell[..., 0] * (ny * nz) + cell[..., 1] * nz + cell[..., 2]
 
 
-def compute_cell_ids(x, material, grid_size, grid_num):
+def compute_cell_ids(x, material, grid_size, grid_num, x_origin=0):
     """Flat cell id per particle; padding -> overflow cell (= num_cells).
 
     Real particle coords are clipped into the grid so out-of-domain strays
     get a valid edge cell.
     """
     num_cells = grid_num[0] * grid_num[1] * grid_num[2]
-    cell = pos_to_cell(x, grid_size)
+    cell = pos_to_cell(x, grid_size, x_origin)
     cell = torch.stack([cell[:, k].clamp(0, grid_num[k] - 1)
                         for k in range(3)], dim=1)
     flat = flatten_cell(cell, grid_num)

@@ -47,7 +47,7 @@ class NeighborList(NamedTuple):
 
 
 def build_neighbor_list(x, cell_starts, grid_num, grid_size, support_radius,
-                        neighbor_cap, cell_cap, dim=3):
+                        neighbor_cap, cell_cap, dim=3, x_origin=0):
     """Build (N, K) neighbour lists over cell-sorted positions.
 
     Args:
@@ -56,6 +56,7 @@ def build_neighbor_list(x, cell_starts, grid_num, grid_size, support_radius,
       grid_num: (nx, ny, nz).
       neighbor_cap: K.
       cell_cap: M, max particles fetched per cell.
+      x_origin: the grid's first x-layer (SimParams.x_origin).
     """
     n = x.shape[0]
     dev = x.device
@@ -65,7 +66,7 @@ def build_neighbor_list(x, cell_starts, grid_num, grid_size, support_radius,
     starts = cell_starts.to(torch.int64)
 
     # unclipped, as the reference's neighbour walk computes it
-    center = pos_to_cell(x, grid_size).to(torch.int64)
+    center = pos_to_cell(x, grid_size, x_origin).to(torch.int64)
     rows = torch.arange(n, device=dev)
     slot_iota = torch.arange(cell_cap, device=dev)[None, :]
 

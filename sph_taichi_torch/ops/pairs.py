@@ -64,7 +64,7 @@ class GatherEngine:
         return build_neighbor_list(
             x, cell_starts, params.grid_num, params.grid_size,
             params.support_radius, params.neighbor_cap, params.cell_cap,
-            dim=params.dim)
+            dim=params.dim, x_origin=params.x_origin)
 
     def diag(self, nl):
         return nl.diag

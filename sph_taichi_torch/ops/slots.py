@@ -97,7 +97,8 @@ def slot_neighbor_list(smap, x, params):
     per_cell = smap.idx.reshape(smap.layers, params.num_cells, SLOT) \
         .permute(1, 0, 2).reshape(params.num_cells, -1)
 
-    center = pos_to_cell(x, params.grid_size).to(torch.int64)
+    center = pos_to_cell(x, params.grid_size,
+                         params.x_origin).to(torch.int64)
     rows = torch.arange(n, device=dev)
     nbr_idx = torch.zeros((n, k_cap + 1), dtype=torch.int64, device=dev)
     cnt = torch.zeros((n,), dtype=torch.int64, device=dev)

@@ -127,6 +127,15 @@ class SimParams:
     #                               (recomputing m_V0*density0 lands 1 ulp
     #                               off creation's f64-multiply-then-cast)
     dfsph_warm_start: bool = False  # DFSPH kappa warm start (TPU.dfsphWarmStart)
+    # spatial sharding (parallel/sharding.py): a slab's extended grid, the
+    # name of the axis its reductions cross (set: the step's context must
+    # carry a communicator), and the global x-layer of its grid's layer 0.
+    # A centre's cell is trunc(x / cell) - x_origin in x (ops/grid.py
+    # pos_to_cell, the kernels' cell_x), so a slab's cell lookups index
+    # its own grid; 0 on one device.
+    grid_num_override: tuple = ()
+    axis_name: str = ""
+    x_origin: int = 0
     # fixed reference constants
     viscosity: float = 0.01       # sph_base.py:15
     surface_tension: float = 0.01 # WCSPH.py:15 / DFSPH.py:9
@@ -155,6 +164,8 @@ class SimParams:
 
     @property
     def grid_num(self):
+        if self.grid_num_override:
+            return self.grid_num_override
         return tuple(int(np.ceil(s / self.grid_size)) for s in self.domain_size)
 
     @property

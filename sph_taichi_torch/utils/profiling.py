@@ -128,7 +128,8 @@ class StepTimer:
 
 
 FATAL_KEYS = ("sort_invariant_violated", "neighbor_overflow",
-              "cell_overflow", "slot_overflow")
+              "cell_overflow", "slot_overflow", "migration_overflow",
+              "halo_overflow")
 
 
 def check_overflow(metrics, where="step", strict=False):
@@ -143,9 +144,10 @@ def check_overflow(metrics, where="step", strict=False):
     fired = [k for k, f in zip(present, flags.tolist()) if f]
     if fired:
         msg = (f"fatal flag during {where}: {fired} — pair sums are wrong "
-               f"(a corrupted sort, params.neighbor_cap or cell_cap too "
-               f"small for the plain engine, or params.slot_layers too "
-               f"small for the slot engine).")
+               f"or particles lost (a corrupted sort, params.neighbor_cap "
+               f"or cell_cap too small for the plain engine, "
+               f"params.slot_layers too small for the slot engine, or a "
+               f"sharded run's mig_cap or halo_cap too small).")
         if strict:
             raise RuntimeError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=2)

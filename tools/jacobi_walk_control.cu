@@ -30,9 +30,9 @@ __device__ __forceinline__ void control_walk(
   if (!walks) return;
 #ifdef WALK_BATCHED
   if constexpr (kCompactWalk<Walk>) {
-    const int ix = (int)(xi0 * c.inv_cell);
-    const int iy = (int)(xi1 * c.inv_cell);
-    const int iz = (int)(xi2 * c.inv_cell);
+    const int ix = cell_x(xi0, c);
+    const int iy = cell_coord(xi1, c);
+    const int iz = cell_coord(xi2, c);
     const int zlo = max(iz - 1, 0);
     const int zhi = min(iz + 1, c.nz - 1);
     if (zlo > zhi) return;

@@ -100,9 +100,9 @@ __global__ void boundary_volume_group_kernel(
     i = targets[t];
     if (i >= 0) {
       xi0 = x[3 * i], xi1 = x[3 * i + 1], xi2 = x[3 * i + 2];
-      ix = (int)(xi0 * c.inv_cell);
-      iy = (int)(xi1 * c.inv_cell);
-      const int iz = (int)(xi2 * c.inv_cell);
+      ix = cell_x(xi0, c);
+      iy = cell_coord(xi1, c);
+      const int iz = cell_coord(xi2, c);
       zlo = max(iz - 1, 0);
       zhi = min(iz + 1, c.nz - 1);
     }
