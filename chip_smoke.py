@@ -289,9 +289,40 @@ Phases (any failure raises and exits non-zero):
    step ms beside the single device's; then the small scene's methods 0,
    1, 2 and 4 at D = 2 against the single-device step on the card,
    iterations equal.
+28. data/scenes/high_fluid_wcsph.json (a 0.6 x 5.4 x 0.6 m column of
+   243,000 fluid particles, WCSPH at dt 4e-4) through ``Simulation`` to
+   step 600 (t = 0.24 s), timed after 5 steps of warm-up: launches per
+   step (density_sum_list = wcsph_forces = steps), the state finite,
+   inside the padded box, the sort invariant intact and no fatal flag in
+   any step, the fullest cell and the centres over the pair list's 64
+   entries; one kernel step against one plain-engine step from that state
+   (the plain engine's caps raised to the state's); the same 5 steps twice
+   from it, bitwise equal (no atomics); device busy per step over 10 more
+   steps, timed, then replayed from the same state under the profiler;
+29. data/scenes/high_fluid_dfsph.json (the same column, DFSPH at dt 4e-3)
+   to step 60 (t = 0.24 s): the same lines, with the iterations and host
+   reads per step, each step's iterations, the steps at a loop's cap of
+   100 and the first step whose state is not finite (none so far); one
+   kernel step against one plain-engine step, iterations equal; device
+   busy over 5 more steps;
+30. data/scenes/armadillo_bath_dynamic_dfsph.json (1,723,968 fluid
+   particles, three dynamic armadillos of 1,783 solids at 7874, 1700 and
+   300 kg/m^3, DFSPH at dt 4e-3) until the fluid reaches an armadillo,
+   then 5 timed steps: launches per step (kernel c, e1 and d once, e5
+   with the reaction), iterations, host reads, device busy (the timed
+   steps replayed under the profiler), the correctness line, each
+   armadillo's rms radius drift (below 1e-3) and centre of mass; at the
+   contact over all 1,729,317 rows e1 (with its
+   list), d, e3/e4 and e5 with and without the reaction against their
+   plain versions, kernel c over both walks against its plain versions
+   and its designs (bitwise, timed) and against the dense path
+   (VOLUME_RTOL), one kernel step against one plain-engine step whose
+   volumes take kernel c's plain version (the dense path's step beside
+   it, printed: its volumes sum in another order).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Every ``Simulation`` on the card launches kernel c twice in its
-``initialize`` (the static and the moving volumes) and nothing else; the
+``initialize`` (the static and the moving volumes) and nothing else, or
+nothing in a scene without solids; the
 dense boundary-volume path is counted (``count_dense_calls``): never on a
 path, never by a CUDA engine.  The last lines are a ``kernels`` JSON line, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -2600,17 +2631,7 @@ def dfsph_path(device, scene_path, warmup, steps):
           f"pressure mean {n_prs / steps:.2f} max "
           f"{st['pressure_iters_max']}; host reads per step "
           f"{(r_div + r_prs) / steps:.2f}; launches {launches}")
-    # iterations queued after a loop's exit launch and return at once:
-    # each solve launches K per host read
-    expect = {"dfsph_density_factor": steps, "nonpressure_kick": steps,
-              "dfsph_divergence_change": steps + K * r_div,
-              "dfsph_divergence_adv": steps + K * r_prs,
-              "dfsph_solver_dv": K * (r_div + r_prs)}
-    for name, count in launches.items():
-        if count != expect.get(name, 0):
-            raise AssertionError(f"{name}: {count} launches in {steps} "
-                                 f"DFSPH steps, expected "
-                                 f"{expect.get(name, 0)}")
+    expect_launches(launches, dfsph_launches(steps, st), "DFSPH path")
     dense_calls_since(dense0, "DFSPH path")
     counts = {"divergence_iters": n_div, "pressure_iters": n_prs,
               "host_reads": r_div + r_prs}
@@ -2893,14 +2914,20 @@ def dragon_contact(sim):
     return float(acc[q.is_dynamic_rigid()].abs().max())
 
 
-def contact_volumes(device, sim, q, starts, nl):
-    """The dynamic dragon's volumes at the contact (sorted particles ``q``,
+def contact_volumes(device, sim, q, starts, nl, label="dynamic dragon",
+                    dense_step=True):
+    """The dynamic rigids' volumes at the contact (sorted particles ``q``,
     cell offsets ``starts``, the plain engine's lists ``nl``): kernel c,
     which gives the step's volumes since the dispatch gave the CUDA
     engines kernel c at every solid count, over both walks against its
     plain versions and its other designs (``volume_designs``), beside the
     dense path that took them before (the record); then one step of
-    ``sim`` against one plain-engine step from its state."""
+    ``sim`` against one plain-engine step from its state, whose volumes
+    take the dense path below DENSE_SOLID_CAP; without ``dense_step``
+    against one whose volumes take kernel c's plain version (the cap
+    patched to 0), the dense-path step's differences printed beside it.
+    Returns kernel c's ms and its volumes' largest relative difference
+    from the dense path's."""
     from sph_taichi_torch import build_solver
     from sph_taichi_torch.models import base
     from sph_taichi_torch.ops import cuda_pairs as cp
@@ -2911,32 +2938,32 @@ def contact_volumes(device, sim, q, starts, nl):
     dynr = q.is_dynamic_rigid()
     volume_occupancy()
     err, c_ms = volume_designs(starts, q, dynr, params,
-                               "dynamic dragon at contact", nl)
+                               f"{label} at contact", nl)
     caps = dataclasses.replace(
         params, neighbor_cap=max(params.neighbor_cap, int(nl.max_cnt)),
         cell_cap=max(params.cell_cap, int(base.max_cell_occupancy(starts))))
     smap = build_slot_map(starts, params)
     snl = slot_neighbor_list(smap, q.x, caps)
     if int(snl.diag["neighbor_overflow"]):
-        raise AssertionError("dynamic dragon: plain slot lists overflowed")
+        raise AssertionError(f"{label}: plain slot lists overflowed")
     print(f"  slot map at contact: max_layers_used "
           f"{int(smap.diag['max_layers_used'])}, slot_overflow "
           f"{bool(smap.diag['slot_overflow'])} (kernel and plain slot lists "
           f"drop the same pairs)")
     err_s, s_ms = volume_designs(smap, q, dynr, params,
-                                 "dynamic dragon at contact [slots]", snl)
+                                 f"{label} at contact [slots]", snl)
     dense_ms = time_ms(lambda: base._boundary_volume_dense(q, params, dynr),
                        3)
     p_ms = time_ms(lambda: cp.boundary_volume_plain(nl, q, dynr, params), 3)
     mv_c = cp.boundary_volume(starts, q, dynr, params)[dynr].double()
     mv_d = base._boundary_volume_dense(q, params, dynr).m_V[dynr].double()
     rel_cd = float(((mv_c - mv_d) / mv_d).abs().max())
-    b = volume_bound("boundary_volume at the dynamic dragon's contact",
+    b = volume_bound(f"boundary_volume at the {label}'s contact",
                      params, q, nl, dynr, offset_bytes(params, q.x[dynr]))
-    b_s = volume_bound("boundary_volume[slots] at the dynamic dragon's "
-                       "contact", params, q, snl, dynr,
+    b_s = volume_bound(f"boundary_volume[slots] at the {label}'s contact",
+                       params, q, snl, dynr,
                        slot_map_bytes(params, smap, q.x[dynr]))
-    print(f"boundary volumes of the dragon's {int(dynr.sum())} solids at "
+    print(f"boundary volumes of the {label}'s {int(dynr.sum())} solids at "
           f"the contact: kernel c {c_ms['shipped']:.4f} ms, over the slot "
           f"map {s_ms['shipped']:.4f} ms (profiler; bounds {b[0]:.5f} ms by "
           f"{b[1]}, {b_s[0]:.5f} ms by {b_s[1]}), plain {p_ms:.4f} ms; the "
@@ -2945,7 +2972,7 @@ def contact_volumes(device, sim, q, starts, nl):
           f"{rel_cd:.3e} (summation order, limit {VOLUME_RTOL:g}); max abs "
           f"error against the plain versions {err:.3e} / {err_s:.3e}")
     if not rel_cd <= VOLUME_RTOL:
-        raise AssertionError(f"dynamic dragon at contact: kernel c's volumes "
+        raise AssertionError(f"{label} at contact: kernel c's volumes "
                              f"{rel_cd:.3e} from the dense path's")
     del smap, snl
 
@@ -2955,27 +2982,53 @@ def contact_volumes(device, sim, q, starts, nl):
     plain_solver = build_solver(caps, device=device,
                                 engine=GatherEngine(caps))
     ks, km = sim.solver.step(sim.state)
-    ps, pm = plain_solver.step(sim.state)
+    cap = base.DENSE_SOLID_CAP
+    if not dense_step:
+        base.DENSE_SOLID_CAP = 0    # kernel c's plain version
+    try:
+        ps, pm = plain_solver.step(sim.state)
+    finally:
+        base.DENSE_SOLID_CAP = cap
     if int(pm["neighbor_overflow"]):
         raise AssertionError("plain step overflowed its neighbour cap")
     its = [(int(km[k]), int(pm[k])) for k in ("divergence_iters",
                                               "pressure_iters")]
-    print(f"dynamic dragon at contact, step kernel vs plain engine: "
-          f"iterations (kernel, plain) divergence {its[0]}, pressure "
-          f"{its[1]}")
+    volumes = "the dense path's" if dense_step else "kernel c's plain"
+    print(f"{label} at contact, step kernel vs plain engine ({volumes} "
+          f"volumes): iterations (kernel, plain) divergence {its[0]}, "
+          f"pressure {its[1]}")
+    if not dense_step and any(a != b for a, b in its):
+        raise AssertionError(f"{label}: iteration counts differ")
     real = ps.p.material != -1
     for name in ("x", "v", "density", "m_V"):
         max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
-                   f"dynamic dragon step kernel vs plain engine: {name}")
+                   f"{label} step kernel vs plain engine: {name}")
+    if not dense_step:
+        # the record: the plain step with the dense volumes, whose sums
+        # differ from kernel c's by their order; the solves iterate on
+        ps, pm = plain_solver.step(sim.state)
+        its = [(int(km[k]), int(pm[k])) for k in ("divergence_iters",
+                                                  "pressure_iters")]
+        diffs = []
+        for name in ("x", "v", "density"):
+            ref = getattr(ps.p, name)[real].double()
+            d = (getattr(ks.p, name)[real].double() - ref).abs()
+            used = float((d / (ATOL + RTOL * ref.abs())).max())
+            diffs.append(f"{name} max abs {float(d.max()):.3e}, tolerance "
+                         f"used {used:.3f}")
+        print(f"  the record: the plain step with the dense path's volumes"
+              f" against the kernel step: iterations (kernel, plain) "
+              f"divergence {its[0]}, pressure {its[1]}; " + ", ".join(diffs))
     solid = ps.p.material == 0
     rel = float(((ks.p.m_V[solid].double() - ps.p.m_V[solid].double())
                  / ps.p.m_V[solid].double()).abs().max())
     print(f"  m_V of the solids, kernel c against the dense path: max rel "
           f"difference {rel:.3e} (limit {VOLUME_RTOL:g})")
     if not rel <= VOLUME_RTOL:
-        raise AssertionError(f"dynamic dragon step: m_V {rel:.3e} from the "
+        raise AssertionError(f"{label} step: m_V {rel:.3e} from the "
                              f"plain engine's")
     del plain_solver, ks, ps
+    return c_ms["shipped"], rel_cd
 
 
 def reaction_at_scale(device, scene_path, steps, max_lead=200):
@@ -4430,7 +4483,8 @@ def simulation(*args, **kwargs):
     """``Simulation(*args, **kwargs)`` on the card: its ``initialize``
     must launch kernel c twice over the engine's walk (the static and the
     moving volumes; a target mask without rows writes nothing) and nothing
-    else, and never take the dense path."""
+    else, none in a scene without solids, and never take the dense
+    path."""
     from sph_taichi_torch.simulation import Simulation
 
     reset_all_launch_counts()
@@ -4441,13 +4495,14 @@ def simulation(*args, **kwargs):
     dense = DENSE_CALLS["dense"] - before
     name = "boundary_volume" + (
         "[slots]" if sim.params.backend == "pallas_slots" else "")
+    expect = {name: 2} if sim.params.n_solid else {}
     print(f"initialize ({sim.params.n_solid} solids, backend "
           f"{sim.params.backend}): launches {init}, dense path calls "
           f"{dense}")
-    if init != {name: 2} or dense:
+    if init != expect or dense:
         raise AssertionError(f"initialize launched {init} and took the dense "
-                             f"path {dense} times; expected {{{name!r}: 2}} "
-                             f"and none")
+                             f"path {dense} times; expected {expect} and "
+                             f"none")
     return sim
 
 
@@ -6038,6 +6093,418 @@ def sharded_path(device, smi):
           f"NCCL across two cards not run: one card")
 
 
+# ---------------------------------------------------------------------------
+# phases 28-30: the bundled scenes the earlier phases do not run
+# ---------------------------------------------------------------------------
+
+# steps of each run: high_fluid_wcsph to t = 0.24 s (the collapse front
+# at the far wall), high_fluid_dfsph to the same t, and
+# armadillo_bath_dynamic_dfsph until the fluid reaches an armadillo, then
+# 5 timed steps
+HIGH_FLUID_WCSPH_STEPS = 600
+HIGH_FLUID_DFSPH_STEPS = 60
+ARMADILLO_TIMED_STEPS = 5
+
+class StepRecord:
+    """Each step's metrics as ``Simulation`` folds them, kept on the device
+    (references: no kernel added) and read once by ``read``: the Jacobi
+    iterations, the fullest cell, the fastest fluid particle (NaN once the
+    state is not finite) and the fatal flags."""
+
+    KEYS = ("divergence_iters", "pressure_iters", "max_cell_occupancy",
+            "max_velocity")
+
+    def __init__(self, sim):
+        from sph_taichi_torch.utils.profiling import FATAL_KEYS
+
+        self.sim, self.rows = sim, []
+        keys = self.KEYS + FATAL_KEYS
+        fold = sim._fold_solver_stats
+
+        def folding(metrics):
+            self.rows.append({k: metrics[k] for k in keys if k in metrics})
+            fold(metrics)
+
+        sim._fold_solver_stats = folding
+
+    def read(self):
+        """{key: float64 numpy array over the recorded steps}."""
+        keys = self.rows[0].keys()
+        return {k: torch.stack([r[k].reshape(()).double() for r in self.rows])
+                .cpu().numpy() for k in keys}
+
+    def close(self):
+        del self.sim._fold_solver_stats     # the class's method again
+
+
+def timed_run(sim, steps):
+    """``steps`` steps of ``Simulation.run`` between two CUDA events, the
+    launch counts set to 0 just before and read just after.  Returns (ms
+    per step, the launches, the solver's stats)."""
+    reset_all_launch_counts()
+    sim.reset_solver_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(steps // sim.substeps, export=False)
+    end.record()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launch_counts().items() if v}
+    return start.elapsed_time(end) / steps, launches, sim.read_solver_stats()
+
+
+def expect_launches(launches, expect, label):
+    """Raises unless the path launched exactly ``expect``."""
+    got = {k: v for k, v in launches.items() if v}
+    want = {k: v for k, v in expect.items() if v}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def dfsph_launches(steps, st, volumes=0):
+    """The launches of ``steps`` DFSPH steps over the cell runs whose
+    loops read their tests ``st`` times (iterations queued after a loop's
+    exit launch and return at once: each solve launches K per host read);
+    ``volumes``: kernel c's (one per dynamic-rigid step)."""
+    from sph_taichi_torch.models.base import JACOBI_CHECK_EVERY as K
+
+    r_div, r_prs = st["divergence_host_reads"], st["pressure_host_reads"]
+    return {"dfsph_density_factor": steps, "nonpressure_kick": steps,
+            "dfsph_divergence_change": steps + K * r_div,
+            "dfsph_divergence_adv": steps + K * r_prs,
+            "dfsph_solver_dv": K * (r_div + r_prs),
+            "boundary_volume": volumes}
+
+
+def scene_checks(sim, record, label):
+    """The correctness line of the run: a finite state, the fluid inside
+    the padded box, the sort invariant intact (``check_state``) and no
+    fatal flag in any recorded step."""
+    from sph_taichi_torch.utils.profiling import FATAL_KEYS
+
+    check_state(sim)
+    fired = {k: int(np.count_nonzero(v)) for k, v in record.items()
+             if k in FATAL_KEYS and np.count_nonzero(v)}
+    if fired:
+        raise AssertionError(f"{label}: fatal flags in {fired} steps")
+    print(f"  {label}: state finite, fluid inside the padded box, sort "
+          f"invariant intact, no fatal flag in {len(record['max_velocity'])} "
+          f"steps ({', '.join(k for k in FATAL_KEYS if k in record)})")
+
+
+def list_overflow(sim, label):
+    """At the state of ``sim``: the fullest cell, and the centres of the
+    step's pair list (the WCSPH density kernel's: every real row; e1's:
+    the fluid rows) with more accepted pairs than the list's entries, at
+    the bottom (y under 0.25 m above the padded floor) and above it."""
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops import cuda_dfsph as cd
+    from sph_taichi_torch.ops import cuda_pairs as cp
+    from sph_taichi_torch.ops.pair_list import PAIR_LIST_ENTRIES
+
+    params, solver = sim.params, sim.solver
+    q, starts, _ = base.bin_and_sort(sim.state.p, params, solver.engine,
+                                     solver.tables)
+    if params.simulation_method == 4:
+        plist = cd.density_factor_list(starts, q, params, {})[2]
+        centres = q.material == 1
+    else:
+        plist = cp.density_sum_list(starts, q, params, {})[1]
+        centres = q.material >= 0
+    over = centres & (plist.cnt > PAIR_LIST_ENTRIES)
+    bottom = over & (q.x[:, 1] < params.padding + 0.25)
+    occ = int(base.max_cell_occupancy(starts))
+    print(f"  {label}: fullest cell {occ} particles; {int(over.sum())} "
+          f"centres over the pair list's {PAIR_LIST_ENTRIES} entries "
+          f"({int(bottom.sum())} at the bottom, {int((over & ~bottom).sum())}"
+          f" above it; their own walk takes them in one phase), at most "
+          f"{int(plist.cnt[centres].max())} accepted pairs per centre")
+    reset_all_launch_counts()     # these launches are not the path's
+    return occ, int(over.sum())
+
+
+def held_step(device, sim, label, fields, iterations=False):
+    """One kernel step of ``sim`` against one plain-engine step from the
+    same state, index-wise at the tolerance, the plain engine's caps
+    raised to what the state needs (its neighbour lists drop past them;
+    the kernels have none); DFSPH's iteration counts equal."""
+    from sph_taichi_torch import build_solver
+    from sph_taichi_torch.models import base
+    from sph_taichi_torch.ops.pairs import GatherEngine
+
+    params, state = sim.params, sim.state
+    q, starts, _ = base.bin_and_sort(state.p, params, sim.solver.engine,
+                                     sim.solver.tables)
+    caps = dataclasses.replace(params, cell_cap=max(
+        params.cell_cap, int(base.max_cell_occupancy(starts))))
+    nl = GatherEngine(caps).prepare(q.x, starts)
+    caps = dataclasses.replace(caps, neighbor_cap=max(caps.neighbor_cap,
+                                                      int(nl.max_cnt)))
+    del q, starts, nl
+    print(f"  {label}: the plain engine's caps neighbor_cap "
+          f"{caps.neighbor_cap}, cell_cap {caps.cell_cap} (the scene's "
+          f"{params.neighbor_cap}, {params.cell_cap})")
+    plain = build_solver(caps, device=device, engine=GatherEngine(caps))
+    ks, km = sim.solver.step(state)
+    ps, pm = plain.step(state)
+    if int(pm["neighbor_overflow"]) or int(pm["cell_overflow"]):
+        raise AssertionError(f"{label}: the plain step overflowed its caps")
+    if iterations:
+        its = {k: (int(km[k]), int(pm[k]))
+               for k in ("divergence_iters", "pressure_iters")}
+        print(f"  {label}: iterations (kernel, plain) {its}")
+        if any(a != b for a, b in its.values()):
+            raise AssertionError(f"{label}: iteration counts differ")
+    real = ps.p.material != -1
+    for name in fields:
+        max_errors(getattr(ks.p, name)[real], getattr(ps.p, name)[real],
+                   f"{label} step kernel vs plain engine: {name}")
+    reset_all_launch_counts()
+    del plain, ks, ps
+
+
+def replayed_busy(sim, start, steps, step_ms, label):
+    """Device busy per step of the ``steps`` steps that ``sim`` just ran
+    from the state ``start`` in ``step_ms`` each: the same steps again from
+    ``start`` under the profiler (bitwise the same: the same kernels and
+    iterations, so the busy share is of the timed steps' own work)."""
+    end = sim.state
+    sim.state = start
+    busy_ms = profile_steps(sim, steps)
+    if not all(torch.equal(a, b) for a, b in zip(sim.state.p, end.p)
+               if a is not None):
+        raise AssertionError(f"{label}: the replayed steps differ")
+    if busy_ms is not None:
+        print(f"{label}: device busy {busy_ms:.4f} ms of the {step_ms:.4f} "
+              f"ms step (the same {steps} steps, replayed bitwise): idle "
+              f"share {100 * (1 - busy_ms / step_ms):.1f}%")
+    reset_all_launch_counts()
+    return busy_ms
+
+
+def busy_window(sim, steps, label):
+    """``steps`` more steps timed with CUDA events, then replayed under the
+    profiler (``replayed_busy``)."""
+    start = sim.state
+    step_ms = timed_run(sim, steps)[0]
+    return replayed_busy(sim, start, steps, step_ms,
+                         f"{label}, steps {int(start.step_count) + 1}-"
+                         f"{int(sim.state.step_count)}")
+
+
+def scene_counts(params, label):
+    print(f"{label}: n_fluid {params.n_fluid}, n_solid {params.n_solid}, "
+          f"dynamic rigids {params.dynamic_rigid_ids}, n_pad {params.n_pad}, "
+          f"grid {params.grid_num}, dt {params.dt0}")
+
+
+def high_fluid_wcsph_path(device, smi, warmup=5):
+    """Phase 28: data/scenes/high_fluid_wcsph.json (a 0.6 x 5.4 x 0.6 m
+    column, 243,000 fluid particles, WCSPH at dt 4e-4) through
+    ``Simulation`` to step HIGH_FLUID_WCSPH_STEPS, every step after the
+    warm-up timed; launches per step (density_sum_list = wcsph_forces =
+    steps), the correctness line, the fullest cell and the centres over
+    the pair list; one kernel step against one plain-engine step from that
+    state; the same 5 steps twice from it, bitwise equal; device busy over
+    10 more steps (``busy_window``)."""
+    label = "high_fluid_wcsph"
+    t_phase = time.perf_counter()
+    sim = simulation("data/scenes/high_fluid_wcsph.json")
+    scene_counts(sim.params, label)
+    sim.run(warmup, export=False)
+    record = StepRecord(sim)
+    steps = HIGH_FLUID_WCSPH_STEPS - warmup
+    step_ms, launches, _ = timed_run(sim, steps)
+    record.close()
+    rec = record.read()
+    print(f"{label}: {steps} steps after {warmup} (t "
+          f"{float(sim.state.t):.4f} s), {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s ({smi}); launches per step "
+          f"{ {k: v / steps for k, v in launches.items()} }; fullest cell "
+          f"over the run {int(rec['max_cell_occupancy'].max())}, fastest "
+          f"fluid particle {rec['max_velocity'].max():.3f} m/s")
+    expect_launches(launches, {"density_sum_list": steps,
+                               "wcsph_forces": steps}, label)
+    scene_checks(sim, rec, label)
+    xf = sim.state.p.x[sim.state.p.material == 1]
+    print(f"  {label}: fluid x from {float(xf[:, 0].min()):.4f} to "
+          f"{float(xf[:, 0].max()):.4f} m, top at {float(xf[:, 1].max()):.4f}"
+          f" m")
+    list_overflow(sim, f"{label} at step {int(sim.state.step_count)}")
+    held_step(device, sim, label, ("x", "v", "density", "pressure", "acc"))
+
+    # no atomics: the same steps from the same state, twice, bitwise
+    outs = []
+    for _ in range(2):
+        state = sim.state
+        for _ in range(5):
+            state, _ = sim.solver.step(state)
+        outs.append(state.p)
+    same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])
+               if a is not None)
+    print(f"  {label}: 5 steps from step {int(sim.state.step_count)}, run "
+          f"twice: bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"{label}: two runs of the same steps differ")
+    busy_window(sim, 10, label)
+    print(f"{label} phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def high_fluid_dfsph_path(device, smi, warmup=3):
+    """Phase 29: data/scenes/high_fluid_dfsph.json (the same column, DFSPH
+    at dt 4e-3) through ``Simulation`` to step HIGH_FLUID_DFSPH_STEPS,
+    timed after the warm-up: launches per step, iterations and host reads
+    per step, each step's iterations and the steps at the loops' cap of
+    its solver (100 each), the first step whose state is not finite; the
+    correctness line, the fullest cell and the centres over the pair list;
+    one kernel step against one plain-engine step from that state,
+    iterations equal; device busy over 5 more steps (``busy_window``)."""
+    label = "high_fluid_dfsph"
+    t_phase = time.perf_counter()
+    sim = simulation("data/scenes/high_fluid_dfsph.json")
+    scene_counts(sim.params, label)
+    record = StepRecord(sim)
+    sim.run(warmup, export=False)
+    steps = HIGH_FLUID_DFSPH_STEPS - warmup
+    step_ms, launches, st = timed_run(sim, steps)
+    record.close()
+    rec = record.read()
+    reads = st["divergence_host_reads"] + st["pressure_host_reads"]
+    print(f"{label}: {steps} steps after {warmup} (t "
+          f"{float(sim.state.t):.4f} s), {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s ({smi}); iterations per step "
+          f"divergence mean {st['divergence_iters_sum'] / steps:.2f} max "
+          f"{st['divergence_iters_max']}, pressure mean "
+          f"{st['pressure_iters_sum'] / steps:.2f} max "
+          f"{st['pressure_iters_max']}; host reads per step "
+          f"{reads / steps:.2f}; launches per step "
+          f"{ {k: v / steps for k, v in launches.items()} }")
+    expect_launches(launches, dfsph_launches(steps, st), label)
+    its = {k: rec[k].astype(int) for k in ("divergence_iters",
+                                           "pressure_iters")}
+    cap = {"divergence_iters": sim.solver.m_max_iterations_v,
+           "pressure_iters": sim.solver.m_max_iterations}
+    capped = {k: [i + 1 for i in np.flatnonzero(v >= cap[k])]
+              for k, v in its.items()}
+    lost = np.flatnonzero(~np.isfinite(rec["max_velocity"]))
+    print(f"  {label}: iterations of steps 1-{len(rec['max_velocity'])}: "
+          + "; ".join(f"{k} {v.tolist()}" for k, v in its.items()))
+    print(f"  {label}: steps at the loops' caps {cap}: {capped}; "
+          f"first step with a non-finite state: "
+          f"{int(lost[0]) + 1 if lost.size else None}; fastest fluid "
+          f"particle per step (m/s) "
+          f"{np.round(rec['max_velocity'], 2).tolist()}")
+    scene_checks(sim, rec, label)
+    list_overflow(sim, f"{label} at step {int(sim.state.step_count)}")
+    held_step(device, sim, label, ("x", "v", "density", "density_adv",
+                                   "acc"), iterations=True)
+    busy_window(sim, 5, label)
+    print(f"{label} phase in {time.perf_counter() - t_phase:.1f} s")
+    return capped, lost
+
+
+def armadillo_dfsph_path(device, smi, kernels, max_lead=60):
+    """Phase 30: data/scenes/armadillo_bath_dynamic_dfsph.json (1,723,968
+    fluid particles, three dynamic armadillos of 1,783 solids at densities
+    7874, 1700 and 300, DFSPH at dt 4e-3) through ``Simulation`` until the
+    fluid reaches an armadillo (``dragon_contact``), then
+    ARMADILLO_TIMED_STEPS timed steps: launches per step (kernel c and e1 =
+    d = steps, the reaction variant of e5), iterations, host reads, device
+    busy (the timed steps replayed, ``replayed_busy``), the correctness
+    line, each armadillo's rms radius drift and centre of mass; at the
+    contact e1 (with its list), d, e3/e4 and e5 with and without the
+    reaction against their plain versions over the whole 1,729,317 rows,
+    kernel c against its plain versions over both walks and against the
+    dense path (VOLUME_RTOL), its time, and one kernel step against one
+    plain-engine step (``contact_volumes``).
+    Folds the kernels' largest differences into ``kernels``."""
+    label = "armadillo_bath_dynamic_dfsph"
+    t_phase = time.perf_counter()
+    sim = simulation("data/scenes/armadillo_bath_dynamic_dfsph.json")
+    params = sim.params
+    scene_counts(params, label)
+    ids = params.dynamic_rigid_ids
+
+    def rigid_geometry():
+        p = sim.state.p
+        out = {}
+        for i in ids:
+            xs = p.x[p.object_id == i].double()
+            c = xs.mean(0)
+            out[i] = (float(((xs - c) ** 2).sum(1).mean().sqrt()),
+                      c.tolist(), float(p.v[p.object_id == i][:, 1].mean()))
+        return out
+
+    geo0 = rigid_geometry()
+    record = StepRecord(sim)
+    t0 = time.perf_counter()
+    while dragon_contact(sim) == 0.0:
+        if int(sim.state.step_count) >= max_lead:
+            raise AssertionError(f"{label}: no fluid at an armadillo after "
+                                 f"{max_lead} steps")
+        sim.run(2 // sim.substeps, export=False)
+    lead = int(sim.state.step_count)
+    print(f"{label}: the fluid reaches an armadillo by step {lead} (t "
+          f"{float(sim.state.t):.4f} s; {time.perf_counter() - t0:.1f} s)")
+    steps = ARMADILLO_TIMED_STEPS
+    start = sim.state
+    step_ms, launches, st = timed_run(sim, steps)
+    record.close()
+    rec = record.read()
+    reads = st["divergence_host_reads"] + st["pressure_host_reads"]
+    print(f"{label}: {steps} steps after {lead}, {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s ({smi}); iterations per step "
+          f"divergence mean {st['divergence_iters_sum'] / steps:.2f} max "
+          f"{st['divergence_iters_max']}, pressure mean "
+          f"{st['pressure_iters_sum'] / steps:.2f} max "
+          f"{st['pressure_iters_max']}; host reads per step "
+          f"{reads / steps:.2f}; launches per step "
+          f"{ {k: v / steps for k, v in launches.items()} }; iterations of "
+          f"steps 1-{len(rec['max_velocity'])}: "
+          + "; ".join(f"{k} {rec[k].astype(int).tolist()}"
+                      for k in ("divergence_iters", "pressure_iters")))
+    expect_launches(launches, dfsph_launches(steps, st, volumes=steps),
+                    label)
+    replayed_busy(sim, start, steps, step_ms, label)
+    scene_checks(sim, rec, label)
+    geo = rigid_geometry()
+    drift = {i: abs(geo[i][0] - geo0[i][0]) / geo0[i][0] for i in ids}
+    print(f"  {label}: rigid rms radius drift (relative) after "
+          f"{int(sim.state.step_count)} steps "
+          + ", ".join(f"{i}: {d:.2e}" for i, d in drift.items())
+          + "; centres of mass (m) and mean vertical velocity (m/s) "
+          + ", ".join(f"{i} (density {params.obj_density0[i]:g}): "
+                      f"{np.round(geo0[i][1], 4).tolist()} -> "
+                      f"{np.round(geo[i][1], 4).tolist()}, "
+                      f"{geo[i][2]:.4f}" for i in ids))
+    if max(drift.values()) >= 1e-3:
+        raise AssertionError(f"{label}: rigid shape not kept {drift}")
+    list_overflow(sim, f"{label} at step {int(sim.state.step_count)}")
+
+    # the kernels at the contact over the whole rows, against their plain
+    # versions (the plain engine's caps raised to the state's)
+    q, starts, nl, _, _, _ = dragon_state_kernels(params, sim.solver,
+                                                  sim.state)
+    reset_all_launch_counts()
+    worst = {}
+    compare_dfsph_kernels(params, sim.solver, q, nl, starts,
+                          f"{label} at contact", worst)
+    print(f"  {label} at contact, {int((q.material >= 0).sum())} rows: e1 "
+          f"(with its list), d, e3/e4 and e5 with and without the reaction "
+          f"against their plain versions, max abs err {json.dumps(worst)}")
+    for k in kernels:
+        if k["name"] in worst:
+            k["max_abs_err"] = max(k["max_abs_err"], worst[k["name"]])
+    c_ms, rel = contact_volumes(device, sim, q, starts, nl, label=label,
+                                dense_step=False)
+    print(f"  {label}: kernel c at {params.n_solid} solids {c_ms:.4f} ms "
+          f"(profiler; {smi}), m_V {rel:.3e} from the dense path's (limit "
+          f"{VOLUME_RTOL:g})")
+    reset_all_launch_counts()
+    del q, starts, nl
+    print(f"{label} phase in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6143,6 +6610,11 @@ def main():
     print(f"legacy2d phase in {time.perf_counter() - t0:.1f} s ({smi})")
     torch.cuda.empty_cache()
     sharded_path(device, smi)
+    for phase in (high_fluid_wcsph_path, high_fluid_dfsph_path):
+        torch.cuda.empty_cache()
+        phase(device, smi)
+    torch.cuda.empty_cache()
+    armadillo_dfsph_path(device, smi, kernels)
     print(f"chip_smoke phases done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

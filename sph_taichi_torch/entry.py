@@ -5,10 +5,11 @@ Counterparts of ``__graft_entry__.py``'s ``entry`` and ``dryrun_multichip``:
     python -m sph_taichi_torch.entry [--ranks N] [--device cpu]
 
 runs ``entry()``'s step once, then ``dryrun_multichip(N)`` (default 4):
-N gloo ranks (parallel/comm.py ``launch``) on the CPU, or sharing the CUDA
-devices when there are any, step the tiny scene sharded for methods 0, 1,
-2 and 4, then a dynamic rigid block beside the fluid for methods 0 and 4,
-held against the single-device step.
+N gloo ranks (parallel/comm.py ``launch``) sharing the CUDA devices, or on
+the CPU with ``--device cpu``, step the tiny scene sharded for methods 0,
+1, 2 and 4, then a dynamic rigid block beside the fluid for methods 0 and
+4, held against the single-device step.  Without a card only ``--device
+cpu`` runs; the default raises (state.resolve_device).
 
 ``run_scenarios`` is the rank body that the dry run, the tests
 (tests/test_torch_sharding.py) and chip_smoke.py spawn: it steps scenarios
@@ -20,6 +21,8 @@ import time
 
 import numpy as np
 import torch
+
+from sph_taichi_torch.state import resolve_device
 
 
 def tiny_scene(method=0, radius=0.025, rigid=False):
@@ -261,13 +264,13 @@ def dryrun_multichip(n_ranks, devices=None, timeout=600.0):
     rigid block) for methods 0 and 4, held against the single-device step
     (positions and velocities through a nearest-position bijection after
     3 steps of WCSPH and 1 of DFSPH, as the JAX dry run holds its own).
-    ``devices``: one per rank (default: the CUDA devices round-robin when
-    there are any, else the CPU)."""
+    ``devices``: one per rank (default: the CUDA devices round-robin,
+    ``comm.cuda_devices``, which raises without a card; pass ``["cpu"] *
+    n_ranks`` for the CPU)."""
     from sph_taichi_torch.parallel import comm
 
     if devices is None:
-        k = torch.cuda.device_count()
-        devices = [f"cuda:{r % k}" if k else "cpu" for r in range(n_ranks)]
+        devices = comm.cuda_devices(n_ranks)
     if any(d.startswith("cuda") for d in devices):
         # here, once: ranks building into build/ at once would race
         from sph_taichi_torch.ops import _build
@@ -328,14 +331,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default=None,
-                    help="cpu, or cuda (default: cuda when available)")
+                    help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     fn, (state,) = entry(device=device)
     state = fn(state)
     print(f"entry(): one WCSPH step of {int((state.p.material >= 0).sum())} "
           f"particles on {state.p.x.device}")
-    devices = None if device.startswith("cuda") else ["cpu"] * args.ranks
+    devices = None if device.type == "cuda" else [str(device)] * args.ranks
     dryrun_multichip(args.ranks, devices=devices)
     return 0
 

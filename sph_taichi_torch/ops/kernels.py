@@ -1,4 +1,5 @@
-"""Cubic-spline SPH smoothing kernel W and dW/dr / r, on torch tensors.
+"""Cubic-spline SPH smoothing kernel W, its gradient and dW/dr / r, on
+torch tensors.
 
 Counterpart of ``sph_taichi_tpu/ops/kernels.py`` with the same operation
 order (reference sph_base.py:23-68): normalization k = 4/3, 40/(7*pi),
@@ -10,6 +11,8 @@ scalars do.  ``csrc/pairs.cu`` repeats these expressions in the same order.
 
 import numpy as np
 import torch
+
+from sph_taichi_torch.ops.pairs import div_exact, sqrt32
 
 
 def norm_const(dim, h):
@@ -35,6 +38,29 @@ def cubic_kernel(r_norm, h, dim=3):
     w_far = k * 2.0 * one_m_q * one_m_q * one_m_q
     res = torch.where(q <= 0.5, w_near, w_far)
     return torch.where(q <= 1.0, res, torch.zeros_like(res))
+
+
+def cubic_kernel_derivative(r, h, dim=3):
+    """grad W(r) — reference sph_base.py:46-68. r: (..., dim) f32 vectors.
+
+    The zero vector where |r| <= 1e-5 or q > 1 (the same cutoffs).  The
+    JAX function's order of rounding: |r| (the squares summed left to
+    right, sqrt rounded once), q = |r| / h, r / (max(|r|, 1e-24) * h), then
+    the near and far branches.
+    """
+    k = 6.0 * norm_const(dim, h)
+    sq = r[..., 0] * r[..., 0]
+    for c in range(1, r.shape[-1]):
+        sq = sq + r[..., c] * r[..., c]
+    r_norm = sqrt32(sq)[..., None]
+    q = div_exact(r_norm, float(h))
+    grad_q = r / (torch.clamp_min(r_norm, 1e-24) * float(h))
+    near = (k * q * (3.0 * q - 2.0)) * grad_q
+    fac = 1.0 - q
+    far = (-k * fac * fac) * grad_q
+    res = torch.where(q <= 0.5, near, far)
+    valid = (r_norm > 1e-5) & (q <= 1.0)
+    return torch.where(valid, res, torch.zeros_like(res))
 
 
 def cubic_kernel_derivative_scalar(r_norm, h, dim=3, inv_r=None):

@@ -101,3 +101,10 @@ def build_neighbor_list(x, cell_starts, grid_num, grid_size, support_radius,
     return NeighborList(idx=nbr_idx[:, :k_cap], cnt=cnt, max_cnt=cnt.max(),
                         cell_overflow=(max_cell_occupancy(starts)
                                        > cell_cap).to(torch.int32))
+
+
+def gather_neighbors(arr, nl):
+    """arr[N, ...] -> arr[N, K, ...] gathered along the neighbour axis (the
+    tail past a row's count holds row 0's values; ``nl.mask()`` marks the
+    valid entries)."""
+    return arr[nl.idx]

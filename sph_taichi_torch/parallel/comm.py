@@ -152,15 +152,30 @@ def _read_result(tmp, rank):
         return pickle.load(f)
 
 
+def cuda_devices(world):
+    """One CUDA device name per rank, round-robin over the visible cards.
+    Raises without a card, as ``state.resolve_device`` does: the CPU runs
+    only where the caller names it."""
+    if not (torch.cuda.is_available() and torch.cuda.device_count()):
+        raise RuntimeError(
+            "sph_taichi_torch runs its ranks on CUDA devices by default and "
+            "none is available; pass devices=['cpu'] * world to run them on "
+            "the CPU")
+    count = torch.cuda.device_count()
+    return [f"cuda:{r % count}" for r in range(world)]
+
+
 def launch(target, world, args=(), backend="gloo", devices=None,
            timeout=300.0):
     """[target(comm, device, *args) of each rank] over ``world`` spawned
-    processes.  ``devices``: one device name per rank (default "cpu");
-    NCCL refuses two ranks on one device.  ``timeout`` (seconds) bounds
-    the process group's collectives and the whole launch."""
+    processes.  ``devices``: one device name per rank; None gives each rank
+    a CUDA device, round-robin over the cards (``cuda_devices``, which
+    raises without one: pass ``["cpu"] * world`` for the CPU).  NCCL
+    refuses two ranks on one device.  ``timeout`` (seconds) bounds the
+    process group's collectives and the whole launch."""
     import multiprocessing as mp
 
-    devices = list(devices or ["cpu"] * world)
+    devices = list(cuda_devices(world) if devices is None else devices)
     if len(devices) != world:
         raise ValueError(f"{len(devices)} devices for {world} ranks")
     if backend == "nccl" and len(set(devices)) < world:

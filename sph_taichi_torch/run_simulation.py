@@ -16,6 +16,11 @@
         --scene_file data/scenes/dragon_bath.json --backend pallas_slots
     python -m sph_taichi_torch.run_simulation \
         --scene_file data/scenes/dragon_bath_dfsph.json --backend pallas_slots
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/high_fluid_wcsph.json --max_frames 600
+    python -m sph_taichi_torch.run_simulation \
+        --scene_file data/scenes/armadillo_bath_dynamic_dfsph.json \
+        --max_frames 25
 
 Runs on the CUDA device unless ``--device cpu`` is given.  With
 ``--checkpoint_interval N`` it writes ``<output_dir>/checkpoint.npz`` every

@@ -133,6 +133,7 @@ class _Runs:
         try:
             recs = pcomm.launch(entry.run_scenarios, WORLD,
                                 args=(list(SPECS.values()),),
+                                devices=["cpu"] * WORLD,
                                 timeout=LAUNCH_TIMEOUT)[0]
             self._out["recs"] = dict(zip(SPECS, recs))
         except Exception as e:   # re-raised in every case
